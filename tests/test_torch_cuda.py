@@ -1,0 +1,108 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: every test skips (with its reason) where no CUDA device is
+present, and the card is looked for inside a fixture, never at import. On a
+machine with the card, from the root of the checkout:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+The first test to need a kernel builds it with ``nvcc`` (seconds). Every
+comparison is exact (``torch.equal``): the kernels compute the same integer
+arithmetic and the same single-rounding epilogue as the plain versions.
+"""
+
+import itertools
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.bitserial import SerialSpec
+from repro_torch.core.quant import QuantSpec, qrange
+from repro_torch.kernels import bitserial_conv as k2
+from repro_torch.kernels import quantize_pack as k1
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    return torch.device("cuda", 0)
+
+
+def _codes(rng, bits, signed, shape, dev):
+    lo, hi = qrange(bits, signed)
+    return torch.from_numpy(rng.integers(lo, hi + 1, shape).astype(np.int32)
+                            ).to(dev)
+
+
+@pytest.mark.parametrize("bits,signed,rows,length", [
+    (1, False, 7, 32), (2, True, 1000, 64), (3, False, 9, 70),
+    (4, True, 5, 31), (8, True, 33, 130), (16, True, 3, 97)])
+def test_quantize_pack_kernel_equals_plain(dev, bits, signed, rows, length):
+    rng = np.random.default_rng(bits * 7 + rows)
+    x = torch.from_numpy((rng.standard_normal((rows, length)) * 3).astype(
+        np.float32)).to(dev)
+    x[0, : min(16, length)] = (torch.arange(min(16, length), device=dev)
+                               - 8 + 0.5) * 0.25   # exact ties
+    alpha = torch.tensor(0.25, device=dev)
+    spec = QuantSpec(bits, signed)
+    before = k1.KERNEL.launches
+    out = k1.quantize_pack_cuda(x, alpha, spec)
+    assert k1.KERNEL.launches == before + 1
+    assert torch.equal(out, k1.quantize_pack_ref(x, alpha, spec))
+    c = _codes(rng, bits, signed, (rows, length), dev)
+    assert torch.equal(k1.pack_codes_cuda(c, bits), k1.pack_codes_ref(c, bits))
+
+
+CONV = list(itertools.product(
+    [(1, 1, False, False), (2, 2, True, True), (4, 2, False, True),
+     (8, 8, True, True), (12, 3, True, False)],
+    [(1, 1, 3), (2, 1, 3), (1, 0, 3), (2, 0, 1), (1, 2, 5)]))
+
+
+@pytest.mark.parametrize("bits,geom", CONV)
+def test_conv_kernel_equals_plain(dev, bits, geom):
+    ba, bw, sa, sw = bits
+    stride, pad, fs = geom
+    spec = SerialSpec(ba, bw, sa, sw, 7)
+    rng = np.random.default_rng(ba * 100 + bw * 10 + stride + fs)
+    n, h, w, ci, co = 2, 7, 6, 45, 37
+    xc = _codes(rng, ba, sa, (n * h * w, ci), dev)
+    wc = _codes(rng, bw, sw, (fs * fs * co, ci), dev)
+    xp = k1.pack_codes_ref(xc, ba).reshape(ba, n, h, w, -1).contiguous()
+    wp = k1.pack_codes_ref(wc, bw).reshape(bw, fs, fs, co, -1).permute(
+        0, 1, 2, 4, 3).contiguous()
+    scale = torch.from_numpy((rng.random(co) * 0.05).astype(np.float32)).to(dev)
+    bias = torch.from_numpy(rng.standard_normal(co).astype(np.float32)).to(dev)
+    rs = torch.tensor(0.4, device=dev)
+    for b, (out, rq) in itertools.product(
+            (bias, None), (("float", None), ("codes", QuantSpec(3, True)),
+                           ("packed", QuantSpec(2, False)),
+                           ("codes", QuantSpec(12, True)))):
+        kw = dict(spec=spec, ci=ci, stride=stride, padding=pad,
+                  relu=rq is not None and not rq.signed, requant=rq,
+                  requant_scale=None if rq is None else rs,
+                  emit_packed=out == "packed")
+        got = k2.bitserial_conv2d_cuda(xp, wp, scale, b, **kw)
+        ref = k2.bitserial_conv2d_ref(xp, wp, scale, b, **kw)
+        assert got.dtype == ref.dtype and torch.equal(got, ref), (out, rq, b)
+
+
+def test_conv_kernel_rejects_bad_inputs(dev):
+    spec = SerialSpec(2, 2, True, True, 7)
+    xp = torch.zeros((2, 1, 4, 4, 1), dtype=torch.int32, device=dev)
+    wp = torch.zeros((2, 3, 3, 1, 8), dtype=torch.int32, device=dev)
+    ones = torch.ones(8, device=dev)
+    with pytest.raises(ValueError, match="channel-word"):
+        k2.bitserial_conv2d_cuda(xp, wp, ones, spec=spec, ci=33)
+    with pytest.raises(TypeError):
+        k2.bitserial_conv2d_cuda(xp.float(), wp, ones, spec=spec, ci=8)
+    with pytest.raises(ValueError, match="contiguous"):
+        k2.bitserial_conv2d_cuda(xp.transpose(2, 3), wp, ones, spec=spec,
+                                 ci=8)
+    with pytest.raises(ValueError, match="emit_packed requires requant"):
+        k2.bitserial_conv2d_cuda(xp, wp, ones, spec=spec, ci=8,
+                                 emit_packed=True)
