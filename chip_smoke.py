@@ -1,29 +1,56 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA card and hold
-every hand-written kernel against its plain PyTorch version.
+"""Drive the PyTorch/CUDA port's main paths once on one NVIDIA card and
+hold every hand-written kernel against its plain PyTorch version.
 
     python3 chip_smoke.py            # from the root of a checkout
 
 Phases (any failure exits non-zero and prints no result):
 
 1. versions, the card's name and power limit, and the kernels' build with
-   ``nvcc`` from ``src/repro_torch/kernels/csrc`` (both sources at once);
-2. K1 (quantize_pack) against its plain version at the main path's shapes
+   ``nvcc`` from ``src/repro_torch/kernels/csrc`` (all three sources at
+   once);
+2. K1 (quantize_pack) against its plain version at the CNN path's shapes
    (batch 32) plus a ragged row, ``torch.equal``;
 3. K2 (bitserial_conv2d) against its plain version at all eight ResNet9
    conv geometries (batch 32) in each step's output mode, a ragged case
    and wider specs, exact equality (the float mode included: both compute
    the same FMA of the same accumulator);
-4. the server slice: ``CNNServer`` compiles full-width ResNet9 W2A2 on the
+4. the CNN slice: ``CNNServer`` compiles full-width ResNet9 W2A2 on the
    card and answers requests of batch 1, 3 and 32; launch counts are reset
    just before and read just after, and must be 3 (K1) and 8 (K2) per
    forward; the logits must equal those of the same Program run through
    the plain versions on the card, and a Program calibrated on a small
    batch must agree on argmax with the plain quantized reference forward;
-5. times at batch 32: each kernel (CUDA events per launch, L2 flushed
+5. CNN times at batch 32: each kernel (CUDA events per launch, L2 flushed
    before each), its plain version, the PyTorch library call that does the
    integer-accumulate part where there is one, and the least time the card
-   could take; the forward's img/s and a profiler breakdown.
+   could take; the forward's img/s and a profiler breakdown;
+6. K3 (bitserial_matmul_v2) and 7. K4 (bitserial_matmul) against their
+   plain versions, ``torch.equal``: stablelm-1.6b's three GEMM shapes at
+   M = 4 (decode) and 64 (prefill), W4A8; codes and packed outputs;
+   ragged M/K/N; radix 1; W8A8 with unsigned activations; W16A16 whose
+   sums wrap int32; K4's requant at 8 and 12 bits;
+8. the LM slice: ``Server`` on full-width stablelm-1.6b (24 layers, bf16,
+   W4A8, random weights from seed 0) answers four requests (prompts of 5,
+   8, 11 and 16 tokens, 16 new tokens each) with counts reset just before
+   and read just after: 168 K1 and 168 K3 launches per prefill and per
+   decode step. The tokens and last-step logits must equal the plain
+   versions' run on the card, and the K4 path's (``pack_acts=False``,
+   counted the same way); a 2-slot server answering one request (a dummy
+   slot) must give a 1-slot server's tokens; the smoke config on the card
+   must give the CPU's plain-version tokens;
+9. the port's copy of ``tiny_mixed_cnn`` compiled on the card: its
+   ``gemm_packed`` step launches K3, and the logits equal the plain
+   runner's;
+10. LM times: K1, K3 and K4 at each stablelm shape (kernel, plain, bound
+    and the library call for the same integer product: ``torch._int_mm``
+    where its shape rules allow, else an fp16 matmul of the codes), the
+    prefill, a decode step and ``generate``'s tokens/s at batch 4, and a
+    profiler breakdown of one decode step.
+
+The ``kernels`` JSON line gives, per kernel, its launches on the main
+paths and its times summed over one ResNet9 batch-32 forward plus one LM
+decode step at batch 4.
 
 Standard output ends with the ``kernels`` JSON line, the card's
 ``nvidia-smi`` name/power line and the ``{"ok": true, ...}`` line; the full
@@ -49,6 +76,15 @@ FP32_OPS_PER_S = 67e12
 
 B = 32  # the main path's batch for shapes and times
 
+# the LM slice: stablelm-1.6b at batch 4, prompts of these lengths
+LM_PROMPTS = (5, 8, 11, 16)
+LM_NEW = 16        # new tokens per request: one prefill + 15 decode steps
+LM_MAX_LEN = 64
+# (K, N) of stablelm-1.6b's projections: q/k/v/o, gate/up, down, and how
+# many of each a layer runs
+STABLELM_GEMMS = ((2048, 2048), (2048, 5632), (5632, 2048))
+GEMMS_PER_LAYER = (4, 2, 1)
+
 # (name, c_in, c_out, stride, H_in, output mode) of ResNet9's conv1..conv8
 RESNET9_CONVS = (
     ("conv1", 64, 64, 1, 32, "packed"),
@@ -69,6 +105,15 @@ def log(*a):
 def sh(cmd):
     return subprocess.run(cmd, capture_output=True, text=True,
                           timeout=60).stdout.strip()
+
+
+def tree_to(tree, device):
+    """A parameter tree (dicts, lists, tensors) with every tensor moved."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, device) for v in tree]
+    return tree.to(device)
 
 
 class Timer:
@@ -104,15 +149,19 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import numpy as np
-    from repro_torch.compiler import executor
-    from repro_torch.core import pipeline_modules
-    from repro_torch.core.bitserial import SerialSpec, conv_out_hw
+    from repro_torch.compiler import bench_graphs, executor
+    from repro_torch.compiler.lower import compile_graph
+    from repro_torch.configs import get_arch
+    from repro_torch.core import bitops, pipeline_modules
+    from repro_torch.core.bitserial import SerialSpec, conv_out_hw, plan_spec
     from repro_torch.core.quant import QuantSpec, init_alpha, qrange
     from repro_torch.kernels import _build
     from repro_torch.kernels import bitserial_conv as k2
+    from repro_torch.kernels import bitserial_matmul as km
     from repro_torch.kernels import quantize_pack as k1
-    from repro_torch.launch.serve import CNNServer
-    from repro_torch.models import resnet
+    from repro_torch.launch.serve import CNNServer, GenRequest, Server
+    from repro_torch.models import resnet, transformer
+    from repro_torch.models.layers import QuantPolicy
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -136,7 +185,7 @@ def main() -> int:
                      "nvcc": nvcc_ver, "triton": has_triton, "card": smi,
                      "python": sys.version.split()[0]}
     t0 = time.perf_counter()
-    kernels = _build.build_all([k1.KERNEL, k2.KERNEL])
+    kernels = _build.build_all([k1.KERNEL, k2.KERNEL, km.KERNEL])
     record["build_s"] = time.perf_counter() - t0
     log(f"built {[k.name for k in kernels]} in {record['build_s']:.2f} s")
     for k in kernels:
@@ -145,7 +194,7 @@ def main() -> int:
                 log(f"  ptxas {k.name}: {line.strip()}")
 
     rng = np.random.default_rng(0)
-    max_err = {"K1": 0.0, "K2": 0.0}
+    max_err = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "K4": 0.0}
 
     def cuda(a):
         return torch.from_numpy(np.array(a, order="C")).to(dev)
@@ -249,8 +298,16 @@ def main() -> int:
     prog = server.program
     plain = executor.make_plain_runner(prog)
     images = np.random.default_rng(7).random((32, 32, 32, 3), dtype=np.float32)
-    for k in kernels:
-        k.launches = 0
+    def counts():
+        return {"K1": k1.KERNEL.launches, "K2": k2.KERNEL.launches,
+                "K3": km.KERNEL.entry_launches["bitserial_matmul_v2"],
+                "K4": km.KERNEL.entry_launches["bitserial_matmul_v1"]}
+
+    def reset_counts():
+        for k in kernels:
+            k.reset_counts()
+
+    reset_counts()
     forwards = 0
     answers = {}
     for n in (1, 3, 32):
@@ -261,10 +318,11 @@ def main() -> int:
         if got != (3, 8):
             raise AssertionError(f"batch {n}: launches K1, K2 = {got}, "
                                  "want (3, 8)")
-    launches = {"K1": k1.KERNEL.launches, "K2": k2.KERNEL.launches}
-    if launches != {"K1": 3 * forwards, "K2": 8 * forwards}:
+    launches = counts()
+    if launches != {"K1": 3 * forwards, "K2": 8 * forwards, "K3": 0, "K4": 0}:
         raise AssertionError(f"main path launches {launches}")
     log(f"  main path: {forwards} forwards, launches {launches}")
+    record["launches_cnn"] = launches
     for n, logits in answers.items():
         if logits.shape != (n, 10) or not np.all(np.isfinite(logits)):
             raise AssertionError(f"batch {n}: bad logits {logits.shape}")
@@ -399,27 +457,371 @@ def main() -> int:
     for k, v in top:
         log(f"  {v:9.4f} ms  {k[:90]}")
 
+    # ------------------------------------------- 6./7. K3 and K4 vs plain
+    log("K3 bitserial_matmul_v2 and K4 bitserial_matmul vs plain")
+    lm_cfg = get_arch("stablelm-1.6b").full
+    w4a8 = plan_spec(lm_cfg.policy.spec())
+
+    def gemm_case(spec, m, k, n, bias=True, scale_mul=1.0):
+        la, ha = qrange(spec.a_bits, spec.a_signed)
+        lw, hw = qrange(spec.w_bits, spec.w_signed)
+        xc = cuda(rng.integers(la, ha + 1, (m, k)).astype(np.int32))
+        wc = cuda(rng.integers(lw, hw + 1, (k, n)).astype(np.int32))
+        wp = bitops.pack_bitplanes(bitops.pad_to(
+            bitops.to_bitplanes(wc, spec.w_bits), 32, axis=1), axis=1)
+        scale = cuda((rng.random(n) * 2e-3 * scale_mul + 1e-4).astype(
+            np.float32))
+        return {"xc": xc, "wc": wc, "xp": k1.pack_codes_ref(xc, spec.a_bits),
+                "wp": wp, "scale": scale, "spec": spec, "k": k,
+                "bias": cuda(rng.standard_normal(n).astype(np.float32))
+                if bias else None}
+
+    rs = torch.tensor(0.37, device=dev)
+    # (name, case, K3 modes, K4 modes); a mode is (output, requant)
+    gemm_cases = []
+    for k, n in STABLELM_GEMMS:
+        for m in (4, 4 * 16):
+            gemm_cases.append((f"W4A8 M{m} {k}->{n}",
+                               gemm_case(w4a8, m, k, n, bias=False),
+                               [("float", None)], [("float", None)]))
+    rq_modes = [("codes", QuantSpec(8, True)), ("packed", QuantSpec(4, True))]
+    k4_rq = [("codes", QuantSpec(8, True)), ("codes", QuantSpec(12, True))]
+    gemm_cases += [
+        ("W4A8 M64 2048->2048 requant", gemm_case(w4a8, 64, 2048, 2048,
+                                                  scale_mul=40),
+         rq_modes, k4_rq),
+        ("ragged 5x100->70", gemm_case(w4a8, 5, 100, 70, scale_mul=40),
+         [("float", None)] + rq_modes, [("float", None)] + k4_rq),
+        ("W2A2 radix 1", gemm_case(SerialSpec(2, 2, True, True, 1), 9, 65,
+                                   40, scale_mul=40),
+         [("float", None)] + rq_modes, [("float", None)] + k4_rq),
+        ("W8A8 unsigned acts", gemm_case(SerialSpec(8, 8, False, True, 7),
+                                         7, 96, 64, scale_mul=40),
+         [("float", None)] + rq_modes, [("float", None)] + k4_rq),
+        ("W16A16 (int32 wrap)", gemm_case(SerialSpec(16, 16, True, True, 7),
+                                          3, 700, 64),
+         [("float", None)] + rq_modes, [("float", None)] + k4_rq)]
+    for name, c, k3_modes, k4_modes in gemm_cases:
+        for out, rq in k3_modes:
+            kw = dict(spec=c["spec"], k=c["k"], relu=rq is not None,
+                      requant=rq, requant_scale=None if rq is None else rs,
+                      emit_packed=out == "packed")
+            check_equal("K3", f"{name} {out}",
+                        km.bitserial_matmul_v2_cuda(c["xp"], c["wp"],
+                                                    c["scale"], c["bias"],
+                                                    **kw),
+                        km.bitserial_matmul_v2_ref(c["xp"], c["wp"],
+                                                   c["scale"], c["bias"],
+                                                   **kw))
+        for out, rq in k4_modes:
+            kw = dict(spec=c["spec"], k=c["k"], relu=False, requant=rq,
+                      out_dtype=torch.bfloat16 if rq else torch.float32)
+            tag = "" if rq is None else f" {rq.bits}b"
+            check_equal("K4", f"{name} {out}{tag}",
+                        km.bitserial_matmul_cuda(c["xc"], c["wp"],
+                                                 c["scale"], c["bias"], **kw),
+                        km.bitserial_matmul_ref(c["xc"], c["wp"], c["scale"],
+                                                c["bias"], **kw))
+
+    # ---------------------------------------------------- 8. the LM slice
+    log("LM slice: Server(stablelm-1.6b FULL, batch_slots=4, max_len=64, "
+        "seed=0) on the card, W4A8, bf16")
+    t0 = time.perf_counter()
+    lm = Server(lm_cfg, batch_slots=4, max_len=LM_MAX_LEN, seed=0)
+    torch.cuda.synchronize()
+    record["lm_init_s"] = time.perf_counter() - t0
+    log(f"  {lm_cfg.n_layers} layers, random weights packed in "
+        f"{record['lm_init_s']:.2f} s; device memory "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    prompt_rng = np.random.RandomState(0)
+    prompts = [prompt_rng.randint(0, lm_cfg.vocab_size, (n,)).astype(np.int32)
+               for n in LM_PROMPTS]
+
+    def lm_requests(idx=range(len(LM_PROMPTS))):
+        return [GenRequest(prompts[i].copy(), LM_NEW) for i in idx]
+
+    def lm_drive(server, requests):
+        reset_counts()
+        out = server.generate(requests)
+        torch.cuda.synchronize()
+        return [r.out_tokens for r in out], server.last_logits.clone(), counts()
+
+    per_step = 7 * lm_cfg.n_layers
+    lm_k3 = lm_drive(lm, lm_requests())
+    want = {"K1": per_step * LM_NEW, "K2": 0, "K3": per_step * LM_NEW, "K4": 0}
+    if lm_k3[2] != want:
+        raise AssertionError(f"LM launches {lm_k3[2]}, want {want}")
+    record["launches_lm_k3"] = lm_k3[2]
+    log(f"  main path (K1 + K3): prefill + {LM_NEW - 1} decode steps, "
+        f"launches {lm_k3[2]} = {per_step} K1 and K3 per step")
+    toks, logits = lm_k3[0], lm_k3[1]
+    if (logits.shape != (4, lm_cfg.vocab_size)
+            or not bool(torch.isfinite(logits).all())
+            or any(len(t) != LM_NEW or not all(0 <= v < lm_cfg.vocab_size
+                                               for v in t) for t in toks)):
+        raise AssertionError(f"bad LM output {logits.shape} {toks}")
+    with torch.inference_mode():
+        batch = {"tokens": torch.zeros((4, max(LM_PROMPTS)), dtype=torch.long,
+                                       device=dev)}
+        reset_counts()
+        _, caches = transformer.prefill(lm.params, batch, lm.cfg,
+                                        max_len=LM_MAX_LEN)
+        c_pre = counts()
+        reset_counts()
+        transformer.decode_step(lm.params, caches, batch["tokens"][:, :1],
+                                max(LM_PROMPTS), lm.cfg)
+        c_dec = counts()
+        torch.cuda.synchronize()
+    if not (c_pre["K3"] == c_dec["K3"] == c_pre["K1"] == c_dec["K1"]
+            == per_step):
+        raise AssertionError(f"per-step launches prefill {c_pre} decode "
+                             f"{c_dec}, want {per_step} K1 and K3")
+    log(f"  one prefill: {c_pre}; one decode step: {c_dec}")
+    plain_lm = Server(lm_cfg, lm.params, batch_slots=4, max_len=LM_MAX_LEN,
+                      plain=True)
+    t0 = time.perf_counter()
+    lm_plain = lm_drive(plain_lm, lm_requests())
+    record["lm_plain_generate_s"] = time.perf_counter() - t0
+    if any(lm_plain[2].values()):
+        raise AssertionError(f"plain run launched kernels: {lm_plain[2]}")
+    if lm_plain[0] != toks or not torch.equal(lm_plain[1], logits):
+        raise AssertionError("LM tokens/logits differ from the plain run")
+    log(f"  tokens and last-step logits equal the plain run's "
+        f"({record['lm_plain_generate_s']:.1f} s); request 0: {toks[0]}")
+    k4_lm = Server(lm_cfg, lm.params, batch_slots=4, max_len=LM_MAX_LEN,
+                   pack_acts=False)
+    lm_k4 = lm_drive(k4_lm, lm_requests())
+    want4 = {"K1": 0, "K2": 0, "K3": 0, "K4": per_step * LM_NEW}
+    if lm_k4[2] != want4:
+        raise AssertionError(f"K4 path launches {lm_k4[2]}, want {want4}")
+    if lm_k4[0] != toks or not torch.equal(lm_k4[1], logits):
+        raise AssertionError("pack_acts=False (K4) tokens/logits differ")
+    record["launches_lm_k4"] = lm_k4[2]
+    log(f"  pack_acts=False (K4): identical tokens and logits, launches "
+        f"{lm_k4[2]}")
+    two = Server(lm_cfg, lm.params, batch_slots=2, max_len=LM_MAX_LEN)
+    one = Server(lm_cfg, lm.params, batch_slots=1, max_len=LM_MAX_LEN)
+    t_two = two.generate(lm_requests([1]))[0].out_tokens
+    t_one = one.generate(lm_requests([1]))[0].out_tokens
+    if two.last_stats["padded_slots"] != 1 or t_two != t_one:
+        raise AssertionError(f"dummy slot: {two.last_stats} {t_two} {t_one}")
+    log(f"  batch_slots=2, one request (one dummy slot): tokens equal a "
+        f"1-slot server's {t_two[:6]}...")
+    record["lm_tokens"] = toks
+    # the smoke config on the card agrees with the CPU's plain run, which
+    # the CPU tests hold against the reference
+    smoke = get_arch("stablelm-1.6b").smoke
+    sm_gpu = Server(smoke, batch_slots=4, max_len=32, seed=0)
+    sm_cpu = Server(smoke, tree_to(sm_gpu.params, "cpu"), batch_slots=4,
+                    max_len=32, device="cpu")
+    sm_prompts = [np.arange(n, dtype=np.int32) * 7 % smoke.vocab_size
+                  for n in (3, 6, 9)]
+    a = [r.out_tokens for r in sm_gpu.generate(
+        [GenRequest(p.copy(), 8) for p in sm_prompts])]
+    b = [r.out_tokens for r in sm_cpu.generate(
+        [GenRequest(p.copy(), 8) for p in sm_prompts])]
+    if a != b:
+        raise AssertionError(f"smoke config: card {a} vs CPU {b}")
+    log(f"  smoke config: card tokens equal the CPU plain run's {a[0]}")
+
+    # ------------------------------------------ 9. compiled gemm_packed
+    g, calib = bench_graphs.tiny_mixed_cnn()
+    tprog = compile_graph(g, calib, policy=QuantPolicy(
+        mode="serial", w_bits=2, a_bits=2), device=dev)
+    kinds = [st.kind for st in tprog.steps]
+    xt = torch.from_numpy(np.random.RandomState(1).rand(3, 8, 8, 8).astype(
+        np.float32)).to(dev)
+    reset_counts()
+    yt = tprog(xt)
+    torch.cuda.synchronize()
+    c_tiny = counts()
+    if kinds[-1] != "gemm_packed" or c_tiny != {"K1": 2, "K2": 2, "K3": 1,
+                                                "K4": 0}:
+        raise AssertionError(f"tiny_mixed_cnn steps {kinds}, launches "
+                             f"{c_tiny}")
+    yp = executor.make_plain_runner(tprog)(tprog.params, xt)
+    if yt.shape != (3, 10) or not torch.equal(yt, yp):
+        raise AssertionError("tiny_mixed_cnn logits differ from the plain "
+                             "runner")
+    record["launches_tiny"] = c_tiny
+    log(f"compiled tiny_mixed_cnn ({', '.join(kinds)}): launches {c_tiny}, "
+        "logits equal the plain runner")
+
+    # ------------------------------------------------------ 10. LM times
+    log("LM GEMM times, W4A8 (ms, median, L2 flushed before each launch)")
+    lm_rows = []
+    for k, n in STABLELM_GEMMS:
+        for m in (4, 4 * 16):
+            c = gemm_case(w4a8, m, k, n, bias=False)
+            ops = 2 * m * k * n
+            wbytes = c["wp"].numel() * 4 + n * 4 + m * n * 4
+            if m > 16:   # torch._int_mm's shape rule
+                a8, b8 = c["xc"].to(torch.int8), c["wc"].to(torch.int8)
+                lib, lib_name = (lambda: torch._int_mm(a8, b8)), "_int_mm"
+            else:
+                a16, b16 = c["xc"].half(), c["wc"].half()
+                lib, lib_name = (lambda: torch.matmul(a16, b16)), "fp16 mm"
+            lib_ms = timer(lib, 50)
+            kw = dict(spec=w4a8, k=k)
+            for kid, x, fk, fp in (
+                    ("K3", c["xp"], km.bitserial_matmul_v2_cuda,
+                     km.bitserial_matmul_v2_ref),
+                    ("K4", c["xc"], km.bitserial_matmul_cuda,
+                     km.bitserial_matmul_ref)):
+                byt = x.numel() * 4 + wbytes
+                lm_rows.append({
+                    "kernel": kid, "m": m, "k": k, "n": n,
+                    "ms": timer(lambda: fk(x, c["wp"], c["scale"], **kw), 50),
+                    "plain_ms": timer(lambda: fp(x, c["wp"], c["scale"], **kw),
+                                      5),
+                    "library_ms": lib_ms, "library": lib_name,
+                    "bound_ms": max(byt / HBM_BYTES_PER_S,
+                                    ops / INT8_OPS_PER_S) * 1e3,
+                    "bytes": byt, "ops": ops,
+                    "bound_by": "bytes" if byt / HBM_BYTES_PER_S >=
+                    ops / INT8_OPS_PER_S else "operations"})
+    for k in sorted({k for k, _ in STABLELM_GEMMS}):
+        for m in (4, 4 * 16):   # K1 at the LM's activation shapes
+            xf = cuda(rng.standard_normal((m, k)).astype(np.float32))
+            a = torch.tensor(0.177, device=dev)
+            byt, ops, bound = k1_bound(m, k, 8, 4)
+            lm_rows.append({
+                "kernel": "K1", "m": m, "k": k, "n": None,
+                "ms": timer(lambda: k1.quantize_pack_cuda(
+                    xf, a, QuantSpec(8, True)), 50),
+                "plain_ms": timer(lambda: k1.quantize_pack_ref(
+                    xf, a, QuantSpec(8, True)), 10),
+                "library_ms": None, "bound_ms": bound, "bytes": byt,
+                "ops": ops, "bound_by": "bytes"})
+    for r in lm_rows:
+        lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        log(f"  {r['kernel']} M{r['m']} {r['k']}->{r['n']}: kernel "
+            f"{r['ms']:.4f}  plain {r['plain_ms']:.4f}  library {lib}  bound "
+            f"{r['bound_ms']:.5f} ({r['bound_by']})")
+    record["lm_calls"] = lm_rows
+
+    def lm_step(kid, key, m):
+        """Sum over one LM step (24 layers x 7 projections) of a kernel's
+        per-call number at M rows."""
+        def one(k, n):
+            (row,) = [r for r in lm_rows if r["kernel"] == kid and
+                      r["m"] == m and r["k"] == k and
+                      (kid == "K1" or r["n"] == n)]
+            return row[key]
+        if any(one(k, n) is None for k, n in STABLELM_GEMMS):
+            return None
+        return lm_cfg.n_layers * sum(
+            c * one(k, n) for (k, n), c in zip(STABLELM_GEMMS,
+                                               GEMMS_PER_LAYER))
+
+    # the step and the end-to-end numbers, host clock around synced work
+    with torch.inference_mode():
+        toks_in = np.zeros((4, max(LM_PROMPTS)), np.int64)
+        for i, pr in enumerate(prompts):
+            toks_in[i, -len(pr):] = pr
+        batch = {"tokens": torch.from_numpy(toks_in).to(dev)}
+
+        def walls(fn, reps):
+            out = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                out.append(time.perf_counter() - t0)
+            return statistics.median(out) * 1e3
+
+        record["lm_prefill_ms"] = walls(lambda: transformer.prefill(
+            lm.params, batch, lm.cfg, max_len=LM_MAX_LEN), 5)
+        lg, caches = transformer.prefill(lm.params, batch, lm.cfg,
+                                         max_len=LM_MAX_LEN)
+        tok = torch.argmax(lg, -1)[:, None]
+        pos = iter(range(max(LM_PROMPTS), LM_MAX_LEN))
+        record["lm_decode_step_ms"] = walls(lambda: transformer.decode_step(
+            lm.params, caches, tok, next(pos), lm.cfg), 15)
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            transformer.decode_step(lm.params, caches, tok, next(pos), lm.cfg)
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+    gen_walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        lm.generate(lm_requests())
+        gen_walls.append(time.perf_counter() - t0)
+    record["lm_generate_s"] = min(gen_walls)
+    record["lm_tok_per_s"] = 4 * LM_NEW / record["lm_generate_s"]
+    by_name = {}
+    for evt in prof.key_averages():
+        dt = (getattr(evt, "self_device_time_total", None)
+              or getattr(evt, "self_cuda_time_total", 0) or 0)
+        if dt > 0:
+            by_name[evt.key] = by_name.get(evt.key, 0.0) + dt / 1e3
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    record["lm_profile_decode_step"] = {
+        "wall_ms": prof_wall * 1e3, "device_ms": busy, "by_name_ms": dict(top)}
+    log(f"LM batch 4: prefill ({max(LM_PROMPTS)} tokens) "
+        f"{record['lm_prefill_ms']:.3f} ms, decode step "
+        f"{record['lm_decode_step_ms']:.3f} ms, generate({LM_NEW} new) "
+        f"{record['lm_generate_s'] * 1e3:.1f} ms = "
+        f"{record['lm_tok_per_s']:.1f} tok/s")
+    log(f"profile of one decode step: wall {prof_wall * 1e3:.3f} ms, device "
+        f"busy {busy:.3f} ms")
+    for k, v in top:
+        log(f"  {v:9.4f} ms  {k[:90]}")
+
     def total(kid, key):
         vals = [r[key] for r in rows if r["kernel"] == kid]
         return None if any(v is None for v in vals) else sum(vals)
 
+    def lm_bound_by(kid):
+        byt, ops = lm_step(kid, "bytes", 4), lm_step(kid, "ops", 4)
+        return ("bytes" if byt / HBM_BYTES_PER_S >= ops / INT8_OPS_PER_S
+                else "operations")
+
+    # ms, plain_ms, bound_ms, library_ms: the sum over one ResNet9 batch-32
+    # forward (K1, K2) plus one LM decode step at batch 4 (K1, K3, K4)
     line = {"kernels": [
-        {"name": "quantize_pack (K1: quantize_pack + 2x pack_codes)",
+        {"name": "quantize_pack (K1: ResNet9 quantize_pack + 2x pack_codes, "
+                 "LM 7 per layer)",
          "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/quantize_pack.cu",
          "replaces": "src/repro/kernels/quantize_pack.py:53",
-         "launches": launches["K1"], "max_abs_err": max_err["K1"],
-         "ms": total("K1", "ms"), "plain_ms": total("K1", "plain_ms"),
-         "bound_ms": total("K1", "bound_ms"), "bound_by": "bytes",
-         "library_ms": None},
+         "launches": launches["K1"] + lm_k3[2]["K1"] + c_tiny["K1"],
+         "max_abs_err": max_err["K1"],
+         "ms": total("K1", "ms") + lm_step("K1", "ms", 4),
+         "plain_ms": total("K1", "plain_ms") + lm_step("K1", "plain_ms", 4),
+         "bound_ms": total("K1", "bound_ms") + lm_step("K1", "bound_ms", 4),
+         "bound_by": "bytes", "library_ms": None},
         {"name": "bitserial_conv2d (K2: ResNet9 conv1..conv8)",
          "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/bitserial_conv.cu",
          "replaces": "src/repro/kernels/bitserial_conv.py:153",
-         "launches": launches["K2"], "max_abs_err": max_err["K2"],
+         "launches": launches["K2"] + c_tiny["K2"],
+         "max_abs_err": max_err["K2"],
          "ms": total("K2", "ms"), "plain_ms": total("K2", "plain_ms"),
          "bound_ms": total("K2", "bound_ms"), "bound_by": "operations",
          "library_ms": total("K2", "library_ms")},
+        {"name": "bitserial_matmul_v2 (K3: one LM decode step's packed GEMMs)",
+         "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/bitserial_matmul.cu",
+         "replaces": "src/repro/kernels/bitserial_matmul.py:380",
+         "launches": lm_k3[2]["K3"] + c_tiny["K3"],
+         "max_abs_err": max_err["K3"],
+         "ms": lm_step("K3", "ms", 4), "plain_ms": lm_step("K3", "plain_ms", 4),
+         "bound_ms": lm_step("K3", "bound_ms", 4), "bound_by": lm_bound_by("K3"),
+         "library_ms": lm_step("K3", "library_ms", 4)},
+        {"name": "bitserial_matmul (K4: one LM decode step's code GEMMs)",
+         "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/bitserial_matmul.cu",
+         "replaces": "src/repro/kernels/bitserial_matmul.py:171",
+         "launches": lm_k4[2]["K4"], "max_abs_err": max_err["K4"],
+         "ms": lm_step("K4", "ms", 4), "plain_ms": lm_step("K4", "plain_ms", 4),
+         "bound_ms": lm_step("K4", "bound_ms", 4), "bound_by": lm_bound_by("K4"),
+         "library_ms": lm_step("K4", "library_ms", 4)},
     ]}
     record["kernels"] = line["kernels"]
     record["total_s"] = time.perf_counter() - t_start

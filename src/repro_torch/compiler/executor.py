@@ -6,9 +6,7 @@ dispatch function. The packed steps go through :mod:`repro_torch.kernels.ops`,
 which picks the CUDA kernel or its plain version by the tensor's device, so
 one Program runs on the card or on the CPU unchanged. PyTorch runs eagerly:
 there is no jit; a CUDA graph per padding bucket is later work.
-
-``gemm_packed`` steps need the packed GEMM kernel K3, not yet ported: they
-raise ``NotImplementedError``.
+``conv_packed`` steps run K2 and ``gemm_packed`` steps K3.
 
 :func:`make_plain_runner` runs the packed steps through the kernels' plain
 versions whatever the device — the yardstick the card's kernels are held
@@ -48,8 +46,13 @@ def _conv_packed(st, p, x, conv=ops.serial_conv2d_packed_op):
         emit_packed=st.attrs["out"] == "packed")
 
 
-def _gemm_packed(st, p, x):
-    return ops.serial_matmul_packed_op(x, p["w_packed"], p["scale"])
+def _gemm_packed(st, p, x, plain=False):
+    return ops.serial_matmul_packed_op(
+        x, p["w_packed"], p["scale"], p.get("bias"),
+        spec=st.attrs["spec"], k=st.attrs["k"], relu=st.attrs["relu"],
+        requant=_requant_spec(st.attrs),
+        requant_scale=p.get("requant_scale"),
+        emit_packed=st.attrs["out"] == "packed", plain=plain)
 
 
 def _affine(st, p, y):
@@ -122,6 +125,7 @@ _PLAIN: Dict[str, Callable] = dict(
     _APPLY,
     conv_packed=lambda st, p, x: _conv_packed(st, p, x,
                                               conv=bitserial_conv2d_ref),
+    gemm_packed=lambda st, p, x: _gemm_packed(st, p, x, plain=True),
     quantize_pack=_quantize_pack_plain,
     pack_codes=_pack_codes_plain,
 )

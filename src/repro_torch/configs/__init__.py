@@ -1,0 +1,9 @@
+"""Architecture registry. Importing this package registers the ported
+architectures (the dense LM stablelm-1.6b; the CNN is served by
+``CNNServer`` directly)."""
+
+from repro_torch.configs.base import (ARCH_REGISTRY, ArchEntry, get_arch,
+                                      list_archs)
+from repro_torch.configs import stablelm_1_6b  # noqa: F401  (registers)
+
+__all__ = ["ARCH_REGISTRY", "ArchEntry", "get_arch", "list_archs"]

@@ -22,7 +22,8 @@ import torch.nn.functional as F
 
 from repro_torch.core import bitops
 
-__all__ = ["SerialSpec", "plan_spec", "serial_matmul", "serial_conv2d",
+__all__ = ["SerialSpec", "plan_spec", "serial_matmul", "serial_matmul_packed",
+           "serial_matmul_packed_acts", "serial_conv2d",
            "serial_conv2d_packed_acts", "conv_out_hw", "digits_from_planes"]
 
 
@@ -141,6 +142,37 @@ def digits_from_planes(planes: torch.Tensor, bits: int, radix_bits: int,
             d = d + planes[t].to(torch.int32) * c
         out.append(d.to(torch.int8))
     return torch.stack(out)
+
+
+def serial_matmul_packed(x_int: torch.Tensor, w_packed: torch.Tensor, *,
+                         spec: SerialSpec, k: int) -> torch.Tensor:
+    """Serial matmul of integer activations ``x_int`` (..., K) against
+    bit-transposed packed weights ``w_packed`` (w_bits, ceil(K/32), N) —
+    the integer core of the plain version of K4. Activation codes are
+    masked to ``a_bits`` (and sign-extended when signed), as the
+    reference's plane/digit decomposition does. Returns int32 (..., N)."""
+    planes = bitops.unpack_bitplanes(w_packed, k, axis=1)  # (bw, K, N)
+    if spec.radix_bits == 1:
+        return serial_matmul(x_int, bitops.from_bitplanes(planes,
+                                                          spec.w_signed),
+                             spec)
+    s = spec.radix_bits
+    wd = digits_from_planes(planes, spec.w_bits, s, spec.w_signed)
+    xd = bitops.to_digits(x_int, spec.a_bits, s, spec.a_signed)
+    return _digit_combine(xd, wd, s)
+
+
+def serial_matmul_packed_acts(x_packed: torch.Tensor, w_packed: torch.Tensor,
+                              *, spec: SerialSpec, k: int) -> torch.Tensor:
+    """Serial matmul with both operands bit-packed — the integer core of
+    the plain version of K3. ``x_packed``: (a_bits, M, ceil(K/32)) words;
+    ``w_packed``: (w_bits, ceil(K/32), N). Returns int32 (M, N)."""
+    a_planes = bitops.unpack_bitplanes(x_packed, k, axis=-1)  # (ba, M, K)
+    w_planes = bitops.unpack_bitplanes(w_packed, k, axis=1)   # (bw, K, N)
+    s = spec.radix_bits
+    xd = digits_from_planes(a_planes, spec.a_bits, s, spec.a_signed)
+    wd = digits_from_planes(w_planes, spec.w_bits, s, spec.w_signed)
+    return _digit_combine(xd, wd, s)
 
 
 def conv_out_hw(h: int, w: int, fh: int, fw: int, stride: int,

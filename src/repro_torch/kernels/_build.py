@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface. At first use it is compiled
 by ``nvcc`` for ``sm_90a`` into a shared library under ``build/repro_torch/``
 at the root of the checkout (listed in ``.gitignore``), named by a hash of
-its source and flags, and loaded with ``ctypes``. Nothing is built when a
-module is imported, and nothing is built for a tensor on the CPU.
+its source, the shared headers (``csrc/*.cuh``) and the flags, and loaded
+with ``ctypes``. Nothing is built when a module is imported, and nothing
+is built for a tensor on the CPU.
 
 Flags: ``-O3``, no ``--use_fast_math`` (the quantizers need IEEE division
 and ``rintf``), and ``--fmad=false`` so that the compiler contracts no
@@ -12,7 +13,8 @@ multiply-add the source did not write as ``fmaf``.
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :meth:`Kernel.launch` raises if that is not 0 and
-adds one to ``Kernel.launches`` when it is.
+adds one to ``Kernel.launches`` and to the entry's count in
+``Kernel.entry_launches`` when it is.
 """
 
 from __future__ import annotations
@@ -63,12 +65,15 @@ class Kernel:
         self.source = CSRC / f"{name}.cu"
         self.entries = dict(entries)
         self.launches = 0
+        self.entry_launches = {e: 0 for e in self.entries}
         self._lib = None
         self._lock = threading.Lock()
 
     # ------------------------------------------------------------- build
     def library_path(self) -> Path:
         h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(CSRC.glob("*.cuh")):
+            h.update(header.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"{self.name}-{h.hexdigest()[:16]}.so"
 
@@ -121,6 +126,11 @@ class Kernel:
             raise RuntimeError(f"{self.name}.{entry}: CUDA error {rc} at "
                                "launch")
         self.launches += 1
+        self.entry_launches[entry] += 1
+
+    def reset_counts(self) -> None:
+        self.launches = 0
+        self.entry_launches = dict.fromkeys(self.entries, 0)
 
 
 def build_all(kernels: Iterable[Kernel]) -> List[Kernel]:

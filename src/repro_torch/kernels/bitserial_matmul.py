@@ -1,0 +1,212 @@
+"""K3 and K4: bit-serial GEMMs over bit-transposed packed weights, with the
+fused scaler → bias → ReLU → requant (→ pack) epilogue.
+
+Counterpart of ``repro/kernels/bitserial_matmul.py``. One CUDA source
+(``csrc/bitserial_matmul.cu``) holds both kernels:
+
+* K3 replaces ``bitserial_matmul_v2_pallas``: packed activations
+  ``(a_bits, M, ceil(K/32))`` × packed weights ``(w_bits, ceil(K/32), N)``
+  → float32 ``(M, N)``, codes ``clip(round(out / rs))`` (int8 for
+  ``requant.bits <= 8``, else int32), or, with ``emit_packed``, the codes'
+  planes ``(requant.bits, M, ceil(N/32))`` — the next layer's input.
+  Plain version :func:`bitserial_matmul_v2_ref` (the reference's XLA
+  oracle ``serial_matmul_packed_acts`` + ``_epilogue_xla``).
+* K4 replaces ``bitserial_matmul_pallas``: integer codes ``(M, K)`` ×
+  the same packed weights. ``scale`` folds any requant step, so requant
+  is ``clip(round(out))`` with no divide; its codes are int8 when
+  ``requant.bits <= 8`` and otherwise ``out_dtype`` (the reference
+  kernel's output type, ``bitserial_matmul.py:218``). A float output is
+  float32 cast once to ``out_dtype``. Plain version
+  :func:`bitserial_matmul_ref`.
+
+:func:`bitserial_matmul_v2` and :func:`bitserial_matmul` dispatch on the
+tensor's device: the plain version for a CPU tensor, the kernel for a CUDA
+tensor. Both epilogues are one FMA, as the reference's are under ``jit``
+and in its Pallas kernels (interpreted too).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.bitserial import (SerialSpec, serial_matmul_packed,
+                                        serial_matmul_packed_acts)
+from repro_torch.core.quant import QuantSpec, qrange
+from repro_torch.kernels._build import I, Kernel, P
+from repro_torch.kernels.epilogue import (CODES8, CODES32, FLOAT, PACKED,
+                                          check_operand, codes_dtype,
+                                          epilogue, per_channel,
+                                          requant_scale_tensor)
+
+__all__ = ["KERNEL", "bitserial_matmul_v2", "bitserial_matmul_v2_ref",
+           "bitserial_matmul_v2_cuda", "bitserial_matmul",
+           "bitserial_matmul_ref", "bitserial_matmul_cuda"]
+
+KERNEL = Kernel("bitserial_matmul", {
+    "bitserial_matmul_v2": (P,) * 6 + (I,) * 12 + (P,),
+    "bitserial_matmul_v1": (P,) * 5 + (I,) * 12 + (P,),
+})
+
+
+def _k_words(k: int) -> int:
+    return -(-k // 32)
+
+
+def bitserial_matmul_v2_ref(x_packed: torch.Tensor, w_packed: torch.Tensor,
+                            scale: torch.Tensor,
+                            bias: Optional[torch.Tensor] = None, *,
+                            spec: SerialSpec, k: int, relu: bool = False,
+                            requant: Optional[QuantSpec] = None,
+                            requant_scale=None,
+                            emit_packed: bool = False) -> torch.Tensor:
+    """Plain version of K3, on any device."""
+    if emit_packed and requant is None:
+        raise ValueError("emit_packed requires requant")
+    acc = serial_matmul_packed_acts(x_packed, w_packed, spec=spec, k=k)
+    return epilogue(acc, scale, bias, relu=relu, requant=requant,
+                    requant_scale=requant_scale, emit_packed=emit_packed)
+
+
+def bitserial_matmul_ref(x: torch.Tensor, w_packed: torch.Tensor,
+                         scale: torch.Tensor,
+                         bias: Optional[torch.Tensor] = None, *,
+                         spec: SerialSpec, k: int, relu: bool = False,
+                         out_dtype: torch.dtype = torch.float32,
+                         requant: Optional[QuantSpec] = None) -> torch.Tensor:
+    """Plain version of K4, on any device."""
+    if x.shape[-1] != k:
+        raise ValueError(f"x has K={x.shape[-1]}, caller declared k={k}")
+    acc = serial_matmul_packed(x.to(torch.int32), w_packed, spec=spec, k=k)
+    out = epilogue(acc, scale, bias, relu=relu, requant=requant, divide=False)
+    if requant is not None and requant.bits <= 8:
+        return out
+    return out.to(out_dtype)
+
+
+def _check_weights(fn: str, w_packed: torch.Tensor, spec: SerialSpec, k: int,
+                   dev: torch.device) -> int:
+    check_operand(fn, "w_packed", w_packed, torch.int32, 3, dev)
+    bw, kw, n = w_packed.shape
+    if bw != spec.w_bits:
+        raise ValueError(f"{fn}: w_packed carries {bw} bit-planes, spec wants "
+                         f"w_bits={spec.w_bits}")
+    if kw != _k_words(k):
+        raise ValueError(f"{fn}: K-word mismatch: w {kw}, ceil(k/32)="
+                         f"{_k_words(k)}")
+    return n
+
+
+def _scale_bias(fn: str, scale, bias, n: int, dev: torch.device):
+    scale = per_channel(fn, "scale", scale, n, dev)
+    bias = None if bias is None else per_channel(fn, "bias", bias, n, dev)
+    return scale, bias
+
+
+def bitserial_matmul_v2_cuda(x_packed: torch.Tensor, w_packed: torch.Tensor,
+                             scale: torch.Tensor,
+                             bias: Optional[torch.Tensor] = None, *,
+                             spec: SerialSpec, k: int, relu: bool = False,
+                             requant: Optional[QuantSpec] = None,
+                             requant_scale=None,
+                             emit_packed: bool = False) -> torch.Tensor:
+    """Launch K3 on CUDA tensors (same contract as the plain version)."""
+    fn = "bitserial_matmul_v2"
+    if emit_packed and requant is None:
+        raise ValueError("emit_packed requires requant")
+    dev = x_packed.device
+    check_operand(fn, "x_packed", x_packed, torch.int32, 3, dev)
+    ba, m, kw = x_packed.shape
+    if ba != spec.a_bits:
+        raise ValueError(f"{fn}: x_packed carries {ba} bit-planes, spec "
+                         f"wants a_bits={spec.a_bits}")
+    if kw != _k_words(k):
+        raise ValueError(f"{fn}: K-word mismatch: x {kw}, ceil(k/32)="
+                         f"{_k_words(k)}")
+    n = _check_weights(fn, w_packed, spec, k, dev)
+    scale, bias = _scale_bias(fn, scale, bias, n, dev)
+    qn = qp = rq_bits = 0
+    rs = None
+    if requant is None:
+        mode = FLOAT
+        out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    else:
+        rq_bits = requant.bits
+        qn, qp = qrange(requant.bits, requant.signed)
+        rs = requant_scale_tensor(requant_scale, dev)
+        if rs.numel() != 1:
+            raise ValueError(f"{fn}: requant_scale must be scalar")
+        if emit_packed:
+            mode = PACKED
+            out = torch.empty((rq_bits, m, -(-n // 32)), dtype=torch.int32,
+                              device=dev)
+        else:
+            dt = codes_dtype(requant)
+            mode = CODES8 if dt == torch.int8 else CODES32
+            out = torch.empty((m, n), dtype=dt, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    KERNEL.launch(
+        "bitserial_matmul_v2", x_packed.data_ptr(), w_packed.data_ptr(),
+        scale.data_ptr(), None if bias is None else bias.data_ptr(),
+        None if rs is None else rs.data_ptr(), out.data_ptr(), m, k, n,
+        spec.a_bits, spec.w_bits, int(spec.a_signed), int(spec.w_signed),
+        int(relu), mode, rq_bits, qn, qp, stream)
+    return out
+
+
+def bitserial_matmul_cuda(x: torch.Tensor, w_packed: torch.Tensor,
+                          scale: torch.Tensor,
+                          bias: Optional[torch.Tensor] = None, *,
+                          spec: SerialSpec, k: int, relu: bool = False,
+                          out_dtype: torch.dtype = torch.float32,
+                          requant: Optional[QuantSpec] = None) -> torch.Tensor:
+    """Launch K4 on a CUDA ``(M, K)`` int32 code tensor (same contract as
+    the plain version)."""
+    fn = "bitserial_matmul"
+    dev = x.device
+    check_operand(fn, "x", x, torch.int32, 2, dev)
+    m, kx = x.shape
+    if kx != k:
+        raise ValueError(f"{fn}: x has K={kx}, caller declared k={k}")
+    n = _check_weights(fn, w_packed, spec, k, dev)
+    scale, bias = _scale_bias(fn, scale, bias, n, dev)
+    qn = qp = rq_bits = 0
+    if requant is None:
+        mode = FLOAT
+        out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    else:
+        rq_bits = requant.bits
+        qn, qp = qrange(requant.bits, requant.signed)
+        dt = codes_dtype(requant)
+        mode = CODES8 if dt == torch.int8 else CODES32
+        out = torch.empty((m, n), dtype=dt, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    KERNEL.launch(
+        "bitserial_matmul_v1", x.data_ptr(), w_packed.data_ptr(),
+        scale.data_ptr(), None if bias is None else bias.data_ptr(),
+        out.data_ptr(), m, k, n, spec.a_bits, spec.w_bits,
+        int(spec.a_signed), int(spec.w_signed), int(relu), mode, rq_bits,
+        qn, qp, stream)
+    if requant is not None and requant.bits <= 8:
+        return out
+    return out.to(out_dtype)
+
+
+def bitserial_matmul_v2(x_packed: torch.Tensor, w_packed: torch.Tensor,
+                        scale: torch.Tensor,
+                        bias: Optional[torch.Tensor] = None,
+                        **kw) -> torch.Tensor:
+    """K3 on CUDA tensors, its plain version on CPU tensors."""
+    if x_packed.is_cuda:
+        return bitserial_matmul_v2_cuda(x_packed, w_packed, scale, bias, **kw)
+    return bitserial_matmul_v2_ref(x_packed, w_packed, scale, bias, **kw)
+
+
+def bitserial_matmul(x: torch.Tensor, w_packed: torch.Tensor,
+                     scale: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                     **kw) -> torch.Tensor:
+    """K4 on CUDA tensors, its plain version on CPU tensors."""
+    if x.is_cuda:
+        return bitserial_matmul_cuda(x, w_packed, scale, bias, **kw)
+    return bitserial_matmul_ref(x, w_packed, scale, bias, **kw)

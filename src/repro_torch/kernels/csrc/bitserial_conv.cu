@@ -32,30 +32,25 @@
 // grid have no counterpart: blocks share nothing. Tensor-core (int8 mma or
 // wgmma on digit planes) tiles are later work.
 //
-// Numerics: the epilogue is the single-rounding fmaf the reference's XLA
-// epilogue contracts to (built with --fmad=false, so nothing else is
-// contracted), __fdiv_rn is the IEEE divide and rintf rounds half to even.
-// scale, bias and rs are read from device memory.
+// Numerics: the epilogue (epilogue.cuh, shared with the packed GEMMs) is
+// the single-rounding fmaf the reference's XLA epilogue contracts to, the
+// IEEE divide and rintf's round half to even.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "epilogue.cuh"
 
 namespace {
 
 constexpr int kWarpsPerBlock = 4;
 
-enum OutMode { kFloat = 0, kCodes8 = 1, kCodes32 = 2, kPacked = 3 };
-
 struct ConvArgs {
   const int32_t* x;
   const int32_t* w;
-  const float* scale;
-  const float* bias;  // may be null
-  const float* rs;    // null unless requantizing
-  void* out;
   int n, h, wd, ci, words, co, fh, fw, stride, pad, ho, wo;
-  int a_bits, w_bits, a_signed, w_signed, relu, out_mode, rq_bits;
-  float qn, qp;
+  int a_bits, w_bits, a_signed, w_signed;
+  epi::Epilogue e;
 };
 
 __global__ void bitserial_conv2d_kernel(const ConvArgs p) {
@@ -103,37 +98,7 @@ __global__ void bitserial_conv2d_kernel(const ConvArgs p) {
   }
 
   // fused epilogue: scaler (+ bias) as one FMA, ReLU, optional requant
-  const float f = (float)(int32_t)acc;
-  const float sc = valid ? p.scale[c] : 0.f;
-  float out = p.bias ? fmaf(f, sc, valid ? p.bias[c] : 0.f) : f * sc;
-  if (p.relu) out = fmaxf(out, 0.f);
-  const long long o = pix * p.co + c;
-  if (p.out_mode == kFloat) {
-    if (valid) ((float*)p.out)[o] = out;
-    return;
-  }
-  float q = rintf(__fdiv_rn(out, *p.rs));
-  q = fminf(fmaxf(q, p.qn), p.qp);
-  const int code = (int)q;
-  if (p.out_mode == kCodes8) {
-    if (valid) ((int8_t*)p.out)[o] = (int8_t)code;
-    return;
-  }
-  if (p.out_mode == kCodes32) {
-    if (valid) ((int32_t*)p.out)[o] = code;
-    return;
-  }
-  // packed: (rq_bits, N, Ho, Wo, ceil(Co/32)); lane b stores plane b's word
-  const uint32_t mask = (1u << p.rq_bits) - 1u;
-  const uint32_t u = valid ? ((uint32_t)code & mask) : 0u;
-  const int cw = (p.co + 31) / 32;
-  uint32_t mine = 0;
-  for (int b = 0; b < p.rq_bits; ++b) {
-    const uint32_t word = __ballot_sync(0xffffffffu, (u >> b) & 1u);
-    if (lane == b) mine = word;
-  }
-  if (lane < p.rq_bits)
-    ((int32_t*)p.out)[((long long)lane * pixels + pix) * cw + group] = (int32_t)mine;
+  epi::store(p.e, acc, lane, valid, c, pix, pixels, p.co);
 }
 
 }  // namespace
@@ -148,15 +113,11 @@ extern "C" int bitserial_conv2d(const void* x, const void* w, const void* scale,
   ConvArgs p;
   p.x = (const int32_t*)x;
   p.w = (const int32_t*)w;
-  p.scale = (const float*)scale;
-  p.bias = (const float*)bias;
-  p.rs = (const float*)rs;
-  p.out = out;
   p.n = n; p.h = h; p.wd = wd; p.ci = ci; p.words = (ci + 31) / 32; p.co = co;
   p.fh = fh; p.fw = fw; p.stride = stride; p.pad = pad; p.ho = ho; p.wo = wo;
   p.a_bits = a_bits; p.w_bits = w_bits; p.a_signed = a_signed;
-  p.w_signed = w_signed; p.relu = relu; p.out_mode = out_mode;
-  p.rq_bits = rq_bits; p.qn = (float)qn; p.qp = (float)qp;
+  p.w_signed = w_signed;
+  p.e = epi::make(scale, bias, rs, out, relu, out_mode, rq_bits, qn, qp);
   const long long pixels = (long long)n * ho * wo;
   if (pixels > 0 && co > 0) {
     dim3 grid((unsigned int)((pixels + kWarpsPerBlock - 1) / kWarpsPerBlock),

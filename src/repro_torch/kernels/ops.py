@@ -11,9 +11,16 @@ that does not build or launch raises.
   ceil(K/32)) words (K1's codes entry);
 * :func:`quantize_pack_activations` — (..., K) floats and a step size →
   the same planes (K1);
-* :func:`serial_conv2d_packed_op` — the fused packed conv (K2). The
-  plain epilogue is :func:`repro_torch.kernels.bitserial_conv.epilogue`,
-  one FMA where the reference's jitted ``_epilogue_xla`` contracts to one.
+* :func:`serial_conv2d_packed_op` — the fused packed conv (K2);
+* :func:`serial_matmul_packed_op` — the fused GEMM over packed
+  activations (K3), any leading dims;
+* :func:`serial_matmul_op` — the fused GEMM over integer codes (K4).
+
+The plain epilogue is :func:`repro_torch.kernels.epilogue.epilogue`, one
+FMA where the reference's jitted ``_epilogue_xla`` contracts to one.
+``plain=True`` (the GEMMs and the quantizer) runs the kernel's plain
+version whatever the device: the yardstick a kernel is held against, the
+counterpart of the reference's ``backend="xla"``.
 """
 
 from __future__ import annotations
@@ -24,10 +31,11 @@ import torch
 
 from repro_torch.core.bitserial import SerialSpec
 from repro_torch.core.quant import QuantSpec
-from repro_torch.kernels import bitserial_conv, quantize_pack
+from repro_torch.kernels import bitserial_conv, bitserial_matmul, quantize_pack
 
 __all__ = ["pack_activations", "quantize_pack_activations", "over_rows",
-           "serial_conv2d_packed_op", "serial_matmul_packed_op"]
+           "serial_conv2d_packed_op", "serial_matmul_packed_op",
+           "serial_matmul_op"]
 
 
 def over_rows(fn, x: torch.Tensor, bits: int) -> torch.Tensor:
@@ -46,11 +54,13 @@ def pack_activations(codes: torch.Tensor, a_bits: int) -> torch.Tensor:
 
 
 def quantize_pack_activations(x: torch.Tensor, alpha: torch.Tensor,
-                              spec: QuantSpec) -> torch.Tensor:
+                              spec: QuantSpec, *,
+                              plain: bool = False) -> torch.Tensor:
     """Quantize (..., K) floats with step ``alpha`` and pack the codes:
     (spec.bits, ..., ceil(K/32)) int32 words."""
-    return over_rows(lambda r: quantize_pack.quantize_pack(r, alpha, spec),
-                     x, spec.bits)
+    fn = (quantize_pack.quantize_pack_ref if plain
+          else quantize_pack.quantize_pack)
+    return over_rows(lambda r: fn(r, alpha, spec), x, spec.bits)
 
 
 def serial_conv2d_packed_op(x_packed: torch.Tensor, w_packed: torch.Tensor,
@@ -69,9 +79,47 @@ def serial_conv2d_packed_op(x_packed: torch.Tensor, w_packed: torch.Tensor,
         requant_scale=requant_scale, emit_packed=emit_packed)
 
 
-def serial_matmul_packed_op(*args, **kwargs):
-    """The packed GEMM needs K3 (``bitserial_matmul_v2_pallas``), which is
-    not ported yet; there is no plain stand-in."""
-    raise NotImplementedError(
-        "packed GEMM (gemm_packed steps, LM qdense) needs kernel K3 "
-        "bitserial_matmul_v2_pallas, which is not yet ported")
+def serial_matmul_packed_op(x_packed: torch.Tensor, w_packed: torch.Tensor,
+                            scale: torch.Tensor,
+                            bias: Optional[torch.Tensor] = None, *,
+                            spec: SerialSpec, k: int, relu: bool = False,
+                            requant: Optional[QuantSpec] = None,
+                            requant_scale=None, emit_packed: bool = False,
+                            plain: bool = False) -> torch.Tensor:
+    """Fused serial matmul over bit-packed activations (K3).
+
+    ``x_packed``: (a_bits, ..., ceil(K/32)) words, any leading dims;
+    ``w_packed``: (w_bits, ceil(K/32), N). Returns float32 (..., N), codes
+    (..., N), or with ``requant`` + ``emit_packed`` the planes
+    (requant.bits, ..., ceil(N/32)) the next layer consumes.
+    """
+    if emit_packed and requant is None:
+        raise ValueError("emit_packed requires requant")
+    lead = tuple(x_packed.shape[1:-1])
+    x2 = x_packed.reshape(x_packed.shape[0], -1,
+                          x_packed.shape[-1]).contiguous()
+    fn = (bitserial_matmul.bitserial_matmul_v2_ref if plain
+          else bitserial_matmul.bitserial_matmul_v2)
+    out = fn(x2, w_packed, scale, bias, spec=spec, k=k, relu=relu,
+             requant=requant, requant_scale=requant_scale,
+             emit_packed=emit_packed)
+    if emit_packed:
+        return out.reshape((requant.bits,) + lead + (out.shape[-1],))
+    return out.reshape(lead + (out.shape[-1],))
+
+
+def serial_matmul_op(x: torch.Tensor, w_packed: torch.Tensor,
+                     scale: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                     *, spec: SerialSpec, k: int, relu: bool = False,
+                     out_dtype: torch.dtype = torch.float32,
+                     requant: Optional[QuantSpec] = None,
+                     plain: bool = False) -> torch.Tensor:
+    """Fused serial matmul of (..., K) integer codes against packed weights
+    (K4); ``scale`` folds any requant step."""
+    lead = tuple(x.shape[:-1])
+    x2 = x.reshape(-1, x.shape[-1]).to(torch.int32).contiguous()
+    fn = (bitserial_matmul.bitserial_matmul_ref if plain
+          else bitserial_matmul.bitserial_matmul)
+    out = fn(x2, w_packed, scale, bias, spec=spec, k=k, relu=relu,
+             out_dtype=out_dtype, requant=requant)
+    return out.reshape(lead + (out.shape[-1],))

@@ -106,3 +106,90 @@ def test_conv_kernel_rejects_bad_inputs(dev):
     with pytest.raises(ValueError, match="emit_packed requires requant"):
         k2.bitserial_conv2d_cuda(xp, wp, ones, spec=spec, ci=8,
                                  emit_packed=True)
+
+
+# --------------------------------------------------- K3 / K4 packed GEMMs
+
+def _gemm_operands(rng, spec, m, k, n, dev):
+    from repro_torch.core import bitops
+    xc = _codes(rng, spec.a_bits, spec.a_signed, (m, k), dev)
+    wc = _codes(rng, spec.w_bits, spec.w_signed, (k, n), dev)
+    xp = k1.pack_codes_ref(xc, spec.a_bits)
+    planes = bitops.pad_to(bitops.to_bitplanes(wc, spec.w_bits), 32, axis=1)
+    wp = bitops.pack_bitplanes(planes, axis=1)
+    scale = torch.from_numpy((rng.random(n) * 0.01 + 1e-3).astype(
+        np.float32)).to(dev)
+    bias = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+    return xc, xp, wp, scale, bias
+
+
+GEMM = [((8, 4, True, True, 7), (4, 2048, 2048)),      # W4A8 decode shape
+        ((8, 4, True, True, 7), (64, 5632, 2048)),     # W4A8 prefill, down
+        ((2, 2, True, True, 7), (5, 100, 70)),         # ragged M/K/N
+        ((1, 1, True, True, 1), (9, 65, 33)),          # radix 1
+        ((8, 8, False, True, 7), (7, 96, 40)),         # unsigned acts
+        ((16, 16, True, True, 7), (3, 700, 64))]       # int32 wrap
+
+
+@pytest.mark.parametrize("sp,shape", GEMM)
+def test_gemm_kernels_equal_plain(dev, sp, shape):
+    from repro_torch.kernels import bitserial_matmul as km
+    spec = SerialSpec(*sp)
+    m, k, n = shape
+    rng = np.random.default_rng(m * 7 + k + n)
+    xc, xp, wp, scale, bias = _gemm_operands(rng, spec, m, k, n, dev)
+    rs = torch.tensor(0.37, device=dev)
+    for b, (out, rq) in itertools.product(
+            (bias, None), (("float", None), ("codes", QuantSpec(8, True)),
+                           ("packed", QuantSpec(3, False)),
+                           ("codes", QuantSpec(12, True)))):
+        kw = dict(spec=spec, k=k, relu=rq is not None and not rq.signed,
+                  requant=rq, requant_scale=None if rq is None else rs,
+                  emit_packed=out == "packed")
+        before = km.KERNEL.launches
+        got = km.bitserial_matmul_v2_cuda(xp, wp, scale, b, **kw)
+        assert km.KERNEL.launches == before + 1
+        ref = km.bitserial_matmul_v2_ref(xp, wp, scale, b, **kw)
+        assert got.dtype == ref.dtype and torch.equal(got, ref), (out, rq, b)
+        if out == "packed":
+            continue
+        kw4 = dict(spec=spec, k=k, relu=kw["relu"], requant=rq,
+                   out_dtype=torch.bfloat16)
+        got = km.bitserial_matmul_cuda(xc, wp, scale, b, **kw4)
+        ref = km.bitserial_matmul_ref(xc, wp, scale, b, **kw4)
+        assert got.dtype == ref.dtype and torch.equal(got, ref), (out, rq, b)
+
+
+def test_gemm_kernels_mask_out_of_range_codes(dev):
+    # K4 masks codes to a_bits and sign-extends them, as the reference does
+    from repro_torch.kernels import bitserial_matmul as km
+    spec = SerialSpec(4, 4, True, True, 7)
+    rng = np.random.default_rng(5)
+    _, _, wp, scale, bias = _gemm_operands(rng, spec, 6, 80, 50, dev)
+    xc = torch.from_numpy(rng.integers(-300, 300, (6, 80)).astype(
+        np.int32)).to(dev)
+    got = km.bitserial_matmul_cuda(xc, wp, scale, bias, spec=spec, k=80)
+    ref = km.bitserial_matmul_ref(xc, wp, scale, bias, spec=spec, k=80)
+    assert torch.equal(got, ref)
+
+
+def test_gemm_kernels_reject_bad_inputs(dev):
+    from repro_torch.kernels import bitserial_matmul as km
+    spec = SerialSpec(2, 2, True, True, 7)
+    xp = torch.zeros((2, 4, 1), dtype=torch.int32, device=dev)
+    wp = torch.zeros((2, 1, 8), dtype=torch.int32, device=dev)
+    ones = torch.ones(8, device=dev)
+    with pytest.raises(ValueError, match="K-word"):
+        km.bitserial_matmul_v2_cuda(xp, wp, ones, spec=spec, k=33)
+    with pytest.raises(TypeError):
+        km.bitserial_matmul_v2_cuda(xp.float(), wp, ones, spec=spec, k=8)
+    with pytest.raises(ValueError, match="bit-planes"):
+        km.bitserial_matmul_v2_cuda(xp, wp, ones,
+                                    spec=SerialSpec(3, 2, True, True, 7), k=8)
+    with pytest.raises(ValueError, match="emit_packed requires requant"):
+        km.bitserial_matmul_v2_cuda(xp, wp, ones, spec=spec, k=8,
+                                    emit_packed=True)
+    with pytest.raises(ValueError, match="caller declared"):
+        km.bitserial_matmul_cuda(torch.zeros((4, 9), dtype=torch.int32,
+                                             device=dev), wp, ones,
+                                 spec=spec, k=8)

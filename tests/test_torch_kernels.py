@@ -239,5 +239,16 @@ def test_build_names_library_by_source_hash():
 
 
 def test_gemm_packed_op_names_k3():
-    with pytest.raises(NotImplementedError, match="K3"):
-        ops.serial_matmul_packed_op(torch.zeros(1))
+    """The packed GEMM op runs K3 — its plain version for CPU tensors."""
+    from repro_torch.kernels import bitserial_matmul
+    rng = np.random.default_rng(6)
+    spec = SerialSpec(2, 2, True, True, 7)
+    xp = _t(rng.integers(-2**31, 2**31, (2, 3, 2), dtype=np.int64).astype(
+        np.int32))
+    wp = _t(rng.integers(-2**31, 2**31, (2, 2, 8), dtype=np.int64).astype(
+        np.int32))
+    scale = torch.ones(8)
+    out = ops.serial_matmul_packed_op(xp, wp, scale, spec=spec, k=64)
+    ref = bitserial_matmul.bitserial_matmul_v2_ref(xp, wp, scale, spec=spec,
+                                                   k=64)
+    assert torch.equal(out, ref)

@@ -281,8 +281,13 @@ def test_gemm_packed_names_missing_kernel():
                                             a_bits=2),
                          device="cpu")
     assert prog.steps[-1].kind == "gemm_packed"
-    with pytest.raises(NotImplementedError, match="K3"):
-        prog(torch.zeros((1, 32, 32, 3)))
+    # the step runs K3 (its plain version on the CPU) and agrees with the
+    # plain runner
+    x = torch.from_numpy(np.random.default_rng(0).random(
+        (1, 32, 32, 3), dtype=np.float32))
+    out = prog(x)
+    assert out.shape == (1, 10) and torch.isfinite(out).all()
+    assert torch.equal(out, texec.make_plain_runner(prog)(prog.params, x))
 
 
 def test_port_imports_no_jax_and_no_reference():
@@ -292,9 +297,16 @@ def test_port_imports_no_jax_and_no_reference():
         "import repro_torch.core.bitserial, repro_torch.core.pipeline_modules\n"
         "import repro_torch.kernels.ops, repro_torch.kernels._build\n"
         "import repro_torch.compiler.executor, repro_torch.compiler.passes\n"
-        "from repro_torch.launch.serve import CNNServer\n"
+        "import repro_torch.kernels.bitserial_matmul, repro_torch.configs\n"
+        "import repro_torch.models.attention, repro_torch.models.transformer\n"
+        "import repro_torch.compiler.bench_graphs\n"
+        "from repro_torch.launch.serve import CNNServer, GenRequest, Server\n"
         "s = CNNServer(calib_batch=1, max_batch=1, device='cpu')\n"
         "s.classify(np.zeros((1, 32, 32, 3), np.float32))\n"
+        "cfg = repro_torch.configs.get_arch('stablelm-1.6b').smoke\n"
+        "for pa in (True, False):\n"
+        "    lm = Server(cfg, max_len=16, pack_acts=pa, device='cpu')\n"
+        "    lm.generate([GenRequest(np.arange(4, dtype=np.int32), 2)])\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
         "             m.startswith('jax.') or m == 'repro' or\n"
         "             m.startswith('repro.'))\n"
