@@ -12,24 +12,31 @@ Phases (any failure exits non-zero and prints no result):
 2. K1 (quantize_pack) against its plain version at the CNN path's shapes
    (batch 32) plus a ragged row, ``torch.equal``;
 3. K2 (bitserial_conv2d) against its plain version at all eight ResNet9
-   conv geometries (batch 32) in each step's output mode, a ragged case
-   and wider specs, exact equality (the float mode included: both compute
-   the same FMA of the same accumulator);
+   conv geometries (batch 32) in each step's output mode, a ragged case,
+   wider specs and the edges of its tensor-core tiles (pixels and Co off
+   the tile, Ci = 33 and 600, batch 1, stride 2, every output mode), exact
+   equality (the float mode included: both compute the same FMA of the
+   same accumulator);
 4. the CNN slice: ``CNNServer`` compiles full-width ResNet9 W2A2 on the
    card and answers requests of batch 1, 3 and 32; launch counts are reset
    just before and read just after, and must be 3 (K1) and 8 (K2) per
    forward; the logits must equal those of the same Program run through
    the plain versions on the card, and a Program calibrated on a small
    batch must agree on argmax with the plain quantized reference forward;
-5. CNN times at batch 32: each kernel (CUDA events per launch, L2 flushed
-   before each), its plain version, the PyTorch library call that does the
-   integer-accumulate part where there is one, and the least time the card
-   could take; the forward's img/s and a profiler breakdown;
+5. CNN times at batch 32: each kernel (``kernels/timing.py``'s ``Timer``:
+   CUDA events around each launch, L2 flushed before each, every
+   repetition queued behind a device sleep so that the host's enqueue gap
+   is not counted; the earlier per-launch timer beside it), its plain
+   version, the PyTorch library call that does the integer-accumulate part
+   where there is one, and the least time the card could take; the
+   forward's img/s and a profiler breakdown;
 6. K3 (bitserial_matmul_v2) and 7. K4 (bitserial_matmul) against their
    plain versions, ``torch.equal``: stablelm-1.6b's three GEMM shapes at
    M = 4 (decode) and 64 (prefill), W4A8; codes and packed outputs;
    ragged M/K/N; radix 1; W8A8 with unsigned activations; W16A16 whose
-   sums wrap int32; K4's requant at 8 and 12 bits;
+   sums wrap int32; K4's requant at 8 and 12 bits; K3 at the edges of its
+   tiles (M = 1, 4, 5, 17, 64 against N = 70, K = 100 at W4A8, radix 1,
+   W16A16 and unsigned W8A8);
 8. the LM slice: ``Server`` on full-width stablelm-1.6b (24 layers, bf16,
    W4A8, random weights from seed 0) answers four requests (prompts of 5,
    8, 11 and 16 tokens, 16 new tokens each) with counts reset just before
@@ -44,7 +51,8 @@ Phases (any failure exits non-zero and prints no result):
    runner's;
 10. LM times: K1, K3 and K4 at each stablelm shape (kernel, plain, bound
     and the library call for the same integer product: ``torch._int_mm``
-    where its shape rules allow, else an fp16 matmul of the codes), the
+    where its shape rules allow, else an fp16 matmul of the codes) and
+    their sums over one decode step (M = 4) and one prefill (M = 64), the
     prefill, a decode step and ``generate``'s tokens/s at batch 4, and a
     profiler breakdown of one decode step.
 
@@ -116,32 +124,6 @@ def tree_to(tree, device):
     return tree.to(device)
 
 
-class Timer:
-    """Median device time of one call, from CUDA events around each launch,
-    with L2 flushed (a 256 MB write) before every launch."""
-
-    def __init__(self, torch, device):
-        self.torch = torch
-        self.flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32,
-                                 device=device)
-
-    def __call__(self, fn, reps):
-        torch = self.torch
-        fn()
-        torch.cuda.synchronize()
-        events = []
-        for _ in range(reps):
-            self.flush.zero_()
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            s.record()
-            fn()
-            e.record()
-            events.append((s, e))
-        torch.cuda.synchronize()
-        return statistics.median(s.elapsed_time(e) for s, e in events)
-
-
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -159,6 +141,7 @@ def main() -> int:
     from repro_torch.kernels import bitserial_conv as k2
     from repro_torch.kernels import bitserial_matmul as km
     from repro_torch.kernels import quantize_pack as k1
+    from repro_torch.kernels.timing import Timer
     from repro_torch.launch.serve import CNNServer, GenRequest, Server
     from repro_torch.models import resnet, transformer
     from repro_torch.models.layers import QuantPolicy
@@ -259,7 +242,7 @@ def main() -> int:
         bias = cuda((rng.standard_normal(co) * 0.1).astype(np.float32))
         kw = dict(spec=spec, ci=ci, stride=stride, padding=pad, relu=True)
         if mode != "float":
-            rq = QuantSpec(2, True)
+            rq = QuantSpec(12 if mode == "codes32" else 2, True)
             kw.update(requant=rq, requant_scale=torch.tensor(0.25, device=dev),
                       emit_packed=mode == "packed")
         return xp, wp, scale, bias, kw
@@ -283,6 +266,16 @@ def main() -> int:
                                "codes", fs=1, pad=0)))
     k2_cases.append(("5x5 pad2 W2A2 float",
                      conv_case(2, 6, 32, 16, 1, w2a2, "float", fs=5, pad=2)))
+    # the edges of the tensor-core tiles: pixels and Co off the 32 x 8 NT
+    # tile, Ci = 33 and 600 (19 words per tap), batch 1, stride 2
+    for n, h, ci, co, stride in ((1, 9, 33, 40, 2), (1, 5, 600, 70, 1),
+                                 (3, 5, 33, 100, 2)):
+        for spec, tag in ((w2a2, "W2A2"),
+                          (SerialSpec(16, 16, True, True, 7), "W16A16")):
+            for mode in ("float", "codes", "codes32", "packed"):
+                k2_cases.append((f"edge n{n} h{h} ci{ci} co{co} s{stride} "
+                                 f"{tag} {mode}",
+                                 conv_case(n, h, ci, co, stride, spec, mode)))
     for name, (xp, wp, scale, bias, kw) in k2_cases:
         check_equal("K2", name,
                     k2.bitserial_conv2d_cuda(xp, wp, scale, bias, **kw),
@@ -353,7 +346,7 @@ def main() -> int:
 
     # ---------------------------------------------------------- 5. times
     log(f"times at batch {B} (ms, median, L2 flushed before each launch)")
-    timer = Timer(torch, dev)
+    timer = Timer(dev)
     rows = []
 
     def k1_bound(r, l, bits, in_bytes):
@@ -373,6 +366,7 @@ def main() -> int:
             bits = spec
         byt, ops, bound = k1_bound(r, l, bits, 4)
         rows.append({"kernel": "K1", "call": name, "ms": timer(fk, 50),
+                     "ms_per_launch": timer.per_launch(fk, 50),
                      "plain_ms": timer(fp, 10), "library_ms": None,
                      "bound_ms": bound, "bytes": byt, "ops": ops,
                      "bound_by": "bytes" if byt / HBM_BYTES_PER_S >=
@@ -392,9 +386,10 @@ def main() -> int:
             np.float16)).to(dev).contiguous(memory_format=torch.channels_last)
         lib = lambda: torch.nn.functional.conv2d(xa, wa, stride=stride,
                                                  padding=1)
+        fk = lambda: k2.bitserial_conv2d_cuda(xp, wp, scale, bias, **kw)
         rows.append({
-            "kernel": "K2", "call": name, "ms": timer(
-                lambda: k2.bitserial_conv2d_cuda(xp, wp, scale, bias, **kw), 50),
+            "kernel": "K2", "call": name, "ms": timer(fk, 50),
+            "ms_per_launch": timer.per_launch(fk, 50),
             "plain_ms": timer(
                 lambda: k2.bitserial_conv2d_ref(xp, wp, scale, bias, **kw), 10),
             "library_ms": timer(lib, 50), "bound_ms": bound, "bytes": byt,
@@ -402,10 +397,21 @@ def main() -> int:
             ops / INT8_OPS_PER_S else "operations"})
     for r in rows:
         lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        log(f"  {r['kernel']} {r['call']:<22} kernel {r['ms']:.4f}  plain "
+        log(f"  {r['kernel']} {r['call']:<22} kernel {r['ms']:.4f} "
+            f"(per-launch timer {r['ms_per_launch']:.4f})  plain "
             f"{r['plain_ms']:.4f}  library {lib}  bound {r['bound_ms']:.5f} "
             f"({r['bound_by']})")
     record["calls"] = rows
+    for kid in ("K1", "K2"):
+        sums = {key: sum(r[key] for r in rows if r["kernel"] == kid)
+                for key in ("ms", "ms_per_launch", "bound_ms", "plain_ms")}
+        lib = [r["library_ms"] for r in rows if r["kernel"] == kid]
+        sums["library_ms"] = None if None in lib else sum(lib)
+        record[f"{kid}_forward_sums"] = sums
+        log(f"  {kid} summed over one batch-{B} forward: {sums['ms']:.4f} ms "
+            f"(per-launch timer {sums['ms_per_launch']:.4f}), bound "
+            f"{sums['bound_ms']:.5f}, library {sums['library_ms']}, plain "
+            f"{sums['plain_ms']:.3f}")
 
     # the forward at batch 32: img/s on the host clock, device time by
     # kernel from the profiler
@@ -501,6 +507,16 @@ def main() -> int:
         ("W16A16 (int32 wrap)", gemm_case(SerialSpec(16, 16, True, True, 7),
                                           3, 700, 64),
          [("float", None)] + rq_modes, [("float", None)] + k4_rq)]
+    # the edges of K3's tensor-core tiles: M = 1..64 rows against 8 NT-row
+    # tiles, N = 70 and K = 100 off the 32-column tile and the K word
+    for m in (1, 4, 5, 17, 64):
+        for spec, tag in ((w4a8, "W4A8"), (SerialSpec(2, 2, True, True, 1),
+                                           "W2A2 radix 1"),
+                          (SerialSpec(16, 16, True, True, 7), "W16A16"),
+                          (SerialSpec(8, 8, False, True, 7), "W8A8 unsigned")):
+            gemm_cases.append((f"edge M{m} 100->70 {tag}",
+                               gemm_case(spec, m, 100, 70, scale_mul=40),
+                               [("float", None)] + rq_modes, []))
     for name, c, k3_modes, k4_modes in gemm_cases:
         for out, rq in k3_modes:
             kw = dict(spec=c["spec"], k=c["k"], relu=rq is not None,
@@ -669,9 +685,11 @@ def main() -> int:
                     ("K4", c["xc"], km.bitserial_matmul_cuda,
                      km.bitserial_matmul_ref)):
                 byt = x.numel() * 4 + wbytes
+                call = lambda: fk(x, c["wp"], c["scale"], **kw)
                 lm_rows.append({
                     "kernel": kid, "m": m, "k": k, "n": n,
-                    "ms": timer(lambda: fk(x, c["wp"], c["scale"], **kw), 50),
+                    "ms": timer(call, 50),
+                    "ms_per_launch": timer.per_launch(call, 50),
                     "plain_ms": timer(lambda: fp(x, c["wp"], c["scale"], **kw),
                                       5),
                     "library_ms": lib_ms, "library": lib_name,
@@ -685,10 +703,11 @@ def main() -> int:
             xf = cuda(rng.standard_normal((m, k)).astype(np.float32))
             a = torch.tensor(0.177, device=dev)
             byt, ops, bound = k1_bound(m, k, 8, 4)
+            call = lambda: k1.quantize_pack_cuda(xf, a, QuantSpec(8, True))
             lm_rows.append({
                 "kernel": "K1", "m": m, "k": k, "n": None,
-                "ms": timer(lambda: k1.quantize_pack_cuda(
-                    xf, a, QuantSpec(8, True)), 50),
+                "ms": timer(call, 50),
+                "ms_per_launch": timer.per_launch(call, 50),
                 "plain_ms": timer(lambda: k1.quantize_pack_ref(
                     xf, a, QuantSpec(8, True)), 10),
                 "library_ms": None, "bound_ms": bound, "bytes": byt,
@@ -696,7 +715,8 @@ def main() -> int:
     for r in lm_rows:
         lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"  {r['kernel']} M{r['m']} {r['k']}->{r['n']}: kernel "
-            f"{r['ms']:.4f}  plain {r['plain_ms']:.4f}  library {lib}  bound "
+            f"{r['ms']:.4f} (per-launch timer {r['ms_per_launch']:.4f})  "
+            f"plain {r['plain_ms']:.4f}  library {lib}  bound "
             f"{r['bound_ms']:.5f} ({r['bound_by']})")
     record["lm_calls"] = lm_rows
 
@@ -713,6 +733,22 @@ def main() -> int:
         return lm_cfg.n_layers * sum(
             c * one(k, n) for (k, n), c in zip(STABLELM_GEMMS,
                                                GEMMS_PER_LAYER))
+
+    # each GEMM kernel's sum over one decode step (M = 4) and one prefill
+    # (M = 64), beside its bound and the library call's sum
+    record["lm_step_sums"] = {}
+    for kid in ("K1", "K3", "K4"):
+        for m, what in ((4, "decode step"), (64, "prefill")):
+            sums = {key: lm_step(kid, key, m) for key in
+                    ("ms", "ms_per_launch", "bound_ms", "library_ms",
+                     "plain_ms")}
+            record["lm_step_sums"][f"{kid} M{m}"] = sums
+            lib = ("-" if sums["library_ms"] is None
+                   else f"{sums['library_ms']:.4f}")
+            log(f"  {kid} summed over one {what} (168 calls at M = {m}): "
+                f"{sums['ms']:.4f} ms (per-launch timer "
+                f"{sums['ms_per_launch']:.4f}), bound {sums['bound_ms']:.4f}, "
+                f"library {lib}, plain {sums['plain_ms']:.3f}")
 
     # the step and the end-to-end numbers, host clock around synced work
     with torch.inference_mode():

@@ -12,26 +12,29 @@
 //   out = fmaf((float)acc, scale[co], bias[co]) -> ReLU ->
 //         float | codes = clip(rint(out / rs), qn, qp) | packed codes
 //
-// Algorithm 1 on the packed words, so nothing is ever unpacked: for each
-// tap, channel word and plane pair (i, j) the accumulator gains
-// +-2^(i+j) * popc(a_word & w_word), the MSB plane of a signed operand
-// weighing negative. The radix of the reference's digit plan does not change
-// the integer result, so it is not needed here. Padding taps are skipped
-// (zero words add nothing) and the lanes past Ci in the last word are masked.
-// The accumulator is uint32, so it wraps modulo 2^32 like the reference's
-// int32 Horner sums without signed-overflow undefined behaviour.
+// Design v2: an implicit GEMM on the int8 tensor cores, rows = N*Ho*Wo
+// output pixels, columns = Co, K = FH*FW*Ci, walked one packed word (32
+// channels of one tap) at a time. The weights (w_bits, FH*FW*G, Co) are
+// exactly the packed GEMM's (w_bits, W, N) weights, so the tile, the digit
+// expansion in registers, the mma.sync per digit pair and the staged
+// epilogue are K3's (digits.cuh). Only the activation words differ: word
+// kw = tap * G + g of pixel (n, oh, ow) is x[.., n, oh*s - p + r, ow*s - p +
+// s', g], zero when the tap falls in the padding; a word whose tap is
+// padding for every pixel of a warp's rows is skipped by the whole warp
+// (conv8 is 1x1: only its centre tap is real). Lanes past Ci in each tap's
+// last word are masked.
 //
-// Bound on the H100: operations (and, at these small sizes, launch latency);
-// the packed operands are a few hundred KB. Design: one warp owns 32
-// consecutive output channels of one output pixel. Weights are Co-contiguous,
-// so a warp's weight loads are one coalesced 128-byte transaction; the
-// activation word of the pixel is the same address for all 32 lanes (a
-// broadcast). The packed epilogue is one __ballot_sync per output plane over
-// the warp's 32 channels, which is the (rq_bits, N, Ho, Wo, ceil(Co/32))
-// word itself. The TPU kernel's VMEM digit caches across an "arbitrary"
-// grid have no counterpart: blocks share nothing. Tensor-core (int8 mma or
-// wgmma on digit planes) tiles are later work.
-//
+// Bound on the H100: at ResNet9's W2A2 the operations (2 x MACs at the int8
+// peak), 5 µs per batch-32 forward; the packed operands are a few hundred
+// KB. What holds the kernel back now is latency, not the tensor cores: a
+// warp walks a handful of K words, each one memory round trip plus about
+// 150 integer instructions of expansion and addressing against 8 mma, and
+// then the block's epilogue; the early layers run 16 waves of blocks. The
+// design's answers: one m16n8k32 mma does 4,096 MACs where the popcount
+// design (v1) did 32 per instruction; the K words are split over the
+// block's warps so that the small late layers (32 to 512 output pixels)
+// still put hundreds of warps in flight; 4-row-tile blocks are held to 4
+// warps and 128 registers so that four fit on an SM.
 // Numerics: the epilogue (epilogue.cuh, shared with the packed GEMMs) is
 // the single-rounding fmaf the reference's XLA epilogue contracts to, the
 // IEEE divide and rintf's round half to even.
@@ -39,91 +42,137 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "digits.cuh"
 #include "epilogue.cuh"
 
 namespace {
 
-constexpr int kWarpsPerBlock = 4;
-
 struct ConvArgs {
   const int32_t* x;
-  const int32_t* w;
-  int n, h, wd, ci, words, co, fh, fw, stride, pad, ho, wo;
-  int a_bits, w_bits, a_signed, w_signed;
+  dig::Weights wt;  // (w_bits, FH*FW*G, Co)
+  dig::Plan ap;
+  int n, h, wd, ci, groups, fw, stride, pad, ho, wo;
   epi::Epilogue e;
 };
 
-__global__ void bitserial_conv2d_kernel(const ConvArgs p) {
-  const int lane = threadIdx.x & 31;
-  const long long pixels = (long long)p.n * p.ho * p.wo;
-  const long long pix = (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (pix >= pixels) return;  // the whole warp leaves together
-  const int group = blockIdx.y;
-  const int c = group * 32 + lane;
-  const bool valid = c < p.co;
+// The activation words of a lane's NT output pixels (rows r0 + 8 nt + g).
+// Word kw is tap (r, s) = divmod(kw / G, FW) and channel word gi = kw % G;
+// step() moves (r, s, gi) on from the previous word without dividing.
+template <int NT>
+struct ConvSrc {
+  const int32_t* x;
+  long long plane;
+  long long pix[NT];  // word offset of input (ih0, iw0) of the pixel's image
+  int ih0[NT], iw0[NT];
+  bool real[NT];      // the row is an output pixel
+  int h, wd, groups, fw, kw, r, s, gi;
+  uint32_t tail;
 
-  const int ow = (int)(pix % p.wo);
-  const int oh = (int)((pix / p.wo) % p.ho);
-  const int img = (int)(pix / ((long long)p.wo * p.ho));
-
-  const long long a_plane = (long long)p.n * p.h * p.wd * p.words;
-  const long long w_plane = (long long)p.fh * p.fw * p.words * p.co;
-  const int tail_bits = p.ci % 32;
-  const uint32_t tail = tail_bits ? ((1u << tail_bits) - 1u) : 0xffffffffu;
-
-  uint32_t acc = 0;
-  for (int r = 0; r < p.fh; ++r) {
-    const int ih = oh * p.stride - p.pad + r;
-    if (ih < 0 || ih >= p.h) continue;
-    for (int s = 0; s < p.fw; ++s) {
-      const int iw = ow * p.stride - p.pad + s;
-      if (iw < 0 || iw >= p.wd) continue;
-      const int32_t* xa = p.x + (((long long)img * p.h + ih) * p.wd + iw) * p.words;
-      const int32_t* wb = p.w + (long long)(r * p.fw + s) * p.words * p.co + c;
-      for (int g = 0; g < p.words; ++g) {
-        const uint32_t m = (g == p.words - 1) ? tail : 0xffffffffu;
-        for (int j = 0; j < p.w_bits; ++j) {
-          const uint32_t wv =
-              valid ? ((uint32_t)wb[j * w_plane + (long long)g * p.co] & m) : 0u;
-          const bool w_neg = p.w_signed && j == p.w_bits - 1;
-          for (int i = 0; i < p.a_bits; ++i) {
-            const uint32_t av = (uint32_t)xa[i * a_plane + g];
-            const uint32_t term = (uint32_t)__popc(av & wv) << (i + j);
-            const bool neg = w_neg != (p.a_signed && i == p.a_bits - 1);
-            acc = neg ? acc - term : acc + term;
-          }
+  __device__ __forceinline__ void step(int k) {
+    if (kw < 0) {
+      const int tap = k / groups;
+      gi = k - tap * groups;
+      r = tap / fw;
+      s = tap - r * fw;
+    } else {
+      gi += k - kw;
+      while (gi >= groups) {
+        gi -= groups;
+        if (++s == fw) {
+          s = 0;
+          ++r;
         }
       }
     }
+    kw = k;
   }
+  __device__ __forceinline__ bool in(int nt) const {
+    return real[nt] && (unsigned)(ih0[nt] + r) < (unsigned)h &&
+           (unsigned)(iw0[nt] + s) < (unsigned)wd;
+  }
+  __device__ __forceinline__ bool live() const {
+    bool any = false;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) any |= in(nt);
+    return any;
+  }
+  __device__ __forceinline__ uint32_t word(int nt, const int32_t** p) const {
+    if (!in(nt)) return 0u;
+    *p = x + pix[nt] + ((long long)r * wd + s) * groups + gi;
+    return gi == groups - 1 ? tail : 0xffffffffu;
+  }
+};
 
-  // fused epilogue: scaler (+ bias) as one FMA, ReLU, optional requant
-  epi::store(p.e, acc, lane, valid, c, pix, pixels, p.co);
+template <class OpA, class OpW, int NT>
+__global__ void __launch_bounds__(dig::max_warps<OpA, OpW, NT>() * 32,
+                                  dig::min_blocks<OpA, OpW, NT>())
+bitserial_conv2d_kernel(const ConvArgs p) {
+  const long long pixels = (long long)p.n * p.ho * p.wo;
+  const long long r0 = (long long)blockIdx.x * 8 * NT;
+  ConvSrc<NT> src;
+  src.x = p.x;
+  src.plane = (long long)p.n * p.h * p.wd * p.groups;
+  src.h = p.h;
+  src.wd = p.wd;
+  src.groups = p.groups;
+  src.fw = p.fw;
+  src.kw = -1;
+  src.tail = dig::tail_mask(p.ci);
+  const int g = (threadIdx.x & 31) >> 2;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const long long pix = r0 + 8 * nt + g;
+    const int ow = (int)(pix % p.wo);
+    const int oh = (int)((pix / p.wo) % p.ho);
+    const long long img = pix / ((long long)p.wo * p.ho);
+    src.real[nt] = pix < pixels;
+    src.ih0[nt] = oh * p.stride - p.pad;
+    src.iw0[nt] = ow * p.stride - p.pad;
+    src.pix[nt] = ((img * p.h + src.ih0[nt]) * p.wd + src.iw0[nt]) *
+                  (long long)p.groups;
+  }
+  dig::tile<OpA, OpW, NT>(src, p.ap, p.wt, pixels, r0, p.e);
 }
+
+template <class OpA, class OpW, int NT>
+struct Run {
+  static void go(const ConvArgs& p, cudaStream_t stream) {
+    const long long pixels = (long long)p.n * p.ho * p.wo;
+    dim3 grid((unsigned int)((pixels + 8 * NT - 1) / (8 * NT)),
+              (unsigned int)((p.wt.cols + 31) / 32));
+    const int warps =
+        dig::warps_for(p.wt.words, dig::max_warps<OpA, OpW, NT>());
+    bitserial_conv2d_kernel<OpA, OpW, NT><<<grid, warps * 32, 0, stream>>>(p);
+  }
+};
 
 }  // namespace
 
+// nd_a and nd_w are the operands' digit counts (digit_plan in the wrapper).
 extern "C" int bitserial_conv2d(const void* x, const void* w, const void* scale,
                                 const void* bias, const void* rs, void* out,
                                 int n, int h, int wd, int ci, int co, int fh,
                                 int fw, int stride, int pad, int ho, int wo,
                                 int a_bits, int w_bits, int a_signed,
-                                int w_signed, int relu, int out_mode,
-                                int rq_bits, int qn, int qp, void* stream) {
+                                int w_signed, int nd_a, int nd_w, int relu,
+                                int out_mode, int rq_bits, int qn, int qp,
+                                void* stream) {
+  if (a_bits < 1 || a_bits > dig::kMaxBits || w_bits < 1 ||
+      w_bits > dig::kMaxBits || nd_a < 1 || nd_a > 3 || nd_w < 1 || nd_w > 3)
+    return (int)cudaErrorInvalidValue;
   ConvArgs p;
   p.x = (const int32_t*)x;
-  p.w = (const int32_t*)w;
-  p.n = n; p.h = h; p.wd = wd; p.ci = ci; p.words = (ci + 31) / 32; p.co = co;
-  p.fh = fh; p.fw = fw; p.stride = stride; p.pad = pad; p.ho = ho; p.wo = wo;
-  p.a_bits = a_bits; p.w_bits = w_bits; p.a_signed = a_signed;
-  p.w_signed = w_signed;
+  p.groups = (ci + 31) / 32;
+  p.wt.w = (const int32_t*)w;
+  p.wt.words = fh * fw * p.groups;
+  p.wt.cols = co;
+  p.wt.plan = dig::Plan{w_bits, w_signed, nd_w};
+  p.ap = dig::Plan{a_bits, a_signed, nd_a};
+  p.n = n; p.h = h; p.wd = wd; p.ci = ci; p.fw = fw;
+  p.stride = stride; p.pad = pad; p.ho = ho; p.wo = wo;
   p.e = epi::make(scale, bias, rs, out, relu, out_mode, rq_bits, qn, qp);
   const long long pixels = (long long)n * ho * wo;
-  if (pixels > 0 && co > 0) {
-    dim3 grid((unsigned int)((pixels + kWarpsPerBlock - 1) / kWarpsPerBlock),
-              (unsigned int)((co + 31) / 32));
-    bitserial_conv2d_kernel<<<grid, kWarpsPerBlock * 32, 0,
-                              (cudaStream_t)stream>>>(p);
-  }
+  if (pixels > 0 && co > 0)
+    dig::dispatch<Run>(p, p.ap, p.wt.plan, pixels, co, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }

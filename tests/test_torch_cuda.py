@@ -193,3 +193,60 @@ def test_gemm_kernels_reject_bad_inputs(dev):
         km.bitserial_matmul_cuda(torch.zeros((4, 9), dtype=torch.int32,
                                              device=dev), wp, ones,
                                  spec=spec, k=8)
+
+
+# ------------------------------- tile edges of the tensor-core designs (v2)
+
+_MODES = (("float", None), ("codes", QuantSpec(3, True)),
+          ("codes", QuantSpec(12, True)), ("packed", QuantSpec(2, False)))
+
+
+@pytest.mark.parametrize("sp", [(2, 2, True, True, 7), (8, 4, True, True, 8),
+                                (16, 16, True, True, 7)])
+@pytest.mark.parametrize("n,h,ci,co,stride", [
+    (1, 9, 33, 40, 2),      # batch 1, stride 2, Ci one word + 1 channel
+    (1, 5, 600, 70, 1),     # Ci = 600: 19 words per tap
+    (3, 5, 33, 100, 2),     # pixels and Co off the 32 x 8 NT tile
+    (2, 11, 70, 33, 1)])
+def test_conv_kernel_tile_edges(dev, sp, n, h, ci, co, stride):
+    spec = SerialSpec(*sp)
+    rng = np.random.default_rng(n * 1000 + h * 100 + ci + co + stride)
+    xc = _codes(rng, spec.a_bits, spec.a_signed, (n * h * h, ci), dev)
+    wc = _codes(rng, spec.w_bits, spec.w_signed, (9 * co, ci), dev)
+    xp = k1.pack_codes_ref(xc, spec.a_bits).reshape(
+        spec.a_bits, n, h, h, -1).contiguous()
+    wp = k1.pack_codes_ref(wc, spec.w_bits).reshape(
+        spec.w_bits, 3, 3, co, -1).permute(0, 1, 2, 4, 3).contiguous()
+    scale = torch.from_numpy((rng.random(co) * 1e-3).astype(np.float32)
+                             ).to(dev)
+    bias = torch.from_numpy(rng.standard_normal(co).astype(np.float32)).to(dev)
+    rs = torch.tensor(0.3, device=dev)
+    for out, rq in _MODES:
+        kw = dict(spec=spec, ci=ci, stride=stride, padding=1, relu=False,
+                  requant=rq, requant_scale=None if rq is None else rs,
+                  emit_packed=out == "packed")
+        before = k2.KERNEL.launches
+        got = k2.bitserial_conv2d_cuda(xp, wp, scale, bias, **kw)
+        assert k2.KERNEL.launches == before + 1
+        ref = k2.bitserial_conv2d_ref(xp, wp, scale, bias, **kw)
+        assert got.dtype == ref.dtype and torch.equal(got, ref), (out, rq)
+
+
+@pytest.mark.parametrize("sp", [(8, 4, True, True, 8), (2, 2, True, True, 1),
+                                (16, 16, True, True, 7),
+                                (8, 8, False, True, 7)])
+@pytest.mark.parametrize("m", [1, 4, 5, 17, 64])
+def test_gemm_v2_tile_edges(dev, sp, m):
+    from repro_torch.kernels import bitserial_matmul as km
+    spec = SerialSpec(*sp)
+    k, n = 100, 70
+    rng = np.random.default_rng(m * 31 + sp[0] * 3 + sp[1])
+    _, xp, wp, scale, bias = _gemm_operands(rng, spec, m, k, n, dev)
+    rs = torch.tensor(0.37, device=dev)
+    for out, rq in _MODES:
+        kw = dict(spec=spec, k=k, relu=False, requant=rq,
+                  requant_scale=None if rq is None else rs,
+                  emit_packed=out == "packed")
+        got = km.bitserial_matmul_v2_cuda(xp, wp, scale, bias, **kw)
+        ref = km.bitserial_matmul_v2_ref(xp, wp, scale, bias, **kw)
+        assert got.dtype == ref.dtype and torch.equal(got, ref), (out, rq)

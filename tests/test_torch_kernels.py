@@ -252,3 +252,25 @@ def test_gemm_packed_op_names_k3():
     ref = bitserial_matmul.bitserial_matmul_v2_ref(xp, wp, scale, spec=spec,
                                                    k=64)
     assert torch.equal(out, ref)
+
+
+def test_tensor_core_kernels_share_the_digit_header():
+    """K2 and K3 include csrc/digits.cuh, and the library name hashes it."""
+    header = _build.CSRC / "digits.cuh"
+    assert header.exists()
+    from repro_torch.kernels import bitserial_matmul
+    for kern in (bitserial_conv.KERNEL, bitserial_matmul.KERNEL):
+        assert '#include "digits.cuh"' in kern.source.read_text()
+    text = header.read_text()
+    assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32" in text
+    # the conv and GEMM entries take the digit counts after the signs
+    assert len(bitserial_conv.KERNEL.entries["bitserial_conv2d"]) == 29
+    assert len(bitserial_matmul.KERNEL.entries["bitserial_matmul_v2"]) == 21
+
+
+def test_tile_sweep_needs_the_card():
+    from repro_torch.kernels import tile_sweep
+    if torch.cuda.is_available():
+        pytest.skip("on the card the sweep builds and times the kernels")
+    assert tile_sweep.main([]) == 1
+    assert quantize_pack.KERNEL._lib is None

@@ -252,3 +252,49 @@ def test_gemm_cuda_wrappers_refuse_cpu_tensors():
                                  torch.ones(8), spec=spec, k=8)
     assert km.KERNEL.launches == before and km.KERNEL._lib is None
     assert km.KERNEL.library_path().name.startswith("bitserial_matmul-")
+
+
+# ------------------------------------------- the digit plan of K2 and K3
+
+@pytest.mark.parametrize("a_signed,w_signed", [(True, True), (False, True),
+                                               (True, False), (False, False)])
+@pytest.mark.parametrize("a_bits", range(1, 17))
+def test_digit_plan_folds_to_the_serial_product(a_bits, a_signed, w_signed):
+    """The plan the CUDA kernels expand the planes into (one signed int8
+    digit for a signed operand of <= 8 bits, else radix-7 digits), each
+    pair weighed 2^(7 (i + j)) and folded magnitude-major in wrapped int32,
+    is the bit-serial product modulo 2^32 for every width, sums that wrap
+    included."""
+    from repro_torch.core import bitops
+    from repro_torch.core.bitserial import (_digit_combine,
+                                            digits_from_planes,
+                                            serial_matmul_packed_acts)
+    for w_bits in range(1, 17):
+        spec = SerialSpec(a_bits, w_bits, a_signed, w_signed, 1)
+        rng = np.random.default_rng(a_bits * 64 + w_bits * 4 + 2 * a_signed
+                                    + w_signed)
+        m, k, n = 3, 70, 5
+        la, ha = qrange(a_bits, a_signed)
+        lw, hw = qrange(w_bits, w_signed)
+        x = torch.from_numpy(rng.integers(la, ha + 1, (m, k)).astype(np.int32))
+        w = torch.from_numpy(rng.integers(lw, hw + 1, (k, n)).astype(np.int32))
+        x[0] = la if a_signed else ha   # the extreme codes: with 16-bit
+        w[:, 0] = lw if w_signed else hw  # operands the sums wrap int32
+        xp = bitops.pack_bitplanes(bitops.pad_to(
+            bitops.to_bitplanes(x, a_bits), 32, axis=-1), axis=-1)
+        wp = bitops.pack_bitplanes(bitops.pad_to(
+            bitops.to_bitplanes(w, w_bits), 32, axis=1), axis=1)
+        ra, na = km.digit_plan(a_bits, a_signed)
+        rw, nw = km.digit_plan(w_bits, w_signed)
+        assert na == (1 if a_signed and a_bits <= 8 else -(-a_bits // 7))
+        xd = digits_from_planes(bitops.unpack_bitplanes(xp, k, axis=-1),
+                                a_bits, ra, a_signed)
+        wd = digits_from_planes(bitops.unpack_bitplanes(wp, k, axis=1),
+                                w_bits, rw, w_signed)
+        # a one-digit operand only has index 0: the shift is the other's
+        got = _digit_combine(xd, wd, 7 if max(na, nw) > 1 else 8)
+        ref = serial_matmul_packed_acts(xp, wp, spec=spec, k=k)
+        assert torch.equal(got, ref), (a_bits, w_bits, a_signed, w_signed)
+        exact = torch.from_numpy(x.numpy().astype(np.int64)
+                                 @ w.numpy().astype(np.int64))
+        assert torch.equal(got, bitops.wrap_int32(exact)), (a_bits, w_bits)
