@@ -26,7 +26,7 @@ Phases (any failure exits non-zero and prints no result):
 5. CNN times at batch 32: each kernel (``kernels/timing.py``'s ``Timer``:
    CUDA events around each launch, L2 flushed before each, every
    repetition queued behind a device sleep so that the host's enqueue gap
-   is not counted; the earlier per-launch timer beside it), its plain
+   is not counted), its plain
    version, the PyTorch library call that does the integer-accumulate part
    where there is one, and the least time the card could take; the
    forward's img/s and a profiler breakdown;
@@ -366,7 +366,6 @@ def main() -> int:
             bits = spec
         byt, ops, bound = k1_bound(r, l, bits, 4)
         rows.append({"kernel": "K1", "call": name, "ms": timer(fk, 50),
-                     "ms_per_launch": timer.per_launch(fk, 50),
                      "plain_ms": timer(fp, 10), "library_ms": None,
                      "bound_ms": bound, "bytes": byt, "ops": ops,
                      "bound_by": "bytes" if byt / HBM_BYTES_PER_S >=
@@ -389,7 +388,6 @@ def main() -> int:
         fk = lambda: k2.bitserial_conv2d_cuda(xp, wp, scale, bias, **kw)
         rows.append({
             "kernel": "K2", "call": name, "ms": timer(fk, 50),
-            "ms_per_launch": timer.per_launch(fk, 50),
             "plain_ms": timer(
                 lambda: k2.bitserial_conv2d_ref(xp, wp, scale, bias, **kw), 10),
             "library_ms": timer(lib, 50), "bound_ms": bound, "bytes": byt,
@@ -397,20 +395,18 @@ def main() -> int:
             ops / INT8_OPS_PER_S else "operations"})
     for r in rows:
         lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        log(f"  {r['kernel']} {r['call']:<22} kernel {r['ms']:.4f} "
-            f"(per-launch timer {r['ms_per_launch']:.4f})  plain "
+        log(f"  {r['kernel']} {r['call']:<22} kernel {r['ms']:.4f}  plain "
             f"{r['plain_ms']:.4f}  library {lib}  bound {r['bound_ms']:.5f} "
             f"({r['bound_by']})")
     record["calls"] = rows
     for kid in ("K1", "K2"):
         sums = {key: sum(r[key] for r in rows if r["kernel"] == kid)
-                for key in ("ms", "ms_per_launch", "bound_ms", "plain_ms")}
+                for key in ("ms", "bound_ms", "plain_ms")}
         lib = [r["library_ms"] for r in rows if r["kernel"] == kid]
         sums["library_ms"] = None if None in lib else sum(lib)
         record[f"{kid}_forward_sums"] = sums
-        log(f"  {kid} summed over one batch-{B} forward: {sums['ms']:.4f} ms "
-            f"(per-launch timer {sums['ms_per_launch']:.4f}), bound "
-            f"{sums['bound_ms']:.5f}, library {sums['library_ms']}, plain "
+        log(f"  {kid} summed over one batch-{B} forward: {sums['ms']:.4f} "
+            f"ms, bound {sums['bound_ms']:.5f}, library {sums['library_ms']}, plain "
             f"{sums['plain_ms']:.3f}")
 
     # the forward at batch 32: img/s on the host clock, device time by
@@ -689,7 +685,6 @@ def main() -> int:
                 lm_rows.append({
                     "kernel": kid, "m": m, "k": k, "n": n,
                     "ms": timer(call, 50),
-                    "ms_per_launch": timer.per_launch(call, 50),
                     "plain_ms": timer(lambda: fp(x, c["wp"], c["scale"], **kw),
                                       5),
                     "library_ms": lib_ms, "library": lib_name,
@@ -707,7 +702,6 @@ def main() -> int:
             lm_rows.append({
                 "kernel": "K1", "m": m, "k": k, "n": None,
                 "ms": timer(call, 50),
-                "ms_per_launch": timer.per_launch(call, 50),
                 "plain_ms": timer(lambda: k1.quantize_pack_ref(
                     xf, a, QuantSpec(8, True)), 10),
                 "library_ms": None, "bound_ms": bound, "bytes": byt,
@@ -715,8 +709,7 @@ def main() -> int:
     for r in lm_rows:
         lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"  {r['kernel']} M{r['m']} {r['k']}->{r['n']}: kernel "
-            f"{r['ms']:.4f} (per-launch timer {r['ms_per_launch']:.4f})  "
-            f"plain {r['plain_ms']:.4f}  library {lib}  bound "
+            f"{r['ms']:.4f}  plain {r['plain_ms']:.4f}  library {lib}  bound "
             f"{r['bound_ms']:.5f} ({r['bound_by']})")
     record["lm_calls"] = lm_rows
 
@@ -740,14 +733,12 @@ def main() -> int:
     for kid in ("K1", "K3", "K4"):
         for m, what in ((4, "decode step"), (64, "prefill")):
             sums = {key: lm_step(kid, key, m) for key in
-                    ("ms", "ms_per_launch", "bound_ms", "library_ms",
-                     "plain_ms")}
+                    ("ms", "bound_ms", "library_ms", "plain_ms")}
             record["lm_step_sums"][f"{kid} M{m}"] = sums
             lib = ("-" if sums["library_ms"] is None
                    else f"{sums['library_ms']:.4f}")
             log(f"  {kid} summed over one {what} (168 calls at M = {m}): "
-                f"{sums['ms']:.4f} ms (per-launch timer "
-                f"{sums['ms_per_launch']:.4f}), bound {sums['bound_ms']:.4f}, "
+                f"{sums['ms']:.4f} ms, bound {sums['bound_ms']:.4f}, "
                 f"library {lib}, plain {sums['plain_ms']:.3f}")
 
     # the step and the end-to-end numbers, host clock around synced work

@@ -24,6 +24,7 @@ __all__ = [
     "unpack_bitplanes",
     "to_digits",
     "num_digits",
+    "kernel_digits",
     "pad_to",
     "wrap_int32",
 ]
@@ -110,6 +111,16 @@ def num_digits(bits: int, radix_bits: int, signed: bool) -> int:
     if radix_bits > 8:
         raise ValueError("radix_bits must be <= 8")
     return max(1, -(-bits // radix_bits))
+
+
+def kernel_digits(bits: int, signed: bool) -> int:
+    """Number of int8 digit planes the tensor-core kernels (K2, K3;
+    ``kernels/csrc/digits.cuh``) expand a ``bits``-wide operand into: one
+    signed digit for a signed operand of at most 8 bits, else radix-7
+    digits with the top one signed. Chosen from ``(bits, signed)`` alone,
+    not from a spec's ``radix_bits``: the integer result does not depend on
+    it."""
+    return num_digits(bits, 8 if signed and bits <= 8 else 7, signed)
 
 
 def to_digits(x: torch.Tensor, bits: int, radix_bits: int,

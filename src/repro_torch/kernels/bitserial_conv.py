@@ -20,11 +20,11 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import bitops
 from repro_torch.core.bitserial import (SerialSpec, conv_out_hw,
                                         serial_conv2d_packed_acts)
 from repro_torch.core.quant import QuantSpec, qrange
 from repro_torch.kernels._build import I, Kernel, P
-from repro_torch.kernels.bitserial_matmul import digit_plan
 from repro_torch.kernels.epilogue import (CODES8, CODES32, FLOAT, PACKED,
                                           check_operand, codes_dtype,
                                           epilogue, per_channel,
@@ -118,8 +118,8 @@ def bitserial_conv2d_cuda(x_packed: torch.Tensor, w_packed: torch.Tensor,
         None if rs is None else rs.data_ptr(), out.data_ptr(),
         n, h, w_in, ci, co, fh, fw, stride, padding, ho, wo,
         spec.a_bits, spec.w_bits, int(spec.a_signed), int(spec.w_signed),
-        digit_plan(spec.a_bits, spec.a_signed)[1],
-        digit_plan(spec.w_bits, spec.w_signed)[1],
+        bitops.kernel_digits(spec.a_bits, spec.a_signed),
+        bitops.kernel_digits(spec.w_bits, spec.w_signed),
         int(relu), mode, rq_bits, qn, qp, stream)
     return out
 

@@ -41,25 +41,14 @@ from repro_torch.kernels.epilogue import (CODES8, CODES32, FLOAT, PACKED,
                                           epilogue, per_channel,
                                           requant_scale_tensor)
 
-__all__ = ["KERNEL", "digit_plan", "bitserial_matmul_v2",
-           "bitserial_matmul_v2_ref", "bitserial_matmul_v2_cuda",
-           "bitserial_matmul",
+__all__ = ["KERNEL", "bitserial_matmul_v2", "bitserial_matmul_v2_ref",
+           "bitserial_matmul_v2_cuda", "bitserial_matmul",
            "bitserial_matmul_ref", "bitserial_matmul_cuda"]
 
 KERNEL = Kernel("bitserial_matmul", {
     "bitserial_matmul_v2": (P,) * 6 + (I,) * 14 + (P,),
     "bitserial_matmul_v1": (P,) * 5 + (I,) * 12 + (P,),
 })
-
-
-def digit_plan(bits: int, signed: bool) -> tuple:
-    """``(radix_bits, n_digits)`` of the int8 digit planes K2 and K3 expand
-    an operand into (``csrc/digits.cuh``): a signed operand of at most 8
-    bits is one signed int8 digit, anything else radix-7 digits with the
-    top one signed. Chosen from ``(bits, signed)`` alone, not from
-    ``spec.radix_bits``: the integer result does not depend on it."""
-    radix = 8 if signed and bits <= 8 else 7
-    return radix, bitops.num_digits(bits, radix, signed)
 
 
 def _k_words(k: int) -> int:
@@ -163,8 +152,8 @@ def bitserial_matmul_v2_cuda(x_packed: torch.Tensor, w_packed: torch.Tensor,
         scale.data_ptr(), None if bias is None else bias.data_ptr(),
         None if rs is None else rs.data_ptr(), out.data_ptr(), m, k, n,
         spec.a_bits, spec.w_bits, int(spec.a_signed), int(spec.w_signed),
-        digit_plan(spec.a_bits, spec.a_signed)[1],
-        digit_plan(spec.w_bits, spec.w_signed)[1],
+        bitops.kernel_digits(spec.a_bits, spec.a_signed),
+        bitops.kernel_digits(spec.w_bits, spec.w_signed),
         int(relu), mode, rq_bits, qn, qp, stream)
     return out
 

@@ -35,6 +35,10 @@
 // block's warps so that the small late layers (32 to 512 output pixels)
 // still put hundreds of warps in flight; 4-row-tile blocks are held to 4
 // warps and 128 registers so that four fit on an SM.
+// Not done yet (ROADMAP queue 2): operand words go from global memory
+// straight to registers, a scalar __ldg that the four lanes of a fragment
+// row issue at one address, with no cp.async staging in shared memory; each
+// warp expands its words itself.
 // Numerics: the epilogue (epilogue.cuh, shared with the packed GEMMs) is
 // the single-rounding fmaf the reference's XLA epilogue contracts to, the
 // IEEE divide and rintf's round half to even.
@@ -148,7 +152,7 @@ struct Run {
 
 }  // namespace
 
-// nd_a and nd_w are the operands' digit counts (digit_plan in the wrapper).
+// nd_a and nd_w are the operands' digit counts (bitops.kernel_digits).
 extern "C" int bitserial_conv2d(const void* x, const void* w, const void* scale,
                                 const void* bias, const void* rs, void* out,
                                 int n, int h, int wd, int ci, int co, int fh,

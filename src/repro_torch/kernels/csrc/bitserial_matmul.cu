@@ -28,6 +28,10 @@
 // those round trips (N = 2048 gives only 64 blocks, half the SMs); at
 // prefill, the same plus the activation expansion, which every column
 // block repeats.
+// Not done yet (ROADMAP queue 2): 16-byte vector weight loads (each word is
+// a scalar __ldg that the four lanes of a fragment row issue at one
+// address), activation planes staged once in shared memory, and m16
+// activation row tiles at prefill (it runs the same swapped n8 tile).
 // K4 (design v1, unchanged): a block of kSplitK warps owns 32 consecutive
 // output columns of one row m; lane t reads code x[m, 32g + t] (coalesced),
 // masks it to a_bits and makes each activation plane with one
@@ -142,7 +146,7 @@ struct RunV2 {
 }  // namespace
 
 // K3: packed activations (a_bits, M, ceil(K/32)) x packed weights; nd_a and
-// nd_w are the operands' digit counts (digit_plan in the wrapper).
+// nd_w are the operands' digit counts (bitops.kernel_digits).
 extern "C" int bitserial_matmul_v2(const void* x, const void* w,
                                    const void* scale, const void* bias,
                                    const void* rs, void* out, int m, int k,

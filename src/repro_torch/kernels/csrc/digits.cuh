@@ -10,7 +10,7 @@
 // Here each digit pair is one mma.sync.m16n8k32.s8.s8.s32 per K word:
 //
 // * Digit plan (chosen by the wrapper from (bits, signed) alone,
-//   kernels/bitserial_matmul.py::digit_plan): a signed operand of <= 8 bits
+//   core/bitops.py::kernel_digits): a signed operand of <= 8 bits
 //   is one signed int8 digit; anything else is radix-7 digits, the top one
 //   carrying the sign. Digit d of a pair (i, j) weighs 2^(7 (i + j)); a
 //   one-digit operand only has index 0, so its radix never shows.
@@ -34,7 +34,7 @@
 //   rows the B operand (n8: 8 rows), so at decode (M = 4) one read of each
 //   weight word serves every row. A block owns 32 columns x 8 NT rows
 //   (NT = 4, 2 or 1: the most that leaves about two blocks per SM) and
-//   splits the K words over its warps, about DIG_WORDS_PER_WARP each (word
+//   splits the K words over its warps, about kWordsPerWarp each (word
 //   kw goes to warp kw % warps); each warp runs 2 x NT mma tiles per digit
 //   pair and word. Every load of a word is issued before its first use.
 //   The main paths' operands (W2A2, W4A8) get instantiations whose plane
@@ -65,23 +65,13 @@ constexpr int kRowStride = 36;     // uint32 words per staged tile row
 constexpr int kMaxBits = 16;       // the MVU's operand range
 constexpr uint32_t kBytes = 0x01010101u;
 
-// Tile knobs, fixed when compiling; kernels/tile_sweep.py times other
-// values (-D overrides) against these at the main paths' shapes.
-#ifndef DIG_WARPS_NT4       // K-split warps of a 4-row-tile block, at most
-#define DIG_WARPS_NT4 4
-#endif
-#ifndef DIG_MINB_NT4        // its blocks per SM (launch bound: registers)
-#define DIG_MINB_NT4 4
-#endif
-#ifndef DIG_WORDS_PER_WARP  // K words per warp the split aims at
-#define DIG_WORDS_PER_WARP 4
-#endif
-#ifndef DIG_MAX_NT          // row tiles per block, at most (1, 2 or 4)
-#define DIG_MAX_NT 4
-#endif
-#ifndef DIG_BLOCKS          // blocks a shape should give before NT shrinks
-#define DIG_BLOCKS 264
-#endif
+// Tile sizes (chosen on an H100 at ResNet9's and stablelm-1.6b's shapes;
+// PERF.md gives the sweep).
+constexpr int kWarpsNT4 = 4;      // K-split warps of a 4-row-tile block, most
+constexpr int kMinBlocksNT4 = 4;  // its blocks per SM (launch bound)
+constexpr int kWordsPerWarp = 4;  // K words per warp the split aims at
+constexpr int kMaxNT = 4;         // row tiles per block, at most (1, 2 or 4)
+constexpr int kBlocks = 264;      // blocks a shape should give before NT halves
 
 // One operand's digit plan: `bits` planes, the MSB weighing negative when
 // `sign`, split into `nd` digits (1: one int8 digit; else radix 7).
@@ -301,30 +291,30 @@ struct Dense {
 
 // The most K-split warps a block of an instantiation takes (its launch
 // bound): 32 at one row tile of fixed planes (few registers), 16 at two,
-// DIG_WARPS_NT4 at four, 8 for Any (many registers).
+// kWarpsNT4 at four, 8 for Any (many registers).
 template <class OpA, class OpW, int NT>
 __host__ __device__ constexpr int max_warps() {
   return !(OpA::kFixed && OpW::kFixed) ? 8
-         : (NT == 1 ? 32 : (NT == 2 ? 16 : DIG_WARPS_NT4));
+         : (NT == 1 ? 32 : (NT == 2 ? 16 : kWarpsNT4));
 }
 template <class OpA, class OpW, int NT>
 __host__ __device__ constexpr int min_blocks() {
-  return NT == 4 ? DIG_MINB_NT4 : 1;
+  return NT == 4 ? kMinBlocksNT4 : 1;
 }
 
-// Warps per block: enough to split the K words DIG_WORDS_PER_WARP to a warp.
+// Warps per block: enough to split the K words kWordsPerWarp to a warp.
 inline int warps_for(int words, int most) {
-  const int w = (words + DIG_WORDS_PER_WARP - 1) / DIG_WORDS_PER_WARP;
+  const int w = (words + kWordsPerWarp - 1) / kWordsPerWarp;
   return w < 1 ? 1 : (w > most ? most : w);
 }
 
-// Rows per block (8 NT): the most that still leaves DIG_BLOCKS blocks (two
+// Rows per block (8 NT): the most that still leaves kBlocks blocks (two
 // per SM of the H100's 132), never more rows than there are.
 inline int nt_for(long long rows, int cols) {
   const long long col_blocks = (cols + 31) / 32;
-  int nt = DIG_MAX_NT;
+  int nt = kMaxNT;
   while (nt > 1 && (8LL * nt / 2 >= rows ||
-                    col_blocks * ((rows + 8 * nt - 1) / (8 * nt)) < DIG_BLOCKS))
+                    col_blocks * ((rows + 8 * nt - 1) / (8 * nt)) < kBlocks))
     nt /= 2;
   return nt;
 }

@@ -1,7 +1,6 @@
 """Device time of one kernel call on the card, from CUDA events.
 
-Used by ``chip_smoke.py`` and ``kernels/tile_sweep.py``; needs a CUDA
-device.
+Used by ``chip_smoke.py``; needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -21,10 +20,7 @@ class Timer:
     All repetitions are enqueued behind a ``torch.cuda._sleep`` long enough
     for the host to run ahead of the device, so the events never count the
     device waiting for the host to enqueue the next call (which, for calls
-    of a few µs, a slow host otherwise adds). :meth:`per_launch` is the
-    earlier yardstick, the same without the sleep: there the device can
-    catch up with the host after the flush, and the events then count the
-    host's enqueue of the call."""
+    of a few µs, a slow host otherwise adds)."""
 
     CYCLES_PER_S = 2.0e9   # at least the H100's SM clock (1.98 GHz boost)
 
@@ -32,11 +28,16 @@ class Timer:
         self.flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32,
                                  device=device)
 
-    def _events(self, fn, reps, sleep_s):
+    def __call__(self, fn, reps):
         fn()
         torch.cuda.synchronize()
-        if sleep_s:
-            torch.cuda._sleep(int(sleep_s * self.CYCLES_PER_S))
+        t0 = time.perf_counter()
+        self.flush.zero_()
+        fn()
+        host_s = time.perf_counter() - t0   # the host's enqueue of one rep
+        torch.cuda.synchronize()
+        sleep_s = min(1.0, 2 * reps * host_s + 1e-3)
+        torch.cuda._sleep(int(sleep_s * self.CYCLES_PER_S))
         events = []
         for _ in range(reps):
             self.flush.zero_()
@@ -48,15 +49,3 @@ class Timer:
             events.append((s, e))
         torch.cuda.synchronize()
         return statistics.median(s.elapsed_time(e) for s, e in events)
-
-    def __call__(self, fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        self.flush.zero_()
-        fn()
-        host_s = time.perf_counter() - t0   # the host's enqueue of one rep
-        return self._events(fn, reps, min(1.0, 2 * reps * host_s + 1e-3))
-
-    def per_launch(self, fn, reps):
-        return self._events(fn, reps, 0)

@@ -113,6 +113,24 @@ def test_digits_match(bits, signed, radix):
                                           radix, signed)))
 
 
+@pytest.mark.parametrize("bits,signed", [(1, False), (2, True), (4, True),
+                                         (8, True), (8, False), (9, True),
+                                         (16, True), (16, False)])
+def test_kernel_digits_round_trip(bits, signed):
+    """The tensor-core kernels' digit count: one signed int8 digit for a
+    signed operand of <= 8 bits, else radix-7 digits; the reference's
+    digits at that radix rebuild the operand."""
+    radix = 8 if signed and bits <= 8 else 7
+    n = tb.kernel_digits(bits, signed)
+    assert n == (1 if signed and bits <= 8 else -(-bits // 7))
+    assert n == jb.num_digits(bits, radix, signed)
+    x = _ints(np.random.default_rng(bits), bits, signed, (64,))
+    td = tb.to_digits(_t(x), bits, radix, signed)
+    assert td.shape[0] == n
+    np.testing.assert_array_equal(
+        jb.from_digits(jnp.asarray(td.numpy()), bits, radix, signed), x)
+
+
 def test_wrap_int32():
     v = torch.tensor([0, (1 << 31) - 1, 1 << 31, (1 << 32) + 5, -(1 << 31) - 1],
                      dtype=torch.int64)

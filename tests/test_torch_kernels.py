@@ -266,11 +266,3 @@ def test_tensor_core_kernels_share_the_digit_header():
     # the conv and GEMM entries take the digit counts after the signs
     assert len(bitserial_conv.KERNEL.entries["bitserial_conv2d"]) == 29
     assert len(bitserial_matmul.KERNEL.entries["bitserial_matmul_v2"]) == 21
-
-
-def test_tile_sweep_needs_the_card():
-    from repro_torch.kernels import tile_sweep
-    if torch.cuda.is_available():
-        pytest.skip("on the card the sweep builds and times the kernels")
-    assert tile_sweep.main([]) == 1
-    assert quantize_pack.KERNEL._lib is None

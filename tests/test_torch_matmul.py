@@ -284,9 +284,12 @@ def test_digit_plan_folds_to_the_serial_product(a_bits, a_signed, w_signed):
             bitops.to_bitplanes(x, a_bits), 32, axis=-1), axis=-1)
         wp = bitops.pack_bitplanes(bitops.pad_to(
             bitops.to_bitplanes(w, w_bits), 32, axis=1), axis=1)
-        ra, na = km.digit_plan(a_bits, a_signed)
-        rw, nw = km.digit_plan(w_bits, w_signed)
+        na = bitops.kernel_digits(a_bits, a_signed)
+        nw = bitops.kernel_digits(w_bits, w_signed)
         assert na == (1 if a_signed and a_bits <= 8 else -(-a_bits // 7))
+        assert nw == (1 if w_signed and w_bits <= 8 else -(-w_bits // 7))
+        ra = 8 if na == 1 and a_signed else 7   # one signed digit: radix 8
+        rw = 8 if nw == 1 and w_signed else 7
         xd = digits_from_planes(bitops.unpack_bitplanes(xp, k, axis=-1),
                                 a_bits, ra, a_signed)
         wd = digits_from_planes(bitops.unpack_bitplanes(wp, k, axis=1),
