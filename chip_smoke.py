@@ -34,9 +34,9 @@ Phases (any failure exits non-zero and prints no result):
    plain versions, ``torch.equal``: stablelm-1.6b's three GEMM shapes at
    M = 4 (decode) and 64 (prefill), W4A8; codes and packed outputs;
    ragged M/K/N; radix 1; W8A8 with unsigned activations; W16A16 whose
-   sums wrap int32; K4's requant at 8 and 12 bits; K3 at the edges of its
-   tiles (M = 1, 4, 5, 17, 64 against N = 70, K = 100 at W4A8, radix 1,
-   W16A16 and unsigned W8A8);
+   sums wrap int32; K4's requant at 8 and 12 bits; both at the edges of
+   their shared tensor-core tile (M = 1, 4, 5, 17, 64 against N = 70,
+   K = 100 at W4A8, radix 1, W16A16 and unsigned W8A8);
 8. the LM slice: ``Server`` on full-width stablelm-1.6b (24 layers, bf16,
    W4A8, random weights from seed 0) answers four requests (prompts of 5,
    8, 11 and 16 tokens, 16 new tokens each) with counts reset just before
@@ -52,9 +52,10 @@ Phases (any failure exits non-zero and prints no result):
 10. LM times: K1, K3 and K4 at each stablelm shape (kernel, plain, bound
     and the library call for the same integer product: ``torch._int_mm``
     where its shape rules allow, else an fp16 matmul of the codes) and
-    their sums over one decode step (M = 4) and one prefill (M = 64), the
-    prefill, a decode step and ``generate``'s tokens/s at batch 4, and a
-    profiler breakdown of one decode step.
+    their sums over one decode step (M = 4) and one prefill (M = 64); K1
+    at (1, 32), one warp's work, its fixed cost; for each LM path (K1 + K3
+    and K4) the prefill, a decode step and ``generate``'s tokens/s at
+    batch 4, and a profiler breakdown of one decode step.
 
 The ``kernels`` JSON line gives, per kernel, its launches on the main
 paths and its times summed over one ResNet9 batch-32 forward plus one LM
@@ -503,8 +504,9 @@ def main() -> int:
         ("W16A16 (int32 wrap)", gemm_case(SerialSpec(16, 16, True, True, 7),
                                           3, 700, 64),
          [("float", None)] + rq_modes, [("float", None)] + k4_rq)]
-    # the edges of K3's tensor-core tiles: M = 1..64 rows against 8 NT-row
-    # tiles, N = 70 and K = 100 off the 32-column tile and the K word
+    # the edges of the tensor-core tile K3 and K4 share: M = 1..64 rows
+    # against 8 NT-row tiles, N = 70 and K = 100 off the 32-column tile and
+    # the K word
     for m in (1, 4, 5, 17, 64):
         for spec, tag in ((w4a8, "W4A8"), (SerialSpec(2, 2, True, True, 1),
                                            "W2A2 radix 1"),
@@ -512,7 +514,8 @@ def main() -> int:
                           (SerialSpec(8, 8, False, True, 7), "W8A8 unsigned")):
             gemm_cases.append((f"edge M{m} 100->70 {tag}",
                                gemm_case(spec, m, 100, 70, scale_mul=40),
-                               [("float", None)] + rq_modes, []))
+                               [("float", None)] + rq_modes,
+                               [("float", None)] + k4_rq))
     for name, c, k3_modes, k4_modes in gemm_cases:
         for out, rq in k3_modes:
             kw = dict(spec=c["spec"], k=c["k"], relu=rq is not None,
@@ -693,19 +696,21 @@ def main() -> int:
                     "bytes": byt, "ops": ops,
                     "bound_by": "bytes" if byt / HBM_BYTES_PER_S >=
                     ops / INT8_OPS_PER_S else "operations"})
-    for k in sorted({k for k, _ in STABLELM_GEMMS}):
-        for m in (4, 4 * 16):   # K1 at the LM's activation shapes
-            xf = cuda(rng.standard_normal((m, k)).astype(np.float32))
-            a = torch.tensor(0.177, device=dev)
-            byt, ops, bound = k1_bound(m, k, 8, 4)
-            call = lambda: k1.quantize_pack_cuda(xf, a, QuantSpec(8, True))
-            lm_rows.append({
-                "kernel": "K1", "m": m, "k": k, "n": None,
-                "ms": timer(call, 50),
-                "plain_ms": timer(lambda: k1.quantize_pack_ref(
-                    xf, a, QuantSpec(8, True)), 10),
-                "library_ms": None, "bound_ms": bound, "bytes": byt,
-                "ops": ops, "bound_by": "bytes"})
+    # K1 at the LM's activation shapes, and at (1, 32), one warp's work:
+    # what any K1 call costs whatever its size
+    for m, k in [(m, k) for k in sorted({k for k, _ in STABLELM_GEMMS})
+                 for m in (4, 4 * 16)] + [(1, 32)]:
+        xf = cuda(rng.standard_normal((m, k)).astype(np.float32))
+        a = torch.tensor(0.177, device=dev)
+        byt, ops, bound = k1_bound(m, k, 8, 4)
+        call = lambda: k1.quantize_pack_cuda(xf, a, QuantSpec(8, True))
+        lm_rows.append({
+            "kernel": "K1", "m": m, "k": k, "n": None,
+            "ms": timer(call, 50),
+            "plain_ms": timer(lambda: k1.quantize_pack_ref(
+                xf, a, QuantSpec(8, True)), 10),
+            "library_ms": None, "bound_ms": bound, "bytes": byt,
+            "ops": ops, "bound_by": "bytes"})
     for r in lm_rows:
         lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"  {r['kernel']} M{r['m']} {r['k']}->{r['n']}: kernel "
@@ -741,64 +746,73 @@ def main() -> int:
                 f"{sums['ms']:.4f} ms, bound {sums['bound_ms']:.4f}, "
                 f"library {lib}, plain {sums['plain_ms']:.3f}")
 
-    # the step and the end-to-end numbers, host clock around synced work
-    with torch.inference_mode():
-        toks_in = np.zeros((4, max(LM_PROMPTS)), np.int64)
-        for i, pr in enumerate(prompts):
-            toks_in[i, -len(pr):] = pr
-        batch = {"tokens": torch.from_numpy(toks_in).to(dev)}
+    # the step and the end-to-end numbers of each LM path (K1 + K3, and K4
+    # with pack_acts=False), host clock around synced work
+    toks_in = np.zeros((4, max(LM_PROMPTS)), np.int64)
+    for i, pr in enumerate(prompts):
+        toks_in[i, -len(pr):] = pr
+    batch = {"tokens": torch.from_numpy(toks_in).to(dev)}
 
-        def walls(fn, reps):
-            out = []
-            for _ in range(reps):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                out.append(time.perf_counter() - t0)
-            return statistics.median(out) * 1e3
-
-        record["lm_prefill_ms"] = walls(lambda: transformer.prefill(
-            lm.params, batch, lm.cfg, max_len=LM_MAX_LEN), 5)
-        lg, caches = transformer.prefill(lm.params, batch, lm.cfg,
-                                         max_len=LM_MAX_LEN)
-        tok = torch.argmax(lg, -1)[:, None]
-        pos = iter(range(max(LM_PROMPTS), LM_MAX_LEN))
-        record["lm_decode_step_ms"] = walls(lambda: transformer.decode_step(
-            lm.params, caches, tok, next(pos), lm.cfg), 15)
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            transformer.decode_step(lm.params, caches, tok, next(pos), lm.cfg)
+    def walls(fn, reps):
+        out = []
+        for _ in range(reps):
             torch.cuda.synchronize()
-            prof_wall = time.perf_counter() - t0
-    gen_walls = []
-    for _ in range(2):
-        t0 = time.perf_counter()
-        lm.generate(lm_requests())
-        gen_walls.append(time.perf_counter() - t0)
-    record["lm_generate_s"] = min(gen_walls)
-    record["lm_tok_per_s"] = 4 * LM_NEW / record["lm_generate_s"]
-    by_name = {}
-    for evt in prof.key_averages():
-        dt = (getattr(evt, "self_device_time_total", None)
-              or getattr(evt, "self_cuda_time_total", 0) or 0)
-        if dt > 0:
-            by_name[evt.key] = by_name.get(evt.key, 0.0) + dt / 1e3
-    busy = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    record["lm_profile_decode_step"] = {
-        "wall_ms": prof_wall * 1e3, "device_ms": busy, "by_name_ms": dict(top)}
-    log(f"LM batch 4: prefill ({max(LM_PROMPTS)} tokens) "
-        f"{record['lm_prefill_ms']:.3f} ms, decode step "
-        f"{record['lm_decode_step_ms']:.3f} ms, generate({LM_NEW} new) "
-        f"{record['lm_generate_s'] * 1e3:.1f} ms = "
-        f"{record['lm_tok_per_s']:.1f} tok/s")
-    log(f"profile of one decode step: wall {prof_wall * 1e3:.3f} ms, device "
-        f"busy {busy:.3f} ms")
-    for k, v in top:
-        log(f"  {v:9.4f} ms  {k[:90]}")
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+        return statistics.median(out) * 1e3
+
+    def lm_path_times(server, tag):
+        """Prefill, decode step (median), generate's tokens/s (best of 2)
+        and a profiler breakdown of one decode step, into record."""
+        with torch.inference_mode():
+            record[f"{tag}_prefill_ms"] = walls(lambda: transformer.prefill(
+                server.params, batch, server.cfg, max_len=LM_MAX_LEN), 5)
+            lg, caches = transformer.prefill(server.params, batch, server.cfg,
+                                             max_len=LM_MAX_LEN)
+            tok = torch.argmax(lg, -1)[:, None]
+            pos = iter(range(max(LM_PROMPTS), LM_MAX_LEN))
+            record[f"{tag}_decode_step_ms"] = walls(
+                lambda: transformer.decode_step(server.params, caches, tok,
+                                                next(pos), server.cfg), 15)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                transformer.decode_step(server.params, caches, tok, next(pos),
+                                        server.cfg)
+                torch.cuda.synchronize()
+                prof_wall = time.perf_counter() - t0
+        gen_walls = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            server.generate(lm_requests())
+            gen_walls.append(time.perf_counter() - t0)
+        record[f"{tag}_generate_s"] = min(gen_walls)
+        record[f"{tag}_tok_per_s"] = 4 * LM_NEW / record[f"{tag}_generate_s"]
+        by_name = {}
+        for evt in prof.key_averages():
+            dt = (getattr(evt, "self_device_time_total", None)
+                  or getattr(evt, "self_cuda_time_total", 0) or 0)
+            if dt > 0:
+                by_name[evt.key] = by_name.get(evt.key, 0.0) + dt / 1e3
+        busy = sum(by_name.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+        record[f"{tag}_profile_decode_step"] = {
+            "wall_ms": prof_wall * 1e3, "device_ms": busy,
+            "by_name_ms": dict(top)}
+        log(f"{tag} batch 4: prefill ({max(LM_PROMPTS)} tokens) "
+            f"{record[f'{tag}_prefill_ms']:.3f} ms, decode step "
+            f"{record[f'{tag}_decode_step_ms']:.3f} ms, generate({LM_NEW} "
+            f"new) {record[f'{tag}_generate_s'] * 1e3:.1f} ms = "
+            f"{record[f'{tag}_tok_per_s']:.1f} tok/s")
+        log(f"  profile of one decode step: wall {prof_wall * 1e3:.3f} ms, "
+            f"device busy {busy:.3f} ms")
+        for k, v in top:
+            log(f"  {v:9.4f} ms  {k[:90]}")
+
+    lm_path_times(lm, "lm")       # K1 + K3 (pack_acts, the default)
+    lm_path_times(k4_lm, "lm_k4")  # K4 (pack_acts=False)
 
     def total(kid, key):
         vals = [r[key] for r in rows if r["kernel"] == kid]

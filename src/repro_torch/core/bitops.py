@@ -114,8 +114,8 @@ def num_digits(bits: int, radix_bits: int, signed: bool) -> int:
 
 
 def kernel_digits(bits: int, signed: bool) -> int:
-    """Number of int8 digit planes the tensor-core kernels (K2, K3;
-    ``kernels/csrc/digits.cuh``) expand a ``bits``-wide operand into: one
+    """Number of int8 digit planes the tensor-core kernels (K2, K3, K4;
+    ``kernels/csrc/digits.cuh``) split a ``bits``-wide operand into: one
     signed digit for a signed operand of at most 8 bits, else radix-7
     digits with the top one signed. Chosen from ``(bits, signed)`` alone,
     not from a spec's ``radix_bits``: the integer result does not depend on

@@ -2,22 +2,27 @@
 fused scaler → bias → ReLU → requant (→ pack) epilogue.
 
 Counterpart of ``repro/kernels/bitserial_matmul.py``. One CUDA source
-(``csrc/bitserial_matmul.cu``) holds both kernels:
+(``csrc/bitserial_matmul.cu``) holds both kernels, one int8 tensor-core
+tile (``csrc/digits.cuh``, shared with K2) fed by two activation sources:
 
 * K3 replaces ``bitserial_matmul_v2_pallas``: packed activations
   ``(a_bits, M, ceil(K/32))`` × packed weights ``(w_bits, ceil(K/32), N)``
   → float32 ``(M, N)``, codes ``clip(round(out / rs))`` (int8 for
   ``requant.bits <= 8``, else int32), or, with ``emit_packed``, the codes'
-  planes ``(requant.bits, M, ceil(N/32))`` — the next layer's input.
+  planes ``(requant.bits, M, ceil(N/32))`` — the next layer's input. The
+  kernel expands the activation planes into int8 digits in registers.
   Plain version :func:`bitserial_matmul_v2_ref` (the reference's XLA
   oracle ``serial_matmul_packed_acts`` + ``_epilogue_xla``).
-* K4 replaces ``bitserial_matmul_pallas``: integer codes ``(M, K)`` ×
-  the same packed weights. ``scale`` folds any requant step, so requant
-  is ``clip(round(out))`` with no divide; its codes are int8 when
-  ``requant.bits <= 8`` and otherwise ``out_dtype`` (the reference
-  kernel's output type, ``bitserial_matmul.py:218``). A float output is
-  float32 cast once to ``out_dtype``. Plain version
-  :func:`bitserial_matmul_ref`.
+* K4 replaces ``bitserial_matmul_pallas``: int32 codes ``(M, K)`` × the
+  same packed weights. The kernel reads each code straight into an int8
+  digit (masked to ``a_bits`` and sign-extended as the reference does; at
+  A8 the code's low byte), with no planes packed. ``scale`` folds any
+  requant step, so requant is ``clip(round(out))`` with no divide; its
+  codes are int8 when ``requant.bits <= 8`` and otherwise ``out_dtype``
+  (the reference kernel's output type, ``bitserial_matmul.py:218``). A
+  float output is float32 cast once to ``out_dtype``. Plain version
+  :func:`bitserial_matmul_ref`. Its C entry keeps the name
+  ``bitserial_matmul_v1``, under which its launches are counted.
 
 :func:`bitserial_matmul_v2` and :func:`bitserial_matmul` dispatch on the
 tensor's device: the plain version for a CPU tensor, the kernel for a CUDA
@@ -47,7 +52,7 @@ __all__ = ["KERNEL", "bitserial_matmul_v2", "bitserial_matmul_v2_ref",
 
 KERNEL = Kernel("bitserial_matmul", {
     "bitserial_matmul_v2": (P,) * 6 + (I,) * 14 + (P,),
-    "bitserial_matmul_v1": (P,) * 5 + (I,) * 12 + (P,),
+    "bitserial_matmul_v1": (P,) * 5 + (I,) * 14 + (P,),
 })
 
 
@@ -189,8 +194,10 @@ def bitserial_matmul_cuda(x: torch.Tensor, w_packed: torch.Tensor,
         "bitserial_matmul_v1", x.data_ptr(), w_packed.data_ptr(),
         scale.data_ptr(), None if bias is None else bias.data_ptr(),
         out.data_ptr(), m, k, n, spec.a_bits, spec.w_bits,
-        int(spec.a_signed), int(spec.w_signed), int(relu), mode, rq_bits,
-        qn, qp, stream)
+        int(spec.a_signed), int(spec.w_signed),
+        bitops.kernel_digits(spec.a_bits, spec.a_signed),
+        bitops.kernel_digits(spec.w_bits, spec.w_signed),
+        int(relu), mode, rq_bits, qn, qp, stream)
     if requant is not None and requant.bits <= 8:
         return out
     return out.to(out_dtype)

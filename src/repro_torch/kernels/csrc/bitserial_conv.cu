@@ -63,7 +63,7 @@ struct ConvArgs {
 // Word kw is tap (r, s) = divmod(kw / G, FW) and channel word gi = kw % G;
 // step() moves (r, s, gi) on from the previous word without dividing.
 template <int NT>
-struct ConvSrc {
+struct ConvSrc : dig::PlaneSrc<ConvSrc<NT>> {
   const int32_t* x;
   long long plane;
   long long pix[NT];  // word offset of input (ih0, iw0) of the pixel's image

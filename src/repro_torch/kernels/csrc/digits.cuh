@@ -1,13 +1,15 @@
-// Int8 tensor-core tiles over digit planes, shared by the packed conv (K2)
-// and the packed GEMM (K3).
+// Int8 tensor-core tiles over digits, shared by the packed conv (K2), the
+// packed GEMM (K3) and the code GEMM (K4).
 //
-// Both compute acc[row, col] = sum_k a[row, k] * w[k, col] (mod 2^32) from
-// bit planes packed 32 K values to a word: activation words (a_bits, rows,
-// ...) and weight words (w_bits, W, cols), W the number of K words. The
-// reference's TPU kernels turn the planes into int8 digit planes
-// (digits_from_planes) and issue one int8 MXU product per digit pair,
-// Horner-combined in int32 (_digit_matmul_acc, bitserial_matmul.py:277).
-// Here each digit pair is one mma.sync.m16n8k32.s8.s8.s32 per K word:
+// All three compute acc[row, col] = sum_k a[row, k] * w[k, col] (mod 2^32)
+// from weight bit planes packed 32 K values to a word, (w_bits, W, cols),
+// W the number of K words. The activations come from a source: bit-plane
+// words (a_bits, rows, ...) for K2 and K3, int32 codes (rows, K) for K4.
+// The reference's TPU kernels turn both operands into int8 digit planes
+// (digits_from_planes, _act_operands) and issue one int8 MXU product per
+// digit pair, Horner-combined in int32 (_digit_matmul_acc,
+// bitserial_matmul.py:277). Here each digit pair is one
+// mma.sync.m16n8k32.s8.s8.s32 per K word:
 //
 // * Digit plan (chosen by the wrapper from (bits, signed) alone,
 //   core/bitops.py::kernel_digits): a signed operand of <= 8 bits
@@ -23,6 +25,14 @@
 //   the plane's place in its digit; the MSB plane of a signed digit adds
 //   its sign extension (0xff << q) & 0xff per set byte. About one integer
 //   op per value and plane, with no table and no loop over bits.
+// * Digits from codes (K4). The same K order read from (rows, K) codes:
+//   lane (g, t) takes codes 32 kw + t + 4j, j = 0..7, of its row; byte b of
+//   chunk t is code 8b + t and of chunk t + 4 code 8b + t + 4. A code is
+//   masked to a_bits and sign-extended when signed (_act_operands), giving
+//   v; its digits are v's low byte (one digit) or radix 7,
+//   (v >> 7j) & 0x7f and the top one v >> 7 (nd - 1) with the sign. For
+//   the LM's A8 the digit is the code's low byte: a byte permute per four
+//   codes. No planes are packed or expanded.
 // * Accumulation. One s32 mma sum per digit-pair magnitude, folded with its
 //   shift into a uint32 tile in shared memory every kFoldWords K words and
 //   at the end. A digit product is at most 2^14 in magnitude and a
@@ -36,9 +46,11 @@
 //   (NT = 4, 2 or 1: the most that leaves about two blocks per SM) and
 //   splits the K words over its warps, about kWordsPerWarp each (word
 //   kw goes to warp kw % warps); each warp runs 2 x NT mma tiles per digit
-//   pair and word. Every load of a word is issued before its first use.
-//   The main paths' operands (W2A2, W4A8) get instantiations whose plane
-//   count and sign are compile-time (Fixed); any other plan runs Any.
+//   pair and word. Every load of a word is issued before its first use:
+//   the weights' and the source's load steps issue them all, and only then
+//   are digits built. The main paths' operands (W2A2, W4A8) get
+//   instantiations whose plane count and sign are compile-time (Fixed); any
+//   other plan runs Any.
 // * Epilogue. The uint32 tile is staged in shared memory (row stride 36
 //   words: the fragments' atomics hit distinct banks), then warp w runs
 //   epi::store for rows w, w + warps, ...: one warp holds 32 consecutive
@@ -162,10 +174,15 @@ struct Weights {
 // acc (uint32, modulo 2^32) of the block's 32 columns x 8 NT rows, then the
 // fused epilogue. The activation source `Src` is stepped through this
 // warp's K words in order (kw = warp, warp + warps, ...) and provides:
-//   long long plane;                          // activation plane stride
-//   void step(int kw);                        // move to K word kw
-//   bool live() const;                        // any of this lane's rows real
-//   uint32_t word(int nt, const int32_t** p) const;  // mask, 0 = none
+//   void step(int kw);                       // move to K word kw
+//   bool live() const;                       // any of this lane's rows real
+//   template <class OpA, int NT> using Regs; // what one K word loads into
+//   template <class OpA, int NT>             // issue every load of the word
+//   void load(const Plan&, Regs<OpA, NT>&) const;
+//   template <class OpA, int NT>             // digit registers of chunks
+//   void digits(const Regs<OpA, NT>&, const Plan&, int t,     // t, t + 4
+//               uint32_t (&lo)[NT][OpA::kDigits],
+//               uint32_t (&hi)[NT][OpA::kDigits]) const;
 // Blocks: blockIdx.y is the column tile (c0 = 32 blockIdx.y), the caller's
 // r0 the first of its 8 NT rows.
 template <class OpA, class OpW, int NT, class Src>
@@ -220,24 +237,18 @@ __device__ __forceinline__ void tile(Src& src, const Plan& ap,
     src.step(kw);
     if (!__any_sync(0xffffffffu, src.live())) continue;  // padding taps
     uint32_t wp[4][OpW::kPlanes];  // columns c0 + g + 8q
-    uint32_t xp[NT][OpA::kPlanes];
+    typename Src::template Regs<OpA, NT> xr;
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int col = c0 + g + 8 * q;
       load_planes<OpW>(wt.w + (long long)kw * wt.cols + col, wplane,
                        col < wt.cols ? 0xffffffffu : 0u, wt.plan, wp[q]);
     }
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int32_t* p = nullptr;
-      const uint32_t mask = src.word(nt, &p);
-      load_planes<OpA>(p, src.plane, mask, ap, xp[nt]);
-    }
+    src.template load<OpA, NT>(ap, xr);
     uint32_t wl[4][NDW], wh[4][NDW], al[NT][NDA], ah[NT][NDA];
 #pragma unroll
     for (int q = 0; q < 4; ++q) expand<OpW>(wp[q], wt.plan, t, wl[q], wh[q]);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) expand<OpA>(xp[nt], ap, t, al[nt], ah[nt]);
+    src.template digits<OpA, NT>(xr, ap, t, al, ah);
 #pragma unroll
     for (int i = 0; i < NDA; ++i) {
       if (i >= ap.nd) continue;
@@ -272,9 +283,38 @@ __host__ __device__ inline uint32_t tail_mask(int k) {
   return (k % 32) ? ((1u << (k % 32)) - 1u) : 0xffffffffu;
 }
 
+// The load and digits steps of a source of activation plane words (Dense,
+// ConvSrc): D provides `plane`, the plane stride, and
+// word(nt, &p) -> the mask of row tile nt's word at *p (0: none).
+template <class D>
+struct PlaneSrc {
+  template <class OpA, int NT>
+  using Regs = uint32_t[NT][OpA::kPlanes];
+
+  template <class OpA, int NT>
+  __device__ __forceinline__ void load(const Plan& ap,
+                                       Regs<OpA, NT>& xp) const {
+    const D& d = static_cast<const D&>(*this);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int32_t* p = nullptr;
+      const uint32_t mask = d.word(nt, &p);
+      load_planes<OpA>(p, d.plane, mask, ap, xp[nt]);
+    }
+  }
+  template <class OpA, int NT>
+  __device__ __forceinline__ void digits(
+      const Regs<OpA, NT>& xp, const Plan& ap, int t,
+      uint32_t (&al)[NT][OpA::kDigits],
+      uint32_t (&ah)[NT][OpA::kDigits]) const {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) expand<OpA>(xp[nt], ap, t, al[nt], ah[nt]);
+  }
+};
+
 // Dense activation words (a_bits, rows, words): row r0 + 8 nt + g of
 // lane g; lanes past K in the last word masked.
-struct Dense {
+struct Dense : PlaneSrc<Dense> {
   const int32_t* x;
   long long plane, rows, r0;
   int words, g, kw;
@@ -286,6 +326,80 @@ struct Dense {
     if (row >= rows) return 0u;
     *p = x + row * words + kw;
     return kw == words - 1 ? tail : 0xffffffffu;
+  }
+};
+
+// Integer codes (rows, k), int32: lane (g, t) loads codes 32 kw + t + 4j,
+// j = 0..7, of row r0 + 8 nt + g (the four lanes of a row read its 128
+// contiguous bytes of the word); codes past k and rows past `rows` load
+// nothing and are 0. Even j go to chunk t (byte j / 2), odd j to chunk
+// t + 4: the K order expand gives the weights.
+struct Codes {
+  const int32_t* x;
+  long long rows, r0;
+  int k, g, t, kw;
+
+  template <class OpA, int NT>
+  using Regs = int32_t[NT][8];
+
+  __device__ __forceinline__ void step(int word) { kw = word; }
+  __device__ __forceinline__ bool live() const { return true; }
+
+  template <class OpA, int NT>
+  __device__ __forceinline__ void load(const Plan&, Regs<OpA, NT>& c) const {
+    const int k0 = 32 * kw + t;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const long long row = r0 + 8 * nt + g;
+      const int32_t* p = x + row * k + k0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        c[nt][j] = (row < rows && k0 + 4 * j < k) ? __ldg(p + 4 * j) : 0;
+    }
+  }
+
+  // v: the code masked to the plan's bits, sign-extended when signed.
+  template <class OpA>
+  __device__ __forceinline__ static int32_t value(int32_t c, const Plan& ap) {
+    const int bits = OpA::kFixed ? OpA::kPlanes : ap.bits;
+    const bool sign = OpA::kFixed ? OpA::kSigned : ap.sign != 0;
+    if (OpA::kFixed && OpA::kSigned && OpA::kPlanes == 8)
+      return c;  // one digit: only the low byte is read
+    return sign ? (int32_t)((uint32_t)c << (32 - bits)) >> (32 - bits)
+                : (int32_t)((uint32_t)c & ((1u << bits) - 1u));
+  }
+  // Bytes 0..3 of a word from the low bytes of b0..b3.
+  __device__ __forceinline__ static uint32_t low_bytes(int32_t b0, int32_t b1,
+                                                       int32_t b2, int32_t b3) {
+    return __byte_perm(__byte_perm(b0, b1, 0x0040), __byte_perm(b2, b3, 0x0040),
+                       0x5410);
+  }
+
+  template <class OpA, int NT>
+  __device__ __forceinline__ void digits(
+      const Regs<OpA, NT>& c, const Plan& ap, int,
+      uint32_t (&al)[NT][OpA::kDigits],
+      uint32_t (&ah)[NT][OpA::kDigits]) const {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      int32_t v[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] = value<OpA>(c[nt][j], ap);
+      const int nd = OpA::kFixed ? 1 : ap.nd;
+#pragma unroll
+      for (int i = 0; i < OpA::kDigits; ++i) {
+        if (i >= nd) {
+          al[nt][i] = ah[nt][i] = 0u;
+          continue;
+        }
+        int32_t d[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          d[j] = i == nd - 1 ? v[j] >> (7 * i) : (v[j] >> (7 * i)) & 0x7f;
+        al[nt][i] = low_bytes(d[0], d[2], d[4], d[6]);
+        ah[nt][i] = low_bytes(d[1], d[3], d[5], d[7]);
+      }
+    }
   }
 };
 
@@ -320,9 +434,9 @@ inline int nt_for(long long rows, int cols) {
 }
 
 // Picks the kernel instantiation for the plans and the shape and launches
-// it through `Run<OpA, OpW, NT>::go(args, stream)` (K2 and K3 each define
-// their Run): the main paths' W2A2 and W4A8 get their fixed-plane code,
-// anything else Any.
+// it through `Run<OpA, OpW, NT>::go(args, stream)` (K2, K3 and K4 each
+// define their Run): the main paths' W2A2 and W4A8 get their fixed-plane
+// code, anything else Any.
 template <template <class, class, int> class Run, class Args>
 void dispatch(const Args& p, const Plan& ap, const Plan& wp, long long rows,
               int cols, cudaStream_t s) {

@@ -236,17 +236,29 @@ def test_conv_kernel_tile_edges(dev, sp, n, h, ci, co, stride):
                                 (16, 16, True, True, 7),
                                 (8, 8, False, True, 7)])
 @pytest.mark.parametrize("m", [1, 4, 5, 17, 64])
-def test_gemm_v2_tile_edges(dev, sp, m):
+@pytest.mark.parametrize("kernel", ["K3", "K4"])
+def test_gemm_v2_tile_edges(dev, kernel, sp, m):
+    # K3 and K4 share the tile; K4 has no packed output and no divide
     from repro_torch.kernels import bitserial_matmul as km
     spec = SerialSpec(*sp)
     k, n = 100, 70
     rng = np.random.default_rng(m * 31 + sp[0] * 3 + sp[1])
-    _, xp, wp, scale, bias = _gemm_operands(rng, spec, m, k, n, dev)
+    xc, xp, wp, scale, bias = _gemm_operands(rng, spec, m, k, n, dev)
     rs = torch.tensor(0.37, device=dev)
     for out, rq in _MODES:
-        kw = dict(spec=spec, k=k, relu=False, requant=rq,
-                  requant_scale=None if rq is None else rs,
-                  emit_packed=out == "packed")
-        got = km.bitserial_matmul_v2_cuda(xp, wp, scale, bias, **kw)
-        ref = km.bitserial_matmul_v2_ref(xp, wp, scale, bias, **kw)
+        if kernel == "K3":
+            kw = dict(spec=spec, k=k, relu=False, requant=rq,
+                      requant_scale=None if rq is None else rs,
+                      emit_packed=out == "packed")
+            got = km.bitserial_matmul_v2_cuda(xp, wp, scale, bias, **kw)
+            ref = km.bitserial_matmul_v2_ref(xp, wp, scale, bias, **kw)
+        elif out == "packed":
+            continue
+        else:
+            kw = dict(spec=spec, k=k, relu=False, requant=rq,
+                      out_dtype=torch.bfloat16)
+            before = km.KERNEL.entry_launches["bitserial_matmul_v1"]
+            got = km.bitserial_matmul_cuda(xc, wp, scale, bias, **kw)
+            assert km.KERNEL.entry_launches["bitserial_matmul_v1"] == before + 1
+            ref = km.bitserial_matmul_ref(xc, wp, scale, bias, **kw)
         assert got.dtype == ref.dtype and torch.equal(got, ref), (out, rq)
