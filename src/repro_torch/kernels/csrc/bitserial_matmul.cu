@@ -17,25 +17,27 @@
 // K2: one mma.sync m16n8k32 per digit pair, K word and tile, as the TPU
 // kernels issue one int8 MXU product per digit pair. They differ only in
 // the activation source. K3's (Dense) expands packed planes into digits in
-// registers; K4's (Codes) reads each code from the (M, K) tensor straight
-// into a digit byte: at the LM's W4A8 the digit is the code's low byte, so
-// K4 packs no planes and counts no bits. Weights are the mma's A operand
+// registers; K4's (Codes) reads the codes from the (M, K) tensor straight
+// into digit bytes: at the LM's W4A8 the digit is the code's low byte, so
+// K4 packs no planes and counts no bits. A lane loads 8 codes of a K word
+// as two 16-byte vectors, and a byte transpose within each quad of lanes
+// puts them in the weights' K order. Weights are the mma's A operand
 // (16 columns per m16), activation rows its B operand (8 per n8): every row
 // is served by one read of each weight word. A block owns 32 columns x 8 NT
 // rows and splits the K words over up to 32 warps, about four words each,
 // with every load of a word issued before its first use.
-// Bound on the H100: bytes at decode (M = 4: the packed weights, w_bits/8
-// bytes per weight, and for K4 the int32 codes, 4 bytes each) and at
-// prefill (M = 64) against the int8 peak. What holds them back now: at
+// Bound on the H100: bytes, at decode (M = 4) and at prefill (M = 64)
+// alike: the packed weights, w_bits/8 bytes per weight, and for K4 the
+// int32 codes, 4 bytes each; the int8 peak's time is below it at both.
+// What holds them back now: at
 // decode, launch latency and a few memory round trips per warp (N = 2048
 // gives only 64 blocks, half the SMs); at prefill, the same plus the
 // activations, which every column block reads again (K3 expands the planes
-// again; K4 reads 4-byte codes again from L2, 32 x K3's packed bytes at A8).
-// Not done yet (ROADMAP queue 2): 16-byte vector loads (each weight word is
-// a scalar __ldg that the four lanes of a fragment row issue at one
-// address; each K4 lane reads its 8 codes of a word with 8 scalar loads),
-// activations staged once per block in shared memory, and m16 activation
-// row tiles at prefill (it runs the same swapped n8 tile).
+// again; K4 reads 4-byte codes again from L2, 4 x K3's packed bytes at A8).
+// Not done yet (ROADMAP queue 2): 16-byte vector weight loads (each weight
+// word is a scalar __ldg that the four lanes of a fragment row issue at one
+// address), activations staged once per block in shared memory, and m16
+// activation row tiles at prefill (it runs the same swapped n8 tile).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -69,6 +71,7 @@ bitserial_gemm_kernel(const GemmArgs p) {
     src.g = lane >> 2;
     src.t = lane & 3;
     src.kw = 0;
+    src.vec = p.k % 4 == 0 && (reinterpret_cast<uintptr_t>(p.x) & 15) == 0;
     dig::tile<OpA, OpW, NT>(src, p.ap, p.wt, p.m, r0, p.e);
   } else {
     dig::Dense src;

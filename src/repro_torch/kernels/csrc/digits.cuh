@@ -26,8 +26,10 @@
 //   its sign extension (0xff << q) & 0xff per set byte. About one integer
 //   op per value and plane, with no table and no loop over bits.
 // * Digits from codes (K4). The same K order read from (rows, K) codes:
-//   lane (g, t) takes codes 32 kw + t + 4j, j = 0..7, of its row; byte b of
-//   chunk t is code 8b + t and of chunk t + 4 code 8b + t + 4. A code is
+//   lane (g, t) needs codes 32 kw + t + 4j, j = 0..7, of its row; byte b of
+//   chunk t is code 8b + t and of chunk t + 4 code 8b + t + 4. It loads
+//   codes 4t..4t+3 and 16+4t..16+4t+3 (two 16-byte loads) and a byte
+//   transpose within the quad of lanes t = 0..3 moves them. A code is
 //   masked to a_bits and sign-extended when signed (_act_operands), giving
 //   v; its digits are v's low byte (one digit) or radix 7,
 //   (v >> 7j) & 0x7f and the top one v >> 7 (nd - 1) with the sign. For
@@ -329,32 +331,47 @@ struct Dense : PlaneSrc<Dense> {
   }
 };
 
-// Integer codes (rows, k), int32: lane (g, t) loads codes 32 kw + t + 4j,
-// j = 0..7, of row r0 + 8 nt + g (the four lanes of a row read its 128
-// contiguous bytes of the word); codes past k and rows past `rows` load
-// nothing and are 0. Even j go to chunk t (byte j / 2), odd j to chunk
-// t + 4: the K order expand gives the weights.
+// Integer codes (rows, k), int32, of row r0 + 8 nt + g: lane (g, t) loads
+// codes 32 kw + 4t .. 4t + 3 and 32 kw + 16 + 4t .. 4t + 3 of the word, two
+// 16-byte loads when `vec` (k % 4 == 0 and x 16-byte aligned), else one by
+// one; codes past k and rows past `rows` load nothing and are 0. The digits
+// step makes each code's digit byte, then a 4 x 4 byte transpose within the
+// quad (two shuffles) gives lane t codes t + 4j, j = 0..7: even j to chunk
+// t (byte j / 2), odd j to chunk t + 4 — the K order expand gives the
+// weights.
 struct Codes {
   const int32_t* x;
   long long rows, r0;
   int k, g, t, kw;
+  bool vec;
 
   template <class OpA, int NT>
-  using Regs = int32_t[NT][8];
+  using Regs = int4[NT][2];
 
   __device__ __forceinline__ void step(int word) { kw = word; }
   __device__ __forceinline__ bool live() const { return true; }
 
   template <class OpA, int NT>
   __device__ __forceinline__ void load(const Plan&, Regs<OpA, NT>& c) const {
-    const int k0 = 32 * kw + t;
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       const long long row = r0 + 8 * nt + g;
-      const int32_t* p = x + row * k + k0;
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        c[nt][j] = (row < rows && k0 + 4 * j < k) ? __ldg(p + 4 * j) : 0;
+      for (int h = 0; h < 2; ++h) {
+        const int k0 = 32 * kw + 16 * h + 4 * t;
+        const int32_t* p = x + row * k + k0;
+        if (vec) {
+          c[nt][h] = (row < rows && k0 < k)
+                         ? __ldg(reinterpret_cast<const int4*>(p))
+                         : make_int4(0, 0, 0, 0);
+        } else {
+          const bool real = row < rows;
+          c[nt][h].x = (real && k0 < k) ? __ldg(p) : 0;
+          c[nt][h].y = (real && k0 + 1 < k) ? __ldg(p + 1) : 0;
+          c[nt][h].z = (real && k0 + 2 < k) ? __ldg(p + 2) : 0;
+          c[nt][h].w = (real && k0 + 3 < k) ? __ldg(p + 3) : 0;
+        }
+      }
     }
   }
 
@@ -368,11 +385,27 @@ struct Codes {
     return sign ? (int32_t)((uint32_t)c << (32 - bits)) >> (32 - bits)
                 : (int32_t)((uint32_t)c & ((1u << bits) - 1u));
   }
-  // Bytes 0..3 of a word from the low bytes of b0..b3.
-  __device__ __forceinline__ static uint32_t low_bytes(int32_t b0, int32_t b1,
-                                                       int32_t b2, int32_t b3) {
-    return __byte_perm(__byte_perm(b0, b1, 0x0040), __byte_perm(b2, b3, 0x0040),
-                       0x5410);
+  // Digit i of v: radix 7, the top one (i == nd - 1) keeping the sign.
+  __device__ __forceinline__ static int32_t digit(int32_t v, int i, int nd) {
+    return i == nd - 1 ? v >> (7 * i) : (v >> (7 * i)) & 0x7f;
+  }
+  // The low bytes of digit i of a vector's four codes, bytes 0..3.
+  template <class OpA>
+  __device__ __forceinline__ static uint32_t bytes(const int4& c, int i,
+                                                   int nd, const Plan& ap) {
+    const int32_t b0 = digit(value<OpA>(c.x, ap), i, nd);
+    const int32_t b1 = digit(value<OpA>(c.y, ap), i, nd);
+    const int32_t b2 = digit(value<OpA>(c.z, ap), i, nd);
+    const int32_t b3 = digit(value<OpA>(c.w, ap), i, nd);
+    return __byte_perm(__byte_perm(b0, b1, 0x0040),
+                       __byte_perm(b2, b3, 0x0040), 0x5410);
+  }
+  // Lane t of a quad gets byte t of each lane's word, lane j's in byte j.
+  __device__ __forceinline__ static uint32_t transpose(uint32_t w, int t) {
+    w = __byte_perm(w, __shfl_xor_sync(0xffffffffu, w, 2),
+                    (t & 2) ? 0x3276 : 0x5410);
+    return __byte_perm(w, __shfl_xor_sync(0xffffffffu, w, 1),
+                       (t & 1) ? 0x3715 : 0x6240);
   }
 
   template <class OpA, int NT>
@@ -380,26 +413,21 @@ struct Codes {
       const Regs<OpA, NT>& c, const Plan& ap, int,
       uint32_t (&al)[NT][OpA::kDigits],
       uint32_t (&ah)[NT][OpA::kDigits]) const {
+    const int nd = OpA::kFixed ? 1 : ap.nd;
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      int32_t v[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) v[j] = value<OpA>(c[nt][j], ap);
-      const int nd = OpA::kFixed ? 1 : ap.nd;
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int i = 0; i < OpA::kDigits; ++i) {
         if (i >= nd) {
           al[nt][i] = ah[nt][i] = 0u;
           continue;
         }
-        int32_t d[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          d[j] = i == nd - 1 ? v[j] >> (7 * i) : (v[j] >> (7 * i)) & 0x7f;
-        al[nt][i] = low_bytes(d[0], d[2], d[4], d[6]);
-        ah[nt][i] = low_bytes(d[1], d[3], d[5], d[7]);
+        // codes t, t + 4, t + 8, t + 12 and t + 16, t + 20, t + 24, t + 28
+        const uint32_t c0 = transpose(bytes<OpA>(c[nt][0], i, nd, ap), t);
+        const uint32_t c16 = transpose(bytes<OpA>(c[nt][1], i, nd, ap), t);
+        al[nt][i] = __byte_perm(c0, c16, 0x6420);
+        ah[nt][i] = __byte_perm(c0, c16, 0x7531);
       }
-    }
   }
 };
 

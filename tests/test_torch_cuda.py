@@ -173,6 +173,23 @@ def test_gemm_kernels_mask_out_of_range_codes(dev):
     assert torch.equal(got, ref)
 
 
+def test_code_gemm_reads_codes_off_the_16_byte_grid(dev):
+    # K4 loads a lane's codes as 16-byte vectors only when K % 4 == 0 and
+    # the codes start on a 16-byte boundary; elsewhere one by one
+    from repro_torch.kernels import bitserial_matmul as km
+    spec = SerialSpec(8, 4, True, True, 8)
+    m, k, n = 5, 96, 40
+    rng = np.random.default_rng(11)
+    xc, _, wp, scale, bias = _gemm_operands(rng, spec, m, k, n, dev)
+    buf = torch.zeros(m * k + 1, dtype=torch.int32, device=dev)
+    shifted = buf[1:].view(m, k)
+    shifted.copy_(xc)
+    assert shifted.data_ptr() % 16 != 0
+    got = km.bitserial_matmul_cuda(shifted, wp, scale, bias, spec=spec, k=k)
+    ref = km.bitserial_matmul_ref(xc, wp, scale, bias, spec=spec, k=k)
+    assert torch.equal(got, ref)
+
+
 def test_gemm_kernels_reject_bad_inputs(dev):
     from repro_torch.kernels import bitserial_matmul as km
     spec = SerialSpec(2, 2, True, True, 7)
