@@ -332,7 +332,7 @@ struct Dense : PlaneSrc<Dense> {
 };
 
 // Integer codes (rows, k), int32, of row r0 + 8 nt + g: lane (g, t) loads
-// codes 32 kw + 4t .. 4t + 3 and 32 kw + 16 + 4t .. 4t + 3 of the word, two
+// codes 32 kw + 4t + i and 32 kw + 16 + 4t + i, i = 0..3, of the word, two
 // 16-byte loads when `vec` (k % 4 == 0 and x 16-byte aligned), else one by
 // one; codes past k and rows past `rows` load nothing and are 0. The digits
 // step makes each code's digit byte, then a 4 x 4 byte transpose within the
