@@ -9,8 +9,11 @@ Phases (any failure exits non-zero and prints no result):
 1. versions, the card's name and power limit, and the kernels' build with
    ``nvcc`` from ``src/repro_torch/kernels/csrc`` (all three sources at
    once);
-2. K1 (quantize_pack) against its plain version at the CNN path's shapes
-   (batch 32) plus a ragged row, ``torch.equal``;
+2. K1 (quantize_pack) against its plain version, ``torch.equal``: at the
+   CNN path's shapes (batch 32), a ragged row in float32 and bf16, and the
+   grouped launch the LM makes (one activation, G = 1..4 step sizes,
+   float32 and bf16) at stablelm-1.6b's activation shapes (M = 4 and 64 x
+   K = 2048 and 5632) and a ragged (13, 70);
 3. K2 (bitserial_conv2d) against its plain version at all eight ResNet9
    conv geometries (batch 32) in each step's output mode, a ragged case,
    wider specs and the edges of its tensor-core tiles (pixels and Co off
@@ -40,8 +43,9 @@ Phases (any failure exits non-zero and prints no result):
 8. the LM slice: ``Server`` on full-width stablelm-1.6b (24 layers, bf16,
    W4A8, random weights from seed 0) answers four requests (prompts of 5,
    8, 11 and 16 tokens, 16 new tokens each) with counts reset just before
-   and read just after: 168 K1 and 168 K3 launches per prefill and per
-   decode step. The tokens and last-step logits must equal the plain
+   and read just after: 96 K1 (one per distinct activation: q/k/v share
+   one, gate/up another) and 168 K3 launches per prefill and per decode
+   step. The tokens and last-step logits must equal the plain
    versions' run on the card, and the K4 path's (``pack_acts=False``,
    counted the same way); a 2-slot server answering one request (a dummy
    slot) must give a 1-slot server's tokens; the smoke config on the card
@@ -49,17 +53,23 @@ Phases (any failure exits non-zero and prints no result):
 9. the port's copy of ``tiny_mixed_cnn`` compiled on the card: its
    ``gemm_packed`` step launches K3, and the logits equal the plain
    runner's;
-10. LM times: K1, K3 and K4 at each stablelm shape (kernel, plain, bound
-    and the library call for the same integer product: ``torch._int_mm``
-    where its shape rules allow, else an fp16 matmul of the codes) and
-    their sums over one decode step (M = 4) and one prefill (M = 64); K1
-    at (1, 32), one warp's work, its fixed cost; for each LM path (K1 + K3
-    and K4) the prefill, a decode step and ``generate``'s tokens/s at
-    batch 4, and a profiler breakdown of one decode step.
+10. LM times: K3 and K4 at each stablelm shape and K1 at each launch a
+    layer makes (bf16; G = 3, 1, 2 at K = 2048 and G = 1 at 5632) —
+    kernel, plain, bound and the library call for the same integer
+    product (``torch._int_mm`` where its shape rules allow, else an fp16
+    matmul of the codes) — and their sums over one decode step (M = 4)
+    and one prefill (M = 64); K1 at (1, 32), one warp's work, and the
+    launch floor under the same timer (``t.zero_()`` on one element); for
+    each LM path (K1 + K3 and K4) the prefill, a decode step and
+    ``generate``'s tokens/s at batch 4, and a profiler breakdown of one
+    prefill and one decode step (device busy counts the card's own events
+    only; K1's in-path ms and launches by kernel name, its launches held
+    to the wrappers' count).
 
 The ``kernels`` JSON line gives, per kernel, its launches on the main
 paths and its times summed over one ResNet9 batch-32 forward plus one LM
-decode step at batch 4.
+decode step at batch 4; K1's entry adds its in-path profiler ms and
+launches per decode step and per prefill.
 
 Standard output ends with the ``kernels`` JSON line, the card's
 ``nvidia-smi`` name/power line and the ``{"ok": true, ...}`` line; the full
@@ -93,6 +103,9 @@ LM_MAX_LEN = 64
 # many of each a layer runs
 STABLELM_GEMMS = ((2048, 2048), (2048, 5632), (5632, 2048))
 GEMMS_PER_LAYER = (4, 2, 1)
+# the K1 launches a layer makes, one per distinct activation: (K, G step
+# sizes) for q/k/v, o, gate/up and down
+K1_PER_LAYER = ((2048, 3), (2048, 1), (2048, 2), (5632, 1))
 
 # (name, c_in, c_out, stride, H_in, output mode) of ResNet9's conv1..conv8
 RESNET9_CONVS = (
@@ -223,9 +236,29 @@ def main() -> int:
         check_equal("K1", f"ragged (13,70) {bits}b {'s' if signed else 'u'}",
                     k1.quantize_pack_cuda(t, a, spec),
                     k1.quantize_pack_ref(t, a, spec))
+        check_equal("K1", f"ragged bf16 (13,70) {bits}b "
+                    f"{'s' if signed else 'u'}",
+                    k1.quantize_pack_cuda(t.bfloat16(), a, spec),
+                    k1.quantize_pack_ref(t.bfloat16(), a, spec))
         c = cuda(rng.integers(*qrange(bits, signed), (13, 70)).astype(np.int32))
         check_equal("K1", f"ragged codes (13,70) {bits}b",
                     k1.pack_codes_cuda(c, bits), k1.pack_codes_ref(c, bits))
+    # the grouped launch the LM makes: one activation, G = 1..4 step sizes,
+    # float32 and bf16, at the LM's shapes and a ragged one
+    lm_steps = [torch.tensor(a, device=dev) for a in (0.177, 0.0371, 0.5,
+                                                      0.0098)]
+    lm_aspec = QuantSpec(8, True)
+    for m, k in ((4, 2048), (64, 2048), (4, 5632), (64, 5632), (13, 70)):
+        xf = cuda((rng.standard_normal((m, k)) * 4).astype(np.float32))
+        for xt in (xf, xf.bfloat16()):
+            for g in range(1, 5):
+                ref = k1.quantize_pack_multi_ref(xt, lm_steps[:g], lm_aspec)
+                for wpw in (1, 4):
+                    check_equal("K1", f"({m},{k}) {xt.dtype} G={g} "
+                                f"{wpw} words/warp",
+                                k1.quantize_pack_multi_cuda(
+                                    xt, lm_steps[:g], lm_aspec,
+                                    words_per_warp=wpw), ref)
 
     # ------------------------------------------------------ 3. K2 checks
     log("K2 bitserial_conv2d vs plain")
@@ -346,13 +379,51 @@ def main() -> int:
         "reference forward's")
 
     # ---------------------------------------------------------- 5. times
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_profile(fn, reps=1):
+        """``fn`` run ``reps`` times under the profiler; per run: the host
+        wall, the card's busy time (its own events: kernels, copies, sets),
+        and the 12 largest kernels' ms and launches by name, K1's apart.
+        ``all_rows_ms`` sums self device time over every row, the CPU ops
+        included, so it counts each torch op's kernels twice: it is the
+        figure reported as device busy before this field existed."""
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        ms, launches, all_rows = {}, {}, 0.0
+        for evt in prof.key_averages():
+            dt = evt.self_device_time_total / 1e3 / reps
+            all_rows += dt
+            if evt.device_type == DeviceType.CUDA and dt > 0:
+                ms[evt.key] = dt
+                launches[evt.key] = evt.count / reps
+        if not ms:
+            raise AssertionError("the profiler recorded no device event")
+        top = sorted(ms, key=lambda k: -ms[k])[:12]
+        k1_names = [k for k in ms if "quantize_pack" in k]
+        return {"wall_ms": wall / reps * 1e3, "device_ms": sum(ms.values()),
+                "all_rows_ms": all_rows,
+                "by_name_ms": {k: ms[k] for k in top},
+                "launches": {k: launches[k] for k in top},
+                "K1_ms": sum(ms[k] for k in k1_names),
+                "K1_launches": sum(launches[k] for k in k1_names)}
+
     log(f"times at batch {B} (ms, median, L2 flushed before each launch)")
     timer = Timer(dev)
     rows = []
 
-    def k1_bound(r, l, bits, in_bytes):
-        byt = r * l * in_bytes + bits * r * (-(-l // 32)) * 4 + 4
-        ops = 4 * r * l
+    def k1_bound(r, l, bits, in_bytes, groups=1):
+        """K1's least time: x read once, G steps, G planes sets written;
+        a divide, a round and a clip (counted as 4 float32 ops) per element
+        and step."""
+        byt = r * l * in_bytes + groups * (bits * r * (-(-l // 32)) * 4 + 4)
+        ops = 4 * r * l * groups
         return byt, ops, max(byt / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
 
     for name, kind, t, a, spec in k1_shapes:
@@ -437,27 +508,12 @@ def main() -> int:
     log(f"forward batch 32: {fwd_s * 1e3:.3f} ms ({32 / fwd_s:.1f} img/s); "
         f"classify() with host copies {classify_s * 1e3:.3f} ms; "
         f"forward batch 1: {record['forward_b1_ms']:.3f} ms")
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(5):
-            run(x32)
-        torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t0
-    by_name = {}
-    for evt in prof.key_averages():
-        dt = (getattr(evt, "self_device_time_total", None)
-              or getattr(evt, "self_cuda_time_total", 0) or 0)
-        if dt > 0:
-            by_name[evt.key] = by_name.get(evt.key, 0.0) + dt / 5 / 1e3
-    busy = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    record["profile_b32"] = {"wall_ms_per_forward": prof_wall / 5 * 1e3,
-                             "device_ms_per_forward": busy,
-                             "by_name_ms": dict(top)}
-    log(f"profile batch 32 per forward: wall {prof_wall / 5 * 1e3:.3f} ms, "
-        f"device busy {busy:.3f} ms")
-    for k, v in top:
+    prof = device_profile(lambda: run(x32), 5)
+    record["profile_b32"] = prof
+    log(f"profile batch 32 per forward: wall {prof['wall_ms']:.3f} ms, "
+        f"device busy {prof['device_ms']:.3f} ms (all profiler rows "
+        f"{prof['all_rows_ms']:.3f})")
+    for k, v in prof["by_name_ms"].items():
         log(f"  {v:9.4f} ms  {k[:90]}")
 
     # ------------------------------------------- 6./7. K3 and K4 vs plain
@@ -561,14 +617,18 @@ def main() -> int:
         torch.cuda.synchronize()
         return [r.out_tokens for r in out], server.last_logits.clone(), counts()
 
+    # per step: 7 projections a layer (K3 or K4), 4 distinct activations
+    # (K1: q/k/v share one launch, gate/up another)
     per_step = 7 * lm_cfg.n_layers
+    k1_per_step = len(K1_PER_LAYER) * lm_cfg.n_layers
     lm_k3 = lm_drive(lm, lm_requests())
-    want = {"K1": per_step * LM_NEW, "K2": 0, "K3": per_step * LM_NEW, "K4": 0}
+    want = {"K1": k1_per_step * LM_NEW, "K2": 0, "K3": per_step * LM_NEW,
+            "K4": 0}
     if lm_k3[2] != want:
         raise AssertionError(f"LM launches {lm_k3[2]}, want {want}")
     record["launches_lm_k3"] = lm_k3[2]
     log(f"  main path (K1 + K3): prefill + {LM_NEW - 1} decode steps, "
-        f"launches {lm_k3[2]} = {per_step} K1 and K3 per step")
+        f"launches {lm_k3[2]} = {k1_per_step} K1 and {per_step} K3 per step")
     toks, logits = lm_k3[0], lm_k3[1]
     if (logits.shape != (4, lm_cfg.vocab_size)
             or not bool(torch.isfinite(logits).all())
@@ -587,10 +647,11 @@ def main() -> int:
                                 max(LM_PROMPTS), lm.cfg)
         c_dec = counts()
         torch.cuda.synchronize()
-    if not (c_pre["K3"] == c_dec["K3"] == c_pre["K1"] == c_dec["K1"]
-            == per_step):
+    if not (c_pre["K3"] == c_dec["K3"] == per_step
+            and c_pre["K1"] == c_dec["K1"] == k1_per_step):
         raise AssertionError(f"per-step launches prefill {c_pre} decode "
-                             f"{c_dec}, want {per_step} K1 and K3")
+                             f"{c_dec}, want {k1_per_step} K1 and {per_step} "
+                             "K3")
     log(f"  one prefill: {c_pre}; one decode step: {c_dec}")
     plain_lm = Server(lm_cfg, lm.params, batch_slots=4, max_len=LM_MAX_LEN,
                       plain=True)
@@ -696,55 +757,74 @@ def main() -> int:
                     "bytes": byt, "ops": ops,
                     "bound_by": "bytes" if byt / HBM_BYTES_PER_S >=
                     ops / INT8_OPS_PER_S else "operations"})
-    # K1 at the LM's activation shapes, and at (1, 32), one warp's work:
-    # what any K1 call costs whatever its size
-    for m, k in [(m, k) for k in sorted({k for k, _ in STABLELM_GEMMS})
-                 for m in (4, 4 * 16)] + [(1, 32)]:
-        xf = cuda(rng.standard_normal((m, k)).astype(np.float32))
-        a = torch.tensor(0.177, device=dev)
-        byt, ops, bound = k1_bound(m, k, 8, 4)
-        call = lambda: k1.quantize_pack_cuda(xf, a, QuantSpec(8, True))
+    # K1 at the launches a layer makes (bf16, K1_PER_LAYER), at decode and
+    # prefill rows, and at (1, 32), one warp's work: what any K1 call costs
+    # whatever its size
+    for m, k, g in [(m, k, g) for k, g in K1_PER_LAYER for m in (4, 4 * 16)
+                    ] + [(1, 32, 1)]:
+        xb = cuda(rng.standard_normal((m, k)).astype(np.float32)).bfloat16()
+        steps = lm_steps[:g]
+        byt, ops, bound = k1_bound(m, k, 8, 2, g)
+        call = lambda: k1.quantize_pack_multi_cuda(xb, steps, lm_aspec)
+        call4 = lambda: k1.quantize_pack_multi_cuda(xb, steps, lm_aspec,
+                                                    words_per_warp=4)
         lm_rows.append({
-            "kernel": "K1", "m": m, "k": k, "n": None,
-            "ms": timer(call, 50),
-            "plain_ms": timer(lambda: k1.quantize_pack_ref(
-                xf, a, QuantSpec(8, True)), 10),
+            "kernel": "K1", "m": m, "k": k, "n": None, "g": g,
+            "ms": timer(call, 50), "ms_4_words_per_warp": timer(call4, 50),
+            "plain_ms": timer(lambda: k1.quantize_pack_multi_ref(
+                xb, steps, lm_aspec), 10),
             "library_ms": None, "bound_ms": bound, "bytes": byt,
-            "ops": ops, "bound_by": "bytes"})
+            "ops": ops, "bound_by": "bytes" if byt / HBM_BYTES_PER_S >=
+            ops / FP32_OPS_PER_S else "operations"})
     for r in lm_rows:
         lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        log(f"  {r['kernel']} M{r['m']} {r['k']}->{r['n']}: kernel "
+        what = (f"G={r['g']} (4 words/warp {r['ms_4_words_per_warp']:.4f})"
+                if r["kernel"] == "K1" else f"->{r['n']}")
+        log(f"  {r['kernel']} M{r['m']} {r['k']}{what}: kernel "
             f"{r['ms']:.4f}  plain {r['plain_ms']:.4f}  library {lib}  bound "
             f"{r['bound_ms']:.5f} ({r['bound_by']})")
     record["lm_calls"] = lm_rows
+    # the least time of any launch under the same timer: one element zeroed
+    elem = torch.zeros(1, device=dev)
+    record["launch_floor_ms"] = timer(lambda: elem.zero_(), 50)
+    log(f"  launch floor (t.zero_() on one element): "
+        f"{record['launch_floor_ms']:.4f} ms")
 
     def lm_step(kid, key, m):
-        """Sum over one LM step (24 layers x 7 projections) of a kernel's
-        per-call number at M rows."""
-        def one(k, n):
+        """Sum over one LM step (24 layers) of a kernel's per-call number at
+        M rows: K3 and K4 over the 7 projections of a layer, K1 over its 4
+        launches (K1_PER_LAYER)."""
+        if kid == "K1":
+            calls = [(1, {"k": k, "g": g}) for k, g in K1_PER_LAYER]
+        else:
+            calls = [(c, {"k": k, "n": n}) for (k, n), c in
+                     zip(STABLELM_GEMMS, GEMMS_PER_LAYER)]
+        total_ = 0.0
+        for c, want in calls:
             (row,) = [r for r in lm_rows if r["kernel"] == kid and
-                      r["m"] == m and r["k"] == k and
-                      (kid == "K1" or r["n"] == n)]
-            return row[key]
-        if any(one(k, n) is None for k, n in STABLELM_GEMMS):
-            return None
-        return lm_cfg.n_layers * sum(
-            c * one(k, n) for (k, n), c in zip(STABLELM_GEMMS,
-                                               GEMMS_PER_LAYER))
+                      r["m"] == m and all(r[f] == v for f, v in want.items())]
+            if row[key] is None:
+                return None
+            total_ += c * row[key]
+        return lm_cfg.n_layers * total_
 
     # each GEMM kernel's sum over one decode step (M = 4) and one prefill
     # (M = 64), beside its bound and the library call's sum
     record["lm_step_sums"] = {}
     for kid in ("K1", "K3", "K4"):
+        n_calls = k1_per_step if kid == "K1" else per_step
         for m, what in ((4, "decode step"), (64, "prefill")):
-            sums = {key: lm_step(kid, key, m) for key in
-                    ("ms", "bound_ms", "library_ms", "plain_ms")}
+            keys = ("ms", "bound_ms", "library_ms", "plain_ms") + (
+                ("ms_4_words_per_warp",) if kid == "K1" else ())
+            sums = {key: lm_step(kid, key, m) for key in keys}
             record["lm_step_sums"][f"{kid} M{m}"] = sums
             lib = ("-" if sums["library_ms"] is None
                    else f"{sums['library_ms']:.4f}")
-            log(f"  {kid} summed over one {what} (168 calls at M = {m}): "
-                f"{sums['ms']:.4f} ms, bound {sums['bound_ms']:.4f}, "
-                f"library {lib}, plain {sums['plain_ms']:.3f}")
+            log(f"  {kid} summed over one {what} ({n_calls} calls at M = "
+                f"{m}): {sums['ms']:.4f} ms, bound {sums['bound_ms']:.4f}, "
+                f"library {lib}, plain {sums['plain_ms']:.3f}"
+                + (f", 4 words/warp {sums['ms_4_words_per_warp']:.4f}"
+                   if kid == "K1" else ""))
 
     # the step and the end-to-end numbers of each LM path (K1 + K3, and K4
     # with pack_acts=False), host clock around synced work
@@ -765,24 +845,26 @@ def main() -> int:
 
     def lm_path_times(server, tag):
         """Prefill, decode step (median), generate's tokens/s (best of 2)
-        and a profiler breakdown of one decode step, into record."""
+        and a profiler breakdown of one prefill and one decode step, into
+        record."""
+        def prefill():
+            return transformer.prefill(server.params, batch, server.cfg,
+                                       max_len=LM_MAX_LEN)
+
         with torch.inference_mode():
-            record[f"{tag}_prefill_ms"] = walls(lambda: transformer.prefill(
-                server.params, batch, server.cfg, max_len=LM_MAX_LEN), 5)
-            lg, caches = transformer.prefill(server.params, batch, server.cfg,
-                                             max_len=LM_MAX_LEN)
+            record[f"{tag}_prefill_ms"] = walls(prefill, 5)
+            record[f"{tag}_profile_prefill"] = device_profile(prefill)
+            lg, caches = prefill()
             tok = torch.argmax(lg, -1)[:, None]
             pos = iter(range(max(LM_PROMPTS), LM_MAX_LEN))
-            record[f"{tag}_decode_step_ms"] = walls(
-                lambda: transformer.decode_step(server.params, caches, tok,
-                                                next(pos), server.cfg), 15)
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
+
+            def step():
                 transformer.decode_step(server.params, caches, tok, next(pos),
                                         server.cfg)
-                torch.cuda.synchronize()
-                prof_wall = time.perf_counter() - t0
+
+            record[f"{tag}_decode_step_ms"] = walls(step, 15)
+            prof = device_profile(step)
+        record[f"{tag}_profile_decode_step"] = prof
         gen_walls = []
         for _ in range(2):
             t0 = time.perf_counter()
@@ -790,29 +872,29 @@ def main() -> int:
             gen_walls.append(time.perf_counter() - t0)
         record[f"{tag}_generate_s"] = min(gen_walls)
         record[f"{tag}_tok_per_s"] = 4 * LM_NEW / record[f"{tag}_generate_s"]
-        by_name = {}
-        for evt in prof.key_averages():
-            dt = (getattr(evt, "self_device_time_total", None)
-                  or getattr(evt, "self_cuda_time_total", 0) or 0)
-            if dt > 0:
-                by_name[evt.key] = by_name.get(evt.key, 0.0) + dt / 1e3
-        busy = sum(by_name.values())
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-        record[f"{tag}_profile_decode_step"] = {
-            "wall_ms": prof_wall * 1e3, "device_ms": busy,
-            "by_name_ms": dict(top)}
         log(f"{tag} batch 4: prefill ({max(LM_PROMPTS)} tokens) "
             f"{record[f'{tag}_prefill_ms']:.3f} ms, decode step "
             f"{record[f'{tag}_decode_step_ms']:.3f} ms, generate({LM_NEW} "
             f"new) {record[f'{tag}_generate_s'] * 1e3:.1f} ms = "
             f"{record[f'{tag}_tok_per_s']:.1f} tok/s")
-        log(f"  profile of one decode step: wall {prof_wall * 1e3:.3f} ms, "
-            f"device busy {busy:.3f} ms")
-        for k, v in top:
-            log(f"  {v:9.4f} ms  {k[:90]}")
+        for what in ("prefill", "decode_step"):
+            pr = record[f"{tag}_profile_{what}"]
+            log(f"  profile of one {what}: wall {pr['wall_ms']:.3f} ms, "
+                f"device busy {pr['device_ms']:.3f} ms (all profiler rows "
+                f"{pr['all_rows_ms']:.3f}); K1 {pr['K1_ms']:.4f} ms in "
+                f"{pr['K1_launches']:.0f} launches")
+        for k, v in prof["by_name_ms"].items():
+            log(f"  {v:9.4f} ms  {prof['launches'][k]:5.0f}x  {k[:80]}")
 
     lm_path_times(lm, "lm")       # K1 + K3 (pack_acts, the default)
     lm_path_times(k4_lm, "lm_k4")  # K4 (pack_acts=False)
+    # the profiler counts the launches the wrappers counted
+    for tag, k1_want in (("lm", k1_per_step), ("lm_k4", 0)):
+        for what in ("prefill", "decode_step"):
+            got = record[f"{tag}_profile_{what}"]["K1_launches"]
+            if got != k1_want:
+                raise AssertionError(f"{tag} {what}: the profiler saw {got} "
+                                     f"K1 launches, want {k1_want}")
 
     def total(kid, key):
         vals = [r[key] for r in rows if r["kernel"] == kid]
@@ -824,10 +906,12 @@ def main() -> int:
                 else "operations")
 
     # ms, plain_ms, bound_ms, library_ms: the sum over one ResNet9 batch-32
-    # forward (K1, K2) plus one LM decode step at batch 4 (K1, K3, K4)
+    # forward (K1, K2) plus one LM decode step at batch 4 (K1, K3, K4); K1's
+    # in_path_* are the profiler's, in one LM decode step and one prefill
+    dec, pre = record["lm_profile_decode_step"], record["lm_profile_prefill"]
     line = {"kernels": [
         {"name": "quantize_pack (K1: ResNet9 quantize_pack + 2x pack_codes, "
-                 "LM 7 per layer)",
+                 "LM 4 per layer: one per distinct activation)",
          "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/quantize_pack.cu",
          "replaces": "src/repro/kernels/quantize_pack.py:53",
@@ -836,7 +920,11 @@ def main() -> int:
          "ms": total("K1", "ms") + lm_step("K1", "ms", 4),
          "plain_ms": total("K1", "plain_ms") + lm_step("K1", "plain_ms", 4),
          "bound_ms": total("K1", "bound_ms") + lm_step("K1", "bound_ms", 4),
-         "bound_by": "bytes", "library_ms": None},
+         "bound_by": "bytes", "library_ms": None,
+         "in_path_ms_decode_step": dec["K1_ms"],
+         "in_path_launches_decode_step": dec["K1_launches"],
+         "in_path_ms_prefill": pre["K1_ms"],
+         "in_path_launches_prefill": pre["K1_launches"]},
         {"name": "bitserial_conv2d (K2: ResNet9 conv1..conv8)",
          "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/bitserial_conv.cu",

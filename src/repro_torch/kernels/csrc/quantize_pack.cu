@@ -3,35 +3,57 @@
 // Replaces the TPU kernel repro/kernels/quantize_pack.py::quantize_pack_pallas
 // (pallas_call at quantize_pack.py:67, body _kernel at :38).
 //
-//   codes[r, l] = clip(rint(x[r, l] / alpha), qn, qp)            (float input)
-//   out[b, r, g] bit t = bit b of (codes[r, 32 g + t] & mask)    t = 0..31
+//   codes[g, r, l] = clip(rint(x[r, l] / alpha[g]), qn, qp)        g < G <= 4
+//   out[g, b, r, w] bit t = bit b of (codes[g, r, 32 w + t] & mask)   t = 0..31
 //
-// out is (bits, R, ceil(L/32)) 32-bit words, lane t in bit t: the layout of
-// the reference's uint32 planes, carried here as int32. Lanes past L are 0,
-// which is the reference's zero padding. A second entry packs int32 codes
-// that are already quantized (the `pack_codes` step after an integer pool).
+// x is float32 or bf16, read in its own type and widened in registers
+// (__bfloat162float is exact, as the reference's astype(float32) is). One
+// launch quantizes one activation for G step sizes: the LM's q/k/v and
+// gate/up projections read the same activation, each with its own step.
+// out is (G, bits, R, ceil(L/32)) 32-bit words, lane t in bit t: slice g is
+// the reference's uint32 planes for step g, carried as int32, in the layout
+// the packed GEMM (K3) takes. Lanes past L are 0, the reference's zero
+// padding. A second entry packs int32 codes that are already quantized (the
+// `pack_codes` step after an integer pool).
 //
-// Bound on the H100: bytes. Each element is read once (4 bytes) and costs a
-// divide, a round and a clip; the output is bits/32 of a word per element.
-// Design: one warp owns 32 consecutive lanes of one row, so the 32 loads of
-// a warp are one coalesced 128-byte transaction, and __ballot_sync of bit b
-// of the warp's codes IS the packed word of plane b — no shared memory, no
+// Bound on the H100: at the LM's sizes (a (4, 2048) bf16 activation is
+// 16 KB) the launch, not the bytes: one warp's work costs about as much as
+// a few thousand rows. At larger sizes, bytes: each element is read once
+// and costs G divides, rounds and clips; the output is G * bits / 32 of a
+// word per element. Design: one launch per distinct activation instead of
+// one per projection, and no float32 copy of a bf16 activation before it.
+// One warp owns 32 consecutive lanes of kWords words of one row, so each of
+// its loads is one coalesced transaction; it issues its loads and its G
+// step-size loads before the first divide, and __ballot_sync of bit b of the
+// warp's codes IS the packed word of plane b — no shared memory, no
 // shuffles. Lane b of the warp stores plane b's word. The TPU kernel's
 // (block_r, block_l) tiling is a VMEM choice and has no counterpart here.
 //
 // Numerics match the reference bit for bit: __fdiv_rn is the IEEE divide
 // (never built with --use_fast_math) and rintf rounds half to even like
-// jnp.round. alpha is read from device memory, so the host never syncs.
+// jnp.round. The steps are read from device memory, so the host never syncs.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
+constexpr int kMaxGroups = 4;
+
+// the G step sizes, each one float32 on the card
+struct Steps {
+  const float* p[kMaxGroups];
+};
 
 __device__ __forceinline__ uint32_t lane_mask(int bits) {
   return bits >= 32 ? 0xffffffffu : ((1u << bits) - 1u);
+}
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
 }
 
 // Every lane of the warp calls this with its masked code u (0 for lanes past
@@ -47,26 +69,47 @@ __device__ __forceinline__ void ballot_store(uint32_t u, int bits, int lane,
   if (lane < bits) out[(long long)lane * plane + word] = (int32_t)mine;
 }
 
-__global__ void quantize_pack_f32_kernel(const float* __restrict__ x,
-                                         const float* __restrict__ alpha,
-                                         int32_t* __restrict__ out, int rows,
-                                         int len, int words, int bits,
-                                         float qn, float qp) {
+template <typename T, int G, int kWords>
+__global__ void quantize_pack_kernel(const T* __restrict__ x, Steps steps,
+                                     int32_t* __restrict__ out, int rows,
+                                     int len, int words, int bits, float qn,
+                                     float qp) {
+  const int spans = (words + kWords - 1) / kWords;  // warps per row
   const long long warp =
       (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
-  const long long total = (long long)rows * words;
-  if (warp >= total) return;  // the whole warp leaves together
-  const int row = (int)(warp / words);
-  const int g = (int)(warp % words);
-  const int col = g * 32 + lane;
-  uint32_t u = 0;
-  if (col < len) {
-    float q = rintf(__fdiv_rn(x[(long long)row * len + col], *alpha));
-    q = fminf(fmaxf(q, qn), qp);
-    u = (uint32_t)(int)q & lane_mask(bits);
+  if (warp >= (long long)rows * spans) return;  // the whole warp leaves
+  const int row = (int)(warp / spans);
+  const int w0 = (int)(warp % spans) * kWords;
+  const long long plane = (long long)rows * words;
+  const T* xr = x + (long long)row * len;
+  // every load first: the warp's columns, then its step sizes
+  float v[kWords];
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) {
+    const int col = (w0 + i) * 32 + lane;
+    v[i] = col < len ? widen(xr[col]) : 0.0f;
   }
-  ballot_store(u, bits, lane, out, total, warp);
+  float alpha[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) alpha[g] = __ldg(steps.p[g]);
+  const uint32_t mask = lane_mask(bits);
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+#pragma unroll
+    for (int i = 0; i < kWords; ++i) {
+      const int w = w0 + i;
+      if (w >= words) break;  // the same for every lane of the warp
+      uint32_t u = 0;
+      if (w * 32 + lane < len) {
+        float q = rintf(__fdiv_rn(v[i], alpha[g]));
+        q = fminf(fmaxf(q, qn), qp);
+        u = (uint32_t)(int)q & mask;
+      }
+      ballot_store(u, bits, lane, out + (long long)g * bits * plane, plane,
+                   (long long)row * words + w);
+    }
+  }
 }
 
 __global__ void pack_codes_kernel(const int32_t* __restrict__ codes,
@@ -85,22 +128,68 @@ __global__ void pack_codes_kernel(const int32_t* __restrict__ codes,
   ballot_store(u, bits, lane, out, total, warp);
 }
 
-unsigned int grid_for(int rows, int words) {
-  long long warps = (long long)rows * words;
+unsigned int grid_for(long long warps) {
   return (unsigned int)((warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
+}
+
+template <typename T, int G, int kWords>
+void launch(const void* x, const Steps& steps, void* out, int rows, int len,
+            int words, int bits, int qn, int qp, cudaStream_t stream) {
+  const long long warps = (long long)rows * ((words + kWords - 1) / kWords);
+  quantize_pack_kernel<T, G, kWords>
+      <<<grid_for(warps), kWarpsPerBlock * 32, 0, stream>>>(
+          (const T*)x, steps, (int32_t*)out, rows, len, words, bits,
+          (float)qn, (float)qp);
+}
+
+template <typename T, int kWords>
+int launch_groups(const void* x, const Steps& steps, int groups, void* out,
+                  int rows, int len, int words, int bits, int qn, int qp,
+                  cudaStream_t stream) {
+  switch (groups) {
+    case 1: launch<T, 1, kWords>(x, steps, out, rows, len, words, bits, qn, qp, stream); break;
+    case 2: launch<T, 2, kWords>(x, steps, out, rows, len, words, bits, qn, qp, stream); break;
+    case 3: launch<T, 3, kWords>(x, steps, out, rows, len, words, bits, qn, qp, stream); break;
+    case 4: launch<T, 4, kWords>(x, steps, out, rows, len, words, bits, qn, qp, stream); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return 0;
+}
+
+template <typename T>
+int launch_words(const void* x, const Steps& steps, int groups, void* out,
+                 int rows, int len, int words, int bits, int qn, int qp,
+                 int words_per_warp, cudaStream_t stream) {
+  switch (words_per_warp) {
+    case 1: return launch_groups<T, 1>(x, steps, groups, out, rows, len, words, bits, qn, qp, stream);
+    case 4: return launch_groups<T, 4>(x, steps, groups, out, rows, len, words, bits, qn, qp, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-extern "C" int quantize_pack_f32(const void* x, const void* alpha, void* out,
-                                 int rows, int len, int bits, int qn, int qp,
-                                 void* stream) {
+// x: (rows, len) float32 (bf16 = 0) or bf16 (bf16 = 1); a0..a3: the step
+// sizes, one float32 each (those past `groups` unused); out: (groups, bits,
+// rows, ceil(len/32)) int32.
+extern "C" int quantize_pack_float(const void* x, int bf16, const void* a0,
+                                   const void* a1, const void* a2,
+                                   const void* a3, int groups, void* out,
+                                   int rows, int len, int bits, int qn, int qp,
+                                   int words_per_warp, void* stream) {
   const int words = (len + 31) / 32;
+  const Steps steps = {{(const float*)a0, (const float*)a1, (const float*)a2,
+                        (const float*)a3}};
+  if (groups < 1 || groups > kMaxGroups) return (int)cudaErrorInvalidValue;
   if (rows > 0 && words > 0) {
-    quantize_pack_f32_kernel<<<grid_for(rows, words), kWarpsPerBlock * 32, 0,
-                               (cudaStream_t)stream>>>(
-        (const float*)x, (const float*)alpha, (int32_t*)out, rows, len, words,
-        bits, (float)qn, (float)qp);
+    const cudaStream_t s = (cudaStream_t)stream;
+    const int rc =
+        bf16 ? launch_words<__nv_bfloat16>(x, steps, groups, out, rows, len,
+                                           words, bits, qn, qp,
+                                           words_per_warp, s)
+             : launch_words<float>(x, steps, groups, out, rows, len, words,
+                                   bits, qn, qp, words_per_warp, s);
+    if (rc != 0) return rc;
   }
   return (int)cudaGetLastError();
 }
@@ -109,8 +198,8 @@ extern "C" int pack_codes_i32(const void* codes, void* out, int rows, int len,
                               int bits, void* stream) {
   const int words = (len + 31) / 32;
   if (rows > 0 && words > 0) {
-    pack_codes_kernel<<<grid_for(rows, words), kWarpsPerBlock * 32, 0,
-                        (cudaStream_t)stream>>>(
+    pack_codes_kernel<<<grid_for((long long)rows * words),
+                        kWarpsPerBlock * 32, 0, (cudaStream_t)stream>>>(
         (const int32_t*)codes, (int32_t*)out, rows, len, words, bits);
   }
   return (int)cudaGetLastError();

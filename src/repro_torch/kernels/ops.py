@@ -11,6 +11,8 @@ that does not build or launch raises.
   ceil(K/32)) words (K1's codes entry);
 * :func:`quantize_pack_activations` — (..., K) floats and a step size →
   the same planes (K1);
+* :func:`quantize_pack_activations_multi` — (..., K) floats and G step
+  sizes → (G, bits, ..., ceil(K/32)), one launch of K1;
 * :func:`serial_conv2d_packed_op` — the fused packed conv (K2);
 * :func:`serial_matmul_packed_op` — the fused GEMM over packed
   activations (K3), any leading dims;
@@ -25,7 +27,7 @@ counterpart of the reference's ``backend="xla"``.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -33,17 +35,18 @@ from repro_torch.core.bitserial import SerialSpec
 from repro_torch.core.quant import QuantSpec
 from repro_torch.kernels import bitserial_conv, bitserial_matmul, quantize_pack
 
-__all__ = ["pack_activations", "quantize_pack_activations", "over_rows",
+__all__ = ["pack_activations", "quantize_pack_activations",
+           "quantize_pack_activations_multi", "over_rows",
            "serial_conv2d_packed_op", "serial_matmul_packed_op",
            "serial_matmul_op"]
 
 
-def over_rows(fn, x: torch.Tensor, bits: int) -> torch.Tensor:
-    """Run a row packer ``fn`` ((R, K) → (bits, R, W)) over (..., K) and
-    restore the leading dims: (bits, ..., W)."""
+def over_rows(fn, x: torch.Tensor, *head: int) -> torch.Tensor:
+    """Run a row packer ``fn`` ((R, K) → (*head, R, W)) over (..., K) and
+    restore the leading dims: (*head, ..., W)."""
     lead = tuple(x.shape[:-1])
     out = fn(x.reshape(-1, x.shape[-1]).contiguous())
-    return out.reshape((bits,) + lead + (out.shape[-1],))
+    return out.reshape(head + lead + (out.shape[-1],))
 
 
 def pack_activations(codes: torch.Tensor, a_bits: int) -> torch.Tensor:
@@ -61,6 +64,19 @@ def quantize_pack_activations(x: torch.Tensor, alpha: torch.Tensor,
     fn = (quantize_pack.quantize_pack_ref if plain
           else quantize_pack.quantize_pack)
     return over_rows(lambda r: fn(r, alpha, spec), x, spec.bits)
+
+
+def quantize_pack_activations_multi(x: torch.Tensor,
+                                    alphas: Sequence[torch.Tensor],
+                                    spec: QuantSpec, *,
+                                    plain: bool = False) -> torch.Tensor:
+    """Quantize (..., K) floats once for each step in ``alphas`` (1..4) and
+    pack the codes, in one launch: (G, spec.bits, ..., ceil(K/32)); slice g
+    equals ``quantize_pack_activations(x, alphas[g], spec)``."""
+    fn = (quantize_pack.quantize_pack_multi_ref if plain
+          else quantize_pack.quantize_pack_multi)
+    return over_rows(lambda r: fn(r, alphas, spec), x, len(alphas),
+                     spec.bits)
 
 
 def serial_conv2d_packed_op(x_packed: torch.Tensor, w_packed: torch.Tensor,

@@ -4,16 +4,22 @@ Counterpart of ``repro/kernels/quantize_pack.py``. The CUDA kernel
 (``csrc/quantize_pack.cu``) replaces ``quantize_pack_pallas``; beside it are
 its plain versions:
 
-* :func:`quantize_pack_ref` — ``(R, L)`` float → ``(bits, R, ceil(L/32))``
-  packed planes, for the ``quantize_pack`` step;
+* :func:`quantize_pack_ref` — ``(R, L)`` float32 or bf16 → ``(bits, R,
+  ceil(L/32))`` packed planes, for the ``quantize_pack`` step;
+* :func:`quantize_pack_multi_ref` — the same activation for G step sizes
+  at once → ``(G, bits, R, ceil(L/32))``, one launch of the kernel for the
+  LM's projections that share an input;
 * :func:`pack_codes_ref` — the codes-input variant, ``(R, L)`` int32 codes
   → the same planes, for the ``pack_codes`` step.
 
-:func:`quantize_pack` and :func:`pack_codes` dispatch on the tensor's
-device: the plain version for a CPU tensor, the kernel for a CUDA tensor.
+:func:`quantize_pack`, :func:`quantize_pack_multi` and :func:`pack_codes`
+dispatch on the tensor's device: the plain version for a CPU tensor, the
+kernel for a CUDA tensor.
 """
 
 from __future__ import annotations
+
+from typing import Sequence
 
 import torch
 
@@ -21,13 +27,20 @@ from repro_torch.core import bitops
 from repro_torch.core.quant import QuantSpec, qrange, quantize_int
 from repro_torch.kernels._build import I, Kernel, P
 
-__all__ = ["KERNEL", "quantize_pack", "pack_codes", "quantize_pack_ref",
-           "pack_codes_ref", "quantize_pack_cuda", "pack_codes_cuda"]
+__all__ = ["KERNEL", "MAX_GROUPS", "quantize_pack", "quantize_pack_multi",
+           "pack_codes", "quantize_pack_ref", "quantize_pack_multi_ref",
+           "pack_codes_ref", "quantize_pack_cuda", "quantize_pack_multi_cuda",
+           "pack_codes_cuda"]
 
 KERNEL = Kernel("quantize_pack", {
-    "quantize_pack_f32": (P, P, P, I, I, I, I, I, P),
+    "quantize_pack_float": (P, I, P, P, P, P, I, P, I, I, I, I, I, I, P),
     "pack_codes_i32": (P, P, I, I, I, P),
 })
+
+MAX_GROUPS = 4   # step sizes one launch quantizes for
+# the kernel's input types (its ``bf16`` flag)
+_FLOAT_INPUTS = {torch.float32: 0, torch.bfloat16: 1}
+WORDS_PER_WARP = 1
 
 
 def pack_codes_ref(codes: torch.Tensor, bits: int) -> torch.Tensor:
@@ -39,15 +52,25 @@ def pack_codes_ref(codes: torch.Tensor, bits: int) -> torch.Tensor:
 
 def quantize_pack_ref(x: torch.Tensor, scale: torch.Tensor,
                       spec: QuantSpec) -> torch.Tensor:
-    """Plain version: (R, L) float, scalar step → (bits, R, ceil(L/32))."""
-    return pack_codes_ref(quantize_int(x, scale, spec), spec.bits)
+    """Plain version: (R, L) float, scalar step → (bits, R, ceil(L/32)).
+    A bf16 ``x`` is widened to float32 first (exact), as the kernel and the
+    reference do."""
+    return pack_codes_ref(quantize_int(x.float(), scale, spec), spec.bits)
 
 
-def _check_rows(name: str, x: torch.Tensor, dtype: torch.dtype) -> None:
+def quantize_pack_multi_ref(x: torch.Tensor, scales: Sequence[torch.Tensor],
+                            spec: QuantSpec) -> torch.Tensor:
+    """Plain version of the grouped launch: (R, L) float and G step sizes →
+    (G, bits, R, ceil(L/32)), slice g packed with ``scales[g]``."""
+    return torch.stack([quantize_pack_ref(x, s, spec) for s in scales])
+
+
+def _check_rows(name: str, x: torch.Tensor, dtypes) -> None:
     if not x.is_cuda:
         raise ValueError(f"{name}: tensor must be on the card, got {x.device}")
-    if x.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {x.dtype}")
+    if x.dtype not in dtypes:
+        raise TypeError(f"{name}: expected one of {list(dtypes)}, got "
+                        f"{x.dtype}")
     if x.dim() != 2 or not x.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous (R, L) tensor, got "
                          f"shape {tuple(x.shape)}")
@@ -58,29 +81,46 @@ def _check_bits(bits: int) -> None:
         raise ValueError(f"bits must be in 1..16, got {bits}")
 
 
-def quantize_pack_cuda(x: torch.Tensor, scale: torch.Tensor,
-                       spec: QuantSpec) -> torch.Tensor:
-    """Launch K1 on a CUDA ``(R, L)`` float32 tensor; ``scale`` is a
-    one-element float32 tensor on the same card, read by the kernel."""
-    _check_rows("quantize_pack", x, torch.float32)
+def quantize_pack_multi_cuda(x: torch.Tensor, scales: Sequence[torch.Tensor],
+                             spec: QuantSpec, *,
+                             words_per_warp: int = WORDS_PER_WARP
+                             ) -> torch.Tensor:
+    """Launch K1 once on a CUDA ``(R, L)`` float32 or bf16 tensor for G =
+    ``len(scales)`` (1..4) step sizes, each a one-element float32 tensor on
+    the same card, read by the kernel. Returns (G, bits, R, ceil(L/32))."""
+    scales = list(scales)
+    _check_rows("quantize_pack", x, _FLOAT_INPUTS)
     _check_bits(spec.bits)
-    if (not scale.is_cuda or scale.device != x.device
-            or scale.dtype != torch.float32 or scale.numel() != 1):
-        raise ValueError("quantize_pack: scale must be one float32 element "
-                         "on the input's card")
+    if not 1 <= len(scales) <= MAX_GROUPS:
+        raise ValueError(f"quantize_pack: 1..{MAX_GROUPS} step sizes, got "
+                         f"{len(scales)}")
+    for s in scales:
+        if (not s.is_cuda or s.device != x.device
+                or s.dtype != torch.float32 or s.numel() != 1):
+            raise ValueError("quantize_pack: each step size must be one "
+                             "float32 element on the input's card")
     r, l = x.shape
-    out = torch.empty((spec.bits, r, -(-l // 32)), dtype=torch.int32,
-                      device=x.device)
+    out = torch.empty((len(scales), spec.bits, r, -(-l // 32)),
+                      dtype=torch.int32, device=x.device)
+    ptrs = [s.data_ptr() for s in scales] + [None] * (MAX_GROUPS - len(scales))
     qn, qp = qrange(spec.bits, spec.signed)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    KERNEL.launch("quantize_pack_f32", x.data_ptr(), scale.data_ptr(),
-                  out.data_ptr(), r, l, spec.bits, qn, qp, stream)
+    KERNEL.launch("quantize_pack_float", x.data_ptr(), _FLOAT_INPUTS[x.dtype],
+                  *ptrs, len(scales), out.data_ptr(), r, l, spec.bits, qn, qp,
+                  words_per_warp, stream)
     return out
+
+
+def quantize_pack_cuda(x: torch.Tensor, scale: torch.Tensor,
+                       spec: QuantSpec) -> torch.Tensor:
+    """Launch K1 on a CUDA ``(R, L)`` float32 or bf16 tensor for one step
+    size: (bits, R, ceil(L/32))."""
+    return quantize_pack_multi_cuda(x, [scale], spec)[0]
 
 
 def pack_codes_cuda(codes: torch.Tensor, bits: int) -> torch.Tensor:
     """Launch K1's codes-input entry on a CUDA ``(R, L)`` int32 tensor."""
-    _check_rows("pack_codes", codes, torch.int32)
+    _check_rows("pack_codes", codes, (torch.int32,))
     _check_bits(bits)
     r, l = codes.shape
     out = torch.empty((bits, r, -(-l // 32)), dtype=torch.int32,
@@ -97,6 +137,14 @@ def quantize_pack(x: torch.Tensor, scale: torch.Tensor,
     if x.is_cuda:
         return quantize_pack_cuda(x, scale, spec)
     return quantize_pack_ref(x, scale, spec)
+
+
+def quantize_pack_multi(x: torch.Tensor, scales: Sequence[torch.Tensor],
+                        spec: QuantSpec) -> torch.Tensor:
+    """The grouped K1 on a CUDA tensor, its plain version on a CPU tensor."""
+    if x.is_cuda:
+        return quantize_pack_multi_cuda(x, scales, spec)
+    return quantize_pack_multi_ref(x, scales, spec)
 
 
 def pack_codes(codes: torch.Tensor, bits: int) -> torch.Tensor:

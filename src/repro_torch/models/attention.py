@@ -4,8 +4,9 @@ projections.
 Counterpart of ``repro/models/attention.py``, restricted to the branches a
 dense decoder takes: causal, full (no sliding window), an unquantized
 cache and a scalar ``cache_pos`` (every row of the batch at the same
-depth). All four projections are :func:`repro_torch.models.layers.qdense`,
-so in deployment they run through the bit-serial kernels; scores and the
+depth). All four projections are :func:`repro_torch.models.layers.qdense`
+(q, k and v through ``qdense_shared``: one quantize-pack of their shared
+input), so in deployment they run through the bit-serial kernels; scores and the
 PV product stay plain float32 torch ops, as the reference computes them
 outside any Pallas kernel.
 
@@ -23,7 +24,7 @@ from typing import Optional
 import torch
 
 from repro_torch.models.layers import (QuantPolicy, apply_rotary, qdense,
-                                       qdense_init, rotary)
+                                       qdense_init, qdense_shared, rotary)
 
 __all__ = ["AttnConfig", "attn_init", "attn_apply", "init_kv_cache",
            "update_kv_cache", "read_kv_cache"]
@@ -131,11 +132,12 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: AttnConfig,
     the whole cache under the causal mask."""
     b, s, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = qdense(p["wq"], x, policy).reshape(b, s, h, dh)
+    q, k, v = qdense_shared([p["wq"], p["wk"], p["wv"]], x, policy)
+    q = q.reshape(b, s, h, dh)
+    k = k.reshape(b, s, hkv, dh)
+    v = v.reshape(b, s, hkv, dh)
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
-    k = qdense(p["wk"], x, policy).reshape(b, s, hkv, dh)
-    v = qdense(p["wv"], x, policy).reshape(b, s, hkv, dh)
     rd = cfg.rotary_dim
     if rd > 0:
         cos, sin = rotary(positions, rd, cfg.rope_theta)

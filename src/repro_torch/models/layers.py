@@ -11,6 +11,8 @@ through :func:`qdense`, which dispatches on its parameters:
   the fused scaler/bias epilogue. With ``QuantPolicy.pack_acts`` the
   activations are quantized and packed by K1 and multiplied by K3; without
   it they are quantized to int32 codes and multiplied by K4.
+  :func:`qdense_shared` runs the projections of one activation with one K1
+  launch for all of them.
 
 LSQ fake-quant (mode ``qat`` on float params) waits for the LSQ
 straight-through estimator and raises. Parameters are plain dicts; layer
@@ -20,7 +22,7 @@ stacks carry a leading ``(L, ...)`` axis on every leaf.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -29,8 +31,10 @@ from repro_torch.core import bitops
 from repro_torch.core.bitserial import SerialSpec, plan_spec
 from repro_torch.core.quant import QuantSpec, init_alpha, quantize_int, qrange
 from repro_torch.kernels import ops
+from repro_torch.kernels.quantize_pack import MAX_GROUPS
 
-__all__ = ["QuantPolicy", "qdense_init", "qdense", "pack_qdense", "rms_norm",
+__all__ = ["QuantPolicy", "qdense_init", "qdense", "qdense_shared",
+           "pack_qdense", "rms_norm",
            "layer_norm", "rotary", "apply_rotary"]
 
 
@@ -87,23 +91,18 @@ def qdense(p: dict, x: torch.Tensor, policy: QuantPolicy) -> torch.Tensor:
     parameters. The output has ``x``'s dtype: the kernels emit float32 and
     it is cast once after them, as the reference's kernel does."""
     if "w_packed" in p:
-        spec = plan_spec(policy.spec())
         aspec = QuantSpec(policy.a_bits, policy.a_signed)
-        # the reference divides bf16 by a float32 step in float32
-        xf = x.to(torch.float32)
-        scale = (p["scale"] * p["alpha_a"]).to(torch.float32)
-        k = x.shape[-1]
         if policy.pack_acts:
-            xp = ops.quantize_pack_activations(xf, p["alpha_a"], aspec,
+            # K1 reads x in its own dtype and divides in float32
+            xp = ops.quantize_pack_activations(x, p["alpha_a"], aspec,
                                                plain=policy.plain)
-            out = ops.serial_matmul_packed_op(
-                xp, p["w_packed"], scale, p.get("b"), spec=spec, k=k,
-                plain=policy.plain)
-        else:
-            codes = quantize_int(xf, p["alpha_a"], aspec)
-            out = ops.serial_matmul_op(codes, p["w_packed"], scale,
-                                       p.get("b"), spec=spec, k=k,
-                                       plain=policy.plain)
+            return _packed_matmul(p, xp, x, policy)
+        # the reference divides bf16 by a float32 step in float32
+        codes = quantize_int(x.to(torch.float32), p["alpha_a"], aspec)
+        scale = (p["scale"] * p["alpha_a"]).to(torch.float32)
+        out = ops.serial_matmul_op(codes, p["w_packed"], scale, p.get("b"),
+                                   spec=plan_spec(policy.spec()),
+                                   k=x.shape[-1], plain=policy.plain)
         return out.to(x.dtype)
     if policy.mode == "qat" and "alpha_w" in p:
         raise NotImplementedError(
@@ -113,6 +112,36 @@ def qdense(p: dict, x: torch.Tensor, policy: QuantPolicy) -> torch.Tensor:
     if "b" in p:
         out = out + p["b"].to(x.dtype)
     return out
+
+
+def _packed_matmul(p: dict, xp: torch.Tensor, x: torch.Tensor,
+                   policy: QuantPolicy) -> torch.Tensor:
+    """The packed half of :func:`qdense`: K3 on ``xp``, the planes K1 made
+    of ``x`` with ``p``'s step, cast to ``x``'s dtype."""
+    scale = (p["scale"] * p["alpha_a"]).to(torch.float32)
+    out = ops.serial_matmul_packed_op(
+        xp, p["w_packed"], scale, p.get("b"), spec=plan_spec(policy.spec()),
+        k=x.shape[-1], plain=policy.plain)
+    return out.to(x.dtype)
+
+
+def qdense_shared(ps: Sequence[dict], x: torch.Tensor,
+                  policy: QuantPolicy) -> List[torch.Tensor]:
+    """Returns exactly ``[qdense(p, x, policy) for p in ps]``: the
+    projections of one activation (q/k/v, gate/up).
+
+    On packed params with ``pack_acts`` one K1 launch quantize-packs ``x``
+    for every member's step size (at most four), then one K3 runs per
+    member; otherwise (float params, the K4 path) :func:`qdense` runs per
+    member. The same function, launched fewer times; the reference has no
+    counterpart."""
+    if (policy.pack_acts and len(ps) <= MAX_GROUPS
+            and all("w_packed" in p for p in ps)):
+        aspec = QuantSpec(policy.a_bits, policy.a_signed)
+        xp = ops.quantize_pack_activations_multi(
+            x, [p["alpha_a"] for p in ps], aspec, plain=policy.plain)
+        return [_packed_matmul(p, xp[g], x, policy) for g, p in enumerate(ps)]
+    return [qdense(p, x, policy) for p in ps]
 
 
 def _pack_matrix(codes: torch.Tensor, bits: int) -> torch.Tensor:

@@ -22,7 +22,8 @@ import torch.nn.functional as F
 from repro_torch.models.attention import (AttnConfig, attn_apply, attn_init,
                                           init_kv_cache)
 from repro_torch.models.layers import (QuantPolicy, layer_norm, pack_qdense,
-                                       qdense, qdense_init, rms_norm)
+                                       qdense, qdense_init, qdense_shared,
+                                       rms_norm)
 
 __all__ = ["ModelConfig", "GroupSpec", "layer_groups", "init_params",
            "forward", "prefill", "decode_step", "init_caches",
@@ -132,8 +133,8 @@ def _norm(x, w, b, cfg: ModelConfig):
 
 
 def _mlp_apply(p, x, cfg: ModelConfig):
-    up = qdense(p["w_up"], x, cfg.policy)
-    h = F.silu(qdense(p["w_gate"], x, cfg.policy)) * up
+    gate, up = qdense_shared([p["w_gate"], p["w_up"]], x, cfg.policy)
+    h = F.silu(gate) * up
     return qdense(p["w_down"], h, cfg.policy)
 
 

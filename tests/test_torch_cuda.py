@@ -57,6 +57,52 @@ def test_quantize_pack_kernel_equals_plain(dev, bits, signed, rows, length):
     assert torch.equal(k1.pack_codes_cuda(c, bits), k1.pack_codes_ref(c, bits))
 
 
+# the LM's activation shapes (decode M = 4, prefill M = 64; d_model and
+# d_ff of stablelm-1.6b) and a ragged one
+K1_SHAPES = [(4, 2048), (64, 2048), (4, 5632), (64, 5632), (13, 70)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("groups", [1, 2, 3, 4])
+@pytest.mark.parametrize("shape", K1_SHAPES)
+def test_quantize_pack_multi_kernel_equals_plain(dev, shape, groups, dtype):
+    rng = np.random.default_rng(groups * 31 + shape[1])
+    x = torch.from_numpy((rng.standard_normal(shape) * 4).astype(
+        np.float32)).to(dev).to(dtype)
+    steps = [torch.tensor(a, device=dev)
+             for a in (0.125, 0.0371, 0.5, 0.0098)[:groups]]
+    x[0, :16] = ((torch.arange(16, device=dev) - 8 + 0.5) * 0.125).to(dtype)
+    spec = QuantSpec(8, True)
+    before = k1.KERNEL.launches
+    out = k1.quantize_pack_multi_cuda(x, steps, spec)
+    assert k1.KERNEL.launches == before + 1
+    assert torch.equal(out, k1.quantize_pack_multi_ref(x, steps, spec))
+    # a step that is a view into a stacked per-layer leaf, as the LM passes
+    stack = torch.tensor([0.3, 0.07, 0.011], device=dev)
+    views = [stack[i] for i in range(min(groups, 3))]
+    assert torch.equal(k1.quantize_pack_multi_cuda(x, views, spec),
+                       k1.quantize_pack_multi_ref(x, views, spec))
+
+
+def test_quantize_pack_multi_rejects_bad_inputs(dev):
+    x = torch.zeros((4, 64), device=dev)
+    a = torch.tensor(0.5, device=dev)
+    spec = QuantSpec(4, True)
+    bad = [
+        (ValueError, x, []), (ValueError, x, [a] * 5),
+        (TypeError, x.half(), [a]), (TypeError, x.int(), [a]),
+        (ValueError, x, [a.double()]),
+        (ValueError, x, [torch.tensor([0.5, 0.5], device=dev)]),
+        (ValueError, x, [torch.tensor(0.5)]),
+        (ValueError, x.t(), [a]), (ValueError, x[None], [a]),
+    ]
+    before = k1.KERNEL.launches
+    for err, xx, steps in bad:
+        with pytest.raises(err):
+            k1.quantize_pack_multi_cuda(xx, steps, spec)
+    assert k1.KERNEL.launches == before
+
+
 CONV = list(itertools.product(
     [(1, 1, False, False), (2, 2, True, True), (4, 2, False, True),
      (8, 8, True, True), (12, 3, True, False)],

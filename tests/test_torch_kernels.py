@@ -2,7 +2,9 @@
 (bitserial_conv2d) through their plain versions — against the JAX package:
 ``quantize_pack_ref`` / ``quantize_pack_pallas(interpret=True)`` and
 ``serial_conv2d_packed_op(backend="xla")``, plus one ``pallas_v2`` case in
-interpret mode. The sweep follows ``test_conv_v2.py``: stride 1/2, pad 0/1,
+interpret mode. K1's grouped launch (one activation, G step sizes) is held
+against the reference run once per step size, in float32 and bf16 (the same
+bf16 values on both sides). The sweep follows ``test_conv_v2.py``: stride 1/2, pad 0/1,
 1x1/3x3/5x5 filters, ragged Ci/Co, every output mode.
 
 The reference's XLA epilogue is run under ``jax.jit``, as its executor runs
@@ -14,6 +16,8 @@ The CUDA wrappers themselves run only on the card (``chip_smoke.py``,
 ``tests/test_torch_cuda.py``); here they must refuse CPU tensors and build
 nothing.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -102,6 +106,71 @@ def test_quantize_pack_activations_leading_dims():
         quantize_int(jnp.asarray(x), jnp.asarray(alpha), JQuant(2, True)), 2))
     assert tuple(out.shape) == ref.shape == (2, 2, 5, 5, 2)
     np.testing.assert_array_equal(_np(out, ref), ref)
+
+
+# the grouped K1: one (13, 70) activation (ragged: 3 words, the last one
+# partly padding) and four step sizes; the first step puts exact .5 ties
+# into row 0 (representable in bf16 too)
+MULTI_STEPS = (0.125, 0.37, 0.05, 1.3)
+
+
+def _multi_input(signed, dtype):
+    x = (np.random.default_rng(15).standard_normal((13, 70)) * 3).astype(
+        np.float32)
+    x[0, :8] = (np.arange(8) - 4 + 0.5) * MULTI_STEPS[0]
+    if not signed:
+        x = np.abs(x)
+    # round to bf16 once, so both packages read the same values
+    return torch.from_numpy(x).to(getattr(torch, dtype)).float().numpy()
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_multi(bits, signed, dtype, g):
+    """The reference's planes for step ``g``: (quantize_pack_ref,
+    quantize_pack_pallas(interpret=True)), as int32 views."""
+    x = jnp.asarray(_multi_input(signed, dtype), getattr(jnp, dtype))
+    step = jnp.asarray(np.float32(MULTI_STEPS[g]))
+    spec = JQuant(bits, signed)
+    ref = np.asarray(j_qp_ref(x, step, spec)).view(np.int32)
+    pal = np.asarray(quantize_pack_pallas(x, step, spec, block_r=16,
+                                          block_l=128, interpret=True))
+    return ref, pal.view(np.int32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bits,signed", [(2, True), (4, True), (8, True),
+                                         (2, False), (4, False), (8, False)])
+@pytest.mark.parametrize("groups", [1, 2, 3, 4])
+def test_quantize_pack_multi_plain_matches_reference(groups, bits, signed,
+                                                     dtype):
+    x = torch.from_numpy(_multi_input(signed, dtype)).to(
+        getattr(torch, dtype))
+    steps = [torch.tensor(np.float32(a)) for a in MULTI_STEPS[:groups]]
+    spec = QuantSpec(bits, signed)
+    out = quantize_pack.quantize_pack_multi(x, steps, spec)
+    assert out.dtype == torch.int32
+    assert tuple(out.shape) == (groups, bits, 13, 3)
+    for g in range(groups):
+        ref, pal = _jax_multi(bits, signed, dtype, g)
+        np.testing.assert_array_equal(out[g].numpy(), ref)
+        np.testing.assert_array_equal(out[g].numpy(), pal)
+        # slice g is the single-step launch's output
+        assert torch.equal(out[g], quantize_pack.quantize_pack(x, steps[g],
+                                                               spec))
+
+
+def test_quantize_pack_activations_multi_leading_dims():
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((2, 3, 70)).astype(
+        np.float32)).to(torch.bfloat16)
+    steps = [torch.tensor(0.2), torch.tensor(0.07), torch.tensor(0.5)]
+    spec = QuantSpec(8, True)
+    out = ops.quantize_pack_activations_multi(x, steps, spec)
+    assert tuple(out.shape) == (3, 8, 2, 3, 3)
+    for g, a in enumerate(steps):
+        assert torch.equal(out[g], ops.quantize_pack_activations(x, a, spec))
+    plain = ops.quantize_pack_activations_multi(x, steps, spec, plain=True)
+    assert torch.equal(out, plain)
 
 
 # ---------------------------------------------------------------- K2
@@ -225,6 +294,22 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     assert (quantize_pack.KERNEL.launches,
             bitserial_conv.KERNEL.launches) == before
     assert quantize_pack.KERNEL._lib is None and bitserial_conv.KERNEL._lib is None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_pack_multi_cuda_refuses_cpu_tensors(dtype):
+    """The grouped entry refuses CPU tensors, launches nothing and builds
+    nothing; its dispatcher runs the plain version for them."""
+    before = dict(quantize_pack.KERNEL.entry_launches)
+    x = torch.zeros((4, 64), dtype=dtype)
+    steps = [torch.tensor(0.5), torch.tensor(0.25)]
+    with pytest.raises(ValueError, match="on the card"):
+        quantize_pack.quantize_pack_multi_cuda(x, steps, QuantSpec(4))
+    assert quantize_pack.KERNEL.entry_launches == before
+    assert quantize_pack.KERNEL._lib is None
+    out = quantize_pack.quantize_pack_multi(x, steps, QuantSpec(4))
+    assert tuple(out.shape) == (2, 4, 4, 2)
+    assert quantize_pack.KERNEL.entry_launches == before
 
 
 def test_build_names_library_by_source_hash():

@@ -123,6 +123,66 @@ def test_qdense_equals_reference(pack_acts, dtype):
     np.testing.assert_array_equal(_np(got), np.asarray(ref, np.float32))
 
 
+@pytest.mark.parametrize("groups", [2, 3])
+@pytest.mark.parametrize("pack_acts", [True, False])
+def test_qdense_shared_equals_qdense_list(pack_acts, groups):
+    """``qdense_shared`` (one K1 for every member with ``pack_acts``) is
+    exactly a list of ``qdense`` calls, on bf16 input with each member's own
+    step size and bias; each member equals the reference's jitted
+    ``qdense``."""
+    ps = []
+    for g in range(groups):
+        p = jl.qdense_init(jax.random.PRNGKey(20 + g), 96, 40 + 8 * g,
+                           _jpolicy(pack_acts), bias=True)
+        p["b"] = jax.random.normal(jax.random.PRNGKey(30 + g),
+                                   (40 + 8 * g,)) * 0.1
+        p["alpha_a"] = jnp.float32(0.02 + 0.015 * g)
+        ps.append(jl.pack_qdense(p, _jpolicy(pack_acts)))
+    x = np.random.default_rng(9).standard_normal((2, 5, 96)).astype(
+        np.float32)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    tps = [_t(_np_tree(p)) for p in ps]
+    got = tl.qdense_shared(tps, xt, _policy(pack_acts))
+    want = [tl.qdense(p, xt, _policy(pack_acts)) for p in tps]
+    assert len(got) == groups
+    jq = jax.jit(lambda pp, xx: jl.qdense(pp, xx, _jpolicy(pack_acts)))
+    for g, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+        ref = jq(ps[g], jnp.asarray(x, jnp.bfloat16))
+        np.testing.assert_array_equal(_np(a), np.asarray(ref, np.float32))
+
+
+@pytest.mark.parametrize("pack_acts", [True, False])
+def test_lm_step_quantize_packs_each_activation_once(smoke, monkeypatch,
+                                                     pack_acts):
+    """A decode step quantize-packs each layer's four distinct activations
+    once: q/k/v share one grouped call (3 steps), gate/up one (2 steps), o
+    and down one each. The K4 path (``pack_acts=False``) packs none."""
+    _, tcfg, _, packed = smoke
+    tcfg = tt.serve_policy(tcfg, pack_acts=pack_acts)
+    calls = []
+    multi, single = (ops.quantize_pack_activations_multi,
+                     ops.quantize_pack_activations)
+
+    def count_multi(x, alphas, spec, **kw):
+        calls.append(len(alphas))
+        return multi(x, alphas, spec, **kw)
+
+    def count_single(x, alpha, spec, **kw):
+        calls.append(1)
+        return single(x, alpha, spec, **kw)
+
+    monkeypatch.setattr(ops, "quantize_pack_activations_multi", count_multi)
+    monkeypatch.setattr(ops, "quantize_pack_activations", count_single)
+    tp = _t(packed)
+    toks = torch.from_numpy(np.arange(12, dtype=np.int64).reshape(2, 6))
+    _, caches = tt.prefill(tp, {"tokens": toks}, tcfg, max_len=8)
+    calls.clear()
+    tt.decode_step(tp, caches, toks[:, :1], 6, tcfg)
+    want = [3, 1, 2, 1] * tcfg.n_layers if pack_acts else []
+    assert calls == want
+
+
 def test_quantize_pack_on_float_equals_quantize_then_pack():
     """K1's float entry on ``x.float()`` computes exactly ``quantize_int``
     then ``pack_activations`` — the two ``qdense`` routes quantize alike,
