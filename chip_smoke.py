@@ -252,13 +252,11 @@ def main() -> int:
         xf = cuda((rng.standard_normal((m, k)) * 4).astype(np.float32))
         for xt in (xf, xf.bfloat16()):
             for g in range(1, 5):
-                ref = k1.quantize_pack_multi_ref(xt, lm_steps[:g], lm_aspec)
-                for wpw in (1, 4):
-                    check_equal("K1", f"({m},{k}) {xt.dtype} G={g} "
-                                f"{wpw} words/warp",
-                                k1.quantize_pack_multi_cuda(
-                                    xt, lm_steps[:g], lm_aspec,
-                                    words_per_warp=wpw), ref)
+                check_equal("K1", f"({m},{k}) {xt.dtype} G={g}",
+                            k1.quantize_pack_multi_cuda(xt, lm_steps[:g],
+                                                        lm_aspec),
+                            k1.quantize_pack_multi_ref(xt, lm_steps[:g],
+                                                       lm_aspec))
 
     # ------------------------------------------------------ 3. K2 checks
     log("K2 bitserial_conv2d vs plain")
@@ -766,11 +764,9 @@ def main() -> int:
         steps = lm_steps[:g]
         byt, ops, bound = k1_bound(m, k, 8, 2, g)
         call = lambda: k1.quantize_pack_multi_cuda(xb, steps, lm_aspec)
-        call4 = lambda: k1.quantize_pack_multi_cuda(xb, steps, lm_aspec,
-                                                    words_per_warp=4)
         lm_rows.append({
             "kernel": "K1", "m": m, "k": k, "n": None, "g": g,
-            "ms": timer(call, 50), "ms_4_words_per_warp": timer(call4, 50),
+            "ms": timer(call, 50),
             "plain_ms": timer(lambda: k1.quantize_pack_multi_ref(
                 xb, steps, lm_aspec), 10),
             "library_ms": None, "bound_ms": bound, "bytes": byt,
@@ -778,8 +774,7 @@ def main() -> int:
             ops / FP32_OPS_PER_S else "operations"})
     for r in lm_rows:
         lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        what = (f"G={r['g']} (4 words/warp {r['ms_4_words_per_warp']:.4f})"
-                if r["kernel"] == "K1" else f"->{r['n']}")
+        what = f" G={r['g']}" if r["kernel"] == "K1" else f"->{r['n']}"
         log(f"  {r['kernel']} M{r['m']} {r['k']}{what}: kernel "
             f"{r['ms']:.4f}  plain {r['plain_ms']:.4f}  library {lib}  bound "
             f"{r['bound_ms']:.5f} ({r['bound_by']})")
@@ -814,17 +809,14 @@ def main() -> int:
     for kid in ("K1", "K3", "K4"):
         n_calls = k1_per_step if kid == "K1" else per_step
         for m, what in ((4, "decode step"), (64, "prefill")):
-            keys = ("ms", "bound_ms", "library_ms", "plain_ms") + (
-                ("ms_4_words_per_warp",) if kid == "K1" else ())
-            sums = {key: lm_step(kid, key, m) for key in keys}
+            sums = {key: lm_step(kid, key, m) for key in
+                    ("ms", "bound_ms", "library_ms", "plain_ms")}
             record["lm_step_sums"][f"{kid} M{m}"] = sums
             lib = ("-" if sums["library_ms"] is None
                    else f"{sums['library_ms']:.4f}")
             log(f"  {kid} summed over one {what} ({n_calls} calls at M = "
                 f"{m}): {sums['ms']:.4f} ms, bound {sums['bound_ms']:.4f}, "
-                f"library {lib}, plain {sums['plain_ms']:.3f}"
-                + (f", 4 words/warp {sums['ms_4_words_per_warp']:.4f}"
-                   if kid == "K1" else ""))
+                f"library {lib}, plain {sums['plain_ms']:.3f}")
 
     # the step and the end-to-end numbers of each LM path (K1 + K3, and K4
     # with pack_acts=False), host clock around synced work

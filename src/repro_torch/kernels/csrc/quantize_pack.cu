@@ -3,8 +3,8 @@
 // Replaces the TPU kernel repro/kernels/quantize_pack.py::quantize_pack_pallas
 // (pallas_call at quantize_pack.py:67, body _kernel at :38).
 //
-//   codes[g, r, l] = clip(rint(x[r, l] / alpha[g]), qn, qp)        g < G <= 4
-//   out[g, b, r, w] bit t = bit b of (codes[g, r, 32 w + t] & mask)   t = 0..31
+//   codes[g, r, l] = clip(rint(x[r, l] / alpha[g]), qn, qp)      g < G <= 4
+//   out[g, b, r, w] bit t = bit b of (codes[g, r, 32 w + t] & mask), t < 32
 //
 // x is float32 or bf16, read in its own type and widened in registers
 // (__bfloat162float is exact, as the reference's astype(float32) is). One
@@ -16,18 +16,22 @@
 // padding. A second entry packs int32 codes that are already quantized (the
 // `pack_codes` step after an integer pool).
 //
-// Bound on the H100: at the LM's sizes (a (4, 2048) bf16 activation is
-// 16 KB) the launch, not the bytes: one warp's work costs about as much as
-// a few thousand rows. At larger sizes, bytes: each element is read once
-// and costs G divides, rounds and clips; the output is G * bits / 32 of a
-// word per element. Design: one launch per distinct activation instead of
-// one per projection, and no float32 copy of a bf16 activation before it.
-// One warp owns 32 consecutive lanes of kWords words of one row, so each of
-// its loads is one coalesced transaction; it issues its loads and its G
-// step-size loads before the first divide, and __ballot_sync of bit b of the
-// warp's codes IS the packed word of plane b — no shared memory, no
-// shuffles. Lane b of the warp stores plane b's word. The TPU kernel's
-// (block_r, block_l) tiling is a VMEM choice and has no counterpart here.
+// Bound on the H100: at the LM's sizes, the launch, not the bytes. A
+// (4, 2048) bf16 activation is 16 KB, 0.01 us of memory time, and K1 there
+// takes about what a launch that zeroes one float takes (6.0 against 5.0 us
+// under the same cold timer, PERF.md). At larger sizes, bytes: each element
+// is read once and costs G divides, rounds and clips; the output is
+// G * bits / 32 of a word per element. Design: one launch per distinct
+// activation instead of one per projection, and no float32 copy of a bf16
+// activation before it.
+// One warp owns 32 consecutive lanes of one row, so its load is one
+// coalesced transaction; it issues that load and its G step-size loads
+// before the first divide, and __ballot_sync of bit b of the warp's codes
+// IS the packed word of plane b — no shared memory, no shuffles. Lane b of
+// the warp stores plane b's word. A warp walking 4 words of its row was
+// slower summed over an LM step at decode and at prefill (PERF.md). The
+// TPU kernel's (block_r, block_l) tiling is a VMEM choice and has no
+// counterpart here.
 //
 // Numerics match the reference bit for bit: __fdiv_rn is the IEEE divide
 // (never built with --use_fast_math) and rintf rounds half to even like
@@ -69,46 +73,34 @@ __device__ __forceinline__ void ballot_store(uint32_t u, int bits, int lane,
   if (lane < bits) out[(long long)lane * plane + word] = (int32_t)mine;
 }
 
-template <typename T, int G, int kWords>
+template <typename T, int G>
 __global__ void quantize_pack_kernel(const T* __restrict__ x, Steps steps,
                                      int32_t* __restrict__ out, int rows,
                                      int len, int words, int bits, float qn,
                                      float qp) {
-  const int spans = (words + kWords - 1) / kWords;  // warps per row
   const long long warp =
       (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
-  if (warp >= (long long)rows * spans) return;  // the whole warp leaves
-  const int row = (int)(warp / spans);
-  const int w0 = (int)(warp % spans) * kWords;
-  const long long plane = (long long)rows * words;
-  const T* xr = x + (long long)row * len;
-  // every load first: the warp's columns, then its step sizes
-  float v[kWords];
-#pragma unroll
-  for (int i = 0; i < kWords; ++i) {
-    const int col = (w0 + i) * 32 + lane;
-    v[i] = col < len ? widen(xr[col]) : 0.0f;
-  }
+  const long long total = (long long)rows * words;
+  if (warp >= total) return;  // the whole warp leaves together
+  const int row = (int)(warp / words);
+  const int col = (int)(warp % words) * 32 + lane;
+  // every load first: the warp's 32 columns, then its step sizes
+  const float v = col < len ? widen(x[(long long)row * len + col]) : 0.0f;
   float alpha[G];
 #pragma unroll
   for (int g = 0; g < G; ++g) alpha[g] = __ldg(steps.p[g]);
   const uint32_t mask = lane_mask(bits);
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-#pragma unroll
-    for (int i = 0; i < kWords; ++i) {
-      const int w = w0 + i;
-      if (w >= words) break;  // the same for every lane of the warp
-      uint32_t u = 0;
-      if (w * 32 + lane < len) {
-        float q = rintf(__fdiv_rn(v[i], alpha[g]));
-        q = fminf(fmaxf(q, qn), qp);
-        u = (uint32_t)(int)q & mask;
-      }
-      ballot_store(u, bits, lane, out + (long long)g * bits * plane, plane,
-                   (long long)row * words + w);
+    uint32_t u = 0;
+    if (col < len) {
+      float q = rintf(__fdiv_rn(v, alpha[g]));
+      q = fminf(fmaxf(q, qn), qp);
+      u = (uint32_t)(int)q & mask;
     }
+    ballot_store(u, bits, lane, out + (long long)g * bits * total, total,
+                 warp);
   }
 }
 
@@ -132,38 +124,30 @@ unsigned int grid_for(long long warps) {
   return (unsigned int)((warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
 }
 
-template <typename T, int G, int kWords>
-void launch(const void* x, const Steps& steps, void* out, int rows, int len,
-            int words, int bits, int qn, int qp, cudaStream_t stream) {
-  const long long warps = (long long)rows * ((words + kWords - 1) / kWords);
-  quantize_pack_kernel<T, G, kWords>
-      <<<grid_for(warps), kWarpsPerBlock * 32, 0, stream>>>(
-          (const T*)x, steps, (int32_t*)out, rows, len, words, bits,
-          (float)qn, (float)qp);
-}
+// One call's operands, the same for every (T, G) instantiation.
+struct Args {
+  const void* x;
+  Steps steps;
+  void* out;
+  int rows, len, words, bits;
+  float qn, qp;
+};
 
-template <typename T, int kWords>
-int launch_groups(const void* x, const Steps& steps, int groups, void* out,
-                  int rows, int len, int words, int bits, int qn, int qp,
-                  cudaStream_t stream) {
-  switch (groups) {
-    case 1: launch<T, 1, kWords>(x, steps, out, rows, len, words, bits, qn, qp, stream); break;
-    case 2: launch<T, 2, kWords>(x, steps, out, rows, len, words, bits, qn, qp, stream); break;
-    case 3: launch<T, 3, kWords>(x, steps, out, rows, len, words, bits, qn, qp, stream); break;
-    case 4: launch<T, 4, kWords>(x, steps, out, rows, len, words, bits, qn, qp, stream); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return 0;
+template <typename T, int G>
+void launch(const Args& a, cudaStream_t stream) {
+  quantize_pack_kernel<T, G>
+      <<<grid_for((long long)a.rows * a.words), kWarpsPerBlock * 32, 0,
+         stream>>>((const T*)a.x, a.steps, (int32_t*)a.out, a.rows, a.len,
+                   a.words, a.bits, a.qn, a.qp);
 }
 
 template <typename T>
-int launch_words(const void* x, const Steps& steps, int groups, void* out,
-                 int rows, int len, int words, int bits, int qn, int qp,
-                 int words_per_warp, cudaStream_t stream) {
-  switch (words_per_warp) {
-    case 1: return launch_groups<T, 1>(x, steps, groups, out, rows, len, words, bits, qn, qp, stream);
-    case 4: return launch_groups<T, 4>(x, steps, groups, out, rows, len, words, bits, qn, qp, stream);
-    default: return (int)cudaErrorInvalidValue;
+void launch_groups(int groups, const Args& a, cudaStream_t stream) {
+  switch (groups) {
+    case 1: launch<T, 1>(a, stream); break;
+    case 2: launch<T, 2>(a, stream); break;
+    case 3: launch<T, 3>(a, stream); break;
+    default: launch<T, 4>(a, stream); break;
   }
 }
 
@@ -176,20 +160,17 @@ extern "C" int quantize_pack_float(const void* x, int bf16, const void* a0,
                                    const void* a1, const void* a2,
                                    const void* a3, int groups, void* out,
                                    int rows, int len, int bits, int qn, int qp,
-                                   int words_per_warp, void* stream) {
-  const int words = (len + 31) / 32;
+                                   void* stream) {
+  if (groups < 1 || groups > kMaxGroups) return (int)cudaErrorInvalidValue;
   const Steps steps = {{(const float*)a0, (const float*)a1, (const float*)a2,
                         (const float*)a3}};
-  if (groups < 1 || groups > kMaxGroups) return (int)cudaErrorInvalidValue;
-  if (rows > 0 && words > 0) {
-    const cudaStream_t s = (cudaStream_t)stream;
-    const int rc =
-        bf16 ? launch_words<__nv_bfloat16>(x, steps, groups, out, rows, len,
-                                           words, bits, qn, qp,
-                                           words_per_warp, s)
-             : launch_words<float>(x, steps, groups, out, rows, len, words,
-                                   bits, qn, qp, words_per_warp, s);
-    if (rc != 0) return rc;
+  const Args a = {x, steps, out, rows, len, (len + 31) / 32, bits,
+                  (float)qn, (float)qp};
+  if (rows > 0 && a.words > 0) {
+    if (bf16)
+      launch_groups<__nv_bfloat16>(groups, a, (cudaStream_t)stream);
+    else
+      launch_groups<float>(groups, a, (cudaStream_t)stream);
   }
   return (int)cudaGetLastError();
 }

@@ -61,9 +61,7 @@ def quantize_pack_activations(x: torch.Tensor, alpha: torch.Tensor,
                               plain: bool = False) -> torch.Tensor:
     """Quantize (..., K) floats with step ``alpha`` and pack the codes:
     (spec.bits, ..., ceil(K/32)) int32 words."""
-    fn = (quantize_pack.quantize_pack_ref if plain
-          else quantize_pack.quantize_pack)
-    return over_rows(lambda r: fn(r, alpha, spec), x, spec.bits)
+    return quantize_pack_activations_multi(x, [alpha], spec, plain=plain)[0]
 
 
 def quantize_pack_activations_multi(x: torch.Tensor,

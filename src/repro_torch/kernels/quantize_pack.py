@@ -33,14 +33,13 @@ __all__ = ["KERNEL", "MAX_GROUPS", "quantize_pack", "quantize_pack_multi",
            "pack_codes_cuda"]
 
 KERNEL = Kernel("quantize_pack", {
-    "quantize_pack_float": (P, I, P, P, P, P, I, P, I, I, I, I, I, I, P),
+    "quantize_pack_float": (P, I, P, P, P, P, I, P, I, I, I, I, I, P),
     "pack_codes_i32": (P, P, I, I, I, P),
 })
 
 MAX_GROUPS = 4   # step sizes one launch quantizes for
 # the kernel's input types (its ``bf16`` flag)
 _FLOAT_INPUTS = {torch.float32: 0, torch.bfloat16: 1}
-WORDS_PER_WARP = 1
 
 
 def pack_codes_ref(codes: torch.Tensor, bits: int) -> torch.Tensor:
@@ -82,9 +81,7 @@ def _check_bits(bits: int) -> None:
 
 
 def quantize_pack_multi_cuda(x: torch.Tensor, scales: Sequence[torch.Tensor],
-                             spec: QuantSpec, *,
-                             words_per_warp: int = WORDS_PER_WARP
-                             ) -> torch.Tensor:
+                             spec: QuantSpec) -> torch.Tensor:
     """Launch K1 once on a CUDA ``(R, L)`` float32 or bf16 tensor for G =
     ``len(scales)`` (1..4) step sizes, each a one-element float32 tensor on
     the same card, read by the kernel. Returns (G, bits, R, ceil(L/32))."""
@@ -107,7 +104,7 @@ def quantize_pack_multi_cuda(x: torch.Tensor, scales: Sequence[torch.Tensor],
     stream = torch.cuda.current_stream(x.device).cuda_stream
     KERNEL.launch("quantize_pack_float", x.data_ptr(), _FLOAT_INPUTS[x.dtype],
                   *ptrs, len(scales), out.data_ptr(), r, l, spec.bits, qn, qp,
-                  words_per_warp, stream)
+                  stream)
     return out
 
 
@@ -134,9 +131,7 @@ def pack_codes_cuda(codes: torch.Tensor, bits: int) -> torch.Tensor:
 def quantize_pack(x: torch.Tensor, scale: torch.Tensor,
                   spec: QuantSpec) -> torch.Tensor:
     """K1 on a CUDA tensor, its plain version on a CPU tensor."""
-    if x.is_cuda:
-        return quantize_pack_cuda(x, scale, spec)
-    return quantize_pack_ref(x, scale, spec)
+    return quantize_pack_multi(x, [scale], spec)[0]
 
 
 def quantize_pack_multi(x: torch.Tensor, scales: Sequence[torch.Tensor],

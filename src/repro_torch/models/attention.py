@@ -6,9 +6,9 @@ dense decoder takes: causal, full (no sliding window), an unquantized
 cache and a scalar ``cache_pos`` (every row of the batch at the same
 depth). All four projections are :func:`repro_torch.models.layers.qdense`
 (q, k and v through ``qdense_shared``: one quantize-pack of their shared
-input), so in deployment they run through the bit-serial kernels; scores and the
-PV product stay plain float32 torch ops, as the reference computes them
-outside any Pallas kernel.
+input), so in deployment they run through the bit-serial kernels; scores
+and the PV product stay plain float32 torch ops, as the reference
+computes them outside any Pallas kernel.
 
 The cache is updated in place (the reference's ``dynamic_update_slice``
 returns a new array): one preallocated buffer per layer stack, no copy per

@@ -31,7 +31,6 @@ from repro_torch.core import bitops
 from repro_torch.core.bitserial import SerialSpec, plan_spec
 from repro_torch.core.quant import QuantSpec, init_alpha, quantize_int, qrange
 from repro_torch.kernels import ops
-from repro_torch.kernels.quantize_pack import MAX_GROUPS
 
 __all__ = ["QuantPolicy", "qdense_init", "qdense", "qdense_shared",
            "pack_qdense", "rms_norm",
@@ -135,8 +134,7 @@ def qdense_shared(ps: Sequence[dict], x: torch.Tensor,
     member; otherwise (float params, the K4 path) :func:`qdense` runs per
     member. The same function, launched fewer times; the reference has no
     counterpart."""
-    if (policy.pack_acts and len(ps) <= MAX_GROUPS
-            and all("w_packed" in p for p in ps)):
+    if policy.pack_acts and all("w_packed" in p for p in ps):
         aspec = QuantSpec(policy.a_bits, policy.a_signed)
         xp = ops.quantize_pack_activations_multi(
             x, [p["alpha_a"] for p in ps], aspec, plain=policy.plain)

@@ -3,9 +3,10 @@
 ``quantize_pack_ref`` / ``quantize_pack_pallas(interpret=True)`` and
 ``serial_conv2d_packed_op(backend="xla")``, plus one ``pallas_v2`` case in
 interpret mode. K1's grouped launch (one activation, G step sizes) is held
-against the reference run once per step size, in float32 and bf16 (the same
-bf16 values on both sides). The sweep follows ``test_conv_v2.py``: stride 1/2, pad 0/1,
-1x1/3x3/5x5 filters, ragged Ci/Co, every output mode.
+against the reference run once per step size, in float32 and bf16 (the
+same bf16 values on both sides). The conv sweep follows
+``test_conv_v2.py``: stride 1/2, pad 0/1, 1x1/3x3/5x5 filters, ragged
+Ci/Co, every output mode.
 
 The reference's XLA epilogue is run under ``jax.jit``, as its executor runs
 it: there ``acc * scale + bias`` is one FMA, which the port reproduces.
@@ -284,6 +285,10 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="on the card"):
         quantize_pack.quantize_pack_cuda(x, torch.tensor(1.0), QuantSpec(2))
     with pytest.raises(ValueError, match="on the card"):
+        quantize_pack.quantize_pack_multi_cuda(
+            x.to(torch.bfloat16), [torch.tensor(0.5), torch.tensor(0.25)],
+            QuantSpec(4))
+    with pytest.raises(ValueError, match="on the card"):
         quantize_pack.pack_codes_cuda(torch.zeros((4, 32), dtype=torch.int32),
                                       2)
     xp = torch.zeros((2, 1, 4, 4, 1), dtype=torch.int32)
@@ -294,22 +299,6 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     assert (quantize_pack.KERNEL.launches,
             bitserial_conv.KERNEL.launches) == before
     assert quantize_pack.KERNEL._lib is None and bitserial_conv.KERNEL._lib is None
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_quantize_pack_multi_cuda_refuses_cpu_tensors(dtype):
-    """The grouped entry refuses CPU tensors, launches nothing and builds
-    nothing; its dispatcher runs the plain version for them."""
-    before = dict(quantize_pack.KERNEL.entry_launches)
-    x = torch.zeros((4, 64), dtype=dtype)
-    steps = [torch.tensor(0.5), torch.tensor(0.25)]
-    with pytest.raises(ValueError, match="on the card"):
-        quantize_pack.quantize_pack_multi_cuda(x, steps, QuantSpec(4))
-    assert quantize_pack.KERNEL.entry_launches == before
-    assert quantize_pack.KERNEL._lib is None
-    out = quantize_pack.quantize_pack_multi(x, steps, QuantSpec(4))
-    assert tuple(out.shape) == (2, 4, 4, 2)
-    assert quantize_pack.KERNEL.entry_launches == before
 
 
 def test_build_names_library_by_source_hash():

@@ -160,20 +160,14 @@ def test_lm_step_quantize_packs_each_activation_once(smoke, monkeypatch,
     and down one each. The K4 path (``pack_acts=False``) packs none."""
     _, tcfg, _, packed = smoke
     tcfg = tt.serve_policy(tcfg, pack_acts=pack_acts)
-    calls = []
-    multi, single = (ops.quantize_pack_activations_multi,
-                     ops.quantize_pack_activations)
+    calls = []   # the step count of each quantize-pack (one K1 launch)
+    multi = ops.quantize_pack_activations_multi
 
-    def count_multi(x, alphas, spec, **kw):
+    def count(x, alphas, spec, **kw):
         calls.append(len(alphas))
         return multi(x, alphas, spec, **kw)
 
-    def count_single(x, alpha, spec, **kw):
-        calls.append(1)
-        return single(x, alpha, spec, **kw)
-
-    monkeypatch.setattr(ops, "quantize_pack_activations_multi", count_multi)
-    monkeypatch.setattr(ops, "quantize_pack_activations", count_single)
+    monkeypatch.setattr(ops, "quantize_pack_activations_multi", count)
     tp = _t(packed)
     toks = torch.from_numpy(np.arange(12, dtype=np.int64).reshape(2, 6))
     _, caches = tt.prefill(tp, {"tokens": toks}, tcfg, max_len=8)
