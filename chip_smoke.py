@@ -50,6 +50,21 @@ Phases (any failure exits non-zero and prints no result):
    counted the same way); a 2-slot server answering one request (a dummy
    slot) must give a 1-slot server's tokens; the smoke config on the card
    must give the CPU's plain-version tokens;
+8b. the continuous LM engine: ``ContinuousLMEngine`` on full-width
+    stablelm-1.6b (batch_slots 4, max_len 64, seed 0) warms up (one prefill
+    per bucket, the insert, the decode step captured once as a CUDA graph:
+    96 K1 and 168 K3 counted at capture) and serves the reference CLI's
+    mixed load of 16 requests (prompts of 4-16 tokens, every 4th request
+    16 new tokens, the others 4), counts reset just before and read just
+    after (its 16 prefills' launches; a replay adds none), with nothing
+    compiled after the warmup. Every request's tokens must equal a 1-slot
+    eager ``Server``'s, and the first four those of the engine on the plain
+    versions (``plain=True``, also captured) and of the K4 engine
+    (``pack_acts=False``, 168 K4 at capture). Times: the load's tokens/s
+    and host time per step; the replayed step against the eager
+    ``Server``'s decode step at batch 4 (host clock, synchronized); one
+    replay under the profiler (wall, busy, and its K1/K3 launches by
+    kernel name, which must be 96 and 168);
 9. the port's copy of ``tiny_mixed_cnn`` compiled on the card: its
    ``gemm_packed`` step launches K3, and the logits equal the plain
    runner's;
@@ -67,9 +82,10 @@ Phases (any failure exits non-zero and prints no result):
     to the wrappers' count).
 
 The ``kernels`` JSON line gives, per kernel, its launches on the main
-paths and its times summed over one ResNet9 batch-32 forward plus one LM
-decode step at batch 4; K1's entry adds its in-path profiler ms and
-launches per decode step and per prefill.
+paths (the engine's load included) and its times summed over one ResNet9
+batch-32 forward plus one LM decode step at batch 4; K1's entry adds its
+in-path profiler ms and launches per decode step and per prefill; K1, K3
+and K4 add the engine's launches per captured decode step.
 
 Standard output ends with the ``kernels`` JSON line, the card's
 ``nvidia-smi`` name/power line and the ``{"ok": true, ...}`` line; the full
@@ -698,6 +714,257 @@ def main() -> int:
         raise AssertionError(f"smoke config: card {a} vs CPU {b}")
     log(f"  smoke config: card tokens equal the CPU plain run's {a[0]}")
 
+    # ------------------------------------- 8b. the continuous LM engine
+    log("LM engine: ContinuousLMEngine(stablelm-1.6b FULL, batch_slots=4, "
+        "max_len=64, seed=0) on the card, its decode step one CUDA graph")
+    from repro_torch.obs import Tracer
+    from repro_torch.serving import ContinuousLMEngine
+
+    def fenced_ms(fn, reps):
+        """Median host wall of ``fn`` between two synchronizes."""
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+        return statistics.median(out) * 1e3
+
+    def profile_counts(fn):
+        """``fn`` once under the profiler: host wall, the card's busy time
+        (its own events) and every device kernel's launches by name."""
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy, names = 0.0, {}
+        for evt in prof.key_averages():
+            if evt.device_type == DeviceType.CUDA:
+                busy += evt.self_device_time_total / 1e3
+                names[evt.key] = names.get(evt.key, 0) + evt.count
+        if not names:
+            raise AssertionError("the profiler recorded no device event")
+        return {"wall_ms": wall * 1e3, "device_ms": busy, "launches": names}
+
+    def by_kernel(launches):
+        """K1, K3 and K4 launches among the profiler's kernel names (K3 and
+        K4 are one template, told apart by its first argument)."""
+        out = {"K1": 0, "K3": 0, "K4": 0}
+        for name, n in launches.items():
+            if "quantize_pack_kernel" in name:
+                out["K1"] += n
+            elif "bitserial_gemm_kernel<false" in name:
+                out["K3"] += n
+            elif "bitserial_gemm_kernel<true" in name:
+                out["K4"] += n
+        return out
+
+    def cli_load(n, new_tokens=LM_NEW):
+        """The reference CLI's mixed load (``launch/serve.py``): prompts of
+        4-16 tokens from RandomState(0), every 4th request long."""
+        rng = np.random.RandomState(0)
+        m_long = max(1, min(new_tokens, LM_MAX_LEN - 16))
+        return [GenRequest(
+            rng.randint(0, lm_cfg.vocab_size,
+                        (int(rng.randint(4, 17)),)).astype(np.int32),
+            m_long if i % 4 == 0 else max(1, m_long // 4))
+            for i in range(n)]
+
+    def first_difference(got, want):
+        for t, (a, b) in enumerate(zip(got, want)):
+            if a != b:
+                return f"token {t}: {a} vs {b}"
+        return f"lengths {len(got)} vs {len(want)}"
+
+    # the float parts compute a row alike whatever rows come with it: a
+    # layer norm among 1..64 rows, a prefill query among 2..64 over a
+    # 64-position cache (the engine's 4-row decode step and bucket-padded
+    # prefill against the 1-slot Server's)
+    from repro_torch.models import attention, layers
+    g = torch.Generator(device=dev).manual_seed(5)
+    xr = (torch.randn(64, 2048, device=dev, generator=g) * 3).bfloat16()
+    wn, bn = (torch.randn(2048, device=dev, generator=g) for _ in range(2))
+    full = layers.layer_norm(xr, wn, bn)
+    ln_bad = [r for r in range(1, 65)
+              if not torch.equal(layers.layer_norm(xr[:r], wn, bn), full[:r])]
+    q, k, v = (torch.randn(1, 64, 32, 64, device=dev, generator=g).bfloat16()
+               for _ in range(3))
+    full = attention._sdpa_full(q, k, v, causal=True, q_offset=0)
+    at_bad = [n for n in range(2, 65) if not torch.equal(
+        attention._sdpa_full(q[:, :n], k, v, causal=True, q_offset=0),
+        full[:, :n])]
+    if ln_bad or at_bad:
+        raise AssertionError(f"rows depend on the row count: layer norm at "
+                             f"{ln_bad}, prefill attention at {at_bad}")
+    log("  layer norm at 1..64 rows and prefill attention at 2..64 queries: "
+        "every row equals its row among 64")
+    rec = {}
+    t0 = time.perf_counter()
+    eng = ContinuousLMEngine(lm_cfg, batch_slots=4, max_len=LM_MAX_LEN,
+                             seed=0)
+    torch.cuda.synchronize()
+    rec["init_s"] = time.perf_counter() - t0
+    warm = eng.warmup()
+    st = eng.stats()
+    rec.update(warmup_s=warm["seconds"], warmup_buckets=warm["buckets"],
+               capture_s=st["capture_seconds"],
+               step_launches=st["step_launches"])
+    want_step = {"K1": k1_per_step, "K3": per_step, "K4": 0}
+    if (not st["cuda_graph"] or st["compiles"]["decode"] != 1
+            or st["step_launches"] != want_step):
+        raise AssertionError(f"engine capture: graph {st['cuda_graph']}, "
+                             f"compiles {st['compiles']}, launches at "
+                             f"capture {st['step_launches']}, want "
+                             f"{want_step}")
+    log(f"  warmup {warm['seconds']:.2f} s (buckets {warm['buckets']}, "
+        f"{warm['compiles']} compiles); decode step captured once in "
+        f"{st['capture_seconds']:.3f} s with {st['step_launches']}")
+    tracer = Tracer()
+    eng.bind_runtime(None, None, tracer=tracer)   # one span per step
+    load = cli_load(16)
+    calls0 = st["calls"].get("decode", 0)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.serve(load)             # ends in the host copy of the tokens
+    load_s = time.perf_counter() - t0
+    c_load = counts()
+    em = eng.engine_metrics()
+    total_toks = sum(len(r.out_tokens) for r in out)
+    # replays launch nothing through the wrappers: the load's counts are
+    # its 16 prefills'
+    want_load = {"K1": k1_per_step * len(load), "K2": 0,
+                 "K3": per_step * len(load), "K4": 0}
+    if c_load != want_load:
+        raise AssertionError(f"engine load launches {c_load}, want "
+                             f"{want_load}")
+    st = eng.stats()
+    if (st["recompiles_after_warmup"] != 0
+            or st["calls"]["decode"] - calls0 != em["decode_steps"]):
+        raise AssertionError(f"engine recompiled or skipped steps: {st}")
+    steps_wall = sorted(sp.wall_us for sp in tracer.spans()
+                        if sp.track == "lm-decode")
+    if len(steps_wall) != em["decode_steps"]:
+        raise AssertionError(f"{len(steps_wall)} step spans, "
+                             f"{em['decode_steps']} steps")
+    rec.update(load_requests=len(load), load_tokens=total_toks,
+               load_s=load_s, tok_per_s=total_toks / load_s,
+               decode_steps=em["decode_steps"],
+               slot_occupancy=em["slot_occupancy"], launches_load=c_load,
+               step_enqueue_ms_median=statistics.median(steps_wall) / 1e3,
+               recompiles_after_warmup=st["recompiles_after_warmup"])
+    log(f"  mixed load: {len(load)} requests, {total_toks} tokens in "
+        f"{load_s * 1e3:.1f} ms = {rec['tok_per_s']:.1f} tok/s; "
+        f"{em['decode_steps']} replayed steps (occupancy "
+        f"{em['slot_occupancy']}), host time per step (enqueue, median) "
+        f"{rec['step_enqueue_ms_median']:.3f} ms; launches {c_load} (the "
+        "prefills'); recompiles_after_warmup 0")
+    for r in out:
+        if (len(r.out_tokens) != r.max_new_tokens
+                or not all(0 <= v < lm_cfg.vocab_size for v in r.out_tokens)):
+            raise AssertionError(f"bad engine output {r.out_tokens}")
+    # every request equals a 1-slot eager Server serving it alone
+    solo = Server(lm_cfg, eng.params, batch_slots=1, max_len=LM_MAX_LEN)
+    solo_toks = []
+    for i, r in enumerate(out):
+        ref = solo.generate([GenRequest(r.prompt.copy(),
+                                        r.max_new_tokens)])[0].out_tokens
+        solo_toks.append(ref)
+        if r.out_tokens != ref:
+            raise AssertionError(
+                f"engine request {i} (prompt {len(r.prompt)}, "
+                f"{r.max_new_tokens} new) parts from the 1-slot Server at "
+                f"{first_difference(r.out_tokens, ref)}")
+    log(f"  every request's tokens equal a 1-slot eager Server's; request "
+        f"0: {out[0].out_tokens}")
+    # the plain versions' engine (also captured) and the K4 path's, on the
+    # first four requests
+    four = [GenRequest(r.prompt.copy(), r.max_new_tokens) for r in out[:4]]
+    plain_eng = ContinuousLMEngine(lm_cfg, eng.params, batch_slots=4,
+                                   max_len=LM_MAX_LEN, plain=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    p_out = plain_eng.serve([GenRequest(r.prompt.copy(), r.max_new_tokens)
+                             for r in four])
+    rec["plain_serve_s"] = time.perf_counter() - t0
+    if any(counts().values()) or not plain_eng.stats()["cuda_graph"]:
+        raise AssertionError(f"plain engine: launches {counts()}, "
+                             f"{plain_eng.stats()}")
+    for i, r in enumerate(p_out):
+        if r.out_tokens != out[i].out_tokens:
+            raise AssertionError(
+                f"plain engine request {i} parts at "
+                f"{first_difference(out[i].out_tokens, r.out_tokens)}")
+    del plain_eng
+    k4_eng = ContinuousLMEngine(lm_cfg, eng.params, batch_slots=4,
+                                max_len=LM_MAX_LEN, pack_acts=False)
+    reset_counts()
+    k4_out = k4_eng.serve([GenRequest(r.prompt.copy(), r.max_new_tokens)
+                           for r in four])
+    c_k4 = counts()
+    want_k4 = {"K1": 0, "K3": 0, "K4": per_step}
+    # four prefills, then the arena's eager warm-up step and its capture
+    if (k4_eng.stats()["step_launches"] != want_k4
+            or c_k4 != {"K1": 0, "K2": 0, "K3": 0,
+                        "K4": per_step * (len(four) + 2)}):
+        raise AssertionError(f"K4 engine: launches at capture "
+                             f"{k4_eng.stats()['step_launches']}, in the "
+                             f"serve {c_k4}")
+    for i, r in enumerate(k4_out):
+        if r.out_tokens != solo_toks[i]:
+            raise AssertionError(
+                f"K4 engine request {i} parts from the 1-slot Server at "
+                f"{first_difference(r.out_tokens, solo_toks[i])}")
+    rec.update(k4_step_launches=want_k4, launches_k4_serve=c_k4)
+    log(f"  plain engine ({rec['plain_serve_s']:.1f} s) and K4 engine "
+        f"({want_k4} per captured step) give the same tokens on the first "
+        "four requests")
+    # the replayed step against the eager Server's decode step at batch 4,
+    # host clock around synchronized work, then one replay under the
+    # profiler
+    toks_in = np.zeros((4, max(LM_PROMPTS)), np.int64)
+    for i, pr in enumerate(prompts):
+        toks_in[i, -len(pr):] = pr
+    with torch.inference_mode():
+        lg, caches = transformer.prefill(
+            lm.params, {"tokens": torch.from_numpy(toks_in).to(dev)},
+            lm.cfg, max_len=LM_MAX_LEN)
+        tok = torch.argmax(lg, -1)[:, None]
+        pos = iter(range(max(LM_PROMPTS), LM_MAX_LEN))
+        def eager_step():
+            transformer.decode_step(lm.params, caches, tok, next(pos),
+                                    lm.cfg)
+
+        rec["eager_step_ms"] = fenced_ms(eager_step, 15)
+        eprof = profile_counts(eager_step)
+    rec["profile_eager_step"] = {"wall_ms": eprof["wall_ms"],
+                                 "device_ms": eprof["device_ms"],
+                                 "kernels": sum(eprof["launches"].values())}
+    rec["replay_step_ms"] = fenced_ms(eng.step_arena, 15)
+    eng.step_arena()
+    prof = profile_counts(eng.step_arena)
+    rec["profile_replay"] = {"wall_ms": prof["wall_ms"],
+                             "device_ms": prof["device_ms"],
+                             "launches_by_kernel": by_kernel(
+                                 prof["launches"]),
+                             "kernels": sum(prof["launches"].values())}
+    if by_kernel(prof["launches"]) != want_step:
+        raise AssertionError(f"the profiler saw {by_kernel(prof['launches'])}"
+                             f" in one replay, want {want_step}")
+    ep = rec["profile_eager_step"]
+    log(f"  decode step at batch 4 (median of 15, synchronized): replayed "
+        f"graph {rec['replay_step_ms']:.3f} ms, eager Server "
+        f"{rec['eager_step_ms']:.3f} ms; under the profiler, one replay: "
+        f"wall {prof['wall_ms']:.3f} ms, device busy "
+        f"{prof['device_ms']:.3f} ms, {rec['profile_replay']['kernels']} "
+        f"kernels, of them {rec['profile_replay']['launches_by_kernel']}; "
+        f"one eager step: wall {ep['wall_ms']:.3f} ms, busy "
+        f"{ep['device_ms']:.3f} ms, {ep['kernels']} kernels")
+    record["engine"] = rec
+
     # ------------------------------------------ 9. compiled gemm_packed
     g, calib = bench_graphs.tiny_mixed_cnn()
     tprog = compile_graph(g, calib, policy=QuantPolicy(
@@ -907,7 +1174,9 @@ def main() -> int:
          "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/quantize_pack.cu",
          "replaces": "src/repro/kernels/quantize_pack.py:53",
-         "launches": launches["K1"] + lm_k3[2]["K1"] + c_tiny["K1"],
+         "launches": (launches["K1"] + lm_k3[2]["K1"] + c_tiny["K1"]
+                      + c_load["K1"]),
+         "engine_launches_per_captured_step": rec["step_launches"]["K1"],
          "max_abs_err": max_err["K1"],
          "ms": total("K1", "ms") + lm_step("K1", "ms", 4),
          "plain_ms": total("K1", "plain_ms") + lm_step("K1", "plain_ms", 4),
@@ -930,7 +1199,8 @@ def main() -> int:
          "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/bitserial_matmul.cu",
          "replaces": "src/repro/kernels/bitserial_matmul.py:380",
-         "launches": lm_k3[2]["K3"] + c_tiny["K3"],
+         "launches": lm_k3[2]["K3"] + c_tiny["K3"] + c_load["K3"],
+         "engine_launches_per_captured_step": rec["step_launches"]["K3"],
          "max_abs_err": max_err["K3"],
          "ms": lm_step("K3", "ms", 4), "plain_ms": lm_step("K3", "plain_ms", 4),
          "bound_ms": lm_step("K3", "bound_ms", 4), "bound_by": lm_bound_by("K3"),
@@ -939,7 +1209,9 @@ def main() -> int:
          "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/bitserial_matmul.cu",
          "replaces": "src/repro/kernels/bitserial_matmul.py:171",
-         "launches": lm_k4[2]["K4"], "max_abs_err": max_err["K4"],
+         "launches": lm_k4[2]["K4"] + c_k4["K4"],
+         "engine_launches_per_captured_step": rec["k4_step_launches"]["K4"],
+         "max_abs_err": max_err["K4"],
          "ms": lm_step("K4", "ms", 4), "plain_ms": lm_step("K4", "plain_ms", 4),
          "bound_ms": lm_step("K4", "bound_ms", 4), "bound_by": lm_bound_by("K4"),
          "library_ms": lm_step("K4", "library_ms", 4)},

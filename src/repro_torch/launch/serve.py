@@ -8,10 +8,14 @@ quantizes and packs its activations with K1 and multiplies with K3,
 otherwise it multiplies int32 codes with K4. The CNN is compiled once
 (passes, calibration, ahead-of-time weight packing) onto the card, and
 every batch runs through :class:`~repro_torch.compiler.executor.
-BucketedRunner`. The reference's serving runtime (registry, dynamic
-batcher, continuous LM engine, artifact store) is not ported yet: the LM
-serves through the static-batch :class:`Server`, as the reference does for
-families outside its slot arena.
+BucketedRunner`.
+
+The CLI serves the LM as the reference's does, through the
+continuous-batching :class:`~repro_torch.serving.lm_engine.
+ContinuousLMEngine` (on the card its decode step is one captured CUDA
+graph): a mixed load of ``max(batch x 4, 8)`` requests. The reference's
+registry, dynamic batcher and ``InferenceService`` around the engine are
+not ported yet.
 
     python -m repro_torch.launch.serve --arch stablelm-1.6b --batch 4 --new-tokens 16
     python -m repro_torch.launch.serve --arch stablelm-1.6b --device cpu --smoke [--no-pack-acts]
@@ -39,6 +43,7 @@ from repro_torch.models.resnet import ResNet9Config, resnet9_graph, resnet9_init
 from repro_torch.models.transformer import (ModelConfig, decode_step,
                                             init_params, pack_params, prefill,
                                             serve_policy)
+from repro_torch.serving.lm_engine import ContinuousLMEngine
 
 __all__ = ["GenRequest", "Server", "make_lm_engine", "CNNServer", "main"]
 
@@ -165,8 +170,9 @@ def make_lm_engine(server: Server):
     """Adapt a :class:`Server` to an engine ``fn(requests) -> results``
     (one result per request, in order) by serving the load in sequential
     slot-sized chunks; every chunk decodes to its longest member's
-    ``max_new_tokens``. The static-batch baseline of the reference's
-    continuous engine, which is not ported yet."""
+    ``max_new_tokens``. The static-batch baseline of
+    :class:`~repro_torch.serving.lm_engine.ContinuousLMEngine`, where
+    requests join and leave at token boundaries instead."""
 
     def engine(requests: List[GenRequest]) -> List[GenRequest]:
         out: List[GenRequest] = []
@@ -211,24 +217,42 @@ class CNNServer:
 
 
 def _main_lm(args) -> None:
+    """The reference CLI's LM load through the continuous engine: mixed
+    prompt lengths (4-16 tokens) and decode budgets, every 4th request
+    long, from ``RandomState(seed)``."""
     entry = get_arch(args.arch)
     cfg = entry.smoke if args.smoke else entry.full
-    server = Server(cfg, batch_slots=args.batch, max_len=LM_MAX_LEN,
-                    seed=args.seed, pack_acts=not args.no_pack_acts,
-                    device=args.device)
+    engine = ContinuousLMEngine(cfg, batch_slots=args.batch,
+                                max_len=LM_MAX_LEN, seed=args.seed,
+                                pack_acts=not args.no_pack_acts,
+                                device=args.device)
+    warm = engine.warmup()
+    print(f"engine warmup: {warm['compiles']} compiles (buckets "
+          f"{warm['buckets']}) in {warm['seconds']}s")
     rng = np.random.RandomState(args.seed)
-    reqs = [GenRequest(rng.randint(0, cfg.vocab_size, (8,)).astype(np.int32),
-                       args.new_tokens) for _ in range(args.batch)]
+    n_load = max(args.batch * 4, 8)
+    m_long = max(1, min(args.new_tokens, LM_MAX_LEN - 16))
+    reqs = [GenRequest(
+        rng.randint(0, cfg.vocab_size,
+                    (int(rng.randint(4, 17)),)).astype(np.int32),
+        m_long if i % 4 == 0 else max(1, m_long // 4))
+        for i in range(n_load)]
     t0 = time.perf_counter()
-    out = server.generate(reqs)    # ends in the host copy of the tokens
+    out = engine.serve(reqs)       # ends in the host copy of the tokens
     dt = time.perf_counter() - t0
     total = sum(len(r.out_tokens) for r in out)
-    name = (torch.cuda.get_device_name(server.device)
-            if server.device.type == "cuda" else "cpu")
+    em = engine.engine_metrics()
+    name = (torch.cuda.get_device_name(engine.device)
+            if engine.device.type == "cuda" else "cpu")
     kernels = "K1 + K3" if not args.no_pack_acts else "K4"
-    print(f"{cfg.name}: generated {total} tokens in {dt:.2f} s "
-          f"({total / dt:.1f} tok/s, first call included) on {name}, "
-          f"{cfg.n_layers} layers, {kernels}")
+    step = "CUDA graph" if em["jit"]["cuda_graph"] else "eager"
+    print(f"{cfg.name}: generated {total} tokens over {len(out)} requests "
+          f"in {dt:.2f} s ({total / dt:.1f} tok/s, continuous batching) "
+          f"on {name}, {cfg.n_layers} layers, {kernels}, decode step "
+          f"{step}")
+    print(f"engine: occupancy={em['slot_occupancy']} "
+          f"decode_steps={em['decode_steps']} recompiles_after_warmup="
+          f"{em['jit']['recompiles_after_warmup']}")
     print("sample:", out[0].out_tokens)
 
 

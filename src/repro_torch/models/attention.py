@@ -2,11 +2,16 @@
 projections.
 
 Counterpart of ``repro/models/attention.py``, restricted to the branches a
-dense decoder takes: causal, full (no sliding window), an unquantized
-cache and a scalar ``cache_pos`` (every row of the batch at the same
-depth). All four projections are :func:`repro_torch.models.layers.qdense`
-(q, k and v through ``qdense_shared``: one quantize-pack of their shared
-input), so in deployment they run through the bit-serial kernels; scores
+dense decoder takes: causal, full (no sliding window) and an unquantized
+cache. ``cache_pos`` is a host int (every row of the batch at the same
+depth: the static :class:`~repro_torch.launch.serve.Server`) or a (B,)
+tensor on the batch's device (every row at its own depth: the slot arena
+of :class:`~repro_torch.serving.lm_engine.ContinuousLMEngine`, whose
+decode step is captured as a CUDA graph, so nothing on that path reads a
+device value on the host). All four projections are
+:func:`repro_torch.models.layers.qdense` (q, k and v through
+``qdense_shared``: one quantize-pack of their shared input), so in
+deployment they run through the bit-serial kernels; scores
 and the PV product stay plain float32 torch ops, as the reference
 computes them outside any Pallas kernel.
 
@@ -23,8 +28,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.models.layers import (QuantPolicy, apply_rotary, qdense,
-                                       qdense_init, qdense_shared, rotary)
+from repro_torch.models.layers import (QuantPolicy, apply_rotary,
+                                       device_scalar, qdense, qdense_init,
+                                       qdense_shared, rotary)
 
 __all__ = ["AttnConfig", "attn_init", "attn_apply", "init_kv_cache",
            "update_kv_cache", "read_kv_cache"]
@@ -45,25 +51,46 @@ class AttnConfig:
         return int(self.head_dim * self.partial_rotary)
 
 
+def _per_row(pos) -> bool:
+    return torch.is_tensor(pos) and pos.dim() == 1
+
+
 def _sdpa_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-               causal: bool, q_offset: int) -> torch.Tensor:
+               causal: bool, q_offset) -> torch.Tensor:
     """Reference attention: q (B, Sq, H, D), k/v (B, Sk, Hkv, D), GQA by
     head grouping, scores and softmax in float32. ``q_offset`` is the
-    (scalar) position of the first query."""
-    b, sq, h, d = q.shape
+    position of the first query: a scalar, or a (B,) tensor of per-row
+    positions (each row masks the keys beyond its own queries).
+
+    Several queries (1 < Sq < Sk: a prefill into a cache) are zero-padded
+    to Sk rows and the extra rows dropped: cuBLAS picks its kernel by
+    shape, and at Sq = 16 and 11 on the H100 it picked kernels whose rows
+    differ in the last bits, so a prompt right-padded to its bucket would
+    not compute as the same prompt unpadded. At one shape per cache length
+    a row's result does not depend on how many rows the call has."""
+    b, sq0, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
+    if 1 < sq0 < sk:
+        q = torch.cat([q, q.new_zeros((b, sk - sq0, h, d))], dim=1)
+    sq = q.shape[1]
     rep = h // hkv
     f32 = torch.float32
     qg = q.reshape(b, sq, hkv, rep, d)
-    root = torch.tensor(math.sqrt(d), dtype=f32, device=q.device)
+    root = device_scalar(math.sqrt(d), q.device)
     scores = torch.einsum("bqgrd,bkgd->bgrqk", qg.to(f32), k.to(f32)) / root
     if causal:
-        qpos = q_offset + torch.arange(sq, device=q.device)[:, None]
-        kpos = torch.arange(sk, device=q.device)[None, :]
-        scores = scores.masked_fill(kpos > qpos, -math.inf)
+        ar = torch.arange(sq, device=q.device)
+        if _per_row(q_offset):
+            qpos = q_offset[:, None, None] + ar[None, :, None]
+            kpos = torch.arange(sk, device=q.device)[None, None, :]
+            mask = (kpos > qpos)[:, None, None]   # (B, 1, 1, Sq, Sk)
+        else:
+            qpos = q_offset + ar[:, None]
+            mask = torch.arange(sk, device=q.device)[None, :] > qpos
+        scores = scores.masked_fill(mask, -math.inf)
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bgrqk,bkgd->bqgrd", p, v.to(f32))
-    return out.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
+    return out[:, :sq0].reshape(b, sq0, h, v.shape[-1]).to(q.dtype)
 
 
 # ------------------------------------------------------------------ KV cache
@@ -72,8 +99,9 @@ def init_kv_cache(batch: int, max_len: int, n_kv: int, head_dim: int, *,
                   dtype: torch.dtype = torch.bfloat16,
                   device=None) -> dict:
     """Decode cache of ``max_len`` positions: ``k``/``v`` (B, T, Hkv, D)
-    and ``len``, the number of positions written (a host int: the batch
-    decodes in lockstep, so it never needs the card)."""
+    and ``len``, the number of positions written: a host int while the
+    batch decodes in lockstep, a (B,) tensor once rows are written at
+    per-row positions."""
     return {
         "k": torch.zeros((batch, max_len, n_kv, head_dim), dtype=dtype,
                          device=device),
@@ -83,14 +111,32 @@ def init_kv_cache(batch: int, max_len: int, n_kv: int, head_dim: int, *,
     }
 
 
+def _row_index(pos: torch.Tensor, new: torch.Tensor,
+               t: int) -> torch.Tensor:
+    """The scatter index that writes ``new`` (B, S, ...) into a (B, T, ...)
+    cache, row b at positions ``pos[b] .. pos[b] + S - 1``. A start is
+    clamped to ``[0, T - S]``, as the reference's ``dynamic_update_slice``
+    clamps it; no host read of ``pos``."""
+    b, s = new.shape[:2]
+    start = torch.clamp(pos.to(torch.int64), 0, t - s)
+    idx = start[:, None] + torch.arange(s, device=new.device)[None, :]
+    return idx.reshape((b, s) + (1,) * (new.dim() - 2)).expand(new.shape)
+
+
 def update_kv_cache(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
-                    pos: int) -> dict:
-    """Write new K/V at positions ``pos .. pos + S - 1`` of every row (in
-    place) and return the cache with ``len = pos + S``. Works for prefill
-    (S > 1) and decode (S = 1)."""
-    if torch.is_tensor(pos) and pos.dim() > 0:
-        raise NotImplementedError("per-row cache positions (continuous "
-                                  "batching) are not ported")
+                    pos) -> dict:
+    """Write new K/V at positions ``pos .. pos + S - 1`` (in place) and
+    return the cache with ``len = pos + S``. Works for prefill (S > 1) and
+    decode (S = 1). ``pos`` is a host int for every row (a write outside
+    the cache raises), or a (B,) tensor of per-row positions on the cache's
+    device (each start clamped into the cache, as the reference does)."""
+    if _per_row(pos):
+        idx = _row_index(pos, k_new, cache["k"].shape[1])
+        cache["k"].scatter_(1, idx, k_new.to(cache["k"].dtype))
+        cache["v"].scatter_(1, idx, v_new.to(cache["v"].dtype))
+        upd = dict(cache)
+        upd["len"] = pos + k_new.shape[1]
+        return upd
     pos = int(pos)
     s = k_new.shape[1]
     if pos < 0 or pos + s > cache["k"].shape[1]:
@@ -126,10 +172,11 @@ def attn_init(gen: torch.Generator, cfg: AttnConfig, policy: QuantPolicy, *,
 
 def attn_apply(p: dict, x: torch.Tensor, cfg: AttnConfig,
                policy: QuantPolicy, *, positions=None,
-               cache: Optional[dict] = None, cache_pos: Optional[int] = None):
+               cache: Optional[dict] = None, cache_pos=None):
     """Self-attention over (B, S, D). Returns ``(out, new_cache)``; with a
-    cache, the new K/V are written at ``cache_pos`` and the queries attend
-    the whole cache under the causal mask."""
+    cache, the new K/V are written at ``cache_pos`` (a host int, or a (B,)
+    tensor of per-row positions) and the queries attend the whole cache
+    under the causal mask."""
     b, s, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = qdense_shared([p["wq"], p["wk"], p["wv"]], x, policy)

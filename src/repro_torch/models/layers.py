@@ -22,6 +22,7 @@ stacks carry a leading ``(L, ...)`` axis on every leaf.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -34,7 +35,7 @@ from repro_torch.kernels import ops
 
 __all__ = ["QuantPolicy", "qdense_init", "qdense", "qdense_shared",
            "pack_qdense", "rms_norm",
-           "layer_norm", "rotary", "apply_rotary"]
+           "layer_norm", "rotary", "apply_rotary", "device_scalar"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -180,22 +181,56 @@ def pack_qdense(p: dict, policy: QuantPolicy) -> dict:
 
 # ---------------------------------------------------------------- norms/rope
 
+@functools.lru_cache(maxsize=None)
+def device_scalar(value: float, device: torch.device) -> torch.Tensor:
+    """``value`` as a 0-d float32 tensor on ``device``, made once per
+    (value, device) and shared: callers must not write to it. A step
+    captured as a CUDA graph may copy nothing from the host, and torch's
+    CUDA divide by a host scalar multiplies by its reciprocal instead of
+    dividing; a device tensor made here divides exactly and copies once."""
+    return torch.tensor(value, dtype=torch.float32, device=device)
+
+
+#: the fewest rows a norm reduces at once (see :func:`_rowwise`)
+_NORM_MIN_ROWS = 16
+
+
+def _rowwise(fn, x: torch.Tensor) -> torch.Tensor:
+    """Apply a row-wise ``fn`` to (..., D) as (R, D) rows, zero rows
+    appended up to :data:`_NORM_MIN_ROWS` and dropped after. Torch's CUDA
+    reduction sums a row with more threads the fewer rows the call has,
+    up to 16 rows (``set_block_dimension`` in ``ATen/native/cuda/
+    Reduce.cuh``), so below 16 a row's norm depends on how many rows come
+    with it: a decode step of 4 rows would not compute as the same step of
+    1. From 16 rows on the summation order is fixed."""
+    rows = x.reshape(-1, x.shape[-1])
+    r = rows.shape[0]
+    if r < _NORM_MIN_ROWS:
+        rows = torch.cat([rows, rows.new_zeros((_NORM_MIN_ROWS - r,
+                                                rows.shape[1]))])
+    return fn(rows)[:r].reshape(x.shape)
+
+
 def rms_norm(x: torch.Tensor, w: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
-    dt = x.dtype
-    x = x.to(torch.float32)
-    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
-    return (x * w.to(torch.float32)).to(dt)
+    def rows(x):
+        dt = x.dtype
+        x = x.to(torch.float32)
+        x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+        return (x * w.to(torch.float32)).to(dt)
+    return _rowwise(rows, x)
 
 
 def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
-    dt = x.dtype
-    x = x.to(torch.float32)
-    mu = torch.mean(x, dim=-1, keepdim=True)
-    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
-    x = (x - mu) * torch.rsqrt(var + eps)
-    return (x * w.to(torch.float32) + b.to(torch.float32)).to(dt)
+    def rows(x):
+        dt = x.dtype
+        x = x.to(torch.float32)
+        mu = torch.mean(x, dim=-1, keepdim=True)
+        var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+        x = (x - mu) * torch.rsqrt(var + eps)
+        return (x * w.to(torch.float32) + b.to(torch.float32)).to(dt)
+    return _rowwise(rows, x)
 
 
 def rotary(positions: torch.Tensor, dim: int, theta: float = 10000.0,
@@ -203,7 +238,7 @@ def rotary(positions: torch.Tensor, dim: int, theta: float = 10000.0,
     """Rotary cos/sin tables for ``positions`` (any shape) over ``dim``."""
     dev = positions.device
     expo = torch.arange(0, dim, 2, dtype=torch.float32, device=dev) / dim
-    inv = 1.0 / (torch.tensor(theta, dtype=torch.float32, device=dev) ** expo)
+    inv = 1.0 / (device_scalar(float(theta), dev) ** expo)
     ang = positions.to(torch.float32)[..., None] * inv
     return torch.cos(ang).to(dtype), torch.sin(ang).to(dtype)
 

@@ -199,7 +199,8 @@ def forward(params, batch, cfg: ModelConfig):
 # ------------------------------------------------------------------ serving
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None):
-    """One stacked KV cache per group: ``k``/``v`` (L, B, T, Hkv, D)."""
+    """One stacked KV cache per group: ``k``/``v`` (L, B, T, Hkv, D) and
+    ``len`` 0. The continuous engine's slot arena is one such list."""
     caches = []
     for spec in layer_groups(cfg):
         c = init_kv_cache(batch, max_len, cfg.n_kv_heads, cfg.head_dim,
@@ -210,22 +211,35 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None):
     return caches
 
 
-def prefill(params, batch, cfg: ModelConfig, max_len: int):
+def prefill(params, batch, cfg: ModelConfig, max_len: int, last_pos=None):
     """Run the prompt, building caches. Returns ``(last_logits (B, V),
-    caches)``: the logits of every row's last position."""
+    caches)``: the logits of every row's last position, or, with
+    ``last_pos`` (a (B,) tensor), of row b's position ``last_pos[b]`` — the
+    last real token of a right-padded prompt. Under the causal mask the
+    positions up to it compute as an unpadded prompt's do."""
     x, positions = _embed_inputs(params, batch, cfg)
     caches = init_caches(cfg, x.shape[0], max_len, device=x.device)
     x, caches = _run_groups(params["groups"], x, cfg, layer_groups(cfg),
                             positions=positions, caches=caches, cache_pos=0)
-    return _logits(params, x[:, -1:], cfg)[:, 0], caches
+    if last_pos is not None:
+        x = x[torch.arange(x.shape[0], device=x.device), last_pos][:, None]
+    else:
+        x = x[:, -1:]
+    return _logits(params, x, cfg)[:, 0], caches
 
 
-def decode_step(params, caches, tokens, pos: int, cfg: ModelConfig):
-    """One token for every row. ``tokens``: (B, 1); ``pos``: the (scalar)
-    position of that token. Returns ``(logits (B, V), caches)``."""
+def decode_step(params, caches, tokens, pos, cfg: ModelConfig):
+    """One token for every row. ``tokens``: (B, 1); ``pos``: the position
+    of that token, a host int for every row (a lockstep batch) or a (B,)
+    tensor of per-row positions on the batch's device (the slot arena,
+    every row at its own depth; nothing then reads a device value on the
+    host). Returns ``(logits (B, V), caches)``."""
     x = params["embed"][tokens].to(cfg.compute_dtype)
-    positions = torch.full((1, 1), int(pos), dtype=torch.int64,
-                           device=x.device)
+    if torch.is_tensor(pos) and pos.dim() == 1:
+        positions = pos[:, None]
+    else:
+        positions = torch.full((1, 1), int(pos), dtype=torch.int64,
+                               device=x.device)
     x, caches = _run_groups(params["groups"], x, cfg, layer_groups(cfg),
                             positions=positions, caches=caches,
                             cache_pos=pos)

@@ -325,3 +325,91 @@ def test_gemm_v2_tile_edges(dev, kernel, sp, m):
             assert km.KERNEL.entry_launches["bitserial_matmul_v1"] == before + 1
             ref = km.bitserial_matmul_ref(xc, wp, scale, bias, **kw)
         assert got.dtype == ref.dtype and torch.equal(got, ref), (out, rq)
+
+
+# ------------------------------------------------- the continuous LM engine
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def _engine_load(seed, n=8, max_len=32):
+    """Mixed prompt lengths and budgets within ``max_len``."""
+    from repro_torch.launch.serve import GenRequest
+    rng = np.random.RandomState(seed)
+    reqs = []
+    for _ in range(n):
+        p = int(rng.randint(1, 13))
+        reqs.append(GenRequest(rng.randint(0, 512, (p,)).astype(np.int32),
+                               int(rng.randint(1, max_len - p + 1))))
+    return reqs
+
+
+@pytest.mark.parametrize("pack_acts", [True, False])
+def test_graphed_engine_equals_cpu_engine(dev, pack_acts):
+    """The smoke config's engine on the card (decode step captured once,
+    replayed) gives the CPU plain engine's tokens, and the plain versions'
+    engine on the card gives them too; the capture counted one decode
+    step's launches (2 layers: 8 K1 + 14 K3, or 14 K4)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.serving import ContinuousLMEngine
+    cfg = get_arch("stablelm-1.6b").smoke
+    gpu = ContinuousLMEngine(cfg, batch_slots=3, max_len=32, seed=0,
+                             pack_acts=pack_acts)
+    cpu = ContinuousLMEngine(cfg, _to(gpu.params, "cpu"), batch_slots=3,
+                             max_len=32, pack_acts=pack_acts, device="cpu")
+    gpu.warmup()
+    got = [r.out_tokens for r in gpu.serve(_engine_load(1))]
+    assert got == [r.out_tokens for r in cpu.serve(_engine_load(1))]
+    st = gpu.stats()
+    assert st["cuda_graph"] and st["compiles"]["decode"] == 1
+    assert st["recompiles_after_warmup"] == 0
+    n = cfg.n_layers
+    assert st["step_launches"] == ({"K1": 4 * n, "K3": 7 * n, "K4": 0}
+                                   if pack_acts else
+                                   {"K1": 0, "K3": 0, "K4": 7 * n})
+    plain = ContinuousLMEngine(cfg, gpu.params, batch_slots=3, max_len=32,
+                               pack_acts=pack_acts, plain=True)
+    assert [r.out_tokens for r in plain.serve(_engine_load(1))] == got
+    assert plain.stats()["step_launches"] == {"K1": 0, "K3": 0, "K4": 0}
+
+
+def test_replayed_arena_serves_like_a_fresh_engine(dev):
+    """A second load, inserted into an arena whose captured step has been
+    replayed (rows hold the first load's caches and positions), gives a
+    fresh engine's tokens: inserts rewrite the captured buffers in place."""
+    from repro_torch.configs import get_arch
+    from repro_torch.serving import ContinuousLMEngine
+    cfg = get_arch("stablelm-1.6b").smoke
+    used = ContinuousLMEngine(cfg, batch_slots=3, max_len=32, seed=0)
+    used.serve(_engine_load(1))
+    again = [r.out_tokens for r in used.serve(_engine_load(2))]
+    fresh = ContinuousLMEngine(cfg, used.params, batch_slots=3, max_len=32)
+    assert [r.out_tokens for r in fresh.serve(_engine_load(2))] == again
+    assert used.stats()["compiles"]["decode"] == 1
+    assert used.stats()["calls"]["decode"] == used.decode_steps > 0
+
+
+def test_norm_and_prefill_attention_rows_do_not_depend_on_row_count(dev):
+    """A row's layer norm, and a query's prefill attention over a cache,
+    equal the same row's among 64: the engine's decode step (4 rows) and
+    bucket-padded prefill compute as the 1-slot Server's (1 row, the
+    unpadded prompt)."""
+    from repro_torch.models import attention, layers
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = (torch.randn(64, 2048, device=dev, generator=g) * 3).bfloat16()
+    w = torch.randn(2048, device=dev, generator=g)
+    b = torch.randn(2048, device=dev, generator=g)
+    full = layers.layer_norm(x, w, b)
+    assert [r for r in range(1, 65)
+            if not torch.equal(layers.layer_norm(x[:r], w, b), full[:r])] == []
+    q, k, v = (torch.randn(1, 64, 32, 64, device=dev, generator=g).bfloat16()
+               for _ in range(3))
+    ref = attention._sdpa_full(q, k, v, causal=True, q_offset=0)
+    assert [n for n in range(2, 65) if not torch.equal(
+        attention._sdpa_full(q[:, :n], k, v, causal=True, q_offset=0),
+        ref[:, :n])] == []

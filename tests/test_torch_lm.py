@@ -428,4 +428,7 @@ def test_serve_cli_lm_on_cpu():
         serve.main(["--arch", ARCH, "--device", "cpu", "--smoke", "--batch",
                     "2", "--new-tokens", "3", "--no-pack-acts"])
     text = buf.getvalue()
-    assert "generated 6 tokens" in text and "K4" in text and "sample:" in text
+    # the reference CLI's mixed load through the continuous engine: 8
+    # requests, every 4th with 3 new tokens, the others 1
+    assert "generated 12 tokens over 8 requests" in text and "K4" in text
+    assert "recompiles_after_warmup=0" in text and "sample:" in text

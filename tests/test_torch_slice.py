@@ -300,13 +300,20 @@ def test_port_imports_no_jax_and_no_reference():
         "import repro_torch.kernels.bitserial_matmul, repro_torch.configs\n"
         "import repro_torch.models.attention, repro_torch.models.transformer\n"
         "import repro_torch.compiler.bench_graphs\n"
+        "import repro_torch.core.mvu, repro_torch.core.cost_model\n"
+        "import repro_torch.core.codegen, repro_torch.obs\n"
+        "import repro_torch.runtime.straggler, repro_torch.serving\n"
         "from repro_torch.launch.serve import CNNServer, GenRequest, Server\n"
+        "from repro_torch.serving import ContinuousLMEngine\n"
         "s = CNNServer(calib_batch=1, max_batch=1, device='cpu')\n"
         "s.classify(np.zeros((1, 32, 32, 3), np.float32))\n"
         "cfg = repro_torch.configs.get_arch('stablelm-1.6b').smoke\n"
         "for pa in (True, False):\n"
         "    lm = Server(cfg, max_len=16, pack_acts=pa, device='cpu')\n"
         "    lm.generate([GenRequest(np.arange(4, dtype=np.int32), 2)])\n"
+        "    eng = ContinuousLMEngine(cfg, max_len=16, pack_acts=pa,\n"
+        "                             device='cpu')\n"
+        "    eng.serve([GenRequest(np.arange(4, dtype=np.int32), 3)])\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
         "             m.startswith('jax.') or m == 'repro' or\n"
         "             m.startswith('repro.'))\n"
