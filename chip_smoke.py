@@ -56,15 +56,24 @@ Phases (any failure exits non-zero and prints no result):
     96 K1 and 168 K3 counted at capture) and serves the reference CLI's
     mixed load of 16 requests (prompts of 4-16 tokens, every 4th request
     16 new tokens, the others 4), counts reset just before and read just
-    after (its 16 prefills' launches; a replay adds none), with nothing
-    compiled after the warmup. Every request's tokens must equal a 1-slot
-    eager ``Server``'s, and the first four those of the engine on the plain
-    versions (``plain=True``, also captured) and of the K4 engine
-    (``pack_acts=False``, 168 K4 at capture). Times: the load's tokens/s
-    and host time per step; the replayed step against the eager
-    ``Server``'s decode step at batch 4 (host clock, synchronized); one
-    replay under the profiler (wall, busy, and its K1/K3 launches by
-    kernel name, which must be 96 and 168);
+    after (the wrappers count its 16 prefills; a replay calls no wrapper,
+    so the replays add the captured step's launches times the steps run,
+    a per-replay count the profiler confirms), with nothing compiled after
+    the warmup. Every request's tokens must equal those of the request
+    run alone and eagerly at the engine's shapes (its prompt right-padded
+    to its bucket and prefilled with ``last_pos``, then decode steps over
+    a 4-row cache holding it in every row, all rows alike), and the first
+    four those of the engine on the plain versions (``plain=True``, also
+    captured) and of the K4 engine (``pack_acts=False``, 168 K4 at
+    capture and in one replay's profile, held to its own eager run
+    alone). Each request is also served by a 1-slot eager ``Server``
+    (batch 1, the prompt unpadded) and the token where the two part, if
+    any, is reported with the eager run's gap between its two largest
+    logits there: the float parts round by shape on the card. Times: the
+    load's tokens/s (a smoke reading) and host time per step; the
+    replayed step against the eager ``Server``'s decode step at batch 4
+    (host clock, synchronized); one replay under the profiler (wall, busy,
+    and its K1/K3 launches by kernel name, which must be 96 and 168);
 9. the port's copy of ``tiny_mixed_cnn`` compiled on the card: its
    ``gemm_packed`` step launches K3, and the logits equal the plain
    runner's;
@@ -82,10 +91,12 @@ Phases (any failure exits non-zero and prints no result):
     to the wrappers' count).
 
 The ``kernels`` JSON line gives, per kernel, its launches on the main
-paths (the engine's load included) and its times summed over one ResNet9
-batch-32 forward plus one LM decode step at batch 4; K1's entry adds its
-in-path profiler ms and launches per decode step and per prefill; K1, K3
-and K4 add the engine's launches per captured decode step.
+paths (the engine's loads included: their prefills' wrapper counts plus
+the captured step's launches times the replays run, captures left out)
+and its times summed over one ResNet9 batch-32 forward plus one LM
+decode step at batch 4; K1's entry adds its in-path profiler ms and
+launches per decode step and per prefill; K1, K3 and K4 add the engine's
+launches per captured decode step, as its ``stats()`` reports them.
 
 Standard output ends with the ``kernels`` JSON line, the card's
 ``nvidia-smi`` name/power line and the ``{"ok": true, ...}`` line; the full
@@ -779,28 +790,50 @@ def main() -> int:
                 return f"token {t}: {a} vs {b}"
         return f"lengths {len(got)} vs {len(want)}"
 
-    # the float parts compute a row alike whatever rows come with it: a
-    # layer norm among 1..64 rows, a prefill query among 2..64 over a
-    # 64-position cache (the engine's 4-row decode step and bucket-padded
-    # prefill against the 1-slot Server's)
-    from repro_torch.models import attention, layers
-    g = torch.Generator(device=dev).manual_seed(5)
-    xr = (torch.randn(64, 2048, device=dev, generator=g) * 3).bfloat16()
-    wn, bn = (torch.randn(2048, device=dev, generator=g) for _ in range(2))
-    full = layers.layer_norm(xr, wn, bn)
-    ln_bad = [r for r in range(1, 65)
-              if not torch.equal(layers.layer_norm(xr[:r], wn, bn), full[:r])]
-    q, k, v = (torch.randn(1, 64, 32, 64, device=dev, generator=g).bfloat16()
-               for _ in range(3))
-    full = attention._sdpa_full(q, k, v, causal=True, q_offset=0)
-    at_bad = [n for n in range(2, 65) if not torch.equal(
-        attention._sdpa_full(q[:, :n], k, v, causal=True, q_offset=0),
-        full[:, :n])]
-    if ln_bad or at_bad:
-        raise AssertionError(f"rows depend on the row count: layer norm at "
-                             f"{ln_bad}, prefill attention at {at_bad}")
-    log("  layer norm at 1..64 rows and prefill attention at 2..64 queries: "
-        "every row equals its row among 64")
+    def parting_token(got, want):
+        """The index of the first token where two runs part, or None."""
+        for t, (a, b) in enumerate(zip(got, want)):
+            if a != b:
+                return t
+        return None if len(got) == len(want) else min(len(got), len(want))
+
+    def eager_alone(e, r):
+        """Request ``r`` alone, eagerly, at engine ``e``'s shapes: its
+        prompt right-padded to its bucket and prefilled with ``last_pos``,
+        then decode steps over a ``batch_slots``-row cache that holds it in
+        every row. Returns row 0's tokens, after checking that every row
+        gave them, and per token the gap between the two largest logits it
+        was chosen from."""
+        n, b = len(r.prompt), e.batch_slots
+        padded = np.zeros((1, executor.bucket_for(n, e.max_len)), np.int64)
+        padded[0, :n] = r.prompt
+        with torch.inference_mode():
+            logits, pref = transformer.prefill(
+                e.params, {"tokens": torch.from_numpy(padded).to(dev)},
+                e.cfg, max_len=e.max_len,
+                last_pos=torch.full((1,), n - 1, device=dev))
+            caches = transformer.init_caches(e.cfg, b, e.max_len, device=dev)
+            for c, p in zip(caches, pref):
+                c["k"].copy_(p["k"].expand_as(c["k"]))
+                c["v"].copy_(p["v"].expand_as(c["v"]))
+            logits = logits.expand(b, -1)
+            pos = torch.full((b,), n, dtype=torch.int32, device=dev)
+            cols, gaps = [], []
+            for t in range(r.max_new_tokens):
+                top = torch.topk(logits[0].float(), 2).values
+                gaps.append(top[0] - top[1])
+                tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+                cols.append(tok[:, 0])
+                if t + 1 < r.max_new_tokens:
+                    logits, _ = transformer.decode_step(e.params, caches,
+                                                        tok, pos, e.cfg)
+                    pos = pos + 1
+            rows = torch.stack(cols, 1).cpu().tolist()
+            gaps = torch.stack(gaps).cpu().tolist()
+        if any(row != rows[0] for row in rows):
+            raise AssertionError(f"the eager run's rows disagree: {rows}")
+        return rows[0], gaps
+
     rec = {}
     t0 = time.perf_counter()
     eng = ContinuousLMEngine(lm_cfg, batch_slots=4, max_len=LM_MAX_LEN,
@@ -834,13 +867,15 @@ def main() -> int:
     c_load = counts()
     em = eng.engine_metrics()
     total_toks = sum(len(r.out_tokens) for r in out)
-    # replays launch nothing through the wrappers: the load's counts are
-    # its 16 prefills'
+    # a replay calls no wrapper: the wrappers counted the 16 prefills
     want_load = {"K1": k1_per_step * len(load), "K2": 0,
                  "K3": per_step * len(load), "K4": 0}
     if c_load != want_load:
-        raise AssertionError(f"engine load launches {c_load}, want "
+        raise AssertionError(f"engine load prefill launches {c_load}, want "
                              f"{want_load}")
+    # what ran: the prefills, and the captured step once per replay
+    ran_load = {k: c_load[k] + st["step_launches"][k] * em["decode_steps"]
+                for k in ("K1", "K3")}
     st = eng.stats()
     if (st["recompiles_after_warmup"] != 0
             or st["calls"]["decode"] - calls0 != em["decode_steps"]):
@@ -853,33 +888,52 @@ def main() -> int:
     rec.update(load_requests=len(load), load_tokens=total_toks,
                load_s=load_s, tok_per_s=total_toks / load_s,
                decode_steps=em["decode_steps"],
-               slot_occupancy=em["slot_occupancy"], launches_load=c_load,
+               slot_occupancy=em["slot_occupancy"],
+               launches_load_prefills=c_load, launches_load_run=ran_load,
                step_enqueue_ms_median=statistics.median(steps_wall) / 1e3,
                recompiles_after_warmup=st["recompiles_after_warmup"])
     log(f"  mixed load: {len(load)} requests, {total_toks} tokens in "
         f"{load_s * 1e3:.1f} ms = {rec['tok_per_s']:.1f} tok/s; "
         f"{em['decode_steps']} replayed steps (occupancy "
         f"{em['slot_occupancy']}), host time per step (enqueue, median) "
-        f"{rec['step_enqueue_ms_median']:.3f} ms; launches {c_load} (the "
-        "prefills'); recompiles_after_warmup 0")
+        f"{rec['step_enqueue_ms_median']:.3f} ms; launches run {ran_load} "
+        f"(prefills {c_load}); recompiles_after_warmup 0")
     for r in out:
         if (len(r.out_tokens) != r.max_new_tokens
                 or not all(0 <= v < lm_cfg.vocab_size for v in r.out_tokens)):
             raise AssertionError(f"bad engine output {r.out_tokens}")
-    # every request equals a 1-slot eager Server serving it alone
-    solo = Server(lm_cfg, eng.params, batch_slots=1, max_len=LM_MAX_LEN)
-    solo_toks = []
+    # every request equals its eager run alone at the engine's shapes
+    alone = []
     for i, r in enumerate(out):
-        ref = solo.generate([GenRequest(r.prompt.copy(),
-                                        r.max_new_tokens)])[0].out_tokens
-        solo_toks.append(ref)
+        ref, gaps = eager_alone(eng, r)
+        alone.append((ref, gaps))
         if r.out_tokens != ref:
             raise AssertionError(
                 f"engine request {i} (prompt {len(r.prompt)}, "
-                f"{r.max_new_tokens} new) parts from the 1-slot Server at "
+                f"{r.max_new_tokens} new) parts from its eager run alone at "
                 f"{first_difference(r.out_tokens, ref)}")
-    log(f"  every request's tokens equal a 1-slot eager Server's; request "
-        f"0: {out[0].out_tokens}")
+    log(f"  every request's tokens equal its eager run alone at the "
+        f"engine's shapes; request 0: {out[0].out_tokens}")
+    # against a 1-slot eager Server (batch 1, the prompt unpadded): other
+    # shapes, so the float parts may round otherwise; reported, with the
+    # eager run's top-2 logit gap at the token where they part
+    solo = Server(lm_cfg, eng.params, batch_slots=1, max_len=LM_MAX_LEN)
+    parted = []
+    for i, r in enumerate(out):
+        ref = solo.generate([GenRequest(r.prompt.copy(),
+                                        r.max_new_tokens)])[0].out_tokens
+        t = parting_token(r.out_tokens, ref)
+        if t is not None:
+            parted.append({"request": i, "prompt": len(r.prompt),
+                           "new": r.max_new_tokens, "token": t,
+                           "engine": r.out_tokens[t],
+                           "server": ref[t] if t < len(ref) else None,
+                           "top2_logit_gap": alone[i][1][t]})
+    rec["server_1slot"] = {"requests": len(out),
+                           "equal": len(out) - len(parted),
+                           "parted": parted}
+    log(f"  against a 1-slot eager Server: {len(out) - len(parted)} of "
+        f"{len(out)} requests equal; parted: {parted}")
     # the plain versions' engine (also captured) and the K4 path's, on the
     # first four requests
     four = [GenRequest(r.prompt.copy(), r.max_new_tokens) for r in out[:4]]
@@ -901,27 +955,34 @@ def main() -> int:
     del plain_eng
     k4_eng = ContinuousLMEngine(lm_cfg, eng.params, batch_slots=4,
                                 max_len=LM_MAX_LEN, pack_acts=False)
+    k4_eng.warmup()                   # the capture falls outside the count
+    k4_step = k4_eng.stats()["step_launches"]
     reset_counts()
     k4_out = k4_eng.serve([GenRequest(r.prompt.copy(), r.max_new_tokens)
                            for r in four])
     c_k4 = counts()
     want_k4 = {"K1": 0, "K3": 0, "K4": per_step}
-    # four prefills, then the arena's eager warm-up step and its capture
-    if (k4_eng.stats()["step_launches"] != want_k4
+    if (k4_step != want_k4
             or c_k4 != {"K1": 0, "K2": 0, "K3": 0,
-                        "K4": per_step * (len(four) + 2)}):
-        raise AssertionError(f"K4 engine: launches at capture "
-                             f"{k4_eng.stats()['step_launches']}, in the "
-                             f"serve {c_k4}")
+                        "K4": per_step * len(four)}):
+        raise AssertionError(f"K4 engine: launches at capture {k4_step}, "
+                             f"prefill launches in the serve {c_k4}")
+    k4_prof = by_kernel(profile_counts(k4_eng._run_step)["launches"])
+    if k4_prof != want_k4:
+        raise AssertionError(f"the profiler saw {k4_prof} in one K4 replay, "
+                             f"want {want_k4}")
     for i, r in enumerate(k4_out):
-        if r.out_tokens != solo_toks[i]:
+        ref = eager_alone(k4_eng, r)[0]
+        if r.out_tokens != ref:
             raise AssertionError(
-                f"K4 engine request {i} parts from the 1-slot Server at "
-                f"{first_difference(r.out_tokens, solo_toks[i])}")
-    rec.update(k4_step_launches=want_k4, launches_k4_serve=c_k4)
-    log(f"  plain engine ({rec['plain_serve_s']:.1f} s) and K4 engine "
-        f"({want_k4} per captured step) give the same tokens on the first "
-        "four requests")
+                f"K4 engine request {i} parts from its eager run alone at "
+                f"{first_difference(r.out_tokens, ref)}")
+    k4_run = c_k4["K4"] + k4_step["K4"] * k4_eng.decode_steps
+    rec.update(k4_step_launches=k4_step, k4_replay_profile=k4_prof,
+               launches_k4_serve_prefills=c_k4, launches_k4_serve_run=k4_run)
+    log(f"  plain engine ({rec['plain_serve_s']:.1f} s) gives the engine's "
+        f"tokens on the first four requests, and the K4 engine ({k4_step} "
+        f"per captured step and per replay) its own eager run's")
     # the replayed step against the eager Server's decode step at batch 4,
     # host clock around synchronized work, then one replay under the
     # profiler
@@ -943,9 +1004,10 @@ def main() -> int:
     rec["profile_eager_step"] = {"wall_ms": eprof["wall_ms"],
                                  "device_ms": eprof["device_ms"],
                                  "kernels": sum(eprof["launches"].values())}
-    rec["replay_step_ms"] = fenced_ms(eng.step_arena, 15)
-    eng.step_arena()
-    prof = profile_counts(eng.step_arena)
+    # the arena as the load left it; its inactive rows stay frozen
+    rec["replay_step_ms"] = fenced_ms(eng._run_step, 15)
+    eng._run_step()
+    prof = profile_counts(eng._run_step)
     rec["profile_replay"] = {"wall_ms": prof["wall_ms"],
                              "device_ms": prof["device_ms"],
                              "launches_by_kernel": by_kernel(
@@ -1175,7 +1237,7 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/quantize_pack.cu",
          "replaces": "src/repro/kernels/quantize_pack.py:53",
          "launches": (launches["K1"] + lm_k3[2]["K1"] + c_tiny["K1"]
-                      + c_load["K1"]),
+                      + ran_load["K1"]),
          "engine_launches_per_captured_step": rec["step_launches"]["K1"],
          "max_abs_err": max_err["K1"],
          "ms": total("K1", "ms") + lm_step("K1", "ms", 4),
@@ -1199,7 +1261,7 @@ def main() -> int:
          "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/bitserial_matmul.cu",
          "replaces": "src/repro/kernels/bitserial_matmul.py:380",
-         "launches": lm_k3[2]["K3"] + c_tiny["K3"] + c_load["K3"],
+         "launches": lm_k3[2]["K3"] + c_tiny["K3"] + ran_load["K3"],
          "engine_launches_per_captured_step": rec["step_launches"]["K3"],
          "max_abs_err": max_err["K3"],
          "ms": lm_step("K3", "ms", 4), "plain_ms": lm_step("K3", "plain_ms", 4),
@@ -1209,8 +1271,8 @@ def main() -> int:
          "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/bitserial_matmul.cu",
          "replaces": "src/repro/kernels/bitserial_matmul.py:171",
-         "launches": lm_k4[2]["K4"] + c_k4["K4"],
-         "engine_launches_per_captured_step": rec["k4_step_launches"]["K4"],
+         "launches": lm_k4[2]["K4"] + k4_run,
+         "engine_launches_per_captured_step": k4_step["K4"],
          "max_abs_err": max_err["K4"],
          "ms": lm_step("K4", "ms", 4), "plain_ms": lm_step("K4", "plain_ms", 4),
          "bound_ms": lm_step("K4", "bound_ms", 4), "bound_by": lm_bound_by("K4"),

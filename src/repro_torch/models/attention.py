@@ -60,19 +60,9 @@ def _sdpa_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Reference attention: q (B, Sq, H, D), k/v (B, Sk, Hkv, D), GQA by
     head grouping, scores and softmax in float32. ``q_offset`` is the
     position of the first query: a scalar, or a (B,) tensor of per-row
-    positions (each row masks the keys beyond its own queries).
-
-    Several queries (1 < Sq < Sk: a prefill into a cache) are zero-padded
-    to Sk rows and the extra rows dropped: cuBLAS picks its kernel by
-    shape, and at Sq = 16 and 11 on the H100 it picked kernels whose rows
-    differ in the last bits, so a prompt right-padded to its bucket would
-    not compute as the same prompt unpadded. At one shape per cache length
-    a row's result does not depend on how many rows the call has."""
-    b, sq0, h, d = q.shape
+    positions (each row masks the keys beyond its own queries)."""
+    b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
-    if 1 < sq0 < sk:
-        q = torch.cat([q, q.new_zeros((b, sk - sq0, h, d))], dim=1)
-    sq = q.shape[1]
     rep = h // hkv
     f32 = torch.float32
     qg = q.reshape(b, sq, hkv, rep, d)
@@ -90,7 +80,7 @@ def _sdpa_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         scores = scores.masked_fill(mask, -math.inf)
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bgrqk,bkgd->bqgrd", p, v.to(f32))
-    return out[:, :sq0].reshape(b, sq0, h, v.shape[-1]).to(q.dtype)
+    return out.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
 
 
 # ------------------------------------------------------------------ KV cache

@@ -191,46 +191,22 @@ def device_scalar(value: float, device: torch.device) -> torch.Tensor:
     return torch.tensor(value, dtype=torch.float32, device=device)
 
 
-#: the fewest rows a norm reduces at once (see :func:`_rowwise`)
-_NORM_MIN_ROWS = 16
-
-
-def _rowwise(fn, x: torch.Tensor) -> torch.Tensor:
-    """Apply a row-wise ``fn`` to (..., D) as (R, D) rows, zero rows
-    appended up to :data:`_NORM_MIN_ROWS` and dropped after. Torch's CUDA
-    reduction sums a row with more threads the fewer rows the call has,
-    up to 16 rows (``set_block_dimension`` in ``ATen/native/cuda/
-    Reduce.cuh``), so below 16 a row's norm depends on how many rows come
-    with it: a decode step of 4 rows would not compute as the same step of
-    1. From 16 rows on the summation order is fixed."""
-    rows = x.reshape(-1, x.shape[-1])
-    r = rows.shape[0]
-    if r < _NORM_MIN_ROWS:
-        rows = torch.cat([rows, rows.new_zeros((_NORM_MIN_ROWS - r,
-                                                rows.shape[1]))])
-    return fn(rows)[:r].reshape(x.shape)
-
-
 def rms_norm(x: torch.Tensor, w: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
-    def rows(x):
-        dt = x.dtype
-        x = x.to(torch.float32)
-        x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
-        return (x * w.to(torch.float32)).to(dt)
-    return _rowwise(rows, x)
+    dt = x.dtype
+    x = x.to(torch.float32)
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * w.to(torch.float32)).to(dt)
 
 
 def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
-    def rows(x):
-        dt = x.dtype
-        x = x.to(torch.float32)
-        mu = torch.mean(x, dim=-1, keepdim=True)
-        var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
-        x = (x - mu) * torch.rsqrt(var + eps)
-        return (x * w.to(torch.float32) + b.to(torch.float32)).to(dt)
-    return _rowwise(rows, x)
+    dt = x.dtype
+    x = x.to(torch.float32)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * w.to(torch.float32) + b.to(torch.float32)).to(dt)
 
 
 def rotary(positions: torch.Tensor, dim: int, theta: float = 10000.0,

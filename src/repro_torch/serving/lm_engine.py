@@ -350,17 +350,6 @@ class ContinuousLMEngine:
         else:
             self._step_fn()
 
-    @torch.inference_mode()
-    def step_arena(self) -> None:
-        """Advance the arena by one decode step as it stands, outside
-        :meth:`serve` and its bookkeeping — what ``serve`` runs per step
-        (on the card, one replay of the captured graph). For measurement:
-        inactive rows stay frozen."""
-        with self._lock:
-            if self._arena is None:
-                self._fresh_arena()
-            self._run_step()
-
     def _reset_serving_metrics(self):
         for c in (self._c_tokens, self._c_completed, self._c_inserts,
                   self._c_steps, self._c_slot_steps, self._c_busy,

@@ -393,23 +393,3 @@ def test_replayed_arena_serves_like_a_fresh_engine(dev):
     assert used.stats()["compiles"]["decode"] == 1
     assert used.stats()["calls"]["decode"] == used.decode_steps > 0
 
-
-def test_norm_and_prefill_attention_rows_do_not_depend_on_row_count(dev):
-    """A row's layer norm, and a query's prefill attention over a cache,
-    equal the same row's among 64: the engine's decode step (4 rows) and
-    bucket-padded prefill compute as the 1-slot Server's (1 row, the
-    unpadded prompt)."""
-    from repro_torch.models import attention, layers
-    g = torch.Generator(device=dev).manual_seed(5)
-    x = (torch.randn(64, 2048, device=dev, generator=g) * 3).bfloat16()
-    w = torch.randn(2048, device=dev, generator=g)
-    b = torch.randn(2048, device=dev, generator=g)
-    full = layers.layer_norm(x, w, b)
-    assert [r for r in range(1, 65)
-            if not torch.equal(layers.layer_norm(x[:r], w, b), full[:r])] == []
-    q, k, v = (torch.randn(1, 64, 32, 64, device=dev, generator=g).bfloat16()
-               for _ in range(3))
-    ref = attention._sdpa_full(q, k, v, causal=True, q_offset=0)
-    assert [n for n in range(2, 65) if not torch.equal(
-        attention._sdpa_full(q[:, :n], k, v, causal=True, q_offset=0),
-        ref[:, :n])] == []
