@@ -21,10 +21,16 @@ Phases (any failure exits non-zero and prints no result):
    equality (the float mode included: both compute the same FMA of the
    same accumulator);
 4. the CNN slice: ``CNNServer`` compiles full-width ResNet9 W2A2 on the
-   card and answers requests of batch 1, 3 and 32; launch counts are reset
-   just before and read just after, and must be 3 (K1) and 8 (K2) per
-   forward; the logits must equal those of the same Program run through
-   the plain versions on the card, and a Program calibrated on a small
+   card through its ``ModelRegistry``, its ``InferenceService`` warms up
+   (one CUDA graph captured per padding bucket 1..32, each counting 3 K1
+   and 8 K2 launches at capture) and it answers requests of 1, 3 and 32
+   images. Launch counts are reset just before and read just after: no
+   wrapper runs (a replay calls none, and nothing is captured after the
+   warmup), and the launches the graphs ran, the counts at capture times
+   the replays, must be 3 (K1) and 8 (K2) per forward. Every answer must
+   equal, bit for bit, the same Program's eager forward and its plain
+   run on the answer's own micro-batch at its bucket (the micro-batches
+   read from the service's trace), and a Program calibrated on a small
    batch must agree on argmax with the plain quantized reference forward;
 5. CNN times at batch 32: each kernel (``kernels/timing.py``'s ``Timer``:
    CUDA events around each launch, L2 flushed before each, every
@@ -32,7 +38,10 @@ Phases (any failure exits non-zero and prints no result):
    is not counted), its plain
    version, the PyTorch library call that does the integer-accumulate part
    where there is one, and the least time the card could take; the
-   forward's img/s and a profiler breakdown;
+   replayed forward's img/s against the eager forward in turns,
+   ``classify`` of 32 images through the service five times, and a
+   profiler breakdown of each (one replay of every bucket, 1 to 32, must
+   run 3 K1 and 8 K2 by kernel name);
 6. K3 (bitserial_matmul_v2) and 7. K4 (bitserial_matmul) against their
    plain versions, ``torch.equal``: stablelm-1.6b's three GEMM shapes at
    M = 4 (decode) and 64 (prefill), W4A8; codes and packed outputs;
@@ -88,11 +97,27 @@ Phases (any failure exits non-zero and prints no result):
     ``generate``'s tokens/s at batch 4, and a profiler breakdown of one
     prefill and one decode step (device busy counts the card's own events
     only; K1's in-path ms and launches by kernel name, its launches held
-    to the wrappers' count).
+    to the wrappers' count);
+11. the serving runtime: phase 4's ``CNNServer`` answers 1, 3, 17 and 32
+    images and a burst of 64 single-image submits from 4 threads, every
+    answer equal to the eager forward and to the plain-version service's
+    captured run on its micro-batch at its bucket, nothing captured after
+    the warmup and 3 K1 + 8 K2 per replayed forward; a W2A2 and a W2A8
+    variant registered together share every packed weight plane on the
+    card (equal ``data_ptr``) and both serve exactly; the card Program's
+    command stream equals the reference's (``tests/data/
+    resnet9_w2a2_stream.json``) job for job, and the scheduler's virtual
+    cycles, utilization and HPM counters are printed; phase 8b's engine,
+    registered as a callable, serves the CLI's mixed load through
+    ``InferenceService`` with the bare engine's tokens, one scheduler
+    admission per decode step and nothing compiled after its warmup.
+    Written down, not held: the burst's per-request p50/p99 and the LM
+    load's tokens/s.
 
 The ``kernels`` JSON line gives, per kernel, its launches on the main
-paths (the engine's loads included: their prefills' wrapper counts plus
-the captured step's launches times the replays run, captures left out)
+paths (the bucketed runners' forwards and the engine's loads included:
+wrapper counts plus each captured graph's launches times the replays run,
+captures left out)
 and its times summed over one ResNet9 batch-32 forward plus one LM
 decode step at batch 4; K1's entry adds its in-path profiler ms and
 launches per decode step and per prefill; K1, K3 and K4 add the engine's
@@ -341,15 +366,15 @@ def main() -> int:
                     k2.bitserial_conv2d_ref(xp, wp, scale, bias, **kw))
 
     # ------------------------------------------------- 4. the server slice
-    log("server slice: CNNServer(seed=0, calib_batch=8) on the card")
+    log("server slice: CNNServer(seed=0, calib_batch=8) on the card, "
+        "through the serving runtime")
     t0 = time.perf_counter()
     server = CNNServer(seed=0, calib_batch=8, max_batch=32)
+    prog = server.program            # the registry compiles at first use
     torch.cuda.synchronize()
     record["compile_s"] = time.perf_counter() - t0
     log(f"  compiled full-width ResNet9 W2A2 in {record['compile_s']:.2f} s")
-    prog = server.program
-    plain = executor.make_plain_runner(prog)
-    images = np.random.default_rng(7).random((32, 32, 32, 3), dtype=np.float32)
+
     def counts():
         return {"K1": k1.KERNEL.launches, "K2": k2.KERNEL.launches,
                 "K3": km.KERNEL.entry_launches["bitserial_matmul_v2"],
@@ -359,33 +384,102 @@ def main() -> int:
         for k in kernels:
             k.reset_counts()
 
+    def graph_launches(run, replays0):
+        """What a bucketed runner's graphs ran since ``replays0``: the
+        launches counted at each bucket's capture times its replays (a
+        replay calls no wrapper), and the forwards (replays) run."""
+        ran = dict.fromkeys(("K1", "K2", "K3", "K4"), 0)
+        forwards = 0
+        for b, n in run.replays.items():
+            n -= replays0.get(b, 0)
+            forwards += n
+            for k, v in run.capture_launches[b].items():
+                ran[k] += v * n
+        return ran, forwards
+
+    def served_batches(svc, ids):
+        """The micro-batches the service ran for trace ids ``ids``: the ids
+        that share one execute span, in submission (FIFO) order, with the
+        variant each was booked under."""
+        groups, key_of = {}, {}
+        for sp in svc.tracer.spans():
+            if sp.trace_id in ids and sp.name == "execute":
+                groups.setdefault((sp.t0_ns, sp.t1_ns), []).append(
+                    sp.trace_id)
+            if sp.trace_id in ids and sp.name == "queue":
+                key_of[sp.trace_id] = sp.args["key"]
+        out = [sorted(g) for _, g in sorted(groups.items())]
+        if sorted(i for g in out for i in g) != sorted(ids):
+            raise AssertionError("the trace lost a request")
+        return [(key_of[g[0]], g) for g in out]
+
+    def check_served(svc, sent, refs):
+        """Every answer equals, bit for bit, each reference in ``refs``
+        ({variant: {name: fn(padded batch) -> logits}}) run on the
+        answer's own micro-batch padded with zeros to its bucket. ``sent``
+        maps a trace id to (image, answer). Returns the batch sizes."""
+        sizes = []
+        for key, ids in served_batches(svc, set(sent)):
+            n = len(ids)
+            xb = torch.zeros((executor.bucket_for(n, 32), 32, 32, 3),
+                             device=dev)
+            xb[:n] = torch.from_numpy(np.stack([sent[i][0] for i in ids]))
+            got = np.stack([sent[i][1] for i in ids])
+            if got.shape != (n, 10) or not np.all(np.isfinite(got)):
+                raise AssertionError(f"bad logits {got.shape}")
+            for name, fn in refs[key].items():
+                ref = fn(xb)[:n].cpu().numpy()
+                if not np.array_equal(got, ref):
+                    raise AssertionError(
+                        f"{key} batch of {n}: answers differ from the {name}"
+                        f" at bucket {len(xb)}, max "
+                        f"{np.abs(got - ref).max()}")
+            sizes.append(n)
+        return sizes
+
+    def classify_traced(srv, imgs, sent):
+        """``srv.classify`` (one submitter thread: trace ids follow the
+        images), recording each image and its answer by trace id."""
+        tid0 = srv.service.tracer.started
+        out = srv.classify(imgs)
+        for i in range(len(imgs)):
+            sent[tid0 + 1 + i] = (imgs[i], out[i])
+        return out
+
+    t0 = time.perf_counter()
+    captured = server.service.warmup()
+    torch.cuda.synchronize()
+    record["capture_s"] = time.perf_counter() - t0
+    runner = server.service._runner_for(server.key)
+    want_fwd = {"K1": 3, "K2": 8, "K3": 0, "K4": 0}
+    if (captured != 6 or runner.stats()["cuda_graphs"] != 6
+            or any(runner.capture_launches[b] != want_fwd
+                   for b in executor.bucket_sizes(32))):
+        raise AssertionError(f"warmup captured {captured}: "
+                             f"{runner.capture_launches}")
+    log(f"  warmup captured one CUDA graph per bucket "
+        f"{executor.bucket_sizes(32)} in {record['capture_s']:.2f} s, each "
+        f"with {want_fwd}")
+    plain = executor.make_plain_runner(prog)
+    images = np.random.default_rng(7).random((32, 32, 32, 3), dtype=np.float32)
     reset_counts()
-    forwards = 0
-    answers = {}
-    for n in (1, 3, 32):
-        before = (k1.KERNEL.launches, k2.KERNEL.launches)
-        answers[n] = server.classify(images[:n])
-        forwards += 1
-        got = (k1.KERNEL.launches - before[0], k2.KERNEL.launches - before[1])
-        if got != (3, 8):
-            raise AssertionError(f"batch {n}: launches K1, K2 = {got}, "
-                                 "want (3, 8)")
-    launches = counts()
-    if launches != {"K1": 3 * forwards, "K2": 8 * forwards, "K3": 0, "K4": 0}:
-        raise AssertionError(f"main path launches {launches}")
-    log(f"  main path: {forwards} forwards, launches {launches}")
+    replays0 = dict(runner.replays)
+    sent = {}
+    answers = {n: classify_traced(server, images[:n], sent) for n in (1, 3, 32)}
+    if any(counts().values()) or runner.compiles != 6:
+        raise AssertionError(f"a wrapper ran after warmup: {counts()}, "
+                             f"compiles {runner.compiles}")
+    launches, forwards = graph_launches(runner, replays0)
+    if launches != {k: v * forwards for k, v in want_fwd.items()}:
+        raise AssertionError(f"main path launches {launches} over "
+                             f"{forwards} replays")
+    log(f"  main path: {forwards} replayed forwards, launches run {launches}"
+        " (captured counts x replays; no wrapper ran)")
     record["launches_cnn"] = launches
-    for n, logits in answers.items():
-        if logits.shape != (n, 10) or not np.all(np.isfinite(logits)):
-            raise AssertionError(f"batch {n}: bad logits {logits.shape}")
-        bucket = executor.bucket_for(n, server.runner.max_batch)
-        xb = torch.zeros((bucket, 32, 32, 3), device=dev)
-        xb[:n] = torch.from_numpy(images[:n]).to(dev)
-        ref = plain(prog.params, xb)[:n].cpu().numpy()
-        if not np.array_equal(logits, ref):
-            raise AssertionError(f"batch {n}: logits differ from the plain "
-                                 f"run, max {np.abs(logits - ref).max()}")
-        log(f"  batch {n}: logits equal the plain run; first {logits[0, :4]}")
+    sizes = check_served(server.service, sent, {str(server.key): {
+        "eager forward": prog, "plain run": lambda x: plain(prog.params, x)}})
+    log(f"  micro-batches {sizes}: each answer equals the eager forward and "
+        f"the plain run at its bucket; first {answers[3][0, :4]}")
     record["logits_b3"] = answers[3].tolist()
 
     # a Program calibrated on the batch it classifies agrees on argmax
@@ -438,6 +532,35 @@ def main() -> int:
                 "launches": {k: launches[k] for k in top},
                 "K1_ms": sum(ms[k] for k in k1_names),
                 "K1_launches": sum(launches[k] for k in k1_names)}
+
+    def profile_counts(fn):
+        """``fn`` once under the profiler: host wall, the card's busy time
+        (its own events) and every device kernel's launches by name."""
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy, names = 0.0, {}
+        for evt in prof.key_averages():
+            if evt.device_type == DeviceType.CUDA:
+                busy += evt.self_device_time_total / 1e3
+                names[evt.key] = names.get(evt.key, 0) + evt.count
+        if not names:
+            raise AssertionError("the profiler recorded no device event")
+        return {"wall_ms": wall * 1e3, "device_ms": busy, "launches": names}
+
+    def cnn_kernels(launches):
+        """K1 (its float and codes entries) and K2 launches among the
+        profiler's kernel names."""
+        out = {"K1": 0, "K2": 0}
+        for name, n in launches.items():
+            if "quantize_pack_kernel" in name or "pack_codes_kernel" in name:
+                out["K1"] += n
+            elif "bitserial_conv2d_kernel" in name:
+                out["K2"] += n
+        return out
 
     log(f"times at batch {B} (ms, median, L2 flushed before each launch)")
     timer = Timer(dev)
@@ -506,38 +629,75 @@ def main() -> int:
             f"ms, bound {sums['bound_ms']:.5f}, library {sums['library_ms']}, plain "
             f"{sums['plain_ms']:.3f}")
 
-    # the forward at batch 32: img/s on the host clock, device time by
-    # kernel from the profiler
+    # the forward at batch 32: img/s on the host clock (the runner's replay
+    # and the eager forward, in turns), device time by kernel from the
+    # profiler
     x32 = torch.from_numpy(images).to(dev)
-    run = server.runner
+    run = runner
 
-    def forward_s(x, reps=20):
-        run(x)
+    def forward_s(fn, x, reps=20):
+        fn(x)
         torch.cuda.synchronize()
         walls = []
         for _ in range(reps):
             t0 = time.perf_counter()
-            run(x)
+            fn(x)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
         return statistics.median(walls)
 
-    record["forward_b1_ms"] = forward_s(x32[:1]) * 1e3
-    fwd_s = forward_s(x32)
-    t0 = time.perf_counter()
-    server.classify(images)
-    classify_s = time.perf_counter() - t0
+    record["forward_b1_ms"] = forward_s(run, x32[:1]) * 1e3
+    fwd_s = forward_s(run, x32)
+    eager_s = forward_s(prog, x32)
+    fwd_s2 = forward_s(run, x32)
+    eager_s2 = forward_s(prog, x32)
+    classify_runs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        server.classify(images)
+        classify_runs.append(time.perf_counter() - t0)
+    classify_s = classify_runs[0]
     record["forward_b32_ms"] = fwd_s * 1e3
+    record["forward_b32_ms_runs"] = [fwd_s * 1e3, fwd_s2 * 1e3]
+    record["forward_b32_eager_ms_runs"] = [eager_s * 1e3, eager_s2 * 1e3]
     record["img_per_s_b32"] = 32 / fwd_s
     record["classify_b32_ms"] = classify_s * 1e3
-    log(f"forward batch 32: {fwd_s * 1e3:.3f} ms ({32 / fwd_s:.1f} img/s); "
-        f"classify() with host copies {classify_s * 1e3:.3f} ms; "
-        f"forward batch 1: {record['forward_b1_ms']:.3f} ms")
+    record["classify_b32_ms_runs"] = [t * 1e3 for t in classify_runs]
+    log(f"forward batch 32, one graph replay: {fwd_s * 1e3:.3f} / "
+        f"{fwd_s2 * 1e3:.3f} ms ({32 / fwd_s:.1f} img/s); eager forward in "
+        f"turns: {eager_s * 1e3:.3f} / {eager_s2 * 1e3:.3f} ms; classify() "
+        f"through the service {classify_s * 1e3:.3f} ms (5 calls: "
+        f"{', '.join(f'{t * 1e3:.3f}' for t in classify_runs)}); forward "
+        f"batch 1 (replay): {record['forward_b1_ms']:.3f} ms")
     prof = device_profile(lambda: run(x32), 5)
     record["profile_b32"] = prof
-    log(f"profile batch 32 per forward: wall {prof['wall_ms']:.3f} ms, "
-        f"device busy {prof['device_ms']:.3f} ms (all profiler rows "
-        f"{prof['all_rows_ms']:.3f})")
+    eprof = device_profile(lambda: prog(x32), 5)
+    record["profile_b32_eager"] = {k: eprof[k] for k in (
+        "wall_ms", "device_ms", "all_rows_ms")}
+    # one replay of every bucket under the profiler: each graph runs 3 K1
+    # and 8 K2, as its capture counted
+    record["profile_replay_by_bucket"] = {}
+    for b in executor.bucket_sizes(32):
+        one = profile_counts(lambda: run(x32[:b]))
+        got = cnn_kernels(one["launches"])
+        record["profile_replay_by_bucket"][b] = {
+            "wall_ms": one["wall_ms"], "device_ms": one["device_ms"],
+            "kernels": sum(one["launches"].values()),
+            "launches_by_kernel": got}
+        if got != {"K1": 3, "K2": 8}:
+            raise AssertionError(f"the profiler saw {got} in one replay of "
+                                 f"bucket {b}, want 3 K1 and 8 K2")
+    record["profile_b32_replay"] = record["profile_replay_by_bucket"][32]
+    log(f"profile batch 32 per forward: replay wall {prof['wall_ms']:.3f} ms,"
+        f" device busy {prof['device_ms']:.3f} ms (all profiler rows "
+        f"{prof['all_rows_ms']:.3f}); eager wall {eprof['wall_ms']:.3f} ms, "
+        f"busy {eprof['device_ms']:.3f} ms; one replay: "
+        f"{record['profile_b32_replay']['kernels']} kernels, of them "
+        f"{record['profile_b32_replay']['launches_by_kernel']}; one replay "
+        f"of each bucket {executor.bucket_sizes(32)} ran 3 K1 and 8 K2 "
+        f"(busy ms " + ", ".join(
+            f"{b}: {v['device_ms']:.4f}" for b, v in
+            record["profile_replay_by_bucket"].items()) + ")")
     for k, v in prof["by_name_ms"].items():
         log(f"  {v:9.4f} ms  {k[:90]}")
 
@@ -741,24 +901,6 @@ def main() -> int:
             torch.cuda.synchronize()
             out.append(time.perf_counter() - t0)
         return statistics.median(out) * 1e3
-
-    def profile_counts(fn):
-        """``fn`` once under the profiler: host wall, the card's busy time
-        (its own events) and every device kernel's launches by name."""
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        busy, names = 0.0, {}
-        for evt in prof.key_averages():
-            if evt.device_type == DeviceType.CUDA:
-                busy += evt.self_device_time_total / 1e3
-                names[evt.key] = names.get(evt.key, 0) + evt.count
-        if not names:
-            raise AssertionError("the profiler recorded no device event")
-        return {"wall_ms": wall * 1e3, "device_ms": busy, "launches": names}
 
     def by_kernel(launches):
         """K1, K3 and K4 launches among the profiler's kernel names (K3 and
@@ -1217,6 +1359,216 @@ def main() -> int:
                 raise AssertionError(f"{tag} {what}: the profiler saw {got} "
                                      f"K1 launches, want {k1_want}")
 
+    # ------------------------------------------ 11. the serving runtime
+    log("serving runtime: ModelRegistry -> DynamicBatcher -> SlotScheduler "
+        "(barrel controller) -> InferenceService on the card")
+    import dataclasses
+    import threading
+    from repro_torch.serving import InferenceService, ModelRegistry
+    srv = {}
+    svc = server.service
+    # (a) CNNServer (phase 4's, warmed: its 6 graphs): requests of 1, 3, 17
+    # and 32 images, then 64 single-image submits from 4 threads
+    plain_svc = InferenceService(server.registry, max_batch=32, plain=True)
+    plain_svc.warmup()
+    plain_run = plain_svc._runner_for(server.key)
+    if plain_run.stats()["cuda_graphs"] != 6 or any(
+            any(c.values()) for c in plain_run.capture_launches.values()):
+        raise AssertionError(f"plain captures: {plain_run.stats()}")
+    reset_counts()
+    replays0 = dict(runner.replays)
+    sent = {}
+    for n in (1, 3, 17, 32):
+        classify_traced(server, images[:n], sent)
+    burst = np.random.default_rng(11).random((64, 32, 32, 3),
+                                             dtype=np.float32)
+    lock = threading.Lock()
+    futs, errors = {}, []
+
+    def producer(k):
+        try:
+            for j in range(16):
+                i = 4 * j + k
+                with lock:      # the trace id just started is this one's
+                    f = svc.submit(server.key, burst[i])
+                    futs[svc.tracer.started] = (i, f)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=producer, args=(k,))
+               for k in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    svc.drain(timeout=120)
+    burst_s = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads) or len(futs) != 64:
+        raise AssertionError(f"burst producers: {errors}")
+    burst_ids = set(futs)
+    for tid, (i, f) in futs.items():
+        sent[tid] = (burst[i], f.result())
+    ran, forwards = graph_launches(runner, replays0)
+    if (any(counts().values()) or runner.compiles != 6
+            or runner.stats()["cuda_graphs"] != 6
+            or ran != {k: v * forwards for k, v in want_fwd.items()}):
+        raise AssertionError(f"after warmup: wrappers {counts()}, compiles "
+                             f"{runner.compiles}, launches {ran} over "
+                             f"{forwards} replays")
+    sizes = check_served(svc, sent, {str(server.key): {
+        "eager forward": prog, "plain registry's runner": plain_run}})
+    lat = {}
+    for sp in svc.tracer.spans():
+        if sp.trace_id in burst_ids and sp.name in ("queue", "finalize"):
+            lat.setdefault(sp.trace_id, {})[sp.name] = sp
+    lat = sorted((v["finalize"].t1_ns - v["queue"].t0_ns) / 1e6
+                 for v in lat.values())
+    srv.update(cnn_requests=len(sent), cnn_batches=len(sizes),
+               cnn_batch_sizes=sizes, cnn_launches_run=ran,
+               cnn_forwards=forwards, burst_s=burst_s,
+               burst_p50_ms=lat[len(lat) // 2],
+               burst_p99_ms=lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+               plain_capture_s=plain_run.capture_seconds)
+    log(f"  {len(sent)} requests (1, 3, 17, 32 and a burst of 64 from 4 "
+        f"threads) in {len(sizes)} micro-batches {sizes}: each equals the "
+        f"eager forward and the plain registry's captured run at its bucket;"
+        f" {forwards} replays ran {ran}; nothing captured after warmup; "
+        f"burst {burst_s * 1e3:.1f} ms, per request p50 "
+        f"{srv['burst_p50_ms']:.3f} ms, p99 {srv['burst_p99_ms']:.3f} ms")
+    cnn_ran = {k: launches[k] + ran[k] for k in launches}
+
+    # (b) W2A2 and W2A8 of one graph in one registry: shared planes
+    entry = server.registry.entry(server.key)
+    reg2 = ModelRegistry(device=dev)
+    k22 = reg2.register_graph("resnet9", entry.graph, entry.calib,
+                              entry.policy)
+    k28 = reg2.register_graph("resnet9", entry.graph, entry.calib,
+                              dataclasses.replace(entry.policy, a_bits=8),
+                              precision="W2A8")
+    p22, p28 = reg2.program(k22), reg2.program(k28)
+    convs = [st.name for st in p22.steps if st.kind == "conv_packed"]
+    rs = reg2.stats()
+    if (rs["shared_arrays"] != len(convs) or rs["shared_bytes"] <= 0
+            or any(p22.params[c]["w_packed"].data_ptr()
+                   != p28.params[c]["w_packed"].data_ptr() for c in convs)):
+        raise AssertionError(f"W2A2/W2A8 planes not shared: {rs}")
+    sent2 = {}
+    var_rng = np.random.default_rng(12)
+    with InferenceService(reg2, max_batch=32, max_wait_s=0.002) as svc2:
+        if svc2.warmup() != 12:
+            raise AssertionError("W2A2 + W2A8 warmup")
+        runners2 = [svc2._runner_for(k) for k in (k22, k28)]
+        reps2 = [dict(r2.replays) for r2 in runners2]
+        reset_counts()
+        for key, n in ((k22, 5), (k28, 5), (k22, 17), (k28, 3), (k28, 32)):
+            xs = var_rng.random((n, 32, 32, 3), dtype=np.float32)
+            tid0 = svc2.tracer.started
+            fs = svc2.submit_many(key, list(xs))
+            for i, f in enumerate(fs):
+                sent2[tid0 + 1 + i] = (xs[i], f)
+            svc2.drain(timeout=120)
+        sent2 = {t: (x, f.result()) for t, (x, f) in sent2.items()}
+        if any(counts().values()) or any(r2.compiles != 6
+                                         for r2 in runners2):
+            raise AssertionError(f"a wrapper ran after warmup: {counts()}")
+        ran2 = dict.fromkeys(want_fwd, 0)
+        for r2, r0 in zip(runners2, reps2):
+            got, fwd2 = graph_launches(r2, r0)
+            if got != {k: v * fwd2 for k, v in want_fwd.items()}:
+                raise AssertionError(f"variant launches {got} over {fwd2}")
+            ran2 = {k: ran2[k] + got[k] for k in ran2}
+        sizes2 = check_served(svc2, sent2, {str(k22): {"eager forward": p22},
+                                            str(k28): {"eager forward": p28}})
+        m2 = svc2.metrics()
+    srv.update(variants_shared_bytes=rs["shared_bytes"],
+               variants_batch_sizes=sizes2, variants_launches_run=ran2,
+               variants_scheduler=m2["scheduler"]["admitted_batches"])
+    log(f"  W2A2 + W2A8 share {rs['shared_arrays']} packed planes "
+        f"({rs['shared_bytes']} bytes, equal data_ptr); micro-batches "
+        f"{sizes2} each equal their variant's eager forward; launches run "
+        f"{ran2}")
+
+    # (c) the cycle report: the card's Program lowers to the reference's
+    # stream, job for job; the scheduler's booking
+    def job_record(j):
+        def agu(a):
+            return None if a is None else {
+                "base": int(a.base),
+                "loops": [[int(l.length), int(l.jump)] for l in a.loops]}
+        return {"op": j.op.value, "mvu": j.mvu, "a_bits": j.a_bits,
+                "w_bits": j.w_bits, "a_signed": j.a_signed,
+                "w_signed": j.w_signed, "out_bits": j.out_bits,
+                "m_tiles": j.m_tiles, "k_tiles": j.k_tiles,
+                "n_outputs": j.n_outputs, "agu_act": agu(j.agu_act),
+                "agu_wgt": agu(j.agu_wgt), "use_scaler": j.use_scaler,
+                "use_pool": j.use_pool, "use_relu": j.use_relu,
+                "dest_mvu": j.dest_mvu, "tag": j.tag,
+                "depends_on": list(j.depends_on), "tile_ops": j.tile_ops,
+                "cycles": j.cycles}
+
+    with open(os.path.join(ROOT, "tests", "data",
+                           "resnet9_w2a2_stream.json")) as f:
+        ref_stream = json.load(f)
+    cs = prog.to_command_stream()
+    if ([job_record(j) for j in cs.jobs] != ref_stream["jobs"]
+            or server.cycle_report() != ref_stream["summary"]):
+        raise AssertionError("the card Program's stream differs from the "
+                             "reference's")
+    sched = svc.metrics()["scheduler"]
+    srv.update(virtual_cycles=sched["virtual_cycles"],
+               slot_utilization=sched["slot_utilization"],
+               mean_busy_utilization=sched["mean_busy_utilization"],
+               admitted_batches=sched["admitted_batches"],
+               hpm=sched["hpm"][0])
+    log(f"  cycle report: {len(cs.jobs)} jobs equal the reference's stream; "
+        f"scheduler: {sched['admitted_batches']} batches, virtual_cycles "
+        f"{sched['virtual_cycles']}, slot utilization "
+        f"{sched['slot_utilization']}, hpm busy {sched['hpm'][0]['busy']} "
+        f"per_precision {sched['hpm'][0]['per_precision']}")
+
+    # (d) the LM: phase 8b's engine as a callable, the CLI's mixed load
+    lm_reg = ModelRegistry(device=dev)
+    lkey = lm_reg.register_callable("stablelm-1.6b", eng)
+    steps0 = eng.decode_steps
+    load = cli_load(16)
+    reset_counts()
+    with InferenceService(lm_reg, max_wait_s=0.0) as lsvc:
+        t0 = time.perf_counter()
+        lfuts = lsvc.submit_many(lkey, load)
+        lsvc.drain(timeout=600)
+        lm_s = time.perf_counter() - t0
+        lout = [f.result() for f in lfuts]
+        lm_m = lsvc.metrics()
+    c_lm = counts()
+    lm_steps = eng.decode_steps - steps0
+    lm_tokens = sum(len(r.out_tokens) for r in lout)
+    for i, r in enumerate(lout):
+        if r.out_tokens != out[i].out_tokens:
+            raise AssertionError(
+                f"service request {i} parts from the bare engine's at "
+                f"{first_difference(r.out_tokens, out[i].out_tokens)}")
+    if (lm_m["scheduler"]["admitted_batches"] != lm_steps
+            or eng.stats()["recompiles_after_warmup"] != 0
+            or c_lm != {"K1": k1_per_step * 16, "K2": 0,
+                        "K3": per_step * 16, "K4": 0}):
+        raise AssertionError(f"LM through the service: admissions "
+                             f"{lm_m['scheduler']['admitted_batches']}, steps"
+                             f" {lm_steps}, {eng.stats()}, prefills {c_lm}")
+    lm_ran = {k: c_lm[k] + rec["step_launches"][k] * lm_steps
+              for k in ("K1", "K3")}
+    srv.update(lm_requests=len(lout), lm_tokens=lm_tokens, lm_s=lm_s,
+               lm_tok_per_s=lm_tokens / lm_s, lm_decode_steps=lm_steps,
+               lm_batches=lm_m["batches"], lm_launches_run=lm_ran,
+               lm_scheduler_cycles=lm_m["scheduler"]["virtual_cycles"])
+    log(f"  LM: 16 requests through the service in {lm_m['batches']} "
+        f"micro-batches, tokens equal the bare engine's; {lm_tokens} tokens "
+        f"in {lm_s * 1e3:.1f} ms = {lm_tokens / lm_s:.1f} tok/s; one "
+        f"admission per decode step ({lm_steps}); launches run {lm_ran}")
+    plain_svc.stop()
+    server.close()
+    record["serving"] = srv
+
     def total(kid, key):
         vals = [r[key] for r in rows if r["kernel"] == kid]
         return None if any(v is None for v in vals) else sum(vals)
@@ -1236,8 +1588,8 @@ def main() -> int:
          "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/quantize_pack.cu",
          "replaces": "src/repro/kernels/quantize_pack.py:53",
-         "launches": (launches["K1"] + lm_k3[2]["K1"] + c_tiny["K1"]
-                      + ran_load["K1"]),
+         "launches": (cnn_ran["K1"] + ran2["K1"] + lm_k3[2]["K1"]
+                      + c_tiny["K1"] + ran_load["K1"] + lm_ran["K1"]),
          "engine_launches_per_captured_step": rec["step_launches"]["K1"],
          "max_abs_err": max_err["K1"],
          "ms": total("K1", "ms") + lm_step("K1", "ms", 4),
@@ -1252,7 +1604,7 @@ def main() -> int:
          "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/bitserial_conv.cu",
          "replaces": "src/repro/kernels/bitserial_conv.py:153",
-         "launches": launches["K2"] + c_tiny["K2"],
+         "launches": cnn_ran["K2"] + ran2["K2"] + c_tiny["K2"],
          "max_abs_err": max_err["K2"],
          "ms": total("K2", "ms"), "plain_ms": total("K2", "plain_ms"),
          "bound_ms": total("K2", "bound_ms"), "bound_by": "operations",
@@ -1261,7 +1613,8 @@ def main() -> int:
          "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/bitserial_matmul.cu",
          "replaces": "src/repro/kernels/bitserial_matmul.py:380",
-         "launches": lm_k3[2]["K3"] + c_tiny["K3"] + ran_load["K3"],
+         "launches": (lm_k3[2]["K3"] + c_tiny["K3"] + ran_load["K3"]
+                      + lm_ran["K3"]),
          "engine_launches_per_captured_step": rec["step_launches"]["K3"],
          "max_abs_err": max_err["K3"],
          "ms": lm_step("K3", "ms", 4), "plain_ms": lm_step("K3", "plain_ms", 4),

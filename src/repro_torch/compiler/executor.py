@@ -4,9 +4,13 @@ on batched inputs.
 Counterpart of ``repro/compiler/executor.py``. Each step kind maps to one
 dispatch function. The packed steps go through :mod:`repro_torch.kernels.ops`,
 which picks the CUDA kernel or its plain version by the tensor's device, so
-one Program runs on the card or on the CPU unchanged. PyTorch runs eagerly:
-there is no jit; a CUDA graph per padding bucket is later work.
-``conv_packed`` steps run K2 and ``gemm_packed`` steps K3.
+one Program runs on the card or on the CPU unchanged. ``conv_packed`` steps
+run K2 and ``gemm_packed`` steps K3.
+
+PyTorch runs eagerly; the counterpart of the reference's jitted executable
+per padding bucket is :class:`BucketedRunner`'s CUDA graph per bucket,
+captured once on the card and replayed for every later batch of that
+bucket.
 
 :func:`make_plain_runner` runs the packed steps through the kernels' plain
 versions whatever the device — the yardstick the card's kernels are held
@@ -16,8 +20,10 @@ against, never a fallback of :func:`make_runner`.
 from __future__ import annotations
 
 import threading
+import time
 from typing import Callable, Dict, List, Optional, Set
 
+import numpy as np
 import torch
 
 from repro_torch.core.pipeline_modules import host_conv2d, maxpool_relu
@@ -25,9 +31,11 @@ from repro_torch.core.quant import QuantSpec, quantize_int
 from repro_torch.kernels import ops
 from repro_torch.kernels.bitserial_conv import bitserial_conv2d_ref
 from repro_torch.kernels.quantize_pack import pack_codes_ref, quantize_pack_ref
+from repro_torch.obs.metrics import MetricsRegistry
 
 __all__ = ["make_runner", "make_plain_runner", "make_step_runner",
-           "bucket_sizes", "bucket_for", "BucketedRunner"]
+           "bucket_sizes", "bucket_for", "BucketedRunner",
+           "make_bucketed_runner"]
 
 
 def _requant_spec(attrs) -> Optional[QuantSpec]:
@@ -171,12 +179,12 @@ def make_step_runner(program, step) -> Callable:
 
 
 # --------------------------------------------------------------------------
-# batch-bucket entry points
+# batch-bucket entry points (the serving runtime's capture discipline)
 # --------------------------------------------------------------------------
 
 def bucket_sizes(max_batch: int) -> List[int]:
     """Padding buckets: powers of two up to, and always including,
-    ``max_batch``."""
+    ``max_batch`` — the closed set of batch shapes serving ever runs."""
     if max_batch < 1:
         raise ValueError("max_batch must be >= 1")
     sizes, b = [], 1
@@ -195,44 +203,187 @@ def bucket_for(n: int, max_batch: int) -> int:
     raise ValueError(f"batch {n} exceeds max_batch={max_batch}")
 
 
+class _BucketGraph:
+    """One bucket's captured forward: the graph, the static buffers it
+    reads and writes, and the parameter tensors it was captured over.
+
+    A graph replays the addresses it recorded but keeps nothing alive, and
+    the registry may swap a Program's ``w_packed`` for an equal shared
+    plane after a capture; holding the captured tensors keeps every
+    address the graph reads valid for the graph's life."""
+
+    __slots__ = ("graph", "x", "out", "params")
+
+    def __init__(self, graph, x, out, params):
+        self.graph = graph
+        self.x = x
+        self.out = out
+        self.params = params
+
+
 class BucketedRunner:
-    """Program caller with power-of-two padding buckets (single device).
+    """Program caller with power-of-two padding buckets, one captured CUDA
+    graph per bucket on the card (one device, bank 0).
 
     Each batch is padded with zero rows up to its bucket, so the set of
     batch shapes the kernels ever see is closed (``bucket_sizes``). Every
     lowered step acts per example, so padding rows cannot leak into real
-    rows. ``compiles`` counts first-seen buckets and ``hits`` repeats —
-    the reference's jit-cache counters; here a first-seen bucket is where
-    a CUDA graph can later be captured.
+    rows.
+
+    On the card the first batch of a bucket runs the forward eagerly once
+    (the kernels' modules load, cuDNN and cuBLAS get their workspaces
+    outside the capture), then captures it as one ``torch.cuda.CUDAGraph``
+    over a static input buffer and the output it writes, and replays it.
+    Every later batch of that bucket copies its rows into the input buffer
+    (zeroing the padding rows), replays, and clones ``out[:n]``. A capture
+    runs with ``capture_error_mode="thread_local"`` on the graph's own side
+    stream, so other threads may use the card meanwhile (the serving
+    worker captures a bucket no warmup reached while user threads run) —
+    all but torch's CUDA random generator, which is process-wide and
+    refuses to advance during any capture; :meth:`warmup` captures every
+    bucket before traffic. There is no eager fallback on the card: a
+    capture that fails raises. On the CPU every call runs eagerly, with
+    the same counters. ``plain`` captures the kernels' plain versions the
+    same way.
+
+    ``compiles``/``hits`` count first-seen buckets and repeats (a compile
+    is a capture on the card), registry-backed as the reference's
+    ``runner_bucket_compiles_total``/``runner_bucket_hits_total``. The
+    kernel wrappers count Python calls, so a replay adds nothing to them:
+    ``capture_launches[b]`` holds the launches counted while capturing
+    bucket ``b`` (other threads launching the port's kernels during a
+    capture would be counted too) and ``replays[b]`` the replays run, so
+    the launches a graph ran are their product.
     """
 
-    def __init__(self, program, *, max_batch: int = 32):
+    def __init__(self, program, *, max_batch: int = 32,
+                 plain: bool = False,
+                 metrics: Optional[MetricsRegistry] = None):
         self.program = program
         self.max_batch = max_batch
-        self._run = make_runner(program)
-        self._seen: Set[int] = set()
+        self.plain = plain
+        self.n_banks = 1
+        self.placement = "single"
+        self._run = (make_plain_runner if self.plain else make_runner)(program)
+        self._graphed = program.device.type == "cuda"
+        self._graphs: Dict[int, _BucketGraph] = {}   # guarded-by: _lock
+        self._seen: Set[int] = set()                 # guarded-by: _lock
+        # held over each call: the static buffers are shared by every
+        # caller of one bucket
         self._lock = threading.Lock()
-        self.compiles = 0   # guarded-by: _lock
-        self.hits = 0       # guarded-by: _lock
+        #: launches counted while capturing each bucket, and replays run
+        self.capture_launches: Dict[int, Dict[str, int]] = {}
+        self.replays: Dict[int, int] = {}
+        #: host seconds of each bucket's eager warm-up pass and capture
+        self.capture_seconds: Dict[int, float] = {}
+        self.metrics_registry = (metrics if metrics is not None
+                                 else MetricsRegistry())
+        self._c_compiles = self.metrics_registry.counter(
+            "runner_bucket_compiles_total", "new (bank, bucket) jit keys")
+        self._c_hits = self.metrics_registry.counter(
+            "runner_bucket_hits_total", "warm (bank, bucket) jit hits")
 
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.program.device)
+    @property
+    def compiles(self) -> int:
+        return int(self._c_compiles.value())
+
+    @property
+    def hits(self) -> int:
+        return int(self._c_hits.value())
+
+    def _capture(self, b: int, x: torch.Tensor) -> _BucketGraph:
+        """Eager warm-up pass on a side stream, then the capture."""
+        dev = self.program.device
+        t0 = time.perf_counter()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._run(self.program.params, x)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        params = [t for p in self.program.params.values()
+                  for t in p.values() if isinstance(t, torch.Tensor)]
+        graph = torch.cuda.CUDAGraph()
+        before = ops.launch_counts()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            out = self._run(self.program.params, x)
+        after = ops.launch_counts()
+        self.capture_seconds[b] = time.perf_counter() - t0
+        self.capture_launches[b] = {k: after[k] - before[k] for k in after}
+        return _BucketGraph(graph, x, out, params)
+
+    def __call__(self, x, *, bank: Optional[int] = None) -> torch.Tensor:
+        if bank not in (None, 0):
+            raise ValueError(f"bank {bank} out of range [0, {self.n_banks})")
+        dev = self.program.device
+        if not isinstance(x, torch.Tensor):
+            x = torch.from_numpy(np.asarray(x, np.float32))
         n = x.shape[0]
         b = bucket_for(n, self.max_batch)
-        if b != n:
-            pad = torch.zeros((b - n,) + tuple(x.shape[1:]), dtype=x.dtype,
-                              device=x.device)
-            x = torch.cat([x, pad], dim=0)
         with self._lock:
             if b in self._seen:
-                self.hits += 1
+                self._c_hits.inc()
             else:
                 self._seen.add(b)
-                self.compiles += 1
-        return self._run(self.program.params, x)[:n]
+                self._c_compiles.inc()
+            with torch.no_grad():
+                if not self._graphed:
+                    x = x.to(dev, torch.float32)
+                    if b != n:
+                        pad = torch.zeros((b - n,) + tuple(x.shape[1:]),
+                                          dtype=x.dtype, device=dev)
+                        x = torch.cat([x, pad], dim=0)
+                    return self._run(self.program.params, x)[:n]
+                with torch.cuda.device(dev):
+                    g = self._graphs.get(b)
+                    if g is None:
+                        xs = torch.zeros((b,) + tuple(x.shape[1:]),
+                                         dtype=torch.float32, device=dev)
+                        xs[:n].copy_(x)
+                        g = self._graphs[b] = self._capture(b, xs)
+                    else:
+                        g.x[:n].copy_(x)
+                        g.x[n:].zero_()
+                    g.graph.replay()
+                    self.replays[b] = self.replays.get(b, 0) + 1
+                    return g.out[:n].clone()
+
+    def warmup(self, example_shape=None) -> int:
+        """Capture (on the CPU: run) every bucket ahead of traffic; returns
+        the number of compiles triggered."""
+        shape = (tuple(example_shape) if example_shape is not None
+                 else self.program.meta.get("input_shape"))
+        if shape is None:
+            raise ValueError("program has no recorded input_shape — pass "
+                             "example_shape explicitly")
+        before = self.compiles
+        for b in bucket_sizes(self.max_batch):
+            if b not in self._seen:
+                self(torch.zeros((b,) + shape, dtype=torch.float32))
+        if self._graphed:
+            torch.cuda.synchronize(self.program.device)
+        return self.compiles - before
 
     def stats(self) -> Dict:
         with self._lock:
             return {"compiles": self.compiles, "hits": self.hits,
                     "buckets": sorted(self._seen),
-                    "bucket_set": bucket_sizes(self.max_batch)}
+                    "bucket_set": bucket_sizes(self.max_batch),
+                    "n_banks": self.n_banks,
+                    "placement": self.placement,
+                    "cuda_graphs": len(self._graphs),
+                    "replays": dict(self.replays)}
+
+
+def make_bucketed_runner(program, *, max_batch: int = 32,
+                         plain: bool = False, mesh=None, banks=None,
+                         metrics: Optional[MetricsRegistry] = None
+                         ) -> BucketedRunner:
+    """The serving entry point: ``runner(x) -> y`` over padding buckets.
+    ``mesh=``/``banks=`` (a batch sharded or placed across several cards)
+    wait for ``distributed/program_parallel``."""
+    if mesh is not None or banks is not None:
+        raise NotImplementedError(
+            "multi-bank placement (mesh=/banks=) needs "
+            "distributed/program_parallel, which is not ported yet")
+    return BucketedRunner(program, max_batch=max_batch, plain=plain,
+                          metrics=metrics)

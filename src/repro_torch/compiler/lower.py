@@ -5,14 +5,19 @@ Counterpart of ``repro/compiler/lower.py``. Per serial compute node,
 :func:`compile_graph` calibrates (a replay of the graph on a calibration
 batch through the exact-integer plain ops, recording activation step
 sizes), packs weights ahead of time with the dequant scaler folded per
-output channel, and plans each node's output format from its consumers
-(conv→conv packed, conv→maxpool→conv integer codes, else float). The
-reference's tile autotuning, codegen and post-lowering verifier are not
-ported: tiles are TPU VMEM choices and the CUDA kernels take none.
+output channel, plans each node's output format from its consumers
+(conv→conv packed, conv→maxpool→conv integer codes, else float) and
+records each compute node's geometry (:class:`LoweredConv` /
+:class:`LoweredGemm`) for the code generator: :meth:`Program.to_command_stream`
+lowers any compiled Program to the paper's
+:class:`~repro_torch.core.codegen.CommandStream`, which the serving
+scheduler books on the barrel controller. The reference's tile autotuning
+and post-lowering verifier are not ported: tiles are TPU VMEM choices and
+the CUDA kernels take none.
 
 :func:`program_from_numpy` builds a Program from a record shaped like the
 reference's artifact manifest, so a Program lowered by the reference runs
-here with the very same parameters.
+here with the very same parameters and yields the very same stream.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.compiler import passes
 from repro_torch.compiler.ir import Graph, GraphError, Node
+from repro_torch.core import codegen
 from repro_torch.core.bitserial import (SerialSpec, plan_spec, serial_conv2d,
                                         serial_matmul)
 from repro_torch.core.pipeline_modules import host_conv2d, maxpool_relu
@@ -34,7 +40,7 @@ from repro_torch.core.quant import (QuantSpec, init_alpha, pack_conv_weights,
 from repro_torch.models.layers import QuantPolicy
 
 __all__ = ["Step", "Program", "compile_graph", "program_from_numpy",
-           "to_tensor"]
+           "to_tensor", "LoweredConv", "LoweredGemm"]
 
 _SERIAL_OPS = ("fused_conv2d", "fused_gemm")
 
@@ -51,10 +57,48 @@ class Step:
     attrs: Dict = dataclasses.field(default_factory=dict)
 
 
+@dataclasses.dataclass(frozen=True)
+class LoweredConv:
+    """Codegen view of a lowered conv node — duck-typed by
+    :func:`repro_torch.core.codegen.generate` (the fused conv+relu+requant
+    epilogue maps onto one CONV2D job with the pipeline modules enabled)."""
+
+    name: str
+    c_in: int
+    c_out: int
+    h: int
+    w: int
+    fh: int = 3
+    fw: int = 3
+    stride: int = 1
+    padding: int = 1
+    relu: bool = False
+    requant: bool = False
+    on_host: bool = False
+    kind: str = "conv2d"
+
+
+@dataclasses.dataclass(frozen=True)
+class LoweredGemm:
+    """Codegen view of a lowered gemm node (GEMV job)."""
+
+    name: str
+    k: int
+    n: int
+    relu: bool = False
+    requant: bool = False
+    on_host: bool = False
+    kind: str = "gemm"
+
+
 @dataclasses.dataclass
 class Program:
     """The executable artifact: a static step list and its parameters
-    (step name → dict of tensors on ``device``)."""
+    (step name → dict of tensors on ``device``).
+
+    ``cost_nodes``/``per_layer_bits``
+    are the CommandStream linkage consumed by
+    :func:`repro_torch.core.codegen.generate`."""
 
     graph_name: str
     steps: Tuple[Step, ...]
@@ -62,13 +106,29 @@ class Program:
     input_name: str
     output_name: str
     device: torch.device
+    cost_nodes: List = dataclasses.field(default_factory=list)
     per_layer_bits: Dict[str, Tuple[int, int]] = dataclasses.field(
         default_factory=dict)
     meta: Dict = dataclasses.field(default_factory=dict)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        """Run the program eagerly on a batch."""
         from repro_torch.compiler import executor
         return executor.make_runner(self)(self.params, x)
+
+    def to_command_stream(self, mode: str = "pipelined",
+                          **kw) -> codegen.CommandStream:
+        """Lower to the controller command stream (cycle estimates, runtime
+        scheduling) — any compiled model gets the paper's §3.3 artifact.
+        With ``REPRO_VERIFY`` set, the emitted stream is hazard-checked
+        and cycle-reconciled before it is handed out."""
+        cs = codegen.generate(self, mode=mode, **kw)
+        from repro_torch import analysis
+        if analysis.verify_enabled():
+            analysis.count("to_command_stream")
+            from repro_torch.analysis.verify_stream import verify_stream
+            verify_stream(cs)
+        return cs
 
 
 def to_tensor(a, device) -> torch.Tensor:
@@ -287,6 +347,7 @@ def compile_graph(g: Graph, calib, *, policy: Optional[QuantPolicy] = None,
     input_name = next(iter(g.inputs))
     steps: List[Step] = []
     params: Dict[str, Dict] = {}
+    cost_nodes: List = []
     per_layer_bits: Dict[str, Tuple[int, int]] = {}
     meta: Dict = {"formats": {},
                   "input_shape": tuple(int(d) for d in calib.shape[1:]),
@@ -356,6 +417,14 @@ def compile_graph(g: Graph, calib, *, policy: Optional[QuantPolicy] = None,
             prec = _precision(n)
             conv = n.op == "fused_conv2d"
             relu = bool(n.attrs.get("relu"))
+            xshape = shapes[n.inputs[0]]
+            if conv:
+                fh, fw_, ci, co = np.shape(w)
+                st, pd = n.attrs.get("stride", 1), n.attrs.get("padding", 1)
+                geom = (ci, co, xshape[1], xshape[2], fh, fw_, st, pd)
+            else:
+                geom = tuple(np.shape(w))
+            lowered = LoweredConv if conv else LoweredGemm
             if prec["mode"] == "host":
                 tin = as_float(n.inputs[0], n.name)
                 params[n.name] = host_params(w, scale, bias)
@@ -366,6 +435,8 @@ def compile_graph(g: Graph, calib, *, policy: Optional[QuantPolicy] = None,
                 steps.append(Step(n.name, "host_conv" if conv else "host_gemm",
                                   (tin,), n.output, attrs))
                 fmt[n.output] = ("float",)
+                cost_nodes.append(lowered(n.name, *geom, relu=relu,
+                                          on_host=True))
                 continue
             tin = packed_input(n, prec)
             spec = plan_spec(SerialSpec(
@@ -402,6 +473,8 @@ def compile_graph(g: Graph, calib, *, policy: Optional[QuantPolicy] = None,
             steps.append(Step(n.name, "conv_packed" if conv else "gemm_packed",
                               (tin,), n.output, attrs))
             fmt[n.output] = out_fmt
+            cost_nodes.append(lowered(n.name, *geom, relu=relu,
+                                      requant=rq_bits is not None))
             per_layer_bits[n.name] = (prec["a_bits"], prec["w_bits"])
         elif n.op == "maxpool":
             f = fmt[n.inputs[0]]
@@ -441,7 +514,8 @@ def compile_graph(g: Graph, calib, *, policy: Optional[QuantPolicy] = None,
     meta["formats"] = dict(fmt)
     return Program(graph_name=g.name, steps=tuple(steps), params=params,
                    input_name=input_name, output_name=out_name,
-                   device=device, per_layer_bits=per_layer_bits, meta=meta)
+                   device=device, cost_nodes=cost_nodes,
+                   per_layer_bits=per_layer_bits, meta=meta)
 
 
 # --------------------------------------------------------------------------
@@ -449,8 +523,9 @@ def compile_graph(g: Graph, calib, *, policy: Optional[QuantPolicy] = None,
 # --------------------------------------------------------------------------
 
 def _decode(v):
-    """Invert the reference artifact's ``_enc`` for step attrs: tuples and
-    SerialSpecs; any other marker is refused."""
+    """Invert the reference artifact's ``_enc`` for step attrs and codegen
+    nodes: tuples, SerialSpecs, LoweredConv/LoweredGemm; any other marker
+    is refused."""
     if isinstance(v, list):
         return [_decode(x) for x in v]
     if isinstance(v, dict):
@@ -458,6 +533,10 @@ def _decode(v):
             return tuple(_decode(x) for x in v["__t__"])
         if "__serialspec__" in v:
             return SerialSpec(**v["__serialspec__"])
+        if "__lconv__" in v:
+            return LoweredConv(**v["__lconv__"])
+        if "__lgemm__" in v:
+            return LoweredGemm(**v["__lgemm__"])
         markers = [k for k in v if k.startswith("__") and k.endswith("__")]
         if markers:
             raise ValueError(f"unsupported encoded value {markers[0]!r}")
@@ -471,7 +550,10 @@ def program_from_numpy(record: Dict, device=None) -> Program:
     ``steps`` (``{name, kind, inputs, output, attrs}`` with attrs in the
     manifest's encoded form) and ``params`` ({step: {key: numpy array}},
     uint32 words as they are or viewed as int32). An optional ``meta``
-    contributes ``input_shape``/``calib_batch``.
+    contributes ``input_shape``/``calib_batch``, and an optional
+    ``cost_nodes`` (the manifest's ``__lconv__``/``__lgemm__`` markers) the
+    code generator's nodes, so the Program lowers to the reference's
+    command stream.
 
     The step attrs' ``tile`` (the reference's TPU VMEM tiling) is dropped:
     the CUDA kernels take no tile sizes.
@@ -494,7 +576,9 @@ def program_from_numpy(record: Dict, device=None) -> Program:
                          else int(val))
     per_layer_bits = {s.name: (s.attrs["spec"].a_bits, s.attrs["spec"].w_bits)
                       for s in steps if "spec" in s.attrs}
+    cost_nodes = [_decode(c) for c in record.get("cost_nodes") or []]
     return Program(graph_name=record["graph_name"], steps=tuple(steps),
                    params=params, input_name=record["input_name"],
                    output_name=record["output_name"], device=device,
+                   cost_nodes=cost_nodes,
                    per_layer_bits=per_layer_bits, meta=meta)

@@ -2,15 +2,15 @@
 
 The FPGA flow is ONNX → RISC-V binary. Our flow is a small layer-graph IR →
 :class:`CommandStream` of :class:`~repro_torch.core.mvu.MVUJob` CSR images,
-plus a bit-transposed weight export. The stream is costed by
-:mod:`repro_torch.core.cost_model`; the continuous LM engine books one per
-decode step.
+plus a bit-transposed weight export. The stream is simulated by
+:mod:`repro_torch.runtime.controller`, costed by
+:mod:`repro_torch.core.cost_model` and checked by
+:mod:`repro_torch.analysis.verify_stream`; the serving scheduler books one
+per batch and the continuous LM engine one per decode step.
 
 The port's copy of ``repro/core/codegen.py``. ``export_weights`` packs
 through the port's own :func:`~repro_torch.core.quant.pack_weights`
-(int32 words holding the reference's uint32 bits). The stream verifier and
-the barrel controller's simulation are not ported yet, so
-:meth:`CommandStream.verify` raises.
+(int32 words holding the reference's uint32 bits).
 
 Supported ops match the paper: GEMV/GEMM, Conv2D, MaxPool, ReLU, requantize.
 Mapping modes (§3.1.6):
@@ -70,13 +70,11 @@ class CommandStream:
         return "\n".join(lines)
 
     def verify(self, **kw):
-        """Hazard/resource check of this stream. It needs the stream
-        verifier (``analysis/verify_stream``) and the barrel controller's
-        simulation (``runtime/controller``), which the port has not got
-        yet."""
-        raise NotImplementedError(
-            "CommandStream.verify needs analysis/verify_stream and "
-            "runtime/controller, which are not ported yet")
+        """Hazard/resource check this stream (see
+        :func:`repro_torch.analysis.verify_stream.verify_stream`); returns
+        the reconciliation :class:`~repro_torch.runtime.controller.SimReport`."""
+        from repro_torch.analysis.verify_stream import verify_stream
+        return verify_stream(self, **kw)
 
 
 def _layer_job(layer, mvu: int, a_bits: int, w_bits: int,

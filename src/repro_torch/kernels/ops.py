@@ -16,7 +16,8 @@ that does not build or launch raises.
 * :func:`serial_conv2d_packed_op` — the fused packed conv (K2);
 * :func:`serial_matmul_packed_op` — the fused GEMM over packed
   activations (K3), any leading dims;
-* :func:`serial_matmul_op` — the fused GEMM over integer codes (K4).
+* :func:`serial_matmul_op` — the fused GEMM over integer codes (K4);
+* :func:`launch_counts` — the four kernels' launch counts.
 
 The plain epilogue is :func:`repro_torch.kernels.epilogue.epilogue`, one
 FMA where the reference's jitted ``_epilogue_xla`` contracts to one.
@@ -27,7 +28,7 @@ counterpart of the reference's ``backend="xla"``.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -38,7 +39,16 @@ from repro_torch.kernels import bitserial_conv, bitserial_matmul, quantize_pack
 __all__ = ["pack_activations", "quantize_pack_activations",
            "quantize_pack_activations_multi", "over_rows",
            "serial_conv2d_packed_op", "serial_matmul_packed_op",
-           "serial_matmul_op"]
+           "serial_matmul_op", "launch_counts"]
+
+
+def launch_counts() -> Dict[str, int]:
+    """The kernel wrappers' launch counts: K1, K2, K3 and K4 (a wrapper
+    counts its Python calls, so a CUDA graph's replay adds nothing)."""
+    mm = bitserial_matmul.KERNEL.entry_launches
+    return {"K1": quantize_pack.KERNEL.launches,
+            "K2": bitserial_conv.KERNEL.launches,
+            "K3": mm["bitserial_matmul_v2"], "K4": mm["bitserial_matmul_v1"]}
 
 
 def over_rows(fn, x: torch.Tensor, *head: int) -> torch.Tensor:

@@ -1,32 +1,49 @@
 """Serving on the port: the quantized LM (:class:`Server`, batched greedy
 generation with KV caches) and the compiled CNN (:class:`CNNServer`).
 
-Counterpart of ``Server``, ``GenRequest``, ``make_lm_engine`` and
-``CNNServer`` in ``repro/launch/serve.py``. The LM's weights run through the
-bit-serial kernels: with ``pack_acts`` (the default) every projection
-quantizes and packs its activations with K1 and multiplies with K3,
-otherwise it multiplies int32 codes with K4. The CNN is compiled once
-(passes, calibration, ahead-of-time weight packing) onto the card, and
-every batch runs through :class:`~repro_torch.compiler.executor.
-BucketedRunner`.
+Counterpart of ``Server``, ``GenRequest``, ``make_lm_engine``,
+``CNNServer`` and the CLI in ``repro/launch/serve.py``. The LM's weights run
+through the bit-serial kernels: with ``pack_acts`` (the default) every
+projection quantizes and packs its activations with K1 and multiplies with
+K3, otherwise it multiplies int32 codes with K4.
 
-The CLI serves the LM as the reference's does, through the
-continuous-batching :class:`~repro_torch.serving.lm_engine.
-ContinuousLMEngine` (on the card its decode step is one captured CUDA
-graph): a mixed load of ``max(batch x 4, 8)`` requests. The reference's
-registry, dynamic batcher and ``InferenceService`` around the engine are
-not ported yet.
+Both paths serve through the serving runtime (:mod:`repro_torch.serving`),
+as the reference's do:
+
+* :class:`CNNServer` registers its graph in a
+  :class:`~repro_torch.serving.ModelRegistry` (compiled on first use, onto
+  the card) and classifies per image through the dynamic-batching
+  :class:`~repro_torch.serving.InferenceService`, which books every batch
+  on the :class:`~repro_torch.serving.SlotScheduler` (the barrel
+  controller's cycle domain) and runs it through a
+  :class:`~repro_torch.compiler.executor.BucketedRunner` — on the card one
+  CUDA graph per padding bucket (K1 and K2 inside);
+* the CLI registers the continuous-batching
+  :class:`~repro_torch.serving.ContinuousLMEngine` (K1 + K3, its decode
+  step one CUDA graph on the card) as a callable and submits its mixed
+  load of ``max(batch x 4, 8)`` requests through the same service; the
+  engine books the scheduler per decode step.
 
     python -m repro_torch.launch.serve --arch stablelm-1.6b --batch 4 --new-tokens 16
     python -m repro_torch.launch.serve --arch stablelm-1.6b --device cpu --smoke [--no-pack-acts]
-    python -m repro_torch.launch.serve --arch resnet9-cifar10 --batch 32
+    python -m repro_torch.launch.serve --arch resnet9-cifar10 --batch 32 [--trace-out trace.json]
     python -m repro_torch.launch.serve --arch resnet9-cifar10 --batch 4 --device cpu
+    python -m repro_torch.launch.serve trace trace.json [--top-k 10]
+
+``--trace-out PATH`` writes the run's request trace as Chrome trace JSON
+(the ``trace`` subcommand summarizes it), ``--metrics-port PORT`` serves
+Prometheus text on ``127.0.0.1:PORT/metrics`` for the run, and
+``--metrics-every S`` prints a one-line metrics snapshot every S seconds.
+The reference's ``compile`` and ``profile`` subcommands wait for
+``compiler/artifact`` and ``obs/profiler``, which the port has not got yet.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
+import threading
 import time
 from typing import List, Optional
 
@@ -34,8 +51,6 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.compiler.executor import BucketedRunner
-from repro_torch.compiler.lower import compile_graph
 from repro_torch.configs import get_arch, list_archs
 from repro_torch.core.pipeline_modules import disable_tf32
 from repro_torch.models.layers import QuantPolicy
@@ -43,12 +58,75 @@ from repro_torch.models.resnet import ResNet9Config, resnet9_graph, resnet9_init
 from repro_torch.models.transformer import (ModelConfig, decode_step,
                                             init_params, pack_params, prefill,
                                             serve_policy)
-from repro_torch.serving.lm_engine import ContinuousLMEngine
+from repro_torch.obs import (format_trace_summary, start_metrics_server,
+                             trace_summary, write_chrome_trace)
+from repro_torch.serving import (ContinuousLMEngine, InferenceService,
+                                 ModelRegistry)
 
 __all__ = ["GenRequest", "Server", "make_lm_engine", "CNNServer", "main"]
 
 CNN_ARCH = "resnet9-cifar10"
 LM_MAX_LEN = 64   # the CLI's KV budget, as the reference's
+
+
+class _ObsSession:
+    """``--trace-out`` / ``--metrics-port`` / ``--metrics-every`` wiring
+    for one run, plus the single console writer.
+
+    Every output line — the run's own prints *and* the periodic metrics
+    dump — goes through :meth:`emit` under one lock, so the dump thread
+    can never tear a line mid-print."""
+
+    def __init__(self, service, *, trace_out: Optional[str] = None,
+                 metrics_port: Optional[int] = None,
+                 metrics_every: float = 0.0):
+        self.service = service
+        self.trace_out = trace_out
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._http = None
+        self._dumper = None
+        if metrics_port is not None:
+            self._http = start_metrics_server(metrics_port,
+                                              service.registries)
+            port = self._http.server.server_address[1]
+            self.emit(f"metrics: serving Prometheus text on "
+                      f"http://127.0.0.1:{port}/metrics")
+        if metrics_every and metrics_every > 0:
+            self._dumper = threading.Thread(
+                target=self._dump_loop, args=(float(metrics_every),),
+                name="metrics-dump", daemon=True)
+            self._dumper.start()
+
+    def emit(self, *lines) -> None:
+        """The single writer: one locked print per call."""
+        with self._lock:
+            print("\n".join(str(l) for l in lines), flush=True)
+
+    def _dump_loop(self, every: float) -> None:
+        while not self._stop.wait(every):
+            m = self.service.metrics()
+            self.emit(f"[metrics] completed={m['completed']} "
+                      f"failed={m['failed']} requeues={m['requeues']} "
+                      f"queue={m['queue_depth']} "
+                      f"p50={m['latency_p50_ms']}ms "
+                      f"p99={m['latency_p99_ms']}ms")
+
+    def close(self) -> None:
+        self._stop.set()
+        if self._dumper is not None:
+            self._dumper.join(timeout=5)
+        if self._http is not None:
+            self._http.server.shutdown()
+            self._http.server.server_close()
+        if self.trace_out:
+            path = write_chrome_trace(self.service.tracer, self.trace_out)
+            st = self.service.tracer.stats()
+            self.emit(f"trace: {st['buffered']} spans "
+                      f"({st['sampled']}/{st['started']} requests sampled) "
+                      f"-> {path}",
+                      "       load it in https://ui.perfetto.dev or run "
+                      f"`python -m repro_torch.launch.serve trace {path}`")
 
 
 @dataclasses.dataclass
@@ -184,42 +262,129 @@ def make_lm_engine(server: Server):
 
 
 class CNNServer:
-    """ResNet9/CIFAR10 W2A2 classifier over a compiled Program.
+    """Batched CNN inference server over the **compiled** deployment path.
 
-    The model is built at full width from ``resnet9_init(seed)`` and
-    calibrated on ``calib_batch`` uniform images drawn from ``seed + 1``.
+    ``graph``: a compiler IR graph (default: full-width ResNet9/CIFAR10
+    W2A2 from ``resnet9_init(seed)``, calibrated on ``calib_batch`` uniform
+    images from ``seed + 1``). The graph is registered in a
+    :class:`~repro_torch.serving.ModelRegistry` and compiled at first use
+    (passes, calibration, ahead-of-time weight packing) onto ``device``;
+    ``classify`` goes through the dynamic-batching
+    :class:`~repro_torch.serving.InferenceService`, so any batch size is
+    served out of the power-of-two padding buckets — on the card one CUDA
+    graph each, captured at a bucket's first batch (or by
+    ``service.warmup()``). The service worker is a daemon thread;
+    ``close()`` (or use as a context manager) stops it.
+
     ``device=None`` means the card: it raises when there is none (pass
-    ``device="cpu"`` for the plain versions).
+    ``device="cpu"`` for the plain versions). ``n_banks > 1`` waits for
+    ``distributed/program_parallel``; ``store=``/``artifact=`` wait for
+    ``compiler/artifact``.
     """
 
-    def __init__(self, *, seed: int = 0, calib_batch: int = 8,
-                 max_batch: int = 32, device=None):
+    def __init__(self, graph=None, *, calib=None, seed: int = 0,
+                 calib_batch: int = 8, policy=None,
+                 max_batch: int = 32, max_wait_s: float = 0.0,
+                 n_banks: Optional[int] = None, store=None, artifact: Optional[str] = None, device=None):
+        if store is not None or artifact is not None:
+            raise NotImplementedError(
+                "CNNServer(store=/artifact=) serves stored artifacts, which "
+                "needs compiler/artifact, not ported yet")
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             disable_tf32()
-        cfg = ResNet9Config()
-        self.graph = resnet9_graph(resnet9_init(seed, cfg), cfg)
-        calib = np.random.default_rng(seed + 1).random(
-            (calib_batch, 32, 32, 3), dtype=np.float32)
-        policy = QuantPolicy(mode="serial", w_bits=cfg.w_bits,
-                             a_bits=cfg.a_bits, radix_bits=cfg.radix_bits)
-        self.program = compile_graph(self.graph, calib, policy=policy,
-                                     device=self.device)
-        self.runner = BucketedRunner(self.program, max_batch=max_batch)
+        if graph is None:
+            cfg = ResNet9Config()
+            graph = resnet9_graph(resnet9_init(seed, cfg), cfg)
+            if policy is None:
+                policy = QuantPolicy(mode="serial", w_bits=cfg.w_bits,
+                                     a_bits=cfg.a_bits,
+                                     radix_bits=cfg.radix_bits)
+        if policy is None:
+            policy = QuantPolicy(mode="serial", w_bits=2, a_bits=2,
+                                 radix_bits=7)
+        if calib is None:
+            in_shape = next(iter(graph.inputs.values()))
+            calib = np.random.default_rng(seed + 1).random(
+                (calib_batch,) + tuple(int(d) for d in in_shape[1:]),
+                dtype=np.float32)
+        self.graph = graph
+        self.registry = ModelRegistry(device=self.device)
+        self.key = self.registry.register_graph(graph.name or "cnn", graph,
+                                                calib, policy)
+        self.service = InferenceService(
+            self.registry, max_batch=max_batch, max_wait_s=max_wait_s,
+            n_banks=n_banks)
+        self.service.start()
+
+    @property
+    def program(self):
+        """The compiled Program (lazy — first access compiles)."""
+        return self.registry.program(self.key)
 
     def classify(self, images) -> np.ndarray:
-        """Logits (numpy) for a batch of NHWC float images; batches larger
-        than ``max_batch`` run in ``max_batch`` chunks."""
-        x = torch.as_tensor(np.asarray(images, np.float32))
-        step = self.runner.max_batch
-        outs = [self.runner(x[i:i + step]) for i in range(0, len(x), step)]
-        return torch.cat(outs).cpu().numpy()
+        """Logits for a batch of images (NHWC float): per-image requests
+        through the service, re-assembled in order."""
+        futures = self.service.submit_many(
+            self.key, list(np.asarray(images, np.float32)))
+        return np.stack([f.result() for f in futures])
+
+    def metrics(self) -> dict:
+        """The serving runtime's metrics snapshot (latency percentiles,
+        bucket-cache counters, slot utilization, straggler events)."""
+        return self.service.metrics()
+
+    def cycle_report(self, mode: str = "pipelined") -> str:
+        """Accelerator cycle estimate of the compiled model (paper §3.3)."""
+        return self.program.to_command_stream(mode=mode).summary()
+
+    def close(self) -> None:
+        self.service.stop()
+
+    def __enter__(self) -> "CNNServer":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+def _device_name(device: torch.device) -> str:
+    return (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+
+
+def _main_cnn(args) -> None:
+    """CNN serving run: classification through the service + cycle
+    report."""
+    server = CNNServer(seed=args.seed, device=args.device)
+    obs = _ObsSession(server.service, trace_out=args.trace_out,
+                      metrics_port=args.metrics_port,
+                      metrics_every=args.metrics_every)
+    images = np.random.RandomState(args.seed).rand(
+        args.batch, 32, 32, 3).astype(np.float32)
+    # compile, and capture every bucket on this thread before traffic
+    server.service.warmup()
+    server.classify(images)
+    t0 = time.perf_counter()
+    logits = server.classify(images)   # ends in the host copy
+    dt = time.perf_counter() - t0
+    obs.emit(f"classified {len(logits)} images in {dt * 1e3:.1f}ms "
+             f"({len(logits) / dt:.1f} img/s, compiled path, on "
+             f"{_device_name(server.device)})",
+             f"sample logits: {logits[0, :4]}")
+    m = server.metrics()
+    obs.emit(f"serving: p50={m['latency_p50_ms']}ms "
+             f"p99={m['latency_p99_ms']}ms "
+             f"bucket_caches={m['bucket_caches']}")
+    obs.emit(server.cycle_report())
+    obs.close()
+    server.close()
 
 
 def _main_lm(args) -> None:
-    """The reference CLI's LM load through the continuous engine: mixed
-    prompt lengths (4-16 tokens) and decode budgets, every 4th request
-    long, from ``RandomState(seed)``."""
+    """The reference CLI's LM load through the continuous engine, submitted
+    through the serving runtime: mixed prompt lengths (4-16 tokens) and
+    decode budgets, every 4th request long, from ``RandomState(seed)``."""
     entry = get_arch(args.arch)
     cfg = entry.smoke if args.smoke else entry.full
     engine = ContinuousLMEngine(cfg, batch_slots=args.batch,
@@ -229,6 +394,8 @@ def _main_lm(args) -> None:
     warm = engine.warmup()
     print(f"engine warmup: {warm['compiles']} compiles (buckets "
           f"{warm['buckets']}) in {warm['seconds']}s")
+    registry = ModelRegistry(device=engine.device)
+    key = registry.register_callable(args.arch, engine)
     rng = np.random.RandomState(args.seed)
     n_load = max(args.batch * 4, 8)
     m_long = max(1, min(args.new_tokens, LM_MAX_LEN - 16))
@@ -237,26 +404,70 @@ def _main_lm(args) -> None:
                     (int(rng.randint(4, 17)),)).astype(np.int32),
         m_long if i % 4 == 0 else max(1, m_long // 4))
         for i in range(n_load)]
-    t0 = time.perf_counter()
-    out = engine.serve(reqs)       # ends in the host copy of the tokens
-    dt = time.perf_counter() - t0
-    total = sum(len(r.out_tokens) for r in out)
-    em = engine.engine_metrics()
-    name = (torch.cuda.get_device_name(engine.device)
-            if engine.device.type == "cuda" else "cpu")
     kernels = "K1 + K3" if not args.no_pack_acts else "K4"
-    step = "CUDA graph" if em["jit"]["cuda_graph"] else "eager"
-    print(f"{cfg.name}: generated {total} tokens over {len(out)} requests "
-          f"in {dt:.2f} s ({total / dt:.1f} tok/s, continuous batching) "
-          f"on {name}, {cfg.n_layers} layers, {kernels}, decode step "
-          f"{step}")
-    print(f"engine: occupancy={em['slot_occupancy']} "
-          f"decode_steps={em['decode_steps']} recompiles_after_warmup="
-          f"{em['jit']['recompiles_after_warmup']}")
-    print("sample:", out[0].out_tokens)
+    with InferenceService(registry, max_wait_s=0.0) as svc:
+        obs = _ObsSession(svc, trace_out=args.trace_out,
+                          metrics_port=args.metrics_port,
+                          metrics_every=args.metrics_every)
+        t0 = time.perf_counter()
+        futures = svc.submit_many(key, reqs)
+        svc.drain()
+        dt = time.perf_counter() - t0
+        out = [f.result() for f in futures]
+        m = svc.metrics()
+        total = sum(len(r.out_tokens) for r in out)
+        em = m["engines"][str(key)]
+        step = "CUDA graph" if em["jit"]["cuda_graph"] else "eager"
+        obs.emit(f"{cfg.name}: generated {total} tokens over {len(out)} "
+                 f"requests in {dt:.2f}s ({total / dt:.1f} tok/s, "
+                 f"continuous batching) on {_device_name(engine.device)}, "
+                 f"{cfg.n_layers} layers, {kernels}, decode step {step}",
+                 f"engine: occupancy={em['slot_occupancy']} "
+                 f"decode_steps={em['decode_steps']} "
+                 f"recompiles_after_warmup="
+                 f"{em['jit']['recompiles_after_warmup']} "
+                 f"scheduler_steps={m['scheduler']['admitted_batches']}",
+                 f"sample: {out[0].out_tokens}")
+        obs.close()
+
+
+def _main_trace(argv) -> None:
+    """Summarize a saved Chrome trace: top-k slowest requests by phase."""
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.launch.serve trace",
+        description="pretty-print a saved --trace-out file: the top-k "
+                    "slowest requests with per-phase wall breakdowns")
+    ap.add_argument("file", help="Chrome trace JSON from --trace-out")
+    ap.add_argument("--top-k", type=int, default=10)
+    args = ap.parse_args(argv)
+    with open(args.file) as f:
+        doc = json.load(f)
+    print(format_trace_summary(trace_summary(doc, top_k=args.top_k)))
+    other = doc.get("otherData", {})
+    st = other.get("tracer")
+    if st:
+        print(f"tracer: {st['sampled']}/{st['started']} requests sampled, "
+              f"{st['buffered']} spans buffered "
+              f"(sample_every={st['sample_every']})")
+    domains = other.get("domains")
+    if domains:
+        print("domains: " + "; ".join(f"{k}: {v}"
+                                      for k, v in domains.items()))
+
+
+#: the reference's subcommands that wait for modules the port lacks
+_WAITING = {"compile": "compiler/artifact", "profile": "obs/profiler"}
 
 
 def main(argv=None) -> None:
+    import sys
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] == "trace":
+        _main_trace(argv[1:])
+        return
+    if argv and argv[0] in _WAITING:
+        raise SystemExit(f"{argv[0]}: needs {_WAITING[argv[0]]}, which is "
+                         "not ported yet")
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default=CNN_ARCH,
                     choices=(CNN_ARCH,) + tuple(list_archs()))
@@ -271,29 +482,24 @@ def main(argv=None) -> None:
                          "packed planes into K3")
     ap.add_argument("--smoke", action="store_true",
                     help="LM: the arch's reduced config (for the CPU)")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write the run's request trace as Chrome trace "
+                         "JSON (Perfetto-loadable; summarize with the "
+                         "`trace` subcommand)")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    help="serve Prometheus text on 127.0.0.1:PORT/metrics "
+                         "for the duration of the run (0 = any free port)")
+    ap.add_argument("--metrics-every", type=float, default=0.0,
+                    help="print a one-line metrics snapshot every S "
+                         "seconds through the single console writer "
+                         "(0 = off)")
     args = ap.parse_args(argv)
     if args.arch != CNN_ARCH:
         args.batch = args.batch or 4
         _main_lm(args)
         return
     args.batch = args.batch or 8
-    server = CNNServer(seed=args.seed, device=args.device)
-    images = np.random.default_rng(args.seed + 2).random(
-        (args.batch, 32, 32, 3), dtype=np.float32)
-    server.classify(images)  # first sight of the bucket
-    sync = (torch.cuda.synchronize if server.device.type == "cuda"
-            else (lambda: None))
-    sync()
-    t0 = time.perf_counter()
-    logits = server.classify(images)
-    sync()
-    dt = time.perf_counter() - t0
-    name = (torch.cuda.get_device_name(server.device)
-            if server.device.type == "cuda" else "cpu")
-    print(f"classified {len(logits)} images in {dt * 1e3:.3f} ms "
-          f"({len(logits) / dt:.1f} img/s) on {name}")
-    print(f"sample logits: {logits[0, :4]}")
-    print(f"buckets: {server.runner.stats()}")
+    _main_cnn(args)
 
 
 if __name__ == "__main__":

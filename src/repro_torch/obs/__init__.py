@@ -1,12 +1,33 @@
-"""Observability: the typed metrics registry (:mod:`.metrics`), its
-Prometheus text exposition (:mod:`.export`) and request-scoped tracing
-(:mod:`.tracing`), the port's copies of the reference's jax-free modules."""
+"""Observability: HPM-style counters, request tracing, exporters — the
+port's copies of the reference's jax-free modules.
 
-from repro_torch.obs.export import prometheus_text
+* :mod:`repro_torch.obs.metrics` — typed ``Counter``/``Gauge``/``Histogram``
+  registry, the substrate every ``metrics()``/``stats()`` surface on the
+  serving spine reads from;
+* :mod:`repro_torch.obs.hpm` — the RISC-V HPM-counter-file analogue for the
+  barrel controller: per-hart busy/xfer/issue/stall cycles with per-tag and
+  per-precision attribution (``busy + xfer == SimReport.per_mvu_busy``);
+* :mod:`repro_torch.obs.tracing` + :mod:`repro_torch.obs.export` —
+  request-scoped spans in two clock domains (wall ns / virtual MVU
+  cycles), bounded + sampled, exported as Perfetto-loadable Chrome trace
+  JSON and Prometheus text.
+
+The reference's measured layer (``obs/profiler``, ``obs/calibrate``) is not
+ported yet.
+"""
+
+from repro_torch.obs.export import (chrome_trace, format_trace_summary,
+                                    prometheus_text, start_metrics_server,
+                                    trace_summary, write_chrome_trace)
+from repro_torch.obs.hpm import HPMCounterFile, HPMCounters, precision_key
 from repro_torch.obs.metrics import (DEFAULT_BUCKETS, Counter, Gauge,
                                      Histogram, MetricsRegistry)
 from repro_torch.obs.tracing import Span, TraceContext, Tracer, now_ns
 
-__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
-           "DEFAULT_BUCKETS", "Span", "TraceContext", "Tracer", "now_ns",
-           "prometheus_text"]
+__all__ = [
+    "Counter", "Gauge", "Histogram", "MetricsRegistry", "DEFAULT_BUCKETS",
+    "HPMCounters", "HPMCounterFile", "precision_key",
+    "Span", "TraceContext", "Tracer", "now_ns",
+    "chrome_trace", "write_chrome_trace", "prometheus_text",
+    "trace_summary", "format_trace_summary", "start_metrics_server",
+]

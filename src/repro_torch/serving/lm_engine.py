@@ -63,7 +63,7 @@ from repro_torch.compiler.executor import bucket_for, bucket_sizes
 from repro_torch.core.codegen import generate as generate_stream
 from repro_torch.core.cost_model import LinearLayer
 from repro_torch.core.pipeline_modules import disable_tf32
-from repro_torch.kernels import bitserial_matmul, quantize_pack
+from repro_torch.kernels import ops
 from repro_torch.models.transformer import (ModelConfig, decode_step,
                                             init_caches, init_params,
                                             pack_params, prefill,
@@ -116,10 +116,8 @@ def decode_cost_stream(cfg: ModelConfig):
 
 
 def _launch_counts() -> Dict[str, int]:
-    """The kernel wrappers' launch counts: K1, K3 and K4."""
-    mm = bitserial_matmul.KERNEL.entry_launches
-    return {"K1": quantize_pack.KERNEL.launches,
-            "K3": mm["bitserial_matmul_v2"], "K4": mm["bitserial_matmul_v1"]}
+    """The kernel wrappers' launch counts the LM makes: K1, K3 and K4."""
+    return {k: v for k, v in ops.launch_counts().items() if k != "K2"}
 
 
 class _Slot:

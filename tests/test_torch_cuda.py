@@ -393,3 +393,192 @@ def test_replayed_arena_serves_like_a_fresh_engine(dev):
     assert used.stats()["compiles"]["decode"] == 1
     assert used.stats()["calls"]["decode"] == used.decode_steps > 0
 
+
+
+# ---------------------------------- the bucketed runner's graph per bucket
+
+def _tiny_cnn_graph():
+    """conv(8->16, 8x8) + relu + gap + fc (the reference serving tests'
+    ``tiny_cnn_graph``) and its calibration batch."""
+    from repro_torch.compiler.ir import Graph, Node
+    rng = np.random.RandomState(0)
+    g = Graph("tiny_cnn", {"x": (None, 8, 8, 8)}, ["y"],
+              [Node("c1", "conv2d", ["x", "c1.w"], "c1.y",
+                    {"stride": 1, "padding": 1}),
+               Node("c1.relu", "relu", ["c1.y"], "c1.r"),
+               Node("gap", "global_avg_pool", ["c1.r"], "pooled"),
+               Node("fc", "gemm", ["pooled", "fc.w"], "y")],
+              {"c1.w": (rng.randn(3, 3, 8, 16) * 0.2).astype(np.float32),
+               "fc.w": (rng.randn(16, 10) * 0.2).astype(np.float32)})
+    return g, np.random.RandomState(42).rand(4, 8, 8, 8).astype(np.float32)
+
+
+def _policy(a_bits):
+    from repro_torch.models.layers import QuantPolicy
+    return QuantPolicy(mode="serial", w_bits=2, a_bits=a_bits, radix_bits=7)
+
+
+def _tiny_cnn_program(dev):
+    """tiny_cnn at W2A2 on the card: per forward K1 twice (the conv's and
+    the fc's input), K2 once, K3 once."""
+    from repro_torch.compiler.lower import compile_graph
+    g, calib = _tiny_cnn_graph()
+    return compile_graph(g, calib, policy=_policy(2), device=dev)
+
+
+def _eager_at_bucket(prog, x, b, plain=False):
+    from repro_torch.compiler import executor
+    pad = torch.zeros((b,) + tuple(x.shape[1:]), device=x.device)
+    pad[:len(x)] = x
+    run = executor.make_plain_runner if plain else executor.make_runner
+    return run(prog)(prog.params, pad)[:len(x)]
+
+
+@pytest.mark.parametrize("plain", [False, True])
+def test_captured_bucket_equals_eager_forward(dev, plain):
+    """Warmup captures one graph per bucket and nothing after; each replay
+    equals the eager forward at its bucket bit for bit; a capture counts
+    one forward's launches (none for the plain versions) and a replay
+    calls no wrapper."""
+    from repro_torch.compiler import executor
+    from repro_torch.kernels import ops
+    prog = _tiny_cnn_program(dev)
+    runner = executor.make_bucketed_runner(prog, max_batch=8, plain=plain)
+    assert runner.warmup() == 4
+    want = ({"K1": 0, "K2": 0, "K3": 0, "K4": 0} if plain else
+            {"K1": 2, "K2": 1, "K3": 1, "K4": 0})
+    assert runner.capture_launches == {b: want for b in (1, 2, 4, 8)}
+    xs = torch.rand((8, 8, 8, 8), generator=torch.Generator().manual_seed(1))
+    for n in (1, 3, 5, 8, 3):
+        before = ops.launch_counts()
+        got = runner(xs[:n])
+        assert ops.launch_counts() == before
+        b = executor.bucket_for(n, 8)
+        assert torch.equal(got, _eager_at_bucket(prog, xs[:n].to(dev), b,
+                                                 plain=plain))
+    st = runner.stats()
+    assert st["compiles"] == 4 and st["cuda_graphs"] == 4
+    # one replay per bucket at warmup, then buckets 1, 4, 8, 8, 4
+    assert st["replays"] == {1: 2, 2: 1, 4: 3, 8: 3}
+
+
+def test_capture_beside_a_busy_thread(dev):
+    """Captures run in thread-local error mode on their own side stream:
+    another thread allocating and launching on the card meanwhile does not
+    break them, whether the capture happens in warmup on this thread or
+    lazily on the service's worker. (The other thread draws no random
+    numbers on the card: torch's CUDA generator is process-wide and
+    refuses to advance outside a capture while one is underway.)"""
+    import threading
+    from repro_torch.compiler import executor
+    from repro_torch.serving import InferenceService, ModelRegistry
+    stop = threading.Event()
+    errs = []
+
+    def busy():
+        try:
+            a = torch.full((512, 512), 0.5, device=dev)
+            while not stop.is_set():
+                b = torch.empty((512, 512), device=dev).fill_(0.25)
+                a = torch.tanh(a @ a.T / 512) + b
+        except Exception as e:  # noqa: BLE001 — reported below
+            errs.append(e)
+
+    t = threading.Thread(target=busy)
+    t.start()
+    try:
+        prog = _tiny_cnn_program(dev)
+        runner = executor.make_bucketed_runner(prog, max_batch=8)
+        assert runner.warmup() == 4
+        reg = ModelRegistry(device=dev)
+        key = reg.register_program("tiny", prog, precision="W2A2")
+        xs = np.random.RandomState(2).rand(7, 8, 8, 8).astype(np.float32)
+        with InferenceService(reg, max_batch=8, max_wait_s=0.0) as svc:
+            futs = svc.submit_many(key, list(xs))
+            got = np.stack([f.result(timeout=120) for f in futs])
+            st = svc.metrics()["bucket_caches"][str(key)]
+            spans = svc.tracer.spans()
+    finally:
+        stop.set()
+        t.join(timeout=60)
+    assert not t.is_alive() and not errs, errs
+    assert st["compiles"] == st["cuda_graphs"] >= 1
+    # every micro-batch the worker ran (captured lazily there) equals this
+    # thread's warmed runner on the same rows, at the same bucket
+    batches = {}
+    for sp in spans:
+        if sp.name == "execute":
+            batches.setdefault((sp.t0_ns, sp.t1_ns), []).append(sp.trace_id)
+    assert sorted(i for ids in batches.values() for i in ids) == \
+        list(range(1, 8))
+    for ids in batches.values():
+        rows = [i - 1 for i in sorted(ids)]
+        want = runner(torch.from_numpy(xs[rows])).cpu().numpy()
+        np.testing.assert_array_equal(got[rows], want)
+
+
+def test_captured_graph_survives_a_shared_plane_swap(dev):
+    """Registering a captured Program in a registry that already holds an
+    equal plane swaps the Program's ``w_packed`` for the shared one; the
+    graph keeps the plane it was captured over alive, so a replay after the
+    swap (and after the allocator has handed out fresh memory) still equals
+    the eager forward, which now reads the shared plane."""
+    import gc
+    import weakref
+    from repro_torch.compiler import executor
+    from repro_torch.serving import ModelRegistry
+    prog = _tiny_cnn_program(dev)
+    runner = executor.make_bucketed_runner(prog, max_batch=4)
+    assert runner.warmup() == 3
+    packed = {n: p["w_packed"] for n, p in prog.params.items()
+              if "w_packed" in p}
+    assert len(packed) == 2
+    old = {n: weakref.ref(t) for n, t in packed.items()}
+    reg = ModelRegistry(device=dev)
+    reg.register_program("tiny", _tiny_cnn_program(dev), precision="A")
+    reg.register_program("tiny", prog, precision="B")
+    assert reg.stats()["shared_arrays"] == 2
+    assert all(prog.params[n]["w_packed"] is not t
+               and torch.equal(prog.params[n]["w_packed"], t)
+               for n, t in packed.items())
+    del packed
+    gc.collect()
+    assert all(r() is not None for r in old.values())
+    # hand the freed blocks of a plane, were there any, to garbage
+    junk = [torch.full((1 << 16,), -1, dtype=torch.int32, device=dev)
+            for _ in range(64)]
+    xs = torch.rand((4, 8, 8, 8), generator=torch.Generator().manual_seed(4))
+    for n in (1, 3, 4):
+        got = runner(xs[:n])
+        b = executor.bucket_for(n, 4)
+        assert torch.equal(got, _eager_at_bucket(prog, xs[:n].to(dev), b))
+    del runner, junk
+    gc.collect()
+    assert all(r() is None for r in old.values())
+
+
+def test_eviction_frees_the_captured_graphs(dev):
+    """When the registry evicts a variant the service drops its runner, and
+    with it the graphs captured over the evicted Program's parameters."""
+    import gc
+    import weakref
+    from repro_torch.serving import InferenceService, ModelRegistry
+    g, calib = _tiny_cnn_graph()
+    reg = ModelRegistry(device=dev, max_programs=1)
+    ka = reg.register_graph("tiny", g, calib, _policy(2))
+    kb = reg.register_graph("tiny", g, calib, _policy(4))
+    x = np.random.RandomState(3).rand(8, 8, 8).astype(np.float32)
+    with InferenceService(reg, max_batch=4, max_wait_s=0.0) as svc:
+        ya = svc.submit(ka, x).result(timeout=120)
+        graphs = [weakref.ref(bg.graph)
+                  for bg in svc._runners[ka]._graphs.values()]
+        outs = [weakref.ref(bg.out)
+                for bg in svc._runners[ka]._graphs.values()]
+        assert len(graphs) == 1 and graphs[0]() is not None
+        svc.submit(kb, x).result(timeout=120)      # evicts ka
+        assert reg.resident_program(ka) is None
+        assert ka not in svc._runners
+        gc.collect()
+        assert all(r() is None for r in graphs + outs)
+        np.testing.assert_array_equal(svc.submit(ka, x).result(timeout=120),
+                                      ya)

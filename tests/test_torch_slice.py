@@ -24,6 +24,7 @@ Tolerances, each with its reason:
   1e-6 of the bits). Logits agree within 1e-3 of their largest magnitude.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -35,17 +36,25 @@ import pytest
 import torch
 
 from repro.compiler import executor as jexec
-from repro.compiler.artifact import _enc
+from repro.compiler.artifact import _enc, _encode_job
 from repro.models import resnet as jresnet
+from repro.runtime.controller import BarrelController as JController
 
 from repro_torch.compiler import executor as texec
 from repro_torch.compiler.lower import compile_graph, program_from_numpy
 from repro_torch.launch.serve import CNNServer
 from repro_torch.models import resnet as tresnet
 from repro_torch.models.layers import QuantPolicy
+from repro_torch.runtime.controller import BarrelController
 
 INTEGER_KINDS = ("quantize_pack", "conv_packed", "maxpool", "pack_codes")
 SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "src")
+#: the reference's command stream of full-width ResNet9 W2A2 (pipelined),
+#: as ``stream_record`` writes it; ``chip_smoke.py`` holds the card's
+#: Program to it, and ``test_carried_program_lowers_to_reference_stream``
+#: re-derives it from the reference
+STREAM_FILE = os.path.join(os.path.dirname(__file__), "data",
+                           "resnet9_w2a2_stream.json")
 
 
 def _record(prog):
@@ -129,6 +138,41 @@ def test_step_parity_on_reference_inputs(carried):
             np.testing.assert_allclose(got, ref, rtol=1e-5,
                                        atol=1e-5 * _scale(ref),
                                        err_msg=tst.name)
+
+
+def stream_record(stream):
+    """A command stream as plain JSON: its summary and every job's fields
+    (the reference artifact's job record) with tile count and cycles."""
+    return {"mode": stream.mode, "summary": stream.summary(),
+            "jobs": [dict(_encode_job(j), tile_ops=j.tile_ops,
+                          cycles=j.cycles) for j in stream.jobs]}
+
+
+def _sim(rep):
+    return (rep.makespan_cycles, rep.per_job_start, rep.per_job_end,
+            rep.per_mvu_busy, rep.hart_free, rep.hpm.snapshot())
+
+
+def test_carried_program_lowers_to_reference_stream(carried):
+    """Carried across with its codegen nodes, the full-width ResNet9
+    Program lowers to the reference's stream job for job in both mapping
+    modes; the barrel controller books it as the reference's does (idle,
+    seeded with the last ``hart_free``, scaled by batch), HPM counters
+    included; and the committed stream file is the reference's."""
+    _, _, jprog, _, _ = carried
+    tprog = program_from_numpy(
+        dict(_record(jprog), cost_nodes=_enc(list(jprog.cost_nodes))),
+        device="cpu")
+    for mode in ("pipelined", "distributed"):
+        ts, js = tprog.to_command_stream(mode), jprog.to_command_stream(mode)
+        assert stream_record(ts) == stream_record(js)
+        tc, jc = BarrelController(), JController()
+        a, b = tc.simulate(ts, cycle_scale=32), jc.simulate(js, cycle_scale=32)
+        assert _sim(a) == _sim(b)
+        assert _sim(tc.simulate(ts, hart_free=a.hart_free, cycle_scale=3)) \
+            == _sim(jc.simulate(js, hart_free=b.hart_free, cycle_scale=3))
+    with open(STREAM_FILE) as f:
+        assert json.load(f) == stream_record(jprog.to_command_stream())
 
 
 def test_chain_from_conv0_output_is_exact(carried):
@@ -249,22 +293,32 @@ def test_forward_paths_small_config():
 
 
 def test_cnn_server_buckets_cpu():
+    """CNNServer classifies through the serving runtime: warmup runs every
+    bucket once, traffic adds hits only, and the cycle report is the
+    reference's stream."""
     server = CNNServer(seed=0, calib_batch=2, max_batch=8, device="cpu")
+    assert server.service.warmup() == 4
     rng = np.random.default_rng(5)
     images = rng.random((5, 32, 32, 3), dtype=np.float32)
     for n in (1, 3, 5):
         logits = server.classify(images[:n])
         assert logits.shape == (n, 10)
         assert np.all(np.isfinite(logits))
-    st = server.runner.stats()
-    assert st["buckets"] == [1, 4, 8] and st["compiles"] == 3
+    m = server.metrics()
+    st = m["bucket_caches"][str(server.key)]
+    assert st["buckets"] == [1, 2, 4, 8] and st["compiles"] == 4
+    assert st["hits"] == m["batches"] and m["completed"] == 9
     # padding rows do not leak into real rows: the first image's logits
     # agree in a bucket of 1 and a bucket of 8 (to the last few ulps only:
     # the host fc's float matmul takes another BLAS path at another batch)
-    one, eight = server.classify(images[:1])[0], server.classify(images)[0]
-    np.testing.assert_allclose(one, eight, rtol=1e-6,
-                               atol=1e-6 * _scale(eight))
-    assert server.runner.stats()["hits"] == 2
+    runner = texec.make_bucketed_runner(server.program, max_batch=8)
+    one, eight = runner(images[:1])[0], runner(images)[0]
+    np.testing.assert_allclose(one.numpy(), eight.numpy(), rtol=1e-6,
+                               atol=1e-6 * _scale(eight.numpy()))
+    assert runner.stats()["buckets"] == [1, 8]
+    with open(STREAM_FILE) as f:
+        assert server.cycle_report() == json.load(f)["summary"]
+    server.close()
 
 
 def test_cnn_server_needs_a_device_or_cpu(monkeypatch):
