@@ -8,7 +8,7 @@ Phases (any failure exits non-zero and prints no result):
 
 1. versions, the card's name and power limit, and the kernels' build with
    ``nvcc`` from ``src/repro_torch/kernels/csrc`` (all three sources at
-   once);
+   once; grouped K4 is an entry of ``bitserial_matmul.cu``);
 2. K1 (quantize_pack) against its plain version, ``torch.equal``: at the
    CNN path's shapes (batch 32), a ragged row in float32 and bf16, and the
    grouped launch the LM makes (one activation, G = 1..4 step sizes,
@@ -112,7 +112,34 @@ Phases (any failure exits non-zero and prints no result):
     ``InferenceService`` with the bare engine's tokens, one scheduler
     admission per decode step and nothing compiled after its warmup.
     Written down, not held: the burst's per-request p50/p99 and the LM
-    load's tokens/s.
+    load's tokens/s;
+12. deepseek-v2-lite-16b at full width and depth (27 layers: one dense,
+    26 MLA + MoE with 64 routed experts top-6 and 2 shared; bf16, W4A8,
+    random weights from seed 0 drawn and packed one layer at a time, its
+    seconds and peak memory printed): grouped K4 against its plain
+    version, ``torch.equal``, at E = 64 with C = 1, 2 and 8 at (K, N) =
+    (2048, 1408) and (1408, 2048), a ragged E = 3, C = 5, 100 -> 70, at
+    W4A8, radix 1 and unsigned W8A8; ``Server`` answers the four requests
+    of phase 8 (prompts from the model's vocabulary), counts reset just
+    before and read just after: 108 K1, 162 K3 and 78 grouped K4 per
+    prefill and per decode step (4 K1 and 6 K3 a layer, 3 grouped K4 a
+    MoE layer), tokens and last-step logits equal to the plain versions'
+    run on the card, the smoke config's tokens on the card equal to the
+    CPU's; ``ContinuousLMEngine`` warms up (the decode step captured once,
+    those launches counted at capture) and serves the CLI's mixed load of
+    16 requests with nothing compiled after the warmup, tokens and every
+    step's drop fractions equal, bit for bit, to the same engine stepping
+    eagerly on the same load (the MoE capacity couples an arena's rows, so
+    a request is held on its own load, not alone); the plain versions'
+    engine gives the graphed engine's tokens on the first four requests;
+    one replay's K1, K3 and grouped K4 launches by kernel name equal the
+    capture's; the load through ``InferenceService`` (one micro-batch)
+    gives the bare engine's tokens. Written down, not held: grouped K4's
+    cold time, bound and an fp16 ``bmm`` of the codes per launch and per
+    decode step, the prefill, the eager and replayed decode step (wall,
+    busy) against the step's weight-byte bound, the load's tokens/s, each
+    step's drop fraction, and each request served alone in an empty arena
+    against its mixed-load tokens.
 
 The ``kernels`` JSON line gives, per kernel, its launches on the main
 paths (the bucketed runners' forwards and the engine's loads included:
@@ -121,7 +148,10 @@ captures left out)
 and its times summed over one ResNet9 batch-32 forward plus one LM
 decode step at batch 4; K1's entry adds its in-path profiler ms and
 launches per decode step and per prefill; K1, K3 and K4 add the engine's
-launches per captured decode step, as its ``stats()`` reports them.
+launches per captured decode step, as its ``stats()`` reports them. K1's
+and K3's launches include deepseek-v2-lite's (phase 12: ``Server``, the
+engine's load and the service's); the grouped K4 entry gives its
+launches there and its times summed over one deepseek decode step.
 
 Standard output ends with the ``kernels`` JSON line, the card's
 ``nvidia-smi`` name/power line and the ``{"ok": true, ...}`` line; the full
@@ -190,6 +220,18 @@ def tree_to(tree, device):
     return tree.to(device)
 
 
+def tree_leaves(tree):
+    """Every tensor of a parameter tree."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from tree_leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from tree_leaves(v)
+    else:
+        yield tree
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -243,7 +285,7 @@ def main() -> int:
                 log(f"  ptxas {k.name}: {line.strip()}")
 
     rng = np.random.default_rng(0)
-    max_err = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "K4": 0.0}
+    max_err = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "K4": 0.0, "K4g": 0.0}
 
     def cuda(a):
         return torch.from_numpy(np.array(a, order="C")).to(dev)
@@ -378,7 +420,8 @@ def main() -> int:
     def counts():
         return {"K1": k1.KERNEL.launches, "K2": k2.KERNEL.launches,
                 "K3": km.KERNEL.entry_launches["bitserial_matmul_v2"],
-                "K4": km.KERNEL.entry_launches["bitserial_matmul_v1"]}
+                "K4": km.KERNEL.entry_launches["bitserial_matmul_v1"],
+                "K4g": km.KERNEL.entry_launches["bitserial_matmul_v1_grouped"]}
 
     def reset_counts():
         for k in kernels:
@@ -388,7 +431,7 @@ def main() -> int:
         """What a bucketed runner's graphs ran since ``replays0``: the
         launches counted at each bucket's capture times its replays (a
         replay calls no wrapper), and the forwards (replays) run."""
-        ran = dict.fromkeys(("K1", "K2", "K3", "K4"), 0)
+        ran = dict.fromkeys(("K1", "K2", "K3", "K4", "K4g"), 0)
         forwards = 0
         for b, n in run.replays.items():
             n -= replays0.get(b, 0)
@@ -451,7 +494,7 @@ def main() -> int:
     torch.cuda.synchronize()
     record["capture_s"] = time.perf_counter() - t0
     runner = server.service._runner_for(server.key)
-    want_fwd = {"K1": 3, "K2": 8, "K3": 0, "K4": 0}
+    want_fwd = {"K1": 3, "K2": 8, "K3": 0, "K4": 0, "K4g": 0}
     if (captured != 6 or runner.stats()["cuda_graphs"] != 6
             or any(runner.capture_launches[b] != want_fwd
                    for b in executor.bucket_sizes(32))):
@@ -501,6 +544,19 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    def open_window():
+        """Spin kernels, run to completion, that open a profiler window and
+        are left out of every number: in one process the profiler lost the
+        first 17 device records of a window that a deepseek replay opened
+        (5,028 of its 5,045 kernels, the first K1 and two K3 among them;
+        chip run, PR 18); opened this way it saw all 5,045."""
+        for _ in range(200):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+
+    def is_spin(name):
+        return "spin_kernel" in name
+
     def device_profile(fn, reps=1):
         """``fn`` run ``reps`` times under the profiler; per run: the host
         wall, the card's busy time (its own events: kernels, copies, sets),
@@ -510,6 +566,7 @@ def main() -> int:
         figure reported as device busy before this field existed."""
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            open_window()
             t0 = time.perf_counter()
             for _ in range(reps):
                 fn()
@@ -517,6 +574,8 @@ def main() -> int:
             wall = time.perf_counter() - t0
         ms, launches, all_rows = {}, {}, 0.0
         for evt in prof.key_averages():
+            if is_spin(evt.key):
+                continue
             dt = evt.self_device_time_total / 1e3 / reps
             all_rows += dt
             if evt.device_type == DeviceType.CUDA and dt > 0:
@@ -538,13 +597,14 @@ def main() -> int:
         (its own events) and every device kernel's launches by name."""
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            open_window()
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         busy, names = 0.0, {}
         for evt in prof.key_averages():
-            if evt.device_type == DeviceType.CUDA:
+            if evt.device_type == DeviceType.CUDA and not is_spin(evt.key):
                 busy += evt.self_device_time_total / 1e3
                 names[evt.key] = names.get(evt.key, 0) + evt.count
         if not names:
@@ -808,7 +868,7 @@ def main() -> int:
     k1_per_step = len(K1_PER_LAYER) * lm_cfg.n_layers
     lm_k3 = lm_drive(lm, lm_requests())
     want = {"K1": k1_per_step * LM_NEW, "K2": 0, "K3": per_step * LM_NEW,
-            "K4": 0}
+            "K4": 0, "K4g": 0}
     if lm_k3[2] != want:
         raise AssertionError(f"LM launches {lm_k3[2]}, want {want}")
     record["launches_lm_k3"] = lm_k3[2]
@@ -852,7 +912,7 @@ def main() -> int:
     k4_lm = Server(lm_cfg, lm.params, batch_slots=4, max_len=LM_MAX_LEN,
                    pack_acts=False)
     lm_k4 = lm_drive(k4_lm, lm_requests())
-    want4 = {"K1": 0, "K2": 0, "K3": 0, "K4": per_step * LM_NEW}
+    want4 = {"K1": 0, "K2": 0, "K3": 0, "K4": per_step * LM_NEW, "K4g": 0}
     if lm_k4[2] != want4:
         raise AssertionError(f"K4 path launches {lm_k4[2]}, want {want4}")
     if lm_k4[0] != toks or not torch.equal(lm_k4[1], logits):
@@ -903,25 +963,28 @@ def main() -> int:
         return statistics.median(out) * 1e3
 
     def by_kernel(launches):
-        """K1, K3 and K4 launches among the profiler's kernel names (K3 and
-        K4 are one template, told apart by its first argument)."""
-        out = {"K1": 0, "K3": 0, "K4": 0}
+        """K1, K3, K4 and grouped K4 launches among the profiler's kernel
+        names (K3, K4 and grouped K4 are one template, told apart by its
+        first two arguments)."""
+        out = {"K1": 0, "K3": 0, "K4": 0, "K4g": 0}
         for name, n in launches.items():
             if "quantize_pack_kernel" in name:
                 out["K1"] += n
             elif "bitserial_gemm_kernel<false" in name:
                 out["K3"] += n
+            elif "bitserial_gemm_kernel<true, true" in name:
+                out["K4g"] += n
             elif "bitserial_gemm_kernel<true" in name:
                 out["K4"] += n
         return out
 
-    def cli_load(n, new_tokens=LM_NEW):
+    def cli_load(n, new_tokens=LM_NEW, vocab=lm_cfg.vocab_size):
         """The reference CLI's mixed load (``launch/serve.py``): prompts of
         4-16 tokens from RandomState(0), every 4th request long."""
         rng = np.random.RandomState(0)
         m_long = max(1, min(new_tokens, LM_MAX_LEN - 16))
         return [GenRequest(
-            rng.randint(0, lm_cfg.vocab_size,
+            rng.randint(0, vocab,
                         (int(rng.randint(4, 17)),)).astype(np.int32),
             m_long if i % 4 == 0 else max(1, m_long // 4))
             for i in range(n)]
@@ -956,8 +1019,9 @@ def main() -> int:
                 last_pos=torch.full((1,), n - 1, device=dev))
             caches = transformer.init_caches(e.cfg, b, e.max_len, device=dev)
             for c, p in zip(caches, pref):
-                c["k"].copy_(p["k"].expand_as(c["k"]))
-                c["v"].copy_(p["v"].expand_as(c["v"]))
+                for name, buf in c.items():
+                    if name != "len":
+                        buf.copy_(p[name].expand_as(buf))
             logits = logits.expand(b, -1)
             pos = torch.full((b,), n, dtype=torch.int32, device=dev)
             cols, gaps = [], []
@@ -987,7 +1051,7 @@ def main() -> int:
     rec.update(warmup_s=warm["seconds"], warmup_buckets=warm["buckets"],
                capture_s=st["capture_seconds"],
                step_launches=st["step_launches"])
-    want_step = {"K1": k1_per_step, "K3": per_step, "K4": 0}
+    want_step = {"K1": k1_per_step, "K3": per_step, "K4": 0, "K4g": 0}
     if (not st["cuda_graph"] or st["compiles"]["decode"] != 1
             or st["step_launches"] != want_step):
         raise AssertionError(f"engine capture: graph {st['cuda_graph']}, "
@@ -1011,7 +1075,7 @@ def main() -> int:
     total_toks = sum(len(r.out_tokens) for r in out)
     # a replay calls no wrapper: the wrappers counted the 16 prefills
     want_load = {"K1": k1_per_step * len(load), "K2": 0,
-                 "K3": per_step * len(load), "K4": 0}
+                 "K3": per_step * len(load), "K4": 0, "K4g": 0}
     if c_load != want_load:
         raise AssertionError(f"engine load prefill launches {c_load}, want "
                              f"{want_load}")
@@ -1103,10 +1167,10 @@ def main() -> int:
     k4_out = k4_eng.serve([GenRequest(r.prompt.copy(), r.max_new_tokens)
                            for r in four])
     c_k4 = counts()
-    want_k4 = {"K1": 0, "K3": 0, "K4": per_step}
+    want_k4 = {"K1": 0, "K3": 0, "K4": per_step, "K4g": 0}
     if (k4_step != want_k4
             or c_k4 != {"K1": 0, "K2": 0, "K3": 0,
-                        "K4": per_step * len(four)}):
+                        "K4": per_step * len(four), "K4g": 0}):
         raise AssertionError(f"K4 engine: launches at capture {k4_step}, "
                              f"prefill launches in the serve {c_k4}")
     k4_prof = by_kernel(profile_counts(k4_eng._run_step)["launches"])
@@ -1181,7 +1245,7 @@ def main() -> int:
     torch.cuda.synchronize()
     c_tiny = counts()
     if kinds[-1] != "gemm_packed" or c_tiny != {"K1": 2, "K2": 2, "K3": 1,
-                                                "K4": 0}:
+                                                "K4": 0, "K4g": 0}:
         raise AssertionError(f"tiny_mixed_cnn steps {kinds}, launches "
                              f"{c_tiny}")
     yp = executor.make_plain_runner(tprog)(tprog.params, xt)
@@ -1551,7 +1615,7 @@ def main() -> int:
     if (lm_m["scheduler"]["admitted_batches"] != lm_steps
             or eng.stats()["recompiles_after_warmup"] != 0
             or c_lm != {"K1": k1_per_step * 16, "K2": 0,
-                        "K3": per_step * 16, "K4": 0}):
+                        "K3": per_step * 16, "K4": 0, "K4g": 0}):
         raise AssertionError(f"LM through the service: admissions "
                              f"{lm_m['scheduler']['admitted_batches']}, steps"
                              f" {lm_steps}, {eng.stats()}, prefills {c_lm}")
@@ -1568,6 +1632,409 @@ def main() -> int:
     plain_svc.stop()
     server.close()
     record["serving"] = srv
+
+    # ----------------------- 12. deepseek-v2-lite-16b: MLA + 64-expert MoE
+    log("deepseek-v2-lite-16b FULL (27 layers: 1 dense + 26 MLA + MoE, 64 "
+        "routed experts top-6 + 2 shared, bf16, W4A8, seed 0) on the card")
+    del lm, k4_lm, plain_lm, two, one, solo, k4_eng, sm_gpu, sm_cpu
+    torch.cuda.empty_cache()
+    ds = {}
+    ds_cfg = get_arch("deepseek-v2-lite-16b").full
+    ds_spec = plan_spec(ds_cfg.policy.spec())
+    n_layers = ds_cfg.n_layers
+    n_moe = n_layers - ds_cfg.n_dense_layers
+    n_exp, d_exp, d_mod = ds_cfg.n_experts, ds_cfg.d_ff_expert, ds_cfg.d_model
+    # (a) grouped K4 against its plain version: the routed experts' shapes
+    # (C = 1 at a batch-4 decode step, 2 at a 16-token prefill bucket, 8 at
+    # the Server's 4 x 16 prefill), a ragged case, W4A8 (the model's plan),
+    # radix 1 and unsigned W8A8
+    g_dev = torch.Generator(device=dev).manual_seed(18)
+
+    def grouped_operands(spec, e, c, k, n):
+        """Random codes (E, C, K), weight codes (E, K, N) and their packed
+        planes (E, w_bits, ceil(K/32), N), made on the card."""
+        la, ha = qrange(spec.a_bits, spec.a_signed)
+        lw, hw = qrange(spec.w_bits, spec.w_signed)
+        xc = torch.randint(la, ha + 1, (e, c, k), generator=g_dev,
+                           device=dev, dtype=torch.int32)
+        wc = torch.randint(lw, hw + 1, (e, k, n), generator=g_dev,
+                           device=dev, dtype=torch.int32)
+        wp = torch.stack([bitops.pack_bitplanes(bitops.pad_to(
+            bitops.to_bitplanes(wc[i], spec.w_bits), 32, axis=1), axis=1)
+            for i in range(e)])
+        return xc, wc, wp
+
+    up_w = grouped_operands(ds_spec, n_exp, 8, d_mod, d_exp)
+    down_w = grouped_operands(ds_spec, n_exp, 8, d_exp, d_mod)
+    g_cases = []
+    for (x8, _, wp), (k, n) in ((up_w, (d_mod, d_exp)),
+                                (down_w, (d_exp, d_mod))):
+        for c in (1, 2, 8):
+            g_cases.append((f"W4A8 E{n_exp} C{c} {k}->{n}", ds_spec,
+                            x8[:, :c].contiguous(), wp, k))
+    for spec, tag in ((ds_spec, "W4A8"),
+                      (SerialSpec(8, 4, True, True, 1), "W4A8 radix 1"),
+                      (SerialSpec(8, 8, False, True, 7), "W8A8 unsigned")):
+        xr, _, wr = grouped_operands(spec, 3, 5, 100, 70)
+        g_cases.append((f"ragged E3 C5 100->70 {tag}", spec, xr, wr, 100))
+    for spec, tag in ((SerialSpec(8, 4, True, True, 1), "W4A8 radix 1"),
+                      (SerialSpec(8, 8, False, True, 7), "W8A8 unsigned")):
+        xr, _, wr = grouped_operands(spec, n_exp, 1, d_mod, d_exp)
+        g_cases.append((f"{tag} E{n_exp} C1 {d_mod}->{d_exp}", spec, xr, wr,
+                        d_mod))
+    for name, spec, x, wp, k in g_cases:
+        check_equal("K4g", name,
+                    km.bitserial_matmul_grouped_cuda(x, wp, spec=spec, k=k),
+                    km.bitserial_matmul_grouped_ref(x, wp, spec=spec, k=k))
+    log(f"  grouped K4 equals its plain version (torch.equal) in "
+        f"{len(g_cases)} cases: " + "; ".join(c[0] for c in g_cases))
+
+    # times of one grouped launch at the model's shapes, cold, against its
+    # bound and an fp16 bmm of the codes (timed only, never on the path)
+    g_rows = []
+    for (x8, wc, wp), (k, n) in ((up_w, (d_mod, d_exp)),
+                                 (down_w, (d_exp, d_mod))):
+        w16 = wc.half()
+        for c in (1, 8):
+            x = x8[:, :c].contiguous()
+            x16 = x.half()
+            byt = x.numel() * 4 + wp.numel() * 4 + n_exp * c * n * 4
+            ops = 2 * n_exp * c * k * n
+            g_rows.append({
+                "c": c, "k": k, "n": n, "bytes": byt, "ops": ops,
+                "ms": timer(lambda: km.bitserial_matmul_grouped_cuda(
+                    x, wp, spec=ds_spec, k=k), 50),
+                "plain_ms": timer(lambda: km.bitserial_matmul_grouped_ref(
+                    x, wp, spec=ds_spec, k=k), 3),
+                "library_ms": timer(lambda: torch.bmm(x16, w16), 50),
+                "bound_ms": max(byt / HBM_BYTES_PER_S,
+                                ops / INT8_OPS_PER_S) * 1e3,
+                "bound_by": "bytes" if byt / HBM_BYTES_PER_S >=
+                ops / INT8_OPS_PER_S else "operations"})
+    del up_w, down_w, g_cases
+    for r in g_rows:
+        log(f"  K4g E{n_exp} C{r['c']} {r['k']}->{r['n']}: kernel "
+            f"{r['ms']:.4f}  plain {r['plain_ms']:.3f}  fp16 bmm "
+            f"{r['library_ms']:.4f}  bound {r['bound_ms']:.5f} "
+            f"({r['bound_by']}, {r['bytes'] / 1e6:.1f} MB)")
+
+    def g_step(key):
+        """A decode step's sum (C = 1): up and gate (d_model -> d_ff_expert)
+        and down per MoE layer."""
+        (a,) = [r for r in g_rows if r["c"] == 1 and r["k"] == d_mod]
+        (b,) = [r for r in g_rows if r["c"] == 1 and r["k"] == d_exp]
+        return n_moe * (2 * a[key] + b[key])
+
+    ds["grouped_calls"] = g_rows
+    ds["grouped_step_sums"] = {key: g_step(key) for key in
+                               ("ms", "plain_ms", "library_ms", "bound_ms",
+                                "bytes")}
+    log(f"  K4g summed over one decode step ({3 * n_moe} launches at C = 1):"
+        f" {ds['grouped_step_sums']['ms']:.4f} ms, bound "
+        f"{ds['grouped_step_sums']['bound_ms']:.4f}, fp16 bmm "
+        f"{ds['grouped_step_sums']['library_ms']:.4f}, plain "
+        f"{ds['grouped_step_sums']['plain_ms']:.2f}")
+
+    # (b) the weights, drawn and packed one layer at a time on the card
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    ds_params = transformer.init_params(
+        torch.Generator(device=dev).manual_seed(0), ds_cfg, packed=True)
+    torch.cuda.synchronize()
+    ds.update(init_s=time.perf_counter() - t0,
+              init_peak_gb=(torch.cuda.max_memory_allocated() - mem0) / 1e9,
+              params_gb=(torch.cuda.memory_allocated() - mem0) / 1e9)
+    log(f"  random weights from seed 0 drawn and packed one layer at a time "
+        f"in {ds['init_s']:.2f} s: {ds['params_gb']:.2f} GB on the card, "
+        f"peak {ds['init_peak_gb']:.2f} GB above what was held before")
+
+    # (c) Server: 4 requests, 16 new tokens each
+    ds_k1, ds_k3, ds_k4g = 4 * n_layers, 6 * n_layers, 3 * n_moe
+    ds_want_step = {"K1": ds_k1, "K3": ds_k3, "K4": 0, "K4g": ds_k4g}
+    ds_srv = Server(ds_cfg, ds_params, batch_slots=4, max_len=LM_MAX_LEN)
+    prompt_rng = np.random.RandomState(0)
+    ds_prompts = [prompt_rng.randint(0, ds_cfg.vocab_size, (n,)).astype(
+        np.int32) for n in LM_PROMPTS]
+
+    def ds_requests():
+        return [GenRequest(p.copy(), LM_NEW) for p in ds_prompts]
+
+    ds_main = lm_drive(ds_srv, ds_requests())
+    want = {"K1": ds_k1 * LM_NEW, "K2": 0, "K3": ds_k3 * LM_NEW, "K4": 0,
+            "K4g": ds_k4g * LM_NEW}
+    if ds_main[2] != want:
+        raise AssertionError(f"deepseek Server launches {ds_main[2]}, want "
+                             f"{want}")
+    toks, logits = ds_main[0], ds_main[1]
+    if (logits.shape != (4, ds_cfg.vocab_size)
+            or not bool(torch.isfinite(logits).all())
+            or any(len(t) != LM_NEW or not all(0 <= v < ds_cfg.vocab_size
+                                               for v in t) for t in toks)):
+        raise AssertionError(f"bad deepseek output {logits.shape} {toks}")
+    ds_batch = np.zeros((4, max(LM_PROMPTS)), np.int64)
+    for i, pr in enumerate(ds_prompts):
+        ds_batch[i, -len(pr):] = pr
+    ds_batch = {"tokens": torch.from_numpy(ds_batch).to(dev)}
+    with torch.inference_mode():
+        reset_counts()
+        _, caches = transformer.prefill(ds_srv.params, ds_batch, ds_srv.cfg,
+                                        max_len=LM_MAX_LEN)
+        c_pre = counts()
+        reset_counts()
+        transformer.decode_step(ds_srv.params, caches,
+                                ds_batch["tokens"][:, :1], max(LM_PROMPTS),
+                                ds_srv.cfg)
+        c_dec = counts()
+        torch.cuda.synchronize()
+    for c in (c_pre, c_dec):
+        if {k: c[k] for k in ds_want_step} != ds_want_step:
+            raise AssertionError(f"deepseek per-step launches prefill "
+                                 f"{c_pre}, decode {c_dec}, want "
+                                 f"{ds_want_step}")
+    log(f"  Server: 4 requests x {LM_NEW} tokens, launches {ds_main[2]}; "
+        f"one prefill and one decode step each run {ds_want_step} (4 K1, 6 "
+        f"K3 a layer: q + kv-down share one K1, then wo, the gate/up pair "
+        f"and down; 3 grouped K4 a MoE layer: up, gate, down)")
+    ds_plain = Server(ds_cfg, ds_params, batch_slots=4, max_len=LM_MAX_LEN,
+                      plain=True)
+    t0 = time.perf_counter()
+    ds_p = lm_drive(ds_plain, ds_requests())
+    ds["plain_generate_s"] = time.perf_counter() - t0
+    if any(ds_p[2].values()):
+        raise AssertionError(f"plain run launched kernels: {ds_p[2]}")
+    if ds_p[0] != toks or not torch.equal(ds_p[1], logits):
+        raise AssertionError("deepseek tokens/logits differ from the plain "
+                             "run")
+    del ds_plain
+    log(f"  tokens and last-step logits equal the plain versions' run "
+        f"({ds['plain_generate_s']:.1f} s); request 0: {toks[0]}")
+    ds_smoke = get_arch("deepseek-v2-lite-16b").smoke
+    sm_gpu = Server(ds_smoke, batch_slots=4, max_len=32, seed=0)
+    sm_cpu = Server(ds_smoke, tree_to(sm_gpu.params, "cpu"), batch_slots=4,
+                    max_len=32, device="cpu")
+    sm_prompts = [np.arange(n, dtype=np.int32) * 7 % ds_smoke.vocab_size
+                  for n in (3, 6, 9)]
+    a = [r.out_tokens for r in sm_gpu.generate(
+        [GenRequest(p.copy(), 8) for p in sm_prompts])]
+    b = [r.out_tokens for r in sm_cpu.generate(
+        [GenRequest(p.copy(), 8) for p in sm_prompts])]
+    if a != b:
+        raise AssertionError(f"deepseek smoke config: card {a} vs CPU {b}")
+    log(f"  smoke config: card tokens equal the CPU plain run's {a[0]}")
+    with torch.inference_mode():
+        def ds_prefill():
+            return transformer.prefill(ds_srv.params, ds_batch, ds_srv.cfg,
+                                       max_len=LM_MAX_LEN)
+
+        ds["prefill_ms"] = walls(ds_prefill, 3)
+        ds["profile_prefill"] = device_profile(ds_prefill)
+        lg, caches = ds_prefill()
+        tok = torch.argmax(lg, -1)[:, None]
+        pos = iter(range(max(LM_PROMPTS), LM_MAX_LEN))
+
+        def ds_step():
+            transformer.decode_step(ds_srv.params, caches, tok, next(pos),
+                                    ds_srv.cfg)
+
+        ds["eager_step_ms"] = walls(ds_step, 5)
+        ds["profile_eager_step"] = device_profile(ds_step)
+        del caches
+    t0 = time.perf_counter()
+    ds_srv.generate(ds_requests())
+    ds["generate_s"] = time.perf_counter() - t0
+    log(f"  Server batch 4: prefill (16 tokens) {ds['prefill_ms']:.2f} ms "
+        f"(busy {ds['profile_prefill']['device_ms']:.3f}), eager decode step "
+        f"{ds['eager_step_ms']:.2f} ms (busy "
+        f"{ds['profile_eager_step']['device_ms']:.3f}), generate "
+        f"{ds['generate_s'] * 1e3:.0f} ms = "
+        f"{4 * LM_NEW / ds['generate_s']:.1f} tok/s")
+
+    # (d) the continuous engine on the CLI's mixed load
+    t0 = time.perf_counter()
+    ds_eng = ContinuousLMEngine(ds_cfg, ds_params, batch_slots=4,
+                                max_len=LM_MAX_LEN)
+    warm = ds_eng.warmup()
+    st = ds_eng.stats()
+    if (not st["cuda_graph"] or st["compiles"]["decode"] != 1
+            or st["step_launches"] != ds_want_step):
+        raise AssertionError(f"deepseek engine capture: {st}")
+    ds.update(engine_warmup_s=warm["seconds"], capture_s=st[
+        "capture_seconds"], step_launches=st["step_launches"])
+    log(f"  engine warmup {warm['seconds']:.2f} s (buckets "
+        f"{warm['buckets']}); decode step captured once in "
+        f"{st['capture_seconds']:.3f} s with {st['step_launches']}")
+    ds_load = cli_load(16, vocab=ds_cfg.vocab_size)
+
+    def copies(reqs):
+        return [GenRequest(r.prompt.copy(), r.max_new_tokens) for r in reqs]
+
+    calls0 = st["calls"].get("decode", 0)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds_out = ds_eng.serve(copies(ds_load))
+    ds_load_s = time.perf_counter() - t0
+    c_load = counts()
+    em = ds_eng.engine_metrics()
+    n_tok = sum(len(r.out_tokens) for r in ds_out)
+    want_load = {k: v * len(ds_load) for k, v in ds_want_step.items()}
+    want_load["K2"] = 0
+    st = ds_eng.stats()
+    if (c_load != want_load or st["recompiles_after_warmup"] != 0
+            or st["calls"]["decode"] - calls0 != em["decode_steps"]):
+        raise AssertionError(f"deepseek engine load: prefill launches "
+                             f"{c_load} (want {want_load}), {st}")
+    for r in ds_out:
+        if (len(r.out_tokens) != r.max_new_tokens
+                or not all(0 <= v < ds_cfg.vocab_size for v in r.out_tokens)):
+            raise AssertionError(f"bad deepseek engine output {r.out_tokens}")
+    ds_ran = {k: c_load[k] + ds_want_step[k] * em["decode_steps"]
+              for k in ("K1", "K3", "K4g")}
+    drops = ds_eng.drop_fractions()
+    ds.update(load_tokens=n_tok, load_s=ds_load_s,
+              tok_per_s=n_tok / ds_load_s, decode_steps=em["decode_steps"],
+              slot_occupancy=em["slot_occupancy"],
+              launches_load_prefills=c_load, launches_load_run=ds_ran,
+              drop_frac_per_step=drops.mean(axis=1).tolist(),
+              drop_frac_max_layer=float(drops.max()))
+    log(f"  mixed load: 16 requests, {n_tok} tokens in "
+        f"{ds_load_s * 1e3:.0f} ms = {ds['tok_per_s']:.1f} tok/s (a smoke "
+        f"reading); {em['decode_steps']} replayed steps (occupancy "
+        f"{em['slot_occupancy']}); launches run {ds_ran}; "
+        "recompiles_after_warmup 0")
+    log("  drop_frac per step (mean over the 26 MoE layers): "
+        + " ".join(f"{v:.3f}" for v in ds["drop_frac_per_step"]))
+    # the same engine with an eager step on the same load: 16 requests
+    # fill every slot before the first step, so the arena's history does
+    # not enter; bit for bit
+    ds_eager = ContinuousLMEngine(ds_cfg, ds_params, batch_slots=4,
+                                  max_len=LM_MAX_LEN)
+    ds_eager._fresh_arena()
+    ds_eager._graph = None                  # its steps run eagerly
+    e_out = ds_eager.serve(copies(ds_load))
+    for i, (r, e) in enumerate(zip(ds_out, e_out)):
+        if r.out_tokens != e.out_tokens:
+            raise AssertionError(
+                f"deepseek request {i}: the graphed engine parts from the "
+                f"eager one at {first_difference(r.out_tokens, e.out_tokens)}")
+    if not np.array_equal(drops, ds_eager.drop_fractions()):
+        raise AssertionError("graphed and eager drop fractions differ")
+    log("  the graphed engine equals the same engine stepping eagerly on "
+        "the same load, tokens and drop fractions bit for bit")
+    # the plain versions' engine (captured too) on the first four requests,
+    # against the graphed engine on the same four (four fill every slot)
+    four = ds_load[:4]
+    g4 = ds_eng.serve(copies(four))
+    ds_plain_eng = ContinuousLMEngine(ds_cfg, ds_params, batch_slots=4,
+                                      max_len=LM_MAX_LEN, plain=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    p4 = ds_plain_eng.serve(copies(four))
+    ds["plain_serve_s"] = time.perf_counter() - t0
+    if any(counts().values()) or not ds_plain_eng.stats()["cuda_graph"]:
+        raise AssertionError(f"deepseek plain engine: {counts()}")
+    for i, (r, p) in enumerate(zip(g4, p4)):
+        if r.out_tokens != p.out_tokens:
+            raise AssertionError(
+                f"deepseek plain engine request {i} parts at "
+                f"{first_difference(r.out_tokens, p.out_tokens)}")
+    del ds_plain_eng
+    log(f"  the plain versions' engine ({ds['plain_serve_s']:.1f} s) gives "
+        f"the graphed engine's tokens on the first four requests")
+    # reported, not held: each request alone in an empty arena (eagerly),
+    # against its tokens in the mixed load; the capacity couples rows
+    alone = []
+    for i, r in enumerate(ds_load):
+        a_ = ds_eager._arena
+        for g in a_["caches"]:
+            for name, buf in g.items():
+                if name != "len":
+                    buf.zero_()
+        a_["tok"].zero_()
+        a_["pos"].zero_()
+        ds_eager._reset_serving_metrics()
+        ref = ds_eager.serve(copies([r]))[0].out_tokens
+        t = parting_token(ds_out[i].out_tokens, ref)
+        alone.append({"request": i, "prompt": len(r.prompt),
+                      "new": r.max_new_tokens, "parts_at": t,
+                      "alone_drop_frac": ds_eager.drop_fractions().mean(
+                          axis=1).tolist()})
+    ds["alone"] = alone
+    log(f"  each request alone in an empty arena (reported): "
+        f"{sum(a['parts_at'] is None for a in alone)} of 16 equal their "
+        f"mixed-load tokens; parted at "
+        f"{[(a['request'], a['parts_at']) for a in alone if a['parts_at'] is not None]}")
+    del ds_eager
+    # the replayed step: wall (synchronized) and the card's busy time, its
+    # kernels by name against the wrappers' count at capture
+    ds["replay_step_ms"] = fenced_ms(ds_eng._run_step, 15)
+    ds_eng._run_step()
+    prof = profile_counts(ds_eng._run_step)
+    ds["profile_replay"] = {"wall_ms": prof["wall_ms"],
+                            "device_ms": prof["device_ms"],
+                            "launches_by_kernel": by_kernel(prof["launches"]),
+                            "kernels": sum(prof["launches"].values())}
+    if by_kernel(prof["launches"]) != ds_want_step:
+        raise AssertionError(f"the profiler saw {by_kernel(prof['launches'])}"
+                             f" in one deepseek replay, want {ds_want_step}")
+    log(f"  replayed decode step at batch 4 (median of 15, synchronized): "
+        f"{ds['replay_step_ms']:.3f} ms; one replay under the profiler: wall "
+        f"{prof['wall_ms']:.3f} ms, busy {prof['device_ms']:.3f} ms, "
+        f"{ds['profile_replay']['kernels']} kernels, of them "
+        f"{ds['profile_replay']['launches_by_kernel']}")
+
+    # (e) through InferenceService: one micro-batch of the 16 requests (a
+    # batching window long enough to gather them) gives the bare engine's
+    # tokens
+    ds_reg = ModelRegistry(device=dev)
+    ds_key = ds_reg.register_callable("deepseek-v2-lite-16b", ds_eng)
+    steps0 = ds_eng.decode_steps
+    reset_counts()
+    with InferenceService(ds_reg, max_batch=16, max_wait_s=30.0) as ds_svc:
+        t0 = time.perf_counter()
+        futs = ds_svc.submit_many(ds_key, copies(ds_load))
+        ds_svc.drain(timeout=600)
+        svc_s = time.perf_counter() - t0
+        s_out = [f.result() for f in futs]
+        sm = ds_svc.metrics()
+    c_svc = counts()
+    svc_steps = ds_eng.decode_steps - steps0
+    for i, (r, s_) in enumerate(zip(ds_out, s_out)):
+        if r.out_tokens != s_.out_tokens:
+            raise AssertionError(
+                f"deepseek service request {i} parts from the bare engine's "
+                f"at {first_difference(r.out_tokens, s_.out_tokens)}")
+    if (sm["batches"] != 1 or sm["scheduler"]["admitted_batches"] != svc_steps
+            or c_svc != want_load):
+        raise AssertionError(f"deepseek through the service: "
+                             f"{sm['batches']} micro-batches, admissions "
+                             f"{sm['scheduler']['admitted_batches']}, steps "
+                             f"{svc_steps}, prefill launches {c_svc}")
+    ds_svc_ran = {k: c_svc[k] + ds_want_step[k] * svc_steps
+                  for k in ("K1", "K3", "K4g")}
+    ds.update(service_s=svc_s, service_steps=svc_steps,
+              service_launches_run=ds_svc_ran)
+    log(f"  through InferenceService: one micro-batch, the bare engine's "
+        f"tokens; {svc_steps} admissions = decode steps; launches run "
+        f"{ds_svc_ran}")
+    # the step's least time: every weight byte a decode step reads (packed
+    # planes, MLA's float w_uk/w_uv, the router, the bf16 head) over the
+    # card's memory rate
+    w_bytes = sum(t.numel() * t.element_size()
+                  for g in ds_eng.params["groups"]
+                  for t in tree_leaves(g)) + ds_eng.params["head"][
+                      "w"].numel() * 2
+    ds["step_weight_bytes"] = w_bytes
+    ds["step_bound_ms"] = w_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"  a decode step reads {w_bytes / 1e9:.2f} GB of weights: bound "
+        f"{ds['step_bound_ms']:.3f} ms against the replay's "
+        f"{ds['profile_replay']['device_ms']:.3f} ms busy")
+    ds_launches = {k: ds_main[2][k] + ds_ran[k] + ds_svc_ran[k]
+                   for k in ("K1", "K3", "K4g")}
+    ds["launches"] = ds_launches
+    record["deepseek"] = ds
 
     def total(kid, key):
         vals = [r[key] for r in rows if r["kernel"] == kid]
@@ -1589,7 +2056,8 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/quantize_pack.cu",
          "replaces": "src/repro/kernels/quantize_pack.py:53",
          "launches": (cnn_ran["K1"] + ran2["K1"] + lm_k3[2]["K1"]
-                      + c_tiny["K1"] + ran_load["K1"] + lm_ran["K1"]),
+                      + c_tiny["K1"] + ran_load["K1"] + lm_ran["K1"]
+                      + ds_launches["K1"]),
          "engine_launches_per_captured_step": rec["step_launches"]["K1"],
          "max_abs_err": max_err["K1"],
          "ms": total("K1", "ms") + lm_step("K1", "ms", 4),
@@ -1614,7 +2082,7 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/bitserial_matmul.cu",
          "replaces": "src/repro/kernels/bitserial_matmul.py:380",
          "launches": (lm_k3[2]["K3"] + c_tiny["K3"] + ran_load["K3"]
-                      + lm_ran["K3"]),
+                      + lm_ran["K3"] + ds_launches["K3"]),
          "engine_launches_per_captured_step": rec["step_launches"]["K3"],
          "max_abs_err": max_err["K3"],
          "ms": lm_step("K3", "ms", 4), "plain_ms": lm_step("K3", "plain_ms", 4),
@@ -1630,6 +2098,21 @@ def main() -> int:
          "ms": lm_step("K4", "ms", 4), "plain_ms": lm_step("K4", "plain_ms", 4),
          "bound_ms": lm_step("K4", "bound_ms", 4), "bound_by": lm_bound_by("K4"),
          "library_ms": lm_step("K4", "library_ms", 4)},
+        {"name": "bitserial_matmul_v1_grouped (grouped K4: one "
+                 "deepseek-v2-lite decode step's routed experts, 3 per MoE "
+                 "layer, all 64 experts in one launch)",
+         "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/bitserial_matmul.cu",
+         "replaces": "src/repro/models/moe.py:75 (_expert_matmul, XLA "
+                     "serial_matmul_packed; no Pallas kernel)",
+         "launches": ds_launches["K4g"],
+         "engine_launches_per_captured_step": ds["step_launches"]["K4g"],
+         "max_abs_err": max_err["K4g"],
+         "ms": ds["grouped_step_sums"]["ms"],
+         "plain_ms": ds["grouped_step_sums"]["plain_ms"],
+         "bound_ms": ds["grouped_step_sums"]["bound_ms"],
+         "bound_by": "bytes",
+         "library_ms": ds["grouped_step_sums"]["library_ms"]},
     ]}
     record["kernels"] = line["kernels"]
     record["total_s"] = time.perf_counter() - t_start

@@ -1,9 +1,12 @@
-"""Quantization: step-size init and the integer/packed deployment path.
+"""Quantization: step-size init, the LSQ fake-quant forward and the
+integer/packed deployment path.
 
-Counterpart of ``repro/core/quant.py`` without LSQ training (a later slice
-ports the straight-through estimator). ``quantize_int`` is the serve-path
-quantizer: IEEE division, round half to even, clip — the same expression
-as the reference and as the CUDA kernels (``rintf(__fdiv_rn(x, alpha))``).
+Counterpart of ``repro/core/quant.py`` without LSQ training:
+:func:`lsq_fake_quant` is the forward only (a later slice ports the
+straight-through estimator with training). ``quantize_int`` is the
+serve-path quantizer: IEEE division, round half to even, clip — the same
+expression as the reference and as the CUDA kernels
+(``rintf(__fdiv_rn(x, alpha))``).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from repro_torch.core import bitops
 __all__ = [
     "QuantSpec",
     "qrange",
+    "lsq_fake_quant",
     "init_alpha",
     "quantize_int",
     "pack_weights",
@@ -45,6 +49,19 @@ def qrange(bits: int, signed: bool) -> tuple[int, int]:
     if signed:
         return -(1 << (bits - 1)), (1 << (bits - 1)) - 1
     return 0, (1 << bits) - 1
+
+
+def lsq_fake_quant(x: torch.Tensor, alpha: torch.Tensor,
+                   spec: QuantSpec) -> torch.Tensor:
+    """LSQ fake quantization, forward only: ``clip(round(x / a), Qn, Qp) *
+    a`` with ``a = max(|alpha|, 1e-8)`` cast to ``x``'s dtype, as the
+    reference computes it (``repro/core/quant.py`` ``lsq_fake_quant`` and
+    ``_lsq``). The straight-through gradient (``_lsq_bwd``) belongs to
+    training and is not ported yet: this is for inference under
+    ``torch.inference_mode``/``no_grad``."""
+    qn, qp = qrange(spec.bits, spec.signed)
+    a = torch.clamp_min(torch.abs(alpha), 1e-8).to(x.dtype)
+    return torch.clamp(torch.round(x / a), qn, qp) * a
 
 
 def init_alpha(x: torch.Tensor, spec: QuantSpec, axis=None) -> torch.Tensor:

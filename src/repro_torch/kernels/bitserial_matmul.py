@@ -24,10 +24,21 @@ tile (``csrc/digits.cuh``, shared with K2) fed by two activation sources:
   :func:`bitserial_matmul_ref`. Its C entry keeps the name
   ``bitserial_matmul_v1``, under which its launches are counted.
 
-:func:`bitserial_matmul_v2` and :func:`bitserial_matmul` dispatch on the
-tensor's device: the plain version for a CPU tensor, the kernel for a CUDA
-tensor. Both epilogues are one FMA, as the reference's are under ``jit``
-and in its Pallas kernels (interpreted too).
+* Grouped K4 replaces the routed experts' product of
+  ``repro/models/moe.py::_expert_matmul``, which the reference computes as
+  ``serial_matmul_packed`` under ``vmap`` over experts, outside any Pallas
+  kernel: (E, C, K) int32 codes × (E, w_bits, ceil(K/32), N) packed
+  weights → (E, C, N) raw int32 accumulators, one launch for all E experts
+  (the expert is a grid dimension over K4's tile). No epilogue: the caller
+  scales in torch, as the reference does. Plain version
+  :func:`bitserial_matmul_grouped_ref`, ``serial_matmul_packed`` per
+  expert. C entry ``bitserial_matmul_v1_grouped``.
+
+:func:`bitserial_matmul_v2`, :func:`bitserial_matmul` and
+:func:`bitserial_matmul_grouped` dispatch on the tensor's device: the
+plain version for a CPU tensor, the kernel for a CUDA tensor. Both
+epilogues are one FMA, as the reference's are under ``jit`` and in its
+Pallas kernels (interpreted too).
 """
 
 from __future__ import annotations
@@ -48,11 +59,14 @@ from repro_torch.kernels.epilogue import (CODES8, CODES32, FLOAT, PACKED,
 
 __all__ = ["KERNEL", "bitserial_matmul_v2", "bitserial_matmul_v2_ref",
            "bitserial_matmul_v2_cuda", "bitserial_matmul",
-           "bitserial_matmul_ref", "bitserial_matmul_cuda"]
+           "bitserial_matmul_ref", "bitserial_matmul_cuda",
+           "bitserial_matmul_grouped", "bitserial_matmul_grouped_ref",
+           "bitserial_matmul_grouped_cuda"]
 
 KERNEL = Kernel("bitserial_matmul", {
     "bitserial_matmul_v2": (P,) * 6 + (I,) * 14 + (P,),
     "bitserial_matmul_v1": (P,) * 5 + (I,) * 14 + (P,),
+    "bitserial_matmul_v1_grouped": (P,) * 3 + (I,) * 10 + (P,),
 })
 
 
@@ -89,6 +103,22 @@ def bitserial_matmul_ref(x: torch.Tensor, w_packed: torch.Tensor,
     if requant is not None and requant.bits <= 8:
         return out
     return out.to(out_dtype)
+
+
+def bitserial_matmul_grouped_ref(x: torch.Tensor, w_packed: torch.Tensor,
+                                 *, spec: SerialSpec, k: int) -> torch.Tensor:
+    """Plain version of grouped K4, on any device: ``serial_matmul_packed``
+    of each expert's (C, K) codes against its packed weights, stacked to
+    (E, C, N) int32."""
+    if x.dim() != 3 or w_packed.dim() != 4 or x.shape[0] != w_packed.shape[0]:
+        raise ValueError(f"grouped: x {tuple(x.shape)} and w_packed "
+                         f"{tuple(w_packed.shape)} are not (E, C, K) and "
+                         "(E, w_bits, ceil(K/32), N)")
+    if x.shape[-1] != k:
+        raise ValueError(f"x has K={x.shape[-1]}, caller declared k={k}")
+    return torch.stack([
+        serial_matmul_packed(x[e].to(torch.int32), w_packed[e], spec=spec,
+                             k=k) for e in range(x.shape[0])])
 
 
 def _check_weights(fn: str, w_packed: torch.Tensor, spec: SerialSpec, k: int,
@@ -203,6 +233,40 @@ def bitserial_matmul_cuda(x: torch.Tensor, w_packed: torch.Tensor,
     return out.to(out_dtype)
 
 
+def bitserial_matmul_grouped_cuda(x: torch.Tensor, w_packed: torch.Tensor,
+                                  *, spec: SerialSpec, k: int) -> torch.Tensor:
+    """Launch grouped K4 on CUDA tensors: (E, C, K) int32 codes × (E,
+    w_bits, ceil(K/32), N) packed weights → (E, C, N) int32 accumulators,
+    one launch."""
+    fn = "bitserial_matmul_grouped"
+    dev = x.device
+    check_operand(fn, "x", x, torch.int32, 3, dev)
+    check_operand(fn, "w_packed", w_packed, torch.int32, 4, dev)
+    e, c, kx = x.shape
+    ew, bw, kw, n = w_packed.shape
+    if kx != k:
+        raise ValueError(f"{fn}: x has K={kx}, caller declared k={k}")
+    if ew != e:
+        raise ValueError(f"{fn}: x has {e} groups, w_packed {ew}")
+    if not 1 <= e <= 65535:
+        raise ValueError(f"{fn}: {e} groups, the grid takes 1..65535")
+    if bw != spec.w_bits:
+        raise ValueError(f"{fn}: w_packed carries {bw} bit-planes, spec wants "
+                         f"w_bits={spec.w_bits}")
+    if kw != _k_words(k):
+        raise ValueError(f"{fn}: K-word mismatch: w {kw}, ceil(k/32)="
+                         f"{_k_words(k)}")
+    out = torch.empty((e, c, n), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    KERNEL.launch(
+        "bitserial_matmul_v1_grouped", x.data_ptr(), w_packed.data_ptr(),
+        out.data_ptr(), e, c, k, n, spec.a_bits, spec.w_bits,
+        int(spec.a_signed), int(spec.w_signed),
+        bitops.kernel_digits(spec.a_bits, spec.a_signed),
+        bitops.kernel_digits(spec.w_bits, spec.w_signed), stream)
+    return out
+
+
 def bitserial_matmul_v2(x_packed: torch.Tensor, w_packed: torch.Tensor,
                         scale: torch.Tensor,
                         bias: Optional[torch.Tensor] = None,
@@ -220,3 +284,11 @@ def bitserial_matmul(x: torch.Tensor, w_packed: torch.Tensor,
     if x.is_cuda:
         return bitserial_matmul_cuda(x, w_packed, scale, bias, **kw)
     return bitserial_matmul_ref(x, w_packed, scale, bias, **kw)
+
+
+def bitserial_matmul_grouped(x: torch.Tensor, w_packed: torch.Tensor, *,
+                             spec: SerialSpec, k: int) -> torch.Tensor:
+    """Grouped K4 on CUDA tensors, its plain version on CPU tensors."""
+    if x.is_cuda:
+        return bitserial_matmul_grouped_cuda(x, w_packed, spec=spec, k=k)
+    return bitserial_matmul_grouped_ref(x, w_packed, spec=spec, k=k)

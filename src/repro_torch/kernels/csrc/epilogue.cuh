@@ -1,6 +1,8 @@
 // The fused MVU post-pipeline (BARVINN §3.1.4) shared by the packed conv
 // (K2) and the packed GEMMs (K3, K4): scaler + bias as one FMA -> ReLU ->
-// float | codes = clip(rint(out / rs), qn, qp) | packed codes.
+// float | codes = clip(rint(out / rs), qn, qp) | packed codes; or no
+// post-pipeline at all: the raw int32 accumulator (kAcc, the grouped K4
+// entry, whose caller scales in torch as the reference does).
 //
 // Plain side: repro_torch/kernels/epilogue.py. Numerics: fmaf is the single
 // rounding the reference's jitted (and Pallas) epilogue contracts to (the
@@ -16,10 +18,10 @@
 
 namespace epi {
 
-enum OutMode { kFloat = 0, kCodes8 = 1, kCodes32 = 2, kPacked = 3 };
+enum OutMode { kFloat = 0, kCodes8 = 1, kCodes32 = 2, kPacked = 3, kAcc = 4 };
 
 struct Epilogue {
-  const float* scale;  // (cols,)
+  const float* scale;  // (cols,); null for kAcc
   const float* bias;   // (cols,) or null
   const float* rs;     // one float, or null: no divide
   void* out;
@@ -35,6 +37,10 @@ __device__ __forceinline__ void store(const Epilogue& e, uint32_t acc,
                                       int lane, bool valid, int c,
                                       long long row, long long rows,
                                       int cols) {
+  if (e.out_mode == kAcc) {
+    if (valid) ((int32_t*)e.out)[row * cols + c] = (int32_t)acc;
+    return;
+  }
   const float f = (float)(int32_t)acc;
   const float sc = valid ? e.scale[c] : 0.f;
   float out = e.bias ? fmaf(f, sc, valid ? e.bias[c] : 0.f) : f * sc;

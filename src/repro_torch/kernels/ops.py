@@ -17,7 +17,9 @@ that does not build or launch raises.
 * :func:`serial_matmul_packed_op` — the fused GEMM over packed
   activations (K3), any leading dims;
 * :func:`serial_matmul_op` — the fused GEMM over integer codes (K4);
-* :func:`launch_counts` — the four kernels' launch counts.
+* :func:`serial_matmul_grouped_op` — E experts' code GEMMs in one launch,
+  raw int32 accumulators (grouped K4);
+* :func:`launch_counts` — the kernels' launch counts.
 
 The plain epilogue is :func:`repro_torch.kernels.epilogue.epilogue`, one
 FMA where the reference's jitted ``_epilogue_xla`` contracts to one.
@@ -39,16 +41,19 @@ from repro_torch.kernels import bitserial_conv, bitserial_matmul, quantize_pack
 __all__ = ["pack_activations", "quantize_pack_activations",
            "quantize_pack_activations_multi", "over_rows",
            "serial_conv2d_packed_op", "serial_matmul_packed_op",
-           "serial_matmul_op", "launch_counts"]
+           "serial_matmul_op", "serial_matmul_grouped_op",
+           "launch_counts"]
 
 
 def launch_counts() -> Dict[str, int]:
-    """The kernel wrappers' launch counts: K1, K2, K3 and K4 (a wrapper
-    counts its Python calls, so a CUDA graph's replay adds nothing)."""
+    """The kernel wrappers' launch counts: K1, K2, K3, K4 and grouped K4
+    (``K4g``); a wrapper counts its Python calls, so a CUDA graph's replay
+    adds nothing."""
     mm = bitserial_matmul.KERNEL.entry_launches
     return {"K1": quantize_pack.KERNEL.launches,
             "K2": bitserial_conv.KERNEL.launches,
-            "K3": mm["bitserial_matmul_v2"], "K4": mm["bitserial_matmul_v1"]}
+            "K3": mm["bitserial_matmul_v2"], "K4": mm["bitserial_matmul_v1"],
+            "K4g": mm["bitserial_matmul_v1_grouped"]}
 
 
 def over_rows(fn, x: torch.Tensor, *head: int) -> torch.Tensor:
@@ -147,3 +152,14 @@ def serial_matmul_op(x: torch.Tensor, w_packed: torch.Tensor,
     out = fn(x2, w_packed, scale, bias, spec=spec, k=k, relu=relu,
              out_dtype=out_dtype, requant=requant)
     return out.reshape(lead + (out.shape[-1],))
+
+
+def serial_matmul_grouped_op(x: torch.Tensor, w_packed: torch.Tensor, *,
+                             spec: SerialSpec, k: int,
+                             plain: bool = False) -> torch.Tensor:
+    """E experts' serial matmuls in one launch (grouped K4): (E, C, K)
+    integer codes against (E, w_bits, ceil(K/32), N) packed weights → (E,
+    C, N) int32 accumulators."""
+    fn = (bitserial_matmul.bitserial_matmul_grouped_ref if plain
+          else bitserial_matmul.bitserial_matmul_grouped)
+    return fn(x.to(torch.int32).contiguous(), w_packed, spec=spec, k=k)

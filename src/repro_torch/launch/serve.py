@@ -5,7 +5,10 @@ Counterpart of ``Server``, ``GenRequest``, ``make_lm_engine``,
 ``CNNServer`` and the CLI in ``repro/launch/serve.py``. The LM's weights run
 through the bit-serial kernels: with ``pack_acts`` (the default) every
 projection quantizes and packs its activations with K1 and multiplies with
-K3, otherwise it multiplies int32 codes with K4.
+K3, otherwise it multiplies int32 codes with K4; an MoE stack's routed
+experts multiply int32 codes with grouped K4 (one launch for all experts
+of a projection) either way. Dense (stablelm-1.6b) and MLA + MoE
+(deepseek-v2-lite-16b) stacks are served.
 
 Both paths serve through the serving runtime (:mod:`repro_torch.serving`),
 as the reference's do:
@@ -26,6 +29,7 @@ as the reference's do:
 
     python -m repro_torch.launch.serve --arch stablelm-1.6b --batch 4 --new-tokens 16
     python -m repro_torch.launch.serve --arch stablelm-1.6b --device cpu --smoke [--no-pack-acts]
+    python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b [--device cpu --smoke]
     python -m repro_torch.launch.serve --arch resnet9-cifar10 --batch 32 [--trace-out trace.json]
     python -m repro_torch.launch.serve --arch resnet9-cifar10 --batch 4 --device cpu
     python -m repro_torch.launch.serve trace trace.json [--top-k 10]
@@ -141,7 +145,8 @@ class Server:
     deployment path, greedy decoding.
 
     ``params``: float or packed parameters on the server's device (default:
-    random from ``seed`` on that device); float ones are packed once. The
+    random from ``seed`` on that device, drawn and packed one layer at a
+    time); float ones are packed once. The
     head's float32 weight is cast to the compute dtype once here, where the
     reference casts it at every call — the same numbers. ``pack_acts``
     selects K1 + K3 (True) or K4 (False); ``plain`` runs the kernels'
@@ -168,7 +173,7 @@ class Server:
         self.batch_slots = batch_slots
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = init_params(gen, cfg)
+            params = init_params(gen, cfg, packed=True)
         if params["embed"].device != self.device:
             raise ValueError(f"params lie on {params['embed'].device}, the "
                              f"server on {self.device}")
@@ -405,6 +410,8 @@ def _main_lm(args) -> None:
         m_long if i % 4 == 0 else max(1, m_long // 4))
         for i in range(n_load)]
     kernels = "K1 + K3" if not args.no_pack_acts else "K4"
+    if cfg.n_experts:
+        kernels += " + grouped K4"
     with InferenceService(registry, max_wait_s=0.0) as svc:
         obs = _ObsSession(svc, trace_out=args.trace_out,
                           metrics_port=args.metrics_port,

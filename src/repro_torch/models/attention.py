@@ -1,19 +1,27 @@
-"""Multi-head / grouped-query attention with a KV cache, over quantized
-projections.
+"""Multi-head / grouped-query attention and DeepSeek's multi-head latent
+attention (MLA), with a KV cache, over quantized projections.
 
 Counterpart of ``repro/models/attention.py``, restricted to the branches a
-dense decoder takes: causal, full (no sliding window) and an unquantized
-cache. ``cache_pos`` is a host int (every row of the batch at the same
-depth: the static :class:`~repro_torch.launch.serve.Server`) or a (B,)
-tensor on the batch's device (every row at its own depth: the slot arena
-of :class:`~repro_torch.serving.lm_engine.ContinuousLMEngine`, whose
-decode step is captured as a CUDA graph, so nothing on that path reads a
-device value on the host). All four projections are
-:func:`repro_torch.models.layers.qdense` (q, k and v through
-``qdense_shared``: one quantize-pack of their shared input), so in
-deployment they run through the bit-serial kernels; scores
-and the PV product stay plain float32 torch ops, as the reference
-computes them outside any Pallas kernel.
+decoder takes: causal, full (no sliding window) and an unquantized
+cache; MLA's prefill takes the materialized path (no chunked kernel).
+``cache_pos`` is a host int (every row of the batch at the same depth:
+the static :class:`~repro_torch.launch.serve.Server`) or a (B,) tensor on
+the batch's device (every row at its own depth: the slot arena of
+:class:`~repro_torch.serving.lm_engine.ContinuousLMEngine`, whose decode
+step is captured as a CUDA graph, so nothing on that path reads a device
+value on the host). Every projection is
+:func:`repro_torch.models.layers.qdense` (GQA's q, k and v through
+``qdense_shared``, one quantize-pack of their shared input; MLA's q and
+down-projected kv likewise), so in deployment they run through the
+bit-serial kernels; scores and the PV product stay plain float32 torch
+ops, as the reference computes them outside any Pallas kernel.
+
+MLA (:func:`mla_apply`) caches the compressed latent ``c`` and the
+rotary key part ``k_rope`` per token. Its prefill materializes per-head K
+and V through ``qdense(w_uk)``/``qdense(w_uv)`` on their float ``qat``
+params (LSQ fake-quant), its decode takes the absorbed form over the
+latent cache with the raw float ``w_uk``/``w_uv`` — both exactly as the
+reference does (an asymmetry of the reference, kept).
 
 The cache is updated in place (the reference's ``dynamic_update_slice``
 returns a new array): one preallocated buffer per layer stack, no copy per
@@ -30,10 +38,11 @@ import torch
 
 from repro_torch.models.layers import (QuantPolicy, apply_rotary,
                                        device_scalar, qdense, qdense_init,
-                                       qdense_shared, rotary)
+                                       qdense_shared, rms_norm, rotary)
 
 __all__ = ["AttnConfig", "attn_init", "attn_apply", "init_kv_cache",
-           "update_kv_cache", "read_kv_cache"]
+           "update_kv_cache", "read_kv_cache", "mla_init", "mla_apply",
+           "init_mla_cache"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,6 +54,12 @@ class AttnConfig:
     rope_theta: float = 10000.0
     partial_rotary: float = 1.0
     causal: bool = True
+    # MLA
+    mla: bool = False
+    kv_lora: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
 
     @property
     def rotary_dim(self) -> int:
@@ -113,6 +128,29 @@ def _row_index(pos: torch.Tensor, new: torch.Tensor,
     return idx.reshape((b, s) + (1,) * (new.dim() - 2)).expand(new.shape)
 
 
+def _seq_write(buf: torch.Tensor, new: torch.Tensor, pos,
+               idx: Optional[torch.Tensor] = None):
+    """Write ``new`` (B, S, ...) into ``buf`` (B, T, ...) at positions
+    ``pos .. pos + S - 1``, in place: ``pos`` a host int (a write outside
+    the buffer raises) or a (B,) tensor of per-row starts (clamped into
+    the buffer, as the reference's ``dynamic_update_slice`` clamps).
+    Returns the per-row scatter index (None for a host ``pos``), which a
+    write of a same-shaped tensor at the same positions may pass back as
+    ``idx``."""
+    new = new.to(buf.dtype)
+    if _per_row(pos):
+        if idx is None:
+            idx = _row_index(pos, new, buf.shape[1])
+        buf.scatter_(1, idx, new)
+        return idx
+    pos, s = int(pos), new.shape[1]
+    if pos < 0 or pos + s > buf.shape[1]:
+        raise ValueError(f"cache write [{pos}, {pos + s}) outside "
+                         f"max_len={buf.shape[1]}")
+    buf[:, pos:pos + s] = new
+    return None
+
+
 def update_kv_cache(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
                     pos) -> dict:
     """Write new K/V at positions ``pos .. pos + S - 1`` (in place) and
@@ -120,22 +158,10 @@ def update_kv_cache(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
     decode (S = 1). ``pos`` is a host int for every row (a write outside
     the cache raises), or a (B,) tensor of per-row positions on the cache's
     device (each start clamped into the cache, as the reference does)."""
-    if _per_row(pos):
-        idx = _row_index(pos, k_new, cache["k"].shape[1])
-        cache["k"].scatter_(1, idx, k_new.to(cache["k"].dtype))
-        cache["v"].scatter_(1, idx, v_new.to(cache["v"].dtype))
-        upd = dict(cache)
-        upd["len"] = pos + k_new.shape[1]
-        return upd
-    pos = int(pos)
-    s = k_new.shape[1]
-    if pos < 0 or pos + s > cache["k"].shape[1]:
-        raise ValueError(f"cache write [{pos}, {pos + s}) outside "
-                         f"max_len={cache['k'].shape[1]}")
-    cache["k"][:, pos:pos + s] = k_new.to(cache["k"].dtype)
-    cache["v"][:, pos:pos + s] = v_new.to(cache["v"].dtype)
+    idx = _seq_write(cache["k"], k_new, pos)
+    _seq_write(cache["v"], v_new, pos, idx)
     upd = dict(cache)
-    upd["len"] = pos + s
+    upd["len"] = (pos if _per_row(pos) else int(pos)) + k_new.shape[1]
     return upd
 
 
@@ -189,3 +215,108 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: AttnConfig,
         out = _sdpa_full(q, k, v, causal=cfg.causal, q_offset=0)
     out = qdense(p["wo"], out.reshape(b, s, h * dh), policy)
     return out, new_cache
+
+
+# ------------------------------------------------------------------- MLA
+
+def mla_init(gen: torch.Generator, cfg: AttnConfig, policy: QuantPolicy, *,
+             lead: tuple = ()) -> dict:
+    d, h = cfg.d_model, cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    lora = cfg.kv_lora
+    return {
+        "wq": qdense_init(gen, d, h * (dn + dr), policy, lead=lead),
+        "w_dkv": qdense_init(gen, d, lora + dr, policy, lead=lead),
+        "w_uk": qdense_init(gen, lora, h * dn, policy, lead=lead),
+        "w_uv": qdense_init(gen, lora, h * dv, policy, lead=lead),
+        "wo": qdense_init(gen, h * dv, d, policy, lead=lead),
+        "kv_norm": torch.ones(lead + (lora,), device=gen.device),
+    }
+
+
+def init_mla_cache(batch: int, max_len: int, cfg: AttnConfig, *,
+                   dtype: torch.dtype = torch.bfloat16, device=None) -> dict:
+    """MLA's decode cache: the latent ``c`` (B, T, kv_lora), the rotary
+    key part ``k_rope`` (B, T, qk_rope_dim) and ``len``."""
+    return {
+        "c": torch.zeros((batch, max_len, cfg.kv_lora), dtype=dtype,
+                         device=device),
+        "k_rope": torch.zeros((batch, max_len, cfg.qk_rope_dim), dtype=dtype,
+                              device=device),
+        "len": 0,
+    }
+
+
+def mla_apply(p: dict, x: torch.Tensor, cfg: AttnConfig,
+              policy: QuantPolicy, *, positions=None,
+              cache: Optional[dict] = None, cache_pos=None):
+    """DeepSeek MLA over (B, S, D). Returns ``(out, new_cache)``.
+
+    A prefill (a cache, S > 1, host ``cache_pos`` 0) seeds the latent
+    cache and attends through per-head K and V materialized by
+    ``qdense(w_uk)``/``qdense(w_uv)``; a decode (any other call with a
+    cache) writes ``c``/``k_rope`` at ``cache_pos`` (a host int, or a (B,)
+    tensor of per-row positions) and attends in the absorbed float32 form:
+    queries into latent space through the raw ``w_uk``, the context out
+    through the raw ``w_uv``, masked to -1e30 beyond each query."""
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    lora = cfg.kv_lora
+    f32 = torch.float32
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
+    q, ckv = qdense_shared([p["wq"], p["w_dkv"]], x, policy)
+    q = q.reshape(b, s, h, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    c, k_rope = ckv[..., :lora], ckv[..., lora:]
+    c = rms_norm(c, p["kv_norm"])
+    cos, sin = rotary(positions, dr, cfg.rope_theta)
+    q_rope = apply_rotary(q_rope, cos, sin, dr)
+    k_rope = apply_rotary(k_rope[..., None, :], cos, sin, dr)[..., 0, :]
+
+    prefill = (cache is not None and s > 1 and not _per_row(cache_pos)
+               and int(cache_pos) == 0)
+    if cache is not None:
+        _seq_write(cache["c"], c, cache_pos)
+        _seq_write(cache["k_rope"], k_rope, cache_pos)
+        upd = dict(cache)
+        upd["len"] = (cache_pos if _per_row(cache_pos)
+                      else int(cache_pos)) + s
+    else:
+        upd = None
+
+    if cache is not None and not prefill:
+        # decode: absorbed form over the latent cache
+        c_all, kr_all = upd["c"].to(f32), upd["k_rope"].to(f32)
+        wuk = p["w_uk"]["w"].reshape(lora, h, dn).to(f32)
+        q_c = torch.einsum("bshd,lhd->bshl", q_nope.to(f32), wuk)
+        scores = (torch.einsum("bshl,btl->bhst", q_c, c_all)
+                  + torch.einsum("bshd,btd->bhst", q_rope.to(f32), kr_all))
+        scores = scores / device_scalar(math.sqrt(dn + dr), x.device)
+        kpos = torch.arange(c_all.shape[1], device=x.device)
+        ar = torch.arange(s, device=x.device)
+        if _per_row(cache_pos):
+            qpos = cache_pos[:, None, None] + ar[None, :, None]
+            mask = (kpos[None, None, :] <= qpos)[:, None]   # (B,1,s,T)
+        else:
+            qpos = int(cache_pos) + ar[:, None]
+            mask = (kpos[None, :] <= qpos)[None, None]      # (1,1,s,T)
+        scores = scores.masked_fill(~mask, -1e30)
+        pattn = torch.softmax(scores, dim=-1)
+        ctx_c = torch.einsum("bhst,btl->bshl", pattn, c_all)
+        wuv = p["w_uv"]["w"].reshape(lora, h, dv).to(f32)
+        out_v = torch.einsum("bshl,lhv->bshv", ctx_c, wuv)
+        out = qdense(p["wo"], out_v.reshape(b, s, h * dv).to(x.dtype),
+                     policy)
+        return out, upd
+
+    # train / prefill: materialize per-head K, V from the latent
+    k_nope = qdense(p["w_uk"], c, policy).reshape(b, s, h, dn)
+    vfull = qdense(p["w_uv"], c, policy).reshape(b, s, h, dv)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, dr)],
+                  dim=-1)
+    qfull = torch.cat([q_nope, q_rope], dim=-1)
+    out = _sdpa_full(qfull, k, vfull, causal=True, q_offset=0)
+    out = qdense(p["wo"], out.reshape(b, s, h * dv), policy)
+    return out, upd

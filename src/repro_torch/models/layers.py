@@ -14,9 +14,14 @@ through :func:`qdense`, which dispatches on its parameters:
   :func:`qdense_shared` runs the projections of one activation with one K1
   launch for all of them.
 
-LSQ fake-quant (mode ``qat`` on float params) waits for the LSQ
-straight-through estimator and raises. Parameters are plain dicts; layer
-stacks carry a leading ``(L, ...)`` axis on every leaf.
+* float params in mode ``qat`` (``{"w", "alpha_w", "alpha_a"}``) — LSQ
+  fake-quant of the weights and the input, then the matmul: the forward of
+  the reference's quant-aware training path (MLA's prefill runs it on the
+  unpacked ``w_uk``/``w_uv``). Its straight-through gradient is training's,
+  not ported yet.
+
+Parameters are plain dicts; layer stacks carry a leading ``(L, ...)`` axis
+on every leaf.
 """
 
 from __future__ import annotations
@@ -30,7 +35,8 @@ import torch
 
 from repro_torch.core import bitops
 from repro_torch.core.bitserial import SerialSpec, plan_spec
-from repro_torch.core.quant import QuantSpec, init_alpha, quantize_int, qrange
+from repro_torch.core.quant import (QuantSpec, init_alpha, lsq_fake_quant,
+                                    quantize_int, qrange)
 from repro_torch.kernels import ops
 
 __all__ = ["QuantPolicy", "qdense_init", "qdense", "qdense_shared",
@@ -104,11 +110,14 @@ def qdense(p: dict, x: torch.Tensor, policy: QuantPolicy) -> torch.Tensor:
                                    spec=plan_spec(policy.spec()),
                                    k=x.shape[-1], plain=policy.plain)
         return out.to(x.dtype)
+    w = p["w"]
     if policy.mode == "qat" and "alpha_w" in p:
-        raise NotImplementedError(
-            "LSQ fake-quant (mode 'qat' on float params) waits for the LSQ "
-            "straight-through estimator; serve packed params instead")
-    out = torch.matmul(x, p["w"].to(x.dtype))
+        # the forward of LSQ fake-quant, as the reference's qdense
+        wspec = QuantSpec(policy.w_bits, policy.w_signed, per_channel=True)
+        aspec = QuantSpec(policy.a_bits, policy.a_signed)
+        w = lsq_fake_quant(w, p["alpha_w"].to(w.dtype), wspec)
+        x = lsq_fake_quant(x, p["alpha_a"].to(x.dtype), aspec)
+    out = torch.matmul(x, w.to(x.dtype))
     if "b" in p:
         out = out + p["b"].to(x.dtype)
     return out

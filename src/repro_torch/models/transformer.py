@@ -1,13 +1,13 @@
-"""The dense decoder of the model zoo: a stack of pre-norm attention + MLP
-blocks with every projection quant-aware.
+"""The decoder stacks of the model zoo: pre-norm attention (GQA or MLA)
++ MLP or MoE blocks with every projection quant-aware.
 
-Counterpart of ``repro/models/transformer.py``, dense branches only (no
-MoE, MLA, SSM, hybrid, encoder-decoder or frontend; SwiGLU MLPs, an untied
-head, no QKV bias). Parameters are plain dicts in the reference's layout:
-a layer group carries every leaf with a leading ``(L, ...)`` axis, and
-:func:`_run_groups` walks it with a Python loop where the reference runs
-``lax.scan``. :func:`params_from_numpy` carries the reference's parameter
-pytree (float or packed) across.
+Counterpart of ``repro/models/transformer.py``, dense and MoE branches
+(GQA or MLA attention, SwiGLU MLPs and experts, an untied head, no QKV
+bias; no SSM, hybrid, encoder-decoder or frontend). Parameters are plain
+dicts in the reference's layout: a layer group carries every leaf with a
+leading ``(L, ...)`` axis, and :func:`_run_groups` walks it with a Python
+loop where the reference runs ``lax.scan``. :func:`params_from_numpy`
+carries the reference's parameter pytree (float or packed) across.
 """
 
 from __future__ import annotations
@@ -20,10 +20,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.attention import (AttnConfig, attn_apply, attn_init,
-                                          init_kv_cache)
+                                          init_kv_cache, init_mla_cache,
+                                          mla_apply, mla_init)
 from repro_torch.models.layers import (QuantPolicy, layer_norm, pack_qdense,
                                        qdense, qdense_init, qdense_shared,
                                        rms_norm)
+from repro_torch.models.moe import MoEConfig, moe_apply, moe_init
 
 __all__ = ["ModelConfig", "GroupSpec", "layer_groups", "init_params",
            "forward", "prefill", "decode_step", "init_caches",
@@ -33,7 +35,7 @@ __all__ = ["ModelConfig", "GroupSpec", "layer_groups", "init_params",
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # only 'dense' is ported
+    family: str                     # 'dense' or 'moe' are ported
     n_layers: int
     d_model: int
     n_heads: int
@@ -46,6 +48,19 @@ class ModelConfig:
     partial_rotary: float = 1.0
     norm_type: str = "rms"
     norm_eps: float = 1e-6
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0
+    d_ff_expert: int = 0
+    n_dense_layers: int = 0          # leading dense layers (deepseek)
+    norm_topk_prob: bool = True
+    # MLA
+    mla: bool = False
+    kv_lora: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
     policy: QuantPolicy = QuantPolicy(mode="none")
     dtype: str = "bfloat16"
 
@@ -57,53 +72,105 @@ class ModelConfig:
         return AttnConfig(
             d_model=self.d_model, n_heads=self.n_heads,
             n_kv_heads=self.n_kv_heads, head_dim=self.head_dim,
-            rope_theta=self.rope_theta, partial_rotary=self.partial_rotary)
+            rope_theta=self.rope_theta, partial_rotary=self.partial_rotary,
+            mla=self.mla, kv_lora=self.kv_lora, qk_nope_dim=self.qk_nope_dim,
+            qk_rope_dim=self.qk_rope_dim, v_head_dim=self.v_head_dim)
+
+    def moe_cfg(self) -> MoEConfig:
+        return MoEConfig(d_model=self.d_model, d_ff_expert=self.d_ff_expert,
+                         n_experts=self.n_experts, top_k=self.top_k,
+                         n_shared=self.n_shared_experts,
+                         d_ff_shared=self.n_shared_experts * self.d_ff_expert,
+                         norm_topk_prob=self.norm_topk_prob, act=self.act)
 
 
 @dataclasses.dataclass(frozen=True)
 class GroupSpec:
-    kind: str          # 'attn'
+    kind: str          # 'attn' | 'mla'
     n: int
+    use_moe: bool = False
 
 
 def layer_groups(cfg: ModelConfig) -> Tuple[GroupSpec, ...]:
-    """The stack as homogeneous groups: one attention group for a dense
-    model; other families and MLP activations are not ported."""
-    if cfg.family != "dense" or cfg.act != "swiglu":
+    """The stack as homogeneous groups: one group, or (deepseek) the
+    leading dense layers and then the MoE layers. Other families and MLP
+    activations are not ported."""
+    if cfg.family not in ("dense", "moe") or cfg.act != "swiglu":
         raise NotImplementedError(f"family {cfg.family!r} with act "
-                                  f"{cfg.act!r} is not ported (dense "
-                                  "SwiGLU only)")
-    return (GroupSpec("attn", cfg.n_layers),)
+                                  f"{cfg.act!r} is not ported (dense and "
+                                  "MoE SwiGLU only)")
+    kind = "mla" if cfg.mla else "attn"
+    moe = cfg.n_experts > 0
+    if moe and cfg.n_dense_layers > 0:
+        return (GroupSpec(kind, cfg.n_dense_layers, use_moe=False),
+                GroupSpec(kind, cfg.n_layers - cfg.n_dense_layers,
+                          use_moe=True))
+    return (GroupSpec(kind, cfg.n_layers, use_moe=moe),)
 
 
 # ------------------------------------------------------------------- params
 
-def _block_init(gen: torch.Generator, cfg: ModelConfig, n: int) -> dict:
+def _block_init(gen: torch.Generator, cfg: ModelConfig,
+                spec: GroupSpec) -> dict:
+    """One layer's float parameters."""
     d, f, dev = cfg.d_model, cfg.d_ff, gen.device
-    lead = (n,)
-    p = {"norm1": torch.ones(lead + (d,), device=dev),
-         "attn": attn_init(gen, cfg.attn_cfg(), cfg.policy, lead=lead),
-         "norm2": torch.ones(lead + (d,), device=dev)}
+    p = {"norm1": torch.ones((d,), device=dev)}
     if cfg.norm_type == "layer":
-        p["norm1_b"] = torch.zeros(lead + (d,), device=dev)
-        p["norm2_b"] = torch.zeros(lead + (d,), device=dev)
-    p["mlp"] = {"w_up": qdense_init(gen, d, f, cfg.policy, lead=lead),
-                "w_down": qdense_init(gen, f, d, cfg.policy, lead=lead),
-                "w_gate": qdense_init(gen, d, f, cfg.policy, lead=lead)}
+        p["norm1_b"] = torch.zeros((d,), device=dev)
+    if spec.kind == "mla":
+        p["attn"] = mla_init(gen, cfg.attn_cfg(), cfg.policy)
+    else:
+        p["attn"] = attn_init(gen, cfg.attn_cfg(), cfg.policy)
+    p["norm2"] = torch.ones((d,), device=dev)
+    if cfg.norm_type == "layer":
+        p["norm2_b"] = torch.zeros((d,), device=dev)
+    if spec.use_moe:
+        p["moe"] = moe_init(gen, cfg.moe_cfg(), cfg.policy)
+    else:
+        p["mlp"] = {"w_up": qdense_init(gen, d, f, cfg.policy),
+                    "w_down": qdense_init(gen, f, d, cfg.policy),
+                    "w_gate": qdense_init(gen, d, f, cfg.policy)}
     return p
 
 
-def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
+def _stack_into(dst, src, i: int, n: int):
+    """Write layer ``src`` into slot ``i`` of the (n, ...) stack ``dst``
+    (allocated from the first layer when None); returns the stack."""
+    if isinstance(src, dict):
+        dst = {} if dst is None else dst
+        for k, v in src.items():
+            dst[k] = _stack_into(dst.get(k), v, i, n)
+        return dst
+    if dst is None:
+        dst = torch.empty((n,) + tuple(src.shape), dtype=src.dtype,
+                          device=src.device)
+    dst[i].copy_(src)
+    return dst
+
+
+def init_params(gen: torch.Generator, cfg: ModelConfig, *,
+                packed: bool = False) -> dict:
     """Random float parameters drawn from ``gen`` on ``gen.device``, in
     the reference's layout and scales (its numbers differ: another
-    generator)."""
+    generator). Layers are drawn one at a time into their group's stack;
+    with ``packed`` each layer is packed (:func:`pack_params`) before it
+    is stacked, so the float peak is one layer's — how a full-width MoE
+    stack (26 x 64 experts) is made on one card."""
     d, v, dev = cfg.d_model, cfg.vocab_size, gen.device
     params = {
         "embed": torch.randn((v, d), generator=gen, device=dev) * 0.02,
         "final_norm": torch.ones((d,), device=dev),
-        "groups": [_block_init(gen, cfg, spec.n)
-                   for spec in layer_groups(cfg)],
+        "groups": [],
     }
+    for spec in layer_groups(cfg):
+        stack = None
+        for i in range(spec.n):
+            layer = _block_init(gen, cfg, spec)
+            if packed:
+                layer = _pack_tree(layer, cfg.policy)
+            stack = _stack_into(stack, layer, i, spec.n)
+            del layer
+        params["groups"].append(stack)
     if cfg.norm_type == "layer":
         params["final_norm_b"] = torch.zeros((d,), device=dev)
     params["head"] = qdense_init(gen, d, v, QuantPolicy(mode="none"))
@@ -138,15 +205,23 @@ def _mlp_apply(p, x, cfg: ModelConfig):
     return qdense(p["w_down"], h, cfg.policy)
 
 
-def _block_apply(p, x, cfg: ModelConfig, *, positions, cache=None,
-                 cache_pos=None):
-    """One pre-norm block. Returns ``(x, new_cache)``."""
+def _block_apply(p, x, cfg: ModelConfig, spec: GroupSpec, *, positions,
+                 cache=None, cache_pos=None, aux=None):
+    """One pre-norm block. Returns ``(x, new_cache)``; an MoE block
+    appends its ``lb_loss`` and ``drop_frac`` to ``aux``'s lists when
+    ``aux`` is a dict."""
     h = _norm(x, p["norm1"], p.get("norm1_b"), cfg)
-    out, new_c = attn_apply(p["attn"], h, cfg.attn_cfg(), cfg.policy,
-                            positions=positions, cache=cache,
-                            cache_pos=cache_pos)
+    attn = mla_apply if spec.kind == "mla" else attn_apply
+    out, new_c = attn(p["attn"], h, cfg.attn_cfg(), cfg.policy,
+                      positions=positions, cache=cache, cache_pos=cache_pos)
     x = x + out
     hm = _norm(x, p["norm2"], p.get("norm2_b"), cfg)
+    if spec.use_moe:
+        mo, maux = moe_apply(p["moe"], hm, cfg.moe_cfg(), cfg.policy)
+        if aux is not None:
+            aux.setdefault("lb_loss", []).append(maux["lb_loss"])
+            aux.setdefault("drop_frac", []).append(maux["drop_frac"])
+        return x + mo, new_c
     return x + _mlp_apply(p["mlp"], hm, cfg), new_c
 
 
@@ -158,21 +233,28 @@ def _layer(tree, i: int):
 
 
 def _run_groups(groups_params, x, cfg: ModelConfig, specs, *, positions,
-                caches=None, cache_pos=None):
+                caches=None, cache_pos=None, aux=None):
     """Run each group's layers in order; returns ``(x, caches)``. The
-    caches are written in place."""
+    caches are written in place; ``aux`` (a dict) collects the MoE
+    layers' statistics."""
     for gi, (gp, spec) in enumerate(zip(groups_params, specs)):
         gcache = caches[gi] if caches is not None else None
         for i in range(spec.n):
             cl = None
             if gcache is not None:
-                cl = {"k": gcache["k"][i], "v": gcache["v"][i],
-                      "len": gcache["len"]}
-            x, nc = _block_apply(_layer(gp, i), x, cfg, positions=positions,
-                                 cache=cl, cache_pos=cache_pos)
+                cl = {k: (v if k == "len" else v[i])
+                      for k, v in gcache.items()}
+            x, nc = _block_apply(_layer(gp, i), x, cfg, spec,
+                                 positions=positions, cache=cl,
+                                 cache_pos=cache_pos, aux=aux)
             if gcache is not None:
                 gcache["len"] = nc["len"]
     return x, caches
+
+
+def _stack_aux(aux: dict) -> dict:
+    """The MoE layers' statistics as (n_moe_layers,) tensors."""
+    return {k: torch.stack(v) for k, v in aux.items()}
 
 
 def _embed_inputs(params, batch, cfg: ModelConfig):
@@ -189,25 +271,34 @@ def _logits(params, x, cfg: ModelConfig):
 
 def forward(params, batch, cfg: ModelConfig):
     """Full forward to logits; ``batch``: ``{"tokens": (B, S)}``. Returns
-    ``(logits, aux)``; a dense stack has no auxiliary loss (``aux`` empty)."""
+    ``(logits, aux)``: a dense stack's ``aux`` is empty; an MoE stack's
+    holds ``lb_loss``, summed over its MoE layers, as the reference's."""
     x, positions = _embed_inputs(params, batch, cfg)
+    aux = {}
     x, _ = _run_groups(params["groups"], x, cfg, layer_groups(cfg),
-                       positions=positions)
-    return _logits(params, x, cfg), {}
+                       positions=positions, aux=aux)
+    aux = {"lb_loss": _stack_aux(aux)["lb_loss"].sum()} if aux else {}
+    return _logits(params, x, cfg), aux
 
 
 # ------------------------------------------------------------------ serving
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None):
-    """One stacked KV cache per group: ``k``/``v`` (L, B, T, Hkv, D) and
-    ``len`` 0. The continuous engine's slot arena is one such list."""
+    """One stacked cache per group, ``len`` 0: GQA ``k``/``v`` (L, B, T,
+    Hkv, D), or MLA's latent ``c`` (L, B, T, kv_lora) and ``k_rope`` (L,
+    B, T, qk_rope_dim). The continuous engine's slot arena is one such
+    list."""
     caches = []
     for spec in layer_groups(cfg):
-        c = init_kv_cache(batch, max_len, cfg.n_kv_heads, cfg.head_dim,
-                          dtype=cfg.compute_dtype, device=device)
-        caches.append({"k": c["k"][None].repeat(spec.n, 1, 1, 1, 1),
-                       "v": c["v"][None].repeat(spec.n, 1, 1, 1, 1),
-                       "len": c["len"]})
+        if spec.kind == "mla":
+            c = init_mla_cache(batch, max_len, cfg.attn_cfg(),
+                               dtype=cfg.compute_dtype, device=device)
+        else:
+            c = init_kv_cache(batch, max_len, cfg.n_kv_heads, cfg.head_dim,
+                              dtype=cfg.compute_dtype, device=device)
+        caches.append({k: (v if k == "len" else
+                           v[None].repeat((spec.n,) + (1,) * v.dim()))
+                       for k, v in c.items()})
     return caches
 
 
@@ -216,7 +307,8 @@ def prefill(params, batch, cfg: ModelConfig, max_len: int, last_pos=None):
     caches)``: the logits of every row's last position, or, with
     ``last_pos`` (a (B,) tensor), of row b's position ``last_pos[b]`` — the
     last real token of a right-padded prompt. Under the causal mask the
-    positions up to it compute as an unpadded prompt's do."""
+    positions up to it compute as an unpadded prompt's do (an MoE layer's
+    capacity still counts the pads: the reference's dispatch)."""
     x, positions = _embed_inputs(params, batch, cfg)
     caches = init_caches(cfg, x.shape[0], max_len, device=x.device)
     x, caches = _run_groups(params["groups"], x, cfg, layer_groups(cfg),
@@ -228,21 +320,27 @@ def prefill(params, batch, cfg: ModelConfig, max_len: int, last_pos=None):
     return _logits(params, x, cfg)[:, 0], caches
 
 
-def decode_step(params, caches, tokens, pos, cfg: ModelConfig):
+def decode_step(params, caches, tokens, pos, cfg: ModelConfig,
+                aux: Optional[dict] = None):
     """One token for every row. ``tokens``: (B, 1); ``pos``: the position
     of that token, a host int for every row (a lockstep batch) or a (B,)
     tensor of per-row positions on the batch's device (the slot arena,
     every row at its own depth; nothing then reads a device value on the
-    host). Returns ``(logits (B, V), caches)``."""
+    host). ``aux``, a dict, receives the MoE layers' ``lb_loss`` and
+    ``drop_frac``, one per MoE layer each. Returns ``(logits (B, V),
+    caches)``."""
     x = params["embed"][tokens].to(cfg.compute_dtype)
     if torch.is_tensor(pos) and pos.dim() == 1:
         positions = pos[:, None]
     else:
         positions = torch.full((1, 1), int(pos), dtype=torch.int64,
                                device=x.device)
+    own = {}
     x, caches = _run_groups(params["groups"], x, cfg, layer_groups(cfg),
                             positions=positions, caches=caches,
-                            cache_pos=pos)
+                            cache_pos=pos, aux=own)
+    if aux is not None:
+        aux.update(_stack_aux(own))
     return _logits(params, x, cfg)[:, 0], caches
 
 
@@ -262,22 +360,29 @@ def serve_policy(cfg: ModelConfig, *, pack_acts: Optional[bool] = None,
         cfg, policy=dataclasses.replace(cfg.policy, **updates))
 
 
+#: MLA's absorbed decode multiplies through W_uk/W_uv in latent space on
+#: the fly: those two (small) matrices stay float, as in the reference
+KEEP_FLOAT = frozenset({"w_uk", "w_uv"})
+
+
+def _pack_tree(p, policy: QuantPolicy, name: str = ""):
+    """Every quantized dense in ``p`` (2-D, stacked or per-expert 3-D
+    weights) packed, but those named in :data:`KEEP_FLOAT`."""
+    if isinstance(p, dict):
+        if ("w" in p and torch.is_tensor(p["w"]) and p["w"].dim() >= 2
+                and p["w"].shape[-1] > 4 and name not in KEEP_FLOAT):
+            return pack_qdense(p, policy)
+        return {k: _pack_tree(v, policy, k) for k, v in p.items()}
+    if isinstance(p, list):
+        return [_pack_tree(v, policy, name) for v in p]
+    return p
+
+
 def pack_params(params, cfg: ModelConfig):
     """Export float params to the deployment form: every quantized dense
-    of the layer groups becomes bit-transposed packed planes. Packed
-    params pass through unchanged."""
-    policy = cfg.policy
-
-    def walk(p):
-        if isinstance(p, dict):
-            if ("w" in p and torch.is_tensor(p["w"]) and p["w"].dim() >= 2
-                    and p["w"].shape[-1] > 4):
-                return pack_qdense(p, policy)
-            return {k: walk(v) for k, v in p.items()}
-        if isinstance(p, list):
-            return [walk(v) for v in p]
-        return p
-
+    of the layer groups becomes bit-transposed packed planes (the routed
+    experts' (E, K, N) weights per expert), MLA's ``w_uk``/``w_uv`` stay
+    float. Packed params pass through unchanged."""
     packed = dict(params)
-    packed["groups"] = [walk(g) for g in params["groups"]]
+    packed["groups"] = [_pack_tree(g, cfg.policy) for g in params["groups"]]
     return packed

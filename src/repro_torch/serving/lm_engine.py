@@ -43,7 +43,12 @@ synthetic per-token command stream built from the model's projection GEMVs
 through :func:`repro_torch.core.codegen.generate` — the barrel-controller
 cycle model prices each step by active slots and precision.
 
-Families: the dense SwiGLU stacks the port hosts. Everything else
+Families: dense and MoE stacks (GQA or MLA attention), as in the
+reference. An MoE layer's capacity counts the tokens of its call, so a
+row's tokens can depend on the other rows of the arena (the reference's
+dispatch); each step's ``drop_frac`` (the share of routed (token, expert)
+pairs beyond capacity, per MoE layer) is kept on the device
+(:meth:`ContinuousLMEngine.drop_fractions`). Everything else
 (:func:`supports_continuous` is False) belongs on the static ``Server``
 path, as in the reference.
 """
@@ -66,8 +71,8 @@ from repro_torch.core.pipeline_modules import disable_tf32
 from repro_torch.kernels import ops
 from repro_torch.models.transformer import (ModelConfig, decode_step,
                                             init_caches, init_params,
-                                            pack_params, prefill,
-                                            serve_policy)
+                                            layer_groups, pack_params,
+                                            prefill, serve_policy)
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.tracing import TraceContext, now_ns
 from repro_torch.runtime.straggler import StragglerDetector
@@ -76,11 +81,11 @@ __all__ = ["ContinuousLMEngine", "supports_continuous", "decode_cost_stream"]
 
 
 def supports_continuous(cfg: ModelConfig) -> bool:
-    """Can the port run this arch's slot-arena decode loop? Dense SwiGLU
-    stacks with full causal attention qualify. The reference also hosts
-    MoE and MLA stacks; the port has not got them, and SSM/hybrid state,
-    sliding-window caches and encoder inputs do not slot-insert in either."""
-    if getattr(cfg, "family", None) != "dense":
+    """Can the port run this arch's slot-arena decode loop? Dense and MoE
+    SwiGLU stacks (GQA or MLA) with full causal attention qualify, as in
+    the reference; SSM/hybrid state, sliding-window caches and encoder
+    inputs do not slot-insert in either."""
+    if getattr(cfg, "family", None) not in ("dense", "moe"):
         return False
     if getattr(cfg, "act", None) != "swiglu":
         return False
@@ -92,22 +97,33 @@ def supports_continuous(cfg: ModelConfig) -> bool:
 
 def decode_cost_stream(cfg: ModelConfig):
     """A synthetic one-token command stream: every projection GEMV of one
-    decode step of a dense stack, priced at the arch's serving precision.
-    The scheduler books this per decode step with ``cycle_scale =
-    n_active`` — slot booking in the barrel-controller cycle domain, per
-    token rather than per request."""
+    decode step, priced at the arch's serving precision (an MoE layer
+    counts its active experts: top_k routed plus the shared ones). The
+    scheduler books this per decode step with ``cycle_scale = n_active``
+    — slot booking in the barrel-controller cycle domain, per token
+    rather than per request."""
     h, hkv, dh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
     layers: List[LinearLayer] = []
     for i in range(cfg.n_layers):
         p = f"l{i}."
-        layers += [LinearLayer(p + "wq", d, h * dh),
-                   LinearLayer(p + "wk", d, hkv * dh),
-                   LinearLayer(p + "wv", d, hkv * dh),
-                   LinearLayer(p + "wo", h * dh, d)]
-        layers.append(LinearLayer(p + "w_up", d, cfg.d_ff))
+        if cfg.mla:
+            dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+            layers += [LinearLayer(p + "wq", d, h * (dn + dr)),
+                       LinearLayer(p + "w_dkv", d, cfg.kv_lora + dr),
+                       LinearLayer(p + "wo", h * dv, d)]
+        else:
+            layers += [LinearLayer(p + "wq", d, h * dh),
+                       LinearLayer(p + "wk", d, hkv * dh),
+                       LinearLayer(p + "wv", d, hkv * dh),
+                       LinearLayer(p + "wo", h * dh, d)]
+        if cfg.family == "moe" and i >= cfg.n_dense_layers and cfg.n_experts:
+            d_ff = cfg.d_ff_expert * (cfg.top_k + cfg.n_shared_experts)
+        else:
+            d_ff = cfg.d_ff
+        layers.append(LinearLayer(p + "w_up", d, d_ff))
         if cfg.act == "swiglu":
-            layers.append(LinearLayer(p + "w_gate", d, cfg.d_ff))
-        layers.append(LinearLayer(p + "w_down", cfg.d_ff, d))
+            layers.append(LinearLayer(p + "w_gate", d, d_ff))
+        layers.append(LinearLayer(p + "w_down", d_ff, d))
     layers.append(LinearLayer("head", d, cfg.vocab_size))
     pol = cfg.policy
     bits = (pol.a_bits, pol.w_bits) if pol.mode != "none" else (8, 8)
@@ -116,7 +132,8 @@ def decode_cost_stream(cfg: ModelConfig):
 
 
 def _launch_counts() -> Dict[str, int]:
-    """The kernel wrappers' launch counts the LM makes: K1, K3 and K4."""
+    """The kernel wrappers' launch counts the LM makes: K1, K3, K4 and
+    grouped K4 (``K4g``, the routed experts)."""
     return {k: v for k, v in ops.launch_counts().items() if k != "K2"}
 
 
@@ -146,7 +163,8 @@ class ContinuousLMEngine:
     prefill bucket, the insert, the decode step's capture) to prove it.
 
     ``params``: float or packed parameters on the engine's device (default:
-    random from ``seed`` there); float ones are packed once, and the head's
+    random from ``seed`` there, drawn and packed one layer at a time);
+    float ones are packed once, and the head's
     float32 weight is cast to the compute dtype once, as in ``Server``.
     ``pack_acts`` selects K1 + K3 (True) or K4 (False); ``plain`` runs the
     kernels' plain versions (the yardstick). ``device=None`` means the
@@ -183,7 +201,7 @@ class ContinuousLMEngine:
         self.max_len = max_len
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = init_params(gen, cfg)
+            params = init_params(gen, cfg, packed=True)
         if params["embed"].device != self.device:
             raise ValueError(f"params lie on {params['embed'].device}, the "
                              f"engine on {self.device}")
@@ -192,6 +210,7 @@ class ContinuousLMEngine:
             cfg.compute_dtype))
         self.params = params
         self.prompt_buckets = bucket_sizes(max_len)
+        self._n_moe = sum(g.n for g in layer_groups(cfg) if g.use_moe)
 
         # first-sight counters: a new prefill bucket, the insert, the
         # decode step's capture; steady-state serving keeps them flat —
@@ -291,8 +310,9 @@ class ContinuousLMEngine:
         self._call("insert")
         a = self._arena
         for g, p in zip(a["caches"], pref):
-            g["k"][:, si].copy_(p["k"][:, 0])
-            g["v"][:, si].copy_(p["v"][:, 0])
+            for name, buf in g.items():
+                if name != "len":   # k/v, or MLA's c/k_rope
+                    buf[:, si].copy_(p[name][:, 0])
         a["tok"][si].copy_(tok0)
         a["pos"][si].fill_(start_pos)
         a["active"][si].fill_(True)
@@ -304,10 +324,14 @@ class ContinuousLMEngine:
         overwrites. The body captured as the CUDA graph."""
         a = self._arena
         tok, pos, active = a["tok"], a["pos"], a["active"]
-        logits, _ = decode_step(self.params, a["caches"], tok, pos, self.cfg)
+        aux = {}
+        logits, _ = decode_step(self.params, a["caches"], tok, pos, self.cfg,
+                                aux=aux)
         nxt = torch.argmax(logits, -1).to(torch.int32)[:, None]
         tok.copy_(torch.where(active[:, None], nxt, tok))
         pos.copy_(torch.where(active, pos + 1, pos))
+        if "drop_frac" in aux:
+            a["drop_frac"].copy_(aux["drop_frac"])
 
     def _fresh_arena(self) -> None:
         """Allocate the arena's static buffers and, on the card, capture its
@@ -318,6 +342,8 @@ class ContinuousLMEngine:
             "tok": torch.zeros((b, 1), dtype=torch.int32, device=dev),
             "pos": torch.zeros((b,), dtype=torch.int32, device=dev),
             "active": torch.zeros((b,), dtype=torch.bool, device=dev),
+            "drop_frac": torch.zeros((self._n_moe,), dtype=torch.float32,
+                                     device=dev),
         }
         self._compile("decode", (b, self.max_len))
         if dev.type != "cuda":
@@ -354,6 +380,8 @@ class ContinuousLMEngine:
                   self._c_step_wall, self._g_queue_peak):
             c.clear()
         self._latencies = collections.deque(maxlen=4096)
+        # per decode step: the MoE layers' drop_frac, on the device
+        self._drops = collections.deque(maxlen=4096)
         # (booked est_cycles, measured wall ns) per decode step — the LM
         # path's calibration samples; unfenced like the straggler
         # observations, so the hot loop stays free of host syncs
@@ -391,6 +419,17 @@ class ContinuousLMEngine:
     @property
     def step_wall_seconds(self) -> float:
         return self._c_step_wall.value()
+
+    def drop_fractions(self) -> Optional[np.ndarray]:
+        """(steps, n_moe_layers): each decode step's share of routed
+        (token, expert) pairs beyond capacity per MoE layer, every row of
+        the arena counted (empty rows route too), since the last
+        warmup/reset; None for a dense stack. One host copy."""
+        if not self._n_moe:
+            return None
+        if not self._drops:
+            return np.zeros((0, self._n_moe), np.float32)
+        return torch.stack(list(self._drops)).cpu().numpy()
 
     def wall_samples(self) -> List[tuple]:
         """(booked est_cycles, measured wall ns) per decode step since the
@@ -494,8 +533,10 @@ class ContinuousLMEngine:
                         self._scheduler.complete(adm, adm.est_seconds)
                 self._call("decode")
                 self._run_step()
-                # the step's buffer is overwritten by the next step
+                # the step's buffers are overwritten by the next step
                 cols.append(self._arena["tok"][:, 0].clone())
+                if self._n_moe:
+                    self._drops.append(self._arena["drop_frac"].clone())
                 self._c_steps.inc()
                 self._c_slot_steps.inc(n_active)
                 self._step_seq += 1

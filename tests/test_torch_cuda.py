@@ -369,13 +369,15 @@ def test_graphed_engine_equals_cpu_engine(dev, pack_acts):
     assert st["cuda_graph"] and st["compiles"]["decode"] == 1
     assert st["recompiles_after_warmup"] == 0
     n = cfg.n_layers
-    assert st["step_launches"] == ({"K1": 4 * n, "K3": 7 * n, "K4": 0}
+    assert st["step_launches"] == ({"K1": 4 * n, "K3": 7 * n, "K4": 0,
+                                    "K4g": 0}
                                    if pack_acts else
-                                   {"K1": 0, "K3": 0, "K4": 7 * n})
+                                   {"K1": 0, "K3": 0, "K4": 7 * n, "K4g": 0})
     plain = ContinuousLMEngine(cfg, gpu.params, batch_slots=3, max_len=32,
                                pack_acts=pack_acts, plain=True)
     assert [r.out_tokens for r in plain.serve(_engine_load(1))] == got
-    assert plain.stats()["step_launches"] == {"K1": 0, "K3": 0, "K4": 0}
+    assert plain.stats()["step_launches"] == {"K1": 0, "K3": 0, "K4": 0,
+                                              "K4g": 0}
 
 
 def test_replayed_arena_serves_like_a_fresh_engine(dev):
@@ -445,8 +447,8 @@ def test_captured_bucket_equals_eager_forward(dev, plain):
     prog = _tiny_cnn_program(dev)
     runner = executor.make_bucketed_runner(prog, max_batch=8, plain=plain)
     assert runner.warmup() == 4
-    want = ({"K1": 0, "K2": 0, "K3": 0, "K4": 0} if plain else
-            {"K1": 2, "K2": 1, "K3": 1, "K4": 0})
+    want = ({"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K4g": 0} if plain else
+            {"K1": 2, "K2": 1, "K3": 1, "K4": 0, "K4g": 0})
     assert runner.capture_launches == {b: want for b in (1, 2, 4, 8)}
     xs = torch.rand((8, 8, 8, 8), generator=torch.Generator().manual_seed(1))
     for n in (1, 3, 5, 8, 3):
@@ -582,3 +584,90 @@ def test_eviction_frees_the_captured_graphs(dev):
         assert all(r() is None for r in graphs + outs)
         np.testing.assert_array_equal(svc.submit(ka, x).result(timeout=120),
                                       ya)
+
+
+# the routed experts' shapes of deepseek-v2-lite (E = 64; C = 1 at a
+# batch-4 decode step, 2 at a 16-token prefill bucket, 8 at a 4 x 16
+# prefill; (K, N) of up/gate and of down) and a ragged one
+GROUPED = [(64, c, 2048, 1408) for c in (1, 2, 8)] + [
+    (64, 1, 1408, 2048), (64, 8, 1408, 2048), (3, 5, 100, 70)]
+
+
+def _grouped(dev, sp, e, c, k, n, seed):
+    from repro_torch.core import bitops
+    spec = SerialSpec(*sp)
+    rng = np.random.default_rng(seed)
+    x = _codes(rng, spec.a_bits, spec.a_signed, (e, c, k), dev)
+    w = _codes(rng, spec.w_bits, spec.w_signed, (e, k, n), dev)
+    planes = bitops.pad_to(bitops.to_bitplanes(w, spec.w_bits), 32, axis=-2)
+    wp = bitops.pack_bitplanes(planes, axis=-2).movedim(0, 1).contiguous()
+    return spec, x, wp
+
+
+# W4A8 (the model's plan) at every shape; radix 1 and unsigned W8A8 at a
+# decode shape and the ragged one
+GROUPED_CASES = [((8, 4, True, True, 8), s) for s in GROUPED] + [
+    (sp, s) for sp in ((2, 2, True, True, 1), (8, 8, False, True, 7))
+    for s in (GROUPED[0], GROUPED[-1])]
+
+
+@pytest.mark.parametrize("sp,shape", GROUPED_CASES)
+def test_grouped_code_gemm_equals_plain(dev, sp, shape):
+    """Grouped K4: all E experts' (C, K) x (K, N) in one launch, raw int32
+    accumulators equal to ``serial_matmul_packed`` per expert."""
+    from repro_torch.kernels import bitserial_matmul as km
+    e, c, k, n = shape
+    spec, x, wp = _grouped(dev, sp, e, c, k, n, e * c + k)
+    before = km.KERNEL.entry_launches["bitserial_matmul_v1_grouped"]
+    got = km.bitserial_matmul_grouped_cuda(x, wp, spec=spec, k=k)
+    assert km.KERNEL.entry_launches["bitserial_matmul_v1_grouped"] == \
+        before + 1
+    torch.cuda.synchronize()
+    assert got.shape == (e, c, n) and got.dtype == torch.int32
+    assert torch.equal(got, km.bitserial_matmul_grouped_ref(x, wp, spec=spec,
+                                                            k=k))
+
+
+def test_grouped_code_gemm_rejects_bad_inputs(dev):
+    from repro_torch.kernels import bitserial_matmul as km
+    spec, x, wp = _grouped(dev, (8, 4, True, True, 8), 3, 2, 64, 40, 0)
+    with pytest.raises(ValueError, match="groups"):
+        km.bitserial_matmul_grouped_cuda(x[:2].contiguous(), wp, spec=spec,
+                                         k=64)
+    with pytest.raises(ValueError, match="caller declared"):
+        km.bitserial_matmul_grouped_cuda(x, wp, spec=spec, k=60)
+    with pytest.raises(ValueError, match="bit-planes"):
+        km.bitserial_matmul_grouped_cuda(x, wp, spec=SerialSpec(8, 2), k=64)
+    with pytest.raises(TypeError):
+        km.bitserial_matmul_grouped_cuda(x.float(), wp, spec=spec, k=64)
+    with pytest.raises(ValueError, match="contiguous"):
+        km.bitserial_matmul_grouped_cuda(x.transpose(1, 2), wp, spec=spec,
+                                         k=64)
+
+
+@pytest.mark.parametrize("pack_acts", [True, False])
+def test_graphed_moe_engine_equals_cpu_engine(dev, pack_acts):
+    """deepseek-v2-lite's smoke config on the card: the captured decode
+    step (MLA latent cache, MoE dispatch, grouped K4) gives the CPU plain
+    engine's tokens; one grouped K4 per routed projection of each MoE
+    layer is counted at capture (3 layers: one dense, two MoE)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.serving import ContinuousLMEngine
+    cfg = get_arch("deepseek-v2-lite-16b").smoke
+    gpu = ContinuousLMEngine(cfg, batch_slots=3, max_len=32, seed=0,
+                             pack_acts=pack_acts)
+    cpu = ContinuousLMEngine(cfg, _to(gpu.params, "cpu"), batch_slots=3,
+                             max_len=32, pack_acts=pack_acts, device="cpu")
+    gpu.warmup()
+    got = [r.out_tokens for r in gpu.serve(_engine_load(1))]
+    assert got == [r.out_tokens for r in cpu.serve(_engine_load(1))]
+    st = gpu.stats()
+    assert st["cuda_graph"] and st["recompiles_after_warmup"] == 0
+    n, n_moe = cfg.n_layers, cfg.n_layers - cfg.n_dense_layers
+    assert st["step_launches"] == (
+        {"K1": 4 * n, "K3": 6 * n, "K4": 0, "K4g": 3 * n_moe} if pack_acts
+        else {"K1": 0, "K3": 0, "K4": 6 * n, "K4g": 3 * n_moe})
+    # the same routing (the tokens agree); each fraction is a float32 mean
+    # that the card's and the CPU's reductions round apart by an ulp
+    np.testing.assert_allclose(gpu.drop_fractions(), cpu.drop_fractions(),
+                               rtol=0, atol=1e-6)

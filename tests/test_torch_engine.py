@@ -223,7 +223,7 @@ def test_engine_equals_reference_engine_and_static_server(
     assert st["recompiles_after_warmup"] == 0
     assert st["compiles"] == {"prefill": 5, "insert": 1, "decode": 1}
     assert not st["cuda_graph"]
-    assert st["step_launches"] == {"K1": 0, "K3": 0, "K4": 0}
+    assert st["step_launches"] == {"K1": 0, "K3": 0, "K4": 0, "K4g": 0}
     assert eng.engine_metrics()["slot_occupancy"] > 0.5
 
 
@@ -256,12 +256,13 @@ def test_engine_rejects_what_the_port_cannot_host(smoke, monkeypatch):
     CPU."""
     _, tcfg, _ = smoke
     for cfg in (dataclasses.replace(tcfg, family="ssm"),
-                dataclasses.replace(tcfg, family="moe"),
+                dataclasses.replace(tcfg, family="hybrid"),
                 dataclasses.replace(tcfg, act="gelu")):
         assert not supports_continuous(cfg)
         with pytest.raises(ValueError, match="static Server path"):
             ContinuousLMEngine(cfg, batch_slots=2, max_len=16, device="cpu")
     assert supports_continuous(tcfg)
+    assert supports_continuous(get_arch("deepseek-v2-lite-16b").smoke)
     with pytest.raises(NotImplementedError, match="LSQ"):
         ContinuousLMEngine(tcfg, quantized=False, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -206,10 +206,11 @@ def test_float_and_qat_qdense():
     ref = np.asarray(jl.qdense(p, jnp.asarray(x), jl.QuantPolicy()))
     got = tl.qdense(_t(_np_tree(p)), torch.from_numpy(x), tl.QuantPolicy())
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-6)
-    pq = _t(_np_tree(jl.qdense_init(jax.random.PRNGKey(3), 16, 24,
-                                    _jpolicy(True))))
-    with pytest.raises(NotImplementedError, match="LSQ"):
-        tl.qdense(pq, torch.from_numpy(x), _policy(True))
+    # mode 'qat' on float params: the LSQ fake-quant forward
+    jq = jl.qdense_init(jax.random.PRNGKey(3), 16, 24, _jpolicy(True))
+    ref = np.asarray(jl.qdense(jq, jnp.asarray(x), _jpolicy(True)))
+    got = tl.qdense(_t(_np_tree(jq)), torch.from_numpy(x), _policy(True))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-6)
 
 
 # ----------------------------------------------------------- norms / rope

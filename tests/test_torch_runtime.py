@@ -325,6 +325,10 @@ def test_port_and_chip_smoke_import_no_jax_or_reference():
     for d, _, names in os.walk(os.path.join(ROOT, "src", "repro_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 40
+    scanned = {os.path.relpath(f, ROOT) for f in files}
+    assert {os.path.join("src", "repro_torch", "models", "moe.py"),
+            os.path.join("src", "repro_torch", "configs",
+                         "deepseek_v2_lite_16b.py")} <= scanned
     bad = []
     for f in files:
         for line, mod in _imports(f):
