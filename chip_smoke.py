@@ -139,7 +139,30 @@ Phases (any failure exits non-zero and prints no result):
     decode step, the prefill, the eager and replayed decode step (wall,
     busy) against the step's weight-byte bound, the load's tokens/s, each
     step's drop fraction, and each request served alone in an empty arena
-    against its mixed-load tokens.
+    against its mixed-load tokens;
+13. the toolchain (full-width ResNet9, seed 0, a temporary store): (a) a
+    ``ModelRegistry(store=)`` compiles W2A2 and W2A8 once, saved and
+    tagged, the planes they share stored once (compile seconds and the
+    store's counts printed); (b) a fresh registry and
+    ``InferenceService`` on the same store ``warm_boot()``: both restored,
+    0 compiles, 12 bucket graphs captured over the loaded tensors (shared
+    planes one tensor on the card); ``CNNServer(store=, artifact=
+    "resnet9_cifar10@W2A2")`` answers 1, 17 and 32 images and the
+    warm-booted service both variants, every answer equal bit for bit to
+    (a)'s Program at its bucket, launches = capture counts x replays;
+    ``load_program``'s ms and the warm boot's seconds printed; (c) a
+    flipped byte in a plane blob and a manifest edited and re-digested
+    both raise ``ArtifactError``; (d) ``profile_program`` at batch 32 and
+    1 (CUDA events around 20 calls, best of 5): each step launches once
+    per call what its kind runs (K1 per ``quantize_pack``/``pack_codes``,
+    K2 per ``conv_packed``, by the wrappers' counts and by kernel name),
+    each step's µs, predicted cycles and H100 roofline printed, and the
+    sum of the steps beside phase 5's replay (reported, not held); (e)
+    the ns-per-cycle fits, the batch-1 fit saved, loaded back equal and
+    attached to (b)'s scheduler, its predicted wall time for a batch-1 and
+    a batch-32 request beside the measured replay; (f) the CLI's
+    ``compile`` twice (compiled, then a store hit) and ``profile
+    --store`` in subprocesses, the calibration persisted.
 
 The ``kernels`` JSON line gives, per kernel, its launches on the main
 paths (the bucketed runners' forwards and the engine's loads included:
@@ -150,8 +173,10 @@ decode step at batch 4; K1's entry adds its in-path profiler ms and
 launches per decode step and per prefill; K1, K3 and K4 add the engine's
 launches per captured decode step, as its ``stats()`` reports them. K1's
 and K3's launches include deepseek-v2-lite's (phase 12: ``Server``, the
-engine's load and the service's); the grouped K4 entry gives its
-launches there and its times summed over one deepseek decode step.
+engine's load and the service's); K1's and K2's include phase 13's
+(the warm-booted graphs' replays and the profiler's calls); the grouped
+K4 entry gives its launches there and its times summed over one deepseek
+decode step.
 
 Standard output ends with the ``kernels`` JSON line, the card's
 ``nvidia-smi`` name/power line and the ``{"ok": true, ...}`` line; the full
@@ -2036,6 +2061,314 @@ def main() -> int:
     ds["launches"] = ds_launches
     record["deepseek"] = ds
 
+    # -------------------------------------------------- 13. the toolchain
+    log("toolchain: compile once into an ArtifactStore, warm boot, serve, "
+        "profile step by step, fit ns per cycle (full-width ResNet9, seed 0)")
+    import shutil
+    import tempfile
+    from repro_torch.compiler import (ArtifactError, ArtifactStore,
+                                      load_program)
+    from repro_torch.launch.serve import resnet9_recipe
+    from repro_torch.obs import calibrate
+    from repro_torch.obs.profiler import (CALLS_PER_RUN, format_profile,
+                                          profile_program)
+    tc = {}
+    store_dir = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    cli_dir = tempfile.mkdtemp(prefix="chip_smoke_cli_store_")
+    try:
+        # (a) cold compile of W2A2 and W2A8 into the store
+        graph, calib, pol = resnet9_recipe(0, 8)
+        reg_a = ModelRegistry(device=dev, store=store_dir)
+        ka22 = reg_a.register_graph(graph.name, graph, calib, pol)
+        ka28 = reg_a.register_graph(graph.name, graph, calib,
+                                    dataclasses.replace(pol, a_bits=8))
+        compile_s = {}
+        for k in (ka22, ka28):
+            t0 = time.perf_counter()
+            reg_a.program(k)
+            torch.cuda.synchronize()
+            compile_s[str(k)] = time.perf_counter() - t0
+        pa22, pa28 = reg_a.program(ka22), reg_a.program(ka28)
+        st_a = reg_a.store.stats()
+        mans = [reg_a.store.get_program(reg_a.store.resolve(str(k)))
+                for k in (ka22, ka28)]
+        convs13 = [s.name for s in pa22.steps if s.kind == "conv_packed"]
+        blobs = {r["blob"] for m in mans for p in m["params"].values()
+                 for r in p.values()}
+        if (reg_a.compiles != 2 or reg_a.artifact_saves != 2
+                or st_a["programs"] != 2 or st_a["blobs"] != len(blobs)
+                or any(mans[0]["params"][c]["w_packed"]
+                       != mans[1]["params"][c]["w_packed"] for c in convs13)
+                or st_a["blob_dedups"] < len(convs13)):
+            raise AssertionError(f"cold compile into the store: {st_a}")
+        tc.update(compile_s=compile_s, store_cold=st_a,
+                  logical_bytes=reg_a.store.logical_bytes)
+        log(f"  (a) compiled {ka22} in {compile_s[str(ka22)]:.3f} s and "
+            f"{ka28} in {compile_s[str(ka28)]:.3f} s into the store: "
+            f"{st_a['programs']} programs, {st_a['blob_writes']} blob writes,"
+            f" {st_a['blob_dedups']} dedups (the {len(convs13)} shared "
+            f"planes stored once), {reg_a.store.logical_bytes} logical "
+            f"bytes, "
+            f"{st_a['bytes_on_disk']} bytes on disk")
+
+        # (b) warm boot: a fresh registry and service on the same store
+        reg_b = ModelRegistry(device=dev, store=store_dir)
+        kb22 = reg_b.register_artifact(graph.name, precision="W2A2")
+        kb28 = reg_b.register_artifact(graph.name, precision="W2A8")
+        svc_b = InferenceService(reg_b, max_batch=32, max_wait_s=0.002)
+        svc_b.start()
+        t0 = time.perf_counter()
+        boot = svc_b.warm_boot()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        pb22, pb28 = reg_b.program(kb22), reg_b.program(kb28)
+        load_ms = list(reg_b.store._load_ms)
+        if (boot["compiled"] or sorted(boot["restored"])
+                != sorted([str(kb22), str(kb28)]) or reg_b.compiles != 0
+                or boot["bucket_compiles"] != 12
+                or pb22.device != dev
+                or any(pb22.params[c]["w_packed"] is not
+                       pb28.params[c]["w_packed"] for c in convs13)):
+            raise AssertionError(f"warm boot: {boot}, compiles "
+                                 f"{reg_b.compiles}")
+        fleet = CNNServer(store=store_dir, artifact=f"{graph.name}@W2A2",
+                          max_batch=32)
+        t0 = time.perf_counter()
+        fleet_boot = fleet.warm_boot()
+        torch.cuda.synchronize()
+        fleet_s = time.perf_counter() - t0
+        if (fleet_boot["restored"] != [str(fleet.key)]
+                or fleet.registry.compiles != 0
+                or fleet_boot["bucket_compiles"] != 6):
+            raise AssertionError(f"CNNServer(artifact=) boot: {fleet_boot}")
+        fleet_run = fleet.service._runner_for(fleet.key)
+        runs_b = [svc_b._runner_for(k) for k in (kb22, kb28)]
+        reps_b = [dict(r.replays) for r in [fleet_run] + runs_b]
+        reset_counts()
+        sent = {}
+        for n in (1, 17, 32):
+            classify_traced(fleet, images[:n], sent)
+        sent_b = {}
+        for key, n in ((kb22, 5), (kb28, 5)):
+            tid0 = svc_b.tracer.started
+            fs = svc_b.submit_many(key, list(images[:n]))
+            svc_b.drain(timeout=120)
+            for i, f in enumerate(fs):
+                sent_b[tid0 + 1 + i] = (images[i], f.result())
+        if any(counts().values()):
+            raise AssertionError(f"a wrapper ran after the warm boots: "
+                                 f"{counts()}")
+        ran13 = dict.fromkeys(want_fwd, 0)
+        for r, r0 in zip([fleet_run] + runs_b, reps_b):
+            got, fwd = graph_launches(r, r0)
+            if got != {k: v * fwd for k, v in want_fwd.items()}:
+                raise AssertionError(f"warm-booted launches {got} over {fwd}")
+            ran13 = {k: ran13[k] + got[k] for k in ran13}
+        # the comparisons' eager forwards are left out of the counts above
+        sizes13 = check_served(fleet.service, sent, {str(fleet.key): {
+            "Program compiled in (a)": pa22}})
+        check_served(svc_b, sent_b, {str(kb22): {"(a)'s W2A2": pa22},
+                                     str(kb28): {"(a)'s W2A8": pa28}})
+        tc.update(warm_boot_s=warm_s, load_ms=load_ms, fleet_boot_s=fleet_s,
+                  fleet_load_ms=list(fleet.registry.store._load_ms),
+                  served_batch_sizes=sizes13, served_launches=ran13)
+        log(f"  (b) warm boot of a fresh registry + service: restored "
+            f"{boot['restored']}, 0 compiles, {boot['bucket_compiles']} "
+            f"bucket graphs captured, in {warm_s:.3f} s (load_program "
+            f"{', '.join(f'{v:.1f}' for v in load_ms)} ms; the cold "
+            f"compiles took {sum(compile_s.values()):.3f} s); shared planes "
+            f"one tensor on the card; CNNServer(artifact=) booted in "
+            f"{fleet_s:.3f} s (load "
+            f"{fleet.registry.store._load_ms[0]:.1f} ms) and answered 1, 17 "
+            f"and 32 images in micro-batches {sizes13}, each equal bit for "
+            f"bit to (a)'s Program at its bucket; W2A2 and W2A8 through the "
+            f"warm-booted service equal (a)'s; replays ran {ran13}")
+        fleet.close()
+
+        # (c) integrity on the card
+        store_c = ArtifactStore(store_dir)
+        man = mans[0]
+        blob_path = store_c._blob_path(man["params"]["conv1"]["w_packed"]
+                                       ["blob"])
+        with open(blob_path, "rb") as f:
+            payload = f.read()
+        flipped = bytearray(payload)
+        flipped[-1] ^= 0x01
+        try:
+            with open(blob_path, "wb") as f:
+                f.write(bytes(flipped))
+            try:
+                load_program(str(ka22), store_c, device=dev)
+                raise AssertionError("a flipped plane byte loaded")
+            except ArtifactError as e:
+                flip_msg = str(e)
+        finally:
+            with open(blob_path, "wb") as f:
+                f.write(payload)
+        bad = store_c.get_program(store_c.resolve(str(ka22)))
+        bad["steps"][3]["inputs"] = ["ghost"]
+        bad_ref = store_c.put_program(bad)
+        try:
+            load_program(bad_ref, store_c, device=dev)
+            raise AssertionError("a re-digested tampered manifest loaded")
+        except ArtifactError as e:
+            tamper_msg = str(e)
+            if "step-dangling-input" not in tamper_msg:
+                raise
+        load_program(str(ka22), store_c, device=dev)   # restored: loads
+        tc.update(flip_error=flip_msg, tamper_error=tamper_msg)
+        log(f"  (c) a flipped byte in conv1's plane blob: ArtifactError "
+            f"({flip_msg[:60]}…); a manifest edited and re-digested: "
+            f"ArtifactError ({tamper_msg[:70]}…)")
+
+        # (d) the profile, step by step, at batch 32 and batch 1
+        x13 = torch.from_numpy(images).to(dev)
+        c_served = counts()
+        prof_kw = dict(warmup=3, repeats=5)
+        per_step = 1 + (prof_kw["warmup"] - 1) + (prof_kw["repeats"]
+                                                  * CALLS_PER_RUN)
+        t0 = time.perf_counter()
+        prof32 = profile_program(pb22, x13, **prof_kw)
+        prof1 = profile_program(pb22, x13[:1], **prof_kw)
+        prof_s = time.perf_counter() - t0
+        c_prof = {k: v - c_served[k] for k, v in counts().items()}
+        want_step = {"quantize_pack": {"K1": 1}, "pack_codes": {"K1": 1},
+                     "conv_packed": {"K2": 1}}
+        for prof in (prof32, prof1):
+            for s in prof.steps:
+                if (s.launches != want_step.get(s.kind, {})
+                        or not (s.wall_ns > 0 and np.isfinite(s.wall_ns))):
+                    raise AssertionError(f"profile step {s.name}: "
+                                         f"{s.launches}, {s.wall_ns} ns")
+        want_prof = {"K1": 2 * 3 * per_step, "K2": 2 * 8 * per_step,
+                     "K3": 0, "K4": 0, "K4g": 0}
+        if c_prof != want_prof:
+            raise AssertionError(f"profiler launches {c_prof}, want "
+                                 f"{want_prof}")
+        # by kernel name: one call of every step, in order, in one profiler
+        # window (a window per step lost its records now and then): one K1
+        # per K1 step and one K2 per conv step, as the counts held above
+        env13 = {pb22.input_name: x13}
+        runners13 = [(st, executor.make_step_runner(pb22, st))
+                     for st in pb22.steps]
+
+        def one_pass():
+            for st, fn in runners13:
+                env13[st.output] = fn(pb22.params,
+                                      *[env13[i] for i in st.inputs])
+
+        by_name = cnn_kernels(profile_counts(one_pass)["launches"])
+        want_name = {"K1": 0, "K2": 0}
+        for st in pb22.steps:
+            for k, n in want_step.get(st.kind, {}).items():
+                want_name[k] += n
+        if by_name != want_name:
+            raise AssertionError(f"one pass of the steps: the profiler saw "
+                                 f"{by_name}, want {want_name}")
+        for prof, fwd_ms, b in ((prof32, record["forward_b32_ms"], 32),
+                                (prof1, record["forward_b1_ms"], 1)):
+            log(f"  (d) profile at batch {b} (mean per call of "
+                f"{CALLS_PER_RUN} calls, best of {prof_kw['repeats']}; "
+                f"CUDA events):")
+            for line in format_profile(prof).splitlines():
+                log(f"      {line}")
+            log(f"      sum of the steps {prof.total_wall_ns / 1e6:.4f} ms "
+                f"against phase 5's bucket-graph replay {fwd_ms:.4f} ms "
+                f"(the sum includes each step's own launch gaps)")
+        tc.update(
+            profile_s=prof_s, profile_launches=c_prof,
+            profile_by_name=by_name,
+            profile={b: {"total_ms": p.total_wall_ns / 1e6,
+                         "summary": p.summary(),
+                         "steps": [{"name": s.name, "kind": s.kind,
+                                    "us": s.wall_us,
+                                    "pred_cycles": s.pred_cycles,
+                                    "roofline_us": s.roofline_s * 1e6,
+                                    "bound": s.bound,
+                                    "launches": s.launches}
+                                   for s in p.steps]}
+                     for b, p in ((32, prof32), (1, prof1))})
+
+        # (e) ns per virtual cycle, persisted and attached to (b)'s service
+        cal32, cal1 = calibrate.fit(prof32), calibrate.fit(prof1)
+        for b, cal in ((32, cal32), (1, cal1)):
+            for line in calibrate.format_calibration(cal).splitlines():
+                log(f"  (e) batch {b}: {line.strip()}")
+        ckey = calibrate.save(reg_b.store, cal1, str(kb22))
+        back = calibrate.load(ArtifactStore(store_dir), "cuda", str(kb22))
+        if back != cal1 or calibrate.load(reg_b.store, "cpu",
+                                          str(kb22)) is not None:
+            raise AssertionError("the calibration did not round-trip")
+        svc_b.set_calibration(back)
+        run22 = runs_b[0]
+        pred = {}
+        for b in (1, 32):
+            adm = svc_b.scheduler.admit(kb22, b, program=pb22)
+            walls = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                run22(x13[:b])
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            meas = statistics.median(walls)
+            svc_b.scheduler.complete(adm, meas)
+            pred[b] = {"est_cycles": adm.est_cycles,
+                       "predicted_ms": adm.est_seconds * 1e3,
+                       "replay_ms": meas * 1e3}
+        sched_cal = svc_b.metrics()["scheduler"]["calibration"]
+        svc_b.stop()
+        tc.update(calibration_b32=cal32.to_payload(),
+                  calibration_b1=cal1.to_payload(), calibration_key=ckey,
+                  scheduler_prediction=pred, scheduler_calibration=sched_cal)
+        log(f"  (e) the batch-1 fit saved under {ckey}, loaded back equal, "
+            f"absent under 'cpu'; on (b)'s scheduler ({sched_cal['source']}"
+            f", {sched_cal['ns_per_cycle']} ns/cycle): " + "; ".join(
+                f"batch {b}: {v['est_cycles']} cycles -> predicted "
+                f"{v['predicted_ms']:.4f} ms against the replay's "
+                f"{v['replay_ms']:.4f} ms" for b, v in pred.items()))
+
+        # (f) the CLI: compile twice, then profile, in subprocesses
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        serve_cmd = [sys.executable, "-m", "repro_torch.launch.serve"]
+        compile_cmd = serve_cmd + ["compile", "--arch", "resnet9-cifar10",
+                                   "--store", cli_dir]
+        t0 = time.perf_counter()
+        first = subprocess.run(compile_cmd, capture_output=True, text=True,
+                               env=env, timeout=300)
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True,
+                                  env=env)
+                 for cmd in (compile_cmd, serve_cmd + [
+                     "profile", "--store", cli_dir, "--batch", "32"])]
+        outs = []
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=300)[0])
+            finally:
+                p.kill()
+        cli_s = time.perf_counter() - t0
+        cli_cal = calibrate.load(ArtifactStore(cli_dir), "cuda",
+                                 f"{graph.name}@W2A2")
+        if (first.returncode != 0 or "(compiled)" not in first.stdout
+                or procs[0].returncode != 0 or "(store hit)" not in outs[0]
+                or procs[1].returncode != 0
+                or "calibration persisted" not in outs[1]
+                or cli_cal is None):
+            raise AssertionError(
+                f"CLI: {first.stdout}{first.stderr}\n{outs}")
+        tc.update(cli_s=cli_s, cli_compile=[first.stdout, outs[0]],
+                  cli_profile=outs[1])
+        log(f"  (f) `compile` in a subprocess: {first.stdout.splitlines()[0]}"
+            f"; again: {outs[0].splitlines()[0]}; `profile --store` exited 0"
+            f" and persisted a calibration ({cli_cal.ns_for():.3f} ns/cycle "
+            f"at batch 32); {cli_s:.1f} s for the three")
+    finally:
+        shutil.rmtree(store_dir, ignore_errors=True)
+        shutil.rmtree(cli_dir, ignore_errors=True)
+    tc_launches = {k: ran13[k] + c_prof[k] for k in ("K1", "K2")}
+    tc["launches"] = tc_launches
+    record["toolchain"] = tc
+
     def total(kid, key):
         vals = [r[key] for r in rows if r["kernel"] == kid]
         return None if any(v is None for v in vals) else sum(vals)
@@ -2057,7 +2390,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/quantize_pack.py:53",
          "launches": (cnn_ran["K1"] + ran2["K1"] + lm_k3[2]["K1"]
                       + c_tiny["K1"] + ran_load["K1"] + lm_ran["K1"]
-                      + ds_launches["K1"]),
+                      + ds_launches["K1"] + tc_launches["K1"]),
          "engine_launches_per_captured_step": rec["step_launches"]["K1"],
          "max_abs_err": max_err["K1"],
          "ms": total("K1", "ms") + lm_step("K1", "ms", 4),
@@ -2072,7 +2405,8 @@ def main() -> int:
          "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/bitserial_conv.cu",
          "replaces": "src/repro/kernels/bitserial_conv.py:153",
-         "launches": cnn_ran["K2"] + ran2["K2"] + c_tiny["K2"],
+         "launches": (cnn_ran["K2"] + ran2["K2"] + c_tiny["K2"]
+                      + tc_launches["K2"]),
          "max_abs_err": max_err["K2"],
          "ms": total("K2", "ms"), "plain_ms": total("K2", "plain_ms"),
          "bound_ms": total("K2", "bound_ms"), "bound_by": "operations",

@@ -11,9 +11,10 @@ records each compute node's geometry (:class:`LoweredConv` /
 :class:`LoweredGemm`) for the code generator: :meth:`Program.to_command_stream`
 lowers any compiled Program to the paper's
 :class:`~repro_torch.core.codegen.CommandStream`, which the serving
-scheduler books on the barrel controller. The reference's tile autotuning
-and post-lowering verifier are not ported: tiles are TPU VMEM choices and
-the CUDA kernels take none.
+scheduler books on the barrel controller. With ``REPRO_VERIFY`` set the
+lowered Program is checked by the post-lowering verifier. The reference's
+tile autotuning is not ported: tiles are TPU VMEM choices and the CUDA
+kernels take none.
 
 :func:`program_from_numpy` builds a Program from a record shaped like the
 reference's artifact manifest, so a Program lowered by the reference runs
@@ -512,10 +513,16 @@ def compile_graph(g: Graph, calib, *, policy: Optional[QuantPolicy] = None,
     if fmt[out_name][0] != "float":  # graph output must be host-readable
         out_name = as_float(out_name, "output")
     meta["formats"] = dict(fmt)
-    return Program(graph_name=g.name, steps=tuple(steps), params=params,
-                   input_name=input_name, output_name=out_name,
-                   device=device, cost_nodes=cost_nodes,
-                   per_layer_bits=per_layer_bits, meta=meta)
+    program = Program(graph_name=g.name, steps=tuple(steps), params=params,
+                      input_name=input_name, output_name=out_name,
+                      device=device, cost_nodes=cost_nodes,
+                      per_layer_bits=per_layer_bits, meta=meta)
+    from repro_torch import analysis
+    if analysis.verify_enabled():
+        analysis.count("post_lowering")
+        from repro_torch.analysis.verify_ir import verify_program
+        verify_program(program, site="post_lowering")
+    return program
 
 
 # --------------------------------------------------------------------------

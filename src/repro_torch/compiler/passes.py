@@ -3,8 +3,8 @@ precision annotation, dead-node elimination.
 
 Counterpart of ``repro/compiler/passes.py`` (numpy only). Pass order in
 :func:`run_pipeline`: fold constants → eliminate dead → fuse epilogues →
-annotate precision → eliminate dead. The reference wraps each pass in an IR
-verifier when ``REPRO_VERIFY`` is set; that verifier is not ported yet.
+annotate precision → eliminate dead. With ``REPRO_VERIFY`` set each pass
+runs inside the IR verifier (the pass sandwich).
 """
 
 from __future__ import annotations
@@ -184,16 +184,47 @@ def eliminate_dead(g: Graph) -> Graph:
     return g
 
 
+#: the standard pass order — names resolved through the module namespace
+#: at run time so a monkeypatched pass is still sandwich-verified.
+_PIPELINE = ("fold_constants", "eliminate_dead", "fuse_epilogues",
+             "annotate_precision", "eliminate_dead")
+
+
 def run_pipeline(g: Graph, policy: QuantPolicy,
                  per_layer: Optional[Dict[str, Tuple[int, int]]] = None,
                  ) -> Graph:
-    """The standard pass order; returns the same (mutated) graph."""
+    """The standard pass order; returns the same (mutated) graph.
+
+    With ``REPRO_VERIFY`` set, every pass runs inside a verifier sandwich
+    (:func:`repro_torch.analysis.verify_ir.verify_graph`): the graph is
+    re-checked after each pass with that pass's name as blame, and graph
+    *output* shapes recorded up front must survive the whole pipeline.
+    Disabled, the only extra work is one env lookup.
+    """
+    from repro_torch import analysis
+    verify = analysis.verify_enabled()
     g.validate()
-    infer_shapes(g)      # fail early on malformed geometry
-    fold_constants(g)
-    eliminate_dead(g)
-    fuse_epilogues(g)
-    annotate_precision(g, policy, per_layer)
-    eliminate_dead(g)
+    if verify:
+        from repro_torch.analysis.verify_ir import verify_graph
+        shapes = infer_shapes(g)
+        out_shapes = {o: shapes[o] for o in g.outputs if o in shapes}
+    else:
+        infer_shapes(g)      # fail early on malformed geometry
+    annotated = False
+    for pass_name in _PIPELINE:
+        fn = globals()[pass_name]
+        if pass_name == "annotate_precision":
+            fn(g, policy, per_layer)
+            annotated = True
+        else:
+            fn(g)
+        if verify:
+            analysis.count("pass_sandwich")
+            # policy agreement only binds once THIS pipeline's annotator
+            # ran: a recompile at a new precision legitimately sees the
+            # previous variant's annotations until then
+            verify_graph(g, policy=policy if annotated else None,
+                         per_layer=per_layer, blame=pass_name,
+                         expect_output_shapes=out_shapes)
     g.validate()
     return g

@@ -32,14 +32,21 @@ as the reference's do:
     python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b [--device cpu --smoke]
     python -m repro_torch.launch.serve --arch resnet9-cifar10 --batch 32 [--trace-out trace.json]
     python -m repro_torch.launch.serve --arch resnet9-cifar10 --batch 4 --device cpu
+    python -m repro_torch.launch.serve --arch resnet9-cifar10 --store DIR
     python -m repro_torch.launch.serve trace trace.json [--top-k 10]
+    python -m repro_torch.launch.serve compile --arch resnet9-cifar10 --store DIR [--precisions W2A2,W2A8] [--gc | --gc-dry-run]
+    python -m repro_torch.launch.serve profile --store DIR [--precision w2a2] [--batch 32] [--trace-out measured.json]
 
 ``--trace-out PATH`` writes the run's request trace as Chrome trace JSON
 (the ``trace`` subcommand summarizes it), ``--metrics-port PORT`` serves
 Prometheus text on ``127.0.0.1:PORT/metrics`` for the run, and
 ``--metrics-every S`` prints a one-line metrics snapshot every S seconds.
-The reference's ``compile`` and ``profile`` subcommands wait for
-``compiler/artifact`` and ``obs/profiler``, which the port has not got yet.
+``--store DIR`` warm-boots the CNN from an artifact store (compiling and
+saving on a miss). ``compile`` is the offline code-generator run: graph →
+passes → calibration → packing → artifact store. ``profile`` times the
+compiled Program step by step on the device (CUDA events on the card)
+beside the cycle model's prediction, fits ns per virtual cycle and, with
+``--store``, persists the fit.
 """
 
 from __future__ import annotations
@@ -266,6 +273,23 @@ def make_lm_engine(server: Server):
     return engine
 
 
+def resnet9_recipe(seed: int = 0, calib_batch: int = 8):
+    """Full-width ResNet9/CIFAR10 as :class:`CNNServer` compiles it:
+    ``(graph, calib, policy)`` — the graph from ``resnet9_init(seed)``,
+    ``calib_batch`` uniform images from ``seed + 1`` and the config's
+    W2A2 policy. The ``compile`` and ``profile`` subcommands build the
+    same recipe, so their artifacts are the server's store hits."""
+    cfg = ResNet9Config()
+    graph = resnet9_graph(resnet9_init(seed, cfg), cfg)
+    in_shape = next(iter(graph.inputs.values()))
+    calib = np.random.default_rng(seed + 1).random(
+        (calib_batch,) + tuple(int(d) for d in in_shape[1:]),
+        dtype=np.float32)
+    policy = QuantPolicy(mode="serial", w_bits=cfg.w_bits, a_bits=cfg.a_bits,
+                         radix_bits=cfg.radix_bits)
+    return graph, calib, policy
+
+
 class CNNServer:
     """Batched CNN inference server over the **compiled** deployment path.
 
@@ -283,40 +307,51 @@ class CNNServer:
 
     ``device=None`` means the card: it raises when there is none (pass
     ``device="cpu"`` for the plain versions). ``n_banks > 1`` waits for
-    ``distributed/program_parallel``; ``store=``/``artifact=`` wait for
-    ``compiler/artifact``.
+    ``distributed/program_parallel``.
+
+    ``store`` (an :class:`~repro_torch.compiler.ArtifactStore` or directory
+    path) loads compiles from disk and persists fresh ones;
+    ``artifact="model@precision"`` serves a precompiled artifact by its
+    store tag with **no** graph and no calibration data — the BARVINN
+    fleet story: ship the command stream, not the compiler.
     """
 
     def __init__(self, graph=None, *, calib=None, seed: int = 0,
                  calib_batch: int = 8, policy=None,
                  max_batch: int = 32, max_wait_s: float = 0.0,
-                 n_banks: Optional[int] = None, store=None, artifact: Optional[str] = None, device=None):
-        if store is not None or artifact is not None:
-            raise NotImplementedError(
-                "CNNServer(store=/artifact=) serves stored artifacts, which "
-                "needs compiler/artifact, not ported yet")
+                 n_banks: Optional[int] = None, store=None,
+                 artifact: Optional[str] = None, device=None):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             disable_tf32()
-        if graph is None:
-            cfg = ResNet9Config()
-            graph = resnet9_graph(resnet9_init(seed, cfg), cfg)
+        if artifact is not None:
+            if store is None:
+                raise ValueError("artifact=... requires store=")
+            model, _, prec = artifact.partition("@")
+            if not prec:
+                raise ValueError(f"artifact must be 'model@precision', "
+                                 f"got {artifact!r}")
+            self.graph = None
+            self.registry = ModelRegistry(device=self.device, store=store)
+            self.key = self.registry.register_artifact(model, precision=prec)
+        else:
+            if graph is None:
+                graph, default_calib, policy0 = resnet9_recipe(seed,
+                                                               calib_batch)
+                calib = default_calib if calib is None else calib
+                policy = policy0 if policy is None else policy
             if policy is None:
-                policy = QuantPolicy(mode="serial", w_bits=cfg.w_bits,
-                                     a_bits=cfg.a_bits,
-                                     radix_bits=cfg.radix_bits)
-        if policy is None:
-            policy = QuantPolicy(mode="serial", w_bits=2, a_bits=2,
-                                 radix_bits=7)
-        if calib is None:
-            in_shape = next(iter(graph.inputs.values()))
-            calib = np.random.default_rng(seed + 1).random(
-                (calib_batch,) + tuple(int(d) for d in in_shape[1:]),
-                dtype=np.float32)
-        self.graph = graph
-        self.registry = ModelRegistry(device=self.device)
-        self.key = self.registry.register_graph(graph.name or "cnn", graph,
-                                                calib, policy)
+                policy = QuantPolicy(mode="serial", w_bits=2, a_bits=2,
+                                     radix_bits=7)
+            if calib is None:
+                in_shape = next(iter(graph.inputs.values()))
+                calib = np.random.default_rng(seed + 1).random(
+                    (calib_batch,) + tuple(int(d) for d in in_shape[1:]),
+                    dtype=np.float32)
+            self.graph = graph
+            self.registry = ModelRegistry(device=self.device, store=store)
+            self.key = self.registry.register_graph(graph.name or "cnn",
+                                                    graph, calib, policy)
         self.service = InferenceService(
             self.registry, max_batch=max_batch, max_wait_s=max_wait_s,
             n_banks=n_banks)
@@ -324,8 +359,13 @@ class CNNServer:
 
     @property
     def program(self):
-        """The compiled Program (lazy — first access compiles)."""
+        """The compiled Program (lazy — first access compiles or loads)."""
         return self.registry.program(self.key)
+
+    def warm_boot(self) -> dict:
+        """Restore every variant from the artifact store and capture its
+        padding buckets (see :meth:`InferenceService.warm_boot`)."""
+        return self.service.warm_boot()
 
     def classify(self, images) -> np.ndarray:
         """Logits for a batch of images (NHWC float): per-image requests
@@ -361,14 +401,23 @@ def _device_name(device: torch.device) -> str:
 def _main_cnn(args) -> None:
     """CNN serving run: classification through the service + cycle
     report."""
-    server = CNNServer(seed=args.seed, device=args.device)
+    server = CNNServer(seed=args.seed, device=args.device, store=args.store)
     obs = _ObsSession(server.service, trace_out=args.trace_out,
                       metrics_port=args.metrics_port,
                       metrics_every=args.metrics_every)
     images = np.random.RandomState(args.seed).rand(
         args.batch, 32, 32, 3).astype(np.float32)
-    # compile, and capture every bucket on this thread before traffic
-    server.service.warmup()
+    # compile (or load), and capture every bucket on this thread before
+    # traffic
+    if args.store:
+        t0 = time.perf_counter()
+        report = server.warm_boot()
+        obs.emit(f"warm boot in {(time.perf_counter() - t0) * 1e3:.0f}ms: "
+                 f"restored={report['restored']} "
+                 f"compiled={report['compiled']} "
+                 f"bucket_compiles={report['bucket_compiles']}")
+    else:
+        server.service.warmup()
     server.classify(images)
     t0 = time.perf_counter()
     logits = server.classify(images)   # ends in the host copy
@@ -381,9 +430,160 @@ def _main_cnn(args) -> None:
     obs.emit(f"serving: p50={m['latency_p50_ms']}ms "
              f"p99={m['latency_p99_ms']}ms "
              f"bucket_caches={m['bucket_caches']}")
+    if args.store:
+        st = m["artifact_store"]
+        obs.emit(f"artifact store: hits={st['hits']} misses={st['misses']} "
+                 f"loads={st['loads']} load_p50={st['load_p50_ms']}ms "
+                 f"bytes_on_disk={st['bytes_on_disk']} "
+                 f"dedup_ratio={st['dedup_ratio']}")
     obs.emit(server.cycle_report())
     obs.close()
     server.close()
+
+
+def _parse_precisions(spec: Optional[str], cfg) -> list:
+    """``"W2A2,W2A8"`` → [(2, 2), (2, 8)]; default: the config's own
+    policy."""
+    import re
+    if not spec:
+        return [(int(cfg.w_bits), int(cfg.a_bits))]
+    out = []
+    for tok in spec.split(","):
+        m = re.fullmatch(r"[Ww](\d+)[Aa](\d+)", tok.strip())
+        if not m:
+            raise SystemExit(f"bad precision {tok!r} — expected e.g. W2A2")
+        out.append((int(m.group(1)), int(m.group(2))))
+    return out
+
+
+def _main_compile(argv) -> None:
+    """The offline BARVINN "code generator" run: graph → passes →
+    calibration → packing → artifact store. A serving process pointed at
+    ``--store`` then boots with zero recompiles and needs no calibration
+    data."""
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.launch.serve compile",
+        description="AOT-compile an arch into an artifact store")
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--store", required=True,
+                    help="artifact store directory (created if missing)")
+    ap.add_argument("--precisions", default=None,
+                    help="comma-separated variants, e.g. W2A2,W2A8 "
+                         "(default: the arch policy)")
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--calib-batch", type=int, default=8)
+    ap.add_argument("--gc", action="store_true",
+                    help="after compiling, drop store artifacts no ref "
+                         "tag reaches (untagged manifests + orphaned "
+                         "blobs)")
+    ap.add_argument("--gc-dry-run", action="store_true",
+                    help="report what --gc would delete without deleting")
+    args = ap.parse_args(argv)
+    if args.arch != CNN_ARCH:
+        raise SystemExit(f"compile: arch {args.arch!r} is not a CNN — only "
+                         "graph-compiled archs produce Program artifacts")
+    graph, calib, base = resnet9_recipe(args.seed, args.calib_batch)
+    registry = ModelRegistry(device=args.device, store=args.store)
+    for w_bits, a_bits in _parse_precisions(args.precisions, base):
+        policy = dataclasses.replace(base, w_bits=w_bits, a_bits=a_bits)
+        key = registry.register_graph(graph.name or "cnn", graph, calib,
+                                      policy)
+        hits0 = registry.artifact_hits
+        t0 = time.perf_counter()
+        registry.program(key)   # store hit or compile+save
+        dt = time.perf_counter() - t0
+        how = ("store hit" if registry.artifact_hits > hits0
+               else "compiled")
+        print(f"{key}: {registry.entry(key).ref[:12]}… ({how}) in "
+              f"{dt * 1e3:.0f}ms on {_device_name(registry.device)}")
+    if args.gc or args.gc_dry_run:
+        rep = registry.store.gc(dry_run=args.gc_dry_run)
+        mode = "gc dry-run" if rep["dry_run"] else "gc"
+        print(f"{mode}: removed_programs={rep['removed_programs']} "
+              f"removed_blobs={rep['removed_blobs']} "
+              f"bytes_freed={rep['bytes_freed']} "
+              f"(live: {rep['live_programs']} programs, "
+              f"{rep['live_blobs']} blobs)")
+    st = registry.store.stats()
+    print(f"store {args.store}: programs={st['programs']} "
+          f"blobs={st['blobs']} bytes_on_disk={st['bytes_on_disk']} "
+          f"dedup_ratio={st['dedup_ratio']}")
+
+
+def _main_profile(argv) -> None:
+    """Measured-time profile of the compiled ResNet9: per-layer device
+    time next to the cost model's predicted virtual cycles and the H100
+    roofline, a fitted ns/cycle per op kind, and the misprediction
+    outliers."""
+    from repro_torch.obs import calibrate
+    from repro_torch.obs.profiler import format_profile, profile_program
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.launch.serve profile",
+        description="profile a compiled model step by step and calibrate "
+                    "the cycle cost model against measured time")
+    ap.add_argument("--model", default="resnet9",
+                    help="graph-compiled model (resnet9)")
+    ap.add_argument("--precision", default=None,
+                    help="comma-separated variants, e.g. w2a2,w2a8 "
+                         "(default: the model's own policy)")
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--warmup", type=int, default=1)
+    ap.add_argument("--repeats", type=int, default=3,
+                    help="timed runs per step (best run kept)")
+    ap.add_argument("--mode", default="pipelined",
+                    choices=["pipelined", "distributed"],
+                    help="command-stream mapping for predicted cycles")
+    ap.add_argument("--tolerance", type=float, default=1.0,
+                    help="|relative residual| beyond which a layer is "
+                         "reported as a cost-model outlier")
+    ap.add_argument("--store", default=None,
+                    help="artifact store: load the compile from it and "
+                         "persist the fitted Calibration record")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write the measured spans as the third "
+                         "('measured') track of a Chrome trace JSON")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--calib-batch", type=int, default=8)
+    args = ap.parse_args(argv)
+    if args.model not in ("resnet9", "cnn"):
+        raise SystemExit(f"profile: unknown model {args.model!r} — only "
+                         "graph-compiled CNNs (resnet9) profile per step")
+    graph, calib, base = resnet9_recipe(args.seed, args.calib_batch)
+    registry = ModelRegistry(device=args.device, store=args.store)
+    if registry.device.type == "cuda":
+        disable_tf32()
+    precisions = _parse_precisions(args.precision, base)
+    for w_bits, a_bits in precisions:
+        policy = dataclasses.replace(base, w_bits=w_bits, a_bits=a_bits)
+        key = registry.register_graph(graph.name or "cnn", graph, calib,
+                                      policy)
+        program = registry.program(key)
+        prof = profile_program(program, batch=args.batch,
+                               warmup=args.warmup, repeats=args.repeats,
+                               mode=args.mode)
+        cal = calibrate.fit(prof, tolerance=args.tolerance)
+        print(f"== {key} (on {_device_name(registry.device)}) ==")
+        print(format_profile(prof, cal))
+        print(calibrate.format_calibration(cal))
+        if registry.store is not None:
+            k = calibrate.save(registry.store, cal, str(key))
+            print(f"calibration persisted: {k}")
+        if args.trace_out:
+            from repro_torch.obs.tracing import Tracer
+            out = args.trace_out
+            if len(precisions) > 1:   # one trace file per variant
+                stem, dot, ext = out.rpartition(".")
+                out = (f"{stem}.W{w_bits}A{a_bits}.{ext}" if dot
+                       else f"{out}.W{w_bits}A{a_bits}")
+            path = write_chrome_trace(Tracer(), out,
+                                      extra_spans=prof.spans())
+            print(f"measured trace ({len(prof.steps)} step spans on the "
+                  f"'measured' track) -> {path}")
+        print()
 
 
 def _main_lm(args) -> None:
@@ -462,19 +662,18 @@ def _main_trace(argv) -> None:
                                       for k, v in domains.items()))
 
 
-#: the reference's subcommands that wait for modules the port lacks
-_WAITING = {"compile": "compiler/artifact", "profile": "obs/profiler"}
-
-
 def main(argv=None) -> None:
     import sys
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] == "trace":
         _main_trace(argv[1:])
         return
-    if argv and argv[0] in _WAITING:
-        raise SystemExit(f"{argv[0]}: needs {_WAITING[argv[0]]}, which is "
-                         "not ported yet")
+    if argv and argv[0] == "compile":
+        _main_compile(argv[1:])
+        return
+    if argv and argv[0] == "profile":
+        _main_profile(argv[1:])
+        return
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default=CNN_ARCH,
                     choices=(CNN_ARCH,) + tuple(list_archs()))
@@ -489,6 +688,9 @@ def main(argv=None) -> None:
                          "packed planes into K3")
     ap.add_argument("--smoke", action="store_true",
                     help="LM: the arch's reduced config (for the CPU)")
+    ap.add_argument("--store", default=None,
+                    help="CNN: artifact store directory — warm-boot the "
+                         "compile from it (compiling and saving on a miss)")
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="write the run's request trace as Chrome trace "
                          "JSON (Perfetto-loadable; summarize with the "
@@ -502,6 +704,8 @@ def main(argv=None) -> None:
                          "(0 = off)")
     args = ap.parse_args(argv)
     if args.arch != CNN_ARCH:
+        if args.store:
+            ap.error("--store applies to the compiled CNN arch only")
         args.batch = args.batch or 4
         _main_lm(args)
         return

@@ -12,8 +12,12 @@ port's copies of the reference's jax-free modules.
   cycles), bounded + sampled, exported as Perfetto-loadable Chrome trace
   JSON and Prometheus text.
 
-The reference's measured layer (``obs/profiler``, ``obs/calibrate``) is not
-ported yet.
+* :mod:`repro_torch.obs.profiler` + :mod:`repro_torch.obs.calibrate` — the
+  measured layer: per-step device time of a compiled Program beside the
+  cycle model's prediction, and the fitted ns-per-virtual-cycle exchange
+  rate that the slot scheduler books wall time with. Both are opt-in and
+  exported lazily, so importing this package (as the serving path does)
+  never imports the profiler.
 """
 
 from repro_torch.obs.export import (chrome_trace, format_trace_summary,
@@ -30,4 +34,22 @@ __all__ = [
     "Span", "TraceContext", "Tracer", "now_ns",
     "chrome_trace", "write_chrome_trace", "prometheus_text",
     "trace_summary", "format_trace_summary", "start_metrics_server",
+    "ProgramProfile", "StepProfile", "profile_program", "format_profile",
+    "Calibration", "fit", "fit_samples", "format_calibration",
 ]
+
+_PROFILER = ("ProgramProfile", "StepProfile", "profile_program",
+             "format_profile")
+_CALIBRATE = ("Calibration", "fit", "fit_samples", "format_calibration")
+
+
+def __getattr__(name):
+    # lazy re-exports: the measured layer is opt-in, so the serving path
+    # (which imports this package for its metrics) never loads it
+    if name in _PROFILER:
+        from repro_torch.obs import profiler
+        return getattr(profiler, name)
+    if name in _CALIBRATE:
+        from repro_torch.obs import calibrate
+        return getattr(calibrate, name)
+    raise AttributeError(name)

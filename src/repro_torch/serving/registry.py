@@ -18,13 +18,19 @@ number of :class:`~repro_torch.models.layers.QuantPolicy` precisions, with:
   shape), so it also deduplicates across models that share layers;
 * **LRU eviction** — at most ``max_programs`` compiled graph entries stay
   resident; evicted ones recompile transparently on next use (pinned
-  Programs and opaque callables are never evicted).
+  Programs and opaque callables are never evicted);
+* **artifact store** — with ``store=`` (an
+  :class:`~repro_torch.compiler.artifact.ArtifactStore` or a directory
+  path), :meth:`program` consults the store *before* ``compile_graph``
+  (keyed by :func:`~repro_torch.compiler.artifact.recipe_digest`), freshly
+  compiled Programs are saved and tagged ``model@precision``, eviction
+  spills to a disk reference so re-admission is a load rather than a
+  recompile, and :meth:`warm_boot` restores every variant with zero
+  compiles. Loads land on the registry's device. Fleet processes with no
+  compile recipe at all register through :meth:`register_artifact`.
 
 The reference's ``backend``/``interpret`` are the port's ``plain`` (the
-kernels' plain versions) and ``device`` (default: the card). Its artifact
-store (``store=``, :meth:`register_artifact`, :meth:`warm_boot`) waits for
-``compiler/artifact``, which the port has not got yet; the snapshot keeps
-the store's keys at 0.
+kernels' plain versions) and ``device`` (default: the card).
 
 Opaque engines (e.g. the continuous LM engine, whose serving loop is not a
 single Program call) register through :meth:`register_callable` and serve
@@ -36,6 +42,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import hashlib
+import os
 import threading
 import weakref
 from typing import Callable, Dict, List, Optional
@@ -46,9 +53,6 @@ from repro_torch import resolve_device
 from repro_torch.obs.metrics import MetricsRegistry
 
 __all__ = ["ModelKey", "ModelRegistry", "precision_label"]
-
-_NO_ARTIFACT = ("the artifact store needs compiler/artifact, which is not "
-                "ported yet")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,7 +82,8 @@ def packed_digest(t: torch.Tensor) -> str:
 
 @dataclasses.dataclass
 class _Entry:
-    kind: str                       # "graph" | "program" | "callable"
+    # "graph" | "artifact" | "program" | "callable"
+    kind: str
     graph: object = None            # graph entries: the compile recipe
     calib: object = None
     policy: object = None
@@ -88,27 +93,31 @@ class _Entry:
     fn: Optional[Callable] = None   # callable entries: opaque batch engine
     stream: object = None           # optional CommandStream for scheduling
     max_batch: Optional[int] = None  # per-entry cap (callable engines)
+    recipe: Optional[str] = None    # recipe_digest (graph entries w/ store)
+    ref: Optional[str] = None       # artifact ref once saved/registered
 
 
 class ModelRegistry:
     """Registry of servable model variants (see module docstring).
 
     ``plain`` makes the service run this registry's Programs through the
-    kernels' plain versions; ``device`` is where graph entries compile
-    (overridable per registration). Thread-safe: the serving
+    kernels' plain versions; ``device`` is where graph entries compile and
+    artifacts load (compiles overridable per registration). ``store``: an
+    :class:`~repro_torch.compiler.artifact.ArtifactStore` or its directory.
+    Thread-safe: the serving
     worker and user threads may call :meth:`program` concurrently.
     """
 
     def __init__(self, *, max_programs: Optional[int] = None,
                  plain: bool = False, device=None, store=None,
                  metrics: Optional[MetricsRegistry] = None):
-        if store is not None:
-            raise NotImplementedError(f"ModelRegistry(store=...): "
-                                      f"{_NO_ARTIFACT}")
         self.plain = plain
         self.device = resolve_device(device)
         self.max_programs = max_programs
-        self.store = None
+        if isinstance(store, (str, os.PathLike)):
+            from repro_torch.compiler.artifact import ArtifactStore
+            store = ArtifactStore(os.fspath(store))
+        self.store = store
         self._entries: Dict[ModelKey, _Entry] = {}  # guarded-by: _lock
         # compiled graph-entry Programs only, LRU order (pinned Programs
         # live in their _Entry and never evict)
@@ -132,6 +141,14 @@ class ModelRegistry:
             "packed planes deduped across variants")
         self._c_shared_bytes = m.counter(
             "registry_shared_bytes_total", "bytes saved by plane dedup")
+        self._c_art_hits = m.counter(
+            "registry_artifact_hits_total",
+            "compiles avoided by a store load")
+        self._c_art_saves = m.counter(
+            "registry_artifact_saves_total", "programs written to the store")
+        self._c_art_spills = m.counter(
+            "registry_artifact_spills_total",
+            "evictions that left a disk reference")
 
     @property
     def compiles(self) -> int:
@@ -149,6 +166,18 @@ class ModelRegistry:
     def shared_bytes(self) -> int:
         return int(self._c_shared_bytes.value())
 
+    @property
+    def artifact_hits(self) -> int:
+        return int(self._c_art_hits.value())
+
+    @property
+    def artifact_saves(self) -> int:
+        return int(self._c_art_saves.value())
+
+    @property
+    def artifact_spills(self) -> int:
+        return int(self._c_art_spills.value())
+
     # -------------------------------------------------------- registration
     def register_graph(self, model: str, graph, calib, policy, *,
                        precision: Optional[str] = None,
@@ -165,6 +194,11 @@ class ModelRegistry:
             "graph", graph=graph, calib=calib, policy=policy,
             per_layer=per_layer,
             device=self.device if device is None else resolve_device(device))
+        if self.store is not None:
+            from repro_torch.compiler.artifact import recipe_digest
+            e.recipe = recipe_digest(graph, calib, policy,
+                                     per_layer=per_layer,
+                                     route=f"torch:{e.device.type}")
         with self._lock:
             self._check_new(key)
             self._entries[key] = e
@@ -172,8 +206,25 @@ class ModelRegistry:
 
     def register_artifact(self, model: str, *, precision: str,
                           ref: Optional[str] = None) -> ModelKey:
-        """A variant backed only by a stored artifact (the fleet path)."""
-        raise NotImplementedError(f"register_artifact: {_NO_ARTIFACT}")
+        """Register a variant backed *only* by a stored artifact — the
+        fleet path: no graph, no calibration data, no compiler run. ``ref``
+        defaults to the store's ``model@precision`` name tag."""
+        from repro_torch.compiler.artifact import ArtifactError
+        if self.store is None:
+            raise ValueError("register_artifact requires a registry store")
+        key = ModelKey(model, precision)
+        if ref is None:
+            ref = self.store.resolve(str(key))
+            if ref is None:
+                raise ArtifactError(
+                    f"no artifact tagged {key} in store {self.store.root} "
+                    f"(tags: {sorted(self.store.tags())})")
+        if not self.store.has_program(ref):
+            raise ArtifactError(f"unknown program ref {ref[:12]}… for {key}")
+        with self._lock:
+            self._check_new(key)
+            self._entries[key] = _Entry("artifact", ref=ref)
+        return key
 
     def register_program(self, model: str, program, *,
                          precision: str) -> ModelKey:
@@ -213,32 +264,94 @@ class ModelRegistry:
                            f"{[str(k) for k in self._entries]}") from None
 
     def program(self, key: ModelKey):
-        """The compiled Program for ``key`` (lazy compile + LRU touch)."""
+        """The compiled Program for ``key`` (lazy materialize + LRU touch).
+
+        Materialization order: resident LRU hit → artifact-store load (by
+        prior ref, then by recipe digest) → ``compile_graph``. A fresh
+        compile is saved back to the store (when one is attached) and
+        tagged ``model@precision``, so every later eviction re-admits via
+        a disk load instead of a recompile."""
         with self._lock:
             e = self.entry(key)
             if e.kind == "program":
                 return e.program
-            if e.kind != "graph":
+            if e.kind not in ("graph", "artifact"):
                 raise TypeError(f"{key} is an opaque engine, not a Program")
             prog = self._lru.get(key)
             if prog is not None:
                 self._lru.move_to_end(key)
                 return prog
-            from repro_torch.compiler.lower import compile_graph
-            prog = compile_graph(e.graph, e.calib, policy=e.policy,
-                                 per_layer=e.per_layer, device=e.device)
-            self._c_compiles.inc()
+            prog = self._materialize(key, e)
             self._share_packed(prog)
             self._lru[key] = prog
             while (self.max_programs is not None
                    and len(self._lru) > self.max_programs):
-                self._lru.popitem(last=False)
+                old_key, _ = self._lru.popitem(last=False)
                 self._c_evictions.inc()
+                oe = self._entries.get(old_key)
+                if oe is not None and oe.ref is not None:
+                    self._c_art_spills.inc()
             return prog
 
+    def _materialize(self, key: ModelKey, e: _Entry):  # requires: _lock
+        """Load from the store if possible, else compile (and save). A
+        graph entry whose stored ref no longer loads falls through to a
+        compile of its recipe (counted as a store miss), as the
+        reference's does; an artifact entry has no recipe and raises."""
+        from repro_torch.compiler.artifact import (ArtifactError,
+                                                   load_program,
+                                                   save_program)
+        if self.store is not None:
+            for ref in (e.ref,
+                        self.store.resolve(f"recipe:{e.recipe}")
+                        if e.recipe is not None else None):
+                if ref is None:
+                    continue
+                try:
+                    prog = load_program(
+                        ref, self.store, device=(e.device if e.device
+                                                 is not None else self.device))
+                except ArtifactError:
+                    if e.kind == "artifact":
+                        raise   # no recipe to fall back on
+                    continue    # stale/corrupt ref: compile the recipe
+                e.ref = ref
+                self._c_art_hits.inc()
+                self.store._note_hit()
+                # re-assert the name tag: a hit found only through the
+                # recipe index must still be a GC root afterwards
+                self.store.tag(str(key), ref)
+                return prog
+            self.store._note_miss()
+        if e.kind == "artifact":
+            raise ArtifactError(f"{key} is artifact-backed but has no "
+                                "loadable artifact (store missing?)")
+        from repro_torch.compiler.lower import compile_graph
+        prog = compile_graph(e.graph, e.calib, policy=e.policy,
+                             per_layer=e.per_layer, device=e.device)
+        self._c_compiles.inc()
+        if self.store is not None:
+            e.ref = save_program(prog, self.store, name=str(key))
+            if e.recipe is not None:
+                self.store.tag(f"recipe:{e.recipe}", e.ref)
+            self._c_art_saves.inc()
+        return prog
+
     def warm_boot(self) -> Dict:
-        """Restore every variant from the artifact store."""
-        raise NotImplementedError(f"warm_boot: {_NO_ARTIFACT}")
+        """Materialize every graph/artifact variant up front, preferring
+        the artifact store. With a fully populated store this performs
+        **zero** ``compile_graph``. Returns ``{"restored": [...],
+        "compiled": [...]}`` by variant name."""
+        restored: List[str] = []
+        compiled: List[str] = []
+        for key in self.keys():
+            if self.entry(key).kind not in ("graph", "artifact"):
+                continue
+            before = self.compiles
+            self.program(key)
+            (compiled if self.compiles > before
+             else restored).append(str(key))
+        return {"restored": restored, "compiled": compiled}
 
     def resident_program(self, key: ModelKey):
         """The cached Program if (and only if) resident — never compiles.
@@ -296,9 +409,9 @@ class ModelRegistry:
                 "shared_arrays": self.shared_arrays,
                 "shared_bytes": self.shared_bytes,
                 "pack_cache_entries": len(self._pack_cache),
-                # the artifact store's keys (compiler/artifact, not ported)
-                "artifact_hits": 0,
-                "artifact_saves": 0,
-                "artifact_spills": 0,
-                "artifact_store": None,
+                "artifact_hits": self.artifact_hits,
+                "artifact_saves": self.artifact_saves,
+                "artifact_spills": self.artifact_spills,
+                "artifact_store": (None if self.store is None
+                                   else self.store.stats()),
             }

@@ -18,7 +18,7 @@ that decision in the cycle domain:
   and estimated seconds; :meth:`complete` feeds back measured wall time so
   metrics expose both the modelled and the observed picture;
 * :meth:`set_calibration` attaches a fitted ns-per-cycle model
-  (the reference's ``obs/calibrate``) so ``est_seconds`` and the predicted
+  (:mod:`repro_torch.obs.calibrate`) so ``est_seconds`` and the predicted
   finish switch from the nominal controller clock to measured wall time —
   the SLO-booking currency.
 
@@ -44,8 +44,8 @@ extended across every admitted batch and every bank.
 The port's copy of ``repro/serving/scheduler.py`` (pure Python). Its banks
 are cycle-domain clocks, so ``n_banks > 1`` books more virtual slots and
 needs no second card; the service that executes on them serves one bank.
-``set_calibration`` takes any object with ``predict_wall_seconds`` and
-``ns_for``: the port's ``obs/calibrate`` is not ported yet.
+``set_calibration`` takes a :class:`~repro_torch.obs.calibrate.Calibration`
+(or any object with ``predict_wall_seconds`` and ``ns_for``).
 """
 
 from __future__ import annotations

@@ -671,3 +671,88 @@ def test_graphed_moe_engine_equals_cpu_engine(dev, pack_acts):
     # that the card's and the CPU's reductions round apart by an ulp
     np.testing.assert_allclose(gpu.drop_fractions(), cpu.drop_fractions(),
                                rtol=0, atol=1e-6)
+
+
+# ---------------------------------------------- the artifact store on the card
+
+def _stored_tiny_cnn(root):
+    """tiny_cnn at W2A2 and W2A8 compiled on the card by a registry with a
+    store: returns the two compiled Programs (the store holds both, their
+    shared planes once)."""
+    from repro_torch.serving import ModelRegistry
+    g, calib = _tiny_cnn_graph()
+    reg = ModelRegistry(store=root)
+    keys = [reg.register_graph("tiny", g, calib, _policy(a)) for a in (2, 8)]
+    return [reg.program(k) for k in keys]
+
+
+def test_loaded_planes_on_the_card_and_shared(dev, tmp_path):
+    """A registry on the card loads a store's Programs onto the card; the
+    planes the W2A2 and W2A8 variants share are one tensor there."""
+    from repro_torch.serving import ModelRegistry
+    root = str(tmp_path / "store")
+    compiled = _stored_tiny_cnn(root)
+    reg = ModelRegistry(store=root)
+    keys = [reg.register_artifact("tiny", precision=p)
+            for p in ("W2A2", "W2A8")]
+    progs = [reg.program(k) for k in keys]
+    assert reg.compiles == 0 and reg.artifact_hits == 2
+    for p, c in zip(progs, compiled):
+        assert p.device.type == "cuda"
+        for name, rec in p.params.items():
+            for key, t in rec.items():
+                assert t.device.type == "cuda", (name, key)
+                assert torch.equal(t, c.params[name][key].to(t.device))
+    shared = [n for n, rec in progs[0].params.items() if "w_packed" in rec]
+    assert shared
+    for n in shared:
+        assert progs[0].params[n]["w_packed"] is progs[1].params[n]["w_packed"]
+
+
+def test_warm_boot_captures_over_the_loaded_tensors(dev, tmp_path):
+    """The service's warm boot restores both variants with zero compiles
+    and captures every bucket over the loaded Programs; every replay
+    equals the compiled Program's eager forward at its bucket."""
+    from repro_torch.compiler import executor
+    from repro_torch.serving import InferenceService, ModelRegistry
+    root = str(tmp_path / "store")
+    compiled = _stored_tiny_cnn(root)
+    reg = ModelRegistry(store=root)
+    keys = [reg.register_artifact("tiny", precision=p)
+            for p in ("W2A2", "W2A8")]
+    xs = np.random.RandomState(5).rand(4, 8, 8, 8).astype(np.float32)
+    with InferenceService(reg, max_batch=4, max_wait_s=0.0) as svc:
+        report = svc.warm_boot()
+        assert report["compiled"] == [] and len(report["restored"]) == 2
+        assert report["bucket_compiles"] == 6
+        for k, c in zip(keys, compiled):
+            run = svc._runners[k]
+            assert run.program is reg.program(k)
+            held = {id(t) for bg in run._graphs.values() for t in bg.params}
+            assert all(id(t) in held for rec in run.program.params.values()
+                       for t in rec.values())
+            for n in (1, 3, 4):
+                got = run(torch.from_numpy(xs[:n]))
+                want = _eager_at_bucket(c, torch.from_numpy(xs[:n]).to(dev),
+                                        executor.bucket_for(n, 4))
+                assert torch.equal(got, want)
+            assert run.compiles == 3
+
+
+def test_profiler_times_on_the_card(dev):
+    """Event-timed steps are positive and finite; each step launches its
+    kernel once per call (K2 per conv_packed, K1 per quantize_pack, K3
+    per gemm_packed) and the host steps launch none."""
+    import math
+    from repro_torch.obs import calibrate
+    from repro_torch.obs.profiler import profile_program
+    prog = _tiny_cnn_program(dev)
+    prof = profile_program(prog, batch=4, repeats=2)
+    assert prof.backend == "cuda"
+    want = {"conv_packed": {"K2": 1}, "quantize_pack": {"K1": 1},
+            "gemm_packed": {"K3": 1}}
+    for s in prof.steps:
+        assert math.isfinite(s.wall_ns) and s.wall_ns > 0, s.name
+        assert s.launches == want.get(s.kind, {}), s.name
+    cal = calibrate.fit(prof)
+    assert cal.backend == "cuda" and cal.ns_for("conv_packed") > 0

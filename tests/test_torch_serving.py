@@ -183,21 +183,13 @@ def test_registry_errors_equal_reference():
 
 
 def test_registry_store_and_multi_bank_wait_for_their_modules():
-    with pytest.raises(NotImplementedError, match="compiler/artifact"):
-        ModelRegistry(device="cpu", store="somewhere")
+    """Multi-bank serving still waits for distributed/program_parallel (the
+    store's cases are positive tests in tests/test_torch_artifact.py)."""
     reg = ModelRegistry(device="cpu")
-    for fn in (lambda: reg.register_artifact("m", precision="W2A2"),
-               reg.warm_boot):
-        with pytest.raises(NotImplementedError, match="compiler/artifact"):
-            fn()
     for kw in ({"n_banks": 2}, {"mesh": object()}):
         with pytest.raises(NotImplementedError,
                            match="distributed/program_parallel"):
             InferenceService(reg, **kw)
-    with pytest.raises(NotImplementedError, match="compiler/artifact"):
-        serve.CNNServer(store="somewhere", device="cpu")
-    with pytest.raises(NotImplementedError, match="compiler/artifact"):
-        serve.CNNServer(artifact="resnet9@W2A2", device="cpu")
     with pytest.raises(NotImplementedError,
                        match="distributed/program_parallel"):
         serve.CNNServer(n_banks=2, device="cpu")
@@ -770,10 +762,6 @@ def test_serve_cli_cnn_prints_reference_lines(tmp_path):
     summary = _run_cli(["trace", trace, "--top-k", "3"])
     assert "total_ms" in summary and "queue_ms" in summary
     assert "tracer: 8/8 requests sampled" in summary
-    for sub, module in (("compile", "compiler/artifact"),
-                        ("profile", "obs/profiler")):
-        with pytest.raises(SystemExit, match=module):
-            serve.main([sub])
 
 
 def test_serve_cli_lm_through_the_service():
