@@ -25,7 +25,7 @@ SMOKE = ModelConfig(
     d_ff=256, vocab_size=512, act="swiglu",
     mla=True, kv_lora=32, qk_nope_dim=16, qk_rope_dim=8, v_head_dim=16,
     n_experts=4, top_k=2, n_shared_experts=1, d_ff_expert=32,
-    n_dense_layers=1, dtype="float32",
+    n_dense_layers=1, dtype="float32", remat=False,
     policy=QuantPolicy(mode="qat", w_bits=4, a_bits=8),
 )
 

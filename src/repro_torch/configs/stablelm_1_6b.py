@@ -19,7 +19,7 @@ SMOKE = ModelConfig(
     name="stablelm-1.6b-smoke", family="dense",
     n_layers=2, d_model=64, n_heads=4, n_kv_heads=4, head_dim=16,
     d_ff=128, vocab_size=512, act="swiglu", partial_rotary=0.25,
-    norm_type="layer", dtype="float32",
+    norm_type="layer", dtype="float32", remat=False,
     policy=QuantPolicy(mode="qat", w_bits=4, a_bits=8),
 )
 

@@ -1,12 +1,14 @@
-"""Quantization: step-size init, the LSQ fake-quant forward and the
-integer/packed deployment path.
+"""Quantization: LSQ (Learned Step Size Quantization, Esser et al. 2020)
+quantization-aware training, PTQ calibration and the integer/packed
+deployment path.
 
-Counterpart of ``repro/core/quant.py`` without LSQ training:
-:func:`lsq_fake_quant` is the forward only (a later slice ports the
-straight-through estimator with training). ``quantize_int`` is the
-serve-path quantizer: IEEE division, round half to even, clip — the same
-expression as the reference and as the CUDA kernels
-(``rintf(__fdiv_rn(x, alpha))``).
+Counterpart of ``repro/core/quant.py``: :func:`lsq_fake_quant` is LSQ's
+fake quantization with its straight-through estimator and gradient-scaled
+step-size learning (the reference's ``_lsq`` custom VJP as a
+``torch.autograd.Function``); :func:`calibrate` is the PTQ step from a
+percentile. ``quantize_int`` is the serve-path quantizer: IEEE division,
+round half to even, clip — the same expression as the reference and as the
+CUDA kernels (``rintf(__fdiv_rn(x, alpha))``).
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ __all__ = [
     "lsq_fake_quant",
     "init_alpha",
     "quantize_int",
+    "dequantize",
+    "calibrate",
     "pack_weights",
     "QuantizedWeight",
     "pack_conv_weights",
@@ -51,17 +55,64 @@ def qrange(bits: int, signed: bool) -> tuple[int, int]:
     return 0, (1 << bits) - 1
 
 
+def _unbroadcast(x: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """Sum ``x`` down to ``shape`` (inverse of numpy broadcasting)."""
+    if shape == ():
+        return torch.sum(x)
+    extra = x.dim() - len(shape)
+    if extra:
+        x = torch.sum(x, dim=tuple(range(extra)))
+    axes = tuple(i for i, s in enumerate(shape) if s == 1 and x.shape[i] != 1)
+    if axes:
+        x = torch.sum(x, dim=axes, keepdim=True)
+    return x
+
+
+class _LSQ(torch.autograd.Function):
+    """``clip(round(x / alpha), qn, qp) * alpha`` with LSQ's gradients
+    (the reference's ``_lsq_fwd``/``_lsq_bwd``): ``dx`` passes ``g``
+    inside the clip range; ``dalpha`` is ``round(q) - q`` inside, ``qn``/
+    ``qp`` at the clips, times ``g``, summed down to alpha's shape and
+    scaled by ``gscale``. The residual is ``q = x / alpha``."""
+
+    @staticmethod
+    def forward(ctx, x, alpha, qn: float, qp: float, gscale: float):
+        q = x / alpha
+        ctx.save_for_backward(q, alpha)
+        ctx.bounds = (qn, qp, gscale)
+        return torch.clamp(torch.round(q), qn, qp) * alpha
+
+    @staticmethod
+    def backward(ctx, g):
+        q, alpha = ctx.saved_tensors
+        qn, qp, gscale = ctx.bounds
+        lower = q <= qn
+        upper = q >= qp
+        mid = torch.logical_not(torch.logical_or(lower, upper))
+        dx = torch.where(mid, g, 0.0)
+        # the clip values as 0-d tensors of g's dtype (Python scalars would
+        # make the result float32, where the reference keeps g's dtype)
+        bound = lambda v: torch.full((), v, dtype=g.dtype, device=g.device)
+        edge = torch.where(lower, bound(qn), bound(qp))
+        dalpha_elem = torch.where(mid, torch.round(q) - q, edge) * g
+        dalpha = _unbroadcast(dalpha_elem, tuple(alpha.shape)) * gscale
+        return dx, dalpha.to(alpha.dtype), None, None, None
+
+
 def lsq_fake_quant(x: torch.Tensor, alpha: torch.Tensor,
                    spec: QuantSpec) -> torch.Tensor:
-    """LSQ fake quantization, forward only: ``clip(round(x / a), Qn, Qp) *
-    a`` with ``a = max(|alpha|, 1e-8)`` cast to ``x``'s dtype, as the
-    reference computes it (``repro/core/quant.py`` ``lsq_fake_quant`` and
-    ``_lsq``). The straight-through gradient (``_lsq_bwd``) belongs to
-    training and is not ported yet: this is for inference under
-    ``torch.inference_mode``/``no_grad``."""
+    """LSQ fake quantization, differentiable wrt both ``x`` and ``alpha``:
+    ``clip(round(x / a), Qn, Qp) * a`` with ``a = max(|alpha|, 1e-8)``
+    cast to ``x``'s dtype, as the reference computes it. ``alpha`` is a
+    scalar (per-tensor) or broadcastable (per-channel) step size; the LSQ
+    gradient scale ``1/sqrt(N * Qp)`` stabilizes step-size learning
+    (Esser et al., §2.2). The clamp and the sign stay outside the
+    estimator, so autograd carries them as the reference's does."""
     qn, qp = qrange(spec.bits, spec.signed)
+    n = x.numel() / max(1, alpha.numel())
+    gscale = 1.0 / np.sqrt(max(1.0, n * max(qp, 1)))
     a = torch.clamp_min(torch.abs(alpha), 1e-8).to(x.dtype)
-    return torch.clamp(torch.round(x / a), qn, qp) * a
+    return _LSQ.apply(x, a, float(qn), float(qp), float(gscale))
 
 
 def init_alpha(x: torch.Tensor, spec: QuantSpec, axis=None) -> torch.Tensor:
@@ -85,6 +136,38 @@ def quantize_int(x: torch.Tensor, alpha: torch.Tensor,
     """Integer quantization: int32 codes ``clip(round(x / alpha), Qn, Qp)``."""
     qn, qp = qrange(spec.bits, spec.signed)
     return torch.clamp(torch.round(x / alpha), qn, qp).to(torch.int32)
+
+
+def dequantize(q: torch.Tensor, alpha: torch.Tensor,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return q.to(dtype) * alpha.to(dtype)
+
+
+def calibrate(x: torch.Tensor, spec: QuantSpec, percentile: float = 99.9,
+              axis=None) -> torch.Tensor:
+    """PTQ step-size calibration from a sample batch (percentile absmax,
+    interpolated linearly between order statistics as ``jnp.percentile``
+    does; ``axis`` reduces those axes, kept as size 1)."""
+    _, qp = qrange(spec.bits, spec.signed)
+    a = torch.abs(x)
+    axes = (tuple(range(a.dim())) if axis is None else
+            tuple(d % a.dim() for d in
+                  ((axis,) if isinstance(axis, int) else axis)))
+    keep = [d for d in range(a.dim()) if d not in axes]
+    flat = a.permute(keep + list(axes)).reshape(
+        [a.shape[d] for d in keep] + [-1])
+    srt = torch.sort(flat, dim=-1).values
+    # the position and weights in float32, as jnp.percentile computes them
+    pos = np.float32(percentile) / np.float32(100)
+    pos = pos * np.float32(srt.shape[-1] - 1)
+    lo = int(np.floor(pos))
+    hi_i = min(int(np.ceil(pos)), srt.shape[-1] - 1)
+    w = pos - np.float32(lo)
+    hi = srt[..., lo] * float(np.float32(1) - w) + srt[..., hi_i] * float(w)
+    if axis is not None:
+        for d in sorted(axes):
+            hi = hi.unsqueeze(d)
+    return torch.clamp_min(hi, 1e-8) / max(qp, 1)
 
 
 @dataclasses.dataclass

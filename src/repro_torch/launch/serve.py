@@ -148,12 +148,15 @@ class GenRequest:
 
 
 class Server:
-    """Static-batch LM server over the quantized (bit-transposed)
-    deployment path, greedy decoding.
+    """Static-batch LM server, greedy decoding, over the quantized
+    (bit-transposed) deployment path or, with ``quantized=False``, the
+    float params through the LSQ fake-quant forward (mode ``qat``), as the
+    reference serves them.
 
     ``params``: float or packed parameters on the server's device (default:
     random from ``seed`` on that device, drawn and packed one layer at a
-    time); float ones are packed once. The
+    time when ``quantized``); float ones are packed once when
+    ``quantized``. The
     head's float32 weight is cast to the compute dtype once here, where the
     reference casts it at every call — the same numbers. ``pack_acts``
     selects K1 + K3 (True) or K4 (False); ``plain`` runs the kernels'
@@ -166,11 +169,6 @@ class Server:
                  batch_slots: int = 4, max_len: int = 128, seed: int = 0,
                  quantized: bool = True, pack_acts: bool = True,
                  plain: bool = False, device=None):
-        if not quantized:
-            raise NotImplementedError(
-                "Server(quantized=False) runs the LSQ fake-quant forward, "
-                "which waits for the LSQ straight-through estimator (not "
-                "ported yet); serve the packed weights")
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             disable_tf32()
@@ -180,11 +178,12 @@ class Server:
         self.batch_slots = batch_slots
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = init_params(gen, cfg, packed=True)
+            params = init_params(gen, cfg, packed=quantized)
         if params["embed"].device != self.device:
             raise ValueError(f"params lie on {params['embed'].device}, the "
                              f"server on {self.device}")
-        params = pack_params(params, cfg)  # bit-transposed deployment
+        # bit-transposed deployment, or the float params as they are
+        params = pack_params(params, cfg) if quantized else dict(params)
         params["head"] = dict(params["head"], w=params["head"]["w"].to(
             cfg.compute_dtype))
         self.params = params

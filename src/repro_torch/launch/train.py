@@ -1,0 +1,181 @@
+"""Training: LSQ quantization-aware training with checkpoint/restart
+supervision, straggler detection and async checkpoints.
+
+Counterpart of ``repro/launch/train.py`` on one device: a step is the
+forward (LSQ fake quantization on every projection, each layer
+checkpointed under ``cfg.remat``), ``backward`` and the reference's AdamW;
+the batches are the reference's :class:`~repro_torch.data.SyntheticLM`
+stream, equal bit for bit. The trained float params export to the packed
+deployment path with :func:`~repro_torch.models.transformer.pack_params`.
+It trains on one device: data- and model-parallel meshes come with
+``distributed/``.
+
+    python -m repro_torch.launch.train --arch stablelm-1.6b --steps 8
+    python -m repro_torch.launch.train --arch stablelm-1.6b --smoke --device cpu --steps 20 [--ckpt-dir D]
+
+The CLI trains the arch's full config on the card unless ``--smoke`` (the
+reference's ``--smoke`` is ``store_true`` with ``default=True``, so its
+CLI only ever trains the smoke config).
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Optional
+
+import torch
+from torch.profiler import record_function
+
+from repro_torch import resolve_device
+from repro_torch.configs import get_arch, list_archs
+from repro_torch.core.pipeline_modules import disable_tf32
+from repro_torch.core.tree import tree_flatten, tree_unflatten
+from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.models.transformer import ModelConfig, init_params, loss_fn
+from repro_torch.optim.optimizer import AdamWConfig, adamw_init, adamw_update
+from repro_torch.runtime.checkpoint import CheckpointManager
+from repro_torch.runtime.fault_tolerance import FailureInjector, TrainSupervisor
+from repro_torch.runtime.straggler import StepTimer, StragglerDetector
+
+__all__ = ["Trainer", "make_train_step"]
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig):
+    """``train_step(state, batch) -> (state, metrics)``: the loss and its
+    gradients wrt every param leaf, then one AdamW update. ``state`` is
+    ``{"params", "opt"}`` and is not written; metrics ``loss``, ``ce``,
+    ``lr`` and ``grad_norm`` are 0-d tensors on the state's device. The
+    three parts run in the profiler ranges ``train_step.forward``,
+    ``train_step.backward`` and ``train_step.adamw``."""
+
+    def train_step(state, batch):
+        leaves, treedef = tree_flatten(state["params"])
+        leaves = [l.detach().requires_grad_(True) for l in leaves]
+        with torch.enable_grad():
+            with record_function("train_step.forward"):
+                loss, aux = loss_fn(tree_unflatten(treedef, leaves), batch,
+                                    cfg)
+            with record_function("train_step.backward"):
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                            materialize_grads=True)
+        del leaves
+        with torch.no_grad(), record_function("train_step.adamw"):
+            params, opt, om = adamw_update(
+                state["params"], tree_unflatten(treedef, list(grads)),
+                state["opt"], opt_cfg)
+        metrics = {"loss": loss.detach(), "ce": aux["ce"].detach(), **om}
+        return {"params": params, "opt": opt}, metrics
+
+    return train_step
+
+
+class Trainer:
+    """Supervised trainer wiring the runtime subsystems together.
+
+    ``device=None`` means the card: it raises when there is none (pass
+    ``device="cpu"``). Parameters are drawn from a ``torch.Generator``
+    seeded with ``seed`` on the device. With ``ckpt_dir`` the run is
+    supervised (:class:`~repro_torch.runtime.fault_tolerance.TrainSupervisor`:
+    a checkpoint every ``save_every`` steps and at the last, restore and
+    continue after a :class:`WorkerFailure`)."""
+
+    def __init__(self, cfg: ModelConfig, *, opt_cfg: AdamWConfig,
+                 ckpt_dir: Optional[str] = None,
+                 batch_size: int = 8, seq_len: int = 64, seed: int = 0,
+                 save_every: int = 50, device=None):
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            disable_tf32()
+        self.cfg = cfg
+        self.opt_cfg = opt_cfg
+        self.batch_size = batch_size
+        self.seq_len = seq_len
+        self.seed = seed
+        self.data = SyntheticLM(cfg.vocab_size, seq_len, seed=seed)
+        self.ckpt = (CheckpointManager(ckpt_dir) if ckpt_dir else None)
+        self.save_every = save_every
+        self.detector = StragglerDetector()
+        #: one row per step run: loss, ce, lr, grad_norm, step, seconds
+        self.history = []
+        self._step_fn = make_train_step(cfg, opt_cfg)
+
+    def init_state(self):
+        gen = torch.Generator(device=self.device).manual_seed(self.seed)
+        params = init_params(gen, self.cfg)
+        return {"params": params, "opt": adamw_init(params)}
+
+    def device_batch(self, batch):
+        """A host batch (numpy int32) as int64 tensors on the device."""
+        return {k: torch.from_numpy(v).to(self.device, dtype=torch.int64)
+                for k, v in batch.items()}
+
+    def run(self, n_steps: int, injector: Optional[FailureInjector] = None,
+            log_every: int = 10):
+        """Train ``n_steps`` steps from the latest checkpoint (or from
+        ``init_state``); returns ``(state, losses)``, one float loss per
+        step run (a replayed step after a restore adds its loss again)."""
+        losses = []
+
+        def build_state(ckpt_step):
+            state = self.init_state()
+            if ckpt_step is not None and self.ckpt is not None:
+                state = self.ckpt.restore(ckpt_step, state)
+            return state
+
+        def one_step(state, step):
+            batch = self.device_batch(self.data.batch(step, self.batch_size))
+            t0 = time.perf_counter()
+            with StepTimer(self.detector, step):
+                state, metrics = self._step_fn(state, batch)
+                # reading the metrics waits for the device, so the timer
+                # sees the step's time, not its enqueue
+                row = {k: float(v) for k, v in metrics.items()}
+            row.update(step=step, seconds=time.perf_counter() - t0)
+            self.history.append(row)
+            losses.append(row["loss"])
+            if step % log_every == 0:
+                print(f"step {step:5d} loss {row['loss']:.4f} "
+                      f"lr {row['lr']:.2e} "
+                      f"gnorm {row['grad_norm']:.2f}", flush=True)
+            return state, metrics
+
+        if self.ckpt is not None:
+            sup = TrainSupervisor(self.ckpt, save_every=self.save_every)
+            state = sup.run(build_state, one_step, n_steps, injector=injector)
+        else:
+            state = build_state(None)
+            for s in range(n_steps):
+                state, _ = one_step(state, s)
+        return state, losses
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", required=True, choices=tuple(list_archs()))
+    ap.add_argument("--smoke", action="store_true",
+                    help="the arch's reduced config (for the CPU)")
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--log-every", type=int, default=10)
+    args = ap.parse_args(argv)
+
+    entry = get_arch(args.arch)
+    cfg = entry.smoke if args.smoke else entry.full
+    trainer = Trainer(cfg, opt_cfg=AdamWConfig(total_steps=args.steps),
+                      ckpt_dir=args.ckpt_dir, batch_size=args.batch,
+                      seq_len=args.seq, seed=args.seed, device=args.device)
+    t0 = time.perf_counter()
+    _, losses = trainer.run(args.steps, log_every=args.log_every)
+    dt = time.perf_counter() - t0
+    print(f"done: {args.steps} steps of {cfg.name} in {dt:.1f}s "
+          f"({args.steps * args.batch * args.seq / dt:.0f} tok/s) on "
+          f"{trainer.device}; loss {losses[0]:.3f} -> {losses[-1]:.3f}")
+
+
+if __name__ == "__main__":
+    main()

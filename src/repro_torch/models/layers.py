@@ -15,10 +15,10 @@ through :func:`qdense`, which dispatches on its parameters:
   launch for all of them.
 
 * float params in mode ``qat`` (``{"w", "alpha_w", "alpha_a"}``) — LSQ
-  fake-quant of the weights and the input, then the matmul: the forward of
-  the reference's quant-aware training path (MLA's prefill runs it on the
-  unpacked ``w_uk``/``w_uv``). Its straight-through gradient is training's,
-  not ported yet.
+  fake-quant of the weights and the input, then the matmul: the reference's
+  quant-aware training path, differentiable through LSQ's straight-through
+  estimator (MLA's prefill runs its forward on the unpacked
+  ``w_uk``/``w_uv``).
 
 Parameters are plain dicts; layer stacks carry a leading ``(L, ...)`` axis
 on every leaf.
@@ -196,8 +196,11 @@ def device_scalar(value: float, device: torch.device) -> torch.Tensor:
     (value, device) and shared: callers must not write to it. A step
     captured as a CUDA graph may copy nothing from the host, and torch's
     CUDA divide by a host scalar multiplies by its reciprocal instead of
-    dividing; a device tensor made here divides exactly and copies once."""
-    return torch.tensor(value, dtype=torch.float32, device=device)
+    dividing; a device tensor made here divides exactly and copies once.
+    It is made outside inference mode, so that training may save it for
+    backward after a server made it under ``torch.inference_mode``."""
+    with torch.inference_mode(False):
+        return torch.tensor(value, dtype=torch.float32, device=device)
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor,

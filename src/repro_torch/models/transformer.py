@@ -8,6 +8,14 @@ dicts in the reference's layout: a layer group carries every leaf with a
 leading ``(L, ...)`` axis, and :func:`_run_groups` walks it with a Python
 loop where the reference runs ``lax.scan``. :func:`params_from_numpy`
 carries the reference's parameter pytree (float or packed) across.
+
+Training: :func:`loss_fn` is the reference's causal-LM loss. While
+autograd records, each layer runs under ``torch.utils.checkpoint`` when
+``cfg.remat`` is set (the reference's per-layer ``jax.checkpoint``
+with ``remat_policy="nothing"``): only the layer's input is kept, and
+any other policy is refused. A stack is
+split into its layers with one ``unbind``, whose backward stacks the
+layers' gradients once.
 """
 
 from __future__ import annotations
@@ -18,6 +26,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.models.attention import (AttnConfig, attn_apply, attn_init,
                                           init_kv_cache, init_mla_cache,
@@ -28,7 +37,7 @@ from repro_torch.models.layers import (QuantPolicy, layer_norm, pack_qdense,
 from repro_torch.models.moe import MoEConfig, moe_apply, moe_init
 
 __all__ = ["ModelConfig", "GroupSpec", "layer_groups", "init_params",
-           "forward", "prefill", "decode_step", "init_caches",
+           "forward", "loss_fn", "prefill", "decode_step", "init_caches",
            "pack_params", "serve_policy", "params_from_numpy"]
 
 
@@ -62,6 +71,8 @@ class ModelConfig:
     qk_rope_dim: int = 64
     v_head_dim: int = 128
     policy: QuantPolicy = QuantPolicy(mode="none")
+    remat: bool = True
+    remat_policy: str = "nothing"   # the only policy ported
     dtype: str = "bfloat16"
 
     @property
@@ -225,26 +236,57 @@ def _block_apply(p, x, cfg: ModelConfig, spec: GroupSpec, *, positions,
     return x + _mlp_apply(p["mlp"], hm, cfg), new_c
 
 
-def _layer(tree, i: int):
-    """Layer ``i`` of a stacked parameter tree (views, no copies)."""
+def _unstack(tree, n: int) -> list:
+    """The ``n`` layers of a stacked parameter tree, as views: one
+    ``unbind`` per leaf, so autograd stacks the layers' gradients once
+    instead of adding ``n`` full-size zero-padded slices."""
     if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
+        per = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in per} for i in range(n)]
+    return torch.unbind(tree, 0)
+
+
+def _remat_block(p, x, cfg: ModelConfig, spec: GroupSpec, *, positions,
+                 aux=None):
+    """:func:`_block_apply` without a cache under activation
+    checkpointing; the MoE statistics leave as outputs, since the body
+    runs again in the backward."""
+    def body(xi):
+        own = {}
+        y, _ = _block_apply(p, xi, cfg, spec, positions=positions, aux=own)
+        return (y,) + tuple(own[k][0] for k in ("lb_loss", "drop_frac")
+                            if k in own)
+
+    if cfg.remat_policy != "nothing":
+        raise ValueError(f"remat_policy {cfg.remat_policy!r}: only "
+                         "'nothing' is ported")
+    out = torch_checkpoint.checkpoint(body, x, use_reentrant=False,
+                                      preserve_rng_state=False)
+    if spec.use_moe and aux is not None:
+        aux.setdefault("lb_loss", []).append(out[1])
+        aux.setdefault("drop_frac", []).append(out[2])
+    return out[0]
 
 
 def _run_groups(groups_params, x, cfg: ModelConfig, specs, *, positions,
                 caches=None, cache_pos=None, aux=None):
     """Run each group's layers in order; returns ``(x, caches)``. The
     caches are written in place; ``aux`` (a dict) collects the MoE
-    layers' statistics."""
+    layers' statistics. Without caches, while autograd records and with
+    ``cfg.remat``, every layer is checkpointed."""
+    remat = cfg.remat and caches is None and torch.is_grad_enabled()
     for gi, (gp, spec) in enumerate(zip(groups_params, specs)):
         gcache = caches[gi] if caches is not None else None
-        for i in range(spec.n):
+        for i, lp in enumerate(_unstack(gp, spec.n)):
+            if remat:
+                x = _remat_block(lp, x, cfg, spec, positions=positions,
+                                 aux=aux)
+                continue
             cl = None
             if gcache is not None:
                 cl = {k: (v if k == "len" else v[i])
                       for k, v in gcache.items()}
-            x, nc = _block_apply(_layer(gp, i), x, cfg, spec,
+            x, nc = _block_apply(lp, x, cfg, spec,
                                  positions=positions, cache=cl,
                                  cache_pos=cache_pos, aux=aux)
             if gcache is not None:
@@ -258,8 +300,11 @@ def _stack_aux(aux: dict) -> dict:
 
 
 def _embed_inputs(params, batch, cfg: ModelConfig):
-    """Token embedding; returns ``(x, positions)``."""
-    x = params["embed"][batch["tokens"]].to(cfg.compute_dtype)
+    """Token embedding; returns ``(x, positions)``. ``F.embedding``, not
+    indexing: its backward sums a repeated token's rows in a fixed order,
+    where the backward of indexing (``index_put_`` with accumulate) adds
+    them in a varying order on the CPU, so training would not repeat."""
+    x = F.embedding(batch["tokens"], params["embed"]).to(cfg.compute_dtype)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     return x, positions
 
@@ -279,6 +324,26 @@ def forward(params, batch, cfg: ModelConfig):
                        positions=positions, aux=aux)
     aux = {"lb_loss": _stack_aux(aux)["lb_loss"].sum()} if aux else {}
     return _logits(params, x, cfg), aux
+
+
+def loss_fn(params, batch, cfg: ModelConfig):
+    """Causal LM loss (next-token), as the reference's: float32 logits,
+    ``logsumexp`` minus the gold logit, labels ``< 0`` masked out, the mean
+    over the mask, plus ``0.01 * lb_loss`` for an MoE stack. ``batch``:
+    ``{"tokens", "labels"}`` (B, S). Returns ``(loss, {"ce", **aux})``.
+    On packed params (after :func:`pack_params`, under
+    :func:`serve_policy`) it is the integer evaluation: K1 + K3 or K4 on
+    the card."""
+    logits, aux = forward(params, batch, cfg)
+    labels = batch["labels"]
+    lg = logits.to(torch.float32)
+    lse = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, labels.clamp(min=0)[..., None].long())[..., 0]
+    mask = (labels >= 0).to(torch.float32)
+    ce = torch.sum((lse - gold) * mask) / torch.clamp_min(torch.sum(mask),
+                                                          1.0)
+    loss = ce + 0.01 * aux["lb_loss"] if "lb_loss" in aux else ce
+    return loss, {"ce": ce, **aux}
 
 
 # ------------------------------------------------------------------ serving

@@ -1,0 +1,123 @@
+"""AdamW + schedules on nested dict/list trees of tensors.
+
+Counterpart of ``repro/optim/optimizer.py``, expression for expression and
+in its order: bias corrections with a float32 ``step``, ``delta = mhat /
+(sqrt(vhat) + eps)``, decoupled weight decay ``+ wd * p`` on leaves with
+``ndim >= 2`` only, ``p - lr * delta`` in float32 cast back to ``p``'s
+dtype, and an int32 ``step`` counter. ``torch.optim.AdamW`` is another
+function: it decays before the moment update and decays every leaf.
+
+Every update is out of place: the caller's trees are not written. Scalars
+that divide are float32 tensors on the leaves' device, because torch's
+``scalar / tensor`` multiplies by the reciprocal and CUDA's ``tensor /
+host scalar`` does too, where the reference divides. They are made once
+per value and device (``device_scalar``): a fresh host-to-device copy
+would make the host wait for the queued step.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.core.tree import tree_flatten, tree_leaves, tree_unflatten
+from repro_torch.models.layers import device_scalar
+
+__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "cosine_lr",
+           "global_norm", "clip_by_global_norm"]
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_frac: float = 0.1
+
+
+def cosine_lr(cfg: AdamWConfig, step) -> torch.Tensor:
+    """Linear warmup to ``lr``, then a cosine decay to ``min_lr_frac *
+    lr`` at ``total_steps``; a float32 0-d tensor on ``step``'s device."""
+    step = torch.as_tensor(step).to(torch.float32)
+    dev = step.device
+    warmup = float(max(cfg.warmup_steps, 1))
+    warm = torch.clamp_max(step / device_scalar(warmup, dev), 1.0)
+    span = float(max(cfg.total_steps - cfg.warmup_steps, 1))
+    prog = torch.clamp((step - cfg.warmup_steps) / device_scalar(span, dev),
+                       0.0, 1.0)
+    cos = 0.5 * (1 + torch.cos(math.pi * prog))
+    frac = cfg.min_lr_frac + (1 - cfg.min_lr_frac) * cos
+    return cfg.lr * warm * frac
+
+
+def adamw_init(params) -> Dict[str, Any]:
+    leaves, treedef = tree_flatten(params)
+    zeros = lambda: tree_unflatten(treedef, [
+        torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        for p in leaves])
+    dev = leaves[0].device if leaves else None
+    return {"m": zeros(), "v": zeros(),
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of every leaf's sum of squares (float32), summed
+    leaf by leaf in the reference's leaf order."""
+    total = 0
+    for g in tree_leaves(tree):
+        total = total + torch.sum(torch.square(g.to(torch.float32)))
+    return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """``(grads * min(1, max_norm / (norm + 1e-9)), norm)``, the grads in
+    float32."""
+    gn = global_norm(grads)
+    scale = torch.clamp_max(device_scalar(float(max_norm), gn.device)
+                            / (gn + 1e-9), 1.0)
+    leaves, treedef = tree_flatten(grads)
+    return tree_unflatten(treedef, [g.to(torch.float32) * scale
+                                    for g in leaves]), gn
+
+
+def adamw_update(params, grads, opt_state, cfg: AdamWConfig):
+    """One AdamW step; returns ``(params, opt_state, metrics)`` with
+    metrics ``lr`` and ``grad_norm`` (0-d float32 tensors)."""
+    step = opt_state["step"] + 1
+    lr = cosine_lr(cfg, step)
+    grads, gn = clip_by_global_norm(grads, cfg.grad_clip)
+    stepf = step.to(torch.float32)
+    dev = stepf.device
+    one = device_scalar(1.0, dev)
+    c1 = one - device_scalar(cfg.b1, dev) ** stepf
+    c2 = one - device_scalar(cfg.b2, dev) ** stepf
+
+    p_l, treedef = tree_flatten(params)
+    g_l = tree_flatten(grads)[0]
+    m_l = tree_flatten(opt_state["m"])[0]
+    v_l = tree_flatten(opt_state["v"])[0]
+    new_p, new_m, new_v = [], [], []
+    for p, g, m, v in zip(p_l, g_l, m_l, v_l):
+        m2 = cfg.b1 * m + (1 - cfg.b1) * g
+        v2 = cfg.b2 * v + (1 - cfg.b2) * g * g
+        mhat = m2 / c1
+        vhat = v2 / c2
+        delta = mhat / (torch.sqrt(vhat) + cfg.eps)
+        # decoupled weight decay on matrices only (ndim >= 2)
+        if p.dim() >= 2:
+            delta = delta + cfg.weight_decay * p.to(torch.float32)
+        new_p.append((p.to(torch.float32) - lr * delta).to(p.dtype))
+        new_m.append(m2)
+        new_v.append(v2)
+    return (tree_unflatten(treedef, new_p),
+            {"m": tree_unflatten(treedef, new_m),
+             "v": tree_unflatten(treedef, new_v), "step": step},
+            {"lr": lr, "grad_norm": gn})

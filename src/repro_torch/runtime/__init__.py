@@ -1,3 +1,4 @@
 """Runtime: the barrel controller (:mod:`.controller`), the straggler
-detector (:mod:`.straggler`) and the serving path's failure types
-(:mod:`.fault_tolerance`)."""
+detector (:mod:`.straggler`), checkpoints (:mod:`.checkpoint`) and fault
+tolerance (:mod:`.fault_tolerance`: the failure types and the training
+supervisor)."""

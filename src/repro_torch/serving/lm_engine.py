@@ -163,8 +163,11 @@ class ContinuousLMEngine:
     prefill bucket, the insert, the decode step's capture) to prove it.
 
     ``params``: float or packed parameters on the engine's device (default:
-    random from ``seed`` there, drawn and packed one layer at a time);
-    float ones are packed once, and the head's
+    random from ``seed`` there, drawn and packed one layer at a time when
+    ``quantized``); float ones are packed once when ``quantized``, and
+    with ``quantized=False`` they are served as they are through the LSQ
+    fake-quant forward (the reference's float branch; on the card that
+    step is captured as a CUDA graph too). The head's
     float32 weight is cast to the compute dtype once, as in ``Server``.
     ``pack_acts`` selects K1 + K3 (True) or K4 (False); ``plain`` runs the
     kernels' plain versions (the yardstick). ``device=None`` means the
@@ -188,11 +191,6 @@ class ContinuousLMEngine:
                 "continuous slot arena (SSM/hybrid state, rolling windows, "
                 "and encoder inputs don't slot-insert) — use the static "
                 "Server path")
-        if not quantized:
-            raise NotImplementedError(
-                "ContinuousLMEngine(quantized=False) runs the LSQ fake-quant "
-                "forward, which waits for the LSQ straight-through estimator "
-                "(not ported yet); serve the packed weights")
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             disable_tf32()
@@ -201,11 +199,11 @@ class ContinuousLMEngine:
         self.max_len = max_len
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = init_params(gen, cfg, packed=True)
+            params = init_params(gen, cfg, packed=quantized)
         if params["embed"].device != self.device:
             raise ValueError(f"params lie on {params['embed'].device}, the "
                              f"engine on {self.device}")
-        params = pack_params(params, cfg)
+        params = pack_params(params, cfg) if quantized else dict(params)
         params["head"] = dict(params["head"], w=params["head"]["w"].to(
             cfg.compute_dtype))
         self.params = params

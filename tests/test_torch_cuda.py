@@ -756,3 +756,116 @@ def test_profiler_times_on_the_card(dev):
         assert s.launches == want.get(s.kind, {}), s.name
     cal = calibrate.fit(prof)
     assert cal.backend == "cuda" and cal.ns_for("conv_packed") > 0
+
+
+# ------------------------------------------------------------------ training
+
+def _train_cfg(**kw):
+    import dataclasses
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch("stablelm-1.6b").smoke, **kw)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_train_step_on_the_card_matches_the_cpu(dev, remat):
+    """One smoke-config train step (forward, backward, AdamW) on the card
+    against the CPU from the same state and batch. Tolerances: the loss
+    1e-5 relative (float32 GEMMs sum in another order on the card, TF32
+    off); the grad norm 1e-4 relative; AdamW's moments, ``m`` (0.1 x the
+    clipped gradient ``g``) 1e-3 and ``v`` (0.05 x ``g**2``) 2e-3 of each
+    leaf's largest element, as the gradients against the reference (an
+    activation code that flips at a rounding boundary moves the step
+    sizes' gradients). Each param's update ``p_new - p_old`` is held to
+    the CPU's within 1e-5 relative, plus two float32 ulps of the param,
+    on the elements whose ``|m|`` is at least 1e-2 of the leaf's largest
+    (ten times ``m``'s tolerance, so ``g``'s sign is the same on both):
+    there the first step moves a weight by ``lr * (g / (|g| + eps) + wd
+    * p)``, so a lost decay (``wd * p`` is 1e-3 of the step where
+    ``|p|`` is 0.01), a wrong bias correction or a division turned into a multiply
+    breaks it. Every param moves by at most 2 x ``lr`` from the CPU's."""
+    from repro_torch.core.pipeline_modules import disable_tf32
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import AdamWConfig, adamw_init
+    disable_tf32()
+    cfg = _train_cfg(remat=remat)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    params = init_params(torch.Generator().manual_seed(0), cfg)
+    state = {"params": params, "opt": adamw_init(params)}
+    batch = {k: torch.from_numpy(v).long() for k, v in
+             SyntheticLM(cfg.vocab_size, 16, seed=0).batch(0, 4).items()}
+    step = make_train_step(cfg, opt)
+    cpu, m_cpu = step(state, batch)
+    gpu, m_gpu = step(_to(state, dev), _to(batch, dev))
+    assert float(m_gpu["loss"]) == pytest.approx(float(m_cpu["loss"]),
+                                                 rel=1e-5)
+    assert float(m_gpu["grad_norm"]) == pytest.approx(
+        float(m_cpu["grad_norm"]), rel=1e-4)
+    for key, tol in (("m", 1e-3), ("v", 2e-3)):
+        for a, b in zip(tree_leaves(gpu["opt"][key]),
+                        tree_leaves(cpu["opt"][key])):
+            err = float((a.cpu() - b).abs().max())
+            assert err <= tol * float(b.abs().max()), (key, err)
+    held = 0
+    for a, b, p0, m in zip(tree_leaves(gpu["params"]),
+                           tree_leaves(cpu["params"]), tree_leaves(params),
+                           tree_leaves(cpu["opt"]["m"])):
+        assert a.device.type == "cuda"
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=0,
+                                   atol=2 * opt.lr)
+        sure = m.abs() >= 1e-2 * m.abs().max()
+        d_gpu = (a.cpu() - p0).double()[sure]
+        d_cpu = (b - p0).double()[sure]
+        ulp = 2 * 2.0 ** -23 * p0.abs().double()[sure]
+        assert bool(((d_gpu - d_cpu).abs()
+                     <= 1e-5 * d_cpu.abs() + ulp).all())
+        held += int(sure.sum())
+    assert held > 0
+
+
+def test_supervised_resume_on_the_card_is_bit_exact(dev, tmp_path):
+    """A supervised run on the card (bf16 compute, remat) with a failure
+    injected equals an uninterrupted one bit for bit: the embedding's
+    backward and every other kernel of the step repeat."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch.train import Trainer
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.fault_tolerance import FailureInjector
+    cfg = _train_cfg(remat=True, dtype="bfloat16")
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=6)
+
+    def run(ckpt, inj):
+        tr = Trainer(cfg, opt_cfg=opt, ckpt_dir=ckpt, batch_size=4,
+                     seq_len=32, save_every=2)
+        assert tr.device.type == "cuda"
+        return tr.run(6, injector=inj, log_every=100)
+
+    clean, lc = run(None, None)
+    faulty, lf = run(str(tmp_path), FailureInjector(fail_at_steps=(3,)))
+    assert lf == lc[:3] + lc[2:]
+    for a, b in zip(tree_leaves(clean), tree_leaves(faulty)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_float_engine_graph_equals_its_eager_step(dev):
+    """``ContinuousLMEngine(quantized=False)`` on the card captures its
+    float decode step (LSQ's forward, no kernel of the port) as a CUDA
+    graph; the replays give the same engine's tokens stepping eagerly on
+    the same load, and the CPU's."""
+    from repro_torch.configs import get_arch
+    from repro_torch.serving import ContinuousLMEngine
+    cfg = get_arch("stablelm-1.6b").smoke
+    eng = ContinuousLMEngine(cfg, quantized=False, batch_slots=3,
+                             max_len=32, seed=0)
+    got = [r.out_tokens for r in eng.serve(_engine_load(1))]
+    st = eng.stats()
+    assert st["cuda_graph"] and st["step_launches"] == {
+        "K1": 0, "K3": 0, "K4": 0, "K4g": 0}
+    eng._fresh_arena()
+    eng._graph = None
+    assert [r.out_tokens for r in eng.serve(_engine_load(1))] == got
+    cpu = ContinuousLMEngine(cfg, _to(eng.params, "cpu"), quantized=False,
+                             batch_slots=3, max_len=32, device="cpu")
+    assert [r.out_tokens for r in cpu.serve(_engine_load(1))] == got

@@ -252,8 +252,8 @@ def test_engine_zero_and_one_token(engines):
 def test_engine_rejects_what_the_port_cannot_host(smoke, monkeypatch):
     """Families and activations the port has not got take the reference's
     "static Server path" error, not ``layer_groups``'
-    NotImplementedError; a missing card raises instead of running on the
-    CPU."""
+    NotImplementedError; float params are served; a missing card raises
+    instead of running on the CPU."""
     _, tcfg, _ = smoke
     for cfg in (dataclasses.replace(tcfg, family="ssm"),
                 dataclasses.replace(tcfg, family="hybrid"),
@@ -263,8 +263,13 @@ def test_engine_rejects_what_the_port_cannot_host(smoke, monkeypatch):
             ContinuousLMEngine(cfg, batch_slots=2, max_len=16, device="cpu")
     assert supports_continuous(tcfg)
     assert supports_continuous(get_arch("deepseek-v2-lite-16b").smoke)
-    with pytest.raises(NotImplementedError, match="LSQ"):
-        ContinuousLMEngine(tcfg, quantized=False, device="cpu")
+    # float params are served (LSQ fake-quant forward), not refused; their
+    # tokens are held against the reference in tests/test_torch_train.py
+    feng = ContinuousLMEngine(tcfg, quantized=False, batch_slots=2,
+                              max_len=16, device="cpu")
+    assert "w_packed" not in feng.params["groups"][0]["mlp"]["w_up"]
+    out = feng.serve([GenRequest(np.arange(3, dtype=np.int32), 2)])
+    assert len(out[0].out_tokens) == 2
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ContinuousLMEngine(tcfg)

@@ -416,8 +416,14 @@ def test_server_dummy_slots_do_not_change_tokens(servers, smoke):
 
 def test_server_refuses_float_serving_and_missing_card(monkeypatch, smoke):
     _, tcfg, _, _ = smoke
-    with pytest.raises(NotImplementedError, match="LSQ"):
-        Server(tcfg, quantized=False, device="cpu")
+    # float serving is no longer refused: it keeps the float params and
+    # runs the LSQ fake-quant forward (its tokens are held against the
+    # reference in tests/test_torch_train.py)
+    fs = Server(tcfg, quantized=False, batch_slots=1, max_len=16,
+                device="cpu")
+    assert "w_packed" not in fs.params["groups"][0]["mlp"]["w_up"]
+    out = fs.generate([GenRequest(np.arange(3, dtype=np.int32), 2)])
+    assert len(out[0].out_tokens) == 2
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Server(tcfg)

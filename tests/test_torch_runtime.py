@@ -329,7 +329,12 @@ def test_port_and_chip_smoke_import_no_jax_or_reference():
     scanned = {os.path.relpath(f, ROOT) for f in files}
     assert {os.path.join("src", "repro_torch", "models", "moe.py"),
             os.path.join("src", "repro_torch", "configs",
-                         "deepseek_v2_lite_16b.py")} <= scanned
+                         "deepseek_v2_lite_16b.py"),
+            os.path.join("src", "repro_torch", "optim", "optimizer.py"),
+            os.path.join("src", "repro_torch", "data", "pipeline.py"),
+            os.path.join("src", "repro_torch", "runtime", "checkpoint.py"),
+            os.path.join("src", "repro_torch", "launch", "train.py")
+            } <= scanned
     bad = []
     for f in files:
         for line, mod in _imports(f):
