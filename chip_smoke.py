@@ -187,7 +187,36 @@ Phases (any failure exits non-zero and prints no result):
     disk printed first), ``save_every=2``, a failure injected at step 3,
     equals an uninterrupted run's losses and final state bit for bit;
     printed: bytes written and the seconds in save, in waits on the
-    writes and in restore.
+    writes and in restore;
+15. the SSM and hybrid families (:func:`ssm_phase`): K1 (bf16, G as the
+    layers launch it), K3 and K4 at every projection shape of
+    mamba2-780m and hymba-1.5b (N = 6448 and 6482 among them) at M = 4
+    and 64 against their plain versions, ``torch.equal``, K3 and K4 cold
+    at M = 4 beside their bound; ``ssd_chunked`` against ``ssd_scan_ref``
+    on the card at one mamba2 layer's full width (B 4, S 600, H 48, P 64,
+    N 128) within ``tests/test_models_consistency.py``'s rtol 2e-4 / atol
+    2e-5. Then each model at full width and depth, bf16, W4A8, random
+    weights from seed 0, through ``Server`` (batch_slots 4): mamba2-780m
+    (48 SSM layers, tied embeddings) at max_len 1024 on four requests of
+    5, 8, 11 and 16 tokens and on four of 5, 8, 11 and 600 (a 3-chunk
+    left-padded scan), 16 new tokens each; hymba-1.5b (32 hybrid layers,
+    global 0, 16, 31, window 1024) at max_len 64 on four requests of 5-16
+    tokens, 16 new, and at max_len 1280 on four of 1030-1100 tokens, 8
+    new (the prefill cuts the window, every decode step rolls). Counts
+    reset just before and read just after each run: per prefill and per
+    decode step 96 K1 + 96 K3 (mamba2: in_proj and out_proj) and 192 K1 +
+    288 K3 (hymba: 6 K1 a layer, q/k/v and gate/up sharing one each, and
+    9 K3), held again on one prefill and one decode step; tokens and
+    last-step logits equal, exactly, the plain versions' run on the card;
+    the K4 path (``pack_acts=False``, 96 and 288 K4 a step) equals the
+    K1 + K3 path and, in each model's first run, its own plain run; the
+    smoke config on the card gives the CPU's plain-version tokens. Times per model and path
+    (written down, not held): prefill, eager decode step, ``generate``'s
+    tokens/s, one profiled prefill and decode step (wall, busy, K1 and K3
+    or K4 in-path ms and launches by kernel name, held to the wrappers',
+    and the share of busy time launched inside the ``ssm.scan`` and
+    ``ssm.conv`` profiler ranges), and the decode step's weight-byte
+    bound, also with the SSM state's reads and writes.
 
 The ``kernels`` JSON line gives, per kernel, its launches on the main
 paths (the bucketed runners' forwards and the engine's loads included:
@@ -198,8 +227,9 @@ decode step at batch 4; K1's entry adds its in-path profiler ms and
 launches per decode step and per prefill; K1, K3 and K4 add the engine's
 launches per captured decode step, as its ``stats()`` reports them. K1's
 and K3's launches include deepseek-v2-lite's (phase 12: ``Server``, the
-engine's load and the service's) and phase 14's (the packed evaluation
-and the trained weights' ``Server``); K1's and K2's include phase 13's
+engine's load and the service's), phase 14's (the packed evaluation
+and the trained weights' ``Server``) and phase 15's (the two families'
+``Server`` runs; K4's too); K1's and K2's include phase 13's
 (the warm-booted graphs' replays and the profiler's calls); the grouped
 K4 entry gives its launches there and its times summed over one deepseek
 decode step.
@@ -217,6 +247,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
@@ -281,7 +312,10 @@ def range_split(prof, names):
     launched from inside it (on any host thread: the backward launches
     from autograd's); ``busy``, the card's own time for those. A launch
     belongs to a range when its runtime call starts inside the range's
-    host window; the card's events are matched to it by correlation id."""
+    host window; the card's events are matched to it by correlation id.
+    A range that ran more than once (once a layer) sums its ``windows``:
+    ``issued`` and ``busy`` over all of them, ``done`` from the first."""
+    import bisect
     from torch.autograd import DeviceType
     evs = list(prof.profiler.kineto_results.events())
     host, launched = {}, []
@@ -289,7 +323,7 @@ def range_split(prof, names):
         if e.device_type() != DeviceType.CPU:
             continue
         if e.name() in names:
-            host[e.name()] = (e.start_ns(), e.end_ns())
+            host.setdefault(e.name(), []).append((e.start_ns(), e.end_ns()))
         elif e.correlation_id() > 0 and e.name().startswith(("cuda", "cu")):
             launched.append((e.start_ns(), e.correlation_id()))
     on_card = {e.correlation_id(): e for e in evs
@@ -299,15 +333,22 @@ def range_split(prof, names):
     for name in names:
         if name not in host:
             raise AssertionError(f"the profiler recorded no range {name}")
-        h0, h1 = host[name]
+        wins = sorted(host[name])
+        starts = [a for a, _ in wins]
+
+        def inside(t):
+            i = bisect.bisect_right(starts, t) - 1
+            return i >= 0 and t <= wins[i][1]
+
         mine = [on_card[c] for t, c in launched
-                if h0 <= t <= h1 and c in on_card]
+                if c in on_card and inside(t)]
         if not mine:
             raise AssertionError(f"no device event launched in {name}")
-        out[name] = {"issued": (h1 - h0) / 1e6,
-                     "done": (max(e.end_ns() for e in mine) - h0) / 1e6,
+        out[name] = {"issued": sum(b - a for a, b in wins) / 1e6,
+                     "done": (max(e.end_ns() for e in mine)
+                              - wins[0][0]) / 1e6,
                      "busy": sum(e.duration_ns() for e in mine) / 1e6,
-                     "events": len(mine)}
+                     "events": len(mine), "windows": len(wins)}
     return out
 
 
@@ -583,6 +624,399 @@ def train_phase(dev, cfg, counts, reset_counts, device_profile, prompts):
     out["launches"] = {"K1": k1_fwd + c_srv["K1"], "K3": k3_fwd + c_srv["K3"]}
     out["seconds"] = time.perf_counter() - t_phase
     log(f"  phase 14 in {out['seconds']:.1f} s")
+    return out
+
+
+# phase 15: the SSM and hybrid families at full width through Server
+SSM_PROMPTS_LONG = (5, 8, 11, 600)       # mamba2 run 2: a 3-chunk prefill
+HYMBA_PROMPTS_LONG = (1030, 1050, 1075, 1100)   # past hymba's 1024 window
+HYMBA_NEW_LONG = 8
+SCAN_TOL = {"rtol": 2e-4, "atol": 2e-5}  # tests/test_models_consistency.py
+SSM_RANGES = ("ssm.scan", "ssm.conv")
+# per model: the K1 launches (K, G step sizes) and the K3/K4 GEMMs ((K,
+# N), how many) one layer makes
+SSM_SLICE = {
+    "mamba2-780m": {"k1": ((1536, 1), (3072, 1)),
+                    "gemms": (((1536, 6448), 1), ((3072, 1536), 1))},
+    "hymba-1.5b": {"k1": ((1600, 3), (1600, 1), (1600, 1), (3200, 1),
+                          (1600, 2), (5504, 1)),
+                   "gemms": (((1600, 1600), 2), ((1600, 320), 2),
+                             ((1600, 6482), 1), ((3200, 1600), 1),
+                             ((1600, 5504), 2), ((5504, 1600), 1))},
+}
+
+
+def kernel_of(name):
+    """K1, K3, K4 or grouped K4 for a profiler kernel name, else None (K3,
+    K4 and grouped K4 are one template, told apart by its first two
+    arguments)."""
+    if "quantize_pack_kernel" in name:
+        return "K1"
+    if "bitserial_gemm_kernel<false" in name:
+        return "K3"
+    if "bitserial_gemm_kernel<true, true" in name:
+        return "K4g"
+    if "bitserial_gemm_kernel<true" in name:
+        return "K4"
+    return None
+
+
+def ssm_phase(dev, hp):
+    """Phase 15: mamba2-780m and hymba-1.5b FULL through ``Server`` on
+    ``dev``. ``hp`` holds main's helpers: ``counts``, ``reset_counts``,
+    ``check_equal``, ``profiled``, ``is_spin``, ``walls``, ``timer``.
+    Returns its record; raises on any failure."""
+    import gc
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from repro_torch.configs import get_arch
+    from repro_torch.core import bitops
+    from repro_torch.core.bitserial import plan_spec
+    from repro_torch.core.quant import QuantSpec, qrange
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels import bitserial_matmul as km
+    from repro_torch.kernels import quantize_pack as k1
+    from repro_torch.launch.serve import GenRequest, Server
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models import transformer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    out = {"launches": {"K1": 0, "K3": 0, "K4": 0}}
+    gen = torch.Generator(device=dev).manual_seed(21)
+    spec = plan_spec(get_arch("mamba2-780m").full.policy.spec())
+    aspec = QuantSpec(8, True)
+
+    # (0) K1, K3 and K4 at the slice's shapes against their plain versions
+    log("SSM/hybrid slice: K1, K3 and K4 at mamba2-780m's and hymba-1.5b's "
+        "shapes vs plain (torch.equal), W4A8, M = 4 and 64")
+    la, ha = qrange(spec.a_bits, spec.a_signed)
+    lw, hw = qrange(spec.w_bits, spec.w_signed)
+    steps = [torch.tensor(a, device=dev) for a in (0.177, 0.0371, 0.5)]
+    calls = []
+    for arch, sl in SSM_SLICE.items():
+        for k, g in sl["k1"]:
+            for m in (4, 64):
+                xb = (torch.randn((m, k), generator=gen, device=dev)
+                      * 4).bfloat16()
+                hp.check_equal("K1", f"{arch} ({m},{k}) bf16 G={g}",
+                               k1.quantize_pack_multi_cuda(xb, steps[:g],
+                                                           aspec),
+                               k1.quantize_pack_multi_ref(xb, steps[:g],
+                                                          aspec))
+        for (k, n), _ in sl["gemms"]:
+            wc = torch.randint(lw, hw + 1, (k, n), generator=gen, device=dev,
+                               dtype=torch.int32)
+            wp = bitops.pack_bitplanes(bitops.pad_to(
+                bitops.to_bitplanes(wc, spec.w_bits), 32, axis=1), axis=1)
+            scale = torch.rand(n, generator=gen, device=dev) * 2e-3 + 1e-4
+            for m in (4, 64):
+                xc = torch.randint(la, ha + 1, (m, k), generator=gen,
+                                   device=dev, dtype=torch.int32)
+                xp = k1.pack_codes_ref(xc, spec.a_bits)
+                kw = dict(spec=spec, k=k)
+                hp.check_equal("K3", f"{arch} M{m} {k}->{n}",
+                               km.bitserial_matmul_v2_cuda(xp, wp, scale,
+                                                           **kw),
+                               km.bitserial_matmul_v2_ref(xp, wp, scale,
+                                                          **kw))
+                hp.check_equal("K4", f"{arch} M{m} {k}->{n}",
+                               km.bitserial_matmul_cuda(xc, wp, scale, **kw),
+                               km.bitserial_matmul_ref(xc, wp, scale, **kw))
+                if m == 4:
+                    byt = xp.numel() * 4 + wp.numel() * 4 + n * 4 + m * n * 4
+                    ops = 2 * m * k * n
+                    calls.append({
+                        "model": arch, "k": k, "n": n, "m": m,
+                        "K3_ms": hp.timer(lambda: km.bitserial_matmul_v2_cuda(
+                            xp, wp, scale, **kw), 50),
+                        "K4_ms": hp.timer(lambda: km.bitserial_matmul_cuda(
+                            xc, wp, scale, **kw), 50),
+                        "bound_ms": max(byt / HBM_BYTES_PER_S,
+                                        ops / INT8_OPS_PER_S) * 1e3,
+                        "bytes": byt, "ops": ops})
+    out["gemm_calls"] = calls
+    for c in calls:
+        log(f"  {c['model']} M4 {c['k']}->{c['n']}: K3 {c['K3_ms']:.4f} ms, "
+            f"K4 {c['K4_ms']:.4f} ms, bound {c['bound_ms']:.5f} ms (cold "
+            f"Timer)")
+
+    # the SSD scan at one mamba2 layer's full-width shapes, chunked against
+    # the step oracle, float32 on the card
+    mcfg = get_arch("mamba2-780m").full
+    scfg = mcfg.ssm_cfg()
+    srng = np.random.RandomState(3)
+    bsz, s, h, p, n = 4, 600, scfg.n_heads, scfg.head_dim, scfg.d_state
+    arrs = [srng.randn(bsz, s, h, p), np.abs(srng.randn(bsz, s, h)) * 0.5
+            + 0.05, srng.randn(h) * 0.3, srng.randn(bsz, s, 1, n) * 0.3,
+            srng.randn(bsz, s, 1, n) * 0.3, srng.randn(h)]
+    x, dt, a_log, bb, cc, dd = [torch.from_numpy(a.astype(np.float32)).to(dev)
+                                for a in arrs]
+    t0 = time.perf_counter()
+    y, hf = ssm_mod.ssd_chunked(x, dt, a_log, bb, cc, dd, scfg)
+    torch.cuda.synchronize()
+    chunk_s = time.perf_counter() - t0
+    y_ref, h_ref = ssm_mod.ssd_scan_ref(x, dt, a_log, bb, cc, dd)
+    for got, ref, what in ((y, y_ref, "y"), (hf, h_ref, "h_final")):
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                                   err_msg=f"ssd_chunked {what}", **SCAN_TOL)
+    out["ssd_check"] = {
+        "shape": [bsz, s, h, p, n], "chunk": scfg.chunk, "chunked_s": chunk_s,
+        "max_abs_err_y": float((y - y_ref).abs().max()),
+        "max_abs_err_h": float((hf - h_ref).abs().max())}
+    log(f"  ssd_chunked vs ssd_scan_ref on the card at (B {bsz}, S {s}, H "
+        f"{h}, P {p}, N {n}), chunk {scfg.chunk}: within rtol 2e-4 / atol "
+        f"2e-5, max abs err y {out['ssd_check']['max_abs_err_y']:.2e}, h "
+        f"{out['ssd_check']['max_abs_err_h']:.2e}")
+    del x, dt, bb, cc, y, hf, y_ref, h_ref
+
+    def drive(server, prompts, new):
+        """Tokens, last-step logits, launches and seconds of one
+        ``generate``, counts reset just before and read just after."""
+        hp.reset_counts()
+        t0 = time.perf_counter()
+        res = server.generate([GenRequest(pr.copy(), new) for pr in prompts])
+        torch.cuda.synchronize()
+        return ([r.out_tokens for r in res], server.last_logits.clone(),
+                hp.counts(), time.perf_counter() - t0)
+
+    def left_padded(prompts):
+        toks = np.zeros((len(prompts), max(len(pr) for pr in prompts)),
+                        np.int64)
+        for i, pr in enumerate(prompts):
+            toks[i, -len(pr):] = pr
+        return {"tokens": torch.from_numpy(toks).to(dev)}
+
+    def step_profile(fn, want):
+        """``fn`` once under the profiler: wall, busy, every K1/K3/K4's
+        in-path ms and launches by kernel name (held to ``want``), the
+        scan's and the conv's busy ms."""
+        prof, wall = hp.profiled(fn)
+        busy, kern = 0.0, 0
+        by = {k: {"ms": 0.0, "launches": 0} for k in ("K1", "K3", "K4",
+                                                       "K4g")}
+        for evt in prof.key_averages():
+            if (evt.device_type != DeviceType.CUDA or hp.is_spin(evt.key)
+                    or evt.key in SSM_RANGES):
+                continue
+            busy += evt.self_device_time_total / 1e3
+            kern += evt.count
+            kid = kernel_of(evt.key)
+            if kid is not None:
+                by[kid]["ms"] += evt.self_device_time_total / 1e3
+                by[kid]["launches"] += evt.count
+        got = {k: v["launches"] for k, v in by.items()}
+        if got != want:
+            raise AssertionError(f"the profiler saw {got} launches by "
+                                 f"kernel name, the wrappers {want}")
+        rng_ = range_split(prof, SSM_RANGES)
+        return {"wall_ms": wall * 1e3, "device_ms": busy, "kernels": kern,
+                "by_kernel": by,
+                "ranges": {k.split(".")[1]: v for k, v in rng_.items()},
+                "scan_share": rng_["ssm.scan"]["busy"] / busy,
+                "conv_share": rng_["ssm.conv"]["busy"] / busy}
+
+    def serve_model(arch, runs):
+        """``runs``: (tag, prompt lengths, new tokens, max_len, timed
+        paths). Every run on the K1 + K3 path, the plain versions and the
+        K4 path, on one set of weights; a run that times the K4 path also
+        runs the K4 path's plain versions (the other runs hold K4 to the
+        K1 + K3 path, held to the plain versions)."""
+        cfg = get_arch(arch).full
+        sl = SSM_SLICE[arch]
+        n_l = cfg.n_layers
+        k1_step = len(sl["k1"]) * n_l
+        k3_step = sum(c for _, c in sl["gemms"]) * n_l
+        rec = {"layers": n_l, "k1_per_step": k1_step, "k3_per_step": k3_step}
+        prng = np.random.RandomState(0)
+        base = None
+        for tag, lens, new, max_len, timed in runs:
+            t_run = time.perf_counter()
+            prompts = [prng.randint(0, cfg.vocab_size, (ln,)).astype(np.int32)
+                       for ln in lens]
+            r = {"prompts": list(lens), "new": new, "max_len": max_len,
+                 "rolling_groups": [g.window is not None
+                                    and g.window <= max_len
+                                    for g in transformer.layer_groups(cfg)]}
+            t0 = time.perf_counter()
+            srv = Server(cfg, base, batch_slots=4, max_len=max_len, seed=0)
+            torch.cuda.synchronize()
+            if base is None:
+                base = srv.params
+                rec["init_s"] = time.perf_counter() - t0
+                rec["params_gb"] = sum(
+                    t.numel() * t.element_size()
+                    for t in tree_leaves(base)) / 1e9
+                log(f"{arch} FULL ({n_l} layers, bf16, W4A8, seed 0): random "
+                    f"weights drawn and packed in {rec['init_s']:.2f} s, "
+                    f"{rec['params_gb']:.2f} GB")
+            main_ = drive(srv, prompts, new)
+            want = {"K1": k1_step * new, "K2": 0, "K3": k3_step * new,
+                    "K4": 0, "K4g": 0}
+            toks, logits = main_[0], main_[1]
+            if main_[2] != want:
+                raise AssertionError(f"{arch} {tag}: launches {main_[2]}, "
+                                     f"want {want}")
+            if (logits.shape != (4, cfg.vocab_size)
+                    or not bool(torch.isfinite(logits).all())
+                    or any(len(t) != new or not all(
+                        0 <= v < cfg.vocab_size for v in t) for t in toks)):
+                raise AssertionError(f"{arch} {tag}: bad output "
+                                     f"{logits.shape} {toks}")
+            t0 = time.perf_counter()
+            pl = drive(Server(cfg, base, batch_slots=4, max_len=max_len,
+                              plain=True), prompts, new)
+            r["plain_generate_s"] = time.perf_counter() - t0
+            if any(pl[2].values()):
+                raise AssertionError(f"{arch} plain run launched {pl[2]}")
+            if pl[0] != toks or not torch.equal(pl[1], logits):
+                raise AssertionError(f"{arch} {tag}: tokens/logits differ "
+                                     "from the plain versions' run")
+            k4s = Server(cfg, base, batch_slots=4, max_len=max_len,
+                         pack_acts=False)
+            k4 = drive(k4s, prompts, new)
+            want4 = {"K1": 0, "K2": 0, "K3": 0, "K4": k3_step * new,
+                     "K4g": 0}
+            k4p = (drive(Server(cfg, base, batch_slots=4, max_len=max_len,
+                                pack_acts=False, plain=True), prompts, new)
+                   if "k4" in timed else pl)
+            if k4[2] != want4 or any(k4p[2].values()):
+                raise AssertionError(f"{arch} {tag} K4 path: launches "
+                                     f"{k4[2]} (want {want4}), plain "
+                                     f"{k4p[2]}")
+            if (k4[0] != k4p[0] or not torch.equal(k4[1], k4p[1])
+                    or k4[0] != toks or not torch.equal(k4[1], logits)):
+                raise AssertionError(f"{arch} {tag}: the K4 path's tokens/"
+                                     "logits differ from its plain run's or "
+                                     "the K1 + K3 path's")
+            for k in out["launches"]:
+                out["launches"][k] += main_[2][k] + k4[2][k]
+            r.update(tokens=toks, launches=main_[2], launches_k4=k4[2])
+            log(f"  {tag}: prompts {list(lens)}, {new} new, max_len "
+                f"{max_len} (rolling groups {r['rolling_groups']}): launches "
+                f"{main_[2]} ({k1_step} K1 + {k3_step} K3 per step); tokens "
+                f"and last-step logits equal the plain versions' "
+                f"({r['plain_generate_s']:.1f} s); K4 path {k4[2]} equal to "
+                + ("its plain run and to " if "k4" in timed else "")
+                + f"K1 + K3; request 0: {toks[0]}")
+            batch = left_padded(prompts)
+            s0 = batch["tokens"].shape[1]
+            with torch.inference_mode():
+                hp.reset_counts()
+                _, caches = transformer.prefill(srv.params, batch, srv.cfg,
+                                                max_len=max_len)
+                c_pre = hp.counts()
+                hp.reset_counts()
+                transformer.decode_step(srv.params, caches,
+                                        batch["tokens"][:, :1], s0, srv.cfg)
+                c_dec = hp.counts()
+                torch.cuda.synchronize()
+            for c in (c_pre, c_dec):
+                if (c["K1"], c["K3"]) != (k1_step, k3_step):
+                    raise AssertionError(f"{arch} {tag}: per-step launches "
+                                         f"prefill {c_pre}, decode {c_dec}")
+            # the SSM state a decode step reads and writes, every layer
+            state_bytes = sum(c["h"].nbytes + c["conv"].nbytes
+                              for c in (g.get("ssm", g) for g in caches))
+            del caches
+            for path, server, run in (("k3", srv, main_), ("k4", k4s, k4)):
+                if path not in timed:
+                    continue
+                want_p = ({"K1": k1_step, "K3": k3_step, "K4": 0, "K4g": 0}
+                          if path == "k3" else
+                          {"K1": 0, "K3": 0, "K4": k3_step, "K4g": 0})
+                with torch.inference_mode():
+                    def prefill():
+                        return transformer.prefill(server.params, batch,
+                                                   server.cfg,
+                                                   max_len=max_len)
+
+                    pre_ms = hp.walls(prefill, 3)
+                    pre_prof = (step_profile(prefill, want_p)
+                                if path == "k3" else None)
+                    lg, caches = prefill()
+                    tok = torch.argmax(lg, -1)[:, None]
+                    pos = iter(range(s0, max_len))
+
+                    def step():
+                        transformer.decode_step(server.params, caches, tok,
+                                                next(pos), server.cfg)
+
+                    step_ms = hp.walls(step, 5)
+                    prof = step_profile(step, want_p)
+                    del caches
+                gen_s = run[3]             # the counted run's generate
+                w_bytes = sum(t.numel() * t.element_size()
+                              for t in tree_leaves(server.params["groups"])
+                              ) + server.params["head"]["w"].numel() * 2
+                r[path] = {
+                    "prefill_ms": pre_ms, "profile_prefill": pre_prof,
+                    "decode_step_ms": step_ms, "profile_decode_step": prof,
+                    "generate_s": gen_s, "tok_per_s": 4 * new / gen_s,
+                    "step_weight_bytes": w_bytes,
+                    "step_state_bytes": 2 * state_bytes,
+                    "step_bound_ms": w_bytes / HBM_BYTES_PER_S * 1e3,
+                    "step_bound_with_state_ms":
+                        (w_bytes + 2 * state_bytes) / HBM_BYTES_PER_S * 1e3}
+                t = r[path]
+                kk = "K3" if path == "k3" else "K4"
+                busy = ("" if pre_prof is None else
+                        f" (busy {pre_prof['device_ms']:.3f}, scan "
+                        f"{pre_prof['scan_share']:.1%}, conv "
+                        f"{pre_prof['conv_share']:.1%})")
+                log(f"  {tag} {path.upper()} path, batch 4: prefill "
+                    f"({s0} tokens) {pre_ms:.2f} ms{busy}; eager decode "
+                    f"step {step_ms:.2f} ms; generate({new} new) "
+                    f"{gen_s * 1e3:.0f} ms = {t['tok_per_s']:.1f} tok/s")
+                log(f"    one profiled decode step: wall "
+                    f"{prof['wall_ms']:.2f} ms, busy {prof['device_ms']:.3f} "
+                    f"ms over {prof['kernels']} kernels; K1 "
+                    f"{prof['by_kernel']['K1']['ms']:.4f} ms in "
+                    f"{prof['by_kernel']['K1']['launches']}, {kk} "
+                    f"{prof['by_kernel'][kk]['ms']:.4f} ms in "
+                    f"{prof['by_kernel'][kk]['launches']} (by kernel name, "
+                    f"equal to the wrappers'); scan "
+                    f"{prof['ranges']['scan']['busy']:.3f} ms "
+                    f"({prof['scan_share']:.1%} of busy), conv "
+                    f"{prof['ranges']['conv']['busy']:.3f} ms "
+                    f"({prof['conv_share']:.1%}); weight-byte bound "
+                    f"{t['step_bound_ms']:.3f} ms ({w_bytes / 1e9:.3f} GB), "
+                    f"{t['step_bound_with_state_ms']:.3f} ms with the SSM "
+                    f"state read and written ({2 * state_bytes / 1e9:.3f} GB)")
+            del srv, k4s
+            r["seconds"] = time.perf_counter() - t_run
+            rec[tag] = r
+        # the smoke config on the card gives the CPU's plain-version tokens
+        smoke = get_arch(arch).smoke
+        sm_gpu = Server(smoke, batch_slots=4, max_len=32, seed=0)
+        sm_cpu = Server(smoke, tree_to(sm_gpu.params, "cpu"), batch_slots=4,
+                        max_len=32, device="cpu")
+        sm_prompts = [np.arange(ln, dtype=np.int32) * 7 % smoke.vocab_size
+                      for ln in (3, 6, 9)]
+        a = [q.out_tokens for q in sm_gpu.generate(
+            [GenRequest(pr.copy(), 12) for pr in sm_prompts])]
+        b = [q.out_tokens for q in sm_cpu.generate(
+            [GenRequest(pr.copy(), 12) for pr in sm_prompts])]
+        if a != b:
+            raise AssertionError(f"{arch} smoke config: card {a} vs CPU {b}")
+        log(f"  smoke config (window/chunk 8, 12 new tokens: past the "
+            f"window): card tokens equal the CPU plain run's {a[0]}")
+        del base
+        gc.collect()
+        torch.cuda.empty_cache()
+        return rec
+
+    out["mamba2-780m"] = serve_model("mamba2-780m", [
+        ("run1", LM_PROMPTS, LM_NEW, 1024, ("k3", "k4")),
+        ("run2", SSM_PROMPTS_LONG, LM_NEW, 1024, ("k3",))])
+    out["hymba-1.5b"] = serve_model("hymba-1.5b", [
+        ("run1", LM_PROMPTS, LM_NEW, LM_MAX_LEN, ("k3", "k4")),
+        ("run2", HYMBA_PROMPTS_LONG, HYMBA_NEW_LONG, 1280, ("k3",))])
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 15 in {out['seconds']:.1f} s; launches {out['launches']}")
     return out
 
 
@@ -1343,18 +1777,12 @@ def main() -> int:
 
     def by_kernel(launches):
         """K1, K3, K4 and grouped K4 launches among the profiler's kernel
-        names (K3, K4 and grouped K4 are one template, told apart by its
-        first two arguments)."""
+        names (:func:`kernel_of`)."""
         out = {"K1": 0, "K3": 0, "K4": 0, "K4g": 0}
         for name, n in launches.items():
-            if "quantize_pack_kernel" in name:
-                out["K1"] += n
-            elif "bitserial_gemm_kernel<false" in name:
-                out["K3"] += n
-            elif "bitserial_gemm_kernel<true, true" in name:
-                out["K4g"] += n
-            elif "bitserial_gemm_kernel<true" in name:
-                out["K4"] += n
+            kid = kernel_of(name)
+            if kid is not None:
+                out[kid] += n
         return out
 
     def cli_load(n, new_tokens=LM_NEW, vocab=lm_cfg.vocab_size):
@@ -2658,13 +3086,13 @@ def main() -> int:
         pred = {}
         for b in (1, 32):
             adm = svc_b.scheduler.admit(kb22, b, program=pb22)
-            walls = []
+            replay_s = []
             for _ in range(10):
                 t0 = time.perf_counter()
                 run22(x13[:b])
                 torch.cuda.synchronize()
-                walls.append(time.perf_counter() - t0)
-            meas = statistics.median(walls)
+                replay_s.append(time.perf_counter() - t0)
+            meas = statistics.median(replay_s)
             svc_b.scheduler.complete(adm, meas)
             pred[b] = {"est_cycles": adm.est_cycles,
                        "predicted_ms": adm.est_seconds * 1e3,
@@ -2732,6 +3160,12 @@ def main() -> int:
                      prompts)
     record["train"] = tr
 
+    # ------------------------- 15. the SSM and hybrid families at full width
+    ssm_rec = ssm_phase(dev, types.SimpleNamespace(
+        counts=counts, reset_counts=reset_counts, check_equal=check_equal,
+        profiled=profiled, is_spin=is_spin, walls=walls, timer=timer))
+    record["ssm_hybrid"] = ssm_rec
+
     def total(kid, key):
         vals = [r[key] for r in rows if r["kernel"] == kid]
         return None if any(v is None for v in vals) else sum(vals)
@@ -2754,7 +3188,7 @@ def main() -> int:
          "launches": (cnn_ran["K1"] + ran2["K1"] + lm_k3[2]["K1"]
                       + c_tiny["K1"] + ran_load["K1"] + lm_ran["K1"]
                       + ds_launches["K1"] + tc_launches["K1"]
-                      + tr["launches"]["K1"]),
+                      + tr["launches"]["K1"] + ssm_rec["launches"]["K1"]),
          "engine_launches_per_captured_step": rec["step_launches"]["K1"],
          "max_abs_err": max_err["K1"],
          "ms": total("K1", "ms") + lm_step("K1", "ms", 4),
@@ -2781,7 +3215,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/bitserial_matmul.py:380",
          "launches": (lm_k3[2]["K3"] + c_tiny["K3"] + ran_load["K3"]
                       + lm_ran["K3"] + ds_launches["K3"]
-                      + tr["launches"]["K3"]),
+                      + tr["launches"]["K3"] + ssm_rec["launches"]["K3"]),
          "engine_launches_per_captured_step": rec["step_launches"]["K3"],
          "max_abs_err": max_err["K3"],
          "ms": lm_step("K3", "ms", 4), "plain_ms": lm_step("K3", "plain_ms", 4),
@@ -2791,7 +3225,7 @@ def main() -> int:
          "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/bitserial_matmul.cu",
          "replaces": "src/repro/kernels/bitserial_matmul.py:171",
-         "launches": lm_k4[2]["K4"] + k4_run,
+         "launches": lm_k4[2]["K4"] + k4_run + ssm_rec["launches"]["K4"],
          "engine_launches_per_captured_step": k4_step["K4"],
          "max_abs_err": max_err["K4"],
          "ms": lm_step("K4", "ms", 4), "plain_ms": lm_step("K4", "plain_ms", 4),

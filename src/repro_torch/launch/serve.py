@@ -7,8 +7,10 @@ through the bit-serial kernels: with ``pack_acts`` (the default) every
 projection quantizes and packs its activations with K1 and multiplies with
 K3, otherwise it multiplies int32 codes with K4; an MoE stack's routed
 experts multiply int32 codes with grouped K4 (one launch for all experts
-of a projection) either way. Dense (stablelm-1.6b) and MLA + MoE
-(deepseek-v2-lite-16b) stacks are served.
+of a projection) either way. Dense (stablelm-1.6b), MLA + MoE
+(deepseek-v2-lite-16b), SSM (mamba2-780m) and hybrid (hymba-1.5b) stacks
+are served by :class:`Server`; the continuous engine takes the dense and
+MoE ones.
 
 Both paths serve through the serving runtime (:mod:`repro_torch.serving`),
 as the reference's do:
@@ -25,11 +27,16 @@ as the reference's do:
   :class:`~repro_torch.serving.ContinuousLMEngine` (K1 + K3, its decode
   step one CUDA graph on the card) as a callable and submits its mixed
   load of ``max(batch x 4, 8)`` requests through the same service; the
-  engine books the scheduler per decode step.
+  engine books the scheduler per decode step. An SSM or hybrid arch does
+  not fit the engine's slot arena: the CLI says so and serves ``batch``
+  8-token prompts through the static :class:`Server`, as the reference's
+  CLI does.
 
     python -m repro_torch.launch.serve --arch stablelm-1.6b --batch 4 --new-tokens 16
     python -m repro_torch.launch.serve --arch stablelm-1.6b --device cpu --smoke [--no-pack-acts]
     python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b [--device cpu --smoke]
+    python -m repro_torch.launch.serve --arch mamba2-780m [--device cpu --smoke]
+    python -m repro_torch.launch.serve --arch hymba-1.5b [--device cpu --smoke]
     python -m repro_torch.launch.serve --arch resnet9-cifar10 --batch 32 [--trace-out trace.json]
     python -m repro_torch.launch.serve --arch resnet9-cifar10 --batch 4 --device cpu
     python -m repro_torch.launch.serve --arch resnet9-cifar10 --store DIR
@@ -72,7 +79,7 @@ from repro_torch.models.transformer import (ModelConfig, decode_step,
 from repro_torch.obs import (format_trace_summary, start_metrics_server,
                              trace_summary, write_chrome_trace)
 from repro_torch.serving import (ContinuousLMEngine, InferenceService,
-                                 ModelRegistry)
+                                 ModelRegistry, supports_continuous)
 
 __all__ = ["GenRequest", "Server", "make_lm_engine", "CNNServer", "main"]
 
@@ -157,8 +164,9 @@ class Server:
     random from ``seed`` on that device, drawn and packed one layer at a
     time when ``quantized``); float ones are packed once when
     ``quantized``. The
-    head's float32 weight is cast to the compute dtype once here, where the
-    reference casts it at every call — the same numbers. ``pack_acts``
+    head's float32 weight (a tied model's: the embedding, whose float32
+    copy the lookup keeps) is cast to the compute dtype once here, where
+    the reference casts it at every call — the same numbers. ``pack_acts``
     selects K1 + K3 (True) or K4 (False); ``plain`` runs the kernels'
     plain versions (the yardstick). ``device=None`` means the card: it
     raises when there is none (pass ``device="cpu"`` for the plain
@@ -184,8 +192,11 @@ class Server:
                              f"server on {self.device}")
         # bit-transposed deployment, or the float params as they are
         params = pack_params(params, cfg) if quantized else dict(params)
-        params["head"] = dict(params["head"], w=params["head"]["w"].to(
-            cfg.compute_dtype))
+        if cfg.tie_embeddings:
+            params["head"] = {"w": params["embed"].to(cfg.compute_dtype).T}
+        else:
+            params["head"] = dict(params["head"], w=params["head"]["w"].to(
+                cfg.compute_dtype))
         self.params = params
         self.last_logits = None
         self.last_stats = {}
@@ -585,12 +596,44 @@ def _main_profile(argv) -> None:
         print()
 
 
+def _main_static_lm(args, cfg: ModelConfig) -> None:
+    """An arch the slot arena cannot take (SSM or hybrid state, rolling
+    windows) through the static :class:`Server`, as the reference's CLI
+    serves it: ``batch`` prompts of 8 tokens from ``RandomState(seed)``,
+    ``new_tokens`` each."""
+    print(f"note: family={cfg.family!r} doesn't fit the continuous slot "
+          "arena (SSM/hybrid state, rolling windows, or encoder inputs) — "
+          "serving via the static batch path")
+    if args.trace_out or args.metrics_port is not None or args.metrics_every:
+        print("note: --trace-out/--metrics-port/--metrics-every apply to "
+              "the serving-runtime paths only (static batch has no spine)")
+    server = Server(cfg, batch_slots=args.batch, max_len=LM_MAX_LEN,
+                    seed=args.seed, pack_acts=not args.no_pack_acts,
+                    device=args.device)
+    rng = np.random.RandomState(args.seed)
+    reqs = [GenRequest(rng.randint(0, cfg.vocab_size, (8,)).astype(np.int32),
+                       args.new_tokens) for _ in range(args.batch)]
+    t0 = time.perf_counter()
+    out = server.generate(reqs)
+    dt = time.perf_counter() - t0
+    total = sum(len(r.out_tokens) for r in out)
+    kernels = "K1 + K3" if not args.no_pack_acts else "K4"
+    print(f"{cfg.name}: generated {total} tokens in {dt:.2f}s "
+          f"({total / dt:.1f} tok/s, static batch) on "
+          f"{_device_name(server.device)}, {cfg.n_layers} layers, {kernels}")
+    print("sample:", out[0].out_tokens)
+
+
 def _main_lm(args) -> None:
     """The reference CLI's LM load through the continuous engine, submitted
     through the serving runtime: mixed prompt lengths (4-16 tokens) and
-    decode budgets, every 4th request long, from ``RandomState(seed)``."""
+    decode budgets, every 4th request long, from ``RandomState(seed)``.
+    An arch the engine cannot take goes through :func:`_main_static_lm`."""
     entry = get_arch(args.arch)
     cfg = entry.smoke if args.smoke else entry.full
+    if not supports_continuous(cfg):
+        _main_static_lm(args, cfg)
+        return
     engine = ContinuousLMEngine(cfg, batch_slots=args.batch,
                                 max_len=LM_MAX_LEN, seed=args.seed,
                                 pack_acts=not args.no_pack_acts,

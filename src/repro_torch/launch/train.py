@@ -74,7 +74,8 @@ class Trainer:
     """Supervised trainer wiring the runtime subsystems together.
 
     ``device=None`` means the card: it raises when there is none (pass
-    ``device="cpu"``). Parameters are drawn from a ``torch.Generator``
+    ``device="cpu"``). The SSM and hybrid families raise
+    ``NotImplementedError``: their training is not ported. Parameters are drawn from a ``torch.Generator``
     seeded with ``seed`` on the device. With ``ckpt_dir`` the run is
     supervised (:class:`~repro_torch.runtime.fault_tolerance.TrainSupervisor`:
     a checkpoint every ``save_every`` steps and at the last, restore and
@@ -84,6 +85,11 @@ class Trainer:
                  ckpt_dir: Optional[str] = None,
                  batch_size: int = 8, seq_len: int = 64, seed: int = 0,
                  save_every: int = 50, device=None):
+        if cfg.family in ("ssm", "hybrid"):
+            raise NotImplementedError(
+                f"{cfg.name}: training the SSM and hybrid families (the SSD "
+                "scan's backward under LSQ) is not ported; ROADMAP queue 1, "
+                "'Training the SSM and hybrid families'")
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             disable_tf32()

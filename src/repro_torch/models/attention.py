@@ -2,8 +2,8 @@
 attention (MLA), with a KV cache, over quantized projections.
 
 Counterpart of ``repro/models/attention.py``, restricted to the branches a
-decoder takes: causal, full (no sliding window) and an unquantized
-cache; MLA's prefill takes the materialized path (no chunked kernel).
+decoder takes: causal, full or sliding-window, over an unquantized cache;
+MLA's prefill takes the materialized path (no chunked kernel).
 ``cache_pos`` is a host int (every row of the batch at the same depth:
 the static :class:`~repro_torch.launch.serve.Server`) or a (B,) tensor on
 the batch's device (every row at its own depth: the slot arena of
@@ -26,6 +26,14 @@ reference does (an asymmetry of the reference, kept).
 The cache is updated in place (the reference's ``dynamic_update_slice``
 returns a new array): one preallocated buffer per layer stack, no copy per
 token.
+
+Sliding windows (``AttnConfig.window``, hymba's local layers): a window no
+wider than the cache makes the cache a rolling buffer of ``window`` slots
+(the ``rolling`` marker, as the reference's ``init_kv_cache``), newest at
+the end; a prefill attends its own fresh K/V under the causal and window
+masks and seeds the buffer, a decode step attends the last
+``min(pos + 1, window)`` slots. A rolling cache takes a host-int position
+only. A window wider than the cache only masks.
 """
 
 from __future__ import annotations
@@ -54,6 +62,7 @@ class AttnConfig:
     rope_theta: float = 10000.0
     partial_rotary: float = 1.0
     causal: bool = True
+    window: Optional[int] = None       # sliding-window width (None = full)
     # MLA
     mla: bool = False
     kv_lora: int = 512
@@ -71,11 +80,14 @@ def _per_row(pos) -> bool:
 
 
 def _sdpa_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-               causal: bool, q_offset) -> torch.Tensor:
+               causal: bool, q_offset,
+               window: Optional[int] = None) -> torch.Tensor:
     """Reference attention: q (B, Sq, H, D), k/v (B, Sk, Hkv, D), GQA by
     head grouping, scores and softmax in float32. ``q_offset`` is the
     position of the first query: a scalar, or a (B,) tensor of per-row
-    positions (each row masks the keys beyond its own queries)."""
+    positions (each row masks the keys beyond its own queries). With
+    ``window`` a query also masks the keys ``window`` or more positions
+    behind it."""
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     rep = h // hkv
@@ -83,16 +95,41 @@ def _sdpa_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qg = q.reshape(b, sq, hkv, rep, d)
     root = device_scalar(math.sqrt(d), q.device)
     scores = torch.einsum("bqgrd,bkgd->bgrqk", qg.to(f32), k.to(f32)) / root
-    if causal:
+    if causal or window is not None:
         ar = torch.arange(sq, device=q.device)
+        kpos = torch.arange(sk, device=q.device)
         if _per_row(q_offset):
             qpos = q_offset[:, None, None] + ar[None, :, None]
-            kpos = torch.arange(sk, device=q.device)[None, None, :]
-            mask = (kpos > qpos)[:, None, None]   # (B, 1, 1, Sq, Sk)
+            kpos = kpos[None, None, :]
         else:
             qpos = q_offset + ar[:, None]
-            mask = torch.arange(sk, device=q.device)[None, :] > qpos
+            kpos = kpos[None, :]
+        mask = kpos > qpos if causal else None
+        if window is not None:
+            outside = kpos <= qpos - window
+            mask = outside if mask is None else mask | outside
+        if _per_row(q_offset):
+            mask = mask[:, None, None]            # (B, 1, 1, Sq, Sk)
         scores = scores.masked_fill(mask, -math.inf)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bgrqk,bkgd->bqgrd", p, v.to(f32))
+    return out.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
+
+
+def _sdpa_rolling(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  filled: int) -> torch.Tensor:
+    """Decode attention over a rolling window buffer: the last ``filled``
+    slots are valid, all in the causal past of the query; the others are
+    masked to -1e30, as the reference masks them."""
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    rep = h // hkv
+    f32 = torch.float32
+    qg = q.reshape(b, sq, hkv, rep, d)
+    root = device_scalar(math.sqrt(d), q.device)
+    scores = torch.einsum("bqgrd,bkgd->bgrqk", qg.to(f32), k.to(f32)) / root
+    if filled < sk:
+        scores[..., :sk - filled] = -1e30
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bgrqk,bkgd->bqgrd", p, v.to(f32))
     return out.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
@@ -101,19 +138,37 @@ def _sdpa_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # ------------------------------------------------------------------ KV cache
 
 def init_kv_cache(batch: int, max_len: int, n_kv: int, head_dim: int, *,
-                  dtype: torch.dtype = torch.bfloat16,
-                  device=None) -> dict:
+                  dtype: torch.dtype = torch.bfloat16, device=None,
+                  window: Optional[int] = None) -> dict:
     """Decode cache of ``max_len`` positions: ``k``/``v`` (B, T, Hkv, D)
     and ``len``, the number of positions written: a host int while the
     batch decodes in lockstep, a (B,) tensor once rows are written at
-    per-row positions."""
-    return {
-        "k": torch.zeros((batch, max_len, n_kv, head_dim), dtype=dtype,
+    per-row positions. With a ``window`` no wider than ``max_len`` the
+    cache is a rolling buffer of ``window`` slots, marked ``rolling``."""
+    size = max_len if window is None else min(max_len, window)
+    cache = {
+        "k": torch.zeros((batch, size, n_kv, head_dim), dtype=dtype,
                          device=device),
-        "v": torch.zeros((batch, max_len, n_kv, head_dim), dtype=dtype,
+        "v": torch.zeros((batch, size, n_kv, head_dim), dtype=dtype,
                          device=device),
         "len": 0,
     }
+    if window is not None and window <= max_len:
+        cache["rolling"] = True
+    return cache
+
+
+def _roll_insert(buf: torch.Tensor, new: torch.Tensor) -> None:
+    """Shift a rolling buffer (B, W, ...) left by the update's length and
+    write the update at the end, in place; an update longer than the
+    buffer leaves its tail. The shifted buffer is built first and then
+    copied: a shift inside one buffer is an overlapping copy."""
+    w, s = buf.shape[1], new.shape[1]
+    new = new.to(buf.dtype)
+    if s >= w:
+        buf.copy_(new[:, -w:])
+    else:
+        buf.copy_(torch.cat([buf[:, s:], new], dim=1))
 
 
 def _row_index(pos: torch.Tensor, new: torch.Tensor,
@@ -157,9 +212,18 @@ def update_kv_cache(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
     return the cache with ``len = pos + S``. Works for prefill (S > 1) and
     decode (S = 1). ``pos`` is a host int for every row (a write outside
     the cache raises), or a (B,) tensor of per-row positions on the cache's
-    device (each start clamped into the cache, as the reference does)."""
-    idx = _seq_write(cache["k"], k_new, pos)
-    _seq_write(cache["v"], v_new, pos, idx)
+    device (each start clamped into the cache, as the reference does). A
+    rolling cache shifts instead of indexing and takes a host int only."""
+    if "rolling" in cache:
+        if _per_row(pos):
+            raise ValueError("a rolling (sliding-window) cache takes one "
+                             "host-int position for every row, not per-row "
+                             "positions")
+        _roll_insert(cache["k"], k_new)
+        _roll_insert(cache["v"], v_new)
+    else:
+        idx = _seq_write(cache["k"], k_new, pos)
+        _seq_write(cache["v"], v_new, pos, idx)
     upd = dict(cache)
     upd["len"] = (pos if _per_row(pos) else int(pos)) + k_new.shape[1]
     return upd
@@ -192,7 +256,10 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: AttnConfig,
     """Self-attention over (B, S, D). Returns ``(out, new_cache)``; with a
     cache, the new K/V are written at ``cache_pos`` (a host int, or a (B,)
     tensor of per-row positions) and the queries attend the whole cache
-    under the causal mask."""
+    under the causal (and window) mask. On a rolling cache a prefill
+    attends its fresh K/V from position 0 under the causal and window
+    masks, and a decode step the last ``min(cache_pos + 1, window)``
+    slots."""
     b, s, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = qdense_shared([p["wq"], p["wk"], p["wv"]], x, policy)
@@ -209,10 +276,21 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: AttnConfig,
     new_cache = None
     if cache is not None:
         new_cache = update_kv_cache(cache, k, v, cache_pos)
-        kc, vc = read_kv_cache(new_cache, x.dtype)
-        out = _sdpa_full(q, kc, vc, causal=cfg.causal, q_offset=cache_pos)
+        if "rolling" in cache and s > 1:
+            # windowed prefill: the fresh K/V, as the reference
+            out = _sdpa_full(q, k, v, causal=cfg.causal, q_offset=0,
+                             window=cfg.window)
+        elif "rolling" in cache:
+            kc, vc = read_kv_cache(new_cache, x.dtype)
+            out = _sdpa_rolling(q, kc, vc,
+                                min(int(cache_pos) + s, kc.shape[1]))
+        else:
+            kc, vc = read_kv_cache(new_cache, x.dtype)
+            out = _sdpa_full(q, kc, vc, causal=cfg.causal,
+                             q_offset=cache_pos, window=cfg.window)
     else:
-        out = _sdpa_full(q, k, v, causal=cfg.causal, q_offset=0)
+        out = _sdpa_full(q, k, v, causal=cfg.causal, q_offset=0,
+                         window=cfg.window)
     out = qdense(p["wo"], out.reshape(b, s, h * dh), policy)
     return out, new_cache
 

@@ -1,13 +1,20 @@
 """The decoder stacks of the model zoo: pre-norm attention (GQA or MLA)
-+ MLP or MoE blocks with every projection quant-aware.
++ MLP or MoE blocks, Mamba-2 SSM blocks, and Hymba hybrid blocks, with
+every projection quant-aware.
 
-Counterpart of ``repro/models/transformer.py``, dense and MoE branches
-(GQA or MLA attention, SwiGLU MLPs and experts, an untied head, no QKV
-bias; no SSM, hybrid, encoder-decoder or frontend). Parameters are plain
-dicts in the reference's layout: a layer group carries every leaf with a
-leading ``(L, ...)`` axis, and :func:`_run_groups` walks it with a Python
-loop where the reference runs ``lax.scan``. :func:`params_from_numpy`
-carries the reference's parameter pytree (float or packed) across.
+Counterpart of ``repro/models/transformer.py``: the dense, MoE, SSM and
+hybrid branches (GQA or MLA attention, full or sliding-window, SwiGLU MLPs
+and experts, a head of its own or tied to the embedding, no QKV bias; no
+encoder-decoder or frontend). Parameters are plain dicts in the
+reference's layout: a layer group carries every leaf with a leading
+``(L, ...)`` axis, and :func:`_run_groups` walks it with a Python loop
+where the reference runs ``lax.scan``. :func:`params_from_numpy` carries
+the reference's parameter pytree (float or packed) across.
+
+Caches are stacked the same way and written in place: a KV cache by the
+attention itself, an SSM state (which the reference replaces each step)
+by :func:`_run_groups`, which copies a block's new state into its layer's
+slot.
 
 Training: :func:`loss_fn` is the reference's causal-LM loss. While
 autograd records, each layer runs under ``torch.utils.checkpoint`` when
@@ -31,10 +38,14 @@ from torch.utils import checkpoint as torch_checkpoint
 from repro_torch.models.attention import (AttnConfig, attn_apply, attn_init,
                                           init_kv_cache, init_mla_cache,
                                           mla_apply, mla_init)
+from repro_torch.models.hybrid import (HybridConfig, hybrid_apply,
+                                       hybrid_init, init_hybrid_cache)
 from repro_torch.models.layers import (QuantPolicy, layer_norm, pack_qdense,
                                        qdense, qdense_init, qdense_shared,
                                        rms_norm)
 from repro_torch.models.moe import MoEConfig, moe_apply, moe_init
+from repro_torch.models.ssm import (SSMConfig, init_ssm_cache, ssm_apply,
+                                    ssm_decode_step, ssm_init)
 
 __all__ = ["ModelConfig", "GroupSpec", "layer_groups", "init_params",
            "forward", "loss_fn", "prefill", "decode_step", "init_caches",
@@ -44,7 +55,7 @@ __all__ = ["ModelConfig", "GroupSpec", "layer_groups", "init_params",
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # 'dense' or 'moe' are ported
+    family: str                     # dense | moe | ssm | hybrid
     n_layers: int
     d_model: int
     n_heads: int
@@ -57,6 +68,7 @@ class ModelConfig:
     partial_rotary: float = 1.0
     norm_type: str = "rms"
     norm_eps: float = 1e-6
+    tie_embeddings: bool = False
     # MoE
     n_experts: int = 0
     top_k: int = 0
@@ -70,6 +82,14 @@ class ModelConfig:
     qk_nope_dim: int = 128
     qk_rope_dim: int = 64
     v_head_dim: int = 128
+    # SSM / hybrid
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_groups: int = 1
+    ssm_chunk: int = 128
+    window: Optional[int] = None
+    global_attn_layers: Tuple[int, ...] = ()
     policy: QuantPolicy = QuantPolicy(mode="none")
     remat: bool = True
     remat_policy: str = "nothing"   # the only policy ported
@@ -79,13 +99,19 @@ class ModelConfig:
     def compute_dtype(self) -> torch.dtype:
         return torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
 
-    def attn_cfg(self) -> AttnConfig:
+    def attn_cfg(self, window: Optional[int] = None) -> AttnConfig:
         return AttnConfig(
             d_model=self.d_model, n_heads=self.n_heads,
             n_kv_heads=self.n_kv_heads, head_dim=self.head_dim,
             rope_theta=self.rope_theta, partial_rotary=self.partial_rotary,
-            mla=self.mla, kv_lora=self.kv_lora, qk_nope_dim=self.qk_nope_dim,
-            qk_rope_dim=self.qk_rope_dim, v_head_dim=self.v_head_dim)
+            window=window, mla=self.mla, kv_lora=self.kv_lora,
+            qk_nope_dim=self.qk_nope_dim, qk_rope_dim=self.qk_rope_dim,
+            v_head_dim=self.v_head_dim)
+
+    def ssm_cfg(self) -> SSMConfig:
+        return SSMConfig(d_model=self.d_model, d_state=self.ssm_state,
+                         head_dim=self.ssm_head_dim, expand=self.ssm_expand,
+                         n_groups=self.ssm_groups, chunk=self.ssm_chunk)
 
     def moe_cfg(self) -> MoEConfig:
         return MoEConfig(d_model=self.d_model, d_ff_expert=self.d_ff_expert,
@@ -97,26 +123,49 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class GroupSpec:
-    kind: str          # 'attn' | 'mla'
+    kind: str          # 'attn' | 'mla' | 'ssm' | 'hybrid'
     n: int
     use_moe: bool = False
+    window: Optional[int] = None
 
 
 def layer_groups(cfg: ModelConfig) -> Tuple[GroupSpec, ...]:
-    """The stack as homogeneous groups: one group, or (deepseek) the
-    leading dense layers and then the MoE layers. Other families and MLP
+    """The stack as homogeneous groups: one group; (deepseek) the leading
+    dense layers and then the MoE layers; (hybrid) runs of sliding-window
+    layers split by single global-attention layers. Other families and MLP
     activations are not ported."""
-    if cfg.family not in ("dense", "moe") or cfg.act != "swiglu":
+    if (cfg.family not in ("dense", "moe", "ssm", "hybrid")
+            or cfg.act != "swiglu"):
         raise NotImplementedError(f"family {cfg.family!r} with act "
-                                  f"{cfg.act!r} is not ported (dense and "
-                                  "MoE SwiGLU only)")
+                                  f"{cfg.act!r} is not ported (dense, MoE, "
+                                  "SSM and hybrid, SwiGLU only)")
+    n_layers = cfg.n_layers
+    if cfg.family == "ssm":
+        return (GroupSpec("ssm", n_layers),)
+    if cfg.family == "hybrid":
+        groups = []
+        prev = 0
+        for gi in sorted(cfg.global_attn_layers):
+            if gi > prev:
+                groups.append(GroupSpec("hybrid", gi - prev,
+                                        window=cfg.window))
+            groups.append(GroupSpec("hybrid", 1, window=None))
+            prev = gi + 1
+        if prev < n_layers:
+            groups.append(GroupSpec("hybrid", n_layers - prev,
+                                    window=cfg.window))
+        return tuple(groups)
     kind = "mla" if cfg.mla else "attn"
     moe = cfg.n_experts > 0
     if moe and cfg.n_dense_layers > 0:
         return (GroupSpec(kind, cfg.n_dense_layers, use_moe=False),
-                GroupSpec(kind, cfg.n_layers - cfg.n_dense_layers,
+                GroupSpec(kind, n_layers - cfg.n_dense_layers,
                           use_moe=True))
-    return (GroupSpec(kind, cfg.n_layers, use_moe=moe),)
+    return (GroupSpec(kind, n_layers, use_moe=moe, window=cfg.window),)
+
+
+def _hybrid_cfg(cfg: ModelConfig, spec: GroupSpec) -> HybridConfig:
+    return HybridConfig(cfg.attn_cfg(window=spec.window), cfg.ssm_cfg())
 
 
 # ------------------------------------------------------------------- params
@@ -128,10 +177,16 @@ def _block_init(gen: torch.Generator, cfg: ModelConfig,
     p = {"norm1": torch.ones((d,), device=dev)}
     if cfg.norm_type == "layer":
         p["norm1_b"] = torch.zeros((d,), device=dev)
-    if spec.kind == "mla":
+    if spec.kind == "ssm":        # no second norm, no MLP
+        p["ssm"] = ssm_init(gen, cfg.ssm_cfg(), cfg.policy)
+        return p
+    if spec.kind == "hybrid":
+        p["hybrid"] = hybrid_init(gen, _hybrid_cfg(cfg, spec), cfg.policy)
+    elif spec.kind == "mla":
         p["attn"] = mla_init(gen, cfg.attn_cfg(), cfg.policy)
     else:
-        p["attn"] = attn_init(gen, cfg.attn_cfg(), cfg.policy)
+        p["attn"] = attn_init(gen, cfg.attn_cfg(window=spec.window),
+                              cfg.policy)
     p["norm2"] = torch.ones((d,), device=dev)
     if cfg.norm_type == "layer":
         p["norm2_b"] = torch.zeros((d,), device=dev)
@@ -166,7 +221,8 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *,
     generator). Layers are drawn one at a time into their group's stack;
     with ``packed`` each layer is packed (:func:`pack_params`) before it
     is stacked, so the float peak is one layer's — how a full-width MoE
-    stack (26 x 64 experts) is made on one card."""
+    stack (26 x 64 experts) is made on one card. A config with
+    ``tie_embeddings`` has no ``head``: the embedding is the head."""
     d, v, dev = cfg.d_model, cfg.vocab_size, gen.device
     params = {
         "embed": torch.randn((v, d), generator=gen, device=dev) * 0.02,
@@ -184,7 +240,8 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *,
         params["groups"].append(stack)
     if cfg.norm_type == "layer":
         params["final_norm_b"] = torch.zeros((d,), device=dev)
-    params["head"] = qdense_init(gen, d, v, QuantPolicy(mode="none"))
+    if not cfg.tie_embeddings:
+        params["head"] = qdense_init(gen, d, v, QuantPolicy(mode="none"))
     return params
 
 
@@ -217,14 +274,34 @@ def _mlp_apply(p, x, cfg: ModelConfig):
 
 
 def _block_apply(p, x, cfg: ModelConfig, spec: GroupSpec, *, positions,
-                 cache=None, cache_pos=None, aux=None):
+                 cache=None, cache_pos=None, aux=None, decode=False):
     """One pre-norm block. Returns ``(x, new_cache)``; an MoE block
     appends its ``lb_loss`` and ``drop_frac`` to ``aux``'s lists when
-    ``aux`` is a dict."""
+    ``aux`` is a dict. ``decode`` steps an SSM (or a hybrid's SSM branch)
+    one token over its state."""
     h = _norm(x, p["norm1"], p.get("norm1_b"), cfg)
-    attn = mla_apply if spec.kind == "mla" else attn_apply
-    out, new_c = attn(p["attn"], h, cfg.attn_cfg(), cfg.policy,
-                      positions=positions, cache=cache, cache_pos=cache_pos)
+    if spec.kind == "ssm":
+        if decode:
+            out, new_c = ssm_decode_step(p["ssm"], h, cfg.ssm_cfg(),
+                                         cfg.policy, cache)
+        else:
+            out, new_c = ssm_apply(p["ssm"], h, cfg.ssm_cfg(), cfg.policy,
+                                   cache=cache)
+        return x + out.to(x.dtype), new_c
+    if spec.kind == "hybrid":
+        out, new_c = hybrid_apply(p["hybrid"], h, _hybrid_cfg(cfg, spec),
+                                  cfg.policy, positions=positions,
+                                  cache=cache, cache_pos=cache_pos,
+                                  decode=decode)
+    elif spec.kind == "mla":
+        out, new_c = mla_apply(p["attn"], h, cfg.attn_cfg(), cfg.policy,
+                               positions=positions, cache=cache,
+                               cache_pos=cache_pos)
+    else:
+        out, new_c = attn_apply(p["attn"], h,
+                                cfg.attn_cfg(window=spec.window), cfg.policy,
+                                positions=positions, cache=cache,
+                                cache_pos=cache_pos)
     x = x + out
     hm = _norm(x, p["norm2"], p.get("norm2_b"), cfg)
     if spec.use_moe:
@@ -268,12 +345,42 @@ def _remat_block(p, x, cfg: ModelConfig, spec: GroupSpec, *, positions,
     return out[0]
 
 
+def _layer_cache(gcache: dict, i: int) -> dict:
+    """Layer ``i``'s view of a stacked group cache (nested for a hybrid):
+    each tensor indexed, ``len`` and the ``rolling`` marker as they are."""
+    return {k: (_layer_cache(v, i) if isinstance(v, dict)
+                else v[i] if torch.is_tensor(v) and k != "len" else v)
+            for k, v in gcache.items()}
+
+
+def _store_layer_cache(gcache: dict, i: int, view: dict, new: dict) -> None:
+    """Store a block's returned cache in layer ``i``'s slot: a tensor the
+    block replaced (an SSM's ``h`` and ``conv``) copied in, one it wrote
+    in place (``view``'s own) left alone. ``len`` waits for
+    :func:`_advance_len`: every layer of a group starts from the same."""
+    for k, v in new.items():
+        if isinstance(v, dict):
+            _store_layer_cache(gcache[k], i, view[k], v)
+        elif torch.is_tensor(v) and k != "len" and v is not view[k]:
+            gcache[k][i].copy_(v)
+
+
+def _advance_len(gcache: dict, new: dict) -> None:
+    """A group's ``len`` (each nested cache's) after its last layer."""
+    for k, v in new.items():
+        if k == "len":
+            gcache[k] = v
+        elif isinstance(v, dict):
+            _advance_len(gcache[k], v)
+
+
 def _run_groups(groups_params, x, cfg: ModelConfig, specs, *, positions,
-                caches=None, cache_pos=None, aux=None):
+                caches=None, cache_pos=None, aux=None, decode=False):
     """Run each group's layers in order; returns ``(x, caches)``. The
     caches are written in place; ``aux`` (a dict) collects the MoE
-    layers' statistics. Without caches, while autograd records and with
-    ``cfg.remat``, every layer is checkpointed."""
+    layers' statistics; ``decode`` steps SSM state one token. Without
+    caches, while autograd records and with ``cfg.remat``, every layer is
+    checkpointed."""
     remat = cfg.remat and caches is None and torch.is_grad_enabled()
     for gi, (gp, spec) in enumerate(zip(groups_params, specs)):
         gcache = caches[gi] if caches is not None else None
@@ -282,15 +389,14 @@ def _run_groups(groups_params, x, cfg: ModelConfig, specs, *, positions,
                 x = _remat_block(lp, x, cfg, spec, positions=positions,
                                  aux=aux)
                 continue
-            cl = None
-            if gcache is not None:
-                cl = {k: (v if k == "len" else v[i])
-                      for k, v in gcache.items()}
+            cl = _layer_cache(gcache, i) if gcache is not None else None
             x, nc = _block_apply(lp, x, cfg, spec,
                                  positions=positions, cache=cl,
-                                 cache_pos=cache_pos, aux=aux)
+                                 cache_pos=cache_pos, aux=aux, decode=decode)
             if gcache is not None:
-                gcache["len"] = nc["len"]
+                _store_layer_cache(gcache, i, cl, nc)
+        if gcache is not None:
+            _advance_len(gcache, nc)
     return x, caches
 
 
@@ -310,7 +416,13 @@ def _embed_inputs(params, batch, cfg: ModelConfig):
 
 
 def _logits(params, x, cfg: ModelConfig):
+    """The final norm, then the head; a tied model without ``head`` (a
+    :class:`~repro_torch.launch.serve.Server` casts the embedding into one
+    once) multiplies by the embedding, cast to ``x``'s dtype, as the
+    reference does at every call."""
     x = _norm(x, params["final_norm"], params.get("final_norm_b"), cfg)
+    if "head" not in params:
+        return torch.matmul(x, params["embed"].to(x.dtype).T)
     return qdense(params["head"], x, QuantPolicy(mode="none"))
 
 
@@ -348,22 +460,36 @@ def loss_fn(params, batch, cfg: ModelConfig):
 
 # ------------------------------------------------------------------ serving
 
+def _stack_cache(c: dict, n: int) -> dict:
+    """A layer's cache repeated into an (n, ...) stack, tensor by tensor;
+    ``len`` and markers stay single."""
+    return {k: (_stack_cache(v, n) if isinstance(v, dict)
+                else v[None].repeat((n,) + (1,) * v.dim())
+                if torch.is_tensor(v) else v)
+            for k, v in c.items()}
+
+
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None):
     """One stacked cache per group, ``len`` 0: GQA ``k``/``v`` (L, B, T,
-    Hkv, D), or MLA's latent ``c`` (L, B, T, kv_lora) and ``k_rope`` (L,
-    B, T, qk_rope_dim). The continuous engine's slot arena is one such
-    list."""
+    Hkv, D) (T = the window for a rolling cache), MLA's latent ``c`` (L,
+    B, T, kv_lora) and ``k_rope`` (L, B, T, qk_rope_dim), an SSM's state
+    ``h`` (L, B, H, N, P) and ``conv``, or a hybrid's ``{"attn", "ssm"}``
+    of both. The continuous engine's slot arena is one such list."""
     caches = []
+    dt = cfg.compute_dtype
     for spec in layer_groups(cfg):
-        if spec.kind == "mla":
-            c = init_mla_cache(batch, max_len, cfg.attn_cfg(),
-                               dtype=cfg.compute_dtype, device=device)
+        if spec.kind == "ssm":
+            c = init_ssm_cache(batch, cfg.ssm_cfg(), dtype=dt, device=device)
+        elif spec.kind == "hybrid":
+            c = init_hybrid_cache(batch, max_len, _hybrid_cfg(cfg, spec),
+                                  dtype=dt, device=device)
+        elif spec.kind == "mla":
+            c = init_mla_cache(batch, max_len, cfg.attn_cfg(), dtype=dt,
+                               device=device)
         else:
             c = init_kv_cache(batch, max_len, cfg.n_kv_heads, cfg.head_dim,
-                              dtype=cfg.compute_dtype, device=device)
-        caches.append({k: (v if k == "len" else
-                           v[None].repeat((spec.n,) + (1,) * v.dim()))
-                       for k, v in c.items()})
+                              dtype=dt, device=device, window=spec.window)
+        caches.append(_stack_cache(c, spec.n))
     return caches
 
 
@@ -403,7 +529,7 @@ def decode_step(params, caches, tokens, pos, cfg: ModelConfig,
     own = {}
     x, caches = _run_groups(params["groups"], x, cfg, layer_groups(cfg),
                             positions=positions, caches=caches,
-                            cache_pos=pos, aux=own)
+                            cache_pos=pos, aux=own, decode=True)
     if aux is not None:
         aux.update(_stack_aux(own))
     return _logits(params, x, cfg)[:, 0], caches

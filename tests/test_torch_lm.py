@@ -26,6 +26,7 @@ Tolerances, each with its reason:
 
 import io
 import contextlib
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -45,6 +46,7 @@ from repro.models import transformer as jt
 
 from repro_torch.configs import get_arch
 from repro_torch.core.quant import QuantSpec, quantize_int
+from repro_torch.data import SyntheticLM
 from repro_torch.kernels import ops
 from repro_torch.launch import serve
 from repro_torch.launch.serve import GenRequest, Server, make_lm_engine
@@ -312,6 +314,41 @@ def test_prefill_and_decode_match_reference(smoke, pack_acts):
                             tcfg)
     _close(tfull, jfull)
     assert aux == {}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantization_gap_equals_reference(smoke, dtype):
+    """The quantization gap (CE of the integer path on packed params minus
+    CE of the LSQ fake-quant forward on the float params they were packed
+    from) in both packages, on the same carried weights and held-out
+    ``SyntheticLM`` batch. In float32 both gaps are 0 within float32
+    rounding (1e-5): the integer path reproduces the fake-quant model, in
+    the reference as in the port. In bf16 both paths round every float
+    part to bf16 and a gap opens in either package; its size rides on
+    float-part rounding that the two do not share (XLA's bf16 ``logistic``
+    differs from torch's correctly rounded ``sigmoid`` in about a third
+    of elements), so each CE is held to the reference's within 2^-8 of it,
+    bf16's relative precision."""
+    jcfg, tcfg, params, packed = smoke
+    jcfg = dataclasses.replace(jcfg, dtype=dtype)
+    tcfg = dataclasses.replace(tcfg, dtype=dtype)
+    batch = SyntheticLM(jcfg.vocab_size, 64, seed=0).batch(10_001, 8)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    tb = {k: torch.from_numpy(v).long() for k, v in batch.items()}
+    jce = {name: float(jt.loss_fn(tree, jb, jcfg)[1]["ce"])
+           for name, tree in (("fake", params), ("int", packed))}
+    with torch.no_grad():
+        tce = {name: float(tt.loss_fn(_t(tree), tb, tcfg)[1]["ce"])
+               for name, tree in (("fake", params), ("int", packed))}
+    j_gap, t_gap = jce["int"] - jce["fake"], tce["int"] - tce["fake"]
+    if dtype == "float32":
+        assert abs(j_gap) < 1e-5 and abs(t_gap) < 1e-5
+        assert abs(t_gap - j_gap) < 1e-5
+    else:
+        assert abs(j_gap) > 1e-3 and abs(t_gap) > 1e-3
+    for name in jce:
+        assert abs(tce[name] - jce[name]) <= 2.0 ** -8 * jce[name], (jce,
+                                                                     tce)
 
 
 def test_port_init_and_pack_params_shapes(smoke):
