@@ -7,8 +7,8 @@ hold every hand-written kernel against its plain PyTorch version.
 Phases (any failure exits non-zero and prints no result):
 
 1. versions, the card's name and power limit, and the kernels' build with
-   ``nvcc`` from ``src/repro_torch/kernels/csrc`` (all three sources at
-   once; grouped K4 is an entry of ``bitserial_matmul.cu``);
+   ``nvcc`` from ``src/repro_torch/kernels/csrc`` (all four sources at
+   once; grouped K4 is ``grouped_matmul.cu``);
 2. K1 (quantize_pack) against its plain version, ``torch.equal``: at the
    CNN path's shapes (batch 32), a ragged row in float32 and bf16, and the
    grouped launch the LM makes (one activation, G = 1..4 step sizes,
@@ -119,7 +119,11 @@ Phases (any failure exits non-zero and prints no result):
     seconds and peak memory printed): grouped K4 against its plain
     version, ``torch.equal``, at E = 64 with C = 1, 2 and 8 at (K, N) =
     (2048, 1408) and (1408, 2048), a ragged E = 3, C = 5, 100 -> 70, at
-    W4A8, radix 1 and unsigned W8A8; ``Server`` answers the four requests
+    W4A8, radix 1 and unsigned W8A8, and with rows that are all zero at
+    each of those plans: the experts a seeded (4, 6) routing's
+    ``moe.dispatch`` fills at C = 1 (the rest zero), C = 2 with one row of
+    each expert zero, C = 8 with two experts in three zero, an all-zero
+    input; ``Server`` answers the four requests
     of phase 8 (prompts from the model's vocabulary), counts reset just
     before and read just after: 108 K1, 162 K3 and 78 grouped K4 per
     prefill and per decode step (4 K1 and 6 K3 a layer, 3 grouped K4 a
@@ -136,7 +140,11 @@ Phases (any failure exits non-zero and prints no result):
     capture's; the load through ``InferenceService`` (one micro-batch)
     gives the bare engine's tokens. Written down, not held: grouped K4's
     cold time, bound and an fp16 ``bmm`` of the codes per launch and per
-    decode step, the prefill, the eager and replayed decode step (wall,
+    decode step, with every expert's row nonzero and at the dispatch's
+    occupancy (each with its own bound: the occupied experts' bytes), the
+    experts a replayed step's dispatch fills per MoE layer (an eager step
+    on a copy of the arena, outside the graph), grouped K4's in-path ms,
+    the prefill, the eager and replayed decode step (wall,
     busy) against the step's weight-byte bound, the load's tokens/s, each
     step's drop fraction, and each request served alone in an empty arena
     against its mixed-load tokens;
@@ -260,6 +268,7 @@ BF16_OPS_PER_S = 989e12
 
 B = 32  # the main path's batch for shapes and times
 WINDOW_TRIES = 3   # profiler windows opened for one call, at most
+GROUPED_PERSISTENT = "bitserial_matmul_v1_grouped_persistent"
 
 
 # the LM slice: stablelm-1.6b at batch 4, prompts of these lengths
@@ -647,15 +656,15 @@ SSM_SLICE = {
 
 
 def kernel_of(name):
-    """K1, K3, K4 or grouped K4 for a profiler kernel name, else None (K3,
-    K4 and grouped K4 are one template, told apart by its first two
-    arguments)."""
+    """K1, K3, K4 or grouped K4 for a profiler kernel name, else None (K3
+    and K4 are one template, told apart by its first argument; grouped K4
+    is ``grouped_code_gemm_kernel``)."""
     if "quantize_pack_kernel" in name:
         return "K1"
+    if "grouped_code_gemm_kernel" in name:
+        return "K4g"
     if "bitserial_gemm_kernel<false" in name:
         return "K3"
-    if "bitserial_gemm_kernel<true, true" in name:
-        return "K4g"
     if "bitserial_gemm_kernel<true" in name:
         return "K4"
     return None
@@ -1040,7 +1049,7 @@ def main() -> int:
     from repro_torch.kernels import quantize_pack as k1
     from repro_torch.kernels.timing import Timer
     from repro_torch.launch.serve import CNNServer, GenRequest, Server
-    from repro_torch.models import resnet, transformer
+    from repro_torch.models import moe, resnet, transformer
     from repro_torch.models.layers import QuantPolicy
 
     t_start = time.perf_counter()
@@ -1065,7 +1074,7 @@ def main() -> int:
                      "nvcc": nvcc_ver, "triton": has_triton, "card": smi,
                      "python": sys.version.split()[0]}
     t0 = time.perf_counter()
-    kernels = _build.build_all([k1.KERNEL, k2.KERNEL, km.KERNEL])
+    kernels = _build.build_all([k1.KERNEL, k2.KERNEL, km.KERNEL, km.GROUPED])
     record["build_s"] = time.perf_counter() - t0
     log(f"built {[k.name for k in kernels]} in {record['build_s']:.2f} s")
     for k in kernels:
@@ -1210,7 +1219,8 @@ def main() -> int:
         return {"K1": k1.KERNEL.launches, "K2": k2.KERNEL.launches,
                 "K3": km.KERNEL.entry_launches["bitserial_matmul_v2"],
                 "K4": km.KERNEL.entry_launches["bitserial_matmul_v1"],
-                "K4g": km.KERNEL.entry_launches["bitserial_matmul_v1_grouped"]}
+                "K4g": km.GROUPED.entry_launches[
+                    "bitserial_matmul_v1_grouped"]}
 
     def reset_counts():
         for k in kernels:
@@ -1413,16 +1423,20 @@ def main() -> int:
 
     def profile_counts(fn):
         """``fn`` once under the profiler: host wall, the card's busy time
-        (its own events) and every device kernel's launches by name."""
+        (its own events) and every device kernel's launches and ms by
+        name."""
         prof, wall = profiled(fn)
-        busy, names = 0.0, {}
+        busy, names, ms = 0.0, {}, {}
         for evt in prof.key_averages():
             if evt.device_type == DeviceType.CUDA and not is_spin(evt.key):
                 busy += evt.self_device_time_total / 1e3
                 names[evt.key] = names.get(evt.key, 0) + evt.count
+                ms[evt.key] = (ms.get(evt.key, 0.0)
+                               + evt.self_device_time_total / 1e3)
         if not names:
             raise AssertionError("the profiler recorded no device event")
-        return {"wall_ms": wall * 1e3, "device_ms": busy, "launches": names}
+        return {"wall_ms": wall * 1e3, "device_ms": busy, "launches": names,
+                "ms": ms}
 
     def cnn_kernels(launches):
         """K1 (its float and codes entries) and K2 launches among the
@@ -2454,7 +2468,8 @@ def main() -> int:
     # (a) grouped K4 against its plain version: the routed experts' shapes
     # (C = 1 at a batch-4 decode step, 2 at a 16-token prefill bucket, 8 at
     # the Server's 4 x 16 prefill), a ragged case, W4A8 (the model's plan),
-    # radix 1 and unsigned W8A8
+    # radix 1 and unsigned W8A8; then rows and experts that are all zero,
+    # as the dispatch leaves them (the kernel reads no weight for those)
     g_dev = torch.Generator(device=dev).manual_seed(18)
 
     def grouped_operands(spec, e, c, k, n):
@@ -2479,38 +2494,109 @@ def main() -> int:
         for c in (1, 2, 8):
             g_cases.append((f"W4A8 E{n_exp} C{c} {k}->{n}", ds_spec,
                             x8[:, :c].contiguous(), wp, k))
-    for spec, tag in ((ds_spec, "W4A8"),
-                      (SerialSpec(8, 4, True, True, 1), "W4A8 radix 1"),
-                      (SerialSpec(8, 8, False, True, 7), "W8A8 unsigned")):
+    radix1 = SerialSpec(8, 4, True, True, 1)
+    w8a8u = SerialSpec(8, 8, False, True, 7)
+    for spec, tag in ((ds_spec, "W4A8"), (radix1, "W4A8 radix 1"),
+                      (w8a8u, "W8A8 unsigned")):
         xr, _, wr = grouped_operands(spec, 3, 5, 100, 70)
         g_cases.append((f"ragged E3 C5 100->70 {tag}", spec, xr, wr, 100))
-    for spec, tag in ((SerialSpec(8, 4, True, True, 1), "W4A8 radix 1"),
-                      (SerialSpec(8, 8, False, True, 7), "W8A8 unsigned")):
-        xr, _, wr = grouped_operands(spec, n_exp, 1, d_mod, d_exp)
-        g_cases.append((f"{tag} E{n_exp} C1 {d_mod}->{d_exp}", spec, xr, wr,
-                        d_mod))
+    u8_w = grouped_operands(w8a8u, n_exp, 8, d_mod, d_exp)
+    for spec, tag, (x8, _, wr) in ((radix1, "W4A8 radix 1", up_w),
+                                   (w8a8u, "W8A8 unsigned", u8_w)):
+        g_cases.append((f"{tag} E{n_exp} C1 {d_mod}->{d_exp}", spec,
+                        x8[:, :1].contiguous(), wr, d_mod))
+    # the rows a batch-4 decode step's dispatch fills (C = 1): a seeded
+    # (4, top_k) routing through moe.dispatch
+    moe_cfg = ds_cfg.moe_cfg()
+    cap1 = moe.capacity_for(4, moe_cfg)
+    routed = torch.topk(torch.randn((4, n_exp), generator=g_dev, device=dev),
+                        moe_cfg.top_k, dim=-1).indices
+    keep1, flat1 = moe.dispatch(routed, n_exp, cap1)
+    filled = torch.zeros(n_exp * cap1 + 1, dtype=torch.bool, device=dev)
+    filled[flat1[keep1]] = True
+    live1 = filled[:-1].reshape(n_exp, cap1)
+    occupied = int(live1.any(1).sum())
+    live2 = torch.ones((n_exp, 2), dtype=torch.bool, device=dev)
+    live2[torch.arange(n_exp, device=dev), torch.arange(n_exp, device=dev)
+          % 2] = False                       # one row of each expert zero
+    live8 = (torch.arange(n_exp, device=dev) % 3 == 1)[:, None].expand(
+        n_exp, 8)                            # whole experts zero
+
+    def zeroed(x, live):
+        return (x * live[:, :, None].to(x.dtype)).contiguous()
+
+    for spec, tag, (x8, _, wr) in ((ds_spec, "W4A8", up_w),
+                                   (radix1, "W4A8 radix 1", up_w),
+                                   (w8a8u, "W8A8 unsigned", u8_w)):
+        g_cases += [
+            (f"{tag} E{n_exp} C1 {d_mod}->{d_exp}, the dispatch's "
+             f"{occupied} experts", spec, zeroed(x8[:, :1], live1), wr,
+             d_mod),
+            (f"{tag} E{n_exp} C2 one row of each expert zero", spec,
+             zeroed(x8[:, :2], live2), wr, d_mod),
+            (f"{tag} E{n_exp} C8 experts 0, 2, 3, 5, ... zero", spec,
+             zeroed(x8, live8), wr, d_mod),
+            (f"{tag} E{n_exp} C1 all zero", spec,
+             torch.zeros_like(x8[:, :1]), wr, d_mod)]
+    g_cases.append((f"W4A8 E{n_exp} C1 {d_exp}->{d_mod}, the dispatch's "
+                    f"{occupied} experts", ds_spec,
+                    zeroed(down_w[0][:, :1], live1), down_w[2], d_exp))
     for name, spec, x, wp, k in g_cases:
+        ref = km.bitserial_matmul_grouped_ref(x, wp, spec=spec, k=k)
         check_equal("K4g", name,
                     km.bitserial_matmul_grouped_cuda(x, wp, spec=spec, k=k),
-                    km.bitserial_matmul_grouped_ref(x, wp, spec=spec, k=k))
+                    ref)
+        check_equal("K4g", name + " (v1)", km.bitserial_matmul_grouped_cuda(
+            x, wp, spec=spec, k=k, kernel=km.KERNEL), ref)
+        check_equal("K4g", name + " (persistent)",
+                    km.bitserial_matmul_grouped_cuda(
+                        x, wp, spec=spec, k=k, entry=GROUPED_PERSISTENT),
+                    ref)
     log(f"  grouped K4 equals its plain version (torch.equal) in "
         f"{len(g_cases)} cases: " + "; ".join(c[0] for c in g_cases))
+    del u8_w
 
     # times of one grouped launch at the model's shapes, cold, against its
-    # bound and an fp16 bmm of the codes (timed only, never on the path)
+    # bound and an fp16 bmm of the codes (timed only, never on the path):
+    # every expert's row nonzero (C = 1 and 8) and the dispatch's rows
+    # (C = 1, `occupied` experts); v1 (K4's tile, the expert the grid's z)
+    # and the persistent grid beside it, in turns
     g_rows = []
     for (x8, wc, wp), (k, n) in ((up_w, (d_mod, d_exp)),
                                  (down_w, (d_exp, d_mod))):
         w16 = wc.half()
-        for c in (1, 8):
+        for c, case in ((1, "full"), (1, "dispatch"), (8, "full")):
             x = x8[:, :c].contiguous()
+            if case == "dispatch":
+                x = zeroed(x, live1)
             x16 = x.half()
-            byt = x.numel() * 4 + wp.numel() * 4 + n_exp * c * n * 4
-            ops = 2 * n_exp * c * k * n
+            n_occ = n_exp if case == "full" else occupied
+            byt = x.numel() * 4 + wp.numel() * 4 * n_occ // n_exp \
+                + n_exp * c * n * 4
+            ops = 2 * n_occ * c * k * n
+
+            def v2():
+                return km.bitserial_matmul_grouped_cuda(x, wp, spec=ds_spec,
+                                                        k=k)
+
+            def v1():
+                return km.bitserial_matmul_grouped_cuda(
+                    x, wp, spec=ds_spec, k=k, kernel=km.KERNEL)
+
+            def pers():
+                return km.bitserial_matmul_grouped_cuda(
+                    x, wp, spec=ds_spec, k=k, entry=GROUPED_PERSISTENT)
+
+            turns = {"ms": [], "v1_ms": [], "persistent_ms": []}
+            for order in ((v1, v2, pers), (pers, v2, v1)):
+                for fn in order:
+                    key = {v1: "v1_ms", v2: "ms", pers: "persistent_ms"}[fn]
+                    turns[key].append(timer(fn, 50))
             g_rows.append({
-                "c": c, "k": k, "n": n, "bytes": byt, "ops": ops,
-                "ms": timer(lambda: km.bitserial_matmul_grouped_cuda(
-                    x, wp, spec=ds_spec, k=k), 50),
+                "c": c, "k": k, "n": n, "case": case, "experts": n_occ,
+                "bytes": byt, "ops": ops,
+                **{key: min(v) for key, v in turns.items()},
+                "turns": turns,
                 "plain_ms": timer(lambda: km.bitserial_matmul_grouped_ref(
                     x, wp, spec=ds_spec, k=k), 3),
                 "library_ms": timer(lambda: torch.bmm(x16, w16), 50),
@@ -2520,27 +2606,37 @@ def main() -> int:
                 ops / INT8_OPS_PER_S else "operations"})
     del up_w, down_w, g_cases
     for r in g_rows:
-        log(f"  K4g E{n_exp} C{r['c']} {r['k']}->{r['n']}: kernel "
-            f"{r['ms']:.4f}  plain {r['plain_ms']:.3f}  fp16 bmm "
-            f"{r['library_ms']:.4f}  bound {r['bound_ms']:.5f} "
-            f"({r['bound_by']}, {r['bytes'] / 1e6:.1f} MB)")
+        log(f"  K4g E{n_exp} C{r['c']} {r['k']}->{r['n']} {r['case']} "
+            f"({r['experts']} experts): v2 {r['ms']:.4f}  v1 "
+            f"{r['v1_ms']:.4f}  persistent {r['persistent_ms']:.4f}  plain "
+            f"{r['plain_ms']:.3f}  fp16 bmm {r['library_ms']:.4f}  bound "
+            f"{r['bound_ms']:.5f} ({r['bound_by']}, "
+            f"{r['bytes'] / 1e6:.1f} MB)")
 
-    def g_step(key):
+    def g_step(key, case="full"):
         """A decode step's sum (C = 1): up and gate (d_model -> d_ff_expert)
         and down per MoE layer."""
-        (a,) = [r for r in g_rows if r["c"] == 1 and r["k"] == d_mod]
-        (b,) = [r for r in g_rows if r["c"] == 1 and r["k"] == d_exp]
+        (a,) = [r for r in g_rows if r["c"] == 1 and r["k"] == d_mod
+                and r["case"] == case]
+        (b,) = [r for r in g_rows if r["c"] == 1 and r["k"] == d_exp
+                and r["case"] == case]
         return n_moe * (2 * a[key] + b[key])
 
+    step_keys = ("ms", "v1_ms", "persistent_ms", "plain_ms", "library_ms",
+                 "bound_ms", "bytes")
     ds["grouped_calls"] = g_rows
-    ds["grouped_step_sums"] = {key: g_step(key) for key in
-                               ("ms", "plain_ms", "library_ms", "bound_ms",
-                                "bytes")}
-    log(f"  K4g summed over one decode step ({3 * n_moe} launches at C = 1):"
-        f" {ds['grouped_step_sums']['ms']:.4f} ms, bound "
-        f"{ds['grouped_step_sums']['bound_ms']:.4f}, fp16 bmm "
-        f"{ds['grouped_step_sums']['library_ms']:.4f}, plain "
-        f"{ds['grouped_step_sums']['plain_ms']:.2f}")
+    ds["grouped_dispatch_experts"] = occupied
+    ds["grouped_step_sums"] = {key: g_step(key) for key in step_keys}
+    ds["grouped_step_sums_dispatch"] = {key: g_step(key, "dispatch")
+                                        for key in step_keys}
+    for tag, sums in (("every expert", ds["grouped_step_sums"]),
+                      (f"the dispatch's {occupied} experts",
+                       ds["grouped_step_sums_dispatch"])):
+        log(f"  K4g summed over one decode step ({3 * n_moe} launches at "
+            f"C = 1, {tag}): v2 {sums['ms']:.4f} ms, v1 {sums['v1_ms']:.4f},"
+            f" persistent {sums['persistent_ms']:.4f}, bound "
+            f"{sums['bound_ms']:.4f}, fp16 bmm {sums['library_ms']:.4f}, "
+            f"plain {sums['plain_ms']:.2f}")
 
     # (b) the weights, drawn and packed one layer at a time on the card
     torch.cuda.synchronize()
@@ -2779,18 +2875,58 @@ def main() -> int:
     ds["replay_step_ms"] = fenced_ms(ds_eng._run_step, 15)
     ds_eng._run_step()
     prof = profile_counts(ds_eng._run_step)
+    in_path = {}
+    for name, v in prof["ms"].items():
+        kid = kernel_of(name)
+        if kid is not None:
+            in_path[kid] = in_path.get(kid, 0.0) + v
     ds["profile_replay"] = {"wall_ms": prof["wall_ms"],
                             "device_ms": prof["device_ms"],
                             "launches_by_kernel": by_kernel(prof["launches"]),
+                            "ms_by_kernel": in_path,
                             "kernels": sum(prof["launches"].values())}
     if by_kernel(prof["launches"]) != ds_want_step:
         raise AssertionError(f"the profiler saw {by_kernel(prof['launches'])}"
                              f" in one deepseek replay, want {ds_want_step}")
+    # the experts each MoE layer's dispatch fills in that step: the step run
+    # eagerly on a copy of the arena (restored after), outside the graph,
+    # its dispatch's keep/flat read on the same inputs
+    a_ = ds_eng._arena
+    saved = [(t, t.clone()) for t in (a_["tok"], a_["pos"], a_["drop_frac"])]
+    saved += [(buf, buf.clone()) for g in a_["caches"]
+              for name, buf in g.items() if torch.is_tensor(buf)]
+    filled_per_layer = []
+    inner_dispatch = moe.dispatch
+
+    def recording_dispatch(expert_idx, n_experts, capacity):
+        keep_, flat_ = inner_dispatch(expert_idx, n_experts, capacity)
+        filled_per_layer.append(int(torch.unique(
+            torch.div(flat_[keep_], capacity, rounding_mode="floor")).numel()))
+        return keep_, flat_
+
+    moe.dispatch = recording_dispatch
+    try:
+        with torch.inference_mode():
+            ds_eng._step_fn()
+    finally:
+        moe.dispatch = inner_dispatch
+        with torch.inference_mode():
+            for t, c in saved:
+                t.copy_(c)
+    del saved
+    if len(filled_per_layer) != n_moe:
+        raise AssertionError(f"{len(filled_per_layer)} dispatches in one "
+                             f"deepseek step, want {n_moe}")
+    ds["occupied_experts_per_layer"] = filled_per_layer
+    ds["occupied_experts_per_step"] = sum(filled_per_layer) / n_moe
     log(f"  replayed decode step at batch 4 (median of 15, synchronized): "
         f"{ds['replay_step_ms']:.3f} ms; one replay under the profiler: wall "
         f"{prof['wall_ms']:.3f} ms, busy {prof['device_ms']:.3f} ms, "
         f"{ds['profile_replay']['kernels']} kernels, of them "
-        f"{ds['profile_replay']['launches_by_kernel']}")
+        f"{ds['profile_replay']['launches_by_kernel']}; grouped K4 in path "
+        f"{in_path.get('K4g', 0.0):.4f} ms; the dispatch fills "
+        f"{ds['occupied_experts_per_step']:.2f} of {n_exp} experts a MoE "
+        f"layer ({filled_per_layer})")
 
     # (e) through InferenceService: one micro-batch of the 16 requests (a
     # batching window long enough to gather them) gives the bare engine's
@@ -3235,7 +3371,7 @@ def main() -> int:
                  "deepseek-v2-lite decode step's routed experts, 3 per MoE "
                  "layer, all 64 experts in one launch)",
          "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/bitserial_matmul.cu",
+         "source": "src/repro_torch/kernels/csrc/grouped_matmul.cu",
          "replaces": "src/repro/models/moe.py:75 (_expert_matmul, XLA "
                      "serial_matmul_packed; no Pallas kernel)",
          "launches": ds_launches["K4g"],
@@ -3245,7 +3381,17 @@ def main() -> int:
          "plain_ms": ds["grouped_step_sums"]["plain_ms"],
          "bound_ms": ds["grouped_step_sums"]["bound_ms"],
          "bound_by": "bytes",
-         "library_ms": ds["grouped_step_sums"]["library_ms"]},
+         "library_ms": ds["grouped_step_sums"]["library_ms"],
+         "v1_ms": ds["grouped_step_sums"]["v1_ms"],
+         "persistent_ms": ds["grouped_step_sums"]["persistent_ms"],
+         "dispatch_experts": ds["grouped_dispatch_experts"],
+         "ms_at_dispatch": ds["grouped_step_sums_dispatch"]["ms"],
+         "v1_ms_at_dispatch": ds["grouped_step_sums_dispatch"]["v1_ms"],
+         "bound_ms_at_dispatch":
+             ds["grouped_step_sums_dispatch"]["bound_ms"],
+         "in_path_ms_decode_step":
+             ds["profile_replay"]["ms_by_kernel"].get("K4g", 0.0),
+         "occupied_experts_per_step": ds["occupied_experts_per_step"]},
     ]}
     record["kernels"] = line["kernels"]
     record["total_s"] = time.perf_counter() - t_start

@@ -28,11 +28,15 @@ tile (``csrc/digits.cuh``, shared with K2) fed by two activation sources:
   ``repro/models/moe.py::_expert_matmul``, which the reference computes as
   ``serial_matmul_packed`` under ``vmap`` over experts, outside any Pallas
   kernel: (E, C, K) int32 codes × (E, w_bits, ceil(K/32), N) packed
-  weights → (E, C, N) raw int32 accumulators, one launch for all E experts
-  (the expert is a grid dimension over K4's tile). No epilogue: the caller
-  scales in torch, as the reference does. Plain version
-  :func:`bitserial_matmul_grouped_ref`, ``serial_matmul_packed`` per
-  expert. C entry ``bitserial_matmul_v1_grouped``.
+  weights → (E, C, N) raw int32 accumulators, one launch for all E experts.
+  A kernel of its own (``csrc/grouped_matmul.cu``, :data:`GROUPED`): one
+  block per (expert, row tile, 128-column tile), the tile's codes staged
+  once as digits, the weights streamed through a shared-memory ring, and
+  a row tile whose codes are all zero (an expert the dispatch left empty)
+  reading no weight. No epilogue: the caller scales in torch, as the
+  reference does. Plain version :func:`bitserial_matmul_grouped_ref`,
+  ``serial_matmul_packed`` per expert. C entry
+  ``bitserial_matmul_v1_grouped``.
 
 :func:`bitserial_matmul_v2`, :func:`bitserial_matmul` and
 :func:`bitserial_matmul_grouped` dispatch on the tensor's device: the
@@ -57,7 +61,7 @@ from repro_torch.kernels.epilogue import (CODES8, CODES32, FLOAT, PACKED,
                                           epilogue, per_channel,
                                           requant_scale_tensor)
 
-__all__ = ["KERNEL", "bitserial_matmul_v2", "bitserial_matmul_v2_ref",
+__all__ = ["KERNEL", "GROUPED", "bitserial_matmul_v2", "bitserial_matmul_v2_ref",
            "bitserial_matmul_v2_cuda", "bitserial_matmul",
            "bitserial_matmul_ref", "bitserial_matmul_cuda",
            "bitserial_matmul_grouped", "bitserial_matmul_grouped_ref",
@@ -67,6 +71,10 @@ KERNEL = Kernel("bitserial_matmul", {
     "bitserial_matmul_v2": (P,) * 6 + (I,) * 14 + (P,),
     "bitserial_matmul_v1": (P,) * 5 + (I,) * 14 + (P,),
     "bitserial_matmul_v1_grouped": (P,) * 3 + (I,) * 10 + (P,),
+})
+GROUPED = Kernel("grouped_matmul", {
+    "bitserial_matmul_v1_grouped": (P,) * 3 + (I,) * 10 + (P,),
+    "bitserial_matmul_v1_grouped_persistent": (P,) * 3 + (I,) * 10 + (P,),
 })
 
 
@@ -234,7 +242,10 @@ def bitserial_matmul_cuda(x: torch.Tensor, w_packed: torch.Tensor,
 
 
 def bitserial_matmul_grouped_cuda(x: torch.Tensor, w_packed: torch.Tensor,
-                                  *, spec: SerialSpec, k: int) -> torch.Tensor:
+                                  *, spec: SerialSpec, k: int,
+                                  kernel: Kernel = GROUPED,
+                                  entry: str = "bitserial_matmul_v1_grouped"
+                                  ) -> torch.Tensor:
     """Launch grouped K4 on CUDA tensors: (E, C, K) int32 codes × (E,
     w_bits, ceil(K/32), N) packed weights → (E, C, N) int32 accumulators,
     one launch."""
@@ -258,8 +269,8 @@ def bitserial_matmul_grouped_cuda(x: torch.Tensor, w_packed: torch.Tensor,
                          f"{_k_words(k)}")
     out = torch.empty((e, c, n), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    KERNEL.launch(
-        "bitserial_matmul_v1_grouped", x.data_ptr(), w_packed.data_ptr(),
+    kernel.launch(
+        entry, x.data_ptr(), w_packed.data_ptr(),
         out.data_ptr(), e, c, k, n, spec.a_bits, spec.w_bits,
         int(spec.a_signed), int(spec.w_signed),
         bitops.kernel_digits(spec.a_bits, spec.a_signed),

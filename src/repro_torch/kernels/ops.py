@@ -53,7 +53,8 @@ def launch_counts() -> Dict[str, int]:
     return {"K1": quantize_pack.KERNEL.launches,
             "K2": bitserial_conv.KERNEL.launches,
             "K3": mm["bitserial_matmul_v2"], "K4": mm["bitserial_matmul_v1"],
-            "K4g": mm["bitserial_matmul_v1_grouped"]}
+            "K4g": bitserial_matmul.GROUPED.entry_launches[
+                "bitserial_matmul_v1_grouped"]}
 
 
 def over_rows(fn, x: torch.Tensor, *head: int) -> torch.Tensor:

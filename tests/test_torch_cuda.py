@@ -591,36 +591,53 @@ def test_eviction_frees_the_captured_graphs(dev):
 # prefill; (K, N) of up/gate and of down) and a ragged one
 GROUPED = [(64, c, 2048, 1408) for c in (1, 2, 8)] + [
     (64, 1, 1408, 2048), (64, 8, 1408, 2048), (3, 5, 100, 70)]
+# rows that are all zero (the kernel reads no weight for a row tile of
+# them) and the edges of its tiles: experts the dispatch left empty at a
+# decode shape, a zero row inside a nonzero 16-row tile, an all-zero input,
+# N off the 128-column tile (a multiple of 4: 16-byte copies; and not),
+# K off 32, E = 1, K past one staged segment, C past one row tile
+GROUPED_EDGES = [((64, 1, 2048, 1408), "experts"), ((3, 12, 100, 70), "row"),
+                 ((64, 2, 1408, 2048), "all"), ((4, 3, 256, 200), None),
+                 ((4, 3, 256, 130), None), ((2, 4, 1000, 256), None),
+                 ((1, 5, 300, 140), None), ((2, 2, 5000, 64), None),
+                 ((2, 20, 96, 64), "row")]
 
 
-def _grouped(dev, sp, e, c, k, n, seed):
+def _grouped(dev, sp, e, c, k, n, seed, zeros=None):
     from repro_torch.core import bitops
     spec = SerialSpec(*sp)
     rng = np.random.default_rng(seed)
     x = _codes(rng, spec.a_bits, spec.a_signed, (e, c, k), dev)
+    if zeros == "experts":
+        x[torch.arange(e, device=dev) % 3 != 1] = 0
+    elif zeros == "row":
+        x[:, c // 2] = 0
+    elif zeros == "all":
+        x.zero_()
     w = _codes(rng, spec.w_bits, spec.w_signed, (e, k, n), dev)
     planes = bitops.pad_to(bitops.to_bitplanes(w, spec.w_bits), 32, axis=-2)
     wp = bitops.pack_bitplanes(planes, axis=-2).movedim(0, 1).contiguous()
     return spec, x, wp
 
 
-# W4A8 (the model's plan) at every shape; radix 1 and unsigned W8A8 at a
-# decode shape and the ragged one
-GROUPED_CASES = [((8, 4, True, True, 8), s) for s in GROUPED] + [
-    (sp, s) for sp in ((2, 2, True, True, 1), (8, 8, False, True, 7))
-    for s in (GROUPED[0], GROUPED[-1])]
+# W4A8 (the model's plan) at every shape; W2A2 and unsigned W8A8 at a
+# decode shape and the ragged one; every edge at all three plans
+PLANS = ((8, 4, True, True, 8), (2, 2, True, True, 1), (8, 8, False, True, 7))
+GROUPED_CASES = [(PLANS[0], s, None) for s in GROUPED] + [
+    (sp, s, None) for sp in PLANS[1:] for s in (GROUPED[0], GROUPED[-1])] + [
+    (sp, s, z) for sp in PLANS for s, z in GROUPED_EDGES]
 
 
-@pytest.mark.parametrize("sp,shape", GROUPED_CASES)
-def test_grouped_code_gemm_equals_plain(dev, sp, shape):
+@pytest.mark.parametrize("sp,shape,zeros", GROUPED_CASES)
+def test_grouped_code_gemm_equals_plain(dev, sp, shape, zeros):
     """Grouped K4: all E experts' (C, K) x (K, N) in one launch, raw int32
     accumulators equal to ``serial_matmul_packed`` per expert."""
     from repro_torch.kernels import bitserial_matmul as km
     e, c, k, n = shape
-    spec, x, wp = _grouped(dev, sp, e, c, k, n, e * c + k)
-    before = km.KERNEL.entry_launches["bitserial_matmul_v1_grouped"]
+    spec, x, wp = _grouped(dev, sp, e, c, k, n, e * c + k, zeros)
+    before = km.GROUPED.entry_launches["bitserial_matmul_v1_grouped"]
     got = km.bitserial_matmul_grouped_cuda(x, wp, spec=spec, k=k)
-    assert km.KERNEL.entry_launches["bitserial_matmul_v1_grouped"] == \
+    assert km.GROUPED.entry_launches["bitserial_matmul_v1_grouped"] == \
         before + 1
     torch.cuda.synchronize()
     assert got.shape == (e, c, n) and got.dtype == torch.int32

@@ -126,13 +126,23 @@ def test_lsq_fake_quant_forward_equals_reference(bits, signed, per_channel,
 
 # ------------------------------------------------------------ grouped K4
 
-def _grouped_case(e, c, k, n, spec, seed):
+def _grouped_case(e, c, k, n, spec, seed, zeros=None):
+    """Random codes (E, C, K) and packed weights (E, w_bits, ceil(K/32),
+    N); ``zeros``: "experts" (two experts in three all zero, as the
+    dispatch leaves empty ones), "row" (one row of each expert zero) or
+    "all"."""
     rng = np.random.default_rng(seed)
     lo_a = -(1 << (spec.a_bits - 1)) if spec.a_signed else 0
     hi_a = (1 << (spec.a_bits - 1)) if spec.a_signed else 1 << spec.a_bits
     lo_w = -(1 << (spec.w_bits - 1)) if spec.w_signed else 0
     hi_w = (1 << (spec.w_bits - 1)) if spec.w_signed else 1 << spec.w_bits
     codes = rng.integers(lo_a, hi_a, (e, c, k)).astype(np.int32)
+    if zeros == "experts":
+        codes[np.arange(e) % 3 != 1] = 0
+    elif zeros == "row":
+        codes[:, c // 2] = 0
+    elif zeros == "all":
+        codes[:] = 0
     w = rng.integers(lo_w, hi_w, (e, k, n)).astype(np.int32)
     planes = jbitops.pad_to(jbitops.to_bitplanes(jnp.asarray(w), spec.w_bits),
                             32, axis=-2)              # (bits, E, K', N)
@@ -140,17 +150,25 @@ def _grouped_case(e, c, k, n, spec, seed):
     return codes, np.asarray(wp)
 
 
-@pytest.mark.parametrize("e,c,k,n,spec", [
-    (3, 5, 100, 70, (8, 4, True, True, 8)),      # W4A8, ragged K and N
-    (4, 1, 64, 40, (8, 4, True, True, 8)),       # decode's C = 1
-    (2, 3, 65, 33, (2, 2, True, True, 1)),       # radix 1
-    (2, 4, 96, 64, (8, 8, False, True, 7)),      # unsigned W8A8
+@pytest.mark.parametrize("e,c,k,n,spec,zeros", [
+    (3, 5, 100, 70, (8, 4, True, True, 8), None),   # W4A8, ragged K and N
+    (4, 1, 64, 40, (8, 4, True, True, 8), None),    # decode's C = 1
+    (2, 3, 65, 33, (2, 2, True, True, 1), None),    # radix 1
+    (2, 4, 96, 64, (8, 8, False, True, 7), None),   # unsigned W8A8
+    # mostly zero, as a decode step's dispatch buffer is
+    (64, 1, 64, 40, (8, 4, True, True, 8), "experts"),
+    (3, 4, 100, 70, (8, 4, True, True, 8), "row"),
+    (4, 2, 64, 40, (8, 4, True, True, 8), "all"),
+    (8, 2, 65, 33, (2, 2, True, True, 1), "experts"),
+    (6, 3, 96, 64, (8, 8, False, True, 7), "row"),
 ])
-def test_grouped_k4_plain_equals_reference_per_expert(e, c, k, n, spec):
+def test_grouped_k4_plain_equals_reference_per_expert(e, c, k, n, spec,
+                                                      zeros):
     """``serial_matmul_packed`` per expert, the reference's
     ``_expert_matmul`` (``vmap`` over experts): the grouped entry's plain
-    version, the CPU dispatcher and the op give the same int32 words."""
-    codes, wp = _grouped_case(e, c, k, n, JSpec(*spec), e * 100 + c)
+    version, the CPU dispatcher and the op give the same int32 words, and
+    a zero row gives zero words in both."""
+    codes, wp = _grouped_case(e, c, k, n, JSpec(*spec), e * 100 + c, zeros)
     ref = np.asarray(jax.vmap(lambda x, w: j_serial_packed(
         x, w, spec=JSpec(*spec), k=k))(jnp.asarray(codes), jnp.asarray(wp)))
     tcodes, twp = torch.from_numpy(codes), _t(wp)
@@ -160,6 +178,9 @@ def test_grouped_k4_plain_equals_reference_per_expert(e, c, k, n, spec):
                 ops.serial_matmul_grouped_op(tcodes, twp, spec=tspec, k=k)):
         assert got.dtype == torch.int32 and got.shape == (e, c, n)
         np.testing.assert_array_equal(got.numpy(), ref)
+    zero_rows = ~codes.any(-1)
+    assert not ref[zero_rows].any()
+    assert zero_rows.any() == (zeros is not None)
 
 
 def test_grouped_k4_cuda_entry_refuses_cpu_tensors():
@@ -271,6 +292,77 @@ def test_moe_apply_equals_reference(smoke, monkeypatch, t, capacity):
             spec=plan_spec(tcfg.policy.spec()), k=jx.shape[-1])
         np.testing.assert_array_equal(got_acc.numpy(), ref_acc)
     _close(got, ref)
+
+
+@pytest.mark.parametrize("t", [1, 4, 16])
+def test_empty_experts_have_zero_codes_and_accumulators(t):
+    """What grouped K4's skip rests on, in both packages: at the full
+    model's routing (E = 64, top-6) and T tokens (C = 1, 1, 2), every row
+    of the dispatch buffer that ``dispatch`` fills with no token (all of
+    an empty expert's among them) quantizes to zero codes, in the port's
+    ``quantize_int`` and the reference's, and its int32 accumulators are
+    exact zeros, in ``bitserial_matmul_grouped_ref`` and in
+    ``vmap(serial_matmul_packed)``: for up and gate, and for down on
+    ``silu(gate) * up``."""
+    e, k, d, f = 64, 6, 64, 40
+    mcfg = tmoe.MoEConfig(d_model=d, d_ff_expert=f, n_experts=e, top_k=k)
+    cap = tmoe.capacity_for(t, mcfg)
+    assert cap == (1, 1, 2)[(1, 4, 16).index(t)]
+    rng = np.random.default_rng(200 + t)
+    x = (rng.standard_normal((t, d)) * 2).astype(np.float32)
+    router = rng.standard_normal((d, e)).astype(np.float32)
+    _, ei, keep, flat = _ref_routing(jnp.asarray(router), jnp.asarray(x), k,
+                                     e, cap, True)
+    _, _, tei = tmoe._route({"router": torch.from_numpy(router)},
+                            torch.from_numpy(x), mcfg)
+    tkeep, tflat = tmoe.dispatch(tei, e, cap)
+    np.testing.assert_array_equal(tei.numpy(), ei)
+    np.testing.assert_array_equal(tkeep.numpy(), keep)
+    np.testing.assert_array_equal(tflat.numpy(), flat)
+    filled = np.zeros(e * cap + 1, bool)
+    filled[flat[keep]] = True
+    rows = filled[:-1].reshape(e, cap)
+    empty = ~rows.any(1)
+    assert empty.sum() >= e - t * k and rows.any()
+    # the dispatch buffer, as moe_apply scatters it
+    buf = torch.zeros((e * cap + 1, d))
+    buf.index_add_(0, tflat.reshape(-1), torch.from_numpy(x)[:, None, :]
+                   .expand(t, k, d).reshape(-1, d))
+    hbuf = buf[:-1].reshape(e, cap, d)
+    jspec = JSpec(8, 4, True, True, 8)
+    tspec = SerialSpec(8, 4, True, True, 8)
+
+    def codes_both(h, seed):
+        """Codes of h (E, C, K) with a step per expert, both packages."""
+        a = (np.random.default_rng(seed).random(e) * 0.05 + 0.01).astype(
+            np.float32)
+        tc = quantize_int(h, torch.from_numpy(a)[:, None, None],
+                          QuantSpec(8, True))
+        jc = np.asarray(j_quantize_int(jnp.asarray(h.numpy()),
+                                       jnp.asarray(a)[:, None, None],
+                                       JQuant(8, True)))
+        np.testing.assert_array_equal(tc.numpy(), jc)
+        assert not jc[~rows].any()
+        return tc, jc
+
+    def acc_both(tc, jc, kdim, n, seed):
+        """Accumulators of codes against random packed W4 weights, both
+        packages; zero on every unfilled row."""
+        _, wp = _grouped_case(e, 1, kdim, n, jspec, seed)
+        ref = np.asarray(jax.vmap(lambda c, w: j_serial_packed(
+            c, w, spec=jspec, k=kdim))(jnp.asarray(jc), jnp.asarray(wp)))
+        got = km.bitserial_matmul_grouped_ref(tc, _t(wp), spec=tspec, k=kdim)
+        np.testing.assert_array_equal(got.numpy(), ref)
+        assert not ref[~rows].any() and not ref[empty].any()
+        return got
+
+    tc, jc = codes_both(hbuf, 1)
+    up = acc_both(tc, jc, d, f, 2).float() * 0.01
+    gate = acc_both(tc, jc, d, f, 3).float() * 0.01
+    h = torch.nn.functional.silu(gate) * up
+    assert not h[torch.from_numpy(~rows)].any()
+    tc, jc = codes_both(h, 4)
+    acc_both(tc, jc, f, d, 5)
 
 
 def test_moe_float_qat_and_ref_apply_equal_reference(smoke):
