@@ -268,7 +268,6 @@ BF16_OPS_PER_S = 989e12
 
 B = 32  # the main path's batch for shapes and times
 WINDOW_TRIES = 3   # profiler windows opened for one call, at most
-GROUPED_PERSISTENT = "bitserial_matmul_v1_grouped_persistent"
 
 
 # the LM slice: stablelm-1.6b at batch 4, prompts of these lengths
@@ -2542,16 +2541,9 @@ def main() -> int:
                     f"{occupied} experts", ds_spec,
                     zeroed(down_w[0][:, :1], live1), down_w[2], d_exp))
     for name, spec, x, wp, k in g_cases:
-        ref = km.bitserial_matmul_grouped_ref(x, wp, spec=spec, k=k)
         check_equal("K4g", name,
                     km.bitserial_matmul_grouped_cuda(x, wp, spec=spec, k=k),
-                    ref)
-        check_equal("K4g", name + " (v1)", km.bitserial_matmul_grouped_cuda(
-            x, wp, spec=spec, k=k, kernel=km.KERNEL), ref)
-        check_equal("K4g", name + " (persistent)",
-                    km.bitserial_matmul_grouped_cuda(
-                        x, wp, spec=spec, k=k, entry=GROUPED_PERSISTENT),
-                    ref)
+                    km.bitserial_matmul_grouped_ref(x, wp, spec=spec, k=k))
     log(f"  grouped K4 equals its plain version (torch.equal) in "
         f"{len(g_cases)} cases: " + "; ".join(c[0] for c in g_cases))
     del u8_w
@@ -2559,8 +2551,7 @@ def main() -> int:
     # times of one grouped launch at the model's shapes, cold, against its
     # bound and an fp16 bmm of the codes (timed only, never on the path):
     # every expert's row nonzero (C = 1 and 8) and the dispatch's rows
-    # (C = 1, `occupied` experts); v1 (K4's tile, the expert the grid's z)
-    # and the persistent grid beside it, in turns
+    # (C = 1, `occupied` experts)
     g_rows = []
     for (x8, wc, wp), (k, n) in ((up_w, (d_mod, d_exp)),
                                  (down_w, (d_exp, d_mod))):
@@ -2574,29 +2565,11 @@ def main() -> int:
             byt = x.numel() * 4 + wp.numel() * 4 * n_occ // n_exp \
                 + n_exp * c * n * 4
             ops = 2 * n_occ * c * k * n
-
-            def v2():
-                return km.bitserial_matmul_grouped_cuda(x, wp, spec=ds_spec,
-                                                        k=k)
-
-            def v1():
-                return km.bitserial_matmul_grouped_cuda(
-                    x, wp, spec=ds_spec, k=k, kernel=km.KERNEL)
-
-            def pers():
-                return km.bitserial_matmul_grouped_cuda(
-                    x, wp, spec=ds_spec, k=k, entry=GROUPED_PERSISTENT)
-
-            turns = {"ms": [], "v1_ms": [], "persistent_ms": []}
-            for order in ((v1, v2, pers), (pers, v2, v1)):
-                for fn in order:
-                    key = {v1: "v1_ms", v2: "ms", pers: "persistent_ms"}[fn]
-                    turns[key].append(timer(fn, 50))
             g_rows.append({
                 "c": c, "k": k, "n": n, "case": case, "experts": n_occ,
                 "bytes": byt, "ops": ops,
-                **{key: min(v) for key, v in turns.items()},
-                "turns": turns,
+                "ms": timer(lambda: km.bitserial_matmul_grouped_cuda(
+                    x, wp, spec=ds_spec, k=k), 50),
                 "plain_ms": timer(lambda: km.bitserial_matmul_grouped_ref(
                     x, wp, spec=ds_spec, k=k), 3),
                 "library_ms": timer(lambda: torch.bmm(x16, w16), 50),
@@ -2607,8 +2580,7 @@ def main() -> int:
     del up_w, down_w, g_cases
     for r in g_rows:
         log(f"  K4g E{n_exp} C{r['c']} {r['k']}->{r['n']} {r['case']} "
-            f"({r['experts']} experts): v2 {r['ms']:.4f}  v1 "
-            f"{r['v1_ms']:.4f}  persistent {r['persistent_ms']:.4f}  plain "
+            f"({r['experts']} experts): kernel {r['ms']:.4f}  plain "
             f"{r['plain_ms']:.3f}  fp16 bmm {r['library_ms']:.4f}  bound "
             f"{r['bound_ms']:.5f} ({r['bound_by']}, "
             f"{r['bytes'] / 1e6:.1f} MB)")
@@ -2622,8 +2594,7 @@ def main() -> int:
                 and r["case"] == case]
         return n_moe * (2 * a[key] + b[key])
 
-    step_keys = ("ms", "v1_ms", "persistent_ms", "plain_ms", "library_ms",
-                 "bound_ms", "bytes")
+    step_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bytes")
     ds["grouped_calls"] = g_rows
     ds["grouped_dispatch_experts"] = occupied
     ds["grouped_step_sums"] = {key: g_step(key) for key in step_keys}
@@ -2633,8 +2604,7 @@ def main() -> int:
                       (f"the dispatch's {occupied} experts",
                        ds["grouped_step_sums_dispatch"])):
         log(f"  K4g summed over one decode step ({3 * n_moe} launches at "
-            f"C = 1, {tag}): v2 {sums['ms']:.4f} ms, v1 {sums['v1_ms']:.4f},"
-            f" persistent {sums['persistent_ms']:.4f}, bound "
+            f"C = 1, {tag}): {sums['ms']:.4f} ms, bound "
             f"{sums['bound_ms']:.4f}, fp16 bmm {sums['library_ms']:.4f}, "
             f"plain {sums['plain_ms']:.2f}")
 
@@ -3382,11 +3352,8 @@ def main() -> int:
          "bound_ms": ds["grouped_step_sums"]["bound_ms"],
          "bound_by": "bytes",
          "library_ms": ds["grouped_step_sums"]["library_ms"],
-         "v1_ms": ds["grouped_step_sums"]["v1_ms"],
-         "persistent_ms": ds["grouped_step_sums"]["persistent_ms"],
          "dispatch_experts": ds["grouped_dispatch_experts"],
          "ms_at_dispatch": ds["grouped_step_sums_dispatch"]["ms"],
-         "v1_ms_at_dispatch": ds["grouped_step_sums_dispatch"]["v1_ms"],
          "bound_ms_at_dispatch":
              ds["grouped_step_sums_dispatch"]["bound_ms"],
          "in_path_ms_decode_step":

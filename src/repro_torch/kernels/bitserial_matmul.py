@@ -61,8 +61,9 @@ from repro_torch.kernels.epilogue import (CODES8, CODES32, FLOAT, PACKED,
                                           epilogue, per_channel,
                                           requant_scale_tensor)
 
-__all__ = ["KERNEL", "GROUPED", "bitserial_matmul_v2", "bitserial_matmul_v2_ref",
-           "bitserial_matmul_v2_cuda", "bitserial_matmul",
+__all__ = ["KERNEL", "GROUPED", "bitserial_matmul_v2",
+           "bitserial_matmul_v2_ref", "bitserial_matmul_v2_cuda",
+           "bitserial_matmul",
            "bitserial_matmul_ref", "bitserial_matmul_cuda",
            "bitserial_matmul_grouped", "bitserial_matmul_grouped_ref",
            "bitserial_matmul_grouped_cuda"]
@@ -70,11 +71,9 @@ __all__ = ["KERNEL", "GROUPED", "bitserial_matmul_v2", "bitserial_matmul_v2_ref"
 KERNEL = Kernel("bitserial_matmul", {
     "bitserial_matmul_v2": (P,) * 6 + (I,) * 14 + (P,),
     "bitserial_matmul_v1": (P,) * 5 + (I,) * 14 + (P,),
-    "bitserial_matmul_v1_grouped": (P,) * 3 + (I,) * 10 + (P,),
 })
 GROUPED = Kernel("grouped_matmul", {
     "bitserial_matmul_v1_grouped": (P,) * 3 + (I,) * 10 + (P,),
-    "bitserial_matmul_v1_grouped_persistent": (P,) * 3 + (I,) * 10 + (P,),
 })
 
 
@@ -242,10 +241,7 @@ def bitserial_matmul_cuda(x: torch.Tensor, w_packed: torch.Tensor,
 
 
 def bitserial_matmul_grouped_cuda(x: torch.Tensor, w_packed: torch.Tensor,
-                                  *, spec: SerialSpec, k: int,
-                                  kernel: Kernel = GROUPED,
-                                  entry: str = "bitserial_matmul_v1_grouped"
-                                  ) -> torch.Tensor:
+                                  *, spec: SerialSpec, k: int) -> torch.Tensor:
     """Launch grouped K4 on CUDA tensors: (E, C, K) int32 codes × (E,
     w_bits, ceil(K/32), N) packed weights → (E, C, N) int32 accumulators,
     one launch."""
@@ -269,8 +265,8 @@ def bitserial_matmul_grouped_cuda(x: torch.Tensor, w_packed: torch.Tensor,
                          f"{_k_words(k)}")
     out = torch.empty((e, c, n), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    kernel.launch(
-        entry, x.data_ptr(), w_packed.data_ptr(),
+    GROUPED.launch(
+        "bitserial_matmul_v1_grouped", x.data_ptr(), w_packed.data_ptr(),
         out.data_ptr(), e, c, k, n, spec.a_bits, spec.w_bits,
         int(spec.a_signed), int(spec.w_signed),
         bitops.kernel_digits(spec.a_bits, spec.a_signed),

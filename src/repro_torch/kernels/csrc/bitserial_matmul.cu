@@ -34,19 +34,12 @@
 // gives only 64 blocks, half the SMs); at prefill, the same plus the
 // activations, which every column block reads again (K3 expands the planes
 // again; K4 reads 4-byte codes again from L2, 4 x K3's packed bytes at A8).
-// The grouped K4 entry (bitserial_matmul_v1_grouped) replaces the routed
-// experts' product of repro/models/moe.py::_expert_matmul (:75), which the
-// reference runs as serial_matmul_packed under vmap over experts, outside
-// any Pallas kernel: (E, C, K) codes x (E, w_bits, W, N) packed weights ->
-// (E, C, N) raw int32 accumulators, one launch for all E experts. The
-// expert is the grid's z dimension over the same tile (each block offsets
-// its operands by its expert), so a decode step's routed projections are
-// one graph node each instead of E. Bound: bytes, the experts' packed
-// weights (92.3 MB per deepseek-v2-lite projection at W4), read once.
 // Not done yet (ROADMAP queue 2): 16-byte vector weight loads (each weight
 // word is a scalar __ldg that the four lanes of a fragment row issue at one
 // address), activations staged once per block in shared memory, and m16
 // activation row tiles at prefill (it runs the same swapped n8 tile).
+// The grouped K4 entry (the MoE's routed experts, E code GEMMs in one
+// launch) is a kernel of its own: grouped_matmul.cu.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -62,43 +55,26 @@ struct GemmArgs {
   dig::Plan ap;
   int m, k;
   epi::Epilogue e;
-  // grouped K4: `groups` blocks deep in z, each group's offset in
-  // elements into x, the weights and the int32 output (one group, offsets
-  // unread, otherwise)
-  int groups;
-  long long x_group, w_group, out_group;
 };
 
-// kCodes: K4 (Codes source), else K3 (Dense source). kGrouped (K4 only):
-// blockIdx.z is the group (an expert), whose operands and output start at
-// its offsets; a separate instantiation, so K3's and K4's code is as it
-// was and a profiler tells the grouped launches apart by name.
-template <bool kCodes, bool kGrouped, class OpA, class OpW, int NT>
+// kCodes: K4 (Codes source), else K3 (Dense source).
+template <bool kCodes, class OpA, class OpW, int NT>
 __global__ void __launch_bounds__(dig::max_warps<OpA, OpW, NT>() * 32,
                                   dig::min_blocks<OpA, OpW, NT>())
 bitserial_gemm_kernel(const GemmArgs p) {
   const long long r0 = (long long)blockIdx.x * 8 * NT;
   const int lane = threadIdx.x & 31;
   if constexpr (kCodes) {
-    const int32_t* x = p.x;
-    dig::Weights wt = p.wt;
-    epi::Epilogue e = p.e;
-    if constexpr (kGrouped) {
-      const long long grp = blockIdx.z;
-      x += grp * p.x_group;
-      wt.w += grp * p.w_group;
-      e.out = (int32_t*)e.out + grp * p.out_group;
-    }
     dig::Codes src;
-    src.x = x;
+    src.x = p.x;
     src.rows = p.m;
     src.r0 = r0;
     src.k = p.k;
     src.g = lane >> 2;
     src.t = lane & 3;
     src.kw = 0;
-    src.vec = p.k % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
-    dig::tile<OpA, OpW, NT>(src, p.ap, wt, p.m, r0, e);
+    src.vec = p.k % 4 == 0 && (reinterpret_cast<uintptr_t>(p.x) & 15) == 0;
+    dig::tile<OpA, OpW, NT>(src, p.ap, p.wt, p.m, r0, p.e);
   } else {
     dig::Dense src;
     src.x = p.x;
@@ -113,39 +89,33 @@ bitserial_gemm_kernel(const GemmArgs p) {
   }
 }
 
-template <bool kCodes, bool kGrouped>
+template <bool kCodes>
 struct Gemm {
   template <class OpA, class OpW, int NT>
   struct Run {
     static void go(const GemmArgs& p, cudaStream_t stream) {
       dim3 grid((unsigned int)((p.m + 8 * NT - 1) / (8 * NT)),
-                (unsigned int)((p.wt.cols + 31) / 32),
-                (unsigned int)p.groups);
+                (unsigned int)((p.wt.cols + 31) / 32));
       const int warps =
           dig::warps_for(p.wt.words, dig::max_warps<OpA, OpW, NT>());
-      bitserial_gemm_kernel<kCodes, kGrouped, OpA, OpW, NT>
+      bitserial_gemm_kernel<kCodes, OpA, OpW, NT>
           <<<grid, warps * 32, 0, stream>>>(p);
     }
   };
 };
 
-// Checks the plans, fills the arguments and launches K3 (kCodes false), K4
-// or grouped K4 (kGrouped: `groups` of them); returns cudaGetLastError().
-template <bool kCodes, bool kGrouped = false>
+// Checks the plans, fills the arguments and launches K3 (kCodes false) or
+// K4; returns cudaGetLastError().
+template <bool kCodes>
 int launch(const void* x, const void* w, const void* scale, const void* bias,
            const void* rs, void* out, int m, int k, int n, int a_bits,
            int w_bits, int a_signed, int w_signed, int nd_a, int nd_w,
            int relu, int out_mode, int rq_bits, int qn, int qp,
-           void* stream, int groups = 1) {
+           void* stream) {
   if (a_bits < 1 || a_bits > dig::kMaxBits || w_bits < 1 ||
-      w_bits > dig::kMaxBits || nd_a < 1 || nd_a > 3 || nd_w < 1 ||
-      nd_w > 3 || groups < 1 || groups > 65535 || (groups > 1 && !kGrouped))
+      w_bits > dig::kMaxBits || nd_a < 1 || nd_a > 3 || nd_w < 1 || nd_w > 3)
     return (int)cudaErrorInvalidValue;
   GemmArgs p;
-  p.groups = groups;
-  p.x_group = (long long)m * k;
-  p.w_group = (long long)w_bits * ((k + 31) / 32) * n;
-  p.out_group = (long long)m * n;
   p.x = (const int32_t*)x;
   p.wt.w = (const int32_t*)w;
   p.wt.words = (k + 31) / 32;
@@ -156,8 +126,8 @@ int launch(const void* x, const void* w, const void* scale, const void* bias,
   p.k = k;
   p.e = epi::make(scale, bias, rs, out, relu, out_mode, rq_bits, qn, qp);
   if (m > 0 && n > 0)
-    dig::dispatch<Gemm<kCodes, kGrouped>::template Run>(
-        p, p.ap, p.wt.plan, m, n, (cudaStream_t)stream);
+    dig::dispatch<Gemm<kCodes>::template Run>(p, p.ap, p.wt.plan, m, n,
+                                              (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 
@@ -188,18 +158,4 @@ extern "C" int bitserial_matmul_v1(const void* x, const void* w,
   return launch<true>(x, w, scale, bias, nullptr, out, m, k, n, a_bits,
                       w_bits, a_signed, w_signed, nd_a, nd_w, relu, out_mode,
                       rq_bits, qn, qp, stream);
-}
-
-// Grouped K4: `groups` experts, (groups, M, K) int32 codes x (groups,
-// w_bits, ceil(K/32), N) packed weights -> (groups, M, N) raw int32
-// accumulators (no scale, bias or requant), one launch.
-extern "C" int bitserial_matmul_v1_grouped(const void* x, const void* w,
-                                           void* out, int groups, int m,
-                                           int k, int n, int a_bits,
-                                           int w_bits, int a_signed,
-                                           int w_signed, int nd_a, int nd_w,
-                                           void* stream) {
-  return launch<true, true>(x, w, nullptr, nullptr, nullptr, out, m, k, n,
-                            a_bits, w_bits, a_signed, w_signed, nd_a, nd_w,
-                            0, epi::kAcc, 0, 0, 0, stream, groups);
 }

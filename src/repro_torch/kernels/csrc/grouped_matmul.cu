@@ -47,6 +47,10 @@
 //   into uint32 totals (mod 2^32, as the reference wraps), staged once in
 //   shared memory for a coalesced store.
 // Nothing is read on the host, so a decode step captures as one CUDA graph.
+// What holds it back now: a block's first weights arrive after two memory
+// round trips in a row (its codes' staging, then the ring's first stage),
+// long under the card's load, and at a decode step's occupancy the busy
+// blocks that start after an empty one ends set the tail.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -61,7 +65,7 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kStages = 3;       // ring depth
 constexpr int kStagePlanes = 32; // plane words per column in a stage (16 KB)
 constexpr int kActBytes = 32768; // staged digits of one K segment, at most
-constexpr int kRedStride = kCols + 4;  // the K halves' meeting tile, words
+constexpr int kRedStride = kCols + 4;  // row stride of the staged output
 
 struct Args {
   const int32_t* x;  // (E, C, K) codes
@@ -457,10 +461,8 @@ grouped_code_gemm_kernel(const Args p) {
   }
 }
 
-enum class Grid { kPerTile, kPersistent };
-
 template <class OpA, class OpW, int NR>
-int run(Args p, int experts, cudaStream_t stream, Grid mode) {
+int run(const Args& p, cudaStream_t stream) {
   auto kernel = grouped_code_gemm_kernel<OpA, OpW, NR>;
   const int nda = OpA::kFixed ? 1 : p.ap.nd;
   const int planes = OpW::kFixed ? OpW::kPlanes : p.wp.bits;
@@ -475,20 +477,10 @@ int run(Args p, int experts, cudaStream_t stream, Grid mode) {
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
-  int per_sm = 0, dev = 0, sms = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kThreads, smem);
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  const long long slots = (long long)(per_sm > 0 ? per_sm : 1) * sms;
-  p.experts = experts;
-  p.items = (long long)experts * p.row_tiles * p.col_tiles;
-  long long grid = p.items;
-  if (mode == Grid::kPersistent && slots < grid) grid = slots;
-  if (grid > 0x7fffffffLL) grid = 0x7fffffffLL;
+  // one block per item; past a grid's reach a block walks blockIdx.x,
+  // blockIdx.x + gridDim.x, ...
+  const long long grid = p.items < 0x7fffffffLL ? p.items : 0x7fffffffLL;
   kernel<<<(unsigned int)grid, kThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
@@ -500,9 +492,12 @@ int run(Args p, int experts, cudaStream_t stream, Grid mode) {
 // accumulators, one launch; nd_a and nd_w are the operands' digit counts
 // (bitops.kernel_digits). Returns cudaGetLastError() (or the error of a
 // call that sets up the launch).
-static int launch(const void* x, const void* w, void* out, int groups,
-                  int m, int k, int n, int a_bits, int w_bits, int a_signed,
-                  int w_signed, int nd_a, int nd_w, void* stream, Grid mode) {
+extern "C" int bitserial_matmul_v1_grouped(const void* x, const void* w,
+                                           void* out, int groups, int m,
+                                           int k, int n, int a_bits,
+                                           int w_bits, int a_signed,
+                                           int w_signed, int nd_a, int nd_w,
+                                           void* stream) {
   if (a_bits < 1 || a_bits > dig::kMaxBits || w_bits < 1 ||
       w_bits > dig::kMaxBits || nd_a < 1 || nd_a > 3 || nd_w < 1 ||
       nd_w > 3 || groups < 1 || groups > 65535 || m < 0 || k < 0 || n < 0)
@@ -525,6 +520,8 @@ static int launch(const void* x, const void* w, void* out, int groups,
   if (p.seg > p.words) p.seg = p.words > 0 ? p.words : 1;
   p.col_tiles = (n + kCols - 1) / kCols;
   p.row_tiles = (m + 8 * nr - 1) / (8 * nr);
+  p.experts = groups;
+  p.items = (long long)groups * p.row_tiles * p.col_tiles;
   p.wvec = n % 4 == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0;
   p.xvec = k % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
   using W2 = dig::Fixed<2, true>;
@@ -532,31 +529,9 @@ static int launch(const void* x, const void* w, void* out, int groups,
   using A8 = dig::Fixed<8, true>;
   const cudaStream_t s = (cudaStream_t)stream;
   if (W2::fits(p.ap) && W2::fits(p.wp))
-    return nr == 2 ? run<W2, W2, 2>(p, groups, s, mode)
-                   : run<W2, W2, 1>(p, groups, s, mode);
+    return nr == 2 ? run<W2, W2, 2>(p, s) : run<W2, W2, 1>(p, s);
   if (A8::fits(p.ap) && W4::fits(p.wp))
-    return nr == 2 ? run<A8, W4, 2>(p, groups, s, mode)
-                   : run<A8, W4, 1>(p, groups, s, mode);
-  return nr == 2 ? run<dig::Any, dig::Any, 2>(p, groups, s, mode)
-                 : run<dig::Any, dig::Any, 1>(p, groups, s, mode);
-}
-
-extern "C" int bitserial_matmul_v1_grouped(const void* x, const void* w,
-                                           void* out, int groups, int m,
-                                           int k, int n, int a_bits,
-                                           int w_bits, int a_signed,
-                                           int w_signed, int nd_a, int nd_w,
-                                           void* stream) {
-  return launch(x, w, out, groups, m, k, n, a_bits, w_bits, a_signed,
-                w_signed, nd_a, nd_w, stream, Grid::kPerTile);
-}
-
-// Per-tile items on a persistent grid: as many blocks as fit at once, each
-// walking items blockIdx.x, blockIdx.x + gridDim.x, ...
-extern "C" int bitserial_matmul_v1_grouped_persistent(
-    const void* x, const void* w, void* out, int groups, int m, int k, int n,
-    int a_bits, int w_bits, int a_signed, int w_signed, int nd_a, int nd_w,
-    void* stream) {
-  return launch(x, w, out, groups, m, k, n, a_bits, w_bits, a_signed,
-                w_signed, nd_a, nd_w, stream, Grid::kPersistent);
+    return nr == 2 ? run<A8, W4, 2>(p, s) : run<A8, W4, 1>(p, s);
+  return nr == 2 ? run<dig::Any, dig::Any, 2>(p, s)
+                 : run<dig::Any, dig::Any, 1>(p, s);
 }

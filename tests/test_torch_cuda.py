@@ -595,10 +595,11 @@ GROUPED = [(64, c, 2048, 1408) for c in (1, 2, 8)] + [
 # them) and the edges of its tiles: experts the dispatch left empty at a
 # decode shape, a zero row inside a nonzero 16-row tile, an all-zero input,
 # N off the 128-column tile (a multiple of 4: 16-byte copies; and not),
-# K off 32, E = 1, K past one staged segment, C past one row tile
+# K off 32 and off 4 (codes loaded one by one), E = 1, K past one staged
+# segment, C past one row tile
 GROUPED_EDGES = [((64, 1, 2048, 1408), "experts"), ((3, 12, 100, 70), "row"),
                  ((64, 2, 1408, 2048), "all"), ((4, 3, 256, 200), None),
-                 ((4, 3, 256, 130), None), ((2, 4, 1000, 256), None),
+                 ((4, 3, 256, 130), None), ((2, 4, 1001, 256), None),
                  ((1, 5, 300, 140), None), ((2, 2, 5000, 64), None),
                  ((2, 20, 96, 64), "row")]
 

@@ -151,16 +151,26 @@ def _grouped_case(e, c, k, n, spec, seed, zeros=None):
 
 
 @pytest.mark.parametrize("e,c,k,n,spec,zeros", [
-    (3, 5, 100, 70, (8, 4, True, True, 8), None),   # W4A8, ragged K and N
-    (4, 1, 64, 40, (8, 4, True, True, 8), None),    # decode's C = 1
-    (2, 3, 65, 33, (2, 2, True, True, 1), None),    # radix 1
-    (2, 4, 96, 64, (8, 8, False, True, 7), None),   # unsigned W8A8
+    # W4A8, ragged K and N; decode's C = 1; radix 1; unsigned W8A8
+    pytest.param(3, 5, 100, 70, (8, 4, True, True, 8), None,
+                 id="3-5-100-70-spec0"),
+    pytest.param(4, 1, 64, 40, (8, 4, True, True, 8), None,
+                 id="4-1-64-40-spec1"),
+    pytest.param(2, 3, 65, 33, (2, 2, True, True, 1), None,
+                 id="2-3-65-33-spec2"),
+    pytest.param(2, 4, 96, 64, (8, 8, False, True, 7), None,
+                 id="2-4-96-64-spec3"),
     # mostly zero, as a decode step's dispatch buffer is
-    (64, 1, 64, 40, (8, 4, True, True, 8), "experts"),
-    (3, 4, 100, 70, (8, 4, True, True, 8), "row"),
-    (4, 2, 64, 40, (8, 4, True, True, 8), "all"),
-    (8, 2, 65, 33, (2, 2, True, True, 1), "experts"),
-    (6, 3, 96, 64, (8, 8, False, True, 7), "row"),
+    pytest.param(64, 1, 64, 40, (8, 4, True, True, 8), "experts",
+                 id="64-1-64-40-W4A8-zero-experts"),
+    pytest.param(3, 4, 100, 70, (8, 4, True, True, 8), "row",
+                 id="3-4-100-70-W4A8-zero-row"),
+    pytest.param(4, 2, 64, 40, (8, 4, True, True, 8), "all",
+                 id="4-2-64-40-W4A8-all-zero"),
+    pytest.param(8, 2, 65, 33, (2, 2, True, True, 1), "experts",
+                 id="8-2-65-33-W2A2-zero-experts"),
+    pytest.param(6, 3, 96, 64, (8, 8, False, True, 7), "row",
+                 id="6-3-96-64-W8A8u-zero-row"),
 ])
 def test_grouped_k4_plain_equals_reference_per_expert(e, c, k, n, spec,
                                                       zeros):
