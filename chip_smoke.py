@@ -224,7 +224,37 @@ Phases (any failure exits non-zero and prints no result):
     or K4 in-path ms and launches by kernel name, held to the wrappers',
     and the share of busy time launched inside the ``ssm.scan`` and
     ``ssm.conv`` profiler ranges), and the decode step's weight-byte
-    bound, also with the SSM state's reads and writes.
+    bound, also with the SSM state's reads and writes;
+16. the reference's six remaining architectures (:func:`families_phase`):
+    K1 (bf16, each (K, G) the six launch), K3 and K4 at each new (K, N)
+    (qwen1.5-110b's 8192 x 49152 MLP and its q and k/v with a nonzero
+    bias, command-r-plus-104b's, nemotron-4-15b's and
+    seamless-m4t-large-v2's MLPs) at M = 4 and 64, and grouped K4 at
+    qwen3-moe-235b-a22b's 128 experts (C = 1 with every expert's row
+    nonzero and at a seeded routing's occupancy, C = 5), each against its
+    plain version, ``torch.equal``, and timed cold beside its bound,
+    its plain version and an fp16 matmul. Then each model, every width
+    as published, bf16, W4A8, random weights from seed 0 with every bias
+    set to seeded nonzero values: (a) at 2 layers (seamless: all 24 +
+    24), the four requests of phase 8, 16 new tokens each, through
+    ``Server`` (seamless: ``prefill`` + ``decode_step`` with seeded
+    ``src_embeds`` (4, 64, 1024), which ``generate`` does not feed): the
+    kernels' tokens and last-step logits equal, exactly, the plain
+    versions' run on the card, the K4 path's equal K1 + K3's, and for
+    internvl2-76b also with seeded ``frontend_embeds`` (4, 256, 3200);
+    (b) at the depth 80 GB holds (``FAMILY_DEPTH``: command-r 48 of 64
+    layers, qwen3-moe 40 of 94, the rest full), the same requests, counts
+    reset just before and read just after, each kernel's launches equal
+    to :func:`family_launches`' per prefill and decode step, the K4
+    path's tokens and logits equal K1 + K3's; internvl2-76b's frontend
+    prefill; ``ContinuousLMEngine`` on the CLI's mixed load for
+    qwen1.5-110b and qwen3-moe-235b-a22b, its decode step captured once,
+    its tokens equal to the same engine stepping eagerly on the same
+    load. Written down, not held: drawing and packing seconds, peak
+    memory, prefill, eager decode step, one profiled decode step (busy,
+    K1/K3/grouped K4 in path by kernel name, held to the wrappers'
+    counts) against its weight-byte bound, tokens/s, the engine's replay
+    (wall, busy).
 
 The ``kernels`` JSON line gives, per kernel, its launches on the main
 paths (the bucketed runners' forwards and the engine's loads included:
@@ -236,8 +266,8 @@ launches per decode step and per prefill; K1, K3 and K4 add the engine's
 launches per captured decode step, as its ``stats()`` reports them. K1's
 and K3's launches include deepseek-v2-lite's (phase 12: ``Server``, the
 engine's load and the service's), phase 14's (the packed evaluation
-and the trained weights' ``Server``) and phase 15's (the two families'
-``Server`` runs; K4's too); K1's and K2's include phase 13's
+and the trained weights' ``Server``) and phase 15's and 16's (the
+families' runs; K4's and grouped K4's too); K1's and K2's include phase 13's
 (the warm-booted graphs' replays and the profiler's calls); the grouped
 K4 entry gives its launches there and its times summed over one deepseek
 decode step.
@@ -1025,6 +1055,628 @@ def ssm_phase(dev, hp):
         ("run2", HYMBA_PROMPTS_LONG, HYMBA_NEW_LONG, 1280, ("k3",))])
     out["seconds"] = time.perf_counter() - t_phase
     log(f"  phase 15 in {out['seconds']:.1f} s; launches {out['launches']}")
+    return out
+
+
+# phase 16: the reference's six remaining architectures at full width
+# the layers one 80 GB card holds at W4 beside the float32 embedding and
+# head (drawn in float32, cast to bf16), and why any were cut
+FAMILY_DEPTH = {
+    "nemotron-4-15b": (32, None),
+    "qwen1.5-110b": (80, None),
+    "command-r-plus-104b": (48, "64 layers: 50.3 GB packed + 12.6 GB "
+                                "embedding + 12.6 + 6.3 GB head, about 82 "
+                                "GB, past the card"),
+    "internvl2-76b": (80, None),
+    "qwen3-moe-235b-a22b": (40, "94 layers' packed experts alone are 117 "
+                                "GB"),
+    "seamless-m4t-large-v2": (24, None),
+}
+# the depth at which the plain versions' run is held against the kernels'
+# (every width kept): the plain GEMMs unpack every weight on every call,
+# about 0.1 s per billion weights a step on the card
+PLAIN_DEPTH = 2
+FRONT_NEW = 4            # decode steps after a frontend/source prefill
+SRC_LEN = 64             # seamless: source frames per request
+# K3/K4 at each model's new (K, N) (the MLP's two, qwen's biased q and k/v)
+FAMILY_GEMMS = {
+    "qwen1.5-110b": ((8192, 49152, False), (49152, 8192, False),
+                     (8192, 8192, True), (8192, 1024, True)),
+    "command-r-plus-104b": ((12288, 33792, False), (33792, 12288, False)),
+    "nemotron-4-15b": ((6144, 24576, False), (24576, 6144, False)),
+    "seamless-m4t-large-v2": ((1024, 8192, False), (8192, 1024, False)),
+}
+# K1 launches (K, G step sizes) the six make, one per distinct activation
+FAMILY_K1 = ((8192, 3), (8192, 1), (8192, 2), (49152, 1), (12288, 3),
+             (12288, 1), (12288, 2), (33792, 1), (6144, 3), (6144, 1),
+             (24576, 1), (28672, 1), (4096, 3), (1024, 3), (1024, 1),
+             (1024, 2))
+# grouped K4 at qwen3-moe's experts: E, (K, N) of up/gate and down
+MOE_E, MOE_GEMMS = 128, ((4096, 1536), (1536, 4096))
+
+
+def family_launches(cfg, kind, pack_acts=True):
+    """Kernel launches one ``prefill`` or ``decode_step`` of ``cfg`` makes:
+    per decoder layer q/k/v share one K1 (3 GEMMs), o one, the MLP one per
+    distinct activation (SwiGLU's gate/up share one), an MoE layer 3
+    grouped K4 and no K1 for its experts; a cross-attending layer adds q
+    and o, and at prefill k/v of the encoder's output (one K1, 2 GEMMs);
+    an encoder layer is a dense one, at prefill only."""
+    def mlp():
+        return (2, 3) if cfg.act == "swiglu" else (2, 2)
+
+    k1 = k3 = k4g = 0
+    for li in range(cfg.n_layers):
+        a1, a3 = 2, 4
+        if cfg.n_experts and li >= cfg.n_dense_layers:
+            k4g += 3
+        else:
+            m1, m3 = mlp()
+            a1, a3 = a1 + m1, a3 + m3
+        if cfg.family in ("encdec", "audio"):
+            a1, a3 = a1 + 2, a3 + 2
+            if kind == "prefill":
+                a1, a3 = a1 + 1, a3 + 2
+        k1, k3 = k1 + a1, k3 + a3
+    if cfg.family in ("encdec", "audio") and kind == "prefill":
+        m1, m3 = mlp()
+        n_enc = cfg.n_enc_layers or cfg.n_layers
+        k1, k3 = k1 + n_enc * (2 + m1), k3 + n_enc * (4 + m3)
+    if pack_acts:
+        return {"K1": k1, "K2": 0, "K3": k3, "K4": 0, "K4g": k4g}
+    return {"K1": 0, "K2": 0, "K3": 0, "K4": k3, "K4g": k4g}
+
+
+def families_phase(dev, hp):
+    """Phase 16: qwen1.5-110b, command-r-plus-104b, nemotron-4-15b,
+    qwen3-moe-235b-a22b, internvl2-76b and seamless-m4t-large-v2 at their
+    published widths on ``dev``. ``hp`` holds main's helpers: ``counts``,
+    ``reset_counts``, ``check_equal``, ``profiled``, ``is_spin``,
+    ``walls``, ``timer``. Returns its record; raises on any failure."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from repro_torch.configs import get_arch
+    from repro_torch.core.bitserial import plan_spec
+    from repro_torch.core.quant import QuantSpec, qrange
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels import bitserial_matmul as km
+    from repro_torch.kernels import quantize_pack as k1
+    from repro_torch.launch.serve import GenRequest, Server
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import pack_weight_codes
+    from repro_torch.serving import ContinuousLMEngine
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    free()
+    t_phase = time.perf_counter()
+    out = {"launches": {"K1": 0, "K3": 0, "K4": 0, "K4g": 0}}
+    gen = torch.Generator(device=dev).manual_seed(23)
+    spec = plan_spec(get_arch("qwen1.5-110b").full.policy.spec())
+    aspec = QuantSpec(8, True)
+    la, ha = qrange(spec.a_bits, spec.a_signed)
+    lw, hw = qrange(spec.w_bits, spec.w_signed)
+
+    def count(c):
+        for k in out["launches"]:
+            out["launches"][k] += c[k]
+
+    # (0) K1, K3, K4 and grouped K4 at the new shapes against their plain
+    # versions, exact; K3 and K4 (M = 4) and grouped K4 (C = 1) timed
+    log("families: K1, K3/K4 (qwen's q/k/v with a nonzero bias) and "
+        "grouped K4 (E = 128) at the six models' new shapes vs plain "
+        "(torch.equal)")
+    steps = [torch.tensor(a, device=dev) for a in (0.177, 0.0371, 0.5)]
+    for k, g in FAMILY_K1:
+        for m in (4, 64):
+            xb = (torch.randn((m, k), generator=gen, device=dev)
+                  * 4).bfloat16()
+            hp.check_equal("K1", f"({m},{k}) bf16 G={g}",
+                           k1.quantize_pack_multi_cuda(xb, steps[:g], aspec),
+                           k1.quantize_pack_multi_ref(xb, steps[:g], aspec))
+    gemm_calls = []
+    for arch, shapes in FAMILY_GEMMS.items():
+        for k, n, biased in shapes:
+            wp = pack_weight_codes(torch.randint(
+                lw, hw + 1, (k, n), generator=gen, device=dev,
+                dtype=torch.int32), spec.w_bits)
+            scale = torch.rand(n, generator=gen, device=dev) * 2e-3 + 1e-4
+            bias = (torch.randn(n, generator=gen, device=dev) * 0.1
+                    if biased else None)
+            for m in (4, 64):
+                xc = torch.randint(la, ha + 1, (m, k), generator=gen,
+                                   device=dev, dtype=torch.int32)
+                xp = k1.pack_codes_ref(xc, spec.a_bits)
+                kw = dict(spec=spec, k=k)
+                what = f"{arch} M{m} {k}->{n}" + (" bias" if biased else "")
+                hp.check_equal("K3", what,
+                               km.bitserial_matmul_v2_cuda(xp, wp, scale,
+                                                           bias, **kw),
+                               km.bitserial_matmul_v2_ref(xp, wp, scale,
+                                                          bias, **kw))
+                hp.check_equal("K4", what,
+                               km.bitserial_matmul_cuda(xc, wp, scale, bias,
+                                                        **kw),
+                               km.bitserial_matmul_ref(xc, wp, scale, bias,
+                                                       **kw))
+                if m != 4:
+                    continue
+                byt = (xp.numel() + wp.numel() + 2 * n + m * n) * 4
+                xh, wh = xc.half(), torch.randn((k, n), generator=gen,
+                                                device=dev).half()
+                gemm_calls.append({
+                    "model": arch, "k": k, "n": n, "m": m, "bias": biased,
+                    "K3_ms": hp.timer(lambda: km.bitserial_matmul_v2_cuda(
+                        xp, wp, scale, bias, **kw), 30),
+                    "K4_ms": hp.timer(lambda: km.bitserial_matmul_cuda(
+                        xc, wp, scale, bias, **kw), 30),
+                    "plain_K3_ms": hp.timer(lambda: km.bitserial_matmul_v2_ref(
+                        xp, wp, scale, bias, **kw), 3),
+                    "library_ms": hp.timer(lambda: torch.matmul(xh, wh), 30),
+                    "bound_ms": max(byt / HBM_BYTES_PER_S,
+                                    2 * m * k * n / INT8_OPS_PER_S) * 1e3,
+                    "bytes": byt})
+                del xh, wh
+            del wp
+    out["gemm_calls"] = gemm_calls
+    for c in gemm_calls:
+        log(f"  {c['model']} M4 {c['k']}->{c['n']}"
+            + (" +bias" if c["bias"] else "") + f": K3 {c['K3_ms']:.4f} ms, "
+            f"K4 {c['K4_ms']:.4f} ms, plain K3 {c['plain_K3_ms']:.2f} ms, "
+            f"fp16 matmul {c['library_ms']:.4f} ms, bound "
+            f"{c['bound_ms']:.4f} ms (cold Timer)")
+    grouped = []
+    mcfg = get_arch("qwen3-moe-235b-a22b").full.moe_cfg()
+    for k, n in MOE_GEMMS:
+        wp = torch.stack([pack_weight_codes(torch.randint(
+            lw, hw + 1, (k, n), generator=gen, device=dev, dtype=torch.int32),
+            spec.w_bits) for _ in range(MOE_E)])
+        # the experts a seeded routing of a batch-4 decode step fills
+        idx = torch.topk(torch.rand((4, MOE_E), generator=gen, device=dev),
+                         mcfg.top_k, dim=-1).indices
+        keep, flat = moe_mod.dispatch(idx, MOE_E, 1)
+        occupied = torch.zeros(MOE_E + 1, dtype=torch.bool, device=dev)
+        occupied[flat.reshape(-1)] = True
+        occupied = occupied[:MOE_E]
+        for c in (1, 5):
+            x = torch.randint(la, ha + 1, (MOE_E, c, k), generator=gen,
+                              device=dev, dtype=torch.int32)
+            cases = [("every expert", x)]
+            if c == 1:
+                cases.append(("dispatch", x * occupied[:, None, None]))
+            for what, xx in cases:
+                hp.check_equal("K4g", f"E{MOE_E} C{c} {k}->{n} {what}",
+                               km.bitserial_matmul_grouped_cuda(
+                                   xx, wp, spec=spec, k=k),
+                               km.bitserial_matmul_grouped_ref(
+                                   xx, wp, spec=spec, k=k))
+                if c != 1:
+                    continue
+                n_occ = MOE_E if what == "every expert" else int(
+                    occupied.sum())
+                byt = (n_occ * wp[0].numel() + xx.numel() + xx.numel()
+                       // k * n) * 4
+                grouped.append({
+                    "k": k, "n": n, "c": c, "experts": n_occ,
+                    "ms": hp.timer(lambda: km.bitserial_matmul_grouped_cuda(
+                        xx, wp, spec=spec, k=k), 30),
+                    "plain_ms": hp.timer(
+                        lambda: km.bitserial_matmul_grouped_ref(
+                            xx, wp, spec=spec, k=k), 2),
+                    "bound_ms": byt / HBM_BYTES_PER_S * 1e3})
+        del wp
+    out["grouped_calls"] = grouped
+    for c in grouped:
+        log(f"  grouped K4 E{MOE_E} C1 {c['k']}->{c['n']} at {c['experts']} "
+            f"experts: {c['ms']:.4f} ms, plain {c['plain_ms']:.1f} ms, "
+            f"bound {c['bound_ms']:.4f} ms (cold Timer)")
+    free()
+
+    def seed_biases(params, seed):
+        """Every bias (qwen1.5's q/k/v) set to seeded nonzero values, in
+        place: the reference draws them as zeros, which would hide one
+        that is dropped or misplaced."""
+        g = torch.Generator(device=dev).manual_seed(seed)
+        stack = [params]
+        n = 0
+        while stack:
+            t = stack.pop()
+            if isinstance(t, dict):
+                for key, v in t.items():
+                    if key == "b" and torch.is_tensor(v):
+                        v.copy_(torch.randn(v.shape, generator=g,
+                                            device=dev) * 0.1)
+                        n += 1
+                    else:
+                        stack.append(v)
+            elif isinstance(t, list):
+                stack.extend(t)
+        return n
+
+    def requests(cfg, lens=LM_PROMPTS, seed=0):
+        prng = np.random.RandomState(seed)
+        return [prng.randint(0, cfg.vocab_size, (ln,)).astype(np.int32)
+                for ln in lens]
+
+    def left_padded(prompts):
+        toks = np.zeros((len(prompts), max(len(pr) for pr in prompts)),
+                        np.int64)
+        for i, pr in enumerate(prompts):
+            toks[i, -len(pr):] = pr
+        return torch.from_numpy(toks).to(dev)
+
+    def extra_inputs(cfg, b):
+        """Seeded frontend (VLM) or source (encoder-decoder) embeddings."""
+        g = torch.Generator(device=dev).manual_seed(5)
+        if cfg.family == "vlm":
+            return {"frontend_embeds": torch.randn(
+                (b, cfg.frontend_len, cfg.frontend_dim), generator=g,
+                device=dev).bfloat16()}
+        return {"src_embeds": torch.randn((b, SRC_LEN, cfg.frontend_dim),
+                                          generator=g, device=dev).bfloat16()}
+
+    def generate(server, prompts, new):
+        """``Server.generate``: tokens, last-step logits, launches and
+        seconds, counts reset just before and read just after."""
+        hp.reset_counts()
+        t0 = time.perf_counter()
+        res = server.generate([GenRequest(pr.copy(), new) for pr in prompts])
+        torch.cuda.synchronize()
+        return ([r.out_tokens for r in res], server.last_logits.clone(),
+                hp.counts(), time.perf_counter() - t0)
+
+    def drive(params, cfg, batch, new, max_len):
+        """What ``generate`` does, on a batch with extra inputs: prefill,
+        then greedy decode steps after the whole prefix; tokens (B, new),
+        last logits, launches and seconds."""
+        hp.reset_counts()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            logits, caches = transformer.prefill(params, batch, cfg,
+                                                 max_len=max_len)
+            tok = torch.argmax(logits, -1)[:, None]
+            cols = [tok]
+            s0 = batch["tokens"].shape[1] + (
+                cfg.frontend_len if cfg.family == "vlm" else 0)
+            for t in range(1, new):
+                logits, caches = transformer.decode_step(
+                    params, caches, tok, s0 + t - 1, cfg)
+                tok = torch.argmax(logits, -1)[:, None]
+                cols.append(tok)
+            toks = torch.cat(cols, 1).cpu().tolist()
+        torch.cuda.synchronize()
+        return toks, logits.clone(), hp.counts(), time.perf_counter() - t0
+
+    def expect(arch, what, got, cfg, new, pack_acts=True):
+        pre = family_launches(cfg, "prefill", pack_acts)
+        dec = family_launches(cfg, "decode", pack_acts)
+        want = {k: pre[k] + (new - 1) * dec[k] for k in pre}
+        if got != want:
+            raise AssertionError(f"{arch} {what}: launches {got}, want {want}")
+
+    def check_out(arch, what, toks, logits, cfg, new):
+        if (logits.shape != (4, cfg.vocab_size)
+                or not bool(torch.isfinite(logits).all())
+                or any(len(t) != new or not all(0 <= v < cfg.vocab_size
+                                                for v in t) for t in toks)):
+            raise AssertionError(f"{arch} {what}: bad output "
+                                 f"{tuple(logits.shape)} {toks}")
+
+    def same(arch, what, a, b):
+        if a[0] != b[0] or not torch.equal(a[1], b[1]):
+            raise AssertionError(f"{arch} {what}: tokens/last-step logits "
+                                 f"differ ({a[0][0]} vs {b[0][0]})")
+
+    def profile_step(fn, want):
+        """``fn`` once under the profiler: wall, busy, kernels and K1, K3,
+        K4, grouped K4 by kernel name (held to ``want``)."""
+        prof, wall = hp.profiled(fn)
+        busy, kern = 0.0, 0
+        by = {k: {"ms": 0.0, "launches": 0} for k in ("K1", "K3", "K4",
+                                                       "K4g")}
+        for evt in prof.key_averages():
+            if evt.device_type != DeviceType.CUDA or hp.is_spin(evt.key):
+                continue
+            busy += evt.self_device_time_total / 1e3
+            kern += evt.count
+            kid = kernel_of(evt.key)
+            if kid is not None:
+                by[kid]["ms"] += evt.self_device_time_total / 1e3
+                by[kid]["launches"] += evt.count
+        got = {k: v["launches"] for k, v in by.items()}
+        if got != {k: want[k] for k in got}:
+            raise AssertionError(f"the profiler saw {got} launches by "
+                                 f"kernel name, the wrappers {want}")
+        return {"wall_ms": wall * 1e3, "device_ms": busy, "kernels": kern,
+                "by_kernel": by}
+
+    def cli_load(vocab, n=16):
+        """The reference CLI's mixed load: prompts of 4-16 tokens from
+        RandomState(0), every 4th request 16 new tokens, the others 4."""
+        rng = np.random.RandomState(0)
+        m_long = min(LM_NEW, LM_MAX_LEN - 16)
+        return [GenRequest(rng.randint(0, vocab, (int(rng.randint(4, 17)),)
+                                       ).astype(np.int32),
+                           m_long if i % 4 == 0 else max(1, m_long // 4))
+                for i in range(n)]
+
+    def copies(reqs):
+        return [GenRequest(r.prompt.copy(), r.max_new_tokens) for r in reqs]
+
+    def plain_check(arch, full, rec):
+        """Every width, ``PLAIN_DEPTH`` layers (seamless: all): the kernels'
+        run against the plain versions' on the same weights, tokens and
+        last-step logits exactly; the K4 path against K1 + K3."""
+        t0 = time.perf_counter()
+        cfg = full
+        if arch != "seamless-m4t-large-v2":
+            cfg = dataclasses.replace(full, n_layers=PLAIN_DEPTH)
+        prompts = requests(cfg)
+        if cfg.family in ("encdec", "audio"):
+            srv = Server(cfg, batch_slots=4, max_len=LM_MAX_LEN, seed=0)
+            seed_biases(srv.params, 7)
+            base = srv.params
+            runs = {}
+            for tag, kw in (("k3", {}), ("plain", {"plain": True}),
+                            ("k4", {"pack_acts": False})):
+                c = transformer.serve_policy(cfg, **{"pack_acts": True, **kw})
+                batch = {"tokens": left_padded(prompts),
+                         **extra_inputs(cfg, 4)}
+                runs[tag] = drive(base, c, batch, LM_NEW, LM_MAX_LEN)
+        else:
+            srv = Server(cfg, batch_slots=4, max_len=LM_MAX_LEN, seed=0)
+            seed_biases(srv.params, 7)
+            base = srv.params
+            runs = {"k3": generate(srv, prompts, LM_NEW),
+                    "plain": generate(Server(cfg, base, batch_slots=4,
+                                             max_len=LM_MAX_LEN, plain=True),
+                                      prompts, LM_NEW),
+                    "k4": generate(Server(cfg, base, batch_slots=4,
+                                          max_len=LM_MAX_LEN,
+                                          pack_acts=False), prompts, LM_NEW)}
+        expect(arch, "depth-cut K1 + K3 run", runs["k3"][2], cfg, LM_NEW)
+        expect(arch, "depth-cut K4 run", runs["k4"][2], cfg, LM_NEW, False)
+        if any(runs["plain"][2][k] for k in ("K1", "K3", "K4", "K4g")):
+            raise AssertionError(f"{arch} plain run launched "
+                                 f"{runs['plain'][2]}")
+        check_out(arch, "depth-cut run", runs["k3"][0], runs["k3"][1], cfg,
+                  LM_NEW)
+        same(arch, "kernels vs plain", runs["k3"], runs["plain"])
+        same(arch, "K4 vs K1 + K3", runs["k4"], runs["k3"])
+        count(runs["k3"][2])
+        count(runs["k4"][2])
+        if cfg.family == "vlm":
+            # the frontend: seeded patch embeddings before the prompts
+            batch = {"tokens": left_padded(prompts), **extra_inputs(cfg, 4)}
+            ml = cfg.frontend_len + LM_MAX_LEN
+            fk = drive(base, srv.cfg, batch, FRONT_NEW, ml)
+            fp = drive(base, transformer.serve_policy(srv.cfg, plain=True),
+                       batch, FRONT_NEW, ml)
+            expect(arch, "depth-cut frontend run", fk[2], cfg, FRONT_NEW)
+            same(arch, "frontend run, kernels vs plain", fk, fp)
+            count(fk[2])
+        rec["plain_check"] = {
+            "layers": cfg.n_layers, "seconds": time.perf_counter() - t0,
+            "plain_generate_s": runs["plain"][3]}
+        log(f"  {cfg.n_layers} layers at full width: the kernels' tokens "
+            f"and last-step logits equal the plain versions' "
+            f"({runs['plain'][3]:.1f} s); the K4 path's equal K1 + K3's"
+            + ("; also with the frontend's 256 patches" if cfg.family == "vlm"
+               else "") + f"; request 0: {runs['k3'][0][0]}")
+        del srv, base, runs
+        free()
+
+    def serve_full(arch, rec):
+        depth, why = FAMILY_DEPTH[arch]
+        full = get_arch(arch).full
+        cfg = dataclasses.replace(full, n_layers=depth)
+        rec.update(layers=depth, published_layers=full.n_layers,
+                   depth_cut=why)
+        held = torch.cuda.memory_allocated()     # by the earlier phases
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        srv = Server(cfg, batch_slots=4, max_len=LM_MAX_LEN, seed=0)
+        nb = seed_biases(srv.params, 11)
+        torch.cuda.synchronize()
+        base = srv.params
+        rec["init_s"] = time.perf_counter() - t0
+        rec["params_gb"] = sum(t.numel() * t.element_size()
+                               for t in tree_leaves(base)) / 1e9
+        rec["held_gb"] = held / 1e9
+        rec["init_peak_gb"] = (torch.cuda.max_memory_allocated() - held) / 1e9
+        log(f"{arch} ({depth} of {full.n_layers} layers"
+            + (f"; cut: {why}" if why else "") + f", bf16, W4A8, seed 0, "
+            f"{nb} bias leaves seeded): drawn and packed in "
+            f"{rec['init_s']:.1f} s, {rec['params_gb']:.2f} GB, peak "
+            f"{rec['init_peak_gb']:.2f} GB above the {rec['held_gb']:.2f} GB "
+            "held before")
+        prompts = requests(cfg)
+        pre = family_launches(cfg, "prefill")
+        dec = family_launches(cfg, "decode")
+        rec["launches_prefill"], rec["launches_decode"] = pre, dec
+        if cfg.family in ("encdec", "audio"):
+            batch = {"tokens": left_padded(prompts), **extra_inputs(cfg, 4)}
+            runs = {"k3": drive(base, srv.cfg, batch, LM_NEW, LM_MAX_LEN),
+                    "k4": drive(base, transformer.serve_policy(
+                        srv.cfg, pack_acts=False), batch, LM_NEW,
+                        LM_MAX_LEN)}
+        else:
+            runs = {"k3": generate(srv, prompts, LM_NEW),
+                    "k4": generate(Server(cfg, base, batch_slots=4,
+                                          max_len=LM_MAX_LEN,
+                                          pack_acts=False), prompts, LM_NEW)}
+        expect(arch, "K1 + K3 run", runs["k3"][2], cfg, LM_NEW)
+        expect(arch, "K4 run", runs["k4"][2], cfg, LM_NEW, False)
+        check_out(arch, "K1 + K3 run", runs["k3"][0], runs["k3"][1], cfg,
+                  LM_NEW)
+        same(arch, "K4 vs K1 + K3", runs["k4"], runs["k3"])
+        count(runs["k3"][2])
+        count(runs["k4"][2])
+        rec.update(tokens=runs["k3"][0], launches=runs["k3"][2],
+                   launches_k4=runs["k4"][2],
+                   generate_s=runs["k3"][3], generate_k4_s=runs["k4"][3])
+        src = (" with src_embeds (4, 64, 1024)" if cfg.family == "audio"
+               else "")
+        log(f"  4 requests {list(LM_PROMPTS)}{src}, {LM_NEW} new: launches "
+            f"{runs['k3'][2]} (prefill {pre}, decode step {dec}); the K4 "
+            f"path {runs['k4'][2]} gives the same tokens and last-step "
+            f"logits; request 0: {runs['k3'][0][0]}")
+        # times: prefill, eager decode step, one profiled decode step
+        batch = {"tokens": left_padded(prompts)}
+        if cfg.family in ("encdec", "audio"):
+            batch.update(extra_inputs(cfg, 4))
+        s0 = batch["tokens"].shape[1]
+        with torch.inference_mode():
+            def prefill():
+                return transformer.prefill(base, batch, srv.cfg,
+                                           max_len=LM_MAX_LEN)
+
+            pre_ms = hp.walls(prefill, 2)
+            lg, caches = prefill()
+            tok = torch.argmax(lg, -1)[:, None]
+            pos = iter(range(s0, LM_MAX_LEN))
+
+            def step():
+                transformer.decode_step(base, caches, tok, next(pos),
+                                        srv.cfg)
+
+            step_ms = hp.walls(step, 3)
+            prof = profile_step(step, dec)
+            del caches
+        w_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(base["groups"])
+                      ) + base["head"]["w"].numel() * 2
+        rec.update(prefill_ms=pre_ms, decode_step_ms=step_ms,
+                   profile_decode_step=prof, step_weight_bytes=w_bytes,
+                   step_bound_ms=w_bytes / HBM_BYTES_PER_S * 1e3,
+                   tok_per_s=4 * LM_NEW / runs["k3"][3])
+        bk = prof["by_kernel"]
+        log(f"  batch 4, K1 + K3: prefill ({s0} tokens) {pre_ms:.1f} ms, "
+            f"eager decode step {step_ms:.1f} ms, generate({LM_NEW} new) "
+            f"{runs['k3'][3] * 1e3:.0f} ms = {rec['tok_per_s']:.1f} tok/s; "
+            f"one profiled decode step: wall {prof['wall_ms']:.1f} ms, busy "
+            f"{prof['device_ms']:.3f} ms over {prof['kernels']} kernels; K1 "
+            f"{bk['K1']['ms']:.3f} ms in {bk['K1']['launches']}, K3 "
+            f"{bk['K3']['ms']:.3f} ms in {bk['K3']['launches']}"
+            + (f", grouped K4 {bk['K4g']['ms']:.3f} ms in "
+               f"{bk['K4g']['launches']}" if bk["K4g"]["launches"] else "")
+            + f"; weight-byte bound {rec['step_bound_ms']:.3f} ms "
+            f"({w_bytes / 1e9:.2f} GB)")
+        if cfg.family == "vlm":
+            batch = {"tokens": left_padded(prompts), **extra_inputs(cfg, 4)}
+            ml = cfg.frontend_len + LM_MAX_LEN
+            fk = drive(base, srv.cfg, batch, FRONT_NEW, ml)
+            expect(arch, "frontend run", fk[2], cfg, FRONT_NEW)
+            check_out(arch, "frontend run", fk[0], fk[1], cfg, FRONT_NEW)
+            count(fk[2])
+            rec.update(frontend_tokens=fk[0], frontend_launches=fk[2],
+                       frontend_s=fk[3])
+            log(f"  with frontend_embeds (4, 256, 3200) before the "
+                f"prompts: prefill + {FRONT_NEW - 1} decode steps in "
+                f"{fk[3] * 1e3:.0f} ms, launches {fk[2]}; request 0: "
+                f"{fk[0][0]}")
+        if arch in ("qwen1.5-110b", "qwen3-moe-235b-a22b"):
+            engine_run(arch, cfg, base, dec, rec)
+        rec["peak_gb"] = (torch.cuda.max_memory_allocated() - held) / 1e9
+        log(f"  peak memory {rec['peak_gb']:.2f} GB above what was held "
+            "before")
+        del srv, base, runs
+        free()
+
+    def engine_run(arch, cfg, base, dec, rec):
+        """``ContinuousLMEngine`` on the CLI's mixed load, its decode step
+        one CUDA graph, held to the same engine stepping eagerly on the
+        same load (16 requests fill every slot before the first step)."""
+        eng = ContinuousLMEngine(cfg, base, batch_slots=4,
+                                 max_len=LM_MAX_LEN)
+        warm = eng.warmup()
+        st = eng.stats()
+        want = {k: dec[k] for k in ("K1", "K3", "K4", "K4g")}
+        if (not st["cuda_graph"] or st["compiles"]["decode"] != 1
+                or st["step_launches"] != want):
+            raise AssertionError(f"{arch} engine capture: {st}")
+        load = cli_load(cfg.vocab_size)
+        hp.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = eng.serve(copies(load))
+        load_s = time.perf_counter() - t0
+        c_load = hp.counts()
+        em = eng.engine_metrics()
+        want_load = {k: v * len(load) for k, v in dec.items()}
+        st = eng.stats()
+        if c_load != want_load or st["recompiles_after_warmup"] != 0:
+            raise AssertionError(f"{arch} engine load: launches {c_load} "
+                                 f"(want {want_load}), {st}")
+        for r in got:
+            if (len(r.out_tokens) != r.max_new_tokens
+                    or not all(0 <= v < cfg.vocab_size
+                               for v in r.out_tokens)):
+                raise AssertionError(f"{arch} engine output {r.out_tokens}")
+        ran = {k: c_load[k] + want[k] * em["decode_steps"] for k in want}
+        count({**ran, "K2": 0})
+        eager = ContinuousLMEngine(cfg, base, batch_slots=4,
+                                   max_len=LM_MAX_LEN)
+        eager._fresh_arena()
+        eager._graph = None                 # its steps run eagerly
+        e_out = eager.serve(copies(load))
+        for i, (r, e) in enumerate(zip(got, e_out)):
+            if r.out_tokens != e.out_tokens:
+                raise AssertionError(f"{arch} engine request {i}: the "
+                                     f"graphed engine parts from the eager "
+                                     f"one ({r.out_tokens} vs {e.out_tokens})")
+        del eager
+        replay_ms = hp.walls(eng._run_step, 10)
+        pr, wall = hp.profiled(eng._run_step)
+        busy, kern, by = 0.0, 0, {k: 0 for k in want}
+        for evt in pr.key_averages():
+            if evt.device_type != DeviceType.CUDA or hp.is_spin(evt.key):
+                continue
+            busy += evt.self_device_time_total / 1e3
+            kern += evt.count
+            kid = kernel_of(evt.key)
+            if kid is not None:
+                by[kid] += evt.count
+        if by != want:
+            raise AssertionError(f"{arch} replay: {by} launches by kernel "
+                                 f"name, {want} at capture")
+        n_tok = sum(len(r.out_tokens) for r in got)
+        rec["engine"] = {
+            "warmup_s": warm["seconds"], "capture_s": st["capture_seconds"],
+            "step_launches": st["step_launches"], "load_tokens": n_tok,
+            "load_s": load_s, "tok_per_s": n_tok / load_s,
+            "decode_steps": em["decode_steps"], "launches_run": ran,
+            "replay_ms": replay_ms, "replay_wall_ms": wall * 1e3,
+            "replay_busy_ms": busy, "replay_kernels": kern}
+        log(f"  ContinuousLMEngine (4 slots, max_len {LM_MAX_LEN}): warmup "
+            f"{warm['seconds']:.1f} s, decode step captured with "
+            f"{st['step_launches']}; the CLI's 16 requests, {n_tok} tokens "
+            f"in {load_s * 1e3:.0f} ms = {n_tok / load_s:.1f} tok/s over "
+            f"{em['decode_steps']} replayed steps, equal to the same engine "
+            f"stepping eagerly; a replay {replay_ms:.2f} ms, profiled: wall "
+            f"{wall * 1e3:.2f} ms, busy {busy:.3f} ms over {kern} kernels")
+        del eng
+        free()
+
+    for arch in FAMILY_DEPTH:
+        t_arch = time.perf_counter()
+        rec = {}
+        log(f"{arch}: the plain versions at every width, "
+            f"{PLAIN_DEPTH if arch != 'seamless-m4t-large-v2' else 24} "
+            f"layers")
+        plain_check(arch, get_arch(arch).full, rec)
+        serve_full(arch, rec)
+        rec["seconds"] = time.perf_counter() - t_arch
+        out[arch] = rec
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 16 in {out['seconds']:.1f} s; launches {out['launches']}")
     return out
 
 
@@ -3272,6 +3924,13 @@ def main() -> int:
         profiled=profiled, is_spin=is_spin, walls=walls, timer=timer))
     record["ssm_hybrid"] = ssm_rec
 
+    # ------------- 16. the reference's six remaining architectures, full width
+    fam_rec = families_phase(dev, types.SimpleNamespace(
+        counts=counts, reset_counts=reset_counts, check_equal=check_equal,
+        profiled=profiled, is_spin=is_spin, walls=walls, timer=timer))
+    record["families"] = fam_rec
+    fam_ran = fam_rec["launches"]
+
     def total(kid, key):
         vals = [r[key] for r in rows if r["kernel"] == kid]
         return None if any(v is None for v in vals) else sum(vals)
@@ -3294,7 +3953,8 @@ def main() -> int:
          "launches": (cnn_ran["K1"] + ran2["K1"] + lm_k3[2]["K1"]
                       + c_tiny["K1"] + ran_load["K1"] + lm_ran["K1"]
                       + ds_launches["K1"] + tc_launches["K1"]
-                      + tr["launches"]["K1"] + ssm_rec["launches"]["K1"]),
+                      + tr["launches"]["K1"] + ssm_rec["launches"]["K1"]
+                      + fam_ran["K1"]),
          "engine_launches_per_captured_step": rec["step_launches"]["K1"],
          "max_abs_err": max_err["K1"],
          "ms": total("K1", "ms") + lm_step("K1", "ms", 4),
@@ -3321,7 +3981,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/bitserial_matmul.py:380",
          "launches": (lm_k3[2]["K3"] + c_tiny["K3"] + ran_load["K3"]
                       + lm_ran["K3"] + ds_launches["K3"]
-                      + tr["launches"]["K3"] + ssm_rec["launches"]["K3"]),
+                      + tr["launches"]["K3"] + ssm_rec["launches"]["K3"]
+                      + fam_ran["K3"]),
          "engine_launches_per_captured_step": rec["step_launches"]["K3"],
          "max_abs_err": max_err["K3"],
          "ms": lm_step("K3", "ms", 4), "plain_ms": lm_step("K3", "plain_ms", 4),
@@ -3331,7 +3992,8 @@ def main() -> int:
          "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/bitserial_matmul.cu",
          "replaces": "src/repro/kernels/bitserial_matmul.py:171",
-         "launches": lm_k4[2]["K4"] + k4_run + ssm_rec["launches"]["K4"],
+         "launches": (lm_k4[2]["K4"] + k4_run + ssm_rec["launches"]["K4"]
+                      + fam_ran["K4"]),
          "engine_launches_per_captured_step": k4_step["K4"],
          "max_abs_err": max_err["K4"],
          "ms": lm_step("K4", "ms", 4), "plain_ms": lm_step("K4", "plain_ms", 4),
@@ -3344,7 +4006,7 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/grouped_matmul.cu",
          "replaces": "src/repro/models/moe.py:75 (_expert_matmul, XLA "
                      "serial_matmul_packed; no Pallas kernel)",
-         "launches": ds_launches["K4g"],
+         "launches": ds_launches["K4g"] + fam_ran["K4g"],
          "engine_launches_per_captured_step": ds["step_launches"]["K4g"],
          "max_abs_err": max_err["K4g"],
          "ms": ds["grouped_step_sums"]["ms"],

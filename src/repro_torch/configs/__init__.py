@@ -1,13 +1,13 @@
-"""Architecture registry. Importing this package registers the ported
-architectures (the dense LM stablelm-1.6b, the MLA + MoE LM
-deepseek-v2-lite-16b, the SSM mamba2-780m and the hybrid hymba-1.5b; the
-CNN is served by ``CNNServer`` directly)."""
+"""Architecture registry. Importing this package registers the reference's
+ten LM architectures (dense, MoE, SSM, hybrid, VLM and audio
+encoder-decoder; the CNN is served by ``CNNServer`` directly)."""
 
 from repro_torch.configs.base import (ARCH_REGISTRY, ArchEntry, get_arch,
                                       list_archs)
-from repro_torch.configs import deepseek_v2_lite_16b  # noqa: F401  (registers)
-from repro_torch.configs import hymba_1_5b  # noqa: F401  (registers)
-from repro_torch.configs import mamba2_780m  # noqa: F401  (registers)
-from repro_torch.configs import stablelm_1_6b  # noqa: F401  (registers)
+from repro_torch.configs import (command_r_plus_104b,  # noqa: F401 (registers)
+                                 deepseek_v2_lite_16b, hymba_1_5b,
+                                 internvl2_76b, mamba2_780m, nemotron_4_15b,
+                                 qwen1_5_110b, qwen3_moe_235b_a22b,
+                                 seamless_m4t_large_v2, stablelm_1_6b)
 
 __all__ = ["ARCH_REGISTRY", "ArchEntry", "get_arch", "list_archs"]

@@ -7,10 +7,16 @@ through the bit-serial kernels: with ``pack_acts`` (the default) every
 projection quantizes and packs its activations with K1 and multiplies with
 K3, otherwise it multiplies int32 codes with K4; an MoE stack's routed
 experts multiply int32 codes with grouped K4 (one launch for all experts
-of a projection) either way. Dense (stablelm-1.6b), MLA + MoE
-(deepseek-v2-lite-16b), SSM (mamba2-780m) and hybrid (hymba-1.5b) stacks
-are served by :class:`Server`; the continuous engine takes the dense and
-MoE ones.
+of a projection) either way. Dense (stablelm-1.6b, qwen1.5-110b with
+q/k/v biases, command-r-plus-104b, nemotron-4-15b with a squared-ReLU
+MLP), MoE (deepseek-v2-lite-16b with MLA, qwen3-moe-235b-a22b), SSM
+(mamba2-780m), hybrid (hymba-1.5b) and VLM (internvl2-76b, text-only
+through ``generate``, as the reference's) stacks are served by
+:class:`Server`; the continuous engine takes the dense and MoE ones. An
+encoder-decoder (seamless-m4t-large-v2) needs a source that ``generate``
+does not feed: :class:`Server` raises, and it is served by
+:func:`~repro_torch.models.transformer.prefill` and ``decode_step`` with
+``src_embeds``.
 
 Both paths serve through the serving runtime (:mod:`repro_torch.serving`),
 as the reference's do:
@@ -27,16 +33,18 @@ as the reference's do:
   :class:`~repro_torch.serving.ContinuousLMEngine` (K1 + K3, its decode
   step one CUDA graph on the card) as a callable and submits its mixed
   load of ``max(batch x 4, 8)`` requests through the same service; the
-  engine books the scheduler per decode step. An SSM or hybrid arch does
-  not fit the engine's slot arena: the CLI says so and serves ``batch``
-  8-token prompts through the static :class:`Server`, as the reference's
-  CLI does.
+  engine books the scheduler per decode step. An SSM, hybrid or VLM arch
+  does not fit the engine's slot arena: the CLI says so and serves
+  ``batch`` 8-token prompts through the static :class:`Server`, as the
+  reference's CLI does; for an encoder-decoder it exits with the reason.
 
     python -m repro_torch.launch.serve --arch stablelm-1.6b --batch 4 --new-tokens 16
     python -m repro_torch.launch.serve --arch stablelm-1.6b --device cpu --smoke [--no-pack-acts]
     python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b [--device cpu --smoke]
     python -m repro_torch.launch.serve --arch mamba2-780m [--device cpu --smoke]
     python -m repro_torch.launch.serve --arch hymba-1.5b [--device cpu --smoke]
+    python -m repro_torch.launch.serve --arch qwen1.5-110b --device cpu --smoke
+    python -m repro_torch.launch.serve --arch internvl2-76b --device cpu --smoke
     python -m repro_torch.launch.serve --arch resnet9-cifar10 --batch 32 [--trace-out trace.json]
     python -m repro_torch.launch.serve --arch resnet9-cifar10 --batch 4 --device cpu
     python -m repro_torch.launch.serve --arch resnet9-cifar10 --store DIR
@@ -205,7 +213,17 @@ class Server:
         """Serve a batch of prompts, left-padded with token 0 to the longest
         (no pad mask, as the reference). Tokens stay on the card until one
         host transfer at the end. ``last_logits`` keeps the last step's
-        (B, V) logits on the device."""
+        (B, V) logits on the device. A VLM is served text-only, as the
+        reference's ``generate`` feeds tokens alone; an encoder-decoder
+        raises ``ValueError`` (its encoder needs a source, which the
+        reference's ``generate`` does not feed either: it fails there with
+        a ``KeyError``)."""
+        if self.cfg.family in ("encdec", "audio"):
+            raise ValueError(
+                f"{self.cfg.name}: family {self.cfg.family!r} needs a source "
+                "for its encoder (src_embeds or src_tokens) and generate() "
+                "feeds tokens only; call transformer.prefill and decode_step "
+                "with src_embeds on server.params")
         if not requests:
             raise ValueError("generate() needs at least one request")
         if len(requests) > self.batch_slots:
@@ -598,11 +616,20 @@ def _main_profile(argv) -> None:
 
 def _main_static_lm(args, cfg: ModelConfig) -> None:
     """An arch the slot arena cannot take (SSM or hybrid state, rolling
-    windows) through the static :class:`Server`, as the reference's CLI
-    serves it: ``batch`` prompts of 8 tokens from ``RandomState(seed)``,
-    ``new_tokens`` each."""
+    windows, a VLM's frontend) through the static :class:`Server`, as the
+    reference's CLI serves it: ``batch`` prompts of 8 tokens from
+    ``RandomState(seed)``, ``new_tokens`` each. An encoder-decoder exits
+    with the reason: :meth:`Server.generate` feeds no source."""
+    if cfg.family in ("encdec", "audio"):
+        raise SystemExit(
+            f"{cfg.name}: family {cfg.family!r} is an encoder-decoder whose "
+            "encoder needs a source (src_embeds); Server.generate feeds "
+            "tokens only, so the CLI cannot serve it (the reference's CLI "
+            "fails there too). Drive repro_torch.models.transformer.prefill "
+            "and decode_step with src_embeds instead.")
     print(f"note: family={cfg.family!r} doesn't fit the continuous slot "
-          "arena (SSM/hybrid state, rolling windows, or encoder inputs) — "
+          "arena (SSM/hybrid state, rolling windows, or a frontend's "
+          "inputs) — "
           "serving via the static batch path")
     if args.trace_out or args.metrics_port is not None or args.metrics_every:
         print("note: --trace-out/--metrics-port/--metrics-every apply to "

@@ -74,8 +74,8 @@ class Trainer:
     """Supervised trainer wiring the runtime subsystems together.
 
     ``device=None`` means the card: it raises when there is none (pass
-    ``device="cpu"``). The SSM and hybrid families raise
-    ``NotImplementedError``: their training is not ported. Parameters are drawn from a ``torch.Generator``
+    ``device="cpu"``). The SSM, hybrid, VLM and encoder-decoder families
+    raise ``NotImplementedError``: their training is not ported. Parameters are drawn from a ``torch.Generator``
     seeded with ``seed`` on the device. With ``ckpt_dir`` the run is
     supervised (:class:`~repro_torch.runtime.fault_tolerance.TrainSupervisor`:
     a checkpoint every ``save_every`` steps and at the last, restore and
@@ -90,6 +90,12 @@ class Trainer:
                 f"{cfg.name}: training the SSM and hybrid families (the SSD "
                 "scan's backward under LSQ) is not ported; ROADMAP queue 1, "
                 "'Training the SSM and hybrid families'")
+        if cfg.family in ("vlm", "encdec", "audio"):
+            raise NotImplementedError(
+                f"{cfg.name}: training the VLM and encoder-decoder families "
+                "(frontend or source inputs in the data pipeline) is not "
+                "ported; ROADMAP queue 1, 'Training the VLM and audio "
+                "families'")
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             disable_tf32()

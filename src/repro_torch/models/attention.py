@@ -1,8 +1,9 @@
 """Multi-head / grouped-query attention and DeepSeek's multi-head latent
 attention (MLA), with a KV cache, over quantized projections.
 
-Counterpart of ``repro/models/attention.py``, restricted to the branches a
-decoder takes: causal, full or sliding-window, over an unquantized cache;
+Counterpart of ``repro/models/attention.py``: causal or not (an encoder),
+full or sliding-window, over an unquantized cache, with optional q/k/v
+biases and cross-attention over given K/V (an encoder-decoder's decoder);
 MLA's prefill takes the materialized path (no chunked kernel).
 ``cache_pos`` is a host int (every row of the batch at the same depth:
 the static :class:`~repro_torch.launch.serve.Server`) or a (B,) tensor on
@@ -59,6 +60,7 @@ class AttnConfig:
     n_heads: int
     n_kv_heads: int
     head_dim: int
+    qkv_bias: bool = False
     rope_theta: float = 10000.0
     partial_rotary: float = 1.0
     causal: bool = True
@@ -241,27 +243,40 @@ def read_kv_cache(cache: dict, dtype: Optional[torch.dtype] = None):
 
 def attn_init(gen: torch.Generator, cfg: AttnConfig, policy: QuantPolicy, *,
               lead: tuple = ()) -> dict:
+    """q/k/v/o projections; q, k and v with a zero bias when
+    ``cfg.qkv_bias``, as the reference draws them."""
     h, hkv, dh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
+    bias = cfg.qkv_bias
     return {
-        "wq": qdense_init(gen, d, h * dh, policy, lead=lead),
-        "wk": qdense_init(gen, d, hkv * dh, policy, lead=lead),
-        "wv": qdense_init(gen, d, hkv * dh, policy, lead=lead),
+        "wq": qdense_init(gen, d, h * dh, policy, bias=bias, lead=lead),
+        "wk": qdense_init(gen, d, hkv * dh, policy, bias=bias, lead=lead),
+        "wv": qdense_init(gen, d, hkv * dh, policy, bias=bias, lead=lead),
         "wo": qdense_init(gen, h * dh, d, policy, lead=lead),
     }
 
 
 def attn_apply(p: dict, x: torch.Tensor, cfg: AttnConfig,
                policy: QuantPolicy, *, positions=None,
-               cache: Optional[dict] = None, cache_pos=None):
+               cache: Optional[dict] = None, cache_pos=None,
+               cross_kv: Optional[tuple] = None):
     """Self-attention over (B, S, D). Returns ``(out, new_cache)``; with a
     cache, the new K/V are written at ``cache_pos`` (a host int, or a (B,)
     tensor of per-row positions) and the queries attend the whole cache
     under the causal (and window) mask. On a rolling cache a prefill
     attends its fresh K/V from position 0 under the causal and window
     masks, and a decode step the last ``min(cache_pos + 1, window)``
-    slots."""
+    slots.
+
+    ``cross_kv=(k, v)``, each (B, S_src, Hkv, D), makes it cross-attention
+    (an encoder-decoder's decoder): only q is projected, nothing is
+    rotated, no cache is written and no mask applies, as the reference."""
     b, s, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if cross_kv is not None:
+        q = qdense(p["wq"], x, policy).reshape(b, s, h, dh)
+        out = _sdpa_full(q, cross_kv[0], cross_kv[1], causal=False,
+                         q_offset=0, window=cfg.window)
+        return qdense(p["wo"], out.reshape(b, s, h * dh), policy), None
     q, k, v = qdense_shared([p["wq"], p["wk"], p["wv"]], x, policy)
     q = q.reshape(b, s, h, dh)
     k = k.reshape(b, s, hkv, dh)

@@ -40,7 +40,7 @@ from repro_torch.core.quant import (QuantSpec, init_alpha, lsq_fake_quant,
 from repro_torch.kernels import ops
 
 __all__ = ["QuantPolicy", "qdense_init", "qdense", "qdense_shared",
-           "pack_qdense", "rms_norm",
+           "pack_qdense", "pack_weight_codes", "rms_norm",
            "layer_norm", "rotary", "apply_rotary", "device_scalar"]
 
 
@@ -79,7 +79,8 @@ def qdense_init(gen: torch.Generator, k: int, n: int, policy: QuantPolicy, *,
     step sizes at their initial values, as the reference does."""
     std = scale if scale is not None else 1.0 / np.sqrt(k)
     dev = gen.device
-    p = {"w": torch.randn(lead + (k, n), generator=gen, device=dev) * std}
+    # scaled in place: a (152064, 8192) head is 5 GB in float32
+    p = {"w": torch.randn(lead + (k, n), generator=gen, device=dev).mul_(std)}
     if bias:
         p["b"] = torch.zeros(lead + (n,), device=dev)
     if policy.mode == "qat":
@@ -152,10 +153,24 @@ def qdense_shared(ps: Sequence[dict], x: torch.Tensor,
     return [qdense(p, x, policy) for p in ps]
 
 
-def _pack_matrix(codes: torch.Tensor, bits: int) -> torch.Tensor:
-    """(K, N) integer codes → (bits, ceil(K/32), N) int32 words."""
-    planes = bitops.pad_to(bitops.to_bitplanes(codes, bits), 32, axis=-2)
-    return bitops.pack_bitplanes(planes, axis=-2)
+#: columns of one matrix packed at a time at most ``PACK_ELEMS // K``: the
+#: packing's temporaries (int64 bit planes, 16 B a weight) stay near 1 GB
+#: at any width
+PACK_ELEMS = 1 << 24
+
+
+def pack_weight_codes(codes: torch.Tensor, bits: int) -> torch.Tensor:
+    """(K, N) integer weight codes → (bits, ceil(K/32), N) int32 words,
+    ``PACK_ELEMS // K`` columns at a time."""
+    k, n = codes.shape
+    out = torch.empty((bits, -(-k // 32), n), dtype=torch.int32,
+                      device=codes.device)
+    cols = max(1, PACK_ELEMS // k)
+    for c in range(0, n, cols):
+        planes = bitops.pad_to(
+            bitops.to_bitplanes(codes[:, c:c + cols], bits), 32, axis=-2)
+        out[..., c:c + cols] = bitops.pack_bitplanes(planes, axis=-2)
+    return out
 
 
 def pack_qdense(p: dict, policy: QuantPolicy) -> dict:
@@ -175,7 +190,8 @@ def pack_qdense(p: dict, policy: QuantPolicy) -> dict:
     flat_w = w.reshape((-1,) + tuple(w.shape[-2:]))
     flat_a = alpha_w.reshape((-1, 1, n))
     packed = torch.stack([
-        _pack_matrix(quantize_int(flat_w[i], flat_a[i], wspec), wspec.bits)
+        pack_weight_codes(quantize_int(flat_w[i], flat_a[i], wspec),
+                          wspec.bits)
         for i in range(flat_w.shape[0])])
     out = {
         "w_packed": packed.reshape(lead + tuple(packed.shape[1:])),

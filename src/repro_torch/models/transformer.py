@@ -1,20 +1,28 @@
-"""The decoder stacks of the model zoo: pre-norm attention (GQA or MLA)
-+ MLP or MoE blocks, Mamba-2 SSM blocks, and Hymba hybrid blocks, with
-every projection quant-aware.
+"""The stacks of the model zoo: pre-norm attention (GQA or MLA) + MLP or
+MoE blocks, Mamba-2 SSM blocks, Hymba hybrid blocks and an
+encoder-decoder's blocks with cross-attention, with every projection
+quant-aware.
 
-Counterpart of ``repro/models/transformer.py``: the dense, MoE, SSM and
-hybrid branches (GQA or MLA attention, full or sliding-window, SwiGLU MLPs
-and experts, a head of its own or tied to the embedding, no QKV bias; no
-encoder-decoder or frontend). Parameters are plain dicts in the
-reference's layout: a layer group carries every leaf with a leading
-``(L, ...)`` axis, and :func:`_run_groups` walks it with a Python loop
-where the reference runs ``lax.scan``. :func:`params_from_numpy` carries
-the reference's parameter pytree (float or packed) across.
+Counterpart of ``repro/models/transformer.py``, every family: dense, MoE,
+SSM, hybrid, ``encdec``/``audio`` (a non-causal encoder stack over
+``src_tokens`` or, through ``frontend_proj``, ``src_embeds``; a decoder
+whose blocks cross-attend its output) and ``vlm`` (projected
+``frontend_embeds`` put in front of the tokens). GQA or MLA attention,
+full or sliding-window, with or without q/k/v biases; SwiGLU, squared-ReLU
+(``relu2``) or GELU (``gelu``, the tanh approximation, JAX's default) MLPs;
+SwiGLU experts; a head of its own or tied to the embedding. Parameters are
+plain dicts in the reference's layout: a layer group carries every leaf
+with a leading ``(L, ...)`` axis, and :func:`_run_groups` walks it with a
+Python loop where the reference runs ``lax.scan``.
+:func:`params_from_numpy` carries the reference's parameter pytree (float
+or packed) across.
 
 Caches are stacked the same way and written in place: a KV cache by the
 attention itself, an SSM state (which the reference replaces each step)
-by :func:`_run_groups`, which copies a block's new state into its layer's
-slot.
+and a decoder's cross K/V (computed from the encoder's output at prefill)
+by :func:`_run_groups`, which copies a block's new tensor into its layer's
+slot. The cross buffers have the source's length, known at prefill, where
+:func:`prefill` allocates them.
 
 Training: :func:`loss_fn` is the reference's causal-LM loss. While
 autograd records, each layer runs under ``torch.utils.checkpoint`` when
@@ -47,7 +55,8 @@ from repro_torch.models.moe import MoEConfig, moe_apply, moe_init
 from repro_torch.models.ssm import (SSMConfig, init_ssm_cache, ssm_apply,
                                     ssm_decode_step, ssm_init)
 
-__all__ = ["ModelConfig", "GroupSpec", "layer_groups", "init_params",
+__all__ = ["ModelConfig", "GroupSpec", "layer_groups", "encoder_groups",
+           "init_params",
            "forward", "loss_fn", "prefill", "decode_step", "init_caches",
            "pack_params", "serve_policy", "params_from_numpy"]
 
@@ -55,7 +64,7 @@ __all__ = ["ModelConfig", "GroupSpec", "layer_groups", "init_params",
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # dense | moe | ssm | hybrid
+    family: str                     # dense|moe|ssm|hybrid|encdec|vlm|audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -63,7 +72,8 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 128
-    act: str = "swiglu"             # only 'swiglu' is ported
+    act: str = "swiglu"             # swiglu | relu2 | gelu
+    qkv_bias: bool = False
     rope_theta: float = 10000.0
     partial_rotary: float = 1.0
     norm_type: str = "rms"
@@ -90,6 +100,12 @@ class ModelConfig:
     ssm_chunk: int = 128
     window: Optional[int] = None
     global_attn_layers: Tuple[int, ...] = ()
+    # encoder-decoder
+    n_enc_layers: int = 0
+    # frontend stub (audio frames / vision patches): embeddings provided
+    frontend: Optional[str] = None
+    frontend_len: int = 0
+    frontend_dim: int = 0
     policy: QuantPolicy = QuantPolicy(mode="none")
     remat: bool = True
     remat_policy: str = "nothing"   # the only policy ported
@@ -99,11 +115,13 @@ class ModelConfig:
     def compute_dtype(self) -> torch.dtype:
         return torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
 
-    def attn_cfg(self, window: Optional[int] = None) -> AttnConfig:
+    def attn_cfg(self, window: Optional[int] = None,
+                 causal: bool = True) -> AttnConfig:
         return AttnConfig(
             d_model=self.d_model, n_heads=self.n_heads,
             n_kv_heads=self.n_kv_heads, head_dim=self.head_dim,
-            rope_theta=self.rope_theta, partial_rotary=self.partial_rotary,
+            qkv_bias=self.qkv_bias, rope_theta=self.rope_theta,
+            partial_rotary=self.partial_rotary, causal=causal,
             window=window, mla=self.mla, kv_lora=self.kv_lora,
             qk_nope_dim=self.qk_nope_dim, qk_rope_dim=self.qk_rope_dim,
             v_head_dim=self.v_head_dim)
@@ -127,18 +145,29 @@ class GroupSpec:
     n: int
     use_moe: bool = False
     window: Optional[int] = None
+    causal: bool = True
+    cross: bool = False  # decoder cross-attention (encoder-decoder)
+
+
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm", "audio")
+ACTS = ("swiglu", "relu2", "gelu")
+
+
+def _has_encoder(cfg: ModelConfig) -> bool:
+    return cfg.family in ("encdec", "audio")
 
 
 def layer_groups(cfg: ModelConfig) -> Tuple[GroupSpec, ...]:
-    """The stack as homogeneous groups: one group; (deepseek) the leading
-    dense layers and then the MoE layers; (hybrid) runs of sliding-window
-    layers split by single global-attention layers. Other families and MLP
-    activations are not ported."""
-    if (cfg.family not in ("dense", "moe", "ssm", "hybrid")
-            or cfg.act != "swiglu"):
+    """The (decoder) stack as homogeneous groups: one group; (deepseek)
+    the leading dense layers and then the MoE layers; (hybrid) runs of
+    sliding-window layers split by single global-attention layers. An
+    encoder-decoder's groups cross-attend (its encoder:
+    :func:`encoder_groups`). A family or MLP activation the reference does
+    not name raises."""
+    if cfg.family not in FAMILIES or cfg.act not in ACTS:
         raise NotImplementedError(f"family {cfg.family!r} with act "
-                                  f"{cfg.act!r} is not ported (dense, MoE, "
-                                  "SSM and hybrid, SwiGLU only)")
+                                  f"{cfg.act!r}: the families are "
+                                  f"{FAMILIES}, the activations {ACTS}")
     n_layers = cfg.n_layers
     if cfg.family == "ssm":
         return (GroupSpec("ssm", n_layers),)
@@ -157,11 +186,21 @@ def layer_groups(cfg: ModelConfig) -> Tuple[GroupSpec, ...]:
         return tuple(groups)
     kind = "mla" if cfg.mla else "attn"
     moe = cfg.n_experts > 0
+    cross = _has_encoder(cfg)
     if moe and cfg.n_dense_layers > 0:
-        return (GroupSpec(kind, cfg.n_dense_layers, use_moe=False),
+        return (GroupSpec(kind, cfg.n_dense_layers, use_moe=False,
+                          cross=cross),
                 GroupSpec(kind, n_layers - cfg.n_dense_layers,
-                          use_moe=True))
-    return (GroupSpec(kind, n_layers, use_moe=moe, window=cfg.window),)
+                          use_moe=True, cross=cross))
+    return (GroupSpec(kind, n_layers, use_moe=moe, window=cfg.window,
+                      cross=cross),)
+
+
+def encoder_groups(cfg: ModelConfig) -> Tuple[GroupSpec, ...]:
+    """An encoder-decoder's encoder: ``n_enc_layers`` (else ``n_layers``)
+    non-causal attention blocks, as the reference builds it."""
+    return (GroupSpec("attn", cfg.n_enc_layers or cfg.n_layers,
+                      causal=False),)
 
 
 def _hybrid_cfg(cfg: ModelConfig, spec: GroupSpec) -> HybridConfig:
@@ -187,15 +226,22 @@ def _block_init(gen: torch.Generator, cfg: ModelConfig,
     else:
         p["attn"] = attn_init(gen, cfg.attn_cfg(window=spec.window),
                               cfg.policy)
+    if spec.cross:
+        p["cross"] = attn_init(gen, cfg.attn_cfg(causal=False), cfg.policy)
+        p["norm_cross"] = torch.ones((d,), device=dev)
+        if cfg.norm_type == "layer":
+            p["norm_cross_b"] = torch.zeros((d,), device=dev)
     p["norm2"] = torch.ones((d,), device=dev)
     if cfg.norm_type == "layer":
         p["norm2_b"] = torch.zeros((d,), device=dev)
     if spec.use_moe:
         p["moe"] = moe_init(gen, cfg.moe_cfg(), cfg.policy)
     else:
+        # two matrices, and the gate for SwiGLU only
         p["mlp"] = {"w_up": qdense_init(gen, d, f, cfg.policy),
-                    "w_down": qdense_init(gen, f, d, cfg.policy),
-                    "w_gate": qdense_init(gen, d, f, cfg.policy)}
+                    "w_down": qdense_init(gen, f, d, cfg.policy)}
+        if cfg.act == "swiglu":
+            p["mlp"]["w_gate"] = qdense_init(gen, d, f, cfg.policy)
     return p
 
 
@@ -222,27 +268,42 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *,
     with ``packed`` each layer is packed (:func:`pack_params`) before it
     is stacked, so the float peak is one layer's — how a full-width MoE
     stack (26 x 64 experts) is made on one card. A config with
-    ``tie_embeddings`` has no ``head``: the embedding is the head."""
+    ``tie_embeddings`` has no ``head``: the embedding is the head. An
+    encoder-decoder adds ``enc`` (its stack and final norm), a frontend
+    ``frontend_proj`` (a float dense, mode ``none``, never packed)."""
     d, v, dev = cfg.d_model, cfg.vocab_size, gen.device
     params = {
         "embed": torch.randn((v, d), generator=gen, device=dev) * 0.02,
         "final_norm": torch.ones((d,), device=dev),
-        "groups": [],
+        "groups": [_draw_stack(gen, cfg, spec, packed)
+                   for spec in layer_groups(cfg)],
     }
-    for spec in layer_groups(cfg):
-        stack = None
-        for i in range(spec.n):
-            layer = _block_init(gen, cfg, spec)
-            if packed:
-                layer = _pack_tree(layer, cfg.policy)
-            stack = _stack_into(stack, layer, i, spec.n)
-            del layer
-        params["groups"].append(stack)
     if cfg.norm_type == "layer":
         params["final_norm_b"] = torch.zeros((d,), device=dev)
     if not cfg.tie_embeddings:
         params["head"] = qdense_init(gen, d, v, QuantPolicy(mode="none"))
+    if _has_encoder(cfg):
+        params["enc"] = {
+            "groups": [_draw_stack(gen, cfg, spec, packed)
+                       for spec in encoder_groups(cfg)],
+            "final_norm": torch.ones((d,), device=dev)}
+    if cfg.frontend is not None:
+        params["frontend_proj"] = qdense_init(gen, cfg.frontend_dim or d, d,
+                                              QuantPolicy(mode="none"))
     return params
+
+
+def _draw_stack(gen: torch.Generator, cfg: ModelConfig, spec: GroupSpec,
+                packed: bool) -> dict:
+    """One group's (n, ...) stack, drawn (and packed) a layer at a time."""
+    stack = None
+    for i in range(spec.n):
+        layer = _block_init(gen, cfg, spec)
+        if packed:
+            layer = _pack_tree(layer, cfg.policy)
+        stack = _stack_into(stack, layer, i, spec.n)
+        del layer
+    return stack
 
 
 def params_from_numpy(tree, device=None):
@@ -268,17 +329,50 @@ def _norm(x, w, b, cfg: ModelConfig):
 
 
 def _mlp_apply(p, x, cfg: ModelConfig):
-    gate, up = qdense_shared([p["w_gate"], p["w_up"]], x, cfg.policy)
-    h = F.silu(gate) * up
+    """SwiGLU (gate and up share one quantize-pack), the squared ReLU
+    ``max(up, 0)**2`` or GELU's tanh approximation (``jax.nn.gelu``'s
+    default; torch's default is the erf form). ``h`` is quantized under
+    ``cfg.policy`` whatever its sign, as the reference does."""
+    if cfg.act == "swiglu":
+        gate, up = qdense_shared([p["w_gate"], p["w_up"]], x, cfg.policy)
+        h = F.silu(gate) * up
+    else:
+        up = qdense(p["w_up"], x, cfg.policy)
+        if cfg.act == "relu2":
+            r = torch.clamp_min(up, 0)
+            h = r * r
+        else:
+            h = F.gelu(up, approximate="tanh")
     return qdense(p["w_down"], h, cfg.policy)
 
 
+def _cross_apply(p, x, cache, enc_out, cfg: ModelConfig):
+    """The decoder's cross-attention residual branch. Its K/V come from
+    ``enc_out`` (one quantize-pack for both) when given, else from the
+    cache (a decode step). Returns ``(out, ck, cv)``."""
+    hx = _norm(x, p["norm_cross"], p.get("norm_cross_b"), cfg)
+    acx = cfg.attn_cfg(causal=False)
+    if enc_out is None:
+        ck, cv = cache["cross_k"], cache["cross_v"]
+    else:
+        b, s_src = enc_out.shape[:2]
+        ck, cv = (t.reshape(b, s_src, acx.n_kv_heads, acx.head_dim)
+                  for t in qdense_shared([p["cross"]["wk"],
+                                          p["cross"]["wv"]], enc_out,
+                                         cfg.policy))
+    out, _ = attn_apply(p["cross"], hx, acx, cfg.policy, cross_kv=(ck, cv))
+    return out, ck, cv
+
+
 def _block_apply(p, x, cfg: ModelConfig, spec: GroupSpec, *, positions,
-                 cache=None, cache_pos=None, aux=None, decode=False):
+                 cache=None, cache_pos=None, enc_out=None, aux=None,
+                 decode=False):
     """One pre-norm block. Returns ``(x, new_cache)``; an MoE block
     appends its ``lb_loss`` and ``drop_frac`` to ``aux``'s lists when
     ``aux`` is a dict. ``decode`` steps an SSM (or a hybrid's SSM branch)
-    one token over its state."""
+    one token over its state. A cross-attending block's cache is
+    ``{"self", "cross_k", "cross_v"}``; its K/V come from ``enc_out``
+    when given (prefill, or no cache), else from that cache."""
     h = _norm(x, p["norm1"], p.get("norm1_b"), cfg)
     if spec.kind == "ssm":
         if decode:
@@ -298,10 +392,18 @@ def _block_apply(p, x, cfg: ModelConfig, spec: GroupSpec, *, positions,
                                positions=positions, cache=cache,
                                cache_pos=cache_pos)
     else:
+        self_cache = cache["self"] if (cache is not None
+                                       and spec.cross) else cache
         out, new_c = attn_apply(p["attn"], h,
-                                cfg.attn_cfg(window=spec.window), cfg.policy,
-                                positions=positions, cache=cache,
-                                cache_pos=cache_pos)
+                                cfg.attn_cfg(window=spec.window,
+                                             causal=spec.causal),
+                                cfg.policy, positions=positions,
+                                cache=self_cache, cache_pos=cache_pos)
+        if spec.cross:
+            x = x + out
+            out, ck, cv = _cross_apply(p, x, cache, enc_out, cfg)
+            if cache is not None:
+                new_c = {"self": new_c, "cross_k": ck, "cross_v": cv}
     x = x + out
     hm = _norm(x, p["norm2"], p.get("norm2_b"), cfg)
     if spec.use_moe:
@@ -324,13 +426,14 @@ def _unstack(tree, n: int) -> list:
 
 
 def _remat_block(p, x, cfg: ModelConfig, spec: GroupSpec, *, positions,
-                 aux=None):
+                 enc_out=None, aux=None):
     """:func:`_block_apply` without a cache under activation
     checkpointing; the MoE statistics leave as outputs, since the body
     runs again in the backward."""
     def body(xi):
         own = {}
-        y, _ = _block_apply(p, xi, cfg, spec, positions=positions, aux=own)
+        y, _ = _block_apply(p, xi, cfg, spec, positions=positions,
+                            enc_out=enc_out, aux=own)
         return (y,) + tuple(own[k][0] for k in ("lb_loss", "drop_frac")
                             if k in own)
 
@@ -375,24 +478,26 @@ def _advance_len(gcache: dict, new: dict) -> None:
 
 
 def _run_groups(groups_params, x, cfg: ModelConfig, specs, *, positions,
-                caches=None, cache_pos=None, aux=None, decode=False):
+                caches=None, cache_pos=None, enc_out=None, aux=None,
+                decode=False):
     """Run each group's layers in order; returns ``(x, caches)``. The
-    caches are written in place; ``aux`` (a dict) collects the MoE
-    layers' statistics; ``decode`` steps SSM state one token. Without
-    caches, while autograd records and with ``cfg.remat``, every layer is
-    checkpointed."""
+    caches are written in place; ``enc_out`` feeds cross-attention;
+    ``aux`` (a dict) collects the MoE layers' statistics; ``decode`` steps
+    SSM state one token. Without caches, while autograd records and with
+    ``cfg.remat``, every layer is checkpointed."""
     remat = cfg.remat and caches is None and torch.is_grad_enabled()
     for gi, (gp, spec) in enumerate(zip(groups_params, specs)):
         gcache = caches[gi] if caches is not None else None
         for i, lp in enumerate(_unstack(gp, spec.n)):
             if remat:
                 x = _remat_block(lp, x, cfg, spec, positions=positions,
-                                 aux=aux)
+                                 enc_out=enc_out, aux=aux)
                 continue
             cl = _layer_cache(gcache, i) if gcache is not None else None
             x, nc = _block_apply(lp, x, cfg, spec,
                                  positions=positions, cache=cl,
-                                 cache_pos=cache_pos, aux=aux, decode=decode)
+                                 cache_pos=cache_pos, enc_out=enc_out,
+                                 aux=aux, decode=decode)
             if gcache is not None:
                 _store_layer_cache(gcache, i, cl, nc)
         if gcache is not None:
@@ -406,13 +511,39 @@ def _stack_aux(aux: dict) -> dict:
 
 
 def _embed_inputs(params, batch, cfg: ModelConfig):
-    """Token embedding; returns ``(x, positions)``. ``F.embedding``, not
-    indexing: its backward sums a repeated token's rows in a fixed order,
-    where the backward of indexing (``index_put_`` with accumulate) adds
-    them in a varying order on the CPU, so training would not repeat."""
-    x = F.embedding(batch["tokens"], params["embed"]).to(cfg.compute_dtype)
+    """Token embedding, after the projected ``frontend_embeds`` when the
+    config has a frontend and the batch holds them; returns ``(x,
+    positions)``, the positions over both. ``F.embedding``, not indexing:
+    its backward sums a repeated token's rows in a fixed order, where the
+    backward of indexing (``index_put_`` with accumulate) adds them in a
+    varying order on the CPU, so training would not repeat."""
+    dt = cfg.compute_dtype
+    x = F.embedding(batch["tokens"], params["embed"]).to(dt)
+    if cfg.frontend is not None and "frontend_embeds" in batch:
+        fe = qdense(params["frontend_proj"],
+                    batch["frontend_embeds"].to(dt), QuantPolicy(mode="none"))
+        x = torch.cat([fe, x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     return x, positions
+
+
+def _encode(params, batch, cfg: ModelConfig):
+    """An encoder-decoder's encoder output (B, S_src, D), else None: the
+    source (``src_embeds`` through ``frontend_proj``, else ``src_tokens``
+    through the embedding) through the non-causal encoder stack, then
+    ``rms_norm`` whatever ``norm_type`` is, as the reference."""
+    if not _has_encoder(cfg):
+        return None
+    dt = cfg.compute_dtype
+    if "src_embeds" in batch:
+        src = qdense(params["frontend_proj"], batch["src_embeds"].to(dt),
+                     QuantPolicy(mode="none"))
+    else:
+        src = F.embedding(batch["src_tokens"], params["embed"]).to(dt)
+    pos = torch.arange(src.shape[1], device=src.device)[None, :]
+    enc, _ = _run_groups(params["enc"]["groups"], src, cfg,
+                         encoder_groups(cfg), positions=pos)
+    return rms_norm(enc, params["enc"]["final_norm"], cfg.norm_eps)
 
 
 def _logits(params, x, cfg: ModelConfig):
@@ -427,13 +558,16 @@ def _logits(params, x, cfg: ModelConfig):
 
 
 def forward(params, batch, cfg: ModelConfig):
-    """Full forward to logits; ``batch``: ``{"tokens": (B, S)}``. Returns
-    ``(logits, aux)``: a dense stack's ``aux`` is empty; an MoE stack's
-    holds ``lb_loss``, summed over its MoE layers, as the reference's."""
+    """Full forward to logits; ``batch``: ``{"tokens": (B, S)}``, plus
+    ``frontend_embeds`` (a VLM) or ``src_embeds``/``src_tokens`` (an
+    encoder-decoder). Returns ``(logits, aux)``: a dense stack's ``aux``
+    is empty; an MoE stack's holds ``lb_loss``, summed over its MoE
+    layers, as the reference's."""
+    enc_out = _encode(params, batch, cfg)
     x, positions = _embed_inputs(params, batch, cfg)
     aux = {}
     x, _ = _run_groups(params["groups"], x, cfg, layer_groups(cfg),
-                       positions=positions, aux=aux)
+                       positions=positions, enc_out=enc_out, aux=aux)
     aux = {"lb_loss": _stack_aux(aux)["lb_loss"].sum()} if aux else {}
     return _logits(params, x, cfg), aux
 
@@ -448,6 +582,9 @@ def loss_fn(params, batch, cfg: ModelConfig):
     the card."""
     logits, aux = forward(params, batch, cfg)
     labels = batch["labels"]
+    # frontend tokens carry no labels: the logits cut to the labels' length
+    if logits.shape[1] != labels.shape[1]:
+        logits = logits[:, -labels.shape[1]:]
     lg = logits.to(torch.float32)
     lse = torch.logsumexp(lg, dim=-1)
     gold = torch.gather(lg, -1, labels.clamp(min=0)[..., None].long())[..., 0]
@@ -469,12 +606,15 @@ def _stack_cache(c: dict, n: int) -> dict:
             for k, v in c.items()}
 
 
-def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None):
+def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None,
+                src_len: int = 0):
     """One stacked cache per group, ``len`` 0: GQA ``k``/``v`` (L, B, T,
     Hkv, D) (T = the window for a rolling cache), MLA's latent ``c`` (L,
     B, T, kv_lora) and ``k_rope`` (L, B, T, qk_rope_dim), an SSM's state
     ``h`` (L, B, H, N, P) and ``conv``, or a hybrid's ``{"attn", "ssm"}``
-    of both. The continuous engine's slot arena is one such list."""
+    of both; a cross-attending group's ``{"self", "cross_k", "cross_v"}``,
+    the cross buffers (L, B, max(src_len, 1), Hkv, D). The continuous
+    engine's slot arena is one such list."""
     caches = []
     dt = cfg.compute_dtype
     for spec in layer_groups(cfg):
@@ -489,6 +629,12 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None):
         else:
             c = init_kv_cache(batch, max_len, cfg.n_kv_heads, cfg.head_dim,
                               dtype=dt, device=device, window=spec.window)
+            if spec.cross:
+                shape = (batch, max(src_len, 1), cfg.n_kv_heads,
+                         cfg.head_dim)
+                c = {"self": c,
+                     "cross_k": torch.zeros(shape, dtype=dt, device=device),
+                     "cross_v": torch.zeros(shape, dtype=dt, device=device)}
         caches.append(_stack_cache(c, spec.n))
     return caches
 
@@ -499,11 +645,16 @@ def prefill(params, batch, cfg: ModelConfig, max_len: int, last_pos=None):
     ``last_pos`` (a (B,) tensor), of row b's position ``last_pos[b]`` — the
     last real token of a right-padded prompt. Under the causal mask the
     positions up to it compute as an unpadded prompt's do (an MoE layer's
-    capacity still counts the pads: the reference's dispatch)."""
+    capacity still counts the pads: the reference's dispatch). ``batch``
+    holds what :func:`forward` takes; an encoder-decoder's cross K/V are
+    computed here, into buffers of the source's length."""
+    enc_out = _encode(params, batch, cfg)
     x, positions = _embed_inputs(params, batch, cfg)
-    caches = init_caches(cfg, x.shape[0], max_len, device=x.device)
+    caches = init_caches(cfg, x.shape[0], max_len, device=x.device,
+                         src_len=0 if enc_out is None else enc_out.shape[1])
     x, caches = _run_groups(params["groups"], x, cfg, layer_groups(cfg),
-                            positions=positions, caches=caches, cache_pos=0)
+                            positions=positions, caches=caches, cache_pos=0,
+                            enc_out=enc_out)
     if last_pos is not None:
         x = x[torch.arange(x.shape[0], device=x.device), last_pos][:, None]
     else:
@@ -571,9 +722,12 @@ def _pack_tree(p, policy: QuantPolicy, name: str = ""):
 
 def pack_params(params, cfg: ModelConfig):
     """Export float params to the deployment form: every quantized dense
-    of the layer groups becomes bit-transposed packed planes (the routed
-    experts' (E, K, N) weights per expert), MLA's ``w_uk``/``w_uv`` stay
-    float. Packed params pass through unchanged."""
+    of the layer groups (and of an encoder) becomes bit-transposed packed
+    planes (the routed experts' (E, K, N) weights per expert), MLA's
+    ``w_uk``/``w_uv`` stay float, as do the head and ``frontend_proj``.
+    Packed params pass through unchanged."""
     packed = dict(params)
     packed["groups"] = [_pack_tree(g, cfg.policy) for g in params["groups"]]
+    if "enc" in params:
+        packed["enc"] = _pack_tree(params["enc"], cfg.policy)
     return packed

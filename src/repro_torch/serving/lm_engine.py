@@ -81,18 +81,16 @@ __all__ = ["ContinuousLMEngine", "supports_continuous", "decode_cost_stream"]
 
 
 def supports_continuous(cfg: ModelConfig) -> bool:
-    """Can the port run this arch's slot-arena decode loop? Dense and MoE
-    SwiGLU stacks (GQA or MLA) with full causal attention qualify, as in
-    the reference; SSM/hybrid state, sliding-window caches and encoder
-    inputs do not slot-insert in either."""
+    """Can this arch run the slot-arena decode loop? Dense and MoE stacks
+    (GQA or MLA, any MLP activation) with full causal attention qualify,
+    as in the reference; SSM/hybrid state, sliding-window caches and a
+    frontend's or an encoder's second input stream do not slot-insert in
+    either."""
     if getattr(cfg, "family", None) not in ("dense", "moe"):
         return False
-    if getattr(cfg, "act", None) != "swiglu":
+    if cfg.frontend is not None or cfg.global_attn_layers:
         return False
-    if (getattr(cfg, "frontend", None) is not None
-            or getattr(cfg, "global_attn_layers", None)):
-        return False
-    return getattr(cfg, "window", None) is None
+    return all(s.window is None for s in layer_groups(cfg))
 
 
 def decode_cost_stream(cfg: ModelConfig):

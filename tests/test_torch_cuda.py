@@ -887,3 +887,135 @@ def test_float_engine_graph_equals_its_eager_step(dev):
     cpu = ContinuousLMEngine(cfg, _to(eng.params, "cpu"), quantized=False,
                              batch_slots=3, max_len=32, device="cpu")
     assert [r.out_tokens for r in cpu.serve(_engine_load(1))] == got
+
+
+# ---------------------------------- the six remaining architectures' shapes
+
+# (K, N) of qwen1.5-110b's MLP and biased q and k/v, command-r-plus-104b's
+# and nemotron-4-15b's MLPs and seamless-m4t-large-v2's
+FAMILY_GEMMS = [(8192, 49152), (49152, 8192), (8192, 8192), (8192, 1024),
+                (12288, 33792), (33792, 12288), (6144, 24576), (24576, 6144),
+                (1024, 8192), (8192, 1024)]
+
+
+def _packed_codes(gen, spec, k, n, dev):
+    """Random (K, N) weight codes, packed."""
+    from repro_torch.models.layers import pack_weight_codes
+    lo, hi = qrange(spec.w_bits, spec.w_signed)
+    return pack_weight_codes(torch.randint(lo, hi + 1, (k, n), generator=gen,
+                                           device=dev, dtype=torch.int32),
+                             spec.w_bits)
+
+
+@pytest.mark.parametrize("k,n", FAMILY_GEMMS)
+def test_gemm_kernels_equal_plain_with_a_bias_at_family_shapes(dev, k, n):
+    """K3 and K4 at W4A8 with a nonzero bias (the epilogue's FMA) at the
+    new models' shapes, decode (M = 4) and prefill (M = 64): exact. At K =
+    49152 the int32 sums reach 127 x 8 x 49152, under 2^31."""
+    from repro_torch.kernels import bitserial_matmul as km
+    spec = SerialSpec(8, 4, True, True, 8)
+    gen = torch.Generator(device=dev).manual_seed(k + n)
+    wp = _packed_codes(gen, spec, k, n, dev)
+    scale = torch.rand(n, generator=gen, device=dev) * 2e-3 + 1e-4
+    bias = torch.randn(n, generator=gen, device=dev) * 0.1
+    lo, hi = qrange(spec.a_bits, spec.a_signed)
+    for m in (4, 64):
+        xc = torch.randint(lo, hi + 1, (m, k), generator=gen, device=dev,
+                           dtype=torch.int32)
+        if m == 4:
+            xc[0] = hi                       # the largest sums
+        xp = k1.pack_codes_ref(xc, spec.a_bits)
+        got = km.bitserial_matmul_v2_cuda(xp, wp, scale, bias, spec=spec,
+                                          k=k)
+        assert torch.equal(got, km.bitserial_matmul_v2_ref(
+            xp, wp, scale, bias, spec=spec, k=k)), m
+        got = km.bitserial_matmul_cuda(xc, wp, scale, bias, spec=spec, k=k)
+        assert torch.equal(got, km.bitserial_matmul_ref(
+            xc, wp, scale, bias, spec=spec, k=k)), m
+
+
+@pytest.mark.parametrize("c", [1, 5])
+@pytest.mark.parametrize("k,n", [(4096, 1536), (1536, 4096)])
+def test_grouped_code_gemm_at_qwen3_moe_experts(dev, k, n, c):
+    """Grouped K4 at qwen3-moe-235b-a22b's 128 experts (C = 1 at a batch-4
+    decode step, 5 at a 64-token prefill), every expert's rows nonzero and
+    two experts in three empty: exact."""
+    from repro_torch.kernels import bitserial_matmul as km
+    spec = SerialSpec(8, 4, True, True, 8)
+    gen = torch.Generator(device=dev).manual_seed(k * c)
+    wp = torch.stack([_packed_codes(gen, spec, k, n, dev)
+                      for _ in range(128)])
+    lo, hi = qrange(spec.a_bits, spec.a_signed)
+    x = torch.randint(lo, hi + 1, (128, c, k), generator=gen, device=dev,
+                      dtype=torch.int32)
+    for xx in (x, x * (torch.arange(128, device=dev) % 3 == 1)[:, None,
+                                                                None]):
+        got = km.bitserial_matmul_grouped_cuda(xx.contiguous(), wp,
+                                               spec=spec, k=k)
+        assert torch.equal(got, km.bitserial_matmul_grouped_ref(
+            xx.contiguous(), wp, spec=spec, k=k))
+
+
+def _seeded_biases(tree, gen):
+    if isinstance(tree, dict):
+        for key, v in tree.items():
+            if key == "b" and torch.is_tensor(v):
+                v.copy_(torch.randn(v.shape, generator=gen,
+                                    device=v.device) * 0.1)
+            else:
+                _seeded_biases(v, gen)
+    elif isinstance(tree, list):
+        for v in tree:
+            _seeded_biases(v, gen)
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-110b", "nemotron-4-15b",
+                                  "qwen3-moe-235b-a22b"])
+def test_graphed_engine_on_new_families_equals_cpu_engine(dev, arch):
+    """The smoke config's engine on the card (nonzero q/k/v biases for
+    qwen1.5, a squared-ReLU MLP, 8 experts without a shared one) gives the
+    CPU plain engine's tokens."""
+    from repro_torch.configs import get_arch
+    from repro_torch.serving import ContinuousLMEngine
+    cfg = get_arch(arch).smoke
+    gpu = ContinuousLMEngine(cfg, batch_slots=3, max_len=32, seed=0)
+    _seeded_biases(gpu.params, torch.Generator(device=dev).manual_seed(3))
+    cpu = ContinuousLMEngine(cfg, _to(gpu.params, "cpu"), batch_slots=3,
+                             max_len=32, device="cpu")
+    gpu.warmup()
+    got = [r.out_tokens for r in gpu.serve(_engine_load(2))]
+    assert got == [r.out_tokens for r in cpu.serve(_engine_load(2))]
+    assert gpu.stats()["cuda_graph"]
+
+
+@pytest.mark.parametrize("arch", ["internvl2-76b", "seamless-m4t-large-v2"])
+def test_frontend_prefill_and_decode_on_the_card_equal_cpu(dev, arch):
+    """The VLM with its patch embeddings and the encoder-decoder with its
+    source frames, at the smoke config: prefill and three greedy decode
+    steps through the kernels give the CPU plain run's tokens."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tt
+    cfg = tt.serve_policy(get_arch(arch).smoke, pack_acts=True)
+    params = tt.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                            packed=True)
+    rng = np.random.default_rng(4)
+    toks = rng.integers(0, cfg.vocab_size, (3, 6)).astype(np.int64)
+    extra = (("frontend_embeds", (3, cfg.frontend_len, cfg.frontend_dim))
+             if cfg.family == "vlm" else ("src_embeds", (3, 5,
+                                                         cfg.frontend_dim)))
+    emb = rng.standard_normal(extra[1]).astype(np.float32)
+    s0 = 6 + (cfg.frontend_len if cfg.family == "vlm" else 0)
+
+    def run(p, device):
+        batch = {"tokens": torch.from_numpy(toks).to(device),
+                 extra[0]: torch.from_numpy(emb).to(device)}
+        out = []
+        with torch.inference_mode():
+            lg, c = tt.prefill(p, batch, cfg, max_len=s0 + 4)
+            for t in range(3):
+                tok = torch.argmax(lg, -1)[:, None]
+                out.append(tok.cpu())
+                lg, c = tt.decode_step(p, c, tok, s0 + t, cfg)
+        return torch.cat(out, 1)
+
+    assert torch.equal(run(params, dev), run(_to(params, "cpu"), "cpu"))

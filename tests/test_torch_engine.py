@@ -250,18 +250,21 @@ def test_engine_zero_and_one_token(engines):
 
 
 def test_engine_rejects_what_the_port_cannot_host(smoke, monkeypatch):
-    """Families and activations the port has not got take the reference's
-    "static Server path" error, not ``layer_groups``'
-    NotImplementedError; float params are served; a missing card raises
+    """Families the slot arena cannot host (SSM/hybrid state, a frontend's
+    or an encoder's second input) take the reference's "static Server
+    path" error; a dense stack qualifies whatever its MLP activation, as
+    in the reference; float params are served; a missing card raises
     instead of running on the CPU."""
     _, tcfg, _ = smoke
     for cfg in (dataclasses.replace(tcfg, family="ssm"),
                 dataclasses.replace(tcfg, family="hybrid"),
-                dataclasses.replace(tcfg, act="gelu")):
+                get_arch("internvl2-76b").smoke,
+                get_arch("seamless-m4t-large-v2").smoke):
         assert not supports_continuous(cfg)
         with pytest.raises(ValueError, match="static Server path"):
             ContinuousLMEngine(cfg, batch_slots=2, max_len=16, device="cpu")
     assert supports_continuous(tcfg)
+    assert supports_continuous(dataclasses.replace(tcfg, act="gelu"))
     assert supports_continuous(get_arch("deepseek-v2-lite-16b").smoke)
     # float params are served (LSQ fake-quant forward), not refused; their
     # tokens are held against the reference in tests/test_torch_train.py
