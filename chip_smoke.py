@@ -256,6 +256,32 @@ Phases (any failure exits non-zero and prints no result):
     counts) against its weight-byte bound, tokens/s, the engine's replay
     (wall, busy).
 
+17. the long-context cells (:func:`longctx_phase`), each through
+    ``launch/dryrun.py``'s ``run_cell(..., run=True)``, every width as
+    published, random weights from seed 0: (a) every (architecture x
+    shape) cell of the ten accounted on the meta device (decode cells with
+    a bf16 and an int8 cache), a table of bytes, bytes per row and rows
+    that fit; (b) ``chunked_attention`` against ``_sdpa_full`` on the
+    card at 1 x 4,096 x 32 heads x 64 in float32, within rtol 1e-4 / atol
+    1e-5; (c) stablelm-1.6b ``prefill_32k`` at batch 1 (32,768 tokens,
+    chunked): at 2 layers the kernels' last-position tokens and logits
+    equal the plain versions', then 24 layers, 96 K1 + 168 K3 at M =
+    32,768; (d) ``decode_32k``: ``Server(batch_slots=4, max_len=32768)``
+    on phase 8's four requests with a bf16 and an int8 cache (96 K1 + 168
+    K3 per step, one step profiled, the int8 tokens' agreement with bf16
+    reported, not held), and ``ContinuousLMEngine`` on an int8 cache with
+    a chunked prefill, its captured graph's tokens equal to its eager
+    steps'; (e) ``train_4k``: one step at 1 x 4,096, chunked under remat,
+    the loss finite and every leaf moved, peak memory; (f)
+    deepseek-v2-lite-16b ``prefill_32k``: grouped K4 at C = 3,840 rows
+    per expert against its plain version, ``torch.equal``, timed beside
+    its bound, the kernels against the plain versions at 2 layers, then
+    27 layers (108 K1, 162 K3, 78 grouped K4); (g) hymba-1.5b
+    ``long_500k``: ``Server(batch_slots=1, max_len=524288)`` with a bf16
+    and an int8 cache (3 global layers of 524,288 slots, 29 rolling of
+    1,024), each held to the plain versions at 2 layers, then 32 layers,
+    192 K1 + 288 K3 per step.
+
 The ``kernels`` JSON line gives, per kernel, its launches on the main
 paths (the bucketed runners' forwards and the engine's loads included:
 wrapper counts plus each captured graph's launches times the replays run,
@@ -266,8 +292,9 @@ launches per decode step and per prefill; K1, K3 and K4 add the engine's
 launches per captured decode step, as its ``stats()`` reports them. K1's
 and K3's launches include deepseek-v2-lite's (phase 12: ``Server``, the
 engine's load and the service's), phase 14's (the packed evaluation
-and the trained weights' ``Server``) and phase 15's and 16's (the
-families' runs; K4's and grouped K4's too); K1's and K2's include phase 13's
+and the trained weights' ``Server``), phase 15's and 16's (the
+families' runs; K4's and grouped K4's too) and phase 17's (the long-context
+cells; grouped K4's too); K1's and K2's include phase 13's
 (the warm-booted graphs' replays and the profiler's calls); the grouped
 K4 entry gives its launches there and its times summed over one deepseek
 decode step.
@@ -1677,6 +1704,410 @@ def families_phase(dev, hp):
         out[arch] = rec
     out["seconds"] = time.perf_counter() - t_phase
     log(f"  phase 16 in {out['seconds']:.1f} s; launches {out['launches']}")
+    return out
+
+
+# phase 17: the long-context cells of launch/dryrun.py on the card
+LONG_ARCH = "stablelm-1.6b"
+CHUNK_CHECK_LEN = 4096   # tokens at which chunked is held to materialized
+# tests/test_models_consistency.py's tolerance for chunked vs materialized
+CHUNK_TOL = {"rtol": 1e-4, "atol": 1e-5}
+LONG_NEW = 8             # new tokens of the 500k-slot runs
+# kernel launches of one prefill or decode step per layer: (K1, K3, and
+# grouped K4 per MoE layer)
+LAYER_LAUNCHES = {"stablelm-1.6b": (4, 7, 0),
+                  "deepseek-v2-lite-16b": (4, 6, 3),
+                  "hymba-1.5b": (6, 9, 0)}
+GROUPED_C = 3840         # ceil(32768 * 6 / 64 * 1.25): deepseek at 32k
+
+
+def step_launches(cfg, steps):
+    """Launches of ``steps`` prefills and decode steps of ``cfg``."""
+    k1, k3, k4g = LAYER_LAUNCHES[cfg.name]
+    moe = cfg.n_layers - cfg.n_dense_layers if cfg.n_experts else 0
+    return {"K1": k1 * cfg.n_layers * steps, "K3": k3 * cfg.n_layers * steps,
+            "K4": 0, "K4g": k4g * moe * steps}
+
+
+def longctx_phase(dev, hp):
+    """Phase 17: the reference's long-context cells through
+    ``launch/dryrun.py``'s ``run_cell(..., run=True)`` on ``dev``, every
+    layer at its published width, random weights from seed 0. ``hp``
+    holds main's helpers (``counts``, ``reset_counts``, ``check_equal``,
+    ``profiled``, ``is_spin``, ``walls``, ``timer``) and phase 8's
+    ``prompts``. Returns its record; raises on any failure."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from repro_torch.configs import get_arch, list_archs
+    from repro_torch.core.bitserial import plan_spec
+    from repro_torch.core.quant import qrange
+    from repro_torch.kernels import bitserial_matmul as km
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.serve import GenRequest
+    from repro_torch.models import attention, transformer
+    from repro_torch.models.layers import pack_weight_codes
+    from repro_torch.serving import ContinuousLMEngine
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    free()
+    t_phase = time.perf_counter()
+    gb = 1e9
+    out = {"launches": {"K1": 0, "K3": 0, "K4": 0, "K4g": 0}, "cells": {}}
+
+    def counted(fn, want=None, what=""):
+        """``fn()`` with the counts reset just before and read just after;
+        the launches join the phase's, and must equal ``want`` if given."""
+        hp.reset_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        got = {k: hp.counts()[k] for k in out["launches"]}
+        for k in got:
+            out["launches"][k] += got[k]
+        if want is not None and got != want:
+            raise AssertionError(f"{what}: launches {got}, want {want}")
+        return res, got
+
+    def cell(arch, shape, **kw):
+        kw.setdefault("batch", 1)
+        return dryrun.run_cell(arch, shape, run=True, device=dev,
+                               return_outputs=True, **kw)
+
+    def profile_busy(fn):
+        prof, wall = hp.profiled(fn)
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and not hp.is_spin(e.key)) / 1e3
+        top = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and not hp.is_spin(e.key)), reverse=True)[:8]
+        return {"wall_ms": wall * 1e3, "busy_ms": busy,
+                "top": [{"ms": ms, "count": n, "name": k[:80]}
+                        for ms, n, k in top]}
+
+    # (a) every (architecture x shape) cell accounted on the meta device
+    log("long context (a): every cell's bytes from its shapes (meta device; "
+        "decode cells with a bf16 and an int8 cache)")
+    table = []
+    for arch in list_archs():
+        for shape in get_arch(arch).shapes:
+            for kv in ((None, 8) if dryrun.SHAPES[shape].kind == "decode"
+                       else (None,)):
+                rec = dryrun.run_cell(arch, shape, kv_bits=kv, device=dev,
+                                      force=True)
+                table.append({k: rec[k] for k in (
+                    "arch", "shape", "kv_bits", "bytes", "cache_bytes_per_row",
+                    "fits", "rows_that_fit", "global_batch")})
+                by = rec["bytes"]
+                log(f"  {arch:24s} {shape:12s} kv {str(kv):4s} params "
+                    f"{by['params'] / gb:8.2f} GB  adamw {by['adamw'] / gb:8.2f}"
+                    f"  caches {by['caches'] / gb:8.2f} "
+                    f"({rec['cache_bytes_per_row'] / gb:7.3f} a row)  total "
+                    f"{by['total'] / gb:8.2f}  fits {rec['fits']!s:5s} rows "
+                    f"{rec['rows_that_fit']} of {rec['global_batch']}")
+    out["accounting"] = table
+
+    # (b) chunked attention against the materialized one on the card
+    g = torch.Generator(device=dev).manual_seed(17)
+    q, k, v = (torch.randn((1, CHUNK_CHECK_LEN, 32, 64), generator=g,
+                           device=dev) for _ in range(3))
+    got = attention.chunked_attention(q, k, v, causal=True)
+    ref = attention._sdpa_full(q, k, v, causal=True, q_offset=0)
+    err = float((got - ref).abs().max())
+    if not torch.allclose(got, ref, **CHUNK_TOL):
+        raise AssertionError(f"chunked attention at {CHUNK_CHECK_LEN}: max "
+                             f"abs error {err}, outside {CHUNK_TOL}")
+    out["chunked_check"] = {
+        "tokens": CHUNK_CHECK_LEN, "max_abs_err": err, "tol": CHUNK_TOL,
+        "chunked_ms": hp.walls(lambda: attention.chunked_attention(
+            q, k, v, causal=True), 3),
+        "materialized_ms": hp.walls(lambda: attention._sdpa_full(
+            q, k, v, causal=True, q_offset=0), 3)}
+    log(f"long context (b): chunked_attention vs _sdpa_full at 1 x "
+        f"{CHUNK_CHECK_LEN} x 32 heads x 64, float32: max abs error "
+        f"{err:.3g} (within rtol 1e-4, atol 1e-5); "
+        f"{out['chunked_check']['chunked_ms']:.2f} ms chunked, "
+        f"{out['chunked_check']['materialized_ms']:.2f} ms materialized")
+    del q, k, v, got, ref
+    free()
+
+    def plain_check(arch, shape, what, **kw):
+        """At ``PLAIN_DEPTH`` layers of full width: the kernels' run
+        against the plain versions' on the same weights, tokens and logits
+        exactly; returns the kernels' record and outputs."""
+        cfg = dryrun.build_cell(arch, shape, n_layers=PLAIN_DEPTH,
+                                kv_bits=kw.get("kv_bits")).cfg
+        steps = 1 if dryrun.SHAPES[shape].kind == "prefill" else kw.get(
+            "new_tokens", 8)
+        (rk, ok), _ = counted(lambda: cell(arch, shape, n_layers=PLAIN_DEPTH,
+                                           **kw),
+                              step_launches(cfg, steps), f"{what} kernels")
+        (rp, op), _ = counted(lambda: cell(arch, shape, n_layers=PLAIN_DEPTH,
+                                           plain=True, **kw),
+                              {k: 0 for k in out["launches"]},
+                              f"{what} plain")
+        if (rk["run"]["tokens"] != rp["run"]["tokens"]
+                or not torch.equal(ok["logits"], op["logits"])):
+            raise AssertionError(f"{what}: the kernels' tokens or logits "
+                                 "differ from the plain versions'")
+        log(f"  {what}, {PLAIN_DEPTH} layers of full width: kernels equal "
+            f"the plain versions (tokens and logits)")
+        return rk, ok
+
+    # (c) stablelm-1.6b prefill_32k, batch 1 at 32,768 tokens
+    log(f"long context (c): {LONG_ARCH} prefill_32k, batch 1, chunked "
+        "attention")
+    rk, ok = plain_check(LONG_ARCH, "prefill_32k", "prefill_32k")
+    prof2 = profile_busy(lambda: transformer.prefill(
+        ok["server"].params, {"tokens": torch.zeros(
+            (1, 32768), dtype=torch.int64, device=dev)}, ok["server"].cfg,
+        max_len=32776))
+    del ok
+    free()
+    cfg = dryrun.build_cell(LONG_ARCH, "prefill_32k").cfg
+    (rec, o), got = counted(lambda: cell(LONG_ARCH, "prefill_32k"),
+                            step_launches(cfg, 1), "prefill_32k")
+    logits = o["logits"]
+    if (logits.shape != (1, cfg.vocab_size)
+            or not bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"prefill_32k: bad logits {logits.shape}")
+    out["cells"]["stablelm_prefill_32k"] = {**rec, "launches": got,
+                                            "profile_2_layers": prof2}
+    log(f"  {cfg.n_layers} layers: prefill {rec['run']['prefill_s']:.2f} s, "
+        f"peak {rec['run']['peak_bytes'] / gb:.2f} GB, launches {got} (K1 "
+        f"and K3 at M = 32768); 2 layers profiled: wall "
+        f"{prof2['wall_ms']:.0f} ms, busy {prof2['busy_ms']:.0f} ms")
+    del o, logits
+    free()
+
+    # (d) decode_32k: Server(batch_slots=4, max_len=32768), bf16 and int8
+    log(f"long context (d): {LONG_ARCH} decode_32k, Server(batch_slots=4, "
+        "max_len=32768) on phase 8's four requests, bf16 and int8 caches")
+    dec, prefill_logits = {}, {}
+    for kv in (None, 8):
+        cfg = dryrun.build_cell(LONG_ARCH, "decode_32k", kv_bits=kv).cfg
+        (rec, o), got = counted(
+            lambda: cell(LONG_ARCH, "decode_32k", batch=4, kv_bits=kv,
+                         prompts=hp.prompts, new_tokens=LM_NEW),
+            step_launches(cfg, LM_NEW), f"decode_32k kv {kv}")
+        srv = o["server"]
+        toks_in = np.zeros((4, max(LM_PROMPTS)), np.int64)
+        for i, pr in enumerate(hp.prompts):
+            toks_in[i, -len(pr):] = pr
+        with torch.inference_mode():
+            lg, caches = transformer.prefill(srv.params, {
+                "tokens": torch.from_numpy(toks_in).to(dev)}, srv.cfg,
+                max_len=srv.max_len)
+            tok = torch.argmax(lg, -1)[:, None]
+            prof = profile_busy(lambda: transformer.decode_step(
+                srv.params, caches, tok, max(LM_PROMPTS), srv.cfg))
+        dec[kv] = {**rec, "launches": got, "profile_step": prof}
+        prefill_logits[kv] = lg.float()
+        log(f"  kv_bits {kv}: cache {rec['run']['cache_bytes_run'] / gb:.2f} "
+            f"GB ({rec['cache_bytes_per_row'] / gb:.3f} a row), prefill "
+            f"{rec['run']['prefill_s'] * 1e3:.1f} ms, decode step median "
+            f"{rec['run']['decode_step_s_median'] * 1e3:.2f} ms wall, one "
+            f"step profiled: wall {prof['wall_ms']:.2f} busy "
+            f"{prof['busy_ms']:.2f} ms; peak "
+            f"{rec['run']['peak_bytes'] / gb:.2f} GB")
+        del o, srv, lg, caches, tok
+        free()
+    # how far int8 moves the prefill's logits, beside the bf16 logits'
+    # gap between their two largest (a random model's are near ties)
+    lb, l8 = prefill_logits[None], prefill_logits[8]
+    top2 = torch.topk(lb, 2, dim=-1).values
+    logit_shift = {
+        "max_abs_diff": float((l8 - lb).abs().max()),
+        "max_abs_logit": float(lb.abs().max()),
+        "bf16_top2_gap": (top2[:, 0] - top2[:, 1]).tolist(),
+        "argmax_equal": (lb.argmax(-1) == l8.argmax(-1)).tolist()}
+    del lb, l8, prefill_logits
+    t16, t8 = dec[None]["run"]["tokens"], dec[8]["run"]["tokens"]
+    agree = [sum(a == b for a, b in zip(x, y)) / len(x)
+             for x, y in zip(t16, t8)]
+    first = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b), None)
+             for x, y in zip(t16, t8)]
+    out["cells"]["stablelm_decode_32k"] = {
+        "bf16": dec[None], "int8": dec[8], "int8_token_agreement": agree,
+        "int8_first_difference": first, "int8_prefill_logits": logit_shift}
+    log(f"  int8 tokens against bf16 (reported, not held: int8 is lossy): "
+        f"agreement {agree}, first difference at {first}; the prefill's "
+        f"logits move by at most {logit_shift['max_abs_diff']:.4f} (largest "
+        f"|logit| {logit_shift['max_abs_logit']:.3f}) against bf16 top-2 "
+        f"gaps {[round(x, 4) for x in logit_shift['bf16_top2_gap']]}")
+
+    # the engine on an int8 cache, its bucketed prefill chunked
+    ecfg = dataclasses.replace(
+        dryrun.build_cell(LONG_ARCH, "decode_32k", kv_bits=8).cfg,
+        use_chunked_attn=True)
+    eng = ContinuousLMEngine(ecfg, batch_slots=4, max_len=32768, seed=0,
+                             device=dev)
+
+    def serve():
+        res = eng.serve([GenRequest(p.copy(), LM_NEW) for p in hp.prompts])
+        return [r.out_tokens for r in res]
+
+    # the arena made and its step captured outside the counted runs (a
+    # capture records launches that do not run); the replays then add the
+    # captured step's launches each
+    eng._fresh_arena()
+    step = eng.stats()["step_launches"]
+    if step != {"K1": 96, "K3": 168, "K4": 0, "K4g": 0}:
+        raise AssertionError(f"engine int8: step launches {step}")
+    graphed, _ = counted(serve, step_launches(ecfg, len(hp.prompts)),
+                         "engine int8 prefills")
+    em = eng.engine_metrics()
+    replays = em["decode_steps"]
+    for k in ("K1", "K3"):
+        out["launches"][k] += step[k] * replays
+    arena = eng._arena["caches"][0]
+    if arena["k_q"].dtype != torch.int8:
+        raise AssertionError("engine arena is not int8")
+    arena_bytes = sum(t.numel() * t.element_size()
+                      for c in eng._arena["caches"] for t in c.values()
+                      if torch.is_tensor(t))
+    del arena
+    # every row has left, so a replay moves no token or position
+    replay_ms = hp.walls(eng._graph.replay, 3)
+    replay_prof = profile_busy(eng._graph.replay)
+    eng._graph = None
+    eng._arena = None
+    free()
+    eng._fresh_arena()
+    eng._graph = None
+    eager, _ = counted(serve)
+    if graphed != eager:
+        raise AssertionError(f"engine int8: the graph's tokens {graphed} "
+                             f"differ from its eager steps' {eager}")
+    out["cells"]["engine_int8_32k"] = {
+        "tokens": graphed, "step_wall_ms": em["step_wall_seconds"] / replays
+        * 1e3, "decode_steps": replays, "capture_s": eng.capture_seconds,
+        "step_launches": step, "arena_bytes": arena_bytes,
+        "replay_ms": replay_ms, "replay_profile": replay_prof}
+    log(f"  ContinuousLMEngine(kv_bits=8, chunked prefill, 4 x 32768 "
+        f"slots): graph tokens equal its eager steps'; a replay {replay_ms:.2f}"
+        f" ms wall (synchronized), {replay_prof['busy_ms']:.2f} ms busy; "
+        f"{out['cells']['engine_int8_32k']['step_wall_ms']:.2f} ms host time "
+        f"per replay in serve ({replays} steps), arena "
+        f"{arena_bytes / gb:.2f} GB")
+    del eng
+    free()
+
+    # (e) train_4k: one step at 1 x 4096, chunked attention under remat
+    log(f"long context (e): {LONG_ARCH} train_4k, one step at 1 x 4096, "
+        "chunked attention under remat")
+    (rec, o), got = counted(lambda: cell(LONG_ARCH, "train_4k"))
+    del o
+    free()
+    r = rec["run"]
+    if not r["loss_finite"] or r["leaves_moved"] != r["leaves"]:
+        raise AssertionError(f"train_4k: loss {r['loss']}, moved "
+                             f"{r['leaves_moved']} of {r['leaves']} leaves")
+    out["cells"]["stablelm_train_4k"] = rec
+    log(f"  loss {r['loss']:.4f}, every leaf moved ({r['leaves']}), step "
+        f"{r['step_s']:.2f} s, peak {r['peak_bytes'] / gb:.2f} GB")
+
+    # (f) deepseek-v2-lite-16b prefill_32k: MLA chunked, grouped K4 at
+    # C = 3840 rows per expert
+    ds = "deepseek-v2-lite-16b"
+    log(f"long context (f): {ds} prefill_32k, batch 1; grouped K4 at C = "
+        f"{GROUPED_C}")
+    dcfg = get_arch(ds).full
+    spec = plan_spec(dcfg.policy.spec())
+    la, ha = qrange(spec.a_bits, spec.a_signed)
+    lw, hw = qrange(spec.w_bits, spec.w_signed)
+    grouped = []
+    for kk, nn in ((2048, 1408), (1408, 2048)):
+        wp = torch.stack([pack_weight_codes(torch.randint(
+            lw, hw + 1, (kk, nn), generator=g, device=dev,
+            dtype=torch.int32), spec.w_bits) for _ in range(64)])
+        x = torch.randint(la, ha + 1, (64, GROUPED_C, kk), generator=g,
+                          device=dev, dtype=torch.int32)
+        hp.check_equal("K4g", f"E64 C{GROUPED_C} {kk}->{nn}",
+                       km.bitserial_matmul_grouped_cuda(x, wp, spec=spec,
+                                                        k=kk),
+                       km.bitserial_matmul_grouped_ref(x, wp, spec=spec,
+                                                       k=kk))
+        byt = (wp.numel() + x.numel() + 64 * GROUPED_C * nn) * 4
+        ops = 2 * 64 * GROUPED_C * kk * nn
+        grouped.append({"k": kk, "n": nn, "c": GROUPED_C, "ms": hp.timer(
+            lambda: km.bitserial_matmul_grouped_cuda(x, wp, spec=spec, k=kk),
+            10), "bound_ms": max(byt / HBM_BYTES_PER_S,
+                                 ops / INT8_OPS_PER_S) * 1e3,
+            "bound_by": ("bytes" if byt / HBM_BYTES_PER_S
+                         > ops / INT8_OPS_PER_S else "operations")})
+        log(f"  grouped K4 E64 C{GROUPED_C} {kk}->{nn}: "
+            f"{grouped[-1]['ms']:.3f} ms, bound {grouped[-1]['bound_ms']:.3f}"
+            f" ms ({grouped[-1]['bound_by']}; cold Timer)")
+        del wp, x
+    free()
+    rk, ok = plain_check(ds, "prefill_32k", "deepseek prefill_32k")
+    del ok
+    free()
+    cfg = dryrun.build_cell(ds, "prefill_32k").cfg
+    (rec, o), got = counted(lambda: cell(ds, "prefill_32k"),
+                            step_launches(cfg, 1), "deepseek prefill_32k")
+    if not bool(torch.isfinite(o["logits"]).all()):
+        raise AssertionError("deepseek prefill_32k: non-finite logits")
+    out["cells"]["deepseek_prefill_32k"] = {**rec, "launches": got,
+                                            "grouped_calls": grouped}
+    log(f"  {cfg.n_layers} layers: prefill {rec['run']['prefill_s']:.2f} s, "
+        f"peak {rec['run']['peak_bytes'] / gb:.2f} GB, launches {got}")
+    del o
+    free()
+
+    # (g) hymba-1.5b long_500k: Server(batch_slots=1, max_len=524288)
+    hy = "hymba-1.5b"
+    log(f"long context (g): {hy} long_500k, Server(batch_slots=1, "
+        "max_len=524288), bf16 and int8 (3 global layers of 524,288 slots, "
+        "29 rolling of 1,024)")
+    hcfg = get_arch(hy).full
+    prompt = [np.random.RandomState(0).randint(
+        0, hcfg.vocab_size, (max(LM_PROMPTS),)).astype(np.int32)]
+    lng = {}
+    for kv in (None, 8):
+        plain_check(hy, "long_500k", f"long_500k kv {kv}", kv_bits=kv,
+                    prompts=prompt, new_tokens=LONG_NEW)
+        free()
+        cfg = dryrun.build_cell(hy, "long_500k", kv_bits=kv).cfg
+        (rec, o), got = counted(
+            lambda: cell(hy, "long_500k", kv_bits=kv, prompts=prompt,
+                         new_tokens=LONG_NEW),
+            step_launches(cfg, LONG_NEW), f"long_500k kv {kv}")
+        srv = o["server"]
+        with torch.inference_mode():
+            toks_in = torch.from_numpy(prompt[0][None].astype(np.int64)).to(
+                dev)
+            lg, caches = transformer.prefill(srv.params, {"tokens": toks_in},
+                                             srv.cfg, max_len=srv.max_len)
+            tok = torch.argmax(lg, -1)[:, None]
+            prof = profile_busy(lambda: transformer.decode_step(
+                srv.params, caches, tok, len(prompt[0]), srv.cfg))
+        lng[kv] = {**rec, "launches": got, "profile_step": prof}
+        log(f"  kv_bits {kv}: cache {rec['run']['cache_bytes_run'] / gb:.2f} "
+            f"GB, prefill {rec['run']['prefill_s'] * 1e3:.1f} ms, decode step "
+            f"median {rec['run']['decode_step_s_median'] * 1e3:.2f} ms wall, "
+            f"one step profiled: wall {prof['wall_ms']:.2f} busy "
+            f"{prof['busy_ms']:.2f} ms; peak "
+            f"{rec['run']['peak_bytes'] / gb:.2f} GB")
+        del o, srv, lg, caches, tok
+        free()
+    a, b = lng[None]["run"]["tokens"][0], lng[8]["run"]["tokens"][0]
+    out["cells"]["hymba_long_500k"] = {
+        "bf16": lng[None], "int8": lng[8],
+        "int8_token_agreement": sum(x == y for x, y in zip(a, b)) / len(a)}
+    log(f"  int8 tokens against bf16 (reported): agreement "
+        f"{out['cells']['hymba_long_500k']['int8_token_agreement']:.3f}")
+
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 17 in {out['seconds']:.1f} s; launches {out['launches']}")
     return out
 
 
@@ -3931,6 +4362,14 @@ def main() -> int:
     record["families"] = fam_rec
     fam_ran = fam_rec["launches"]
 
+    # ---------- 17. the long-context cells of launch/dryrun.py, full width
+    long_rec = longctx_phase(dev, types.SimpleNamespace(
+        counts=counts, reset_counts=reset_counts, check_equal=check_equal,
+        profiled=profiled, is_spin=is_spin, walls=walls, timer=timer,
+        prompts=prompts))
+    record["long_context"] = long_rec
+    long_ran = long_rec["launches"]
+
     def total(kid, key):
         vals = [r[key] for r in rows if r["kernel"] == kid]
         return None if any(v is None for v in vals) else sum(vals)
@@ -3954,7 +4393,7 @@ def main() -> int:
                       + c_tiny["K1"] + ran_load["K1"] + lm_ran["K1"]
                       + ds_launches["K1"] + tc_launches["K1"]
                       + tr["launches"]["K1"] + ssm_rec["launches"]["K1"]
-                      + fam_ran["K1"]),
+                      + fam_ran["K1"] + long_ran["K1"]),
          "engine_launches_per_captured_step": rec["step_launches"]["K1"],
          "max_abs_err": max_err["K1"],
          "ms": total("K1", "ms") + lm_step("K1", "ms", 4),
@@ -3982,7 +4421,7 @@ def main() -> int:
          "launches": (lm_k3[2]["K3"] + c_tiny["K3"] + ran_load["K3"]
                       + lm_ran["K3"] + ds_launches["K3"]
                       + tr["launches"]["K3"] + ssm_rec["launches"]["K3"]
-                      + fam_ran["K3"]),
+                      + fam_ran["K3"] + long_ran["K3"]),
          "engine_launches_per_captured_step": rec["step_launches"]["K3"],
          "max_abs_err": max_err["K3"],
          "ms": lm_step("K3", "ms", 4), "plain_ms": lm_step("K3", "plain_ms", 4),
@@ -3993,7 +4432,7 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/bitserial_matmul.cu",
          "replaces": "src/repro/kernels/bitserial_matmul.py:171",
          "launches": (lm_k4[2]["K4"] + k4_run + ssm_rec["launches"]["K4"]
-                      + fam_ran["K4"]),
+                      + fam_ran["K4"] + long_ran["K4"]),
          "engine_launches_per_captured_step": k4_step["K4"],
          "max_abs_err": max_err["K4"],
          "ms": lm_step("K4", "ms", 4), "plain_ms": lm_step("K4", "plain_ms", 4),
@@ -4006,7 +4445,7 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/grouped_matmul.cu",
          "replaces": "src/repro/models/moe.py:75 (_expert_matmul, XLA "
                      "serial_matmul_packed; no Pallas kernel)",
-         "launches": ds_launches["K4g"] + fam_ran["K4g"],
+         "launches": ds_launches["K4g"] + fam_ran["K4g"] + long_ran["K4g"],
          "engine_launches_per_captured_step": ds["step_launches"]["K4g"],
          "max_abs_err": max_err["K4g"],
          "ms": ds["grouped_step_sums"]["ms"],
@@ -4020,7 +4459,9 @@ def main() -> int:
              ds["grouped_step_sums_dispatch"]["bound_ms"],
          "in_path_ms_decode_step":
              ds["profile_replay"]["ms_by_kernel"].get("K4g", 0.0),
-         "occupied_experts_per_step": ds["occupied_experts_per_step"]},
+         "occupied_experts_per_step": ds["occupied_experts_per_step"],
+         "long_context_calls": long_rec["cells"]["deepseek_prefill_32k"][
+             "grouped_calls"]},
     ]}
     record["kernels"] = line["kernels"]
     record["total_s"] = time.perf_counter() - t_start

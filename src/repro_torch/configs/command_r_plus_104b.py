@@ -3,7 +3,7 @@ d_ff=33792, vocab=256000, no biases.
 [hf:CohereForAI/c4ai-command-r-v01; unverified]. The port's copy of
 ``repro/configs/command_r_plus_104b.py``."""
 
-from repro_torch.configs.base import register
+from repro_torch.configs.base import FULL_ATTN_SKIP, STANDARD_SHAPES, register
 from repro_torch.models.layers import QuantPolicy
 from repro_torch.models.transformer import ModelConfig
 
@@ -21,5 +21,6 @@ SMOKE = ModelConfig(
     policy=QuantPolicy(mode="qat", w_bits=4, a_bits=8),
 )
 
-register("command-r-plus-104b", FULL, SMOKE,
-         source="hf:CohereForAI/c4ai-command-r-v01; unverified")
+register("command-r-plus-104b", FULL, SMOKE, STANDARD_SHAPES,
+         source="hf:CohereForAI/c4ai-command-r-v01; unverified",
+         skip_notes=FULL_ATTN_SKIP)

@@ -5,7 +5,7 @@ expert d_ff=1408, first layer dense (d_ff=10944), vocab=102400.
 ``repro/configs/deepseek_v2_lite_16b.py`` (64 routed experts, as the v2-lite
 hf config has them)."""
 
-from repro_torch.configs.base import register
+from repro_torch.configs.base import STANDARD_SHAPES, register
 from repro_torch.models.layers import QuantPolicy
 from repro_torch.models.transformer import ModelConfig
 
@@ -29,5 +29,7 @@ SMOKE = ModelConfig(
     policy=QuantPolicy(mode="qat", w_bits=4, a_bits=8),
 )
 
-register("deepseek-v2-lite-16b", FULL, SMOKE,
-         source="arXiv:2405.04434; hf")
+register("deepseek-v2-lite-16b", FULL, SMOKE, STANDARD_SHAPES,
+         source="arXiv:2405.04434; hf",
+         skip_notes={"long_500k": "full-attention MoE; quadratic at 512k — "
+                                  "skipped per assignment spec"})

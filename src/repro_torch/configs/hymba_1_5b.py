@@ -4,7 +4,7 @@ Sliding-window attention (1024) on most layers, full attention on layers
 {0, 16, 31}. [arXiv:2411.13676; hf]. The port's copy of
 ``repro/configs/hymba_1_5b.py``."""
 
-from repro_torch.configs.base import register
+from repro_torch.configs.base import ALL_SHAPES, register
 from repro_torch.models.layers import QuantPolicy
 from repro_torch.models.transformer import ModelConfig
 
@@ -27,4 +27,5 @@ SMOKE = ModelConfig(
     policy=QuantPolicy(mode="qat", w_bits=4, a_bits=8),
 )
 
-register("hymba-1.5b", FULL, SMOKE, source="arXiv:2411.13676; hf")
+register("hymba-1.5b", FULL, SMOKE, ALL_SHAPES,
+         source="arXiv:2411.13676; hf")

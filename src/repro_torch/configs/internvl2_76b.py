@@ -3,7 +3,7 @@ embeddings, dim 3200) + LM backbone 80L, d_model=8192, 64H (GQA kv=8),
 d_ff=28672, vocab=128256. [arXiv:2404.16821; unverified]. The port's copy of
 ``repro/configs/internvl2_76b.py``."""
 
-from repro_torch.configs.base import register
+from repro_torch.configs.base import FULL_ATTN_SKIP, STANDARD_SHAPES, register
 from repro_torch.models.layers import QuantPolicy
 from repro_torch.models.transformer import ModelConfig
 
@@ -24,5 +24,5 @@ SMOKE = ModelConfig(
     policy=QuantPolicy(mode="qat", w_bits=4, a_bits=8),
 )
 
-register("internvl2-76b", FULL, SMOKE,
-         source="arXiv:2404.16821; unverified")
+register("internvl2-76b", FULL, SMOKE, STANDARD_SHAPES,
+         source="arXiv:2404.16821; unverified", skip_notes=FULL_ATTN_SKIP)

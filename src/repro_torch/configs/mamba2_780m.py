@@ -4,7 +4,7 @@ vocab=50280, tied embeddings. [arXiv:2405.21060; unverified]. The port's
 copy of ``repro/configs/mamba2_780m.py``: the in/out projections run
 through the bit-serial kernels, the SSD recurrence in plain torch."""
 
-from repro_torch.configs.base import register
+from repro_torch.configs.base import ALL_SHAPES, register
 from repro_torch.models.layers import QuantPolicy
 from repro_torch.models.transformer import ModelConfig
 
@@ -26,5 +26,5 @@ SMOKE = ModelConfig(
     policy=QuantPolicy(mode="qat", w_bits=4, a_bits=8),
 )
 
-register("mamba2-780m", FULL, SMOKE,
+register("mamba2-780m", FULL, SMOKE, ALL_SHAPES,
          source="arXiv:2405.21060; unverified")

@@ -5,7 +5,7 @@ squared-ReLU MLP (two-matrix), vocab=256000, partial rotary 50%.
 but the reference's code quantizes it under the config's signed policy
 (sign plane kept), and so does the port."""
 
-from repro_torch.configs.base import register
+from repro_torch.configs.base import FULL_ATTN_SKIP, STANDARD_SHAPES, register
 from repro_torch.models.layers import QuantPolicy
 from repro_torch.models.transformer import ModelConfig
 
@@ -25,5 +25,5 @@ SMOKE = ModelConfig(
     policy=QuantPolicy(mode="qat", w_bits=4, a_bits=8),
 )
 
-register("nemotron-4-15b", FULL, SMOKE,
-         source="arXiv:2402.16819; unverified")
+register("nemotron-4-15b", FULL, SMOKE, STANDARD_SHAPES,
+         source="arXiv:2402.16819; unverified", skip_notes=FULL_ATTN_SKIP)

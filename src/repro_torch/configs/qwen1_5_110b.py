@@ -3,7 +3,7 @@ vocab=152064, QKV bias (the bias add exercises the paper's 32-bit bias
 pipeline module). [hf:Qwen/Qwen1.5-0.5B; hf]. The port's copy of
 ``repro/configs/qwen1_5_110b.py``."""
 
-from repro_torch.configs.base import register
+from repro_torch.configs.base import FULL_ATTN_SKIP, STANDARD_SHAPES, register
 from repro_torch.models.layers import QuantPolicy
 from repro_torch.models.transformer import ModelConfig
 
@@ -23,5 +23,5 @@ SMOKE = ModelConfig(
     policy=QuantPolicy(mode="qat", w_bits=4, a_bits=8),
 )
 
-register("qwen1.5-110b", FULL, SMOKE,
-         source="hf:Qwen/Qwen1.5-0.5B; hf")
+register("qwen1.5-110b", FULL, SMOKE, STANDARD_SHAPES,
+         source="hf:Qwen/Qwen1.5-0.5B; hf", skip_notes=FULL_ATTN_SKIP)

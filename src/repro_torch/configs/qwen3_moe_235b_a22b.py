@@ -3,7 +3,7 @@
 [hf:Qwen/Qwen3-30B-A3B; hf]. The port's copy of
 ``repro/configs/qwen3_moe_235b_a22b.py``."""
 
-from repro_torch.configs.base import register
+from repro_torch.configs.base import STANDARD_SHAPES, register
 from repro_torch.models.layers import QuantPolicy
 from repro_torch.models.transformer import ModelConfig
 
@@ -25,5 +25,7 @@ SMOKE = ModelConfig(
     policy=QuantPolicy(mode="qat", w_bits=4, a_bits=8),
 )
 
-register("qwen3-moe-235b-a22b", FULL, SMOKE,
-         source="hf:Qwen/Qwen3-30B-A3B; hf")
+register("qwen3-moe-235b-a22b", FULL, SMOKE, STANDARD_SHAPES,
+         source="hf:Qwen/Qwen3-30B-A3B; hf",
+         skip_notes={"long_500k": "full-attention MoE; quadratic at 512k — "
+                                  "skipped per assignment spec"})

@@ -4,7 +4,7 @@ d_model=1024, 16H (MHA: kv=16), d_ff=8192, vocab=256206.
 provides precomputed frame embeddings fed to the encoder. The port's copy of
 ``repro/configs/seamless_m4t_large_v2.py``."""
 
-from repro_torch.configs.base import register
+from repro_torch.configs.base import STANDARD_SHAPES, register
 from repro_torch.models.layers import QuantPolicy
 from repro_torch.models.transformer import ModelConfig
 
@@ -24,5 +24,7 @@ SMOKE = ModelConfig(
     policy=QuantPolicy(mode="qat", w_bits=4, a_bits=8),
 )
 
-register("seamless-m4t-large-v2", FULL, SMOKE,
-         source="arXiv:2308.11596; hf")
+register("seamless-m4t-large-v2", FULL, SMOKE, STANDARD_SHAPES,
+         source="arXiv:2308.11596; hf",
+         skip_notes={"long_500k": "full-attention enc-dec; quadratic at 512k "
+                                  "— skipped per assignment spec"})

@@ -3,7 +3,7 @@ vocab=100352, partial rotary 25%, LayerNorm.
 [hf:stabilityai/stablelm-2-1_6b; unverified]. The port's copy of
 ``repro/configs/stablelm_1_6b.py``."""
 
-from repro_torch.configs.base import register
+from repro_torch.configs.base import FULL_ATTN_SKIP, STANDARD_SHAPES, register
 from repro_torch.models.layers import QuantPolicy
 from repro_torch.models.transformer import ModelConfig
 
@@ -23,5 +23,6 @@ SMOKE = ModelConfig(
     policy=QuantPolicy(mode="qat", w_bits=4, a_bits=8),
 )
 
-register("stablelm-1.6b", FULL, SMOKE,
-         source="hf:stabilityai/stablelm-2-1_6b; unverified")
+register("stablelm-1.6b", FULL, SMOKE, STANDARD_SHAPES,
+         source="hf:stabilityai/stablelm-2-1_6b; unverified",
+         skip_notes=FULL_ATTN_SKIP)

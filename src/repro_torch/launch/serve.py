@@ -209,11 +209,16 @@ class Server:
         self.last_logits = None
         self.last_stats = {}
 
-    def generate(self, requests: List[GenRequest]) -> List[GenRequest]:
+    def generate(self, requests: List[GenRequest], *,
+                 step_seconds: Optional[list] = None) -> List[GenRequest]:
         """Serve a batch of prompts, left-padded with token 0 to the longest
         (no pad mask, as the reference). Tokens stay on the card until one
         host transfer at the end. ``last_logits`` keeps the last step's
-        (B, V) logits on the device. A VLM is served text-only, as the
+        (B, V) logits on the device. With a ``step_seconds`` list the
+        device is synchronized after the prefill and after every decode
+        step, and each one's wall seconds are appended (the prefill's
+        first): a measurement, which gives up the single sync. A VLM is
+        served text-only, as the
         reference's ``generate`` feeds tokens alone; an encoder-decoder
         raises ``ValueError`` (its encoder needs a source, which the
         reference's ``generate`` does not feed either: it fails there with
@@ -257,15 +262,26 @@ class Server:
             toks[i, -len(r.prompt):] = r.prompt  # left-pad
         batch = {"tokens": torch.from_numpy(toks).to(self.device)}
         n_new = max((r.max_new_tokens for r in requests), default=0)
+
+        def timed(t0):
+            if step_seconds is not None:
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                step_seconds.append(time.perf_counter() - t0)
+
         with torch.inference_mode():
+            t0 = time.perf_counter()
             logits, caches = prefill(self.params, batch, self.cfg,
                                      max_len=self.max_len)
             tok = torch.argmax(logits, -1)[:, None]
+            timed(t0)
             steps = [tok]                   # device-side token columns
             for t in range(1, n_new):
+                t0 = time.perf_counter()
                 logits, caches = decode_step(self.params, caches, tok,
                                              s + t - 1, self.cfg)
                 tok = torch.argmax(logits, -1)[:, None]
+                timed(t0)
                 steps.append(tok)
             if n_new:
                 all_toks = torch.cat(steps, dim=1).cpu().numpy()  # 1 sync

@@ -2,9 +2,16 @@
 attention (MLA), with a KV cache, over quantized projections.
 
 Counterpart of ``repro/models/attention.py``: causal or not (an encoder),
-full or sliding-window, over an unquantized cache, with optional q/k/v
-biases and cross-attention over given K/V (an encoder-decoder's decoder);
-MLA's prefill takes the materialized path (no chunked kernel).
+full or sliding-window, over a bf16 or an int8 cache (``kv_bits=8``:
+codes and a float32 scale per row, position and head, as
+:func:`_quant_kv` rounds them), with optional q/k/v biases and
+cross-attention over given K/V (an encoder-decoder's decoder). With
+``use_chunked`` a forward without a cache, a prefill into an empty cache
+and MLA's prefill attend through :func:`chunked_attention`, the
+reference's flash-style online softmax over (q_chunk x kv_chunk) blocks,
+so no (S x S) score tensor is made: at 32k tokens one layer's would take
+137 GB. Like the reference's (computed by XLA, not a Pallas kernel), it
+is plain torch ops on float32 blocks.
 ``cache_pos`` is a host int (every row of the batch at the same depth:
 the static :class:`~repro_torch.launch.serve.Server`) or a (B,) tensor on
 the batch's device (every row at its own depth: the slot arena of
@@ -43,15 +50,17 @@ import dataclasses
 import math
 from typing import Optional
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models.layers import (QuantPolicy, apply_rotary,
                                        device_scalar, qdense, qdense_init,
                                        qdense_shared, rms_norm, rotary)
 
-__all__ = ["AttnConfig", "attn_init", "attn_apply", "init_kv_cache",
-           "update_kv_cache", "read_kv_cache", "mla_init", "mla_apply",
-           "init_mla_cache"]
+__all__ = ["AttnConfig", "attn_init", "attn_apply", "chunked_attention",
+           "KVQuant", "init_kv_cache", "update_kv_cache", "read_kv_cache",
+           "mla_init", "mla_apply", "init_mla_cache"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,6 +80,9 @@ class AttnConfig:
     qk_nope_dim: int = 128
     qk_rope_dim: int = 64
     v_head_dim: int = 128
+    # KV cache quantization: None = a cache in the compute dtype, 8 = int8
+    # codes with a float32 scale per (row, position, head)
+    kv_bits: Optional[int] = None
 
     @property
     def rotary_dim(self) -> int:
@@ -137,27 +149,145 @@ def _sdpa_rolling(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
 
 
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: Optional[int] = None,
+                      q_offset: int = 0, q_chunk: int = 1024,
+                      kv_chunk: int = 1024,
+                      skip_masked_blocks: bool = True) -> torch.Tensor:
+    """Flash-style online-softmax attention over (q_chunk x kv_chunk)
+    blocks, as the reference's: q (B, Sq, H, D), k (B, Sk, Hkv, D), v (B,
+    Sk, Hkv, Dv), GQA by head grouping; returns (B, Sq, H, Dv) in q's
+    dtype. Both lengths are padded to whole chunks; each block's scores
+    are float32, masked to -1e30 (the padded keys, and beyond the causal
+    and window masks), and folded into a float32 running max ``m``, sum
+    ``l`` and output ``acc``. With ``skip_masked_blocks`` and ``q_offset``
+    0 a q-chunk visits only the kv blocks its masks reach (the reference's
+    ``lo``/``hi``). A block that no mask reaches is not masked: the
+    ``where`` would keep every score. Memory is one score block per head
+    group, not (Sq x Sk)."""
+    b, sq, h, d = q.shape
+    sk, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
+    rep = h // hkv
+    q_offset = int(q_offset)
+    q_chunk, kv_chunk = min(q_chunk, sq), min(kv_chunk, sk)
+    nq, nk = -(-sq // q_chunk), -(-sk // kv_chunk)
+    f32, dev = torch.float32, q.device
+    # (B, Hkv, nq, rep, q_chunk, D): a q-chunk's rows of one head group
+    # are contiguous, so a block is one batched matmul over B x Hkv
+    qg = F.pad(q.to(f32), (0, 0, 0, 0, 0, nq * q_chunk - sq))
+    qg = qg.reshape(b, nq, q_chunk, hkv, rep, d).permute(
+        0, 3, 1, 4, 2, 5).contiguous()
+    kg = F.pad(k.to(f32), (0, 0, 0, 0, 0, nk * kv_chunk - sk)).permute(
+        0, 2, 1, 3).contiguous()
+    vg = F.pad(v.to(f32), (0, 0, 0, 0, 0, nk * kv_chunk - sk)).permute(
+        0, 2, 1, 3).contiguous()
+    scale = 1.0 / math.sqrt(d)
+    kpos_all = torch.arange(nk * kv_chunk, device=dev)
+    ar = torch.arange(q_chunk, device=dev)
+    rows = rep * q_chunk
+    outs = []
+    for qi in range(nq):
+        q0 = q_offset + qi * q_chunk
+        qt = qg[:, :, qi].reshape(b * hkv, rows, d)
+        qpos = (q0 + ar).repeat(rep)[:, None]       # row r * q_chunk + i
+        lo, hi = 0, nk
+        if skip_masked_blocks and q_offset == 0:
+            if causal:
+                hi = min(((qi + 1) * q_chunk + kv_chunk - 1) // kv_chunk, nk)
+            if window is not None:
+                lo = max(0, (qi * q_chunk - window) // kv_chunk)
+        m = torch.full((b * hkv, rows), -1e30, dtype=f32, device=dev)
+        l = torch.zeros((b * hkv, rows), dtype=f32, device=dev)
+        acc = torch.zeros((b * hkv, rows, dv), dtype=f32, device=dev)
+        for ki in range(lo, hi):
+            k0, k1 = ki * kv_chunk, (ki + 1) * kv_chunk
+            kt = kg[:, :, k0:k1].reshape(b * hkv, kv_chunk, d)
+            vt = vg[:, :, k0:k1].reshape(b * hkv, kv_chunk, dv)
+            s = torch.matmul(qt, kt.transpose(1, 2)) * scale
+            masked = (k1 > sk or (causal and k1 - 1 > q0)
+                      or (window is not None
+                          and k0 <= q0 + q_chunk - 1 - window))
+            if masked:
+                kpos = kpos_all[None, k0:k1]
+                mask = kpos < sk
+                if causal:
+                    mask = mask & (kpos <= qpos)
+                if window is not None:
+                    mask = mask & (kpos > qpos - window)
+                s = s.masked_fill(~mask, -1e30)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.matmul(p, vt)
+            m = m_new
+        outs.append(acc / torch.clamp_min(l, 1e-30)[..., None])
+    out = torch.stack(outs).reshape(nq, b, hkv, rep, q_chunk, dv)
+    out = out.permute(1, 0, 4, 2, 3, 5).reshape(b, nq * q_chunk, h, dv)
+    return out[:, :sq].to(q.dtype)
+
+
 # ------------------------------------------------------------------ KV cache
 
+@dataclasses.dataclass(frozen=True)
+class KVQuant:
+    bits: int = 8
+
+
 def init_kv_cache(batch: int, max_len: int, n_kv: int, head_dim: int, *,
+                  kv_bits: Optional[int] = None,
                   dtype: torch.dtype = torch.bfloat16, device=None,
                   window: Optional[int] = None) -> dict:
     """Decode cache of ``max_len`` positions: ``k``/``v`` (B, T, Hkv, D)
-    and ``len``, the number of positions written: a host int while the
-    batch decodes in lockstep, a (B,) tensor once rows are written at
-    per-row positions. With a ``window`` no wider than ``max_len`` the
-    cache is a rolling buffer of ``window`` slots, marked ``rolling``."""
+    in ``dtype`` or, with ``kv_bits=8``, int8 codes ``k_q``/``v_q`` (B, T,
+    Hkv, D) and float32 scales ``k_s``/``v_s`` (B, T, Hkv), the
+    quantizer applied to the KV stream (half a bf16 cache's bytes, plus
+    the scales); and ``len``, the number of positions written: a host int
+    while the batch decodes in lockstep, a (B,) tensor once rows are
+    written at per-row positions. With a ``window`` no wider than
+    ``max_len`` the cache is a rolling buffer of ``window`` slots, marked
+    ``rolling``."""
     size = max_len if window is None else min(max_len, window)
-    cache = {
-        "k": torch.zeros((batch, size, n_kv, head_dim), dtype=dtype,
-                         device=device),
-        "v": torch.zeros((batch, size, n_kv, head_dim), dtype=dtype,
-                         device=device),
-        "len": 0,
-    }
+    shape = (batch, size, n_kv, head_dim)
+    if kv_bits is None:
+        cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
+                 "v": torch.zeros(shape, dtype=dtype, device=device)}
+    else:
+        if kv_bits != 8:
+            raise ValueError(f"quantized KV cache supports kv_bits=8 only, "
+                             f"got {kv_bits}")
+        cache = {
+            "k_q": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v_q": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_s": torch.zeros(shape[:3], dtype=torch.float32,
+                               device=device),
+            "v_s": torch.zeros(shape[:3], dtype=torch.float32,
+                               device=device)}
+    cache["len"] = 0
     if window is not None and window <= max_len:
         cache["rolling"] = True
     return cache
+
+
+#: float32(1 / 127) and float32(1e-9), as the reference's compiled graph
+#: holds them
+_INV127 = float(np.float32(1.0) / np.float32(127.0))
+_EPS = float(np.float32(1e-9))
+
+
+def _quant_kv(x: torch.Tensor):
+    """Per (row, position, head) absmax int8, as the reference computes it
+    in its compiled (``jit``) models: the scale ``max|x| / 127 + 1e-9``,
+    which XLA turns into a multiply by float32(1/127) fused with the add
+    (one FMA, one rounding; here the exact product and the sum in float64,
+    then float32), and the codes ``x / scale`` (a true division) rounded
+    half to even and clipped to +-127. Returns ``(codes int8, scales
+    float32)``."""
+    m = torch.amax(torch.abs(x), dim=-1).to(torch.float64)
+    s = (m * _INV127 + _EPS).to(torch.float32)
+    q = torch.clamp(torch.round(x.to(torch.float32) / s[..., None]),
+                    -127, 127)
+    return q.to(torch.int8), s
 
 
 def _roll_insert(buf: torch.Tensor, new: torch.Tensor) -> None:
@@ -215,28 +345,44 @@ def update_kv_cache(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
     decode (S = 1). ``pos`` is a host int for every row (a write outside
     the cache raises), or a (B,) tensor of per-row positions on the cache's
     device (each start clamped into the cache, as the reference does). A
-    rolling cache shifts instead of indexing and takes a host int only."""
-    if "rolling" in cache:
-        if _per_row(pos):
-            raise ValueError("a rolling (sliding-window) cache takes one "
-                             "host-int position for every row, not per-row "
-                             "positions")
-        _roll_insert(cache["k"], k_new)
-        _roll_insert(cache["v"], v_new)
+    rolling cache shifts instead of indexing and takes a host int only.
+    An int8 cache stores :func:`_quant_kv`'s codes and scales, the scales
+    written as the codes are."""
+    rolling = "rolling" in cache
+    if rolling and _per_row(pos):
+        raise ValueError("a rolling (sliding-window) cache takes one "
+                         "host-int position for every row, not per-row "
+                         "positions")
+    if "k" in cache:
+        pairs = (("k", "v", k_new, v_new),)
     else:
-        idx = _seq_write(cache["k"], k_new, pos)
-        _seq_write(cache["v"], v_new, pos, idx)
+        (kq, ks), (vq, vs) = _quant_kv(k_new), _quant_kv(v_new)
+        pairs = (("k_q", "v_q", kq, vq), ("k_s", "v_s", ks, vs))
+    for kn, vn, kt, vt in pairs:
+        if rolling:
+            _roll_insert(cache[kn], kt)
+            _roll_insert(cache[vn], vt)
+        else:
+            idx = _seq_write(cache[kn], kt, pos)
+            _seq_write(cache[vn], vt, pos, idx)
     upd = dict(cache)
     upd["len"] = (pos if _per_row(pos) else int(pos)) + k_new.shape[1]
     return upd
 
 
 def read_kv_cache(cache: dict, dtype: Optional[torch.dtype] = None):
-    """The cache's K and V (B, T, Hkv, D), in ``dtype`` if given."""
-    k, v = cache["k"], cache["v"]
-    if dtype is not None:
-        k, v = k.to(dtype), v.to(dtype)
-    return k, v
+    """The cache's K and V (B, T, Hkv, D), in ``dtype`` if given. An int8
+    cache is dequantized, codes times scales in float32, then cast to
+    ``dtype`` (bf16 when none is given, the reference's default)."""
+    if "k" in cache:
+        k, v = cache["k"], cache["v"]
+        if dtype is not None:
+            k, v = k.to(dtype), v.to(dtype)
+        return k, v
+    dtype = torch.bfloat16 if dtype is None else dtype
+    k = cache["k_q"].to(torch.float32) * cache["k_s"][..., None]
+    v = cache["v_q"].to(torch.float32) * cache["v_s"][..., None]
+    return k.to(dtype), v.to(dtype)
 
 
 # ------------------------------------------------------------- GQA attention
@@ -255,21 +401,32 @@ def attn_init(gen: torch.Generator, cfg: AttnConfig, policy: QuantPolicy, *,
     }
 
 
+def _host_zero(pos) -> bool:
+    """Is ``pos`` the host int 0 (a prefill into an empty cache)? A (B,)
+    tensor of per-row positions never is: nothing reads it on the host."""
+    return not torch.is_tensor(pos) and int(pos) == 0
+
+
 def attn_apply(p: dict, x: torch.Tensor, cfg: AttnConfig,
                policy: QuantPolicy, *, positions=None,
                cache: Optional[dict] = None, cache_pos=None,
-               cross_kv: Optional[tuple] = None):
+               use_chunked: bool = False, q_chunk: int = 1024,
+               kv_chunk: int = 1024, cross_kv: Optional[tuple] = None):
     """Self-attention over (B, S, D). Returns ``(out, new_cache)``; with a
     cache, the new K/V are written at ``cache_pos`` (a host int, or a (B,)
     tensor of per-row positions) and the queries attend the whole cache
-    under the causal (and window) mask. On a rolling cache a prefill
-    attends its fresh K/V from position 0 under the causal and window
-    masks, and a decode step the last ``min(cache_pos + 1, window)``
-    slots.
+    under the causal (and window) mask. The reference's branch order: a
+    prefill (S > 1) into an empty cache (host ``cache_pos`` 0) with
+    ``use_chunked`` attends its fresh K/V through
+    :func:`chunked_attention`; on a rolling cache a prefill attends its
+    fresh K/V from position 0 under the causal and window masks, and a
+    decode step the last ``min(cache_pos + 1, window)`` slots. Without a
+    cache ``use_chunked`` takes the chunked path too.
 
     ``cross_kv=(k, v)``, each (B, S_src, Hkv, D), makes it cross-attention
     (an encoder-decoder's decoder): only q is projected, nothing is
-    rotated, no cache is written and no mask applies, as the reference."""
+    rotated, no cache is written, no mask applies and nothing is chunked,
+    as the reference."""
     b, s, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     if cross_kv is not None:
@@ -289,9 +446,14 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: AttnConfig,
         q = apply_rotary(q, cos, sin, rd)
         k = apply_rotary(k, cos, sin, rd)
     new_cache = None
+    chunk = dict(causal=cfg.causal, window=cfg.window, q_chunk=q_chunk,
+                 kv_chunk=kv_chunk)
     if cache is not None:
         new_cache = update_kv_cache(cache, k, v, cache_pos)
-        if "rolling" in cache and s > 1:
+        if s > 1 and use_chunked and _host_zero(cache_pos):
+            # prefill into an empty cache: the fresh K/V, chunked
+            out = chunked_attention(q, k, v, **chunk)
+        elif "rolling" in cache and s > 1:
             # windowed prefill: the fresh K/V, as the reference
             out = _sdpa_full(q, k, v, causal=cfg.causal, q_offset=0,
                              window=cfg.window)
@@ -303,6 +465,8 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: AttnConfig,
             kc, vc = read_kv_cache(new_cache, x.dtype)
             out = _sdpa_full(q, kc, vc, causal=cfg.causal,
                              q_offset=cache_pos, window=cfg.window)
+    elif use_chunked:
+        out = chunked_attention(q, k, v, **chunk)
     else:
         out = _sdpa_full(q, k, v, causal=cfg.causal, q_offset=0,
                          window=cfg.window)
@@ -342,7 +506,9 @@ def init_mla_cache(batch: int, max_len: int, cfg: AttnConfig, *,
 
 def mla_apply(p: dict, x: torch.Tensor, cfg: AttnConfig,
               policy: QuantPolicy, *, positions=None,
-              cache: Optional[dict] = None, cache_pos=None):
+              cache: Optional[dict] = None, cache_pos=None,
+              use_chunked: bool = False, q_chunk: int = 1024,
+              kv_chunk: int = 1024):
     """DeepSeek MLA over (B, S, D). Returns ``(out, new_cache)``.
 
     A prefill (a cache, S > 1, host ``cache_pos`` 0) seeds the latent
@@ -351,7 +517,11 @@ def mla_apply(p: dict, x: torch.Tensor, cfg: AttnConfig,
     cache) writes ``c``/``k_rope`` at ``cache_pos`` (a host int, or a (B,)
     tensor of per-row positions) and attends in the absorbed float32 form:
     queries into latent space through the raw ``w_uk``, the context out
-    through the raw ``w_uv``, masked to -1e30 beyond each query."""
+    through the raw ``w_uv``, masked to -1e30 beyond each query. With
+    ``use_chunked`` the prefill and training path attends through
+    :func:`chunked_attention`, ``v`` padded to the q/k width and the
+    output cut back, as the reference. ``cfg.kv_bits`` does not apply to
+    the latent cache, in the reference either."""
     b, s, _ = x.shape
     h = cfg.n_heads
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
@@ -368,8 +538,7 @@ def mla_apply(p: dict, x: torch.Tensor, cfg: AttnConfig,
     q_rope = apply_rotary(q_rope, cos, sin, dr)
     k_rope = apply_rotary(k_rope[..., None, :], cos, sin, dr)[..., 0, :]
 
-    prefill = (cache is not None and s > 1 and not _per_row(cache_pos)
-               and int(cache_pos) == 0)
+    prefill = cache is not None and s > 1 and _host_zero(cache_pos)
     if cache is not None:
         _seq_write(cache["c"], c, cache_pos)
         _seq_write(cache["k_rope"], k_rope, cache_pos)
@@ -410,6 +579,11 @@ def mla_apply(p: dict, x: torch.Tensor, cfg: AttnConfig,
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, dr)],
                   dim=-1)
     qfull = torch.cat([q_nope, q_rope], dim=-1)
-    out = _sdpa_full(qfull, k, vfull, causal=True, q_offset=0)
+    if use_chunked:
+        vpad = F.pad(vfull, (0, dn + dr - dv))
+        out = chunked_attention(qfull, k, vpad, causal=True, q_chunk=q_chunk,
+                                kv_chunk=kv_chunk)[..., :dv]
+    else:
+        out = _sdpa_full(qfull, k, vfull, causal=True, q_offset=0)
     out = qdense(p["wo"], out.reshape(b, s, h * dv), policy)
     return out, upd

@@ -45,15 +45,18 @@ def hybrid_init(gen: torch.Generator, cfg: HybridConfig,
 def hybrid_apply(p: dict, x: torch.Tensor, cfg: HybridConfig,
                  policy: QuantPolicy, *, positions=None,
                  cache: Optional[dict] = None, cache_pos=None,
-                 decode: bool = False):
+                 use_chunked: bool = False, decode: bool = False,
+                 q_chunk: int = 1024, kv_chunk: int = 1024):
     """Both branches over (B, S, D); ``decode`` steps the SSM branch one
-    token. Returns ``(out, new_cache)``: with a cache,
-    ``{"attn": ..., "ssm": ...}`` for the caller to store."""
+    token, ``use_chunked`` (with its chunks) goes to the attention branch.
+    Returns ``(out, new_cache)``: with a cache, ``{"attn": ..., "ssm":
+    ...}`` for the caller to store."""
     a_cache = cache["attn"] if cache is not None else None
     s_cache = cache["ssm"] if cache is not None else None
     attn_out, a_new = attn_apply(p["attn"], x, cfg.attn, policy,
                                  positions=positions, cache=a_cache,
-                                 cache_pos=cache_pos)
+                                 cache_pos=cache_pos, use_chunked=use_chunked,
+                                 q_chunk=q_chunk, kv_chunk=kv_chunk)
     if decode:
         ssm_out, s_new = ssm_decode_step(p["ssm"], x, cfg.ssm, policy,
                                          s_cache)
@@ -72,11 +75,13 @@ def init_hybrid_cache(batch: int, max_len: int, cfg: HybridConfig, *,
                       dtype: torch.dtype = torch.bfloat16,
                       device=None) -> dict:
     """A sliding-window layer keeps a rolling ``window``-slot buffer (when
-    the window fits ``max_len``), a global layer the full context; the SSM
-    branch its constant-size state."""
+    the window fits ``max_len``), a global layer the full context, both
+    int8 with ``cfg.attn.kv_bits=8``; the SSM branch its constant-size
+    state."""
     return {
         "attn": init_kv_cache(batch, max_len, cfg.attn.n_kv_heads,
-                              cfg.attn.head_dim, dtype=dtype, device=device,
+                              cfg.attn.head_dim, kv_bits=cfg.attn.kv_bits,
+                              dtype=dtype, device=device,
                               window=cfg.attn.window),
         "ssm": init_ssm_cache(batch, cfg.ssm, dtype=dtype, device=device),
     }

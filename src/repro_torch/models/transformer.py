@@ -22,7 +22,10 @@ attention itself, an SSM state (which the reference replaces each step)
 and a decoder's cross K/V (computed from the encoder's output at prefill)
 by :func:`_run_groups`, which copies a block's new tensor into its layer's
 slot. The cross buffers have the source's length, known at prefill, where
-:func:`prefill` allocates them.
+:func:`prefill` allocates them. ``kv_bits=8`` makes every GQA cache (a
+hybrid's too) int8; ``use_chunked_attn`` sends the attention of a forward,
+a prefill and training through ``chunked_attention`` (the reference's
+long-context knobs, which its dry-run sets).
 
 Training: :func:`loss_fn` is the reference's causal-LM loss. While
 autograd records, each layer runs under ``torch.utils.checkpoint`` when
@@ -107,9 +110,13 @@ class ModelConfig:
     frontend_len: int = 0
     frontend_dim: int = 0
     policy: QuantPolicy = QuantPolicy(mode="none")
+    kv_bits: Optional[int] = None   # None: a bf16 cache; 8: int8 codes
     remat: bool = True
     remat_policy: str = "nothing"   # the only policy ported
     dtype: str = "bfloat16"
+    use_chunked_attn: bool = False
+    attn_q_chunk: int = 1024
+    attn_kv_chunk: int = 1024
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -124,7 +131,7 @@ class ModelConfig:
             partial_rotary=self.partial_rotary, causal=causal,
             window=window, mla=self.mla, kv_lora=self.kv_lora,
             qk_nope_dim=self.qk_nope_dim, qk_rope_dim=self.qk_rope_dim,
-            v_head_dim=self.v_head_dim)
+            v_head_dim=self.v_head_dim, kv_bits=self.kv_bits)
 
     def ssm_cfg(self) -> SSMConfig:
         return SSMConfig(d_model=self.d_model, d_state=self.ssm_state,
@@ -295,7 +302,13 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *,
 
 def _draw_stack(gen: torch.Generator, cfg: ModelConfig, spec: GroupSpec,
                 packed: bool) -> dict:
-    """One group's (n, ...) stack, drawn (and packed) a layer at a time."""
+    """One group's (n, ...) stack, drawn (and packed) a layer at a time.
+    On the meta device (shapes only: ``launch/dryrun.py``'s accounting)
+    every layer has the first's shapes, so one is drawn and stacked."""
+    if gen.device.type == "meta":
+        layer = _block_init(gen, cfg, spec)
+        layer = _pack_tree(layer, cfg.policy) if packed else layer
+        return _stack_into(None, layer, 0, spec.n)
     stack = None
     for i in range(spec.n):
         layer = _block_init(gen, cfg, spec)
@@ -374,6 +387,8 @@ def _block_apply(p, x, cfg: ModelConfig, spec: GroupSpec, *, positions,
     ``{"self", "cross_k", "cross_v"}``; its K/V come from ``enc_out``
     when given (prefill, or no cache), else from that cache."""
     h = _norm(x, p["norm1"], p.get("norm1_b"), cfg)
+    chunk = dict(use_chunked=cfg.use_chunked_attn, q_chunk=cfg.attn_q_chunk,
+                 kv_chunk=cfg.attn_kv_chunk)
     if spec.kind == "ssm":
         if decode:
             out, new_c = ssm_decode_step(p["ssm"], h, cfg.ssm_cfg(),
@@ -386,11 +401,11 @@ def _block_apply(p, x, cfg: ModelConfig, spec: GroupSpec, *, positions,
         out, new_c = hybrid_apply(p["hybrid"], h, _hybrid_cfg(cfg, spec),
                                   cfg.policy, positions=positions,
                                   cache=cache, cache_pos=cache_pos,
-                                  decode=decode)
+                                  decode=decode, **chunk)
     elif spec.kind == "mla":
         out, new_c = mla_apply(p["attn"], h, cfg.attn_cfg(), cfg.policy,
                                positions=positions, cache=cache,
-                               cache_pos=cache_pos)
+                               cache_pos=cache_pos, **chunk)
     else:
         self_cache = cache["self"] if (cache is not None
                                        and spec.cross) else cache
@@ -398,7 +413,8 @@ def _block_apply(p, x, cfg: ModelConfig, spec: GroupSpec, *, positions,
                                 cfg.attn_cfg(window=spec.window,
                                              causal=spec.causal),
                                 cfg.policy, positions=positions,
-                                cache=self_cache, cache_pos=cache_pos)
+                                cache=self_cache, cache_pos=cache_pos,
+                                **chunk)
         if spec.cross:
             x = x + out
             out, ck, cv = _cross_apply(p, x, cache, enc_out, cfg)
@@ -609,7 +625,9 @@ def _stack_cache(c: dict, n: int) -> dict:
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None,
                 src_len: int = 0):
     """One stacked cache per group, ``len`` 0: GQA ``k``/``v`` (L, B, T,
-    Hkv, D) (T = the window for a rolling cache), MLA's latent ``c`` (L,
+    Hkv, D) (T = the window for a rolling cache; with ``cfg.kv_bits=8``
+    int8 ``k_q``/``v_q`` and float32 scales ``k_s``/``v_s`` (L, B, T,
+    Hkv), a hybrid's attention too), MLA's latent ``c`` (L,
     B, T, kv_lora) and ``k_rope`` (L, B, T, qk_rope_dim), an SSM's state
     ``h`` (L, B, H, N, P) and ``conv``, or a hybrid's ``{"attn", "ssm"}``
     of both; a cross-attending group's ``{"self", "cross_k", "cross_v"}``,
@@ -628,7 +646,8 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None,
                                device=device)
         else:
             c = init_kv_cache(batch, max_len, cfg.n_kv_heads, cfg.head_dim,
-                              dtype=dt, device=device, window=spec.window)
+                              kv_bits=cfg.kv_bits, dtype=dt, device=device,
+                              window=spec.window)
             if spec.cross:
                 shape = (batch, max(src_len, 1), cfg.n_kv_heads,
                          cfg.head_dim)
