@@ -203,20 +203,21 @@ Phases (any failure exits non-zero and prints no result):
     at M = 4 beside their bound; ``ssd_chunked`` against ``ssd_scan_ref``
     on the card at one mamba2 layer's full width (B 4, S 600, H 48, P 64,
     N 128) within ``tests/test_models_consistency.py``'s rtol 2e-4 / atol
-    2e-5. Then each model at full width and depth, bf16, W4A8, random
-    weights from seed 0, through ``Server`` (batch_slots 4): mamba2-780m
-    (48 SSM layers, tied embeddings) at max_len 1024 on four requests of
-    5, 8, 11 and 16 tokens and on four of 5, 8, 11 and 600 (a 3-chunk
-    left-padded scan), 16 new tokens each; hymba-1.5b (32 hybrid layers,
-    global 0, 16, 31, window 1024) at max_len 64 on four requests of 5-16
-    tokens, 16 new, and at max_len 1280 on four of 1030-1100 tokens, 8
-    new (the prefill cuts the window, every decode step rolls). Counts
-    reset just before and read just after each run: per prefill and per
-    decode step 96 K1 + 96 K3 (mamba2: in_proj and out_proj) and 192 K1 +
-    288 K3 (hymba: 6 K1 a layer, q/k/v and gate/up sharing one each, and
-    9 K3), held again on one prefill and one decode step; tokens and
-    last-step logits equal, exactly, the plain versions' run on the card;
-    the K4 path (``pack_acts=False``, 96 and 288 K4 a step) equals the
+    2e-5. Then each model at full width and half depth (``SSM_DEPTH``;
+    phase 18 serves both at full depth), bf16, W4A8, random weights from
+    seed 0, through ``Server`` (batch_slots 4): mamba2-780m (24 of 48 SSM
+    layers, tied embeddings) at max_len 1024 on four requests of 5, 8, 11
+    and 16 tokens and on four of 5, 8, 11 and 600 (a 3-chunk left-padded
+    scan), 16 new tokens each; hymba-1.5b (16 of 32 hybrid layers, global
+    0, window 1024) at max_len 64 on four requests of 5-16 tokens, 16
+    new, and at max_len 1280 on four of 1030-1100 tokens, 8 new (the
+    prefill cuts the window, every decode step rolls). Counts reset just
+    before and read just after each run: per prefill and per decode step
+    48 K1 + 48 K3 (mamba2: in_proj and out_proj) and 96 K1 + 144 K3
+    (hymba: 6 K1 a layer, q/k/v and gate/up sharing one each, and 9 K3),
+    held again on one prefill and one decode step; tokens and last-step
+    logits equal, exactly, the plain versions' run on the card; the K4
+    path (``pack_acts=False``, 48 and 144 K4 a step) equals the
     K1 + K3 path and, in each model's first run, its own plain run; the
     smoke config on the card gives the CPU's plain-version tokens. Times per model and path
     (written down, not held): prefill, eager decode step, ``generate``'s
@@ -242,8 +243,10 @@ Phases (any failure exits non-zero and prints no result):
     kernels' tokens and last-step logits equal, exactly, the plain
     versions' run on the card, the K4 path's equal K1 + K3's, and for
     internvl2-76b also with seeded ``frontend_embeds`` (4, 256, 3200);
-    (b) at the depth 80 GB holds (``FAMILY_DEPTH``: command-r 48 of 64
-    layers, qwen3-moe 40 of 94, the rest full), the same requests, counts
+    (b) at half the depth 80 GB holds, for the script's time limit
+    (``FAMILY_DEPTH``: qwen1.5-110b and internvl2-76b 40 of 80 layers,
+    command-r 24 of 64, qwen3-moe 20 of 94; nemotron and seamless full;
+    PRs 23-24 ran 80, 48, 40), the same requests, counts
     reset just before and read just after, each kernel's launches equal
     to :func:`family_launches`' per prefill and decode step, the K4
     path's tokens and logits equal K1 + K3's; internvl2-76b's frontend
@@ -281,6 +284,42 @@ Phases (any failure exits non-zero and prints no result):
     and an int8 cache (3 global layers of 524,288 slots, 29 rolling of
     1,024), each held to the plain versions at 2 layers, then 32 layers,
     192 K1 + 288 K3 per step.
+18. training every family the reference trains (:func:`train_families_phase`),
+    every width as published, bf16 compute, float32 params, W4A8 ``qat``,
+    random weights from seed 0, AdamW lr 3e-4, warmup 2; no training step
+    launches a kernel (counts reset just before and read just after): (a)
+    mamba2-780m, 48 layers: two identical forward-backward passes give
+    equal losses and gradients bit for bit, then ``Trainer`` (donated
+    steps, remat ``"nothing"``) at 8 x 64 for 8 steps: every loss and grad
+    norm finite, every float leaf moved (the LSQ step sizes included);
+    printed: ms per synchronized step from step 2, tokens/s, peak memory,
+    one profiled step split into ``train_step.{forward,backward,adamw}``
+    and the ``ssm.scan`` range's share (:func:`range_split`); then
+    ``pack_params`` of the trained state and ``loss_fn`` on
+    ``SyntheticLM.batch(10_001, 8)`` through K1 + K3 (96 + 96 launches)
+    equal bit for bit to the plain versions', the CE gap printed; then
+    ``Server`` on the trained weights with phase 8's four requests (from
+    the model's vocabulary), tokens and last-step logits equal to the
+    plain run's (96 K1 + 96 K3 per step); (b) hymba-1.5b, 32 layers, the
+    same (192 K1 + 288 K3 per forward and step); (c) internvl2-76b at 2 of
+    80 layers, every width kept: a donated ``make_train_step`` on 4 rows
+    of 256 seeded patches (``frontend_proj`` 3,200 -> 8,192) and 64
+    tokens, loss finite, every leaf moved (``frontend_proj`` included),
+    the packed evaluation with the patches through K1 + K3 equal to the
+    plain versions', then ``Trainer`` text-only for 2 steps; (d)
+    seamless-m4t-large-v2, 24 + 24 layers: ``Trainer`` raises
+    ``ValueError``; ``make_train_step`` on seeded ``src_embeds`` (8 x 64 x
+    1,024) and 8 x 64 tokens, loss finite, every leaf of encoder and
+    decoder moved, the packed evaluation with the source equal to the
+    plain versions'; (e) ``train_4k`` through ``dryrun.run_cell(...,
+    run=True)`` at 1 x 4,096, chunked: mamba2, hymba and seamless under
+    ``"nothing"``, stablelm and mamba2 also under ``"dots"``, each loss
+    finite and every leaf moved, step seconds and peak printed, the
+    ``"dots"`` params equal to ``"nothing"``'s bit for bit; (f) mamba2 at 2
+    layers of full width: a supervised 4-step run (``save_every=2``, a
+    failure injected at step 3) equals an uninterrupted run's losses and
+    final state bit for bit, and that run's donated steps equal the same
+    steps run out of place.
 
 The ``kernels`` JSON line gives, per kernel, its launches on the main
 paths (the bucketed runners' forwards and the engine's loads included:
@@ -294,7 +333,8 @@ and K3's launches include deepseek-v2-lite's (phase 12: ``Server``, the
 engine's load and the service's), phase 14's (the packed evaluation
 and the trained weights' ``Server``), phase 15's and 16's (the
 families' runs; K4's and grouped K4's too) and phase 17's (the long-context
-cells; grouped K4's too); K1's and K2's include phase 13's
+cells; grouped K4's too) and phase 18's (the trained families' packed
+evaluations and ``Server`` runs); K1's and K2's include phase 13's
 (the warm-booted graphs' replays and the profiler's calls); the grouped
 K4 entry gives its launches there and its times summed over one deepseek
 decode step.
@@ -368,6 +408,14 @@ def tree_to(tree, device):
     if isinstance(tree, list):
         return [tree_to(v, device) for v in tree]
     return tree.to(device)
+
+
+def n_alphas(tree):
+    """The LSQ step-size leaves (``alpha_*``) of a parameter tree."""
+    if isinstance(tree, dict):
+        return sum(1 if k.startswith("alpha") else n_alphas(v)
+                   for k, v in tree.items())
+    return sum(n_alphas(v) for v in tree) if isinstance(tree, list) else 0
 
 
 def range_split(prof, names):
@@ -479,12 +527,6 @@ def train_phase(dev, cfg, counts, reset_counts, device_profile, prompts):
     del init
     if still or int(state["opt"]["step"]) != steps:
         raise AssertionError(f"training: leaves that did not move {still}")
-
-    def n_alphas(t):
-        if isinstance(t, dict):
-            return sum(1 if k.startswith("alpha") else n_alphas(v)
-                       for k, v in t.items())
-        return sum(n_alphas(v) for v in t) if isinstance(t, list) else 0
 
     step_ms = [h["seconds"] * 1e3 for h in hist[2:]]
     med_ms = statistics.median(step_ms)
@@ -698,6 +740,10 @@ HYMBA_PROMPTS_LONG = (1030, 1050, 1075, 1100)   # past hymba's 1024 window
 HYMBA_NEW_LONG = 8
 SCAN_TOL = {"rtol": 2e-4, "atol": 2e-5}  # tests/test_models_consistency.py
 SSM_RANGES = ("ssm.scan", "ssm.conv")
+# the depth phase 15 serves each model at, every width kept (full depth in
+# PRs 21-24): phase 18 serves both at full depth on trained weights, and
+# the script must end inside its time limit
+SSM_DEPTH = {"mamba2-780m": 24, "hymba-1.5b": 16}
 # per model: the K1 launches (K, G step sizes) and the K3/K4 GEMMs ((K,
 # N), how many) one layer makes
 SSM_SLICE = {
@@ -731,6 +777,7 @@ def ssm_phase(dev, hp):
     ``dev``. ``hp`` holds main's helpers: ``counts``, ``reset_counts``,
     ``check_equal``, ``profiled``, ``is_spin``, ``walls``, ``timer``.
     Returns its record; raises on any failure."""
+    import dataclasses
     import gc
 
     import numpy as np
@@ -890,9 +937,11 @@ def ssm_phase(dev, hp):
         K4 path, on one set of weights; a run that times the K4 path also
         runs the K4 path's plain versions (the other runs hold K4 to the
         K1 + K3 path, held to the plain versions)."""
-        cfg = get_arch(arch).full
+        full = get_arch(arch).full
+        n_l = SSM_DEPTH[arch]
+        cfg = dataclasses.replace(full, n_layers=n_l, global_attn_layers=tuple(
+            g for g in full.global_attn_layers if g < n_l))
         sl = SSM_SLICE[arch]
-        n_l = cfg.n_layers
         k1_step = len(sl["k1"]) * n_l
         k3_step = sum(c for _, c in sl["gemms"]) * n_l
         rec = {"layers": n_l, "k1_per_step": k1_step, "k3_per_step": k3_step}
@@ -915,7 +964,8 @@ def ssm_phase(dev, hp):
                 rec["params_gb"] = sum(
                     t.numel() * t.element_size()
                     for t in tree_leaves(base)) / 1e9
-                log(f"{arch} FULL ({n_l} layers, bf16, W4A8, seed 0): random "
+                log(f"{arch} ({n_l} of {full.n_layers} layers, every width, "
+                    f"bf16, W4A8, seed 0): random "
                     f"weights drawn and packed in {rec['init_s']:.2f} s, "
                     f"{rec['params_gb']:.2f} GB")
             main_ = drive(srv, prompts, new)
@@ -1086,17 +1136,19 @@ def ssm_phase(dev, hp):
 
 
 # phase 16: the reference's six remaining architectures at full width
-# the layers one 80 GB card holds at W4 beside the float32 embedding and
-# head (drawn in float32, cast to bf16), and why any were cut
+# the layers each runs at, and why any were cut: half the depth one 80 GB
+# card holds at W4 beside the float32 embedding and head (PRs 23-24 ran
+# that depth), so the script ends inside its time limit
+_HALF = "half of what the card holds, for the script's time limit"
 FAMILY_DEPTH = {
     "nemotron-4-15b": (32, None),
-    "qwen1.5-110b": (80, None),
-    "command-r-plus-104b": (48, "64 layers: 50.3 GB packed + 12.6 GB "
+    "qwen1.5-110b": (40, _HALF),
+    "command-r-plus-104b": (24, "64 layers: 50.3 GB packed + 12.6 GB "
                                 "embedding + 12.6 + 6.3 GB head, about 82 "
-                                "GB, past the card"),
-    "internvl2-76b": (80, None),
-    "qwen3-moe-235b-a22b": (40, "94 layers' packed experts alone are 117 "
-                                "GB"),
+                                "GB, past the card; 48 fit; " + _HALF),
+    "internvl2-76b": (40, _HALF),
+    "qwen3-moe-235b-a22b": (20, "94 layers' packed experts alone are 117 "
+                                "GB; 40 fit; " + _HALF),
     "seamless-m4t-large-v2": (24, None),
 }
 # the depth at which the plain versions' run is held against the kernels'
@@ -2108,6 +2160,474 @@ def longctx_phase(dev, hp):
 
     out["seconds"] = time.perf_counter() - t_phase
     log(f"  phase 17 in {out['seconds']:.1f} s; launches {out['launches']}")
+    return out
+
+
+# phase 18: training every family the reference trains, at full width
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 64, 8
+VLM_LAYERS = 2           # internvl2-76b's trained depth (of 80)
+VLM_ROWS = 4             # its make_train_step batch: 256 patches + 64 tokens
+#: the train_4k cells: (arch, remat policy); a "dots" cell is held to the
+#: "nothing" cell of its arch run before it
+TRAIN_4K = (("mamba2-780m", "nothing"), ("mamba2-780m", "dots"),
+            ("hymba-1.5b", "nothing"), ("seamless-m4t-large-v2", "nothing"),
+            ("stablelm-1.6b", "nothing"), ("stablelm-1.6b", "dots"))
+
+
+def train_families_phase(dev, hp):
+    """Phase 18: every family the reference trains, trained on ``dev`` at
+    its published widths (bf16 compute, float32 params, W4A8 ``qat``,
+    random weights from seed 0), then evaluated and served packed through
+    K1 + K3. ``hp`` holds main's helpers (``counts``, ``reset_counts``,
+    ``device_profile``). Returns its record; raises on any failure."""
+    import dataclasses
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.tree import tree_flatten, tree_leaves, tree_unflatten
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.serve import GenRequest, Server
+    from repro_torch.launch.train import Trainer, make_train_step
+    from repro_torch.models import transformer
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime.checkpoint import CheckpointManager
+    from repro_torch.runtime.fault_tolerance import FailureInjector
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    free()
+    t_phase = time.perf_counter()
+    gb = 1e9
+    out = {"launches": {"K1": 0, "K3": 0},
+           "held_gb_at_start": torch.cuda.memory_allocated() / gb}
+    log(f"  {out['held_gb_at_start']:.2f} GB held on the card before the "
+        f"phase")
+    opt = AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+
+    def counted(fn, want, what):
+        """``fn()`` with the counts reset just before and read just after,
+        held to ``want``; the launches join the phase's."""
+        hp.reset_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        got = hp.counts()
+        if got != {"K2": 0, "K4": 0, "K4g": 0, **want}:
+            raise AssertionError(f"{what}: launches {got}, want {want}")
+        for k in out["launches"]:
+            out["launches"][k] += got[k]
+        return res
+
+    def unmoved(new, old):
+        """The leaves of ``new`` equal to ``old``'s, by index."""
+        return [i for i, (a, b) in enumerate(zip(tree_leaves(new),
+                                                 tree_leaves(old)))
+                if torch.equal(a, b)]
+
+    def drawn(cfg):
+        return transformer.init_params(
+            torch.Generator(device=dev).manual_seed(0), cfg)
+
+    def packed_eval(cfg, params, batch, want, what):
+        """``loss_fn`` on the packed params through K1 + K3 against the
+        plain versions on the same packed params, bit for bit; the
+        fake-quant CE beside the integer CE."""
+        scfg = transformer.serve_policy(cfg, pack_acts=True)
+        packed = transformer.pack_params(params, scfg)
+        with torch.no_grad():
+            l_q, aux_q = counted(lambda: transformer.loss_fn(packed, batch,
+                                                             scfg),
+                                 want, what)
+            hp.reset_counts()
+            l_p, aux_p = transformer.loss_fn(
+                packed, batch, transformer.serve_policy(scfg, plain=True))
+            torch.cuda.synchronize()
+            if any(hp.counts().values()):
+                raise AssertionError(f"{what}: the plain run launched "
+                                     f"{hp.counts()}")
+            l_f, aux_f = transformer.loss_fn(params, batch, cfg)
+        if (not torch.equal(l_q, l_p)
+                or not torch.equal(aux_q["ce"], aux_p["ce"])):
+            raise AssertionError(f"{what}: packed loss {float(l_q)!r} vs "
+                                 f"plain {float(l_p)!r}")
+        ce_f, ce_q = float(aux_f["ce"]), float(aux_q["ce"])
+        if not (np.isfinite(ce_f) and np.isfinite(ce_q)):
+            raise AssertionError(f"{what}: CE {ce_f} / {ce_q}")
+        return {"launches": want, "loss_integer": float(l_q),
+                "ce_fake_quant": ce_f, "ce_integer": ce_q,
+                "gap": ce_q - ce_f}
+
+    def same_grads(cfg, params, batch):
+        """The gradients of two identical forward-backward passes, equal
+        bit for bit (the SSD scan's group indexing sums in its backward)."""
+        leaves, treedef = tree_flatten(params)
+        runs = []
+        for _ in range(2):
+            ls = [l.detach().requires_grad_(True) for l in leaves]
+            with torch.enable_grad():
+                loss, _ = transformer.loss_fn(tree_unflatten(treedef, ls),
+                                              batch, cfg)
+                runs.append((loss.detach(), torch.autograd.grad(loss, ls)))
+            del ls
+        (l0, g0), (l1, g1) = runs
+        diff = [i for i, (a, b) in enumerate(zip(g0, g1))
+                if not torch.equal(a, b)]
+        if not torch.equal(l0, l1) or diff:
+            raise AssertionError(f"{cfg.name}: two identical steps differ "
+                                 f"(loss {float(l0)!r} / {float(l1)!r}, "
+                                 f"gradient leaves {diff})")
+        return len(g0)
+
+    # (a), (b): mamba2-780m and hymba-1.5b through Trainer at full depth
+    for tag, arch in (("a", "mamba2-780m"), ("b", "hymba-1.5b")):
+        cfg = get_arch(arch).full
+        # one forward's launches on the packed path: phase 15's per step
+        k1_fwd = len(SSM_SLICE[arch]["k1"]) * cfg.n_layers
+        k3_fwd = sum(c for _, c in SSM_SLICE[arch]["gemms"]) * cfg.n_layers
+        if not (cfg.remat and cfg.remat_policy == "nothing"
+                and cfg.policy.mode == "qat"):
+            raise AssertionError(f"training config {cfg}")
+        log(f"train families ({tag}): Trainer({arch} FULL, {cfg.n_layers} "
+            f"layers, bf16 compute, float32 params, W4A8 qat, remat "
+            f"'nothing', batch {TRAIN_BATCH}, seq {TRAIN_SEQ}, seed 0), "
+            f"AdamW lr 3e-4, warmup 2, {TRAIN_STEPS} steps")
+        trainer = Trainer(cfg, opt_cfg=opt, batch_size=TRAIN_BATCH,
+                          seq_len=TRAIN_SEQ, seed=0, device=dev)
+        n_leaves = same_grads(cfg, drawn(cfg), trainer.device_batch(
+            trainer.data.batch(0, TRAIN_BATCH)))
+        free()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        state, losses = counted(lambda: trainer.run(TRAIN_STEPS,
+                                                    log_every=TRAIN_STEPS),
+                                {"K1": 0, "K3": 0}, f"{arch} training")
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - mem0
+        init = drawn(cfg)
+        hist = trainer.history
+        gnorms = [h["grad_norm"] for h in hist]
+        if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses
+                                                             + gnorms)):
+            raise AssertionError(f"{arch}: losses {losses}, grad norms "
+                                 f"{gnorms}")
+        still = unmoved(state["params"], init)
+        still += [f"{k}{i}" for k in ("m", "v")
+                  for i, t in enumerate(tree_leaves(state["opt"][k]))
+                  if not bool(t.any())]
+        n_alpha = n_alphas(state["params"])
+        del init
+        if still or int(state["opt"]["step"]) != TRAIN_STEPS:
+            raise AssertionError(f"{arch}: leaves that did not move {still}")
+        n_params = sum(p.numel() for p in tree_leaves(state["params"]))
+        step_ms = [h["seconds"] * 1e3 for h in hist[2:]]
+        med = statistics.median(step_ms)
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        step_fn = make_train_step(cfg, opt)
+        pbatch = trainer.device_batch(trainer.data.batch(TRAIN_STEPS,
+                                                         TRAIN_BATCH))
+        parts = ("train_step.forward", "train_step.backward",
+                 "train_step.adamw") + SSM_RANGES
+        prof = counted(lambda: hp.device_profile(
+            lambda: step_fn(state, pbatch), ranges=parts),
+            {"K1": 0, "K3": 0}, f"{arch} profiled step")
+        split = {k.split(".")[1]: v for k, v in prof["ranges"].items()}
+        rec = dict(layers=cfg.n_layers, n_params=n_params,
+                   leaves=len(tree_leaves(state["params"])),
+                   alpha_leaves=n_alpha, same_grads_leaves=n_leaves,
+                   losses=losses, grad_norms=gnorms,
+                   step_ms=[h["seconds"] * 1e3 for h in hist],
+                   step_ms_median_from_2=med,
+                   tokens_per_s=tokens / (med / 1e3), run_s=run_s,
+                   peak_gb=peak / gb, profiled_step=prof, split_ms=split,
+                   scan_share=split["scan"]["busy"] / prof["device_ms"],
+                   conv_share=split["conv"]["busy"] / prof["device_ms"])
+        log(f"  two identical forward-backward passes: loss and all "
+            f"{n_leaves} gradients equal bit for bit")
+        log(f"  {n_params / 1e9:.4f} B params; losses "
+            + " ".join(f"{l:.4f}" for l in losses) + "; grad norms "
+            + " ".join(f"{g:.3f}" for g in gnorms))
+        log(f"  every float leaf moved ({rec['leaves']}, {n_alpha} LSQ "
+            f"step-size leaves among them); step (synchronized) from step "
+            f"2: median {med:.1f} ms (" + " ".join(f"{t:.1f}"
+                                                  for t in step_ms)
+            + f"); {rec['tokens_per_s']:.0f} training tokens/s; peak "
+            f"{peak / gb:.2f} GB above what was held; {run_s:.1f} s for "
+            f"the {TRAIN_STEPS} steps with init")
+        log(f"  one profiled step: wall {prof['wall_ms']:.1f} ms, device "
+            f"busy {prof['device_ms']:.1f} ms over {prof['kernels']:.0f} "
+            f"kernels; " + "; ".join(
+                f"{k} issued {v['issued']:.1f}, done {v['done']:.1f}, busy "
+                f"{v['busy']:.1f}" for k, v in split.items())
+            + f"; ssm.scan {rec['scan_share']:.1%} and ssm.conv "
+            f"{rec['conv_share']:.1%} of busy (forward and the backward's "
+            f"recompute)")
+        for name, ms_ in list(prof["by_name_ms"].items())[:6]:
+            log(f"    {ms_:8.2f} ms  x{prof['launches'][name]:5.0f}  "
+                f"{name[:90]}")
+        del step_fn, pbatch
+        free()
+
+        # the trained weights: packed evaluation, then Server
+        hb = trainer.device_batch(trainer.data.batch(10_001, TRAIN_BATCH))
+        rec["eval"] = packed_eval(cfg, state["params"], hb,
+                                  {"K1": k1_fwd, "K3": k3_fwd},
+                                  f"{arch} packed evaluation")
+        log(f"  held-out batch (SyntheticLM.batch(10_001, 8)): loss "
+            f"through K1 + K3 {rec['eval']['loss_integer']!r} equals the "
+            f"plain versions' bit for bit ({k1_fwd} K1 + {k3_fwd} K3); CE "
+            f"fake-quant {rec['eval']['ce_fake_quant']:.4f}, integer "
+            f"{rec['eval']['ce_integer']:.4f}, gap "
+            f"{rec['eval']['gap']:+.4f}")
+        # phase 8's four requests, from the model's vocabulary (phase 15's)
+        prng = np.random.RandomState(0)
+        prompts = [prng.randint(0, cfg.vocab_size, (ln,)).astype(np.int32)
+                   for ln in LM_PROMPTS]
+        reqs = lambda: [GenRequest(p.copy(), LM_NEW) for p in prompts]
+        srv = Server(cfg, state["params"], batch_slots=4,
+                     max_len=LM_MAX_LEN, device=dev)
+        got = counted(lambda: [r.out_tokens for r in srv.generate(reqs())],
+                      {"K1": k1_fwd * LM_NEW, "K3": k3_fwd * LM_NEW},
+                      f"{arch} trained Server")
+        plain = Server(cfg, srv.params, batch_slots=4, max_len=LM_MAX_LEN,
+                       plain=True, device=dev)
+        ref = [r.out_tokens for r in plain.generate(reqs())]
+        if ref != got or not torch.equal(plain.last_logits,
+                                         srv.last_logits):
+            raise AssertionError(f"{arch} trained Server: tokens/logits "
+                                 "differ from the plain run")
+        rec["server_tokens"] = got
+        log(f"  Server on the trained weights, phase 8's four requests: "
+            f"tokens and last-step logits equal the plain run's "
+            f"({k1_fwd * LM_NEW} K1 + {k3_fwd * LM_NEW} K3); request 0 "
+            f"{got[0][:8]}...")
+        out[arch] = rec
+        del srv, plain, state, trainer, hb
+        free()
+
+    # (c) internvl2-76b at 2 of 80 layers, every width kept
+    full = get_arch("internvl2-76b").full
+    cfg = dataclasses.replace(full, n_layers=VLM_LAYERS)
+    log(f"train families (c): internvl2-76b at {VLM_LAYERS} of "
+        f"{full.n_layers} layers, every width kept: make_train_step "
+        f"(donated) on {VLM_ROWS} rows of {cfg.frontend_len} seeded patches "
+        f"({cfg.frontend_dim} -> {cfg.d_model}) and {TRAIN_SEQ} tokens")
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    params = drawn(cfg)
+    state = {"params": params, "opt": adamw_init(params)}
+    del params
+    rng = np.random.default_rng(18)
+
+    def seeded(cfg, rows, extra, shape):
+        """Tokens and labels (rows x 64) and the patches or the source,
+        drawn from ``rng``: the step's batch, then a held-out one."""
+        b = {extra: torch.from_numpy(rng.standard_normal(
+            (rows,) + shape).astype(np.float32)).to(dev, torch.bfloat16)}
+        for k in ("tokens", "labels"):
+            b[k] = torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (rows, TRAIN_SEQ))).to(dev)
+        return b
+
+    vshape = (cfg.frontend_len, cfg.frontend_dim)
+    vb = seeded(cfg, VLM_ROWS, "frontend_embeds", vshape)
+    step_fn = make_train_step(cfg, opt, donate=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = counted(lambda: step_fn(state, vb), {"K1": 0, "K3": 0},
+                       "internvl2 training")
+    vlm_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - mem0
+    loss = float(m["loss"])
+    free()
+    init = drawn(cfg)
+    still = unmoved(state["params"], init)
+    del init
+    free()
+    if not np.isfinite(loss) or still:
+        raise AssertionError(f"internvl2: loss {loss}, leaves that did not "
+                             f"move {still}")
+    rec = {"layers": VLM_LAYERS, "loss": loss,
+           "grad_norm": float(m["grad_norm"]), "step_s": vlm_s,
+           "peak_gb": peak / gb,
+           "n_params": sum(p.numel() for p in tree_leaves(state["params"])),
+           "frontend_proj_grad_moved": True}
+    log(f"  loss {loss:.4f}, grad norm {rec['grad_norm']:.3f}; every leaf "
+        f"moved, frontend_proj's included; {rec['n_params'] / 1e9:.3f} B "
+        f"params, the step {vlm_s:.2f} s, peak {peak / gb:.2f} GB above "
+        f"what was held")
+    want = {k: family_launches(cfg, "prefill")[k] for k in ("K1", "K3")}
+    rec["eval"] = packed_eval(cfg, state["params"],
+                              seeded(cfg, VLM_ROWS, "frontend_embeds", vshape),
+                              want, "internvl2 packed evaluation")
+    log(f"  packed evaluation with held-out patches and tokens: loss through "
+        f"K1 + K3 "
+        f"{rec['eval']['loss_integer']!r} equals the plain versions' bit "
+        f"for bit ({want['K1']} K1 + {want['K3']} K3); CE fake-quant "
+        f"{rec['eval']['ce_fake_quant']:.4f}, integer "
+        f"{rec['eval']['ce_integer']:.4f}")
+    del state, vb, step_fn
+    free()
+    trainer = Trainer(cfg, opt_cfg=opt, batch_size=VLM_ROWS,
+                      seq_len=TRAIN_SEQ, seed=0, device=dev)
+    t0 = time.perf_counter()
+    state, losses = counted(lambda: trainer.run(2, log_every=100),
+                            {"K1": 0, "K3": 0}, "internvl2 Trainer")
+    if len(losses) != 2 or not all(np.isfinite(losses)):
+        raise AssertionError(f"internvl2 Trainer: losses {losses}")
+    rec["trainer_losses"] = losses
+    rec["trainer_s"] = time.perf_counter() - t0
+    log(f"  Trainer text-only, 2 steps: losses "
+        + " ".join(f"{l:.4f}" for l in losses)
+        + f" ({rec['trainer_s']:.1f} s with init)")
+    out["internvl2-76b"] = rec
+    del state, trainer
+    free()
+
+    # (d) seamless-m4t-large-v2, 24 + 24 layers, on a seeded source
+    cfg = get_arch("seamless-m4t-large-v2").full
+    log(f"train families (d): seamless-m4t-large-v2 FULL ({cfg.n_enc_layers}"
+        f" + {cfg.n_layers} layers): make_train_step on seeded src_embeds "
+        f"({TRAIN_BATCH} x {TRAIN_SEQ} x {cfg.frontend_dim}) and "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens")
+    try:
+        Trainer(cfg, opt_cfg=opt, device=dev)
+        raise AssertionError("Trainer took an encoder-decoder config")
+    except ValueError as e:
+        refusal = str(e)
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    params = drawn(cfg)
+    state = {"params": params, "opt": adamw_init(params)}
+    del params
+    sshape = (TRAIN_SEQ, cfg.frontend_dim)
+    sb = seeded(cfg, TRAIN_BATCH, "src_embeds", sshape)
+    step_fn = make_train_step(cfg, opt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new, m = counted(lambda: step_fn(state, sb), {"K1": 0, "K3": 0},
+                     "seamless training")
+    sm_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - mem0
+    loss = float(m["loss"])
+    still = unmoved(new["params"], state["params"])
+    n_enc = len(tree_leaves(new["params"]["enc"]))
+    if not np.isfinite(loss) or still:
+        raise AssertionError(f"seamless: loss {loss}, leaves that did not "
+                             f"move {still}")
+    rec = {"loss": loss, "grad_norm": float(m["grad_norm"]), "step_s": sm_s,
+           "peak_gb": peak / gb, "leaves": len(tree_leaves(new["params"])),
+           "encoder_leaves": n_enc, "trainer_refusal": refusal}
+    log(f"  Trainer refuses it: ValueError({refusal[:80]}...); loss "
+        f"{loss:.4f}, every leaf moved ({rec['leaves']}, {n_enc} of the "
+        f"encoder's), the step {sm_s:.2f} s, peak {peak / gb:.2f} GB")
+    del state
+    want = {k: family_launches(cfg, "prefill")[k] for k in ("K1", "K3")}
+    rec["eval"] = packed_eval(cfg, new["params"],
+                              seeded(cfg, TRAIN_BATCH, "src_embeds", sshape),
+                              want, "seamless packed evaluation")
+    log(f"  packed evaluation with a held-out source and tokens: loss "
+        f"through K1 + K3 "
+        f"{rec['eval']['loss_integer']!r} equals the plain versions' bit "
+        f"for bit ({want['K1']} K1 + {want['K3']} K3); CE fake-quant "
+        f"{rec['eval']['ce_fake_quant']:.4f}, integer "
+        f"{rec['eval']['ce_integer']:.4f}")
+    out["seamless-m4t-large-v2"] = rec
+    del new, sb, step_fn
+    free()
+
+    # (e) train_4k through dryrun.run_cell at 1 x 4096, chunked attention
+    log("train families (e): train_4k cells through dryrun.run_cell at 1 x "
+        "4096 (chunked attention, remat); a 'dots' cell's new params held "
+        "to the 'nothing' cell's bit for bit")
+    cells, kept = {}, {}
+    for arch, pol in TRAIN_4K:
+        free()
+        (r, o) = counted(lambda: dryrun.run_cell(
+            arch, "train_4k", run=True, batch=1, device=dev,
+            remat_policy=pol, return_outputs=True),
+            {"K1": 0, "K3": 0}, f"{arch} train_4k {pol}")
+        run = r["run"]
+        if not run["loss_finite"] or run["leaves_moved"] != run["leaves"]:
+            raise AssertionError(f"{arch} train_4k {pol}: loss "
+                                 f"{run['loss']}, moved "
+                                 f"{run['leaves_moved']} of {run['leaves']}")
+        new_p = tree_leaves(o["state"]["params"])
+        if pol == "nothing":
+            kept[arch] = [t.cpu() for t in new_p]
+        else:
+            diff = [i for i, (a, b) in enumerate(zip(new_p, kept[arch]))
+                    if not torch.equal(a.cpu(), b)]
+            if diff:
+                raise AssertionError(f"{arch} train_4k: 'dots' params differ "
+                                     f"from 'nothing' at leaves {diff}")
+            del kept[arch]
+        del o, new_p
+        cells[f"{arch}:{pol}"] = r
+        log(f"  {arch} {pol}: loss {run['loss']:.4f}, every leaf moved "
+            f"({run['leaves']}), step {run['step_s']:.2f} s, peak "
+            f"{run['peak_bytes'] / gb:.2f} GB (rows that fit by the "
+            f"accounting: {r.get('rows_that_fit')})"
+            + ("; new params equal the 'nothing' run's bit for bit"
+               if pol == "dots" else ""))
+    out["train_4k"] = cells
+    free()
+
+    # (f) a supervised mamba2 run at 2 layers of full width, resumed
+    cfg = dataclasses.replace(get_arch("mamba2-780m").full, n_layers=2)
+    log("train families (f): mamba2-780m at 2 layers of full width, 4 steps "
+        "supervised (save_every 2, a failure injected at step 3) against "
+        "an uninterrupted run and the step run out of place")
+    clean = Trainer(cfg, opt_cfg=opt, batch_size=TRAIN_BATCH,
+                    seq_len=TRAIN_SEQ, seed=0, device=dev)
+    state_c, losses_c = clean.run(4, log_every=100)
+    step_fn = make_train_step(cfg, opt)
+    st = clean.init_state()
+    for s in range(4):
+        st, _ = step_fn(st, clean.device_batch(clean.data.batch(
+            s, TRAIN_BATCH)))
+    oop = [i for i, (a, b) in enumerate(zip(tree_leaves(st),
+                                            tree_leaves(state_c)))
+           if not torch.equal(a, b)]
+    del st, step_fn
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        sup = Trainer(cfg, opt_cfg=opt, ckpt_dir=tmp,
+                      batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=0,
+                      save_every=2, device=dev)
+        sup.ckpt = CheckpointManager(tmp, max_to_keep=1)
+        t0 = time.perf_counter()
+        state_f, losses_f = sup.run(4, injector=FailureInjector(
+            fail_at_steps=(3,)), log_every=100)
+        sup_s = time.perf_counter() - t0
+        steps_kept = sup.ckpt.all_steps()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    want_losses = losses_c[:3] + losses_c[2:]
+    same = [torch.equal(x, y) and x.dtype == y.dtype
+            for x, y in zip(tree_leaves(state_c), tree_leaves(state_f))]
+    if (losses_f != want_losses or not all(same) or steps_kept != [4]
+            or oop):
+        raise AssertionError(
+            f"mamba2 resume: losses {losses_f} vs {want_losses}, "
+            f"{same.count(False)} leaves differ, steps kept {steps_kept}; "
+            f"out of place differs at {oop}")
+    out["resume"] = {"losses": losses_f, "leaves": len(same),
+                     "supervised_s": sup_s}
+    log(f"  losses " + " ".join(f"{l:.4f}" for l in losses_f)
+        + f" equal the uninterrupted run's, the final state ({len(same)} "
+        f"leaves) bit for bit, and the donated steps equal the steps run "
+        f"out of place; {sup_s:.1f} s for the supervised run")
+    del state_c, state_f, clean, sup
+    free()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 18 in {out['seconds']:.1f} s; launches {out['launches']}")
     return out
 
 
@@ -4370,6 +4890,13 @@ def main() -> int:
     record["long_context"] = long_rec
     long_ran = long_rec["launches"]
 
+    # ------------ 18. training every family the reference trains, full width
+    trf_rec = train_families_phase(dev, types.SimpleNamespace(
+        counts=counts, reset_counts=reset_counts,
+        device_profile=device_profile))
+    record["train_families"] = trf_rec
+    trf_ran = trf_rec["launches"]
+
     def total(kid, key):
         vals = [r[key] for r in rows if r["kernel"] == kid]
         return None if any(v is None for v in vals) else sum(vals)
@@ -4393,7 +4920,7 @@ def main() -> int:
                       + c_tiny["K1"] + ran_load["K1"] + lm_ran["K1"]
                       + ds_launches["K1"] + tc_launches["K1"]
                       + tr["launches"]["K1"] + ssm_rec["launches"]["K1"]
-                      + fam_ran["K1"] + long_ran["K1"]),
+                      + fam_ran["K1"] + long_ran["K1"] + trf_ran["K1"]),
          "engine_launches_per_captured_step": rec["step_launches"]["K1"],
          "max_abs_err": max_err["K1"],
          "ms": total("K1", "ms") + lm_step("K1", "ms", 4),
@@ -4421,7 +4948,7 @@ def main() -> int:
          "launches": (lm_k3[2]["K3"] + c_tiny["K3"] + ran_load["K3"]
                       + lm_ran["K3"] + ds_launches["K3"]
                       + tr["launches"]["K3"] + ssm_rec["launches"]["K3"]
-                      + fam_ran["K3"] + long_ran["K3"]),
+                      + fam_ran["K3"] + long_ran["K3"] + trf_ran["K3"]),
          "engine_launches_per_captured_step": rec["step_launches"]["K3"],
          "max_abs_err": max_err["K3"],
          "ms": lm_step("K3", "ms", 4), "plain_ms": lm_step("K3", "plain_ms", 4),

@@ -14,35 +14,38 @@ from typing import Any, List, Tuple
 __all__ = ["tree_flatten", "tree_unflatten", "tree_leaves"]
 
 
+def _flatten(t, leaves: List[Any]):
+    if isinstance(t, dict):
+        keys = sorted(t)
+        return ("dict", keys, [_flatten(t[k], leaves) for k in keys])
+    if isinstance(t, (list, tuple)):
+        return (type(t).__name__, None, [_flatten(v, leaves) for v in t])
+    leaves.append(t)
+    return None
+
+
 def tree_flatten(tree) -> Tuple[List[Any], Any]:
-    """``(leaves, treedef)``; ``treedef`` rebuilds the containers."""
+    """``(leaves, treedef)``; ``treedef`` rebuilds the containers. The
+    walks are module functions, not closures: a recursive closure is a
+    reference cycle, which would keep every leaf it saw (a step's
+    gradients) alive until the garbage collector runs."""
     leaves: List[Any] = []
+    return leaves, _flatten(tree, leaves)
 
-    def walk(t):
-        if isinstance(t, dict):
-            keys = sorted(t)
-            return ("dict", keys, [walk(t[k]) for k in keys])
-        if isinstance(t, (list, tuple)):
-            return (type(t).__name__, None, [walk(v) for v in t])
-        leaves.append(t)
-        return None
 
-    return leaves, walk(tree)
+def _build(d, it):
+    if d is None:
+        return next(it)
+    kind, keys, kids = d
+    if kind == "dict":
+        return {k: _build(c, it) for k, c in zip(keys, kids)}
+    vals = [_build(c, it) for c in kids]
+    return tuple(vals) if kind == "tuple" else vals
 
 
 def tree_unflatten(treedef, leaves):
     it = iter(leaves)
-
-    def build(d):
-        if d is None:
-            return next(it)
-        kind, keys, kids = d
-        if kind == "dict":
-            return {k: build(c) for k, c in zip(keys, kids)}
-        vals = [build(c) for c in kids]
-        return tuple(vals) if kind == "tuple" else vals
-
-    out = build(treedef)
+    out = _build(treedef, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the tree holds")
     return out

@@ -16,9 +16,11 @@ program has no ahead-of-time compile to analyze, so the port:
   the card's ``total_memory``;
 * with ``run=True`` runs the cell on the device at its ``seq_len``, the
   batch cut to ``batch`` or to the rows that fit (``batch_run`` beside
-  ``global_batch``): ``train`` one ``make_train_step`` step (loss, the
-  leaves that moved, peak memory), ``prefill`` one ``prefill``
-  (synchronized wall, the last position's greedy tokens), ``decode``
+  ``global_batch``): ``train`` one ``make_train_step`` step on the
+  cell's seeded inputs (every family: a VLM's patches, an
+  encoder-decoder's source; loss, the leaves that moved, peak memory),
+  ``prefill`` one ``prefill`` (synchronized wall, the last position's
+  greedy tokens), ``decode``
   ``Server.generate`` on short seeded prompts against caches of
   ``seq_len`` slots, each step timed (every step reads every slot, so a
   step costs what a full-depth one does).
@@ -38,8 +40,8 @@ Usage::
 Flags as the reference's: ``--arch``, ``--shape``, ``--all``, ``--mesh``
 (``single`` is one card; ``multi``/``both`` raise: ROADMAP queue 1 item
 6), ``--radix``, ``--kv-bits``, ``--no-chunked``, ``--remat-policy``
-(``dots`` raises: ROADMAP queue 1 item 5b), ``--tag``, ``--out``,
-``--force``; the port adds ``--run``, ``--batch`` and ``--device``.
+(``nothing`` or ``dots``), ``--tag``, ``--out``, ``--force``; the port
+adds ``--run``, ``--batch`` and ``--device``.
 """
 
 from __future__ import annotations
@@ -119,10 +121,9 @@ def build_cell(arch: str, shape_name: str, *, radix: int = 7,
     ``build_cell``): ``radix_bits``, ``use_chunked_attn`` unless the shape
     is a decode, ``kv_bits`` and ``remat_policy``; ``n_layers`` cuts the
     depth (the port's, for checks against the plain versions)."""
-    if remat_policy != "nothing":
-        raise NotImplementedError(
-            f"remat_policy={remat_policy!r}: only 'nothing' is ported; "
-            "'dots' is ROADMAP queue 1 item 5b")
+    if remat_policy not in ("nothing", "dots"):
+        raise ValueError(f"remat_policy={remat_policy!r}: 'nothing' or "
+                         "'dots'")
     cfg = get_arch(arch).full
     shape = SHAPES[shape_name]
     cfg = dataclasses.replace(
@@ -163,19 +164,47 @@ def _card_bytes(device) -> Optional[int]:
     return torch.cuda.get_device_properties(torch.device(device)).total_memory
 
 
+def _saved_dots_per_token(cfg: ModelConfig) -> int:
+    """The output columns of one layer's projections (the matmuls that
+    ``remat_policy="dots"`` keeps), summed over the decoder's layers and
+    an encoder's: what a token's saved outputs hold, in elements."""
+    attn = (cfg.n_heads * cfg.head_dim + 2 * cfg.n_kv_heads * cfg.head_dim
+            + cfg.d_model)
+    mlp = (cfg.d_ff if cfg.act != "swiglu" else 2 * cfg.d_ff) + cfg.d_model
+    if cfg.n_experts:
+        mlp = ((cfg.top_k + cfg.n_shared_experts) * 3 * cfg.d_ff_expert
+               + cfg.n_experts)
+    ssm = 0
+    if cfg.family in ("ssm", "hybrid"):
+        sc = cfg.ssm_cfg()
+        ssm = (2 * sc.d_inner + 2 * sc.n_groups * sc.d_state + sc.n_heads
+               + cfg.d_model)
+    per = {"ssm": ssm, "hybrid": attn + ssm + mlp}.get(cfg.family,
+                                                        attn + mlp)
+    return per * (cfg.n_layers + cfg.n_enc_layers)
+
+
 def _act_bytes_per_row(cell: Cell) -> int:
     """A rough per-row working set beyond the caches, for picking the rows
-    that fit: a train row's saved layer inputs, float32 logits three times
-    and one layer's recompute; a prefill row's activations. A decode row
-    needs its caches; the float32 copy of one layer's K/V that a step makes
-    is left to :data:`FIT_SHARE`'s margin."""
+    that fit: a train row's saved layer inputs (and under ``"dots"`` every
+    layer's projection outputs), float32 logits three times and one
+    layer's recompute, an SSM layer's chunked scan among it (a few (S/L)
+    x L^2 x H float32 tensors); a prefill row's activations. A decode row
+    needs its caches; the float32 copy of one layer's K/V that a step
+    makes is left to :data:`FIT_SHARE`'s margin."""
     cfg, s = cell.cfg, cell.shape.seq_len
+    layer = 16 * s * max(cfg.d_ff, cfg.d_model) * 4
+    if cfg.family in ("ssm", "hybrid"):
+        sc = cfg.ssm_cfg()
+        lc = min(sc.chunk, s)
+        layer += 8 * (-(-s // lc)) * lc * lc * sc.n_heads * 4
     if cell.shape.kind == "train":
-        return (cfg.n_layers * s * cfg.d_model * 2
-                + 3 * s * cfg.vocab_size * 4
-                + 16 * s * max(cfg.d_ff, cfg.d_model) * 4)
+        saved = (cfg.n_layers + cfg.n_enc_layers) * s * cfg.d_model * 2
+        if cfg.remat_policy == "dots":
+            saved += s * _saved_dots_per_token(cfg) * 2
+        return saved + 3 * s * cfg.vocab_size * 4 + layer
     if cell.shape.kind == "prefill":
-        return 16 * s * max(cfg.d_ff, cfg.d_model) * 4
+        return layer
     return 0
 
 
@@ -239,13 +268,16 @@ def _seeded_inputs(cell: Cell, rows: int, dev: torch.device, seed: int):
 
 
 def _run_train(cell: Cell, rows: int, dev: torch.device) -> tuple:
-    from repro_torch.launch.train import Trainer, make_train_step
-    opt_cfg = AdamWConfig()
-    trainer = Trainer(cell.cfg, opt_cfg=opt_cfg, batch_size=rows,
-                      seq_len=cell.shape.seq_len, seed=SEED, device=dev)
-    state = trainer.init_state()
-    batch = trainer.device_batch(trainer.data.batch(0, rows))
-    step = make_train_step(cell.cfg, opt_cfg)
+    """One ``make_train_step`` step on the cell's inputs at ``rows`` rows
+    (:func:`_seeded_inputs`, labels included: a VLM's patches ahead of its
+    tokens, an encoder-decoder's ``src_embeds``), from params and AdamW
+    state drawn from :data:`SEED`."""
+    from repro_torch.launch.train import make_train_step
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = init_params(gen, cell.cfg)
+    state = {"params": params, "opt": adamw_init(params)}
+    batch = _seeded_inputs(cell, rows, dev, SEED + 1)
+    step = make_train_step(cell.cfg, AdamWConfig())
     _sync(dev)
     t0 = time.perf_counter()
     new, metrics = step(state, batch)
@@ -257,6 +289,7 @@ def _run_train(cell: Cell, rows: int, dev: torch.device) -> tuple:
     return {"loss": loss, "loss_finite": math.isfinite(loss),
             "grad_norm": float(metrics["grad_norm"]),
             "leaves": len(old_l), "leaves_moved": moved,
+            "inputs": {k: list(v.shape) for k, v in batch.items()},
             "step_s": seconds}, {"state": new}
 
 
@@ -328,6 +361,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str = "single", *,
             f"{'__kv' + str(kv_bits) if kv_bits else ''}"
             f"{'__nochunk' if not use_chunked else ''}"
             f"{'__L' + str(n_layers) if n_layers else ''}"
+            f"{'__dots' if remat_policy == 'dots' else ''}"
             f"{'__plain' if plain else ''}{tag}")
     path = os.path.join(out_dir, name + ".json")
     if (os.path.exists(path) and not force and not run
@@ -369,9 +403,8 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str = "single", *,
                 got, outputs = _run_decode(cell, rows, dev, plain, prompts,
                                            new_tokens)
             rec["run"] = got
-            if dev.type == "cuda":
-                rec["run"]["peak_bytes"] = torch.cuda.max_memory_allocated(
-                    dev)
+            rec["run"]["peak_bytes"] = (torch.cuda.max_memory_allocated(dev)
+                                        if dev.type == "cuda" else None)
         rec["ok"] = True
     except Exception as e:
         rec["error"] = f"{type(e).__name__}: {e}"

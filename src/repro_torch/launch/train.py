@@ -5,7 +5,11 @@ Counterpart of ``repro/launch/train.py`` on one device: a step is the
 forward (LSQ fake quantization on every projection, each layer
 checkpointed under ``cfg.remat``), ``backward`` and the reference's AdamW;
 the batches are the reference's :class:`~repro_torch.data.SyntheticLM`
-stream, equal bit for bit. The trained float params export to the packed
+stream, equal bit for bit. Every family the reference trains trains here:
+:func:`make_train_step` takes any batch :func:`loss_fn` takes (a VLM's
+``frontend_embeds``, an encoder-decoder's ``src_embeds`` or
+``src_tokens``); the :class:`Trainer` feeds tokens alone, as the
+reference's does. The trained float params export to the packed
 deployment path with :func:`~repro_torch.models.transformer.pack_params`.
 It trains on one device: data- and model-parallel meshes come with
 ``distributed/``.
@@ -41,13 +45,20 @@ from repro_torch.runtime.straggler import StepTimer, StragglerDetector
 __all__ = ["Trainer", "make_train_step"]
 
 
-def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig):
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
+                    donate: bool = False):
     """``train_step(state, batch) -> (state, metrics)``: the loss and its
     gradients wrt every param leaf, then one AdamW update. ``state`` is
-    ``{"params", "opt"}`` and is not written; metrics ``loss``, ``ce``,
-    ``lr`` and ``grad_norm`` are 0-d tensors on the state's device. The
-    three parts run in the profiler ranges ``train_step.forward``,
-    ``train_step.backward`` and ``train_step.adamw``."""
+    ``{"params", "opt"}``; ``batch`` is whatever :func:`loss_fn` takes
+    (``tokens`` and ``labels``, plus ``frontend_embeds``, ``src_embeds``
+    or ``src_tokens`` for the families that read them). Metrics ``loss``,
+    ``ce``, ``lr`` and ``grad_norm`` are 0-d tensors on the state's
+    device. ``state`` is not written unless ``donate``: then the update is
+    written into its params and moments (the reference's ``Trainer``
+    donates its state to the jitted step), so a step holds one state, not
+    two; the arithmetic is the same. The three parts run in the profiler
+    ranges ``train_step.forward``, ``train_step.backward`` and
+    ``train_step.adamw``."""
 
     def train_step(state, batch):
         leaves, treedef = tree_flatten(state["params"])
@@ -63,7 +74,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig):
         with torch.no_grad(), record_function("train_step.adamw"):
             params, opt, om = adamw_update(
                 state["params"], tree_unflatten(treedef, list(grads)),
-                state["opt"], opt_cfg)
+                state["opt"], opt_cfg, inplace=donate)
         metrics = {"loss": loss.detach(), "ce": aux["ce"].detach(), **om}
         return {"params": params, "opt": opt}, metrics
 
@@ -74,28 +85,28 @@ class Trainer:
     """Supervised trainer wiring the runtime subsystems together.
 
     ``device=None`` means the card: it raises when there is none (pass
-    ``device="cpu"``). The SSM, hybrid, VLM and encoder-decoder families
-    raise ``NotImplementedError``: their training is not ported. Parameters are drawn from a ``torch.Generator``
-    seeded with ``seed`` on the device. With ``ckpt_dir`` the run is
-    supervised (:class:`~repro_torch.runtime.fault_tolerance.TrainSupervisor`:
-    a checkpoint every ``save_every`` steps and at the last, restore and
+    ``device="cpu"``). Every family but the encoder-decoder trains on
+    :class:`~repro_torch.data.SyntheticLM` tokens (a VLM without its
+    patches, as the reference's ``Trainer``); an encoder-decoder raises
+    ``ValueError``, since the stream carries no source: train it through
+    :func:`make_train_step` with ``src_embeds``. Parameters are drawn from
+    a ``torch.Generator`` seeded with ``seed`` on the device. Each step
+    donates the state (:func:`make_train_step` with ``donate``), as the
+    reference's jitted step does. With ``ckpt_dir`` the run is supervised
+    (:class:`~repro_torch.runtime.fault_tolerance.TrainSupervisor`: a
+    checkpoint every ``save_every`` steps and at the last, restore and
     continue after a :class:`WorkerFailure`)."""
 
     def __init__(self, cfg: ModelConfig, *, opt_cfg: AdamWConfig,
                  ckpt_dir: Optional[str] = None,
                  batch_size: int = 8, seq_len: int = 64, seed: int = 0,
                  save_every: int = 50, device=None):
-        if cfg.family in ("ssm", "hybrid"):
-            raise NotImplementedError(
-                f"{cfg.name}: training the SSM and hybrid families (the SSD "
-                "scan's backward under LSQ) is not ported; ROADMAP queue 1, "
-                "'Training the SSM and hybrid families'")
-        if cfg.family in ("vlm", "encdec", "audio"):
-            raise NotImplementedError(
-                f"{cfg.name}: training the VLM and encoder-decoder families "
-                "(frontend or source inputs in the data pipeline) is not "
-                "ported; ROADMAP queue 1, 'Training the VLM and audio "
-                "families'")
+        if cfg.family in ("encdec", "audio"):
+            raise ValueError(
+                f"{cfg.name}: an encoder-decoder trains on a source, and the "
+                "SyntheticLM stream carries none (the reference's Trainer "
+                "fails at its first step with KeyError('src_tokens')); call "
+                "make_train_step with src_embeds in the batch")
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             disable_tf32()
@@ -110,7 +121,7 @@ class Trainer:
         self.detector = StragglerDetector()
         #: one row per step run: loss, ce, lr, grad_norm, step, seconds
         self.history = []
-        self._step_fn = make_train_step(cfg, opt_cfg)
+        self._step_fn = make_train_step(cfg, opt_cfg, donate=True)
 
     def init_state(self):
         gen = torch.Generator(device=self.device).manual_seed(self.seed)

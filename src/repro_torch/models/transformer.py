@@ -29,9 +29,12 @@ long-context knobs, which its dry-run sets).
 
 Training: :func:`loss_fn` is the reference's causal-LM loss. While
 autograd records, each layer runs under ``torch.utils.checkpoint`` when
-``cfg.remat`` is set (the reference's per-layer ``jax.checkpoint``
-with ``remat_policy="nothing"``): only the layer's input is kept, and
-any other policy is refused. A stack is
+``cfg.remat`` is set (the reference's per-layer ``jax.checkpoint``):
+``remat_policy="nothing"`` keeps only the layer's input, ``"dots"``
+(``dots_with_no_batch_dims_saveable``) also the outputs of its matmuls
+without batch dimensions, the projections (selective checkpointing: the
+ATen ``mm``/``addmm`` outputs saved, every other op run again); any
+other policy is refused. A stack is
 split into its layers with one ``unbind``, whose backward stacks the
 layers' gradients once.
 """
@@ -45,6 +48,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils import checkpoint as torch_checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models.attention import (AttnConfig, attn_apply, attn_init,
                                           init_kv_cache, init_mla_cache,
@@ -112,7 +117,7 @@ class ModelConfig:
     policy: QuantPolicy = QuantPolicy(mode="none")
     kv_bits: Optional[int] = None   # None: a bf16 cache; 8: int8 codes
     remat: bool = True
-    remat_policy: str = "nothing"   # the only policy ported
+    remat_policy: str = "nothing"   # or "dots"
     dtype: str = "bfloat16"
     use_chunked_attn: bool = False
     attn_q_chunk: int = 1024
@@ -441,11 +446,27 @@ def _unstack(tree, n: int) -> list:
     return torch.unbind(tree, 0)
 
 
+#: the ATen ops ``remat_policy="dots"`` saves: matmuls with no batch
+#: dimension (a projection; a batched matmul, ``bmm``, runs again, as JAX's
+#: ``dots_with_no_batch_dims_saveable`` leaves a ``dot_general`` with batch
+#: dimensions)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, func, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if func in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_context():
+    return create_selective_checkpoint_contexts(_save_dots)
+
+
 def _remat_block(p, x, cfg: ModelConfig, spec: GroupSpec, *, positions,
                  enc_out=None, aux=None):
     """:func:`_block_apply` without a cache under activation
-    checkpointing; the MoE statistics leave as outputs, since the body
-    runs again in the backward."""
+    checkpointing with ``cfg.remat_policy``; the MoE statistics leave as
+    outputs, since the body runs again in the backward."""
     def body(xi):
         own = {}
         y, _ = _block_apply(p, xi, cfg, spec, positions=positions,
@@ -453,11 +474,15 @@ def _remat_block(p, x, cfg: ModelConfig, spec: GroupSpec, *, positions,
         return (y,) + tuple(own[k][0] for k in ("lb_loss", "drop_frac")
                             if k in own)
 
-    if cfg.remat_policy != "nothing":
-        raise ValueError(f"remat_policy {cfg.remat_policy!r}: only "
-                         "'nothing' is ported")
+    if cfg.remat_policy == "nothing":
+        kw = {}
+    elif cfg.remat_policy == "dots":
+        kw = {"context_fn": _remat_context}
+    else:
+        raise ValueError(f"remat_policy {cfg.remat_policy!r}: 'nothing' or "
+                         "'dots'")
     out = torch_checkpoint.checkpoint(body, x, use_reentrant=False,
-                                      preserve_rng_state=False)
+                                      preserve_rng_state=False, **kw)
     if spec.use_moe and aux is not None:
         aux.setdefault("lb_loss", []).append(out[1])
         aux.setdefault("drop_frac", []).append(out[2])

@@ -7,7 +7,12 @@ in its order: bias corrections with a float32 ``step``, ``delta = mhat /
 dtype, and an int32 ``step`` counter. ``torch.optim.AdamW`` is another
 function: it decays before the moment update and decays every leaf.
 
-Every update is out of place: the caller's trees are not written. Scalars
+An update is out of place, the caller's trees not written, unless it is
+asked to write in place (``inplace``: the counterpart of a donated state),
+where each leaf's new params and moments are computed a slab at a time and
+copied into the old ones, so one state is alive, not two. The clipped
+gradient is formed leaf by leaf in either case; the arithmetic is the
+same, element for element. Scalars
 that divide are float32 tensors on the leaves' device, because torch's
 ``scalar / tensor`` multiplies by the reciprocal and CUDA's ``tensor /
 host scalar`` does too, where the reference divides. They are made once
@@ -77,28 +82,54 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
 
 
+def _clip_scale(grads, max_norm: float):
+    """``(min(1, max_norm / (norm + 1e-9)), norm)``, 0-d float32."""
+    gn = global_norm(grads)
+    return torch.clamp_max(device_scalar(float(max_norm), gn.device)
+                           / (gn + 1e-9), 1.0), gn
+
+
 def clip_by_global_norm(grads, max_norm: float):
     """``(grads * min(1, max_norm / (norm + 1e-9)), norm)``, the grads in
     float32."""
-    gn = global_norm(grads)
-    scale = torch.clamp_max(device_scalar(float(max_norm), gn.device)
-                            / (gn + 1e-9), 1.0)
+    scale, gn = _clip_scale(grads, max_norm)
     leaves, treedef = tree_flatten(grads)
     return tree_unflatten(treedef, [g.to(torch.float32) * scale
                                     for g in leaves]), gn
 
 
-def adamw_update(params, grads, opt_state, cfg: AdamWConfig):
+#: the elements an in-place update computes at a time (its temporaries)
+SLAB_ELEMS = 1 << 26
+
+
+def adamw_update(params, grads, opt_state, cfg: AdamWConfig, *,
+                 inplace: bool = False):
     """One AdamW step; returns ``(params, opt_state, metrics)`` with
-    metrics ``lr`` and ``grad_norm`` (0-d float32 tensors)."""
+    metrics ``lr`` and ``grad_norm`` (0-d float32 tensors). ``inplace``
+    writes the new params and moments into ``params`` and ``opt_state``'s
+    tensors (contiguous, as drawn, restored or updated here), a slab of
+    :data:`SLAB_ELEMS` elements at a time, and returns them; the step
+    counter is a new tensor either way."""
     step = opt_state["step"] + 1
     lr = cosine_lr(cfg, step)
-    grads, gn = clip_by_global_norm(grads, cfg.grad_clip)
+    scale, gn = _clip_scale(grads, cfg.grad_clip)
     stepf = step.to(torch.float32)
     dev = stepf.device
     one = device_scalar(1.0, dev)
     c1 = one - device_scalar(cfg.b1, dev) ** stepf
     c2 = one - device_scalar(cfg.b2, dev) ** stepf
+
+    def update(p, g, m, v, decay: bool):
+        g = g.to(torch.float32) * scale      # the clipped gradient
+        m2 = cfg.b1 * m + (1 - cfg.b1) * g
+        v2 = cfg.b2 * v + (1 - cfg.b2) * g * g
+        mhat = m2 / c1
+        vhat = v2 / c2
+        delta = mhat / (torch.sqrt(vhat) + cfg.eps)
+        # decoupled weight decay on matrices only (ndim >= 2)
+        if decay:
+            delta = delta + cfg.weight_decay * p.to(torch.float32)
+        return (p.to(torch.float32) - lr * delta).to(p.dtype), m2, v2
 
     p_l, treedef = tree_flatten(params)
     g_l = tree_flatten(grads)[0]
@@ -106,15 +137,20 @@ def adamw_update(params, grads, opt_state, cfg: AdamWConfig):
     v_l = tree_flatten(opt_state["v"])[0]
     new_p, new_m, new_v = [], [], []
     for p, g, m, v in zip(p_l, g_l, m_l, v_l):
-        m2 = cfg.b1 * m + (1 - cfg.b1) * g
-        v2 = cfg.b2 * v + (1 - cfg.b2) * g * g
-        mhat = m2 / c1
-        vhat = v2 / c2
-        delta = mhat / (torch.sqrt(vhat) + cfg.eps)
-        # decoupled weight decay on matrices only (ndim >= 2)
-        if p.dim() >= 2:
-            delta = delta + cfg.weight_decay * p.to(torch.float32)
-        new_p.append((p.to(torch.float32) - lr * delta).to(p.dtype))
+        decay = p.dim() >= 2
+        if inplace:
+            flat = [t.view(-1) for t in (p, m, v)]
+            gf = g.reshape(-1)
+            for i in range(0, p.numel(), SLAB_ELEMS):
+                sl = slice(i, i + SLAB_ELEMS)
+                for dst, src in zip(flat, update(flat[0][sl], gf[sl],
+                                                 flat[1][sl], flat[2][sl],
+                                                 decay)):
+                    dst[sl].copy_(src)
+            p2, m2, v2 = p, m, v
+        else:
+            p2, m2, v2 = update(p, g, m, v, decay)
+        new_p.append(p2)
         new_m.append(m2)
         new_v.append(v2)
     return (tree_unflatten(treedef, new_p),

@@ -3,8 +3,9 @@ sliding-window attention it needs, on the CPU against the JAX package:
 the window mask, the rolling KV cache (a windowed prefill, then decode
 steps past the window), one hybrid layer on carried weights, the stack's
 layer groups (global layers between windowed runs), decode after prefill
-past the window, and ``Server.generate`` on the smoke config through K1 +
-K3 and K4 (plain versions here). JAX runs its XLA path.
+past the window, ``Server.generate`` on the smoke config through K1 +
+K3 and K4 (plain versions here), and training past the window through
+chunked attention under remat. JAX runs its XLA path.
 
 Tolerances, each with its reason:
 
@@ -32,14 +33,12 @@ from repro.models import hybrid as jhyb
 from repro.models import transformer as jt
 
 from repro_torch.configs import get_arch
-from repro_torch.core.tree import tree_flatten
+from repro_torch.core.tree import tree_flatten, tree_unflatten
 from repro_torch.launch.serve import GenRequest, Server
-from repro_torch.launch.train import Trainer
 from repro_torch.models import attention as tattn
 from repro_torch.models import hybrid as thyb
 from repro_torch.models import transformer as tt
 from repro_torch.models.transformer import params_from_numpy
-from repro_torch.optim import AdamWConfig
 
 ARCH = "hymba-1.5b"
 MAX_LEN = 32
@@ -297,6 +296,31 @@ def test_server_generate_equals_reference(smoke, jax_tokens, pack_acts):
     assert tuple(srv.last_logits.shape) == (4, 512)
 
 
-def test_trainer_refuses_the_hybrid_family():
-    with pytest.raises(NotImplementedError, match="SSM and hybrid"):
-        Trainer(get_arch(ARCH).smoke, opt_cfg=AdamWConfig(), device="cpu")
+def test_chunked_window_training_under_remat_matches_reference(smoke):
+    """Training past the window: 16 tokens through chunked attention (4 x 4
+    blocks, the windowed layers skipping the blocks their mask does not
+    reach) with each layer checkpointed; the loss and every gradient
+    against ``jax.value_and_grad`` of the reference's chunked stack (loss
+    1e-5 relative, each gradient 1e-3 of its largest element, as
+    ``tests/test_torch_train.py``)."""
+    jcfg, tcfg, params, _ = smoke
+    knobs = dict(use_chunked_attn=True, attn_q_chunk=4, attn_kv_chunk=4)
+    jc = dataclasses.replace(jcfg, **knobs)
+    tc = dataclasses.replace(tcfg, remat=True, **knobs)
+    rng = np.random.RandomState(4)
+    b = {k: rng.randint(0, 512, (2, 16)).astype(np.int32)
+         for k in ("tokens", "labels")}
+    (jl, _), jg = jax.jit(jax.value_and_grad(jt.loss_fn, has_aux=True),
+                          static_argnums=2)(
+        jax.tree.map(jnp.asarray, params), jax.tree.map(jnp.asarray, b), jc)
+    leaves, treedef = tree_flatten(_t(params))
+    leaves = [l.requires_grad_(True) for l in leaves]
+    loss, _ = tt.loss_fn(tree_unflatten(treedef, leaves),
+                         {k: torch.from_numpy(v).long()
+                          for k, v in b.items()}, tc)
+    grads = torch.autograd.grad(loss, leaves)
+    ref = np.float64(jl)
+    assert abs(float(loss.detach()) - ref) <= 1e-5 * abs(ref)
+    for g, r in zip(grads, jax.tree.leaves(jg)):
+        r = np.asarray(r, np.float64)
+        assert np.abs(g.double().numpy() - r).max() <= 1e-3 * np.abs(r).max()

@@ -394,15 +394,24 @@ def test_dryrun_accounting_equals_reference_eval_shape(arch, tmp_path):
         assert rec["ok"] and rec["fits"] is None
 
 
-def test_dryrun_refuses_a_mesh_and_dots_remat(tmp_path):
-    """One card: a mesh of cards (ROADMAP queue 1 item 6) and the ``dots``
-    remat policy (item 5b) raise instead of running something else."""
+def test_dryrun_refuses_a_mesh_and_takes_dots_remat(tmp_path):
+    """One card: a mesh of cards (ROADMAP queue 1 item 6) raises instead of
+    running something else; the reference's ``dots`` remat policy is taken
+    into the cell's config and record, and an unknown policy raises."""
     with pytest.raises(NotImplementedError, match="item 6"):
         dryrun.run_cell("stablelm-1.6b", "train_4k", "multi",
                         out_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        dryrun.run_cell("stablelm-1.6b", "train_4k",
-                        remat_policy="dots", out_dir=str(tmp_path))
+    rec = dryrun.run_cell("stablelm-1.6b", "train_4k", remat_policy="dots",
+                          out_dir=str(tmp_path))
+    assert rec["ok"] and rec["remat_policy"] == "dots"
+    assert (tmp_path / "stablelm-1.6b__train_4k__single__r7__dots.json"
+            ).exists()
+    cell = dryrun.build_cell("stablelm-1.6b", "train_4k", remat_policy="dots")
+    assert cell.cfg.remat_policy == "dots"
+    assert (dryrun._act_bytes_per_row(cell) > dryrun._act_bytes_per_row(
+        dryrun.build_cell("stablelm-1.6b", "train_4k")))
+    with pytest.raises(ValueError, match="'nothing' or 'dots'"):
+        dryrun.build_cell("stablelm-1.6b", "train_4k", remat_policy="full")
     with pytest.raises(SystemExit):
         dryrun.main(["--arch", "stablelm-1.6b", "--shape", "train_4k",
                      "--mesh", "multi", "--out", str(tmp_path)])

@@ -41,11 +41,10 @@ from repro_torch.configs import get_arch
 from repro_torch.core.tree import tree_flatten
 from repro_torch.launch import serve
 from repro_torch.launch.serve import GenRequest, Server
-from repro_torch.launch.train import Trainer
+from repro_torch.launch import train as ttrain
 from repro_torch.models import ssm as tssm
 from repro_torch.models import transformer as tt
 from repro_torch.models.transformer import params_from_numpy
-from repro_torch.optim import AdamWConfig
 
 ARCH = "mamba2-780m"
 MAX_LEN = 32
@@ -317,6 +316,12 @@ def test_serve_cli_takes_the_static_path():
     assert "3 layers, K1 + K3" in text and "sample:" in text
 
 
-def test_trainer_refuses_the_ssm_family():
-    with pytest.raises(NotImplementedError, match="SSM and hybrid"):
-        Trainer(get_arch(ARCH).smoke, opt_cfg=AdamWConfig(), device="cpu")
+def test_train_cli_trains_the_ssm_family():
+    """The training CLI on the smoke config: the SSD scan's backward
+    under LSQ, through ``Trainer``."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ttrain.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+                     "--steps", "3", "--batch", "2", "--seq", "16"])
+    text = buf.getvalue()
+    assert "done: 3 steps of mamba2-780m-smoke" in text and "on cpu" in text
