@@ -128,14 +128,16 @@ Phases (any failure exits non-zero and prints no result):
     before and read just after: 108 K1, 162 K3 and 78 grouped K4 per
     prefill and per decode step (4 K1 and 6 K3 a layer, 3 grouped K4 a
     MoE layer), tokens and last-step logits equal to the plain versions'
-    run on the card, the smoke config's tokens on the card equal to the
+    run on the card over ``DS_PLAIN_NEW`` (8) new tokens, the smoke
+    config's tokens on the card equal to the
     CPU's; ``ContinuousLMEngine`` warms up (the decode step captured once,
     those launches counted at capture) and serves the CLI's mixed load of
     16 requests with nothing compiled after the warmup, tokens and every
     step's drop fractions equal, bit for bit, to the same engine stepping
     eagerly on the same load (the MoE capacity couples an arena's rows, so
     a request is held on its own load, not alone); the plain versions'
-    engine gives the graphed engine's tokens on the first four requests;
+    engine gives the graphed engine's tokens on the first four requests
+    (at most 8 new tokens each);
     one replay's K1, K3 and grouped K4 launches by kernel name equal the
     capture's; the load through ``InferenceService`` (one micro-batch)
     gives the bare engine's tokens. Written down, not held: grouped K4's
@@ -320,6 +322,34 @@ Phases (any failure exits non-zero and prints no result):
     failure injected at step 3) equals an uninterrupted run's losses and
     final state bit for bit, and that run's donated steps equal the same
     steps run out of place.
+19. array scaling (:func:`array_phase`): full-width ResNet9 W2A2 on four
+    MVU banks of the one card, each bank a CUDA stream of ``cuda:0``: (a)
+    ``ShardedProgram`` at batch 32 (8 rows a bank; 12 K1 + 32 K2), run
+    twice: each bank's rows equal a single-bank forward of them at bucket
+    8 and the plain versions', the two runs equal; against one forward
+    of all 32 rows the rows that differ and the largest logit gap are
+    reported (the float parts round by shape); (b) ``PipelinedProgram`` at
+    2 and 4 stages on 4 microbatches of 8 (stages on consecutive banks,
+    hops as event waits): equal to the single-bank forwards; (c)
+    ``CNNServer(n_banks=4)`` under ``"banked"`` and ``"sharded"`` with a
+    W2A2 and a W4A8 variant: warmup captures one graph per (bank, bucket),
+    each with 3 K1 + 8 K2; two bursts of 120 requests (sizes 1 to 32,
+    both variants), counts reset just before and read just after (no
+    wrapper runs; the graphs' launches are capture counts times
+    replays); every answer equals its micro-batch's single-bank forward
+    (sharded: each shard's at the shard's batch), nothing is captured
+    after warmup, every bank has requests and utilization > 0.01; (d)
+    img/s at batch 32 on one bank against four, banked and sharded (8
+    batches a run, in turns, inputs from pinned memory), host wall and
+    the profiler's busy time, the kernels' summed time and how long
+    kernels of different streams ran at once; (e) one MoE layer at
+    deepseek-v2-lite's widths (64 experts top-6, 2 shared, 64 tokens,
+    random weights from seed 0) with ``relu2`` and then ``gelu`` experts,
+    ``n_groups`` 1 and 2: 2 grouped K4 launches a layer (with 2 K1 + 2 K3
+    for the shared experts), equal to the plain versions; (f) ``gpipe``
+    over 4 banks on a 24-layer float32 stack at d = 2,048 (32 rows, 4
+    microbatches, TF32 off): within rtol 2e-4 / atol 2e-5 of the
+    sequential stack.
 
 The ``kernels`` JSON line gives, per kernel, its launches on the main
 paths (the bucketed runners' forwards and the engine's loads included:
@@ -335,9 +365,11 @@ and the trained weights' ``Server``), phase 15's and 16's (the
 families' runs; K4's and grouped K4's too) and phase 17's (the long-context
 cells; grouped K4's too) and phase 18's (the trained families' packed
 evaluations and ``Server`` runs); K1's and K2's include phase 13's
-(the warm-booted graphs' replays and the profiler's calls); the grouped
-K4 entry gives its launches there and its times summed over one deepseek
-decode step.
+(the warm-booted graphs' replays and the profiler's calls) and phase 19's
+(the sharded and pipelined Programs and the four-bank services' bursts;
+K1's, K3's and grouped K4's also its MoE layers); the grouped K4 entry
+gives its launches there and its times summed over one deepseek decode
+step.
 
 Standard output ends with the ``kernels`` JSON line, the card's
 ``nvidia-smi`` name/power line and the ``{"ok": true, ...}`` line; the full
@@ -371,6 +403,11 @@ WINDOW_TRIES = 3   # profiler windows opened for one call, at most
 LM_PROMPTS = (5, 8, 11, 16)
 LM_NEW = 16        # new tokens per request: one prefill + 15 decode steps
 LM_MAX_LEN = 64
+# new tokens over which phase 12 holds deepseek's kernels against the plain
+# versions (Server and engine): a plain decode step takes about 3.7 s on
+# the card (every expert's plain GEMM), and 16 tokens left the script too
+# little room under its time limit on a slow host
+DS_PLAIN_NEW = 8
 # (K, N) of stablelm-1.6b's projections: q/k/v/o, gate/up, down, and how
 # many of each a layer runs
 STABLELM_GEMMS = ((2048, 2048), (2048, 5632), (5632, 2048))
@@ -2631,6 +2668,408 @@ def train_families_phase(dev, hp):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 19: array scaling — a compiled Program across four MVU banks, each
+# bank a CUDA stream of its own on the one card
+# --------------------------------------------------------------------------
+
+N_BANKS = 4
+ARRAY_BURST = 120        # requests per burst; each burst runs twice
+ARRAY_SIZES = (1, 3, 17, 32, 6, 2, 11, 8)   # the burst's submits, cycled
+# deepseek-v2-lite-16b's MoE widths: d_model, d_ff_expert, experts, top-k,
+# shared experts
+DEEPSEEK_MOE = (2048, 1408, 64, 6, 2)
+GPIPE_LAYERS, GPIPE_D, GPIPE_ROWS = 24, 2048, 32
+
+
+def stream_overlap(prof, is_spin):
+    """The card's kernels in a profiler window: their summed ms, the ms of
+    the union of their intervals (busy), the streams they ran on, and the
+    ms during which kernels of two or more distinct streams ran at once
+    (a sweep over the intervals with their stream ids). Raises when the
+    profiler's events carry no stream id."""
+    from torch.autograd import DeviceType
+    spans = []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or is_spin(e.name()):
+            continue
+        if not hasattr(e, "device_resource_id"):
+            raise AssertionError("the profiler's device events carry no "
+                                 "stream id")
+        if e.end_ns() > e.start_ns():
+            spans.append((e.start_ns(), e.end_ns(), e.device_resource_id()))
+    if not spans:
+        raise AssertionError("the profiler recorded no device event")
+    # at equal times an end comes before a start: touching kernels do not
+    # overlap
+    edges = sorted([(a, 1, s) for a, _, s in spans]
+                   + [(b, -1, s) for _, b, s in spans],
+                   key=lambda t: (t[0], t[1]))
+    active, busy, multi, t_prev = {}, 0, 0, edges[0][0]
+    for t, step, stream in edges:
+        if active:
+            busy += t - t_prev
+        if len(active) >= 2:
+            multi += t - t_prev
+        t_prev = t
+        active[stream] = active.get(stream, 0) + step
+        if not active[stream]:
+            del active[stream]
+    return {"sum_ms": sum(b - a for a, b, _ in spans) / 1e6,
+            "busy_ms": busy / 1e6, "multi_stream_ms": multi / 1e6,
+            "streams": len({s for _, _, s in spans}),
+            "kernels": len(spans)}
+
+
+def array_phase(dev, hp):
+    """Phase 19: full-width ResNet9 W2A2 on ``N_BANKS`` banks of one card
+    (four streams of ``cuda:0``), through K1 and K2. ``hp`` carries
+    ``counts``, ``reset_counts``, ``check_equal``, ``profiled`` and
+    ``is_spin`` from ``main``. Returns the phase's record; its
+    ``launches`` are the main paths' (the sharded and pipelined Programs,
+    the two services' bursts, the MoE layers), comparisons left out."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch.compiler import executor
+    from repro_torch.core.pipeline_modules import disable_tf32
+    from repro_torch.distributed import program_parallel as pp
+    from repro_torch.distributed.pipeline_parallel import gpipe, stage_stack
+    from repro_torch.launch.serve import CNNServer, resnet9_recipe
+    from repro_torch.models import moe
+    from repro_torch.models.layers import QuantPolicy
+    from repro_torch.models.transformer import _pack_tree
+
+    t_phase = time.perf_counter()
+    kinds = ("K1", "K2", "K3", "K4", "K4g")
+    out = {"launches": dict.fromkeys(kinds, 0)}
+    want_fwd = {"K1": 3, "K2": 8, "K3": 0, "K4": 0, "K4g": 0}
+    log(f"phase 19: array scaling — full-width ResNet9 W2A2 on {N_BANKS} "
+        f"banks (streams of one card)")
+
+    def counted(fn, want=None, what=""):
+        """``fn()`` with the counts set to 0 just before and read just
+        after; they join the phase's launches and must equal ``want``."""
+        hp.reset_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        c = hp.counts()
+        if want is not None and c != want:
+            raise AssertionError(f"{what}: launches {c}, want {want}")
+        out["launches"] = {k: out["launches"][k] + c[k] for k in kinds}
+        return res, c
+
+    times = lambda n: {k: v * n for k, v in want_fwd.items()}  # noqa: E731
+
+    # (a) ShardedProgram at batch 32, 8 a bank
+    graph, calib, _ = resnet9_recipe(0, 8)
+    srv = {p: CNNServer(seed=0, calib_batch=8, max_batch=32,
+                        n_banks=N_BANKS, placement=p)
+           for p in ("banked", "sharded")}
+    prog = srv["sharded"].program
+    run = executor.make_runner(prog)
+    plain = executor.make_plain_runner(prog)
+    images = np.random.default_rng(19).random((32, 32, 32, 3),
+                                              dtype=np.float32)
+    x = torch.from_numpy(images).to(dev)
+    mesh = pp.bank_mesh(N_BANKS)
+    if (len(mesh) != N_BANKS or len({b.stream for b in mesh}) != N_BANKS
+            or any(b.device != dev for b in mesh)):
+        raise AssertionError(f"bank mesh {mesh}")
+    sp = pp.ShardedProgram(prog, mesh)
+    ys = [counted(lambda: sp(x), times(N_BANKS), "ShardedProgram")[0]
+          for _ in range(2)]
+    s = 32 // N_BANKS
+    with torch.no_grad():
+        singles = [run(prog.params, x[i * s:(i + 1) * s])
+                   for i in range(N_BANKS)]
+        for i in range(N_BANKS):
+            rows = x[i * s:(i + 1) * s]
+            hp.check_equal("K2", f"sharded bank {i}: rows {i * s}..."
+                           f"{(i + 1) * s - 1} vs a single-bank forward at "
+                           f"bucket {s}", ys[0][i * s:(i + 1) * s],
+                           singles[i])
+            hp.check_equal("K2", f"sharded bank {i} vs the plain versions",
+                           ys[0][i * s:(i + 1) * s],
+                           plain(prog.params, rows))
+        hp.check_equal("K2", "the sharded burst's second run vs its first",
+                       ys[1], ys[0])
+        full = run(prog.params, x)
+    differ = (ys[0] != full).any(-1)
+    gap = float((ys[0] - full).abs().max())
+    same_top = bool(torch.equal(ys[0].argmax(-1), full.argmax(-1)))
+    out["sharded_vs_batch32"] = {"rows_differ": int(differ.sum()),
+                                 "max_logit_gap": gap,
+                                 "argmax_equal": same_top}
+    log(f"  (a) ShardedProgram, batch 32 on {N_BANKS} banks (8 rows each): "
+        f"every bank equals a single-bank forward of its rows at bucket 8 "
+        f"and the plain versions, twice; against one forward of all 32 "
+        f"rows {int(differ.sum())} rows differ, largest logit gap {gap:.3g}"
+        f", argmax {'equal' if same_top else 'DIFFERS'}")
+
+    # (b) PipelinedProgram, 2 and 4 stages, 4 microbatches of 8
+    out["pipelined"] = {}
+    for n_stages in (2, 4):
+        pl = pp.PipelinedProgram(prog, n_stages=n_stages)
+        y, _ = counted(lambda: pl(x, n_microbatches=4), times(4),
+                       f"PipelinedProgram({n_stages})")
+        hp.check_equal("K2", f"pipelined {n_stages} stages "
+                       f"{pl.stage_bounds} vs single-bank bucket-8 "
+                       f"forwards", y, torch.cat(singles))
+        out["pipelined"][n_stages] = {"bounds": pl.stage_bounds}
+    log(f"  (b) PipelinedProgram at 2 and 4 stages "
+        f"({out['pipelined'][4]['bounds']}) on 4 microbatches: equal to the "
+        f"single-bank forwards")
+
+    # (c) CNNServer(n_banks=4), both placements, W2A2 and W4A8
+    w4a8 = QuantPolicy(mode="serial", w_bits=4, a_bits=8, radix_bits=7)
+    out["serving"] = {}
+    burst = np.random.default_rng(20).random((ARRAY_BURST, 32, 32, 3),
+                                             dtype=np.float32)
+    for placement, server in srv.items():
+        svc = server.service
+        keys = [server.key, server.registry.register_graph(
+            graph.name or "cnn", graph, calib, w4a8)]
+        t0 = time.perf_counter()
+        captured = svc.warmup()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        runners = [svc._runner_for(k) for k in keys]
+        mult = N_BANKS if placement == "sharded" else 1
+        buckets = executor.bucket_sizes(32, mult)
+        graphs = N_BANKS * len(buckets)
+        if (captured != len(keys) * (graphs if placement == "banked"
+                                     else len(buckets))
+                or any(r.stats()["cuda_graphs"] != graphs for r in runners)
+                or any(c != want_fwd for r in runners
+                       for c in r.capture_launches.values())):
+            raise AssertionError(f"{placement} warmup: {captured} captures, "
+                                 f"{[r.stats() for r in runners]}")
+        compiles = [r.compiles for r in runners]
+        rec = {"warmup_s": warm_s, "captures": captured,
+               "graphs_per_variant": graphs, "bursts": []}
+        for rep in range(2):
+            replays0 = [dict(r.replays) for r in runners]
+            sent = {}
+            lock = threading.Lock()
+
+            def submit_all():
+                i = j = 0
+                while i < ARRAY_BURST:
+                    n = min(ARRAY_SIZES[j % len(ARRAY_SIZES)],
+                            ARRAY_BURST - i)
+                    key = keys[j % 2]
+                    with lock:
+                        tid0 = svc.tracer.started
+                        fs = svc.submit_many(key, list(burst[i:i + n]))
+                    for m, f in enumerate(fs):
+                        sent[tid0 + 1 + m] = (key, i + m, f)
+                    i += n
+                    j += 1
+                svc.drain(timeout=300)
+
+            t0 = time.perf_counter()
+            counted(submit_all, dict.fromkeys(kinds, 0),
+                    f"{placement} burst (a replay calls no wrapper)")
+            burst_s = time.perf_counter() - t0
+            forwards = 0
+            for r, r0 in zip(runners, replays0):
+                for k, v in r.replays.items():
+                    n = v - r0.get(k, 0)
+                    forwards += n
+                    for kid in kinds:
+                        out["launches"][kid] += r.capture_launches[k][kid] * n
+            if [r.compiles for r in runners] != compiles or any(
+                    r.stats()["cuda_graphs"] != graphs for r in runners):
+                raise AssertionError(f"{placement}: a capture after warmup")
+            # every answer against its micro-batch's single-bank forward
+            groups, sizes = {}, []
+            for sp_ in svc.tracer.spans():
+                if sp_.trace_id in sent and sp_.name == "execute":
+                    groups.setdefault((sp_.t0_ns, sp_.t1_ns), []).append(
+                        sp_.trace_id)
+            if sorted(t for g in groups.values() for t in g) != sorted(sent):
+                raise AssertionError(f"{placement}: the trace lost a request")
+            with torch.no_grad():
+                for ids in groups.values():
+                    ids = sorted(ids)
+                    key = sent[ids[0]][0]
+                    p = server.registry.program(key)
+                    n = len(ids)
+                    b = executor.bucket_for(n, 32, mult)
+                    xb = torch.zeros((b, 32, 32, 3), device=dev)
+                    xb[:n] = torch.from_numpy(
+                        burst[[sent[t][1] for t in ids]]).to(dev)
+                    sh = b // mult
+                    ref = torch.cat([executor.make_runner(p)(
+                        p.params, xb[i * sh:(i + 1) * sh])
+                        for i in range(mult)])[:n].cpu().numpy()
+                    got = np.stack([sent[t][2].result() for t in ids])
+                    if not np.array_equal(got, ref):
+                        raise AssertionError(
+                            f"{placement} {key} batch of {n}: answers differ"
+                            f" from the single-bank forward at bucket {b}, "
+                            f"max {np.abs(got - ref).max()}")
+                    sizes.append(n)
+            rec["bursts"].append({"seconds": burst_s, "forwards": forwards,
+                                  "batches": len(sizes),
+                                  "batch_sizes": sorted(sizes)})
+        m = svc.metrics()
+        sched = m["scheduler"]
+        if (any(r <= 0 for r in sched["bank_requests"])
+                or any(u <= 0.01 for u in sched["bank_utilization"])):
+            raise AssertionError(f"{placement}: an idle bank {sched}")
+        rec.update(bank_requests=m["scheduler"]["bank_requests"],
+                   bank_batches=m["scheduler"]["bank_batches"],
+                   bank_utilization=m["scheduler"]["bank_utilization"],
+                   replica_cache=m["banks"]["replica_cache"])
+        out["serving"][placement] = rec
+        log(f"  (c) CNNServer(n_banks={N_BANKS}, placement={placement!r}), "
+            f"W2A2 + W4A8: warmup captured {captured} keys "
+            f"({graphs} graphs a variant, 3 K1 + 8 K2 each) in "
+            f"{warm_s:.2f} s; two bursts of {ARRAY_BURST} requests in "
+            + ", ".join(f"{b['seconds']:.3f} s ({b['batches']} batches, "
+                        f"{b['forwards']} replays)" for b in rec["bursts"])
+            + f", every answer equal to its micro-batch's single-bank "
+            f"forward, nothing captured after warmup; bank requests "
+            f"{rec['bank_requests']}, utilization {rec['bank_utilization']}"
+            f", replica cache {rec['replica_cache']}")
+        server.close()
+
+    # (d) img/s at batch 32: one bank against four, banked and sharded
+    reps = 8
+    xp = torch.from_numpy(images).pin_memory()
+    single = executor.make_bucketed_runner(prog, max_batch=32)
+    banked = executor.make_bucketed_runner(prog, max_batch=32,
+                                           banks=pp.bank_devices(N_BANKS))
+    sharded = executor.make_bucketed_runner(prog, max_batch=32,
+                                            mesh=pp.bank_mesh(N_BANKS))
+    runs = {"1 bank": lambda j: single(xp),
+            f"{N_BANKS} banks, banked": lambda j: banked(xp,
+                                                         bank=j % N_BANKS),
+            f"{N_BANKS} banks, sharded": lambda j: sharded(xp)}
+    for r in (single, banked, sharded):
+        r.warmup()
+    torch.cuda.synchronize()
+    out["throughput"] = {}
+
+    def burst_of(fn):
+        def go():
+            ys = [fn(j) for j in range(reps)]
+            torch.cuda.synchronize()
+            return ys
+        return go
+
+    for name, fn in list(runs.items()) + list(runs.items())[::-1]:
+        go = burst_of(fn)
+        ys = go()
+        for y in ys:
+            if not torch.equal(y, ys[0]):
+                raise AssertionError(f"{name}: a replay's answer changed")
+        t0 = time.perf_counter()
+        go()
+        wall = time.perf_counter() - t0
+        prof, _ = hp.profiled(go)
+        ov = stream_overlap(prof, hp.is_spin)
+        rec = out["throughput"].setdefault(name, {"wall_ms": [],
+                                                  "img_per_s": [],
+                                                  "profile": []})
+        rec["wall_ms"].append(wall * 1e3)
+        rec["img_per_s"].append(32 * reps / wall)
+        rec["profile"].append(ov)
+    for name, rec in out["throughput"].items():
+        ov = rec["profile"][0]
+        log(f"  (d) {name}: {reps} batches of 32 in "
+            f"{', '.join(f'{w:.3f}' for w in rec['wall_ms'])} ms wall "
+            f"({', '.join(f'{v:.0f}' for v in rec['img_per_s'])} img/s); "
+            f"busy {ov['busy_ms']:.3f} ms, kernels sum {ov['sum_ms']:.3f} "
+            f"ms on {ov['streams']} stream(s), two or more streams "
+            f"running at once for {ov['multi_stream_ms']:.3f} ms")
+    del single, banked, sharded
+
+    # (e) one MoE layer at deepseek-v2-lite's widths, two-matrix experts
+    d, f, e, k, n_sh = DEEPSEEK_MOE
+    pol = QuantPolicy(mode="qat", w_bits=4, a_bits=8, pack_acts=True)
+    pol_plain = QuantPolicy(mode="qat", w_bits=4, a_bits=8, pack_acts=True,
+                            plain=True)
+    xm = torch.randn((64, d), device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(1))
+    out["moe"] = {}
+    for act in ("relu2", "gelu"):
+        cfg = moe.MoEConfig(d_model=d, d_ff_expert=f, n_experts=e, top_k=k,
+                            n_shared=n_sh, d_ff_shared=n_sh * f, act=act)
+        p = _pack_tree(moe.moe_init(
+            torch.Generator(device=dev).manual_seed(0), cfg, pol), pol)
+        for g in (1, 2):
+            (y, aux), c = counted(
+                lambda: moe.moe_apply(p, xm, cfg, pol, n_groups=g),
+                {"K1": 2, "K2": 0, "K3": 2, "K4": 0, "K4g": 2},
+                f"MoE {act} n_groups={g}")
+            ref, _ = moe.moe_apply(p, xm, cfg, pol_plain, n_groups=g)
+            hp.check_equal("K4g", f"MoE layer {act}, n_groups={g} vs the "
+                           f"plain versions", y, ref)
+            out["moe"][f"{act}_g{g}"] = {
+                "launches": c, "drop_frac": float(aux["drop_frac"])}
+        del p
+    log(f"  (e) one MoE layer at deepseek-v2-lite's widths (64 experts "
+        f"top-6, 2 shared, 64 tokens), relu2 and gelu, n_groups 1 and 2: "
+        f"2 grouped K4 (+ 2 K1 + 2 K3 for the shared experts) a layer, "
+        f"equal to the plain versions; drop fractions "
+        f"{ {k_: v['drop_frac'] for k_, v in out['moe'].items()} }")
+
+    # (f) gpipe over 4 banks: a 24-layer float32 stack at d = 2048
+    disable_tf32()
+    g = torch.Generator(device=dev).manual_seed(0)
+    ws = torch.randn((GPIPE_LAYERS, GPIPE_D, GPIPE_D), generator=g,
+                     device=dev) / GPIPE_D ** 0.5
+    h = torch.randn((GPIPE_ROWS, GPIPE_D), generator=g, device=dev)
+
+    def stage_fn(wstage, t):
+        for w in wstage:
+            t = torch.tanh(t @ w)
+        return t
+
+    def sequential():
+        t = h
+        for w in ws:
+            t = torch.tanh(t @ w)
+        return t
+
+    banks = pp.bank_devices(N_BANKS)
+    stacked = stage_stack(ws, N_BANKS)
+    ref = sequential()
+    y = gpipe(stage_fn, stacked, h, banks=banks, n_microbatches=4)
+    torch.cuda.synchronize()
+    gap = float((y - ref).abs().max())
+    torch.testing.assert_close(y, ref, rtol=2e-4, atol=2e-5)
+    walls = {}
+    for name, fn in (("sequential", sequential),
+                     ("gpipe", lambda: gpipe(stage_fn, stacked, h,
+                                             banks=banks,
+                                             n_microbatches=4))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        walls[name] = (time.perf_counter() - t0) / 5 * 1e3
+    out["gpipe"] = {"max_abs_diff": gap, "wall_ms": walls}
+    log(f"  (f) gpipe over {N_BANKS} banks, {GPIPE_LAYERS} float32 layers "
+        f"at d = {GPIPE_D}, {GPIPE_ROWS} rows in 4 microbatches, TF32 off: "
+        f"within rtol 2e-4 / atol 2e-5 of the sequential stack (largest "
+        f"difference {gap:.3g}); {walls['gpipe']:.3f} ms against "
+        f"{walls['sequential']:.3f} ms sequential")
+    del ws, stacked
+    torch.cuda.empty_cache()
+
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 19 in {out['seconds']:.1f} s; launches {out['launches']}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2830,14 +3269,15 @@ def main() -> int:
 
     def graph_launches(run, replays0):
         """What a bucketed runner's graphs ran since ``replays0``: the
-        launches counted at each bucket's capture times its replays (a
-        replay calls no wrapper), and the forwards (replays) run."""
+        launches counted at each (bank, bucket)'s capture times its
+        replays (a replay calls no wrapper), and the forwards (replays)
+        run."""
         ran = dict.fromkeys(("K1", "K2", "K3", "K4", "K4g"), 0)
         forwards = 0
-        for b, n in run.replays.items():
-            n -= replays0.get(b, 0)
+        for key, n in run.replays.items():
+            n -= replays0.get(key, 0)
             forwards += n
-            for k, v in run.capture_launches[b].items():
+            for k, v in run.capture_launches[key].items():
                 ran[k] += v * n
         return ran, forwards
 
@@ -2897,7 +3337,7 @@ def main() -> int:
     runner = server.service._runner_for(server.key)
     want_fwd = {"K1": 3, "K2": 8, "K3": 0, "K4": 0, "K4g": 0}
     if (captured != 6 or runner.stats()["cuda_graphs"] != 6
-            or any(runner.capture_launches[b] != want_fwd
+            or any(runner.capture_launches[(0, b)] != want_fwd
                    for b in executor.bucket_sizes(32))):
         raise AssertionError(f"warmup captured {captured}: "
                              f"{runner.capture_launches}")
@@ -3916,7 +4356,8 @@ def main() -> int:
                cnn_forwards=forwards, burst_s=burst_s,
                burst_p50_ms=lat[len(lat) // 2],
                burst_p99_ms=lat[min(len(lat) - 1, int(0.99 * len(lat)))],
-               plain_capture_s=plain_run.capture_seconds)
+               plain_capture_s={b: t for (_, b), t in
+                                plain_run.capture_seconds.items()})
     log(f"  {len(sent)} requests (1, 3, 17, 32 and a burst of 64 from 4 "
         f"threads) in {len(sizes)} micro-batches {sizes}: each equals the "
         f"eager forward and the plain registry's captured run at its bucket;"
@@ -4234,8 +4675,8 @@ def main() -> int:
     ds_prompts = [prompt_rng.randint(0, ds_cfg.vocab_size, (n,)).astype(
         np.int32) for n in LM_PROMPTS]
 
-    def ds_requests():
-        return [GenRequest(p.copy(), LM_NEW) for p in ds_prompts]
+    def ds_requests(new=LM_NEW):
+        return [GenRequest(p.copy(), new) for p in ds_prompts]
 
     ds_main = lm_drive(ds_srv, ds_requests())
     want = {"K1": ds_k1 * LM_NEW, "K2": 0, "K3": ds_k3 * LM_NEW, "K4": 0,
@@ -4275,17 +4716,22 @@ def main() -> int:
         f"and down; 3 grouped K4 a MoE layer: up, gate, down)")
     ds_plain = Server(ds_cfg, ds_params, batch_slots=4, max_len=LM_MAX_LEN,
                       plain=True)
+    ds_short = lm_drive(ds_srv, ds_requests(DS_PLAIN_NEW))
+    if ds_short[0] != [t[:DS_PLAIN_NEW] for t in toks]:
+        raise AssertionError("deepseek: a shorter run's tokens differ")
     t0 = time.perf_counter()
-    ds_p = lm_drive(ds_plain, ds_requests())
+    ds_p = lm_drive(ds_plain, ds_requests(DS_PLAIN_NEW))
     ds["plain_generate_s"] = time.perf_counter() - t0
+    ds["plain_new_tokens"] = DS_PLAIN_NEW
     if any(ds_p[2].values()):
         raise AssertionError(f"plain run launched kernels: {ds_p[2]}")
-    if ds_p[0] != toks or not torch.equal(ds_p[1], logits):
+    if ds_p[0] != ds_short[0] or not torch.equal(ds_p[1], ds_short[1]):
         raise AssertionError("deepseek tokens/logits differ from the plain "
                              "run")
     del ds_plain
-    log(f"  tokens and last-step logits equal the plain versions' run "
-        f"({ds['plain_generate_s']:.1f} s); request 0: {toks[0]}")
+    log(f"  over {DS_PLAIN_NEW} new tokens, tokens and last-step logits "
+        f"equal the plain versions' run ({ds['plain_generate_s']:.1f} s); "
+        f"request 0: {toks[0]}")
     ds_smoke = get_arch("deepseek-v2-lite-16b").smoke
     sm_gpu = Server(ds_smoke, batch_slots=4, max_len=32, seed=0)
     sm_cpu = Server(ds_smoke, tree_to(sm_gpu.params, "cpu"), batch_slots=4,
@@ -4401,7 +4847,9 @@ def main() -> int:
         "the same load, tokens and drop fractions bit for bit")
     # the plain versions' engine (captured too) on the first four requests,
     # against the graphed engine on the same four (four fill every slot)
-    four = ds_load[:4]
+    four = [GenRequest(r.prompt.copy(), min(r.max_new_tokens,
+                                            DS_PLAIN_NEW))
+            for r in ds_load[:4]]
     g4 = ds_eng.serve(copies(four))
     ds_plain_eng = ContinuousLMEngine(ds_cfg, ds_params, batch_slots=4,
                                       max_len=LM_MAX_LEN, plain=True)
@@ -4897,6 +5345,16 @@ def main() -> int:
     record["train_families"] = trf_rec
     trf_ran = trf_rec["launches"]
 
+    # ------ 19. array scaling: ResNet9 W2A2 on four banks (streams) of one card
+    del trf_rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    arr_rec = array_phase(dev, types.SimpleNamespace(
+        counts=counts, reset_counts=reset_counts, check_equal=check_equal,
+        profiled=profiled, is_spin=is_spin))
+    record["array_scaling"] = arr_rec
+    arr_ran = arr_rec["launches"]
+
     def total(kid, key):
         vals = [r[key] for r in rows if r["kernel"] == kid]
         return None if any(v is None for v in vals) else sum(vals)
@@ -4920,7 +5378,8 @@ def main() -> int:
                       + c_tiny["K1"] + ran_load["K1"] + lm_ran["K1"]
                       + ds_launches["K1"] + tc_launches["K1"]
                       + tr["launches"]["K1"] + ssm_rec["launches"]["K1"]
-                      + fam_ran["K1"] + long_ran["K1"] + trf_ran["K1"]),
+                      + fam_ran["K1"] + long_ran["K1"] + trf_ran["K1"]
+                      + arr_ran["K1"]),
          "engine_launches_per_captured_step": rec["step_launches"]["K1"],
          "max_abs_err": max_err["K1"],
          "ms": total("K1", "ms") + lm_step("K1", "ms", 4),
@@ -4936,7 +5395,7 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/bitserial_conv.cu",
          "replaces": "src/repro/kernels/bitserial_conv.py:153",
          "launches": (cnn_ran["K2"] + ran2["K2"] + c_tiny["K2"]
-                      + tc_launches["K2"]),
+                      + tc_launches["K2"] + arr_ran["K2"]),
          "max_abs_err": max_err["K2"],
          "ms": total("K2", "ms"), "plain_ms": total("K2", "plain_ms"),
          "bound_ms": total("K2", "bound_ms"), "bound_by": "operations",
@@ -4948,7 +5407,8 @@ def main() -> int:
          "launches": (lm_k3[2]["K3"] + c_tiny["K3"] + ran_load["K3"]
                       + lm_ran["K3"] + ds_launches["K3"]
                       + tr["launches"]["K3"] + ssm_rec["launches"]["K3"]
-                      + fam_ran["K3"] + long_ran["K3"] + trf_ran["K3"]),
+                      + fam_ran["K3"] + long_ran["K3"] + trf_ran["K3"]
+                      + arr_ran["K3"]),
          "engine_launches_per_captured_step": rec["step_launches"]["K3"],
          "max_abs_err": max_err["K3"],
          "ms": lm_step("K3", "ms", 4), "plain_ms": lm_step("K3", "plain_ms", 4),
@@ -4972,7 +5432,8 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/grouped_matmul.cu",
          "replaces": "src/repro/models/moe.py:75 (_expert_matmul, XLA "
                      "serial_matmul_packed; no Pallas kernel)",
-         "launches": ds_launches["K4g"] + fam_ran["K4g"] + long_ran["K4g"],
+         "launches": (ds_launches["K4g"] + fam_ran["K4g"] + long_ran["K4g"]
+                      + arr_ran["K4g"]),
          "engine_launches_per_captured_step": ds["step_launches"]["K4g"],
          "max_abs_err": max_err["K4g"],
          "ms": ds["grouped_step_sums"]["ms"],

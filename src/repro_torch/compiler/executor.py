@@ -139,24 +139,34 @@ _PLAIN: Dict[str, Callable] = dict(
 )
 
 
-def _runner(program, table):
-    for st in program.steps:
+def _runner(program, table, steps=None, input_name=None, output_name=None):
+    steps = program.steps if steps is None else tuple(steps)
+    input_name = program.input_name if input_name is None else input_name
+    output_name = (program.output_name if output_name is None
+                   else output_name)
+    for st in steps:
         if st.kind not in table:
             raise KeyError(f"no executor for step kind {st.kind!r}")
 
     def run(params, x):
-        env = {program.input_name: x}
-        for st in program.steps:
+        env = {input_name: x}
+        for st in steps:
             args = [env[i] for i in st.inputs]
             env[st.output] = table[st.kind](st, params.get(st.name, {}), *args)
-        return env[program.output_name]
+        return env[output_name]
 
     return run
 
 
-def make_runner(program) -> Callable:
-    """Build ``run(params, x) -> output`` for one Program."""
-    return _runner(program, _APPLY)
+def make_runner(program, *, steps=None, input_name: Optional[str] = None,
+                output_name: Optional[str] = None) -> Callable:
+    """Build ``run(params, x) -> output`` for one Program.
+
+    ``steps``/``input_name``/``output_name`` override the Program's own
+    (default: the whole step list): a contiguous slice of steps with its
+    boundary tensors is one pipeline stage
+    (:class:`repro_torch.distributed.program_parallel.PipelinedProgram`)."""
+    return _runner(program, _APPLY, steps, input_name, output_name)
 
 
 def make_plain_runner(program) -> Callable:
@@ -182,30 +192,38 @@ def make_step_runner(program, step) -> Callable:
 # batch-bucket entry points (the serving runtime's capture discipline)
 # --------------------------------------------------------------------------
 
-def bucket_sizes(max_batch: int) -> List[int]:
+def bucket_sizes(max_batch: int, multiple: int = 1) -> List[int]:
     """Padding buckets: powers of two up to, and always including,
-    ``max_batch`` — the closed set of batch shapes serving ever runs."""
+    ``max_batch`` — the closed set of batch shapes serving ever runs.
+
+    ``multiple``: every bucket is a multiple of it (the bank count, when a
+    bucket is batch-sharded across banks — each bank must receive an
+    equal shard). ``max_batch`` is rounded up to the next multiple.
+    """
     if max_batch < 1:
         raise ValueError("max_batch must be >= 1")
-    sizes, b = [], 1
-    while b < max_batch:
+    if multiple < 1:
+        raise ValueError("bucket multiple must be >= 1")
+    cap = -(-max_batch // multiple) * multiple
+    sizes, b = [], multiple
+    while b < cap:
         sizes.append(b)
         b *= 2
-    sizes.append(max_batch)
+    sizes.append(cap)
     return sizes
 
 
-def bucket_for(n: int, max_batch: int) -> int:
+def bucket_for(n: int, max_batch: int, multiple: int = 1) -> int:
     """Smallest bucket holding ``n`` examples."""
-    for b in bucket_sizes(max_batch):
+    for b in bucket_sizes(max_batch, multiple):
         if n <= b:
             return b
     raise ValueError(f"batch {n} exceeds max_batch={max_batch}")
 
 
 class _BucketGraph:
-    """One bucket's captured forward: the graph, the static buffers it
-    reads and writes, and the parameter tensors it was captured over.
+    """One (bank, bucket)'s captured forward: the graph, the static buffers
+    it reads and writes, and the parameter tensors it was captured over.
 
     A graph replays the addresses it recorded but keeps nothing alive, and
     the registry may swap a Program's ``w_packed`` for an equal shared
@@ -223,59 +241,103 @@ class _BucketGraph:
 
 class BucketedRunner:
     """Program caller with power-of-two padding buckets, one captured CUDA
-    graph per bucket on the card (one device, bank 0).
+    graph per (bank, bucket) on the card.
 
     Each batch is padded with zero rows up to its bucket, so the set of
     batch shapes the kernels ever see is closed (``bucket_sizes``). Every
     lowered step acts per example, so padding rows cannot leak into real
     rows.
 
-    On the card the first batch of a bucket runs the forward eagerly once
-    (the kernels' modules load, cuDNN and cuBLAS get their workspaces
-    outside the capture), then captures it as one ``torch.cuda.CUDAGraph``
-    over a static input buffer and the output it writes, and replays it.
-    Every later batch of that bucket copies its rows into the input buffer
-    (zeroing the padding rows), replays, and clones ``out[:n]``. A capture
-    runs with ``capture_error_mode="thread_local"`` on the graph's own side
-    stream, so other threads may use the card meanwhile (the serving
-    worker captures a bucket no warmup reached while user threads run) —
-    all but torch's CUDA random generator, which is process-wide and
-    refuses to advance during any capture; :meth:`warmup` captures every
-    bucket before traffic. There is no eager fallback on the card: a
-    capture that fails raises. On the CPU every call runs eagerly, with
-    the same counters. ``plain`` captures the kernels' plain versions the
-    same way.
+    Placement (the mesh-of-MVU-banks serving path — one of):
 
-    ``compiles``/``hits`` count first-seen buckets and repeats (a compile
-    is a capture on the card), registry-backed as the reference's
+    * default (``"single"``) — the whole batch runs on the Program's
+      device, on the caller's stream: bank 0, with no stream of its own;
+    * ``mesh`` (``"sharded"``, a :func:`~repro_torch.distributed.
+      program_parallel.bank_mesh`) — each bucket is split into equal
+      shards, one per bank, each replayed on its bank's stream; buckets
+      are multiples of the bank count;
+    * ``banks`` (``"banked"``, :class:`~repro_torch.distributed.
+      program_parallel.Bank` records or devices) — the whole batch runs on
+      one bank: ``runner(x, bank=b)`` replays bank ``b``'s graph on its
+      stream.
+
+    Each bank serves from its parameter replica (placed once per device
+    through ``replica_cache``; on one card the Program's own tensors) and
+    captures its own graph per bucket with its own static buffers: one
+    graph cannot replay concurrently with itself, and shared buffers would
+    race. A bank's output is read only after the caller's stream has
+    waited on the bank's, so the caller may use it at once.
+
+    On the card the first batch of a (bank, bucket) runs the forward
+    eagerly once (the kernels' modules load, cuDNN and cuBLAS get their
+    workspaces outside the capture), then captures it as one
+    ``torch.cuda.CUDAGraph`` over a static input buffer and the output it
+    writes, and replays it. Every later batch copies its rows into the
+    input buffer (from pinned memory, without blocking the host), zeroes
+    the padding rows, replays, and clones its rows of the output. A
+    capture runs with
+    ``capture_error_mode="thread_local"`` on the bank's stream (a side
+    stream of its own for ``"single"``), so other threads may use the card
+    meanwhile — all but torch's CUDA random generator, which is
+    process-wide and refuses to advance during any capture;
+    :meth:`warmup` captures every (bank, bucket) before traffic. There is
+    no eager fallback on the card: a capture that fails raises. On the CPU
+    every call runs eagerly, the banks one after another, with the same
+    counters. ``plain`` captures the kernels' plain versions the same way.
+
+    ``compiles``/``hits`` count first-seen (bank, bucket) keys and repeats
+    as the reference's jit cache does (a sharded bucket is one key; a
+    compile is a capture on the card), registry-backed as the reference's
     ``runner_bucket_compiles_total``/``runner_bucket_hits_total``. The
     kernel wrappers count Python calls, so a replay adds nothing to them:
-    ``capture_launches[b]`` holds the launches counted while capturing
-    bucket ``b`` (other threads launching the port's kernels during a
-    capture would be counted too) and ``replays[b]`` the replays run, so
-    the launches a graph ran are their product.
+    ``capture_launches[k]`` holds the launches counted while capturing
+    graph ``k`` (other threads launching the port's kernels during a
+    capture would be counted too) and ``replays[k]`` the replays run, so
+    the launches a graph ran are their product. Every one of these is
+    keyed ``(bank, bucket)``, the single placement's graphs under bank 0.
     """
 
     def __init__(self, program, *, max_batch: int = 32,
-                 plain: bool = False,
+                 plain: bool = False, mesh=None, banks=None,
+                 replica_cache=None,
                  metrics: Optional[MetricsRegistry] = None):
+        from repro_torch.distributed import program_parallel as pp
+        if mesh is not None and banks is not None:
+            raise ValueError("pass mesh= (sharded) or banks= (placed), "
+                             "not both")
         self.program = program
         self.max_batch = max_batch
         self.plain = plain
-        self.n_banks = 1
-        self.placement = "single"
+        self._multiple = 1
+        if mesh is not None:
+            self._banks = pp.banks_of(mesh)
+            self._multiple = len(self._banks)
+            self.placement = "sharded"
+        elif banks is not None:
+            if not list(banks):
+                raise ValueError("banks= needs at least one device")
+            self._banks = pp.bank_devices(None, banks)
+            self.placement = "banked"
+        else:
+            self._banks = [pp.Bank(0, program.device)]
+            self.placement = "single"
+        self.n_banks = len(self._banks)
+        self._bank_params = (
+            [program.params] if self.placement == "single" else
+            [pp.replicate_params(program.params, b.device,
+                                 cache=replica_cache) for b in self._banks])
         self._run = (make_plain_runner if self.plain else make_runner)(program)
-        self._graphed = program.device.type == "cuda"
-        self._graphs: Dict[int, _BucketGraph] = {}   # guarded-by: _lock
-        self._seen: Set[int] = set()                 # guarded-by: _lock
+        self._graphed = self._banks[0].device.type == "cuda"
+        self._graphs: Dict[tuple, _BucketGraph] = {}  # guarded-by: _lock
+        self._seen: Set[tuple] = set()                # guarded-by: _lock
         # held over each call: the static buffers are shared by every
-        # caller of one bucket
+        # caller of one (bank, bucket)
         self._lock = threading.Lock()
-        #: launches counted while capturing each bucket, and replays run
-        self.capture_launches: Dict[int, Dict[str, int]] = {}
-        self.replays: Dict[int, int] = {}
-        #: host seconds of each bucket's eager warm-up pass and capture
-        self.capture_seconds: Dict[int, float] = {}
+        #: launches counted while capturing each graph, and replays run
+        self.capture_launches: Dict = {}
+        self.replays: Dict = {}
+        #: host seconds of each graph's eager warm-up pass and capture
+        self.capture_seconds: Dict = {}
         self.metrics_registry = (metrics if metrics is not None
                                  else MetricsRegistry())
         self._c_compiles = self.metrics_registry.counter(
@@ -291,83 +353,119 @@ class BucketedRunner:
     def hits(self) -> int:
         return int(self._c_hits.value())
 
-    def _capture(self, b: int, x: torch.Tensor) -> _BucketGraph:
-        """Eager warm-up pass on a side stream, then the capture."""
-        dev = self.program.device
+    def _capture(self, i: int, b: int, x: torch.Tensor) -> _BucketGraph:
+        """Eager warm-up pass on the bank's stream, then the capture."""
+        bank, params = self._banks[i], self._bank_params[i]
+        dev = bank.device
         t0 = time.perf_counter()
-        side = torch.cuda.Stream(dev)
+        side = bank.stream or torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            self._run(self.program.params, x)
+            self._run(params, x)
         torch.cuda.current_stream(dev).wait_stream(side)
-        params = [t for p in self.program.params.values()
-                  for t in p.values() if isinstance(t, torch.Tensor)]
+        held = [t for p in params.values()
+                for t in p.values() if isinstance(t, torch.Tensor)]
         graph = torch.cuda.CUDAGraph()
         before = ops.launch_counts()
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            out = self._run(self.program.params, x)
+        with torch.cuda.graph(graph, stream=bank.stream,
+                              capture_error_mode="thread_local"):
+            out = self._run(params, x)
         after = ops.launch_counts()
-        self.capture_seconds[b] = time.perf_counter() - t0
-        self.capture_launches[b] = {k: after[k] - before[k] for k in after}
-        return _BucketGraph(graph, x, out, params)
+        self.capture_seconds[(i, b)] = time.perf_counter() - t0
+        self.capture_launches[(i, b)] = {n: after[n] - before[n]
+                                         for n in after}
+        return _BucketGraph(graph, x, out, held)
+
+    def _forward(self, i: int, b: int,
+                 x: torch.Tensor) -> torch.Tensor:  # requires: _lock
+        """Bank ``i``'s forward at bucket ``b`` of the rows ``x`` padded
+        with zeros to the bank's share of the bucket (all of it unless
+        sharded): the output's first ``len(x)`` rows, ready on the caller's
+        stream."""
+        from repro_torch.distributed.program_parallel import (after_caller,
+                                                              join, on_bank)
+        bank, n, rows = self._banks[i], x.shape[0], b // self._multiple
+        if not self._graphed:
+            x = x.to(bank.device)
+            if rows != n:
+                x = torch.cat([x, x.new_zeros((rows - n,) + x.shape[1:])])
+            return self._run(self._bank_params[i], x)[:n]
+        with torch.cuda.device(bank.device):
+            g = self._graphs.get((i, b))
+            if g is None:
+                xs = torch.zeros((rows,) + tuple(x.shape[1:]),
+                                 dtype=torch.float32, device=bank.device)
+                xs[:n].copy_(x)
+                g = self._graphs[(i, b)] = self._capture(i, b, xs)
+            else:
+                after_caller(bank, x)
+                with on_bank(bank):
+                    g.x[:n].copy_(x if x.is_cuda else x.pin_memory(),
+                                  non_blocking=True)
+                    g.x[n:].zero_()
+            with on_bank(bank):
+                g.graph.replay()
+                out = g.out[:n].clone()
+            self.replays[(i, b)] = self.replays.get((i, b), 0) + 1
+            return join(bank, out)
 
     def __call__(self, x, *, bank: Optional[int] = None) -> torch.Tensor:
-        if bank not in (None, 0):
-            raise ValueError(f"bank {bank} out of range [0, {self.n_banks})")
-        dev = self.program.device
+        if self.placement == "banked":
+            bank = 0 if bank is None else bank
+            if not 0 <= bank < self.n_banks:
+                raise ValueError(f"bank {bank} out of range "
+                                 f"[0, {self.n_banks})")
+        elif bank not in (None, 0):
+            raise ValueError(f"bank {bank} out of range [0, 1): placement "
+                             f"{self.placement!r} picks no bank")
+        bank = bank or 0
         if not isinstance(x, torch.Tensor):
             x = torch.from_numpy(np.asarray(x, np.float32))
         n = x.shape[0]
-        b = bucket_for(n, self.max_batch)
+        b = bucket_for(n, self.max_batch, self._multiple)
         with self._lock:
-            if b in self._seen:
+            if (bank, b) in self._seen:
                 self._c_hits.inc()
             else:
-                self._seen.add(b)
+                self._seen.add((bank, b))
                 self._c_compiles.inc()
             with torch.no_grad():
-                if not self._graphed:
-                    x = x.to(dev, torch.float32)
-                    if b != n:
-                        pad = torch.zeros((b - n,) + tuple(x.shape[1:]),
-                                          dtype=x.dtype, device=dev)
-                        x = torch.cat([x, pad], dim=0)
-                    return self._run(self.program.params, x)[:n]
-                with torch.cuda.device(dev):
-                    g = self._graphs.get(b)
-                    if g is None:
-                        xs = torch.zeros((b,) + tuple(x.shape[1:]),
-                                         dtype=torch.float32, device=dev)
-                        xs[:n].copy_(x)
-                        g = self._graphs[b] = self._capture(b, xs)
-                    else:
-                        g.x[:n].copy_(x)
-                        g.x[n:].zero_()
-                    g.graph.replay()
-                    self.replays[b] = self.replays.get(b, 0) + 1
-                    return g.out[:n].clone()
+                x = x.to(torch.float32)
+                if self.placement != "sharded":
+                    return self._forward(bank, b, x)
+                s = b // self.n_banks
+                outs = [self._forward(i, b, x[i * s:(i + 1) * s])
+                        for i in range(self.n_banks)]
+                dev = self._banks[0].device
+                return torch.cat([o.to(dev) for o in outs], dim=0)
 
     def warmup(self, example_shape=None) -> int:
-        """Capture (on the CPU: run) every bucket ahead of traffic; returns
-        the number of compiles triggered."""
+        """Capture (on the CPU: run) every (bucket, bank) ahead of traffic;
+        returns the number of compiles triggered."""
         shape = (tuple(example_shape) if example_shape is not None
                  else self.program.meta.get("input_shape"))
         if shape is None:
             raise ValueError("program has no recorded input_shape — pass "
                              "example_shape explicitly")
         before = self.compiles
-        for b in bucket_sizes(self.max_batch):
-            if b not in self._seen:
-                self(torch.zeros((b,) + shape, dtype=torch.float32))
+        banks = (range(self.n_banks) if self.placement == "banked"
+                 else (0,))
+        for b in bucket_sizes(self.max_batch, self._multiple):
+            for bank in banks:
+                if (bank, b) not in self._seen:
+                    self(torch.zeros((b,) + shape, dtype=torch.float32),
+                         bank=bank)
         if self._graphed:
-            torch.cuda.synchronize(self.program.device)
+            for dev in {bk.device for bk in self._banks}:
+                torch.cuda.synchronize(dev)
         return self.compiles - before
 
     def stats(self) -> Dict:
         with self._lock:
             return {"compiles": self.compiles, "hits": self.hits,
-                    "buckets": sorted(self._seen),
-                    "bucket_set": bucket_sizes(self.max_batch),
+                    "buckets": sorted({b for _, b in self._seen}),
+                    "bucket_set": bucket_sizes(self.max_batch,
+                                               self._multiple),
                     "n_banks": self.n_banks,
                     "placement": self.placement,
                     "cuda_graphs": len(self._graphs),
@@ -376,14 +474,11 @@ class BucketedRunner:
 
 def make_bucketed_runner(program, *, max_batch: int = 32,
                          plain: bool = False, mesh=None, banks=None,
+                         replica_cache=None,
                          metrics: Optional[MetricsRegistry] = None
                          ) -> BucketedRunner:
-    """The serving entry point: ``runner(x) -> y`` over padding buckets.
-    ``mesh=``/``banks=`` (a batch sharded or placed across several cards)
-    wait for ``distributed/program_parallel``."""
-    if mesh is not None or banks is not None:
-        raise NotImplementedError(
-            "multi-bank placement (mesh=/banks=) needs "
-            "distributed/program_parallel, which is not ported yet")
+    """The serving entry point: ``runner(x) -> y`` over padding buckets,
+    on one device, sharded over a bank ``mesh`` or placed on ``banks``."""
     return BucketedRunner(program, max_batch=max_batch, plain=plain,
-                          metrics=metrics)
+                          mesh=mesh, banks=banks,
+                          replica_cache=replica_cache, metrics=metrics)

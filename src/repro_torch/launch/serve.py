@@ -350,8 +350,13 @@ class CNNServer:
     ``close()`` (or use as a context manager) stops it.
 
     ``device=None`` means the card: it raises when there is none (pass
-    ``device="cpu"`` for the plain versions). ``n_banks > 1`` waits for
-    ``distributed/program_parallel``.
+    ``device="cpu"`` for the plain versions).
+
+    ``n_banks``/``placement`` scale the service across MVU banks (one
+    stream each on the card, round-robin over the visible cards; on the
+    CPU the banks run one after another): ``placement="banked"``
+    load-balances micro-batches across banks, ``"sharded"`` splits each
+    micro-batch evenly over all of them.
 
     ``store`` (an :class:`~repro_torch.compiler.ArtifactStore` or directory
     path) loads compiles from disk and persists fresh ones;
@@ -363,8 +368,8 @@ class CNNServer:
     def __init__(self, graph=None, *, calib=None, seed: int = 0,
                  calib_batch: int = 8, policy=None,
                  max_batch: int = 32, max_wait_s: float = 0.0,
-                 n_banks: Optional[int] = None, store=None,
-                 artifact: Optional[str] = None, device=None):
+                 n_banks: Optional[int] = None, placement: str = "banked",
+                 store=None, artifact: Optional[str] = None, device=None):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             disable_tf32()
@@ -398,7 +403,7 @@ class CNNServer:
                                                     graph, calib, policy)
         self.service = InferenceService(
             self.registry, max_batch=max_batch, max_wait_s=max_wait_s,
-            n_banks=n_banks)
+            n_banks=n_banks, placement=placement)
         self.service.start()
 
     @property
@@ -445,7 +450,11 @@ def _device_name(device: torch.device) -> str:
 def _main_cnn(args) -> None:
     """CNN serving run: classification through the service + cycle
     report."""
-    server = CNNServer(seed=args.seed, device=args.device, store=args.store)
+    if args.placement != "banked" and not args.banks:
+        print(f"note: --placement {args.placement} has no effect without "
+              "--banks N (serving single-device)")
+    server = CNNServer(seed=args.seed, device=args.device, store=args.store,
+                       n_banks=args.banks, placement=args.placement)
     obs = _ObsSession(server.service, trace_out=args.trace_out,
                       metrics_port=args.metrics_port,
                       metrics_every=args.metrics_every)
@@ -462,6 +471,9 @@ def _main_cnn(args) -> None:
                  f"bucket_compiles={report['bucket_compiles']}")
     else:
         server.service.warmup()
+    if args.banks and args.banks > 1:
+        obs.emit(f"serving across {server.service.n_banks} MVU banks "
+                 f"(placement={server.service.placement})")
     server.classify(images)
     t0 = time.perf_counter()
     logits = server.classify(images)   # ends in the host copy
@@ -474,6 +486,11 @@ def _main_cnn(args) -> None:
     obs.emit(f"serving: p50={m['latency_p50_ms']}ms "
              f"p99={m['latency_p99_ms']}ms "
              f"bucket_caches={m['bucket_caches']}")
+    if m["banks"]["n_banks"] > 1:
+        sched = m["scheduler"]
+        obs.emit(f"banks: util={sched['bank_utilization']} "
+                 f"requests={sched['bank_requests']} "
+                 f"replica_cache={m['banks']['replica_cache']}")
     if args.store:
         st = m["artifact_store"]
         obs.emit(f"artifact store: hits={st['hits']} misses={st['misses']} "
@@ -773,6 +790,15 @@ def main(argv=None) -> None:
                          "packed planes into K3")
     ap.add_argument("--smoke", action="store_true",
                     help="LM: the arch's reduced config (for the CPU)")
+    ap.add_argument("--banks", type=int, default=None,
+                    help="CNN: serve across N MVU banks (one CUDA stream "
+                         "each, round-robin over the visible cards; on "
+                         "the CPU one after another)")
+    ap.add_argument("--placement", default="banked",
+                    choices=["banked", "sharded"],
+                    help="multi-bank placement: load-balance whole "
+                         "micro-batches (banked) or split each across "
+                         "all banks (sharded)")
     ap.add_argument("--store", default=None,
                     help="CNN: artifact store directory — warm-boot the "
                          "compile from it (compiling and saving on a miss)")

@@ -1,22 +1,31 @@
 """Mixture-of-Experts with capacity-based scatter dispatch.
 
-Counterpart of ``repro/models/moe.py`` on one card (one dispatch group:
-``distributed/`` is not ported). Tokens are routed by a float32 softmax
-router to their top-k experts, ranked within each expert by a cumulative
-count over the token axis, dropped beyond the capacity C, scattered into
-an ``(E, C, d)`` buffer (row ``E * C`` is the drop bin), run through the
-experts' FFNs and gathered back weighted by their gate values — line for
-line the reference's dispatch, so a token's result depends on the other
-tokens of its call (the capacity couples them).
+Counterpart of ``repro/models/moe.py``. Tokens are routed by a float32
+softmax router to their top-k experts, ranked within each expert by a
+cumulative count over the token axis, dropped beyond the capacity C,
+scattered into an ``(E, C, d)`` buffer (row ``E * C`` is the drop bin),
+run through the experts' FFNs and gathered back weighted by their gate
+values — line for line the reference's dispatch, so a token's result
+depends on the other tokens of its call (the capacity couples them).
+
+Dispatch is **group-local**, as the reference's: the T tokens split into
+``n_groups`` groups of T/G (by default the bound ``"dp"`` axis size of
+:mod:`repro_torch.distributed.context`, 1 when unbound or when it does not
+divide T), each with its own capacity and its own ``(E * C_g + 1, d)``
+buffer. The experts are SwiGLU (``w_gate``, ``w_up``, ``w_down``) or a
+two-matrix ``relu2``/``gelu`` FFN (``w_up``, ``w_down``; GELU is the tanh
+approximation, ``jax.nn.gelu``'s default).
 
 Expert weights are quant-aware: float (``{"w", "alpha_w", "alpha_a"}``,
 LSQ fake-quant in mode ``qat``) or packed (``{"w_packed", "scale",
 "alpha_a"}`` with a leading expert axis, from
 :func:`~repro_torch.models.layers.pack_qdense`). On packed weights each
-routed projection quantizes the buffer to int32 codes in float32 and runs
-all E experts' bit-serial products in one launch of grouped K4
-(:func:`repro_torch.kernels.ops.serial_matmul_grouped_op`), then scales
-the raw accumulators in torch as the reference does. Shared experts are
+routed projection quantizes the buffers to int32 codes in float32 and runs
+all E experts' bit-serial products, every group's rows together, in one
+launch of grouped K4 (:func:`repro_torch.kernels.ops.
+serial_matmul_grouped_op`; rows are independent, so one launch over
+(E, G * C_g) rows equals G launches bit for bit), then scales the raw
+accumulators in torch as the reference does. Shared experts are
 :func:`~repro_torch.models.layers.qdense` (K1 + K3).
 
 The dispatch reads nothing on the host (no ``.item()``, no ``nonzero``;
@@ -37,6 +46,7 @@ import torch.nn.functional as F
 from repro_torch.core.bitserial import plan_spec
 from repro_torch.core.quant import (QuantSpec, lsq_fake_quant, quantize_int,
                                     qrange)
+from repro_torch.distributed.context import axis_size
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (QuantPolicy, qdense, qdense_init,
                                        qdense_shared)
@@ -55,7 +65,7 @@ class MoEConfig:
     d_ff_shared: int = 0
     capacity_factor: float = 1.25
     norm_topk_prob: bool = True
-    act: str = "swiglu"             # only 'swiglu' is ported
+    act: str = "swiglu"             # 'swiglu' | 'relu2' | 'gelu'
 
 
 def capacity_for(n_tokens: int, cfg: MoEConfig) -> int:
@@ -82,40 +92,52 @@ def _expert_dense_init(gen: torch.Generator, e: int, k: int, n: int,
 def moe_init(gen: torch.Generator, cfg: MoEConfig, policy: QuantPolicy, *,
              lead: tuple = ()) -> dict:
     """Float parameters drawn from ``gen`` on its device, in the
-    reference's layout and scales; ``lead`` prepends stacking axes."""
+    reference's layout and scales; ``lead`` prepends stacking axes. A
+    ``relu2``/``gelu`` MoE has no ``w_gate`` and no ``shared_gate``."""
     d, f, e = cfg.d_model, cfg.d_ff_expert, cfg.n_experts
-    if cfg.act != "swiglu":
-        raise NotImplementedError(f"MoE act {cfg.act!r} is not ported "
-                                  "(SwiGLU only)")
+    if cfg.act not in ("swiglu", "relu2", "gelu"):
+        raise ValueError(f"unknown MoE act {cfg.act!r}")
     p = {
         "router": torch.randn(lead + (d, e), generator=gen,
                               device=gen.device) * 0.02,
         "w_up": _expert_dense_init(gen, e, d, f, policy, lead),
         "w_down": _expert_dense_init(gen, e, f, d, policy, lead),
-        "w_gate": _expert_dense_init(gen, e, d, f, policy, lead),
     }
+    if cfg.act == "swiglu":
+        p["w_gate"] = _expert_dense_init(gen, e, d, f, policy, lead)
     if cfg.n_shared:
         fs = cfg.d_ff_shared or f * cfg.n_shared
         p["shared_up"] = qdense_init(gen, d, fs, policy, lead=lead)
         p["shared_down"] = qdense_init(gen, fs, d, policy, lead=lead)
-        p["shared_gate"] = qdense_init(gen, d, fs, policy, lead=lead)
+        if cfg.act == "swiglu":
+            p["shared_gate"] = qdense_init(gen, d, fs, policy, lead=lead)
     return p
 
 
 def _expert_matmul(p: dict, x: torch.Tensor,
                    policy: QuantPolicy) -> torch.Tensor:
-    """Every expert's dense layer at once: x (E, C, K) @ w (E, K, N)."""
+    """Every expert's dense layer at once: x (E, C, K) or (G, E, C, K) @
+    w (E, K, N). Packed weights run every group's rows in one grouped K4
+    launch, over x permuted to (E, G * C, K)."""
+    batched = x.dim() == 4
     aa = p.get("alpha_a")
     if aa is not None:
-        aa = aa[:, None, None]
+        aa = aa[None, :, None, None] if batched else aa[:, None, None]
     if "w_packed" in p:
         # codes in float32, as the reference divides x by a float32 step
         codes = quantize_int(x.to(torch.float32), aa,
                              QuantSpec(policy.a_bits, policy.a_signed))
+        if batched:
+            g, e, c, k = codes.shape
+            codes = codes.permute(1, 0, 2, 3).reshape(e, g * c, k)
         acc = ops.serial_matmul_grouped_op(
             codes, p["w_packed"], spec=plan_spec(policy.spec()),
             k=x.shape[-1], plain=policy.plain)
-        scale = p["scale"][:, None, :]
+        if batched:
+            acc = acc.reshape(e, g, c, -1).permute(1, 0, 2, 3)
+            scale = p["scale"][None, :, None, :]
+        else:
+            scale = p["scale"][:, None, :]
         return acc.to(x.dtype) * (scale * aa).to(x.dtype)
     w = p["w"]
     if policy.mode == "qat" and "alpha_w" in p:
@@ -124,6 +146,17 @@ def _expert_matmul(p: dict, x: torch.Tensor,
         w = lsq_fake_quant(w, p["alpha_w"].to(w.dtype), wspec)
         x = lsq_fake_quant(x, aa.to(x.dtype), aspec)
     return torch.matmul(x, w.to(x.dtype))
+
+
+def _act(h, g, kind):
+    """The expert nonlinearity: SwiGLU ``silu(g) * h``, the squared ReLU
+    or GELU's tanh approximation (``jax.nn.gelu``'s default)."""
+    if kind == "swiglu":
+        return F.silu(g) * h
+    if kind == "relu2":
+        r = torch.clamp_min(h, 0)
+        return r * r
+    return F.gelu(h, approximate="tanh")
 
 
 def _route(p: dict, xt: torch.Tensor, cfg: MoEConfig):
@@ -139,20 +172,22 @@ def _route(p: dict, xt: torch.Tensor, cfg: MoEConfig):
 
 
 def dispatch(expert_idx: torch.Tensor, n_experts: int, capacity: int):
-    """Each (token, slot)'s place: ``keep`` (T, k) and ``flat`` (T, k),
-    its row in the (E * C + 1)-row buffer (``E * C``, the drop bin, when
-    it is beyond its expert's capacity). The rank within an expert counts
-    earlier slots of the same token (a k x k comparison) and earlier
-    tokens (a cumulative count gathered at the chosen expert)."""
-    t, k = expert_idx.shape
+    """Each (token, slot)'s place: ``keep`` and ``flat`` (..., T, k), its
+    row in its group's (E * C + 1)-row buffer (``E * C``, the drop bin,
+    when it is beyond its expert's capacity); leading axes are groups. The
+    rank within an expert counts earlier slots of the same token (a k x k
+    comparison) and earlier tokens of the group (a cumulative count
+    gathered at the chosen expert)."""
+    t, k = expert_idx.shape[-2:]
     dev = expert_idx.device
-    eq = expert_idx[:, :, None] == expert_idx[:, None, :]
+    eq = expert_idx[..., :, None] == expert_idx[..., None, :]
     tri = torch.tril(torch.ones((k, k), dtype=torch.bool, device=dev), -1)
     slot_in_token = torch.sum(eq & tri, dim=-1)
-    counts = torch.zeros((t, n_experts), dtype=torch.int64, device=dev)
-    counts.scatter_add_(1, expert_idx, torch.ones_like(expert_idx))
-    prior = torch.cumsum(counts, dim=0) - counts
-    pos = torch.gather(prior, 1, expert_idx) + slot_in_token
+    counts = torch.zeros(tuple(expert_idx.shape[:-1]) + (n_experts,),
+                         dtype=torch.int64, device=dev)
+    counts.scatter_add_(-1, expert_idx, torch.ones_like(expert_idx))
+    prior = torch.cumsum(counts, dim=-2) - counts
+    pos = torch.gather(prior, -1, expert_idx) + slot_in_token
     keep = pos < capacity
     flat = torch.where(keep, expert_idx * capacity + pos,
                        torch.full_like(pos, n_experts * capacity))
@@ -160,43 +195,64 @@ def dispatch(expert_idx: torch.Tensor, n_experts: int, capacity: int):
 
 
 def moe_apply(p: dict, x: torch.Tensor, cfg: MoEConfig, policy: QuantPolicy,
-              capacity: Optional[int] = None):
+              capacity: Optional[int] = None,
+              n_groups: Optional[int] = None):
     """x: (..., T, d), the token axes flattened. Returns ``(out, aux)``:
     ``aux`` holds the Switch load-balance loss ``lb_loss`` and
     ``drop_frac``, the share of (token, slot) pairs beyond capacity (0-d
-    tensors on x's device)."""
+    tensors on x's device).
+
+    Dispatch is group-local: the tokens split into ``n_groups`` groups
+    (default: the bound ``"dp"`` axis size, 1 when it does not divide T),
+    each dispatching into its own ``(E, C_g, d)`` buffer with C_g from the
+    group's T/G tokens."""
     lead, d = tuple(x.shape[:-1]), x.shape[-1]
     xt = x.reshape(-1, d)
     t = xt.shape[0]
     e, k = cfg.n_experts, cfg.top_k
+    if n_groups is None:
+        n_groups = axis_size("dp")
+        if n_groups <= 0 or t % n_groups != 0:
+            n_groups = 1
+    g = n_groups
+    tg = t // g
     if capacity is None:
-        capacity = capacity_for(t, cfg)
+        capacity = capacity_for(tg, cfg)
 
     probs, gate_vals, expert_idx = _route(p, xt, cfg)
-    keep, flat = dispatch(expert_idx, e, capacity)
+    keep, flat = dispatch(expert_idx.reshape(g, tg, k), e, capacity)
 
-    # dispatch: scatter into (E*C + 1, d); the last row is the drop bin
-    buf = torch.zeros((e * capacity + 1, d), dtype=xt.dtype, device=x.device)
-    buf.index_add_(0, flat.reshape(-1),
+    # dispatch: each group scatters into its own (E*C + 1, d) rows of one
+    # buffer; each group's last row is its drop bin
+    rows = e * capacity + 1
+    at = flat + torch.arange(g, device=x.device)[:, None, None] * rows
+    buf = torch.zeros((g * rows, d), dtype=xt.dtype, device=x.device)
+    buf.index_add_(0, at.reshape(-1),
                    xt[:, None, :].expand(t, k, d).reshape(-1, d))
-    hbuf = buf[:-1].reshape(e, capacity, d)
+    hbuf = buf.reshape(g, rows, d)[:, :-1].reshape(g, e, capacity, d)
+    if g == 1:
+        hbuf = hbuf[0]                                     # (E, C, d)
 
     up = _expert_matmul(p["w_up"], hbuf, policy)
-    gate = _expert_matmul(p["w_gate"], hbuf, policy)
-    out_buf = _expert_matmul(p["w_down"], F.silu(gate) * up, policy)
+    gate = (_expert_matmul(p["w_gate"], hbuf, policy)
+            if cfg.act == "swiglu" else None)
+    out_buf = _expert_matmul(p["w_down"], _act(up, gate, cfg.act), policy)
 
     # combine: gather each kept slot, weight by its gate value
-    out_flat = torch.cat([out_buf.reshape(e * capacity, d),
-                          torch.zeros((1, d), dtype=out_buf.dtype,
-                                      device=x.device)], dim=0)
-    picked = out_flat[flat.reshape(-1)].reshape(t, k, d)
-    w = (gate_vals * keep).to(picked.dtype)
+    out_flat = torch.cat([out_buf.reshape(g, e * capacity, d),
+                          torch.zeros((g, 1, d), dtype=out_buf.dtype,
+                                      device=x.device)], dim=1)
+    picked = out_flat.reshape(g * rows, d)[at.reshape(-1)].reshape(t, k, d)
+    w = (gate_vals * keep.reshape(t, k)).to(picked.dtype)
     out = torch.einsum("tkd,tk->td", picked, w)
 
     if cfg.n_shared:
-        sg, su = qdense_shared([p["shared_gate"], p["shared_up"]], xt,
-                               policy)
-        out = out + qdense(p["shared_down"], F.silu(sg) * su, policy)
+        if cfg.act == "swiglu":
+            sg, su = qdense_shared([p["shared_gate"], p["shared_up"]], xt,
+                                   policy)
+        else:
+            sg, su = None, qdense(p["shared_up"], xt, policy)
+        out = out + qdense(p["shared_down"], _act(su, sg, cfg.act), policy)
 
     me = torch.mean(probs, dim=0)
     ce = torch.mean(F.one_hot(expert_idx[:, 0], e).to(torch.float32), dim=0)
@@ -215,13 +271,15 @@ def moe_ref_apply(p: dict, x: torch.Tensor, cfg: MoEConfig,
     out = torch.zeros_like(xt)
     for ei in range(cfg.n_experts):
         up = xt @ p["w_up"]["w"][ei]
-        h = F.silu(xt @ p["w_gate"]["w"][ei]) * up
-        oe = h @ p["w_down"]["w"][ei]
+        gate = (xt @ p["w_gate"]["w"][ei] if cfg.act == "swiglu"
+                else None)
+        oe = _act(up, gate, cfg.act) @ p["w_down"]["w"][ei]
         wsel = torch.sum(torch.where(expert_idx == ei, gate_vals,
                                      torch.zeros_like(gate_vals)), dim=-1)
         out = out + oe * wsel[:, None].to(oe.dtype)
     if cfg.n_shared:
         su = qdense(p["shared_up"], xt, policy)
-        sh = F.silu(qdense(p["shared_gate"], xt, policy)) * su
-        out = out + qdense(p["shared_down"], sh, policy)
+        sg = (qdense(p["shared_gate"], xt, policy) if cfg.act == "swiglu"
+              else None)
+        out = out + qdense(p["shared_down"], _act(su, sg, cfg.act), policy)
     return out.reshape(lead + (d,))

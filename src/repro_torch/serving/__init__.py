@@ -17,8 +17,9 @@
   leave at token boundaries; on the card its decode step is one captured
   CUDA graph, replayed per step, and the scheduler is booked per step.
 
-The service serves one bank (placement ``"single"``); serving across
-several (``n_banks > 1``) waits for ``distributed/program_parallel``.
+The service serves one bank (placement ``"single"``) or several
+(``n_banks > 1``, ``"banked"`` or ``"sharded"``), each bank a stream of
+its own on the card (:mod:`repro_torch.distributed.program_parallel`).
 """
 
 from repro_torch.serving.batcher import (DynamicBatcher, MicroBatch,

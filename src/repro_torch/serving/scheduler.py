@@ -33,8 +33,8 @@ has a placement decision:
   of a W2A2 batch — a*w = 32 vs 4 bit-cycles; least-finish placement
   keeps the banks even);
 * ``placement="sharded"`` — the batch is split evenly over all banks
-  (data-parallel execution, the reference's ``distributed/
-  program_parallel``); every bank books the same stream at
+  (data-parallel :class:`~repro_torch.distributed.program_parallel
+  .ShardedProgram` execution); every bank books the same stream at
   ``cycle_scale = batch / n_banks``.
 
 Utilization is per-slot busy cycles over the virtual makespan — the same
@@ -43,7 +43,8 @@ extended across every admitted batch and every bank.
 
 The port's copy of ``repro/serving/scheduler.py`` (pure Python). Its banks
 are cycle-domain clocks, so ``n_banks > 1`` books more virtual slots and
-needs no second card; the service that executes on them serves one bank.
+needs no second card; the service runs each booked bank's batch on that
+bank's stream.
 ``set_calibration`` takes a :class:`~repro_torch.obs.calibrate.Calibration`
 (or any object with ``predict_wall_seconds`` and ``ns_for``).
 """

@@ -15,11 +15,27 @@ SlotScheduler` (the barrel controller's cycle domain), and executes:
 * **callable variants** (e.g. the continuous LM engine) receive the raw
   request list and return one result per request.
 
-Every batch runs on the registry's device (the reference's ``"single"``
-placement). Serving across several banks (``n_banks > 1`` or ``mesh=``)
-waits for ``distributed/program_parallel``, which the port has not got
-yet. Program variants run the kernels' plain versions when the registry
-says ``plain`` (``InferenceService(plain=)`` overrides it).
+**Bank scaling** (``n_banks > 1``): every bank is one 8-slot MVU bank
+(:mod:`repro_torch.distributed.program_parallel`) — a device and, on a
+card, a CUDA stream of its own; four banks on one H100 are four streams.
+Two placements:
+
+* ``placement="banked"`` — the :class:`SlotScheduler` books each
+  micro-batch on the bank whose cycle clock frees earliest, and the batch
+  replays that bank's graph on that bank's stream, so mixed-precision
+  traffic load-balances across banks;
+* ``placement="sharded"`` — each micro-batch is split evenly over all
+  banks (buckets are multiples of the bank count; the batcher rounds
+  takes to it).
+
+In both, packed weight planes are placed once per device through a
+service-wide :class:`~repro_torch.distributed.program_parallel.
+ReplicaCache` (on one card: no copy at all), and batch completion moves to
+a small finalize pool, so the worker can keep dispatching to idle banks
+while earlier batches still run on the card (a runner call only enqueues
+work; the host copy of the answers waits). Program variants run the
+kernels' plain versions when the registry says ``plain``
+(``InferenceService(plain=)`` overrides it).
 
 Per-batch wall latency feeds the
 :class:`~repro_torch.runtime.straggler.StragglerDetector`, so anomalous
@@ -35,7 +51,7 @@ from __future__ import annotations
 import collections
 import threading
 import time
-from concurrent.futures import Future
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -65,19 +81,44 @@ class InferenceService:
                  max_queue: int = 256,
                  plain: Optional[bool] = None,
                  n_banks: Optional[int] = None,
+                 placement: str = "banked",
                  mesh=None,
                  metrics: Optional[MetricsRegistry] = None,
                  tracer: Optional[Tracer] = None,
                  trace_sample_every: int = 1,
                  max_retries: int = 0):
         self.registry = registry
-        if n_banks is not None and n_banks < 1:
+        self.n_banks = 1 if n_banks is None else n_banks
+        if self.n_banks < 1:
             raise ValueError(f"n_banks must be >= 1, got {n_banks}")
-        if (n_banks or 1) > 1 or mesh is not None:
-            raise NotImplementedError(
-                "serving across several banks (n_banks > 1 or mesh=) needs "
-                "distributed/program_parallel, which is not ported yet")
-        self.n_banks = 1
+        if placement not in ("banked", "sharded"):
+            # validate unconditionally: a typo must not silently degrade
+            # to single-device serving just because n_banks was defaulted
+            raise ValueError(f"unknown placement {placement!r} — "
+                             "'banked' or 'sharded'")
+        self._mesh = None
+        self._banks = None
+        self._replicas = None
+        round_to = 1
+        if self.n_banks > 1 or mesh is not None:
+            from repro_torch.distributed import program_parallel as pp
+            self.placement = placement
+            self._replicas = pp.ReplicaCache()
+            home = pp.home_devices(registry.device)
+            if placement == "sharded":
+                self._mesh = mesh if mesh is not None else pp.bank_mesh(
+                    self.n_banks, devices=home)
+                self.n_banks = int(self._mesh.shape[pp.BANK_AXIS])
+                round_to = self.n_banks
+            else:
+                # the raw n_banks (None = every bank of the given mesh),
+                # NOT self.n_banks: its None->1 default would silently
+                # shrink an explicit mesh to a single bank
+                self._banks = pp.bank_devices(
+                    n_banks, list(mesh) if mesh is not None else home)
+                self.n_banks = len(self._banks)
+        else:
+            self.placement = "single"
         # the spine-wide observability pair: one metrics registry + one
         # tracer, propagated into every component the service constructs
         self.metrics_registry = (metrics if metrics is not None
@@ -86,13 +127,17 @@ class InferenceService:
             sample_every=trace_sample_every)
         self.batcher = batcher or DynamicBatcher(
             max_batch=max_batch, max_wait_s=max_wait_s, max_queue=max_queue,
-            metrics=self.metrics_registry)
+            round_to=round_to, metrics=self.metrics_registry)
         self.scheduler = scheduler or SlotScheduler(
+            n_banks=self.n_banks,
+            placement=("sharded" if self.placement == "sharded"
+                       else "banked"),
             metrics=self.metrics_registry, tracer=self.tracer)
         self.straggler = straggler or StragglerDetector(window=64)
         self.plain = plain
         self._runners: Dict[ModelKey, executor.BucketedRunner] = {}  # guarded-by: _mlock
         self._thread: Optional[threading.Thread] = None
+        self._pool: Optional[ThreadPoolExecutor] = None
         self._stop = threading.Event()
         self._pend_lock = threading.Condition()
         self._pending = 0    # guarded-by: _pend_lock
@@ -119,6 +164,10 @@ class InferenceService:
             return self
         self._stop.clear()
         self.batcher.reopen()
+        if self.n_banks > 1:
+            self._pool = ThreadPoolExecutor(
+                max_workers=self.n_banks,
+                thread_name_prefix="serving-finalize")
         self._thread = threading.Thread(target=self._loop,
                                         name="serving-worker", daemon=True)
         self._thread.start()
@@ -134,6 +183,10 @@ class InferenceService:
         self._stop.set()
         self._thread.join(timeout=30)
         self._thread = None
+        if self._pool is not None:
+            # every dispatched batch still in flight resolves its futures
+            self._pool.shutdown(wait=True)
+            self._pool = None
         n = self.batcher.flush_pending(
             RuntimeError("service stopped with requests still queued"))
         with self._pend_lock:
@@ -201,7 +254,8 @@ class InferenceService:
         prog = self.registry.program(key)  # touches LRU / lazy-compiles
         r = executor.make_bucketed_runner(
             prog, max_batch=self.batcher.max_batch,
-            plain=self.registry.plain if self.plain is None else self.plain)
+            plain=self.registry.plain if self.plain is None else self.plain,
+            mesh=self._mesh, banks=self._banks, replica_cache=self._replicas)
         with self._mlock:
             for k in [k for k in self._runners
                       if self.registry.resident_program(k) is None]:
@@ -254,7 +308,7 @@ class InferenceService:
         t0 = time.perf_counter()
         marks = {"batch": now_ns()}
         try:
-            results, admission = self._dispatch(mb, marks)
+            pending, admission = self._dispatch(mb, marks)
         except WorkerFailure as e:
             # transient bank loss on the serving path: requeue the batch's
             # requests (bounded per request by max_retries) rather than
@@ -264,7 +318,14 @@ class InferenceService:
         except BaseException as e:  # noqa: BLE001 — worker must survive
             self._fail_batch(mb, e)
             return
-        self._finalize(mb, results, admission, t0, marks)
+        if self._pool is None:
+            self._finalize(mb, pending, admission, t0, marks)
+        else:
+            # multi-bank: the batch's card work is in flight; the host copy
+            # and the futures move off the worker so the next micro-batch
+            # can start on another bank at once
+            self._pool.submit(self._finalize, mb, pending, admission, t0,
+                              marks)
 
     def _fail_batch(self, mb: MicroBatch, e: BaseException) -> None:
         for r in mb.requests:
@@ -303,7 +364,7 @@ class InferenceService:
         return results
 
     def _dispatch(self, mb: MicroBatch, marks: Dict):
-        """Book the batch, run it and bring its results to the host.
+        """Book the batch and launch its work (no host copy).
 
         ``marks`` collects the phase boundary timestamps (ns) that
         :meth:`_emit_spans` turns into queue/schedule/execute spans."""
@@ -317,23 +378,36 @@ class InferenceService:
                     entry.fn.bind_runtime(self.scheduler, mb.key,
                                           tracer=self.tracer)
                 marks["exec"] = now_ns()
-                return self._call_engine(entry.fn, mb), None
+                return ("list", self._call_engine(entry.fn, mb)), None
             marks["sched"] = now_ns()
             admission = self.scheduler.admit(mb.key, mb.size,
                                              stream=entry.stream)
             marks["exec"] = now_ns()
-            return self._call_engine(entry.fn, mb), admission
+            return ("list", self._call_engine(entry.fn, mb)), admission
         runner = self._runner_for(mb.key)
         marks["sched"] = now_ns()
         admission = self.scheduler.admit(mb.key, mb.size,
                                          program=runner.program)
         marks["exec"] = now_ns()
         x = np.stack([np.asarray(r.payload) for r in mb.requests])
-        return list(runner(x).cpu().numpy()), admission
+        bank = (admission.bank
+                if admission is not None and runner.placement == "banked"
+                else None)
+        return ("tensor", runner(x, bank=bank)), admission
 
-    def _finalize(self, mb: MicroBatch, results, admission,
+    def _finalize(self, mb: MicroBatch, pending, admission,
                   t0: float, marks: Dict) -> None:
-        """Resolve the batch's futures and record its latency and spans."""
+        """Bring the batch's results to the host, resolve its futures and
+        record its latency and spans."""
+        try:
+            kind, val = pending
+            results = val if kind == "list" else list(val.cpu().numpy())
+        except WorkerFailure as e:
+            self._requeue_or_fail(mb, e)
+            return
+        except BaseException as e:  # noqa: BLE001 — pool must survive
+            self._fail_batch(mb, e)
+            return
         t_exec_done = now_ns()
         dt = time.perf_counter() - t0
         self.scheduler.complete(admission, dt)
@@ -431,8 +505,12 @@ class InferenceService:
                 / len(engines), 4) if engines else None),
             "engines": engines or None,
             "bucket_caches": buckets,
-            "banks": {"n_banks": self.n_banks, "placement": "single",
-                      "replica_cache": None},
+            "banks": {
+                "n_banks": self.n_banks,
+                "placement": self.placement,
+                "replica_cache": (self._replicas.stats()
+                                  if self._replicas is not None else None),
+            },
             "scheduler": self.scheduler.metrics(),
             "straggler": straggler,
             "registry": self.registry.stats(),

@@ -449,7 +449,7 @@ def test_captured_bucket_equals_eager_forward(dev, plain):
     assert runner.warmup() == 4
     want = ({"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K4g": 0} if plain else
             {"K1": 2, "K2": 1, "K3": 1, "K4": 0, "K4g": 0})
-    assert runner.capture_launches == {b: want for b in (1, 2, 4, 8)}
+    assert runner.capture_launches == {(0, b): want for b in (1, 2, 4, 8)}
     xs = torch.rand((8, 8, 8, 8), generator=torch.Generator().manual_seed(1))
     for n in (1, 3, 5, 8, 3):
         before = ops.launch_counts()
@@ -461,7 +461,7 @@ def test_captured_bucket_equals_eager_forward(dev, plain):
     st = runner.stats()
     assert st["compiles"] == 4 and st["cuda_graphs"] == 4
     # one replay per bucket at warmup, then buckets 1, 4, 8, 8, 4
-    assert st["replays"] == {1: 2, 2: 1, 4: 3, 8: 3}
+    assert st["replays"] == {(0, 1): 2, (0, 2): 1, (0, 4): 3, (0, 8): 3}
 
 
 def test_capture_beside_a_busy_thread(dev):
@@ -1019,3 +1019,115 @@ def test_frontend_prefill_and_decode_on_the_card_equal_cpu(dev, arch):
         return torch.cat(out, 1)
 
     assert torch.equal(run(params, dev), run(_to(params, "cpu"), "cpu"))
+
+
+# ------------------------------------------------ array scaling on one card
+
+def _shard_forwards(prog, x, n_banks):
+    """The eager forward of each bank's shard of ``x``, concatenated."""
+    from repro_torch.compiler import executor
+    s = len(x) // n_banks
+    run = executor.make_runner(prog)
+    return torch.cat([run(prog.params, x[i * s:(i + 1) * s])
+                      for i in range(n_banks)])
+
+
+@pytest.mark.parametrize("placement", ["banked", "sharded"])
+def test_bank_graphs_on_four_streams_equal_eager_forwards(dev, placement):
+    """Four banks are four streams on the card, each with its own graph
+    per bucket: warmup captures every (bank, bucket) with one forward's
+    launches, nothing is captured after it, and every answer — read on
+    the caller's stream right away, twice over — equals the eager forward
+    of its rows at the bank's batch."""
+    from repro_torch.compiler import executor
+    from repro_torch.distributed import program_parallel as pp
+    from repro_torch.kernels import ops
+    prog = _tiny_cnn_program(dev)
+    kw = ({"banks": pp.bank_devices(4)} if placement == "banked"
+          else {"mesh": pp.bank_mesh(4)})
+    runner = executor.make_bucketed_runner(prog, max_batch=8, **kw)
+    assert len({b.stream for b in runner._banks}) == 4
+    buckets = executor.bucket_sizes(8, 1 if placement == "banked" else 4)
+    assert runner.warmup() == (4 * len(buckets) if placement == "banked"
+                               else len(buckets))
+    want = {"K1": 2, "K2": 1, "K3": 1, "K4": 0, "K4g": 0}
+    assert runner.capture_launches == {(i, b): want for i in range(4)
+                                       for b in buckets}
+    xs = torch.rand((8, 8, 8, 8), generator=torch.Generator().manual_seed(5))
+    for _ in range(2):
+        for j, n in enumerate((1, 3, 5, 8, 2, 7)):
+            b = executor.bucket_for(n, 8, runner._multiple)
+            pad = torch.zeros((b, 8, 8, 8), device=dev)
+            pad[:n] = xs[:n].to(dev)
+            before = ops.launch_counts()
+            if placement == "banked":
+                got = runner(xs[:n], bank=j % 4)
+                assert ops.launch_counts() == before   # a replay: no wrapper
+                ref = _eager_at_bucket(prog, xs[:n].to(dev), b)
+            else:
+                got = runner(xs[:n])
+                assert ops.launch_counts() == before
+                ref = _shard_forwards(prog, pad, 4)[:n]
+            assert torch.equal(got, ref), (placement, n)
+    assert runner.stats()["cuda_graphs"] == 4 * len(buckets)
+
+
+def test_sharded_pipelined_and_gpipe_on_four_streams(dev):
+    """ShardedProgram and PipelinedProgram on four streams of the card
+    equal single-bank eager forwards of their shards and microbatches;
+    gpipe over four banks equals the sequential float32 stack (TF32 off)
+    within the reference test's tolerance."""
+    from repro_torch.core.pipeline_modules import disable_tf32
+    from repro_torch.distributed import program_parallel as pp
+    from repro_torch.distributed.pipeline_parallel import gpipe, stage_stack
+    disable_tf32()
+    prog = _tiny_cnn_program(dev)
+    x = torch.rand((16, 8, 8, 8), generator=torch.Generator().manual_seed(6)
+                   ).to(dev)
+    sp = pp.ShardedProgram(prog, pp.bank_mesh(4))
+    for _ in range(2):
+        assert torch.equal(sp(x), _shard_forwards(prog, x, 4))
+    for n_stages in (2, 4):
+        pl = pp.PipelinedProgram(prog, n_stages=n_stages)
+        assert torch.equal(pl(x, n_microbatches=4), _shard_forwards(prog, x,
+                                                                    4))
+    g = torch.Generator(device=dev).manual_seed(0)
+    ws = torch.randn((8, 256, 256), generator=g, device=dev) / 16
+    h = torch.randn((32, 256), generator=g, device=dev)
+    ref = h
+    for w in ws:
+        ref = torch.tanh(ref @ w)
+
+    def stage_fn(wstage, t):
+        for w in wstage:
+            t = torch.tanh(t @ w)
+        return t
+
+    y = gpipe(stage_fn, stage_stack(ws, 4), h, banks=pp.bank_devices(4))
+    torch.testing.assert_close(y, ref, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("n_groups", [1, 2, 4])
+def test_two_matrix_moe_groups_on_the_card(dev, n_groups):
+    """A relu2 MoE layer, packed, through grouped K4: two launches a layer
+    whatever ``n_groups`` is, and the result equal to the plain versions'
+    on the card bit for bit."""
+    from repro_torch.kernels import bitserial_matmul as km
+    from repro_torch.models import moe
+    from repro_torch.models.layers import QuantPolicy
+    from repro_torch.models.transformer import _pack_tree
+    cfg = moe.MoEConfig(d_model=256, d_ff_expert=128, n_experts=8, top_k=2,
+                        act="relu2")
+    pol = QuantPolicy(mode="qat", w_bits=4, a_bits=8)
+    p = _pack_tree(moe.moe_init(torch.Generator(device=dev).manual_seed(0),
+                                cfg, pol), pol)
+    x = torch.randn((64, 256), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1))
+    before = km.GROUPED.entry_launches["bitserial_matmul_v1_grouped"]
+    got, _ = moe.moe_apply(p, x, cfg, pol, n_groups=n_groups)
+    assert (km.GROUPED.entry_launches["bitserial_matmul_v1_grouped"]
+            == before + 2)
+    ref, _ = moe.moe_apply(p, x, cfg, QuantPolicy(mode="qat", w_bits=4,
+                                                  a_bits=8, plain=True),
+                           n_groups=n_groups)
+    assert torch.equal(got, ref)

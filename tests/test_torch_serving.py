@@ -183,19 +183,31 @@ def test_registry_errors_equal_reference():
 
 
 def test_registry_store_and_multi_bank_wait_for_their_modules():
-    """Multi-bank serving still waits for distributed/program_parallel (the
-    store's cases are positive tests in tests/test_torch_artifact.py)."""
+    """Multi-bank serving came with distributed/program_parallel: the
+    three entry points that refused ``n_banks > 1``/``mesh=``/``banks=``
+    take them on CPU banks, and a placement is validated whatever
+    ``n_banks`` is, as the reference's (the store's cases are positive
+    tests in tests/test_torch_artifact.py; the multi-bank paths' own tests
+    are in tests/test_torch_program_parallel.py)."""
+    from repro_torch.distributed import program_parallel as pp
     reg = ModelRegistry(device="cpu")
-    for kw in ({"n_banks": 2}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError,
-                           match="distributed/program_parallel"):
-            InferenceService(reg, **kw)
-    with pytest.raises(NotImplementedError,
-                       match="distributed/program_parallel"):
-        serve.CNNServer(n_banks=2, device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="distributed/program_parallel"):
-        executor.make_bucketed_runner(None, banks=[0, 1])
+    for kw in ({"n_banks": 2}, {"mesh": pp.bank_mesh(2, device="cpu")}):
+        svc = InferenceService(reg, **kw)
+        assert (svc.n_banks, svc.placement) == (2, "banked")
+        assert svc.metrics()["banks"]["replica_cache"]["replicas"] == 0
+    with pytest.raises(ValueError, match="placement"):
+        InferenceService(reg, placement="nope")
+    with serve.CNNServer(n_banks=2, placement="sharded",
+                         device="cpu") as srv:
+        assert srv.service.batcher.round_to == 2
+    prog = reg.program(reg.register_graph("tiny", tiny_cnn(), CALIB,
+                                          policy(2, 2)))
+    run = executor.make_bucketed_runner(prog, max_batch=4,
+                                        banks=["cpu", "cpu"])
+    assert (run.n_banks, run.placement) == (2, "banked")
+    with pytest.raises(ValueError, match="not both"):
+        executor.make_bucketed_runner(prog, banks=["cpu"],
+                                      mesh=pp.bank_mesh(1, device="cpu"))
 
 
 # --------------------------------------------------------------- batcher
