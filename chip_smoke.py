@@ -205,12 +205,13 @@ Phases (any failure exits non-zero and prints no result):
     at M = 4 beside their bound; ``ssd_chunked`` against ``ssd_scan_ref``
     on the card at one mamba2 layer's full width (B 4, S 600, H 48, P 64,
     N 128) within ``tests/test_models_consistency.py``'s rtol 2e-4 / atol
-    2e-5. Then each model at full width and half depth (``SSM_DEPTH``;
-    phase 18 serves both at full depth), bf16, W4A8, random weights from
-    seed 0, through ``Server`` (batch_slots 4): mamba2-780m (24 of 48 SSM
+    2e-5. Then each model at full width and a quarter of its depth
+    (``SSM_DEPTH``; phase 18 serves both at full depth), bf16, W4A8,
+    random weights from seed 0, through ``Server`` (batch_slots 4):
+    mamba2-780m (12 of 48 SSM
     layers, tied embeddings) at max_len 1024 on four requests of 5, 8, 11
     and 16 tokens and on four of 5, 8, 11 and 600 (a 3-chunk left-padded
-    scan), 16 new tokens each; hymba-1.5b (16 of 32 hybrid layers, global
+    scan), 16 new tokens each; hymba-1.5b (8 of 32 hybrid layers, global
     0, window 1024) at max_len 64 on four requests of 5-16 tokens, 16
     new, and at max_len 1280 on four of 1030-1100 tokens, 8 new (the
     prefill cuts the window, every decode step rolls). Counts reset just
@@ -245,10 +246,11 @@ Phases (any failure exits non-zero and prints no result):
     kernels' tokens and last-step logits equal, exactly, the plain
     versions' run on the card, the K4 path's equal K1 + K3's, and for
     internvl2-76b also with seeded ``frontend_embeds`` (4, 256, 3200);
-    (b) at half the depth 80 GB holds, for the script's time limit
-    (``FAMILY_DEPTH``: qwen1.5-110b and internvl2-76b 40 of 80 layers,
-    command-r 24 of 64, qwen3-moe 20 of 94; nemotron and seamless full;
-    PRs 23-24 ran 80, 48, 40), the same requests, counts
+    (b) at a quarter of the depth 80 GB holds, for the script's time
+    limit (``FAMILY_DEPTH``: qwen1.5-110b and internvl2-76b 20 of 80
+    layers, command-r 12 of 64, qwen3-moe 10 of 94; nemotron and seamless
+    full; earlier the full depth that fits, 80, 48, 40, then half of it),
+    the same requests, counts
     reset just before and read just after, each kernel's launches equal
     to :func:`family_launches`' per prefill and decode step, the K4
     path's tokens and logits equal K1 + K3's; internvl2-76b's frontend
@@ -351,6 +353,27 @@ Phases (any failure exits non-zero and prints no result):
     microbatches, TF32 off): within rtol 2e-4 / atol 2e-5 of the
     sequential stack.
 
+20. one model's tensors on a data x model mesh (:func:`mesh_phase`;
+    ``distributed/sharding.py`` on DTensor): (a) full-width stablelm-1.6b
+    (24 layers, float32 compute, W4A8 ``qat``, batch 8, seq 64, seed 0;
+    AdamW lr 3e-4, warmup 2) for 3 ``Trainer`` steps unsharded, then on a
+    (data 1, model 1) mesh of this card (an NCCL group of one rank in
+    this process, ``make_local_mesh``): every param a DTensor placed by
+    ``param_pspec``; losses, CE, lr, grad norms and every final param
+    equal the unsharded run's bit for bit; step ms, peak memory and one
+    more mesh step profiled (busy ms, split into forward, backward and
+    AdamW) and each part's seconds printed; (b) ``pack_params`` of the mesh run's gathered
+    params: the held-out batch's integer loss through K1 + K3 (96 + 168
+    launches, counts reset just before and read just after) equals the
+    unsharded run's bit for bit; the group is destroyed; (c) with two or
+    more cards only: one rank a card over NCCL (``run_ranks``), the same
+    3 steps on (data 2, model n/2) or (data 1, model n), each card's peak
+    and state bytes printed; the losses of the config without fake
+    quantization (mode ``none``) and its grad norms within rtol 1e-4 of
+    an unsharded run's of it; the ``qat`` losses beside (a)'s, reported:
+    LSQ's rounding flips activation codes where the mesh's sums round
+    otherwise, and 24 layers amplify it.
+
 The ``kernels`` JSON line gives, per kernel, its launches on the main
 paths (the bucketed runners' forwards and the engine's loads included:
 wrapper counts plus each captured graph's launches times the replays run,
@@ -364,7 +387,8 @@ engine's load and the service's), phase 14's (the packed evaluation
 and the trained weights' ``Server``), phase 15's and 16's (the
 families' runs; K4's and grouped K4's too) and phase 17's (the long-context
 cells; grouped K4's too) and phase 18's (the trained families' packed
-evaluations and ``Server`` runs); K1's and K2's include phase 13's
+evaluations and ``Server`` runs) and phase 20's (the mesh run's and the
+unsharded run's packed evaluations); K1's and K2's include phase 13's
 (the warm-booted graphs' replays and the profiler's calls) and phase 19's
 (the sharded and pipelined Programs and the four-bank services' bursts;
 K1's, K3's and grouped K4's also its MoE layers); the grouped K4 entry
@@ -777,10 +801,10 @@ HYMBA_PROMPTS_LONG = (1030, 1050, 1075, 1100)   # past hymba's 1024 window
 HYMBA_NEW_LONG = 8
 SCAN_TOL = {"rtol": 2e-4, "atol": 2e-5}  # tests/test_models_consistency.py
 SSM_RANGES = ("ssm.scan", "ssm.conv")
-# the depth phase 15 serves each model at, every width kept (full depth in
-# PRs 21-24): phase 18 serves both at full depth on trained weights, and
-# the script must end inside its time limit
-SSM_DEPTH = {"mamba2-780m": 24, "hymba-1.5b": 16}
+# the depth phase 15 serves each model at, every width kept (earlier the
+# full depth, then half of it): phase 18 serves both at full depth on
+# trained weights, and the script must end inside its time limit
+SSM_DEPTH = {"mamba2-780m": 12, "hymba-1.5b": 8}
 # per model: the K1 launches (K, G step sizes) and the K3/K4 GEMMs ((K,
 # N), how many) one layer makes
 SSM_SLICE = {
@@ -1173,19 +1197,19 @@ def ssm_phase(dev, hp):
 
 
 # phase 16: the reference's six remaining architectures at full width
-# the layers each runs at, and why any were cut: half the depth one 80 GB
-# card holds at W4 beside the float32 embedding and head (PRs 23-24 ran
-# that depth), so the script ends inside its time limit
-_HALF = "half of what the card holds, for the script's time limit"
+# the layers each runs at, and why any were cut: a quarter of the depth one
+# 80 GB card holds at W4 beside the float32 embedding and head (earlier
+# that depth, then half of it), so the script ends inside its time limit
+_CUT = "a quarter of what the card holds, for the script's time limit"
 FAMILY_DEPTH = {
     "nemotron-4-15b": (32, None),
-    "qwen1.5-110b": (40, _HALF),
-    "command-r-plus-104b": (24, "64 layers: 50.3 GB packed + 12.6 GB "
+    "qwen1.5-110b": (20, _CUT),
+    "command-r-plus-104b": (12, "64 layers: 50.3 GB packed + 12.6 GB "
                                 "embedding + 12.6 + 6.3 GB head, about 82 "
-                                "GB, past the card; 48 fit; " + _HALF),
-    "internvl2-76b": (40, _HALF),
-    "qwen3-moe-235b-a22b": (20, "94 layers' packed experts alone are 117 "
-                                "GB; 40 fit; " + _HALF),
+                                "GB, past the card; 48 fit; " + _CUT),
+    "internvl2-76b": (20, _CUT),
+    "qwen3-moe-235b-a22b": (10, "94 layers' packed experts alone are 117 "
+                                "GB; 40 fit; " + _CUT),
     "seamless-m4t-large-v2": (24, None),
 }
 # the depth at which the plain versions' run is held against the kernels'
@@ -3068,6 +3092,262 @@ def array_phase(dev, hp):
     out["seconds"] = time.perf_counter() - t_phase
     log(f"  phase 19 in {out['seconds']:.1f} s; launches {out['launches']}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 20: one model's tensors placed over a data x model mesh (DTensor,
+# NCCL), full-width stablelm-1.6b through the Trainer
+
+MESH_STEPS = 3
+MESH_BATCH, MESH_SEQ = 8, 64
+MESH_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=MESH_STEPS)
+
+
+def mesh_config(float_only: bool = False):
+    """Phase 20's config: stablelm-1.6b FULL (24 layers, every width) with
+    float32 compute, LSQ ``qat`` as the reference trains it, or with
+    ``float_only`` no fake quantization (mode ``none``: no step sizes)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models.layers import QuantPolicy
+    cfg = dataclasses.replace(get_arch("stablelm-1.6b").full,
+                              dtype="float32")
+    if float_only:
+        cfg = dataclasses.replace(cfg, policy=QuantPolicy(mode="none"))
+    return cfg
+
+
+def mesh_card_rank(rank, data, model):
+    """One rank of phase 20 (c), started by ``run_ranks`` on its own card:
+    the (data, model) mesh's ``Trainer``, ``MESH_STEPS`` steps of the
+    ``qat`` config and then of the float one. Returns, for each, the
+    losses, grad norms, the card's peak bytes and the state bytes it
+    holds (its shards)."""
+    import torch
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.distributed import placed
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.train import Trainer
+    from repro_torch.optim import AdamWConfig
+    mesh = make_local_mesh(data, model)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {}
+    for name, float_only in (("qat", False), ("float", True)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        tr = Trainer(mesh_config(float_only), opt_cfg=AdamWConfig(**MESH_OPT),
+                     batch_size=MESH_BATCH, seq_len=MESH_SEQ, seed=0,
+                     device=dev, mesh=mesh)
+        state, losses = tr.run(MESH_STEPS, log_every=MESH_STEPS)
+        torch.cuda.synchronize(dev)
+        held = sum((t.to_local() if placed.is_placed(t) else t).numel()
+                   * t.element_size() for t in tree_leaves(state))
+        out[name] = {"losses": losses,
+                     "grad_norms": [h["grad_norm"] for h in tr.history],
+                     "step_s": [h["seconds"] for h in tr.history],
+                     "peak_bytes": torch.cuda.max_memory_allocated(dev),
+                     "state_bytes": held,
+                     "card": torch.cuda.get_device_name(dev)}
+        del state, tr
+    return out
+
+
+def mesh_phase(dev, hp):
+    """Phase 20: sharding one model's tensors (``distributed/sharding.py``
+    on DTensor, ``Trainer(mesh=)``). Helpers from ``main``: ``counts``,
+    ``reset_counts``, ``device_profile``. Returns the phase's record; its
+    ``launches`` are the packed evaluations' K1 and K3; raises on any
+    failure."""
+    import gc
+
+    import torch
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.distributed import placed
+    from repro_torch.launch.mesh import (close_local_mesh, make_local_mesh,
+                                         run_ranks)
+    from repro_torch.launch.train import Trainer, make_train_step
+    from repro_torch.models import transformer
+    from repro_torch.optim import AdamWConfig
+
+    t_phase = time.perf_counter()
+    cfg = mesh_config()
+    opt = AdamWConfig(**MESH_OPT)
+    kw = dict(opt_cfg=opt, batch_size=MESH_BATCH, seq_len=MESH_SEQ, seed=0,
+              device=dev)
+    out = {"launches": dict.fromkeys(("K1", "K2", "K3", "K4", "K4g"), 0)}
+    log(f"phase 20: a mesh — Trainer(stablelm-1.6b FULL, {cfg.n_layers} "
+        f"layers, float32, W4A8 qat, batch {MESH_BATCH}, seq {MESH_SEQ}, "
+        f"seed 0), {MESH_STEPS} steps, unsharded and on a (data 1, model 1) "
+        f"NCCL mesh of this card")
+
+    # (a) the unsharded Trainer, then the same on a mesh of one card
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    marks = [("start", time.perf_counter())]
+
+    def mark(name):
+        marks.append((name, time.perf_counter()))
+
+    plain_tr = Trainer(cfg, **kw)
+    pstate, plosses = plain_tr.run(MESH_STEPS, log_every=MESH_STEPS)
+    p_params = pstate["params"]
+    mark("unsharded run")
+    mesh = make_local_mesh(1, 1)
+    backend = torch.distributed.get_backend()
+    if backend != "nccl":
+        raise AssertionError(f"the card's mesh group is {backend}, not nccl")
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    mesh_tr = Trainer(cfg, mesh=mesh, **kw)
+    t0 = time.perf_counter()
+    mstate, mlosses = mesh_tr.run(MESH_STEPS, log_every=MESH_STEPS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    mark("mesh run")
+    peak = torch.cuda.max_memory_allocated() - mem0
+    keys = ("loss", "ce", "lr", "grad_norm")
+    hist_p = [[h[k] for k in keys] for h in plain_tr.history]
+    hist_m = [[h[k] for k in keys] for h in mesh_tr.history]
+    if hist_m != hist_p:
+        raise AssertionError(f"mesh of one: history {hist_m} against the "
+                             f"unsharded {hist_p}")
+    m_leaves = tree_leaves(mstate["params"])
+    p_leaves = tree_leaves(p_params)
+    placed_leaves = sum(placed.is_placed(t) for t in m_leaves)
+    differ = [i for i, (a, b) in enumerate(zip(m_leaves, p_leaves))
+              if not torch.equal(a.to_local(), b)]
+    if differ or placed_leaves != len(m_leaves):
+        raise AssertionError(f"mesh of one: params {differ} differ from the "
+                             f"unsharded run's ({placed_leaves} of "
+                             f"{len(m_leaves)} placed)")
+    step_ms = [h["seconds"] * 1e3 for h in mesh_tr.history]
+    plain_ms = [h["seconds"] * 1e3 for h in plain_tr.history]
+    out["a"] = dict(losses=mlosses, grad_norms=[h[3] for h in hist_m],
+                    step_ms=step_ms, unsharded_step_ms=plain_ms,
+                    run_s=run_s, peak_gb=peak / 1e9, backend=backend,
+                    leaves=len(m_leaves))
+    log(f"  (a) losses " + " ".join(f"{l:.4f}" for l in mlosses)
+        + f", grad norms " + " ".join(f"{h[3]:.3f}" for h in hist_m)
+        + f": equal to the unsharded Trainer's bit for bit, and so are all "
+        f"{len(m_leaves)} param leaves (every one a DTensor on the {backend}"
+        f" mesh); step ms (synchronized) " + " ".join(
+            f"{t:.1f}" for t in step_ms) + " against unsharded "
+        + " ".join(f"{t:.1f}" for t in plain_ms)
+        + f"; peak {peak / 1e9:.2f} GB above what was held")
+
+    # (b) the mesh run's params gathered, packed, evaluated through K1 + K3
+    scfg = transformer.serve_policy(cfg, pack_acts=True)
+    hb = mesh_tr.device_batch(mesh_tr.data.batch(10_001, MESH_BATCH))
+    hb = {k: placed.plain(v) for k, v in hb.items()}
+    gathered = transformer.pack_params(
+        _tree_map(placed.plain, mstate["params"]), scfg)
+    k1_fwd, k3_fwd = 4 * cfg.n_layers, 7 * cfg.n_layers
+    want = {"K1": k1_fwd, "K2": 0, "K3": k3_fwd, "K4": 0, "K4g": 0}
+    with torch.no_grad():
+        hp.reset_counts()
+        l_m, _ = transformer.loss_fn(gathered, hb, scfg)
+        torch.cuda.synchronize()
+        c_m = hp.counts()
+        del gathered
+        packed_p = transformer.pack_params(p_params, scfg)
+        hp.reset_counts()
+        l_p, _ = transformer.loss_fn(packed_p, hb, scfg)
+        torch.cuda.synchronize()
+        c_p = hp.counts()
+        del packed_p
+    if c_m != want or c_p != want:
+        raise AssertionError(f"packed evaluations' launches {c_m}, {c_p}; "
+                             f"want {want}")
+    if not torch.equal(l_m, l_p):
+        raise AssertionError(f"packed loss of the mesh run {float(l_m)!r} "
+                             f"against the unsharded run's {float(l_p)!r}")
+    for k in out["launches"]:
+        out["launches"][k] += c_m[k] + c_p[k]
+    out["b"] = dict(loss=float(l_m), launches=c_m)
+    log(f"  (b) pack_params of the mesh run's gathered params: the held-out "
+        f"batch's integer loss through K1 + K3 {float(l_m)!r} equals the "
+        f"unsharded run's bit for bit; launches {c_m} each")
+    mark("packed evaluations")
+
+    # one more mesh step, donated, profiled: the card's busy time in it
+    # and in its parts (the profiler's processing of the step's 19k events
+    # takes most of the phase, so the unsharded step is not profiled)
+    del p_leaves, m_leaves, pstate
+    parts = ("train_step.forward", "train_step.backward", "train_step.adamw")
+    step_fn = make_train_step(cfg, opt, donate=True)
+    mb = mesh_tr.device_batch(mesh_tr.data.batch(MESH_STEPS, MESH_BATCH))
+    with placed.mesh_context(mesh):
+        prof = hp.device_profile(lambda: step_fn(mstate, mb), ranges=parts)
+    out["profile"] = prof
+    mark("profiled mesh step")
+    log(f"  one profiled mesh step: wall {prof['wall_ms']:.1f} ms, device "
+        f"busy {prof['device_ms']:.1f} ms over {prof['kernels']:.0f} "
+        f"kernels; in its parts (issued on the host, done on the card, "
+        f"busy ms): " + "; ".join(
+            f"{k.split('.')[1]} {v['issued']:.1f}, {v['done']:.1f}, "
+            f"{v['busy']:.1f}" for k, v in prof["ranges"].items()))
+    for name, ms_ in list(prof["by_name_ms"].items())[:6]:
+        log(f"    {ms_:8.2f} ms  x{prof['launches'][name]:5.0f}  {name[:90]}")
+    del mstate, p_params, mesh_tr, plain_tr, step_fn, mb
+    close_local_mesh()
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("cleanup")
+    out["part_s"] = {b[0]: b[1] - a[1] for a, b in zip(marks, marks[1:])}
+    log("  phase 20's parts, s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in out["part_s"].items()))
+
+    # (c) more than one card: one rank a card over NCCL. LSQ's rounding is
+    # discontinuous: the mesh's reordered sums flip activation codes, which
+    # 24 layers amplify, so the qat losses are reported and the float
+    # config's are held, against an unsharded float run on this card
+    n = torch.cuda.device_count()
+    out["c_ran"] = n >= 2
+    if n >= 2:
+        data = 2 if n % 2 == 0 and n >= 4 else 1
+        model = n // data
+        t0 = time.perf_counter()
+        ftr = Trainer(mesh_config(float_only=True), **kw)
+        _, flosses = ftr.run(MESH_STEPS, log_every=MESH_STEPS)
+        fgn = [h["grad_norm"] for h in ftr.history]
+        del ftr, _
+        gc.collect()
+        torch.cuda.empty_cache()
+        res = run_ranks(mesh_card_rank, n, args=(data, model), timeout=900)
+        got = res[0]["float"]
+        for name, a, b in (("losses", got["losses"], flosses),
+                           ("grad norms", got["grad_norms"], fgn)):
+            if any(abs(x - y) > 1e-4 * abs(y) for x, y in zip(a, b)):
+                raise AssertionError(f"(c) float {name} {a} against the "
+                                     f"unsharded run's {b} (rtol 1e-4)")
+        qat = res[0]["qat"]["losses"]
+        out["c"] = dict(mesh=[data, model], ranks=res,
+                        unsharded_float=dict(losses=flosses, grad_norms=fgn),
+                        seconds=time.perf_counter() - t0)
+        log(f"  (c) (data {data}, model {model}) over {n} cards: float "
+            f"losses " + " ".join(f"{l:.5f}" for l in got["losses"])
+            + " within rtol 1e-4 of the unsharded float run's; qat losses "
+            + " ".join(f"{l:.4f}" for l in qat) + " against (a)'s "
+            + " ".join(f"{l:.4f}" for l in mlosses) + " (reported); per "
+            "card peak GB (qat) " + " ".join(
+                f"{r['qat']['peak_bytes'] / 1e9:.2f}" for r in res)
+            + ", state GB per card " + " ".join(
+                f"{r['qat']['state_bytes'] / 1e9:.2f}" for r in res))
+    else:
+        log(f"  (c) not run: {n} card visible (it needs two or more)")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 20 in {out['seconds']:.1f} s; ran (c): {out['c_ran']}; "
+        f"launches {out['launches']}")
+    return out
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
 
 
 def main() -> int:
@@ -5355,6 +5635,16 @@ def main() -> int:
     record["array_scaling"] = arr_rec
     arr_ran = arr_rec["launches"]
 
+    # ---- 20. one model's tensors on a data x model mesh (DTensor, NCCL)
+    del arr_rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_rec = mesh_phase(dev, types.SimpleNamespace(
+        counts=counts, reset_counts=reset_counts,
+        device_profile=device_profile))
+    record["mesh"] = mesh_rec
+    mesh_ran = mesh_rec["launches"]
+
     def total(kid, key):
         vals = [r[key] for r in rows if r["kernel"] == kid]
         return None if any(v is None for v in vals) else sum(vals)
@@ -5379,7 +5669,7 @@ def main() -> int:
                       + ds_launches["K1"] + tc_launches["K1"]
                       + tr["launches"]["K1"] + ssm_rec["launches"]["K1"]
                       + fam_ran["K1"] + long_ran["K1"] + trf_ran["K1"]
-                      + arr_ran["K1"]),
+                      + arr_ran["K1"] + mesh_ran["K1"]),
          "engine_launches_per_captured_step": rec["step_launches"]["K1"],
          "max_abs_err": max_err["K1"],
          "ms": total("K1", "ms") + lm_step("K1", "ms", 4),
@@ -5408,7 +5698,7 @@ def main() -> int:
                       + lm_ran["K3"] + ds_launches["K3"]
                       + tr["launches"]["K3"] + ssm_rec["launches"]["K3"]
                       + fam_ran["K3"] + long_ran["K3"] + trf_ran["K3"]
-                      + arr_ran["K3"]),
+                      + arr_ran["K3"] + mesh_ran["K3"]),
          "engine_launches_per_captured_step": rec["step_launches"]["K3"],
          "max_abs_err": max_err["K3"],
          "ms": lm_step("K3", "ms", 4), "plain_ms": lm_step("K3", "plain_ms", 4),

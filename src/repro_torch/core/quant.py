@@ -100,16 +100,19 @@ class _LSQ(torch.autograd.Function):
 
 
 def lsq_fake_quant(x: torch.Tensor, alpha: torch.Tensor,
-                   spec: QuantSpec) -> torch.Tensor:
+                   spec: QuantSpec, numel: Optional[int] = None
+                   ) -> torch.Tensor:
     """LSQ fake quantization, differentiable wrt both ``x`` and ``alpha``:
     ``clip(round(x / a), Qn, Qp) * a`` with ``a = max(|alpha|, 1e-8)``
     cast to ``x``'s dtype, as the reference computes it. ``alpha`` is a
     scalar (per-tensor) or broadcastable (per-channel) step size; the LSQ
     gradient scale ``1/sqrt(N * Qp)`` stabilizes step-size learning
     (Esser et al., §2.2). The clamp and the sign stay outside the
-    estimator, so autograd carries them as the reference's does."""
+    estimator, so autograd carries them as the reference's does.
+    ``numel`` is the count N is taken from (default ``x.numel()``): a rank
+    that quantizes its part of a tensor passes the whole one's."""
     qn, qp = qrange(spec.bits, spec.signed)
-    n = x.numel() / max(1, alpha.numel())
+    n = (x.numel() if numel is None else numel) / max(1, alpha.numel())
     gscale = 1.0 / np.sqrt(max(1.0, n * max(qp, 1)))
     a = torch.clamp_min(torch.abs(alpha), 1e-8).to(x.dtype)
     return _LSQ.apply(x, a, float(qn), float(qp), float(gscale))

@@ -37,9 +37,17 @@ Usage::
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch hymba-1.5b \\
         --shape long_500k --kv-bits 8 --run        # on the card
 
+Every record also holds ``per_device_bytes``: each part's bytes on one
+device of the reference's production mesh (``--mesh single``: data 16 x
+model 16; ``multi``: pod 2 x data 16 x model 16; ``launch/mesh.py``),
+each leaf's bytes divided by the product of the axis sizes its spec
+(``distributed/sharding.py``: ``param_pspec`` for params and AdamW
+moments, ``cache_pspec``, ``batch_pspec``) names. Only ``single`` runs
+(one card); ``multi`` accounts and ``run`` with it raises.
+
 Flags as the reference's: ``--arch``, ``--shape``, ``--all``, ``--mesh``
-(``single`` is one card; ``multi``/``both`` raise: ROADMAP queue 1 item
-6), ``--radix``, ``--kv-bits``, ``--no-chunked``, ``--remat-policy``
+(``single``, ``multi`` or ``both``), ``--radix``, ``--kv-bits``,
+``--no-chunked``, ``--remat-policy``
 (``nothing`` or ``dots``), ``--tag``, ``--out``, ``--force``; the port
 adds ``--run``, ``--batch`` and ``--device``.
 """
@@ -64,6 +72,10 @@ from repro_torch.configs import SHAPES, Shape, get_arch, list_archs
 from repro_torch.configs.base import input_specs
 from repro_torch.core.pipeline_modules import disable_tf32
 from repro_torch.core.tree import tree_leaves
+from repro_torch.distributed.sharding import (batch_pspec, cache_pspec,
+                                              param_pspec, spec_shards,
+                                              tree_paths)
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models.transformer import (ModelConfig, init_caches,
                                             init_params, prefill)
 from repro_torch.optim import AdamWConfig, adamw_init
@@ -158,6 +170,22 @@ def _bytes(tree, float_as: Optional[int] = None) -> int:
     return total
 
 
+def _device_bytes(tree, mesh, rule, float_as: Optional[int] = None) -> int:
+    """The bytes one device of ``mesh`` holds of ``tree``: each tensor
+    leaf's bytes (as :func:`_bytes` counts them) over the number of ways
+    ``rule(path, shape, mesh)``'s spec splits it."""
+    total = 0
+    for path, t in tree_paths(tree):
+        if not torch.is_tensor(t):
+            continue
+        size = t.element_size()
+        if float_as is not None and t.dtype == torch.float32:
+            size = float_as
+        spec = rule(path, tuple(t.shape), mesh)
+        total += t.numel() * size // spec_shards(spec, mesh)
+    return total
+
+
 def _card_bytes(device) -> Optional[int]:
     if device is None or torch.device(device).type != "cuda":
         return None
@@ -208,23 +236,37 @@ def _act_bytes_per_row(cell: Cell) -> int:
     return 0
 
 
-def account(cell: Cell, *, device=None) -> dict:
+def account(cell: Cell, *, device=None, mesh_kind: str = "single") -> dict:
     """The cell's bytes from its shapes on the ``meta`` device: params,
     AdamW state (train), caches (serve: at ``max_len`` and the global
-    batch), inputs; the cache per row; the rows that fit."""
+    batch), inputs; the cache per row; the rows that fit; and each part's
+    bytes per device of the production mesh ``mesh_kind``."""
     cfg, shape = cell.cfg, cell.shape
     b = shape.global_batch
     train = shape.kind == "train"
+    mesh = make_production_mesh(multi_pod=mesh_kind == "multi")
     gen = _MetaGenerator()
     params = init_params(gen, cfg, packed=not train)
-    param_b = _bytes(params, None if train else 2)
-    opt_b = _bytes(adamw_init(params)) if train else 0
+    float_as = None if train else 2
+    param_b = _bytes(params, float_as)
+    dev_b = {"params": _device_bytes(params, mesh, param_pspec, float_as),
+             "adamw": 0, "caches": 0}
+    opt_b = 0
+    if train:
+        opt = adamw_init(params)
+        opt_b = _bytes(opt)
+        dev_b["adamw"] = _device_bytes(opt, mesh, param_pspec)
     cache_b = 0
     if not train:
         caches = init_caches(cfg, b, cell.max_len, device="meta",
                              src_len=cell.src_len)
         cache_b = _bytes(caches)
-    inputs_b = _bytes(input_specs(cfg, shape))
+        dev_b["caches"] = _device_bytes(caches, mesh, cache_pspec)
+    inputs = input_specs(cfg, shape)
+    inputs_b = _bytes(inputs)
+    dev_b["inputs"] = _device_bytes(
+        inputs, mesh, lambda path, shp, m: batch_pspec(shp, m))
+    dev_b["total"] = sum(dev_b.values())
     total = param_b + opt_b + cache_b + inputs_b
     per_row = cache_b // b
     card = _card_bytes(device)
@@ -233,6 +275,7 @@ def account(cell: Cell, *, device=None) -> dict:
            "cache_len": cell.max_len, "cache_bytes_per_row": per_row,
            # packing runs on meta, so no part is computed by a formula
            "computed_from_shapes": [],
+           "per_device_bytes": dict(dev_b, mesh=mesh.shape),
            "card_bytes": card,
            "fits": None if card is None else total <= card}
     if card is not None:
@@ -352,11 +395,14 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str = "single", *,
     run. With ``return_outputs`` returns ``(record, outputs)``: the run's
     logits and tokens on the device, and its ``Server`` or trained state.
     A failure raises, after the record (``ok`` false, the error) is
-    written."""
-    if mesh_kind != "single":
-        raise NotImplementedError(
-            f"mesh {mesh_kind!r}: the port runs one card; a mesh of cards "
-            "is ROADMAP queue 1 item 6 (distributed/*)")
+    written. ``mesh_kind`` is the production mesh the per-device bytes
+    are counted on; ``"multi"`` (512 devices) accounts only, and ``run``
+    with it raises ``ValueError``."""
+    if mesh_kind not in ("single", "multi"):
+        raise ValueError(f"mesh {mesh_kind!r}: 'single' or 'multi'")
+    if run and mesh_kind != "single":
+        raise ValueError(f"mesh {mesh_kind!r} is 512 devices; only "
+                         "'single' runs (on one card)")
     name = (f"{arch}__{shape_name}__{mesh_kind}__r{radix}"
             f"{'__kv' + str(kv_bits) if kv_bits else ''}"
             f"{'__nochunk' if not use_chunked else ''}"
@@ -383,7 +429,8 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str = "single", *,
                    global_batch=cell.shape.global_batch,
                    layers=cell.cfg.n_layers,
                    use_chunked_attn=cell.cfg.use_chunked_attn)
-        rec.update(account(cell, device=dev if run else device))
+        rec.update(account(cell, device=dev if run else device,
+                           mesh_kind=mesh_kind))
         if run:
             rows = batch if batch is not None else rec.get("rows_that_fit")
             if not rows:
@@ -429,7 +476,8 @@ def _line(rec: dict) -> str:
          f"{by['params'] / gb:.2f} GB, adamw {by['adamw'] / gb:.2f}, caches "
          f"{by['caches'] / gb:.2f} ({rec['cache_bytes_per_row'] / gb:.3f} a "
          f"row), inputs {by['inputs'] / gb:.4f}, total {by['total'] / gb:.2f}"
-         f"; fits: {rec['fits']}")
+         f"; fits: {rec['fits']}; per device of the {rec['mesh']} mesh "
+         f"{rec['per_device_bytes']['total'] / gb:.3f} GB")
     if "run" in rec:
         s += f"; ran batch {rec['batch_run']}: {json.dumps(rec['run'])[:400]}"
     return s

@@ -54,6 +54,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import placed
+from repro_torch.distributed.context import constrain
 from repro_torch.models.layers import (QuantPolicy, apply_rotary,
                                        device_scalar, qdense, qdense_init,
                                        qdense_shared, rms_norm, rotary)
@@ -101,7 +103,11 @@ def _sdpa_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     position of the first query: a scalar, or a (B,) tensor of per-row
     positions (each row masks the keys beyond its own queries). With
     ``window`` a query also masks the keys ``window`` or more positions
-    behind it."""
+    behind it. Placed inputs (a mesh run) attend per rank
+    (:func:`repro_torch.distributed.placed.per_head`)."""
+    if placed.is_placed(q):
+        return placed.per_head(_sdpa_full, q, k, v, causal=causal,
+                               q_offset=q_offset, window=window)
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     rep = h // hkv
@@ -164,7 +170,16 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     0 a q-chunk visits only the kv blocks its masks reach (the reference's
     ``lo``/``hi``). A block that no mask reaches is not masked: the
     ``where`` would keep every score. Memory is one score block per head
-    group, not (Sq x Sk)."""
+    group, not (Sq x Sk). Placed inputs (a mesh run) are held to the
+    reference's constraints — the batch over the DP axes, the (kv) heads
+    over TP — and each rank runs its rows and heads' blocks
+    (:func:`repro_torch.distributed.placed.per_head`)."""
+    if placed.is_placed(q):
+        q, k, v = (constrain(t, "dp", None, "tp", None) for t in (q, k, v))
+        return placed.per_head(
+            chunked_attention, q, k, v, causal=causal, window=window,
+            q_offset=q_offset, q_chunk=q_chunk, kv_chunk=kv_chunk,
+            skip_masked_blocks=skip_masked_blocks)
     b, sq, h, d = q.shape
     sk, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
     rep = h // hkv

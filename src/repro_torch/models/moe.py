@@ -37,6 +37,7 @@ discarded: every kept row is one exact add to zero, on the card too.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
@@ -46,7 +47,8 @@ import torch.nn.functional as F
 from repro_torch.core.bitserial import plan_spec
 from repro_torch.core.quant import (QuantSpec, lsq_fake_quant, quantize_int,
                                     qrange)
-from repro_torch.distributed.context import axis_size
+from repro_torch.distributed import placed
+from repro_torch.distributed.context import axis_size, constrain
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (QuantPolicy, qdense, qdense_init,
                                        qdense_shared)
@@ -114,11 +116,13 @@ def moe_init(gen: torch.Generator, cfg: MoEConfig, policy: QuantPolicy, *,
     return p
 
 
-def _expert_matmul(p: dict, x: torch.Tensor,
-                   policy: QuantPolicy) -> torch.Tensor:
+def _expert_matmul(p: dict, x: torch.Tensor, policy: QuantPolicy,
+                   parts: int = 1) -> torch.Tensor:
     """Every expert's dense layer at once: x (E, C, K) or (G, E, C, K) @
     w (E, K, N). Packed weights run every group's rows in one grouped K4
-    launch, over x permuted to (E, G * C, K)."""
+    launch, over x permuted to (E, G * C, K). ``x`` is one of ``parts``
+    equal parts of the buffer (a rank's groups in a placed run): LSQ's
+    step-size gradient is scaled by the whole buffer's count."""
     batched = x.dim() == 4
     aa = p.get("alpha_a")
     if aa is not None:
@@ -144,7 +148,8 @@ def _expert_matmul(p: dict, x: torch.Tensor,
         wspec = QuantSpec(policy.w_bits, policy.w_signed, per_channel=True)
         aspec = QuantSpec(policy.a_bits, policy.a_signed)
         w = lsq_fake_quant(w, p["alpha_w"].to(w.dtype), wspec)
-        x = lsq_fake_quant(x, aa.to(x.dtype), aspec)
+        x = lsq_fake_quant(x, aa.to(x.dtype), aspec,
+                           numel=None if parts == 1 else x.numel() * parts)
     return torch.matmul(x, w.to(x.dtype))
 
 
@@ -219,46 +224,168 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: MoEConfig, policy: QuantPolicy,
     if capacity is None:
         capacity = capacity_for(tg, cfg)
 
+    if placed.is_placed(p["router"]):
+        return _moe_apply_placed(p, x, cfg, policy, capacity, g)
+
+    xg = constrain(xt.reshape(g, tg, d), "dp", None, None)
     probs, gate_vals, expert_idx = _route(p, xt, cfg)
     keep, flat = dispatch(expert_idx.reshape(g, tg, k), e, capacity)
-
-    # dispatch: each group scatters into its own (E*C + 1, d) rows of one
-    # buffer; each group's last row is its drop bin
-    rows = e * capacity + 1
-    at = flat + torch.arange(g, device=x.device)[:, None, None] * rows
-    buf = torch.zeros((g * rows, d), dtype=xt.dtype, device=x.device)
-    buf.index_add_(0, at.reshape(-1),
-                   xt[:, None, :].expand(t, k, d).reshape(-1, d))
-    hbuf = buf.reshape(g, rows, d)[:, :-1].reshape(g, e, capacity, d)
+    hbuf = constrain(_scatter(xg, flat, e, capacity), "dp", "tp", None,
+                     None)
     if g == 1:
         hbuf = hbuf[0]                                     # (E, C, d)
-
-    up = _expert_matmul(p["w_up"], hbuf, policy)
-    gate = (_expert_matmul(p["w_gate"], hbuf, policy)
-            if cfg.act == "swiglu" else None)
-    out_buf = _expert_matmul(p["w_down"], _act(up, gate, cfg.act), policy)
-
-    # combine: gather each kept slot, weight by its gate value
-    out_flat = torch.cat([out_buf.reshape(g, e * capacity, d),
-                          torch.zeros((g, 1, d), dtype=out_buf.dtype,
-                                      device=x.device)], dim=1)
-    picked = out_flat.reshape(g * rows, d)[at.reshape(-1)].reshape(t, k, d)
-    w = (gate_vals * keep.reshape(t, k)).to(picked.dtype)
-    out = torch.einsum("tkd,tk->td", picked, w)
+    out_buf = _experts(p, hbuf, cfg, policy)
+    out = _combine(out_buf, flat, gate_vals, keep, g, e, capacity)
 
     if cfg.n_shared:
-        if cfg.act == "swiglu":
-            sg, su = qdense_shared([p["shared_gate"], p["shared_up"]], xt,
-                                   policy)
-        else:
-            sg, su = None, qdense(p["shared_up"], xt, policy)
-        out = out + qdense(p["shared_down"], _act(su, sg, cfg.act), policy)
+        out = out + _shared(p, xt, cfg, policy)
 
     me = torch.mean(probs, dim=0)
     ce = torch.mean(F.one_hot(expert_idx[:, 0], e).to(torch.float32), dim=0)
     aux = {"lb_loss": e * torch.sum(me * ce),
            "drop_frac": 1.0 - torch.mean(keep.to(torch.float32))}
     return out.reshape(lead + (d,)), aux
+
+
+def _scatter(xg: torch.Tensor, flat: torch.Tensor, e: int,
+             capacity: int) -> torch.Tensor:
+    """Each group's tokens (G, T/G, d) scattered into its own (E*C + 1, d)
+    rows of one buffer (each group's last row its drop bin); returns the
+    (G, E, C, d) rows without the bins."""
+    g, tg, d = xg.shape
+    k = flat.shape[-1]
+    rows = e * capacity + 1
+    at = flat + torch.arange(g, device=xg.device)[:, None, None] * rows
+    buf = torch.zeros((g * rows, d), dtype=xg.dtype, device=xg.device)
+    buf.index_add_(0, at.reshape(-1),
+                   xg.reshape(g * tg, d)[:, None, :].expand(
+                       g * tg, k, d).reshape(-1, d))
+    return buf.reshape(g, rows, d)[:, :-1].reshape(g, e, capacity, d)
+
+
+def _experts(p: dict, hbuf: torch.Tensor, cfg: MoEConfig,
+             policy: QuantPolicy, parts: int = 1) -> torch.Tensor:
+    """The routed experts' FFN over their buffers ((E, C, d) or (G, E, C,
+    d)), every expert at once; ``parts`` as :func:`_expert_matmul`'s."""
+    kw = {} if parts == 1 else {"parts": parts}
+    up = _expert_matmul(p["w_up"], hbuf, policy, **kw)
+    gate = (_expert_matmul(p["w_gate"], hbuf, policy, **kw)
+            if cfg.act == "swiglu" else None)
+    return _expert_matmul(p["w_down"], _act(up, gate, cfg.act), policy, **kw)
+
+
+def _combine(out_buf: torch.Tensor, flat: torch.Tensor,
+             gate_vals: torch.Tensor, keep: torch.Tensor, g: int, e: int,
+             capacity: int) -> torch.Tensor:
+    """Gather each kept (token, slot)'s expert row and weight it by its
+    gate value: (G * T/G, d)."""
+    d = out_buf.shape[-1]
+    rows = e * capacity + 1
+    t, k = gate_vals.shape
+    at = flat + torch.arange(g, device=flat.device)[:, None, None] * rows
+    out_flat = torch.cat([out_buf.reshape(g, e * capacity, d),
+                          torch.zeros((g, 1, d), dtype=out_buf.dtype,
+                                      device=out_buf.device)], dim=1)
+    picked = out_flat.reshape(g * rows, d)[at.reshape(-1)].reshape(t, k, d)
+    w = (gate_vals * keep.reshape(t, k)).to(picked.dtype)
+    return torch.einsum("tkd,tk->td", picked, w)
+
+
+def _shared(p: dict, xt: torch.Tensor, cfg: MoEConfig,
+            policy: QuantPolicy) -> torch.Tensor:
+    """The shared experts over every token (K1 + K3 when packed)."""
+    if cfg.act == "swiglu":
+        sg, su = qdense_shared([p["shared_gate"], p["shared_up"]], xt, policy)
+    else:
+        sg, su = None, qdense(p["shared_up"], xt, policy)
+    return qdense(p["shared_down"], _act(su, sg, cfg.act), policy)
+
+
+def _moe_apply_placed(p: dict, x, cfg: MoEConfig, policy: QuantPolicy,
+                      capacity: int, g: int):
+    """:func:`moe_apply` on placed params (DTensors; ``x`` one too): the
+    routing and dispatch of each rank's groups run on its local tensors
+    (DTensor has no strategy for the capacity ranks or the scatter), the
+    groups split over the DP axes (the constraint the reference puts on
+    ``xg``). The experts are split over ``model`` (EP, when it divides E):
+    each rank takes its experts' rows of the (G, E, C, d) buffer (the
+    reference's ``("dp", "tp")`` constraint on it), runs them, and their
+    rows are gathered back over ``model`` for the combine, which every
+    ``model`` rank computes whole. The shared experts and the statistics
+    run as in :func:`moe_apply`; ``lb_loss`` and ``drop_frac`` average
+    over every group."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    d, e, k = x.shape[-1], cfg.n_experts, cfg.top_k
+    tg = x.numel() // d // g
+    mesh = p["router"].device_mesh
+    ep_on = [i for i, n in enumerate(mesh.mesh_dim_names)
+             if n == "model" and mesh.size(i) > 1 and e % mesh.size(i) == 0]
+    # the rows over the DP axes (the reference's constraint on the groups)
+    # when each rank's rows are whole groups, else whole on every rank;
+    # the groups are local tensors (no DTensor reshape in autograd)
+    xs = constrain(x, "dp", *([None] * (x.ndim - 1)))
+    grp = [pl if pl.is_shard(0) and i not in ep_on else Replicate()
+           for i, pl in enumerate(xs.placements)]
+    data_on = [i for i, pl in enumerate(grp) if pl.is_shard()]
+    if g % math.prod(mesh.size(i) for i in data_on):
+        grp, data_on = [Replicate()] * mesh.ndim, []
+    xs = x.redistribute(mesh, grp)
+    xl = placed.local_of(xs).reshape(-1, tg, d)   # this rank's groups
+    gl = xl.shape[0]
+    router = placed.local_of(p["router"], grad_partial=data_on)
+    probs, gate_vals, expert_idx = _route({"router": router},
+                                          xl.reshape(-1, d), cfg)
+    keep, flat = dispatch(expert_idx.reshape(gl, tg, k), e, capacity)
+    hbuf = _scatter(xl, flat, e, capacity)               # (G_l, E, C, d)
+    ep = [Shard(1) if i in ep_on else pl for i, pl in enumerate(grp)]
+    if ep_on:                           # this rank's experts' rows
+        shape = (g,) + tuple(hbuf.shape[1:])
+        hbuf = DTensor.from_local(
+            hbuf, mesh, grp, shape=torch.Size(shape),
+            stride=placed.contiguous_stride(shape)).redistribute(
+                mesh, ep).to_local()
+    ep_params = {
+        name: {kk: placed.local_of(
+            v.redistribute(mesh, [Shard(0) if i in ep_on else Replicate()
+                                  for i in range(mesh.ndim)]),
+            grad_partial=data_on) for kk, v in p[name].items()}
+        for name in ("w_up", "w_gate", "w_down") if name in p}
+    out_buf = _experts(ep_params, hbuf[0] if gl == 1 else hbuf, cfg, policy,
+                       parts=g // gl)
+    if gl == 1:
+        out_buf = out_buf[None]
+    if ep_on:                           # every expert's rows, gathered
+        shape = (g, e) + tuple(out_buf.shape[2:])
+        out_buf = DTensor.from_local(
+            out_buf, mesh, ep, shape=torch.Size(shape),
+            stride=placed.contiguous_stride(shape)).redistribute(
+                mesh, grp).to_local()
+    out_l = _combine(out_buf, flat, gate_vals, keep, gl, e, capacity)
+    out = DTensor.from_local(
+        out_l.reshape(tuple(xs.to_local().shape)).contiguous(), mesh, grp,
+        shape=x.shape, stride=placed.contiguous_stride(tuple(x.shape)))
+    if cfg.n_shared:
+        out = out + _shared(p, x, cfg, policy)
+
+    # the statistics over every group: each rank's share of the mean
+    n_data = 1
+    for i in data_on:
+        n_data *= mesh.size(i)
+
+    def mean_all(local):
+        if n_data == 1:
+            return DTensor.from_local(local, mesh, [Replicate()] * mesh.ndim)
+        pls = [Partial() if i in data_on else Replicate()
+               for i in range(mesh.ndim)]
+        return DTensor.from_local(local / n_data, mesh, pls).redistribute(
+            mesh, [Replicate()] * mesh.ndim)
+
+    me = mean_all(torch.mean(probs, dim=0))
+    ce = mean_all(torch.mean(
+        F.one_hot(expert_idx[:, 0], e).to(torch.float32), dim=0))
+    aux = {"lb_loss": e * torch.sum(me * ce),
+           "drop_frac": 1.0 - mean_all(torch.mean(keep.to(torch.float32)))}
+    return out, aux
 
 
 def moe_ref_apply(p: dict, x: torch.Tensor, cfg: MoEConfig,

@@ -51,6 +51,8 @@ from torch.utils import checkpoint as torch_checkpoint
 from torch.utils.checkpoint import (CheckpointPolicy,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.distributed import context, placed
+from repro_torch.distributed.context import constrain
 from repro_torch.models.attention import (AttnConfig, attn_apply, attn_init,
                                           init_kv_cache, init_mla_cache,
                                           mla_apply, mla_init)
@@ -273,7 +275,7 @@ def _stack_into(dst, src, i: int, n: int):
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig, *,
-                packed: bool = False) -> dict:
+                packed: bool = False, keep=None) -> dict:
     """Random float parameters drawn from ``gen`` on ``gen.device``, in
     the reference's layout and scales (its numbers differ: another
     generator). Layers are drawn one at a time into their group's stack;
@@ -282,34 +284,57 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *,
     stack (26 x 64 experts) is made on one card. A config with
     ``tie_embeddings`` has no ``head``: the embedding is the head. An
     encoder-decoder adds ``enc`` (its stack and final norm), a frontend
-    ``frontend_proj`` (a float dense, mode ``none``, never packed)."""
+    ``frontend_proj`` (a float dense, mode ``none``, never packed).
+
+    ``keep(path, tensor, n)`` is given every leaf as it is drawn and
+    returns what the tree holds instead (a mesh run keeps its shard):
+    a layer's leaf with ``n``, its group's depth, and the path of the
+    stacked leaf (``groups/0/attn/wq/w``); any other leaf with ``n``
+    None. The draws are the same with or without it."""
     d, v, dev = cfg.d_model, cfg.vocab_size, gen.device
+    top = (lambda name, t: t) if keep is None else (
+        lambda name, t: _keep_tree(t, keep, f"{name}/", None))
     params = {
-        "embed": torch.randn((v, d), generator=gen, device=dev) * 0.02,
-        "final_norm": torch.ones((d,), device=dev),
-        "groups": [_draw_stack(gen, cfg, spec, packed)
-                   for spec in layer_groups(cfg)],
+        "embed": top("embed", torch.randn((v, d), generator=gen,
+                                          device=dev) * 0.02),
+        "final_norm": top("final_norm", torch.ones((d,), device=dev)),
+        "groups": [_draw_stack(gen, cfg, spec, packed, keep,
+                               f"groups/{gi}/")
+                   for gi, spec in enumerate(layer_groups(cfg))],
     }
     if cfg.norm_type == "layer":
-        params["final_norm_b"] = torch.zeros((d,), device=dev)
+        params["final_norm_b"] = top("final_norm_b",
+                                     torch.zeros((d,), device=dev))
     if not cfg.tie_embeddings:
-        params["head"] = qdense_init(gen, d, v, QuantPolicy(mode="none"))
+        params["head"] = top("head", qdense_init(gen, d, v,
+                                                 QuantPolicy(mode="none")))
     if _has_encoder(cfg):
         params["enc"] = {
-            "groups": [_draw_stack(gen, cfg, spec, packed)
-                       for spec in encoder_groups(cfg)],
-            "final_norm": torch.ones((d,), device=dev)}
+            "groups": [_draw_stack(gen, cfg, spec, packed, keep,
+                                   f"enc/groups/{gi}/")
+                       for gi, spec in enumerate(encoder_groups(cfg))],
+            "final_norm": top("enc/final_norm",
+                              torch.ones((d,), device=dev))}
     if cfg.frontend is not None:
-        params["frontend_proj"] = qdense_init(gen, cfg.frontend_dim or d, d,
-                                              QuantPolicy(mode="none"))
+        params["frontend_proj"] = top("frontend_proj", qdense_init(
+            gen, cfg.frontend_dim or d, d, QuantPolicy(mode="none")))
     return params
 
 
+def _keep_tree(tree, keep, prefix: str, n):
+    if isinstance(tree, dict):
+        return {k: _keep_tree(v, keep, f"{prefix}{k}/", n)
+                for k, v in tree.items()}
+    return keep(prefix[:-1], tree, n)
+
+
 def _draw_stack(gen: torch.Generator, cfg: ModelConfig, spec: GroupSpec,
-                packed: bool) -> dict:
-    """One group's (n, ...) stack, drawn (and packed) a layer at a time.
-    On the meta device (shapes only: ``launch/dryrun.py``'s accounting)
-    every layer has the first's shapes, so one is drawn and stacked."""
+                packed: bool, keep=None, prefix: str = "") -> dict:
+    """One group's (n, ...) stack, drawn (and packed) a layer at a time,
+    each layer's leaves through ``keep`` (:func:`init_params`) before
+    they are stacked. On the meta device (shapes only:
+    ``launch/dryrun.py``'s accounting) every layer has the first's shapes,
+    so one is drawn and stacked."""
     if gen.device.type == "meta":
         layer = _block_init(gen, cfg, spec)
         layer = _pack_tree(layer, cfg.policy) if packed else layer
@@ -319,6 +344,8 @@ def _draw_stack(gen: torch.Generator, cfg: ModelConfig, spec: GroupSpec,
         layer = _block_init(gen, cfg, spec)
         if packed:
             layer = _pack_tree(layer, cfg.policy)
+        if keep is not None:
+            layer = _keep_tree(layer, keep, prefix, spec.n)
         stack = _stack_into(stack, layer, i, spec.n)
         del layer
     return stack
@@ -391,6 +418,7 @@ def _block_apply(p, x, cfg: ModelConfig, spec: GroupSpec, *, positions,
     one token over its state. A cross-attending block's cache is
     ``{"self", "cross_k", "cross_v"}``; its K/V come from ``enc_out``
     when given (prefill, or no cache), else from that cache."""
+    x = constrain(x, "dp", "sp", None)   # batch DP, optional seq-sharding
     h = _norm(x, p["norm1"], p.get("norm1_b"), cfg)
     chunk = dict(use_chunked=cfg.use_chunked_attn, q_chunk=cfg.attn_q_chunk,
                  kv_chunk=cfg.attn_kv_chunk)
@@ -466,11 +494,16 @@ def _remat_block(p, x, cfg: ModelConfig, spec: GroupSpec, *, positions,
                  enc_out=None, aux=None):
     """:func:`_block_apply` without a cache under activation
     checkpointing with ``cfg.remat_policy``; the MoE statistics leave as
-    outputs, since the body runs again in the backward."""
+    outputs, since the body runs again in the backward, under the logical
+    axes bound now (the backward may run on another thread, where the
+    binding, thread-local, is not: the MoE's group count reads it)."""
+    bound = context.snapshot()
+
     def body(xi):
         own = {}
-        y, _ = _block_apply(p, xi, cfg, spec, positions=positions,
-                            enc_out=enc_out, aux=own)
+        with context.rebind(bound):
+            y, _ = _block_apply(p, xi, cfg, spec, positions=positions,
+                                enc_out=enc_out, aux=own)
         return (y,) + tuple(own[k][0] for k in ("lb_loss", "drop_frac")
                             if k in own)
 
@@ -551,6 +584,15 @@ def _stack_aux(aux: dict) -> dict:
     return {k: torch.stack(v) for k, v in aux.items()}
 
 
+def _embed(table, tokens):
+    """``F.embedding``; a placed table (a mesh run) looks up its own rows
+    and the ranks' rows are summed (:func:`repro_torch.distributed.placed.
+    embedding`)."""
+    if placed.is_placed(table):
+        return placed.embedding(table, tokens)
+    return F.embedding(tokens, table)
+
+
 def _embed_inputs(params, batch, cfg: ModelConfig):
     """Token embedding, after the projected ``frontend_embeds`` when the
     config has a frontend and the batch holds them; returns ``(x,
@@ -559,7 +601,7 @@ def _embed_inputs(params, batch, cfg: ModelConfig):
     backward of indexing (``index_put_`` with accumulate) adds them in a
     varying order on the CPU, so training would not repeat."""
     dt = cfg.compute_dtype
-    x = F.embedding(batch["tokens"], params["embed"]).to(dt)
+    x = _embed(params["embed"], batch["tokens"]).to(dt)
     if cfg.frontend is not None and "frontend_embeds" in batch:
         fe = qdense(params["frontend_proj"],
                     batch["frontend_embeds"].to(dt), QuantPolicy(mode="none"))
@@ -580,7 +622,7 @@ def _encode(params, batch, cfg: ModelConfig):
         src = qdense(params["frontend_proj"], batch["src_embeds"].to(dt),
                      QuantPolicy(mode="none"))
     else:
-        src = F.embedding(batch["src_tokens"], params["embed"]).to(dt)
+        src = _embed(params["embed"], batch["src_tokens"]).to(dt)
     pos = torch.arange(src.shape[1], device=src.device)[None, :]
     enc, _ = _run_groups(params["enc"]["groups"], src, cfg,
                          encoder_groups(cfg), positions=pos)
@@ -627,6 +669,8 @@ def loss_fn(params, batch, cfg: ModelConfig):
     if logits.shape[1] != labels.shape[1]:
         logits = logits[:, -labels.shape[1]:]
     lg = logits.to(torch.float32)
+    if placed.is_placed(lg):            # a mesh run: the vocabulary whole
+        lg = placed.whole_dim(lg, -1)
     lse = torch.logsumexp(lg, dim=-1)
     gold = torch.gather(lg, -1, labels.clamp(min=0)[..., None].long())[..., 0]
     mask = (labels >= 0).to(torch.float32)

@@ -29,10 +29,11 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.core.tree import tree_flatten, tree_leaves, tree_unflatten
+from repro_torch.distributed import placed
 from repro_torch.models.layers import device_scalar
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "cosine_lr",
-           "global_norm", "clip_by_global_norm"]
+           "global_norm", "clip_by_global_norm", "reduce_gradients"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,11 +64,16 @@ def cosine_lr(cfg: AdamWConfig, step) -> torch.Tensor:
     return cfg.lr * warm * frac
 
 
+def _zeros(p) -> torch.Tensor:
+    """float32 zeros of ``p``'s shape on its device (placed as ``p`` is)."""
+    if placed.is_placed(p):
+        return torch.zeros_like(p, dtype=torch.float32)
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
 def adamw_init(params) -> Dict[str, Any]:
     leaves, treedef = tree_flatten(params)
-    zeros = lambda: tree_unflatten(treedef, [
-        torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-        for p in leaves])
+    zeros = lambda: tree_unflatten(treedef, [_zeros(p) for p in leaves])
     dev = leaves[0].device if leaves else None
     return {"m": zeros(), "v": zeros(),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
@@ -75,10 +81,23 @@ def adamw_init(params) -> Dict[str, Any]:
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of every leaf's sum of squares (float32), summed
-    leaf by leaf in the reference's leaf order."""
+    leaf by leaf in the reference's leaf order. On placed leaves
+    (DTensors, no partial sums) each rank sums its shards' squares, a
+    shard held whole by r ranks counted 1/r on each, and one all-reduce
+    over the mesh adds the ranks' sums: a plain 0-d tensor, the same on
+    every rank."""
     total = 0
+    mesh = None
     for g in tree_leaves(tree):
-        total = total + torch.sum(torch.square(g.to(torch.float32)))
+        if placed.is_placed(g):
+            mesh = g.device_mesh
+            s = torch.sum(torch.square(g.to_local().to(torch.float32)))
+            reps = placed.replicas(g)
+            total = total + (s / reps if reps > 1 else s)
+        else:
+            total = total + torch.sum(torch.square(g.to(torch.float32)))
+    if mesh is not None:
+        total = placed.sum_over_mesh(total, mesh)
     return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
 
 
@@ -102,6 +121,19 @@ def clip_by_global_norm(grads, max_norm: float):
 SLAB_ELEMS = 1 << 26
 
 
+def reduce_gradients(grads, params):
+    """Each placed gradient brought to its parameter's placements: a
+    partial sum over the DP axes (a replicated leaf's gradient from each
+    rank's rows) is the data-parallel all-reduce; the loss is already the
+    mean over the whole batch. Plain gradients pass as they are."""
+    g_l, treedef = tree_flatten(grads)
+    p_l = tree_flatten(params)[0]
+    return tree_unflatten(treedef, [
+        g.redistribute(p.device_mesh, p.placements)
+        if placed.is_placed(g) and tuple(g.placements) != tuple(p.placements)
+        else g for g, p in zip(g_l, p_l)])
+
+
 def adamw_update(params, grads, opt_state, cfg: AdamWConfig, *,
                  inplace: bool = False):
     """One AdamW step; returns ``(params, opt_state, metrics)`` with
@@ -109,8 +141,17 @@ def adamw_update(params, grads, opt_state, cfg: AdamWConfig, *,
     writes the new params and moments into ``params`` and ``opt_state``'s
     tensors (contiguous, as drawn, restored or updated here), a slab of
     :data:`SLAB_ELEMS` elements at a time, and returns them; the step
-    counter is a new tensor either way."""
-    step = opt_state["step"] + 1
+    counter is a new tensor either way.
+
+    Placed params (DTensors) take their gradients reduced first
+    (:func:`reduce_gradients`); the norm is global, and the update, which
+    is elementwise, runs on each rank's local shards (the slabs too) with
+    the same arithmetic. The step counter comes back a plain tensor."""
+    grads = reduce_gradients(grads, params)
+    step = opt_state["step"]
+    if placed.is_placed(step):
+        step = step.to_local()
+    step = step + 1
     lr = cosine_lr(cfg, step)
     scale, gn = _clip_scale(grads, cfg.grad_clip)
     stepf = step.to(torch.float32)
@@ -138,6 +179,9 @@ def adamw_update(params, grads, opt_state, cfg: AdamWConfig, *,
     new_p, new_m, new_v = [], [], []
     for p, g, m, v in zip(p_l, g_l, m_l, v_l):
         decay = p.dim() >= 2
+        whole = p
+        if placed.is_placed(p):
+            p, g, m, v = (t.to_local() for t in (p, g, m, v))
         if inplace:
             flat = [t.view(-1) for t in (p, m, v)]
             gf = g.reshape(-1)
@@ -150,6 +194,8 @@ def adamw_update(params, grads, opt_state, cfg: AdamWConfig, *,
             p2, m2, v2 = p, m, v
         else:
             p2, m2, v2 = update(p, g, m, v, decay)
+        if whole is not p:
+            p2, m2, v2 = (placed.like(t, whole) for t in (p2, m2, v2))
         new_p.append(p2)
         new_m.append(m2)
         new_v.append(v2)

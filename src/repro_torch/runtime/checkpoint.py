@@ -13,8 +13,16 @@ Counterpart of ``repro/runtime/checkpoint.py``:
 * ``save`` is asynchronous: the device→host copy happens on the caller's
   thread, serialization on a background thread, one write outstanding.
 * ``restore`` checks the structure and every shape against the target and
-  places the leaves on the target's device (or ``device``). Re-sharding
-  onto a mesh waits for ``distributed/``.
+  places the leaves on the target's device; with ``shardings`` (a tree of
+  ``(device_mesh, placements)``, as ``distributed.sharding.
+  tree_shardings`` gives) each leaf is placed on the mesh by them, each
+  rank keeping its shard of what it reads: the reference's elastic
+  restart onto another topology.
+* A tree of placed leaves (DTensors: a mesh run's state) is saved whole:
+  every rank gathers each leaf (a collective), rank 0 writes, and the
+  ranks wait for the write at a barrier, so the step's directory is
+  complete when ``save`` returns on any rank. Its files are those of an
+  unplaced save; the mesh it came from is not recorded.
 """
 
 from __future__ import annotations
@@ -29,6 +37,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.tree import tree_flatten, tree_unflatten
+from repro_torch.distributed import placed
+from repro_torch.distributed.sharding import sharding_leaves
 
 __all__ = ["CheckpointManager"]
 
@@ -53,8 +63,10 @@ class CheckpointManager:
     def save(self, step: int, tree: Any, blocking: bool = False) -> None:
         self.wait()  # one outstanding write at a time
         leaves, _ = tree_flatten(tree)
-        # pull to host NOW; the snapshot is consistent
-        host_leaves = [_to_host(l) for l in leaves]
+        mesh_run = any(placed.is_placed(l) for l in leaves)
+        # pull to host NOW; the snapshot is consistent (a placed leaf is
+        # gathered whole: a collective, every rank calls it)
+        host_leaves = [_to_host(placed.plain(l)) for l in leaves]
         spec = {
             "step": step,
             "treedef": None,
@@ -82,7 +94,14 @@ class CheckpointManager:
             except BaseException as e:  # surfaced on the next wait()
                 self._error = e
 
-        if blocking:
+        if mesh_run:
+            # rank 0 writes; every rank waits for the write
+            import torch.distributed as dist
+            if dist.get_rank() == 0:
+                write()
+            dist.barrier()
+            self._raise_if_failed()
+        elif blocking:
             write()
             self._raise_if_failed()
         else:
@@ -119,11 +138,15 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, target: Any) -> Any:
+    def restore(self, step: int, target: Any,
+                shardings: Optional[Any] = None) -> Any:
         """Load ``step`` into the structure of ``target`` (a tree of
         tensors, or of anything with ``shape``, ``dtype`` and ``device``):
         each leaf becomes a tensor of the target leaf's dtype on the
-        target leaf's device."""
+        target leaf's device. With ``shardings`` (a matching tree of
+        ``(device_mesh, placements)``) each leaf is placed by its own
+        (``distribute_tensor``: every rank reads the file and keeps its
+        shard), whatever mesh, or none, wrote it."""
         self.wait()
         d = os.path.join(self.dir, f"step_{step}")
         with open(os.path.join(d, "manifest.json")) as f:
@@ -133,12 +156,22 @@ class CheckpointManager:
             raise ValueError(
                 f"checkpoint has {spec['n_leaves']} leaves, target "
                 f"{len(leaves)} — structure mismatch")
+        shard_leaves = ([None] * len(leaves) if shardings is None
+                        else sharding_leaves(shardings))
+        if len(shard_leaves) != len(leaves):
+            raise ValueError(f"{len(shard_leaves)} shardings for "
+                             f"{len(leaves)} leaves")
         loaded = []
-        for i, ref in enumerate(leaves):
+        for i, (ref, shd) in enumerate(zip(leaves, shard_leaves)):
             arr = np.load(os.path.join(d, f"leaf_{i}.npy"))
             if tuple(arr.shape) != tuple(ref.shape):
                 raise ValueError(f"leaf {i}: shape {arr.shape} != "
                                  f"{tuple(ref.shape)}")
-            loaded.append(torch.from_numpy(arr).to(device=ref.device,
-                                                   dtype=ref.dtype))
+            t = torch.from_numpy(arr).to(device=ref.device, dtype=ref.dtype)
+            if shd is not None:
+                from torch.distributed.tensor import distribute_tensor
+                mesh, placements = shd
+                t = distribute_tensor(t, mesh, placements,
+                                      src_data_rank=None)
+            loaded.append(t)
         return tree_unflatten(treedef, loaded)

@@ -395,12 +395,20 @@ def test_dryrun_accounting_equals_reference_eval_shape(arch, tmp_path):
 
 
 def test_dryrun_refuses_a_mesh_and_takes_dots_remat(tmp_path):
-    """One card: a mesh of cards (ROADMAP queue 1 item 6) raises instead of
-    running something else; the reference's ``dots`` remat policy is taken
-    into the cell's config and record, and an unknown policy raises."""
-    with pytest.raises(NotImplementedError, match="item 6"):
-        dryrun.run_cell("stablelm-1.6b", "train_4k", "multi",
+    """One card runs: running the 512-device ``multi`` mesh raises instead
+    of running something else (it accounts only: its per-device bytes
+    are a 512th of a fully split leaf's at most); the reference's ``dots``
+    remat policy is taken into the cell's config and record, and an
+    unknown policy raises."""
+    with pytest.raises(ValueError, match="512 devices"):
+        dryrun.run_cell("stablelm-1.6b", "train_4k", "multi", run=True,
                         out_dir=str(tmp_path))
+    multi = dryrun.run_cell("stablelm-1.6b", "train_4k", "multi",
+                            out_dir=str(tmp_path))
+    assert multi["ok"] and multi["per_device_bytes"]["mesh"] == {
+        "pod": 2, "data": 16, "model": 16}
+    assert (multi["bytes"]["total"] // 512
+            <= multi["per_device_bytes"]["total"] < multi["bytes"]["total"])
     rec = dryrun.run_cell("stablelm-1.6b", "train_4k", remat_policy="dots",
                           out_dir=str(tmp_path))
     assert rec["ok"] and rec["remat_policy"] == "dots"

@@ -1,0 +1,375 @@
+"""One model's tensors placed over a (data 2, model 2) mesh of four gloo
+ranks (DTensor), against the unsharded port and the reference on the CPU:
+the loss and every gradient of stablelm-1.6b and mamba2-780m (smoke) on
+params placed by the reference's rules, deepseek-v2-lite's EP-sharded
+MoE against the unsharded forward at ``n_groups=2`` (what the reference's
+group-local dispatch computes on a 2-way data axis), the ``Trainer`` on
+the mesh, a checkpoint restored across topologies both ways,
+``constrain``, the int8 all-reduce against the reference under
+``jax.vmap``, and the CLI's ``--data-par``/``--model-par``.
+
+The ranks (``tests/_torch_mesh_ranks.py``, no jax) run in two spawns of
+four at once, each rank with one thread, under a join deadline: a hung
+collective fails these tests and not the suite. This process computes
+the references meanwhile.
+
+Tolerances, each with its reason:
+
+* Losses: 1e-5 relative, to the unsharded port and to the reference — a
+  sharded matmul or norm sums in another order (and the reference's XLA
+  in its own), so the logits sit a few ulps apart.
+* Gradients against the unsharded port: ``|a - b| <= 1e-4 |b| + 1e-6
+  max|g|`` (``max|g|`` over every leaf) — reordered float32 sums; the
+  absolute part covers a step size's gradient, a sum of signed terms that
+  nearly cancel (MLA's ``w_uk`` step size: terms near 1 that cancel
+  almost wholly).
+  Against the reference: 1e-3 of each leaf's largest element, the bound
+  ``test_torch_train.py`` holds the unsharded port to (an activation
+  code that flips at a rounding boundary moves the step sizes'
+  gradients).
+* deepseek's logits and stablelm's chunked-attention logits: 1e-5 of
+  the largest — reordered sums; the routing (top-k of the float32
+  router) picks the same experts.
+* ``Trainer``: losses and grad norms 1e-4 relative; the final params 1e-5
+  absolute (3 AdamW steps of ``lr`` 1e-3 move a weight by about ``lr``
+  each, and a reordered gradient moves that by its relative error).
+* Checkpoints and placements: exact — copies.
+* The int8 all-reduce: exact (bit for bit) — the same IEEE operations
+  in the same order: the scale's division, round half to even, the
+  four-row float32 sum in rank order.
+"""
+
+import concurrent.futures
+import dataclasses
+import os
+import threading
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import _torch_mesh_ranks as ranks
+from repro.configs import get_arch as j_get_arch
+from repro.distributed import compression as jcomp
+from repro.models import transformer as jt
+
+from repro_torch.configs import get_arch
+from repro_torch.core.tree import tree_flatten, tree_leaves, tree_unflatten
+from repro_torch.distributed.context import bind_axes
+from repro_torch.launch import train as ttrain
+from repro_torch.launch.mesh import make_local_mesh, run_ranks
+from repro_torch.launch.train import Trainer
+from repro_torch.models import transformer as tt
+from repro_torch.runtime.checkpoint import CheckpointManager
+
+DENSE = ("stablelm-1.6b", "mamba2-780m")
+MOE = "deepseek-v2-lite-16b"
+B, S = 4, 16
+#: each spawn's join deadline, seconds (about 30 s of work on the CPU)
+DEADLINE = 400
+
+
+def _batch(vocab, seed):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, vocab, (B, S + 1)).astype(np.int32)
+    return {"tokens": toks[:, :-1].copy(), "labels": toks[:, 1:].copy()}
+
+
+def _loss_and_grads(params, batch, cfg):
+    leaves, treedef = tree_flatten(params)
+    leaves = [l.detach().requires_grad_(True) for l in leaves]
+    tb = {k: torch.from_numpy(v).long() for k, v in batch.items()}
+    loss, _ = tt.loss_fn(tree_unflatten(treedef, leaves), tb, cfg)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                materialize_grads=True)
+    return float(loss.detach()), [g.numpy() for g in grads]
+
+
+def _references(inputs):
+    """Everything the ranks' results are held against (runs while they
+    run)."""
+    ref = {}
+    for arch in DENSE:
+        jcfg, cfg = j_get_arch(arch).smoke, get_arch(arch).smoke
+        params_np, batch = inputs["models"][arch]
+        (jl, _), jg = jax.value_and_grad(jt.loss_fn, has_aux=True)(
+            jax.tree.map(jnp.asarray, params_np),
+            jax.tree.map(jnp.asarray, batch), jcfg)
+        loss, grads = _loss_and_grads(tt.params_from_numpy(params_np),
+                                      batch, cfg)
+        ref[arch] = dict(j_loss=float(jl),
+                         j_grads=[np.asarray(g) for g in jax.tree.leaves(jg)],
+                         loss=loss, grads=grads)
+    params_np, batch = inputs["models"]["stablelm-1.6b"]
+    with torch.no_grad():
+        logits, _ = tt.forward(
+            tt.params_from_numpy(params_np),
+            {k: torch.from_numpy(v).long() for k, v in batch.items()},
+            ranks.chunked(get_arch("stablelm-1.6b").smoke))
+    ref["chunked_logits"] = logits.numpy()
+    moe = get_arch(MOE).smoke
+    params = tt.init_params(torch.Generator().manual_seed(0), moe)
+    tb = {k: torch.from_numpy(v).long()
+          for k, v in inputs["moe_batch"].items()}
+    # the unsharded forward with the dispatch a 2-way data axis makes
+    with bind_axes(dp="data", mesh={"data": 2}):
+        with torch.no_grad():
+            logits, aux = tt.forward(params, tb, moe)
+        ref["moe"] = dict(logits=logits.numpy(), lb=float(aux["lb_loss"]))
+        ref["moe"]["loss"], ref["moe"]["grads"] = _loss_and_grads(
+            params, inputs["moe_batch"], moe)
+    tr = Trainer(get_arch("stablelm-1.6b").smoke, opt_cfg=ranks.OPT,
+                 device="cpu", **ranks.TRAIN)
+    state, losses = tr.run(3, log_every=100)
+    ref["train"] = (losses, [h["grad_norm"] for h in tr.history],
+                    [l.numpy() for l in tree_leaves(state)])
+    ref["train_target"] = tr.init_state()
+    g, e = (jnp.asarray(a) for a in inputs["compress"])
+    ref["compress_mean"] = np.asarray(jax.vmap(
+        lambda x: jcomp.compressed_allreduce_mean(x, "data"),
+        axis_name="data")(g))
+    ref["compress_tree"] = jax.vmap(
+        lambda x, r: jcomp.compress_tree({"a": x, "b": [x[:17] * 3]},
+                                         {"a": r, "b": [jnp.zeros(17)]},
+                                         "data"),
+        axis_name="data")(g, e)
+    return ref
+
+
+@pytest.fixture(scope="module")
+def mesh_run(tmp_path_factory):
+    """``(inputs, references, per-rank results)`` of the two spawns."""
+    d = tmp_path_factory.mktemp("mesh")
+    models = {}
+    for i, arch in enumerate(DENSE):
+        jcfg = j_get_arch(arch).smoke
+        jp = jt.init_params(jax.random.PRNGKey(i), jcfg)
+        models[arch] = (jax.tree.map(np.asarray, jp),
+                        _batch(jcfg.vocab_size, 10 + i))
+    rng = np.random.default_rng(0)
+    inputs = dict(
+        models=models, moe_batch=_batch(get_arch(MOE).smoke.vocab_size, 20),
+        compress=(rng.standard_normal((4, 64)).astype(np.float32),
+                  (rng.standard_normal((4, 64)) * 0.01).astype(np.float32)),
+        ckpt_plain=str(d / "plain"), ckpt_mesh=str(d / "mesh"))
+    # a checkpoint written unsharded: the Trainer's initial state
+    init = Trainer(get_arch("stablelm-1.6b").smoke, opt_cfg=ranks.OPT,
+                   device="cpu", **ranks.TRAIN).init_state()
+    CheckpointManager(inputs["ckpt_plain"]).save(0, init, blocking=True)
+    with concurrent.futures.ThreadPoolExecutor(2) as ex:
+        futs = [ex.submit(run_ranks, ranks.mesh_rank, 4, device="cpu",
+                          args=(inputs, part), timeout=DEADLINE, threads=1)
+                for part in ("dense", "ssm_moe")]
+        ref = _references(inputs)
+        results = [{**a, **b} for a, b in zip(*(f.result() for f in futs))]
+    ref["init"] = [l.numpy() for l in tree_leaves(init)]
+    return inputs, ref, results
+
+
+def _close_grads(got, want):
+    gmax = max(float(np.max(np.abs(w))) for w in want if w.size)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape, i
+        err = np.abs(g.astype(np.float64) - w)
+        assert np.all(err <= 1e-4 * np.abs(w) + 1e-6 * gmax), (
+            i, float(err.max()), gmax)
+
+
+def _rel_close(got, ref, rel):
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    scale = max(float(np.max(np.abs(ref))), 1e-30)
+    assert float(np.max(np.abs(got - ref))) <= rel * scale
+
+
+def test_make_local_mesh_raises_without_a_card_or_ranks():
+    """No fallback: without a card and without ``device="cpu"`` the mesh,
+    the runner and ``Trainer(mesh=)`` raise; a mesh of four needs four
+    processes."""
+    assert not torch.cuda.is_available()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_local_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_ranks(ranks.mesh_rank, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(get_arch("stablelm-1.6b").smoke, opt_cfg=ranks.OPT,
+                mesh=object())
+    with pytest.raises(RuntimeError, match="4 processes"):
+        make_local_mesh(2, 2, device="cpu")
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_sharded_loss_and_grads_equal_unsharded(mesh_run, arch):
+    """The loss and every gradient (reduced to its parameter's
+    placements, gathered) on params placed by ``tree_shardings`` equal
+    the unsharded port's and the reference's; the mesh splits something
+    over both axes."""
+    _, ref, res = mesh_run
+    loss, grads, placements = res[0][arch]
+    r = ref[arch]
+    assert abs(loss - r["loss"]) <= 1e-5 * abs(r["loss"])
+    assert abs(loss - r["j_loss"]) <= 1e-5 * abs(r["j_loss"])
+    _close_grads(grads, r["grads"])
+    for g, w in zip(grads, r["j_grads"]):
+        _rel_close(g, w, 1e-3)
+    assert any("Shard" in p and "Replicate" not in p for p in placements)
+    for other in res[1:]:
+        assert other[arch][0] == loss
+
+
+def test_chunked_attention_on_the_mesh_equals_unsharded(mesh_run):
+    """stablelm's forward through the chunked attention (8 x 8 blocks),
+    its batch over ``data`` and heads over ``model`` (the reference's
+    constraints), equals the unsharded chunked forward."""
+    _, ref, res = mesh_run
+    _rel_close(res[0]["chunked_logits"], ref["chunked_logits"], 1e-5)
+
+
+def test_deepseek_ep_forward_equals_grouped_unsharded(mesh_run):
+    """The MoE's experts split over ``model`` (EP) and its groups over
+    ``data``: logits and ``lb_loss`` equal the unsharded forward at
+    ``n_groups=2``, and so do the loss and the gradients."""
+    _, ref, res = mesh_run
+    r = ref["moe"]
+    out = res[0]
+    assert out["moe_placements"] == "(Shard(dim=2), Shard(dim=1))"
+    _rel_close(out["moe_logits"], r["logits"], 1e-5)
+    assert abs(out["moe_lb"] - r["lb"]) <= 1e-5 * abs(r["lb"])
+    loss, grads, _ = out["moe_grads"]
+    assert abs(loss - r["loss"]) <= 1e-5 * abs(r["loss"])
+    _close_grads(grads, r["grads"])
+
+
+def test_trainer_on_mesh_equals_unsharded_trainer(mesh_run):
+    """``Trainer(mesh=)``: 3 steps of the smoke stablelm from the same
+    seed, as the unsharded ``Trainer``'s."""
+    _, ref, res = mesh_run
+    losses, gnorms, state = res[0]["train"]
+    r_losses, r_gnorms, r_state = ref["train"]
+    np.testing.assert_allclose(losses, r_losses, rtol=1e-4)
+    np.testing.assert_allclose(gnorms, r_gnorms, rtol=1e-4)
+    assert len(state) == len(r_state)
+    for a, b in zip(state, r_state):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
+
+
+def test_elastic_restore_from_unsharded_onto_the_mesh(mesh_run):
+    """A checkpoint written unsharded, restored onto the 2 x 2 mesh by
+    ``tree_shardings``: placed, and equal bit for bit once gathered."""
+    _, ref, res = mesh_run
+    leaves, placements = res[0]["restored"]
+    assert len(leaves) == len(ref["init"])
+    for a, b in zip(leaves, ref["init"]):
+        np.testing.assert_array_equal(a, b)
+    assert any("Shard(dim=1), Shard(dim=0)" in p for p in placements)
+
+
+def test_elastic_restore_from_the_mesh_unsharded(mesh_run):
+    """The mesh ``Trainer``'s checkpoint (written by rank 0 from the
+    gathered state) restores unsharded, equal bit for bit to the state
+    the ranks hold."""
+    inputs, ref, res = mesh_run
+    ck = CheckpointManager(inputs["ckpt_mesh"])
+    assert ck.latest_step() == 3
+    state = ck.restore(3, ref["train_target"])
+    got = [l.numpy() for l in tree_leaves(state)]
+    for a, b in zip(got, res[0]["train"][2]):
+        np.testing.assert_array_equal(a, b)
+    assert sorted(os.listdir(inputs["ckpt_mesh"])) == ["step_3"]
+
+
+def test_constrain_redistributes_placed_tensors(mesh_run):
+    """Bound ``dp``/``tp``, ``constrain`` splits a replicated DTensor as
+    asked, sums a partial one, and returns a plain tensor itself."""
+    _, _, res = mesh_run
+    for out in res:
+        by_both, by_dp, plain_same = out["constrain"]
+        assert by_both == "(Shard(dim=0), Shard(dim=1))"
+        assert by_dp == "(Shard(dim=0), Replicate())"
+        assert plain_same
+        placements, local = out["constrain_partial"]
+        assert placements == "(Replicate(), Replicate())"
+        np.testing.assert_array_equal(local, np.full((2, 4), 6.0))
+
+
+def test_compressed_allreduce_mean_equals_reference(mesh_run):
+    """Four ranks' int8 all-reduce of a seeded (4, 64) gradient equals the
+    reference's under ``jax.vmap(axis_name=)``, every rank, bit for
+    bit."""
+    _, ref, res = mesh_run
+    for r, out in enumerate(res):
+        assert out["rank"] == r
+        np.testing.assert_array_equal(out["compress_mean"],
+                                      ref["compress_mean"][r])
+
+
+def test_compress_tree_equals_reference(mesh_run):
+    """Error feedback over a tree (a leaf whose size is not a multiple of
+    four among them): the reduced gradients and new residuals equal the
+    reference's bit for bit."""
+    _, ref, res = mesh_run
+    red, err = ref["compress_tree"]
+    for r, out in enumerate(res):
+        a, ea, b, eb = out["compress_tree"]
+        np.testing.assert_array_equal(a, np.asarray(red["a"][r]))
+        np.testing.assert_array_equal(ea, np.asarray(err["a"][r]))
+        np.testing.assert_array_equal(b, np.asarray(red["b"][0][r]))
+        np.testing.assert_array_equal(eb, np.asarray(err["b"][0][r]))
+
+
+def test_remat_recompute_keeps_the_bound_axes():
+    """A checkpointed layer runs again in the backward, which can run
+    after the binding's ``with`` or on another thread (autograd's, on the
+    card), where the thread-local binding is absent: the recompute
+    re-enters the forward's binding, so deepseek's MoE keeps its 2 groups
+    (a 2-way data axis) and the gradients equal a backward inside the
+    binding, bit for bit."""
+    cfg = dataclasses.replace(get_arch(MOE).smoke, remat=True)
+    params = tt.init_params(torch.Generator().manual_seed(0), cfg)
+    tb = {k: torch.from_numpy(v).long()
+          for k, v in _batch(cfg.vocab_size, 30).items()}
+
+    def grads(where):
+        leaves, treedef = tree_flatten(params)
+        leaves = [l.detach().requires_grad_(True) for l in leaves]
+        out = {}
+
+        def backward():
+            try:
+                out["g"] = torch.autograd.grad(loss, leaves,
+                                               allow_unused=True,
+                                               materialize_grads=True)
+            except Exception as e:       # raised again on the test's thread
+                out["error"] = e
+
+        with bind_axes(dp="data", mesh={"data": 2}):
+            loss, _ = tt.loss_fn(tree_unflatten(treedef, leaves), tb, cfg)
+            if where == "inside":
+                backward()
+        if where == "after":
+            backward()
+        elif where == "thread":
+            t = threading.Thread(target=backward)
+            t.start()
+            t.join(60)
+            assert not t.is_alive()
+        if "error" in out:
+            raise out["error"]
+        return out["g"]
+
+    ref = grads("inside")
+    for where in ("after", "thread"):
+        assert all(torch.equal(a, b) for a, b in zip(grads(where), ref))
+
+
+def test_cli_trains_on_a_data_model_mesh(capfd):
+    """``--data-par 2 --model-par 2 --device cpu --smoke --steps 2``
+    starts four gloo ranks itself; rank 0 alone prints."""
+    ttrain.main(["--arch", "stablelm-1.6b", "--smoke", "--device", "cpu",
+                 "--data-par", "2", "--model-par", "2", "--steps", "2",
+                 "--batch", "4", "--seq", "16", "--log-every", "1"])
+    out = capfd.readouterr().out
+    assert out.count("done: 2 steps of stablelm-1.6b-smoke") == 1
+    assert "(data 2, model 2) mesh of cpu" in out
+    assert out.count("step     1 loss") == 1
