@@ -33,8 +33,9 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["is_placed", "local_of", "mesh_offset", "embedding", "whole_dim",
-           "per_head", "replicas", "sum_over_mesh", "like", "plain",
-           "mesh_context", "contiguous_stride"]
+           "per_head", "split_heads", "elementwise", "replicas",
+           "sum_over_mesh", "like", "plain", "mesh_context",
+           "contiguous_stride"]
 
 
 def is_placed(t) -> bool:
@@ -148,6 +149,40 @@ def whole_dim(t, dim: int):
            for p in t.placements]
     return t if pls == list(t.placements) else t.redistribute(
         t.device_mesh, pls)
+
+
+def split_heads(t, n_heads: int, head_dim: int):
+    """``t`` (..., n_heads·head_dim) reshaped to (..., n_heads, head_dim).
+    A placed ``t`` whose last dimension is split over more ranks than
+    ``n_heads`` divides (8 kv heads over a 16-way ``model`` axis) is made
+    whole on those mesh dimensions first, which DTensor cannot do inside
+    the view."""
+    if is_placed(t):
+        from torch.distributed.tensor import Replicate
+        last = t.ndim - 1
+        n = 1
+        for k, p in enumerate(t.placements):
+            if p.is_shard(last):
+                n *= t.device_mesh.size(k)
+        if n_heads % n:
+            t = t.redistribute(t.device_mesh, [
+                Replicate() if p.is_shard(last) else p
+                for p in t.placements])
+    return t.reshape(tuple(t.shape[:-1]) + (n_heads, head_dim))
+
+
+def elementwise(fn, t):
+    """``fn(t)`` for an elementwise ``fn``; on a placed ``t``, on each
+    rank's shard (a pending partial sum reduced first), for an op DTensor
+    has no strategy for (``softplus``'s backward)."""
+    if not is_placed(t):
+        return fn(t)
+    from torch.distributed.tensor import DTensor, Replicate
+    if any(p.is_partial() for p in t.placements):
+        t = t.redistribute(t.device_mesh, [
+            Replicate() if p.is_partial() else p for p in t.placements])
+    return DTensor.from_local(fn(t.to_local()), t.device_mesh, t.placements,
+                              shape=t.shape, stride=t.stride())
 
 
 def replicas(t) -> int:

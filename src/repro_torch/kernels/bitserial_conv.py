@@ -6,7 +6,10 @@ Counterpart of ``repro/kernels/bitserial_conv.py``. The CUDA kernel
 (``csrc/bitserial_conv.cu``) replaces ``bitserial_conv2d_v2_pallas``; its
 plain version :func:`bitserial_conv2d_ref` is the port of the reference's
 XLA oracle (``serial_conv2d_packed_acts`` followed by ``_epilogue_xla``).
-:func:`bitserial_conv2d` dispatches on the tensor's device.
+:func:`bitserial_conv2d` dispatches on the tensor's device (a ``meta``
+tensor gets the kernel wrapper's checks and output shape, no launch) and
+counts as one op of an active
+:class:`~repro_torch.launch.hlo_analysis.CostMode`.
 
 Output modes: float32 ``(N, Ho, Wo, Co)``; requantized codes ``(N, Ho, Wo,
 Co)`` (int8 for ``requant.bits <= 8``, else int32); or, with
@@ -25,6 +28,7 @@ from repro_torch.core.bitserial import (SerialSpec, conv_out_hw,
                                         serial_conv2d_packed_acts)
 from repro_torch.core.quant import QuantSpec, qrange
 from repro_torch.kernels._build import I, Kernel, P
+from repro_torch.launch import hlo_analysis as cost
 from repro_torch.kernels.epilogue import (CODES8, CODES32, FLOAT, PACKED,
                                           check_operand, codes_dtype,
                                           epilogue, per_channel,
@@ -111,6 +115,8 @@ def bitserial_conv2d_cuda(x_packed: torch.Tensor, w_packed: torch.Tensor,
             dt = codes_dtype(requant)
             mode = CODES8 if dt == torch.int8 else CODES32
             out = torch.empty((n, ho, wo, co), dtype=dt, device=dev)
+    if dev.type == "meta":
+        return out
     stream = torch.cuda.current_stream(dev).cuda_stream
     KERNEL.launch(
         "bitserial_conv2d", x_packed.data_ptr(), w_packed.data_ptr(),
@@ -127,7 +133,21 @@ def bitserial_conv2d_cuda(x_packed: torch.Tensor, w_packed: torch.Tensor,
 def bitserial_conv2d(x_packed: torch.Tensor, w_packed: torch.Tensor,
                      scale: torch.Tensor, bias: Optional[torch.Tensor] = None,
                      **kw) -> torch.Tensor:
-    """K2 on CUDA tensors, its plain version on CPU tensors."""
-    if x_packed.is_cuda:
+    """K2 on CUDA tensors (its output's shape on ``meta``), its plain
+    version on CPU tensors; one op of an active
+    :class:`~repro_torch.launch.hlo_analysis.CostMode`."""
+    if cost.ACTIVE.mode is not None:
+        spec = kw["spec"]
+        _, n, h, w_in, _ = x_packed.shape
+        _, fh, fw, _, co = w_packed.shape
+        ho, wo = conv_out_hw(h, w_in, fh, fw, kw.get("stride", 1),
+                             kw.get("padding", 1))
+        return cost.ACTIVE.mode.kernel(
+            "K2", bitserial_conv2d, (x_packed, w_packed, scale, bias), kw,
+            *cost.gemm_flops(n * ho * wo, co, fh * fw * kw["ci"],
+                             bitops.kernel_digits(spec.a_bits, spec.a_signed),
+                             bitops.kernel_digits(spec.w_bits,
+                                                  spec.w_signed)))
+    if x_packed.is_cuda or x_packed.is_meta:
         return bitserial_conv2d_cuda(x_packed, w_packed, scale, bias, **kw)
     return bitserial_conv2d_ref(x_packed, w_packed, scale, bias, **kw)

@@ -40,7 +40,11 @@ tile (``csrc/digits.cuh``, shared with K2) fed by two activation sources:
 
 :func:`bitserial_matmul_v2`, :func:`bitserial_matmul` and
 :func:`bitserial_matmul_grouped` dispatch on the tensor's device: the
-plain version for a CPU tensor, the kernel for a CUDA tensor. Both
+plain version for a CPU tensor, the kernel for a CUDA tensor, the kernel
+wrapper's checks and output shape for a ``meta`` tensor (no launch).
+Each counts as one op of an active
+:class:`~repro_torch.launch.hlo_analysis.CostMode`, with its work:
+2·M·N·K times both operands' ``kernel_digits`` integer FLOPs. Both
 epilogues are one FMA, as the reference's are under ``jit`` and in its
 Pallas kernels (interpreted too).
 """
@@ -56,6 +60,7 @@ from repro_torch.core.bitserial import (SerialSpec, serial_matmul_packed,
                                         serial_matmul_packed_acts)
 from repro_torch.core.quant import QuantSpec, qrange
 from repro_torch.kernels._build import I, Kernel, P
+from repro_torch.launch import hlo_analysis as cost
 from repro_torch.kernels.epilogue import (CODES8, CODES32, FLOAT, PACKED,
                                           check_operand, codes_dtype,
                                           epilogue, per_channel,
@@ -188,6 +193,8 @@ def bitserial_matmul_v2_cuda(x_packed: torch.Tensor, w_packed: torch.Tensor,
             dt = codes_dtype(requant)
             mode = CODES8 if dt == torch.int8 else CODES32
             out = torch.empty((m, n), dtype=dt, device=dev)
+    if dev.type == "meta":
+        return out
     stream = torch.cuda.current_stream(dev).cuda_stream
     KERNEL.launch(
         "bitserial_matmul_v2", x_packed.data_ptr(), w_packed.data_ptr(),
@@ -226,15 +233,16 @@ def bitserial_matmul_cuda(x: torch.Tensor, w_packed: torch.Tensor,
         dt = codes_dtype(requant)
         mode = CODES8 if dt == torch.int8 else CODES32
         out = torch.empty((m, n), dtype=dt, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    KERNEL.launch(
-        "bitserial_matmul_v1", x.data_ptr(), w_packed.data_ptr(),
-        scale.data_ptr(), None if bias is None else bias.data_ptr(),
-        out.data_ptr(), m, k, n, spec.a_bits, spec.w_bits,
-        int(spec.a_signed), int(spec.w_signed),
-        bitops.kernel_digits(spec.a_bits, spec.a_signed),
-        bitops.kernel_digits(spec.w_bits, spec.w_signed),
-        int(relu), mode, rq_bits, qn, qp, stream)
+    if dev.type != "meta":
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        KERNEL.launch(
+            "bitserial_matmul_v1", x.data_ptr(), w_packed.data_ptr(),
+            scale.data_ptr(), None if bias is None else bias.data_ptr(),
+            out.data_ptr(), m, k, n, spec.a_bits, spec.w_bits,
+            int(spec.a_signed), int(spec.w_signed),
+            bitops.kernel_digits(spec.a_bits, spec.a_signed),
+            bitops.kernel_digits(spec.w_bits, spec.w_signed),
+            int(relu), mode, rq_bits, qn, qp, stream)
     if requant is not None and requant.bits <= 8:
         return out
     return out.to(out_dtype)
@@ -264,6 +272,8 @@ def bitserial_matmul_grouped_cuda(x: torch.Tensor, w_packed: torch.Tensor,
         raise ValueError(f"{fn}: K-word mismatch: w {kw}, ceil(k/32)="
                          f"{_k_words(k)}")
     out = torch.empty((e, c, n), dtype=torch.int32, device=dev)
+    if dev.type == "meta":
+        return out
     stream = torch.cuda.current_stream(dev).cuda_stream
     GROUPED.launch(
         "bitserial_matmul_v1_grouped", x.data_ptr(), w_packed.data_ptr(),
@@ -274,12 +284,27 @@ def bitserial_matmul_grouped_cuda(x: torch.Tensor, w_packed: torch.Tensor,
     return out
 
 
+def _flops(m: int, n: int, k: int, spec: SerialSpec) -> tuple:
+    """K2-K4's ``(flops_int, flops_logical)``: the digit products the
+    int8 tensor cores issue, and 2·M·N·K."""
+    return cost.gemm_flops(m, n, k,
+                           bitops.kernel_digits(spec.a_bits, spec.a_signed),
+                           bitops.kernel_digits(spec.w_bits, spec.w_signed))
+
+
 def bitserial_matmul_v2(x_packed: torch.Tensor, w_packed: torch.Tensor,
                         scale: torch.Tensor,
                         bias: Optional[torch.Tensor] = None,
                         **kw) -> torch.Tensor:
-    """K3 on CUDA tensors, its plain version on CPU tensors."""
-    if x_packed.is_cuda:
+    """K3 on CUDA tensors (its output's shape on ``meta``), its plain
+    version on CPU tensors; one op of an active
+    :class:`~repro_torch.launch.hlo_analysis.CostMode`."""
+    if cost.ACTIVE.mode is not None:
+        return cost.ACTIVE.mode.kernel(
+            "K3", bitserial_matmul_v2, (x_packed, w_packed, scale, bias), kw,
+            *_flops(x_packed.shape[1], w_packed.shape[-1], kw["k"],
+                    kw["spec"]))
+    if x_packed.is_cuda or x_packed.is_meta:
         return bitserial_matmul_v2_cuda(x_packed, w_packed, scale, bias, **kw)
     return bitserial_matmul_v2_ref(x_packed, w_packed, scale, bias, **kw)
 
@@ -287,15 +312,26 @@ def bitserial_matmul_v2(x_packed: torch.Tensor, w_packed: torch.Tensor,
 def bitserial_matmul(x: torch.Tensor, w_packed: torch.Tensor,
                      scale: torch.Tensor, bias: Optional[torch.Tensor] = None,
                      **kw) -> torch.Tensor:
-    """K4 on CUDA tensors, its plain version on CPU tensors."""
-    if x.is_cuda:
+    """K4 on CUDA tensors (its output's shape on ``meta``), its plain
+    version on CPU tensors; one op of an active ``CostMode``."""
+    if cost.ACTIVE.mode is not None:
+        return cost.ACTIVE.mode.kernel(
+            "K4", bitserial_matmul, (x, w_packed, scale, bias), kw,
+            *_flops(x.shape[0], w_packed.shape[-1], kw["k"], kw["spec"]))
+    if x.is_cuda or x.is_meta:
         return bitserial_matmul_cuda(x, w_packed, scale, bias, **kw)
     return bitserial_matmul_ref(x, w_packed, scale, bias, **kw)
 
 
 def bitserial_matmul_grouped(x: torch.Tensor, w_packed: torch.Tensor, *,
                              spec: SerialSpec, k: int) -> torch.Tensor:
-    """Grouped K4 on CUDA tensors, its plain version on CPU tensors."""
-    if x.is_cuda:
+    """Grouped K4 on CUDA tensors (its output's shape on ``meta``), its
+    plain version on CPU tensors; one op of an active ``CostMode``."""
+    if cost.ACTIVE.mode is not None:
+        return cost.ACTIVE.mode.kernel(
+            "K4g", bitserial_matmul_grouped, (x, w_packed),
+            {"spec": spec, "k": k},
+            *_flops(x.shape[0] * x.shape[1], w_packed.shape[-1], k, spec))
+    if x.is_cuda or x.is_meta:
         return bitserial_matmul_grouped_cuda(x, w_packed, spec=spec, k=k)
     return bitserial_matmul_grouped_ref(x, w_packed, spec=spec, k=k)

@@ -71,8 +71,8 @@ def epilogue(acc: torch.Tensor, scale: torch.Tensor,
 def check_operand(fn: str, name: str, t: torch.Tensor, dtype: torch.dtype,
                   dim: int, device: torch.device) -> None:
     """Raise unless ``t`` is a contiguous ``dim``-d ``dtype`` tensor on
-    ``device`` (a CUDA device)."""
-    if not t.is_cuda or t.device != device:
+    ``device`` (a CUDA device, or ``meta`` for the output's shape)."""
+    if t.device.type not in ("cuda", "meta") or t.device != device:
         raise ValueError(f"{fn}: {name} must be on {device}, got {t.device}")
     if t.dtype != dtype:
         raise TypeError(f"{fn}: {name} must be {dtype}, got {t.dtype}")

@@ -3,9 +3,10 @@
 Counterpart of ``repro/kernels/ops.py``. Where the reference selects a
 backend by name (``"xla"`` oracle or ``"pallas_v2"`` kernel), the port
 selects by device: every function here runs the CUDA kernel for a tensor
-on the card and the kernel's plain version for a tensor on the CPU. A CUDA
-tensor never reaches a plain version through these functions; a kernel
-that does not build or launch raises.
+on the card and the kernel's plain version for a tensor on the CPU (on
+``meta``, the kernel's output shape). A CUDA tensor never reaches a plain
+version through these functions; a kernel that does not build or launch
+raises.
 
 * :func:`pack_activations` — (..., K) integer codes → (a_bits, ...,
   ceil(K/32)) words (K1's codes entry);

@@ -14,7 +14,10 @@ its plain versions:
 
 :func:`quantize_pack`, :func:`quantize_pack_multi` and :func:`pack_codes`
 dispatch on the tensor's device: the plain version for a CPU tensor, the
-kernel for a CUDA tensor.
+kernel for a CUDA tensor, and for a ``meta`` tensor the kernel wrapper's
+checks and its output's shape, with no launch (its fake implementation).
+Under an active :class:`~repro_torch.launch.hlo_analysis.CostMode` each
+call counts as one op, whichever runs.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 from repro_torch.core import bitops
 from repro_torch.core.quant import QuantSpec, qrange, quantize_int
 from repro_torch.kernels._build import I, Kernel, P
+from repro_torch.launch import hlo_analysis as cost
 
 __all__ = ["KERNEL", "MAX_GROUPS", "quantize_pack", "quantize_pack_multi",
            "pack_codes", "quantize_pack_ref", "quantize_pack_multi_ref",
@@ -65,7 +69,7 @@ def quantize_pack_multi_ref(x: torch.Tensor, scales: Sequence[torch.Tensor],
 
 
 def _check_rows(name: str, x: torch.Tensor, dtypes) -> None:
-    if not x.is_cuda:
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"{name}: tensor must be on the card, got {x.device}")
     if x.dtype not in dtypes:
         raise TypeError(f"{name}: expected one of {list(dtypes)}, got "
@@ -92,13 +96,15 @@ def quantize_pack_multi_cuda(x: torch.Tensor, scales: Sequence[torch.Tensor],
         raise ValueError(f"quantize_pack: 1..{MAX_GROUPS} step sizes, got "
                          f"{len(scales)}")
     for s in scales:
-        if (not s.is_cuda or s.device != x.device
+        if (s.device != x.device
                 or s.dtype != torch.float32 or s.numel() != 1):
             raise ValueError("quantize_pack: each step size must be one "
                              "float32 element on the input's card")
     r, l = x.shape
     out = torch.empty((len(scales), spec.bits, r, -(-l // 32)),
                       dtype=torch.int32, device=x.device)
+    if x.is_meta:
+        return out
     ptrs = [s.data_ptr() for s in scales] + [None] * (MAX_GROUPS - len(scales))
     qn, qp = qrange(spec.bits, spec.signed)
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -122,6 +128,8 @@ def pack_codes_cuda(codes: torch.Tensor, bits: int) -> torch.Tensor:
     r, l = codes.shape
     out = torch.empty((bits, r, -(-l // 32)), dtype=torch.int32,
                       device=codes.device)
+    if codes.is_meta:
+        return out
     stream = torch.cuda.current_stream(codes.device).cuda_stream
     KERNEL.launch("pack_codes_i32", codes.data_ptr(), out.data_ptr(), r, l,
                   bits, stream)
@@ -136,14 +144,22 @@ def quantize_pack(x: torch.Tensor, scale: torch.Tensor,
 
 def quantize_pack_multi(x: torch.Tensor, scales: Sequence[torch.Tensor],
                         spec: QuantSpec) -> torch.Tensor:
-    """The grouped K1 on a CUDA tensor, its plain version on a CPU tensor."""
-    if x.is_cuda:
+    """The grouped K1 on a CUDA tensor (its output's shape on ``meta``),
+    its plain version on a CPU tensor; one op of an active
+    :class:`~repro_torch.launch.hlo_analysis.CostMode`."""
+    if cost.ACTIVE.mode is not None:
+        return cost.ACTIVE.mode.kernel("K1", quantize_pack_multi,
+                                       (x, list(scales), spec), {})
+    if x.is_cuda or x.is_meta:
         return quantize_pack_multi_cuda(x, scales, spec)
     return quantize_pack_multi_ref(x, scales, spec)
 
 
 def pack_codes(codes: torch.Tensor, bits: int) -> torch.Tensor:
-    """K1's codes entry on a CUDA tensor, its plain version on a CPU one."""
-    if codes.is_cuda:
+    """K1's codes entry on a CUDA tensor (its output's shape on ``meta``),
+    its plain version on a CPU one; one op of an active ``CostMode``."""
+    if cost.ACTIVE.mode is not None:
+        return cost.ACTIVE.mode.kernel("K1", pack_codes, (codes, bits), {})
+    if codes.is_cuda or codes.is_meta:
         return pack_codes_cuda(codes, bits)
     return pack_codes_ref(codes, bits)

@@ -45,11 +45,28 @@ each leaf's bytes divided by the product of the axis sizes its spec
 moments, ``cache_pspec``, ``batch_pspec``) names. Only ``single`` runs
 (one card); ``multi`` accounts and ``run`` with it raises.
 
+Every record also holds one step's cost, counted by
+``launch/hlo_analysis.py`` from a dispatch trace on the ``meta`` device
+(:func:`cost_cell`), under the reference's keys: ``flops``,
+``flops_int``, ``bytes_hbm`` and ``collectives`` (``bytes``, ``counts``
+by the five kinds, ``total_bytes``), and the port's ``flops_logical``,
+``kernel_calls``, ``ops``, ``cost_mesh`` and ``cost_s``. A ``train``
+cell counts one ``make_train_step`` step (loss, gradients, AdamW) per
+device of the production mesh, a fake process group of 256 or 512 ranks
+in this process (``launch/mesh.py``'s ``fake_mesh``), the state and batch
+placed as a mesh run places them; the counts are rank 0's. A
+``prefill`` or ``decode`` cell counts one ``prefill`` or one
+``decode_step`` (at the cache's last position) on one device, as
+``Server`` holds the packed model: the port does not serve a sharded
+packed model, so ``cost_mesh`` is null, ``cost_mesh_reason`` says why,
+and a serve cell has no collectives. ``cost=False`` leaves the cost out.
+A ``run`` is not traced.
+
 Flags as the reference's: ``--arch``, ``--shape``, ``--all``, ``--mesh``
 (``single``, ``multi`` or ``both``), ``--radix``, ``--kv-bits``,
 ``--no-chunked``, ``--remat-policy``
 (``nothing`` or ``dots``), ``--tag``, ``--out``, ``--force``; the port
-adds ``--run``, ``--batch`` and ``--device``.
+adds ``--run``, ``--batch``, ``--device`` and ``--no-cost``.
 """
 
 from __future__ import annotations
@@ -75,13 +92,14 @@ from repro_torch.core.tree import tree_leaves
 from repro_torch.distributed.sharding import (batch_pspec, cache_pspec,
                                               param_pspec, spec_shards,
                                               tree_paths)
-from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.hlo_analysis import analyze
+from repro_torch.launch.mesh import fake_mesh, make_production_mesh
 from repro_torch.models.transformer import (ModelConfig, init_caches,
                                             init_params, prefill)
 from repro_torch.optim import AdamWConfig, adamw_init
 
-__all__ = ["ART_DIR", "Cell", "build_cell", "account", "run_cell",
-           "cells_for", "main"]
+__all__ = ["ART_DIR", "Cell", "build_cell", "account", "cost_cell",
+           "run_cell", "cells_for", "main", "SERVE_MESH_REASON"]
 
 ART_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                        "artifacts", "dryrun_torch")
@@ -89,6 +107,10 @@ ART_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
 FIT_SHARE = 0.85
 #: the seed of a run's random weights and inputs
 SEED = 0
+#: why a serve cell is counted on one device
+SERVE_MESH_REASON = ("the port does not serve a sharded packed model (TP "
+                     "through K3/K4): a serve step is counted on one "
+                     "device, and its collectives are not guessed")
 
 
 class _MetaGenerator(torch.Generator):
@@ -287,6 +309,75 @@ def account(cell: Cell, *, device=None, mesh_kind: str = "single") -> dict:
     return rec
 
 
+def _meta_inputs(cell: Cell) -> dict:
+    """The cell's inputs on ``meta`` as a run feeds them (token ids
+    int64)."""
+    return {k: v.to(torch.int64) if v.dtype == torch.int32 else v
+            for k, v in input_specs(cell.cfg, cell.shape).items()}
+
+
+def cost_cell(cell: Cell, mesh_kind: str = "single") -> dict:
+    """One step of the cell counted on the ``meta`` device
+    (:func:`repro_torch.launch.hlo_analysis.analyze`): a ``train`` step
+    on rank 0 of the production mesh ``mesh_kind`` (a fake process group
+    of its size), a ``prefill`` or a ``decode_step`` on one device. The
+    reference's keys (``flops``, ``flops_int``, ``bytes_hbm``,
+    ``collectives``) and the port's (``flops_logical``,
+    ``kernel_calls``, ``ops``, ``cost_mesh``, ``cost_s``)."""
+    from repro_torch.launch.serve import Server
+    from repro_torch.models.transformer import decode_step
+    t0 = time.perf_counter()
+    cfg, shape = cell.cfg, cell.shape
+    gen = _MetaGenerator()
+    inputs = _meta_inputs(cell)
+    extra = {}
+    if shape.kind == "train":
+        from torch.distributed.tensor import distribute_tensor
+        from repro_torch.distributed import placed
+        from repro_torch.distributed.sharding import to_placements
+        from repro_torch.launch.train import (init_placed_params,
+                                              make_train_step)
+        sizes = make_production_mesh(multi_pod=mesh_kind == "multi").sizes
+        with fake_mesh(sizes) as mesh:
+            params = init_placed_params(gen, cfg, mesh)
+            state = {"params": params, "opt": adamw_init(params)}
+            batch = {k: distribute_tensor(
+                v, mesh, to_placements(batch_pspec(tuple(v.shape), mesh),
+                                       mesh), src_data_rank=None)
+                for k, v in inputs.items()}
+            step = make_train_step(cfg, AdamWConfig())
+            with placed.mesh_context(mesh):
+                _, cost = analyze(step, state, batch)
+            cost_mesh = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    else:
+        srv = Server(cfg, init_params(gen, cfg, packed=True),
+                     batch_slots=shape.global_batch, max_len=cell.max_len,
+                     device="meta")
+        with torch.inference_mode():
+            if shape.kind == "prefill":
+                _, cost = analyze(prefill, srv.params, inputs, srv.cfg,
+                                  max_len=cell.max_len)
+            else:
+                caches = init_caches(srv.cfg, shape.global_batch,
+                                     cell.max_len, device="meta",
+                                     src_len=cell.src_len)
+                _, cost = analyze(decode_step, srv.params, caches,
+                                  inputs["tokens"], cell.max_len - 1,
+                                  srv.cfg)
+        cost_mesh = None
+        extra["cost_mesh_reason"] = SERVE_MESH_REASON
+    d = cost.as_dict()
+    return {"flops": d["flops"], "flops_int": d["flops_int"],
+            "flops_logical": d["flops_logical"],
+            "bytes_hbm": d["bytes_hbm"],
+            "collectives": {"bytes": d["collective_bytes"],
+                            "counts": d["collective_counts"],
+                            "total_bytes": d["total_collective_bytes"]},
+            "kernel_calls": d["kernel_calls"], "ops": d["ops"],
+            "cost_mesh": cost_mesh, **extra,
+            "cost_s": time.perf_counter() - t0}
+
+
 # ------------------------------------------------------------------ runs
 
 def _sync(dev: torch.device) -> None:
@@ -385,7 +476,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str = "single", *,
              run: bool = False, batch: Optional[int] = None, device=None,
              n_layers: Optional[int] = None, plain: bool = False,
              prompts=None, new_tokens: int = 8,
-             return_outputs: bool = False):
+             return_outputs: bool = False, cost: bool = True):
     """Account one cell and, with ``run``, run it on ``device`` (None: the
     card), random weights and inputs from :data:`SEED`. The record (a
     dict) is written as JSON under ``out_dir``; an existing record is
@@ -397,7 +488,9 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str = "single", *,
     A failure raises, after the record (``ok`` false, the error) is
     written. ``mesh_kind`` is the production mesh the per-device bytes
     are counted on; ``"multi"`` (512 devices) accounts only, and ``run``
-    with it raises ``ValueError``."""
+    with it raises ``ValueError``. ``cost`` counts one step of the cell
+    (:func:`cost_cell`, on ``meta``; a ``run`` is not traced); a step the
+    count cannot run leaves ``cost_error`` in the record instead."""
     if mesh_kind not in ("single", "multi"):
         raise ValueError(f"mesh {mesh_kind!r}: 'single' or 'multi'")
     if run and mesh_kind != "single":
@@ -431,6 +524,12 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str = "single", *,
                    use_chunked_attn=cell.cfg.use_chunked_attn)
         rec.update(account(cell, device=dev if run else device,
                            mesh_kind=mesh_kind))
+        if cost:
+            try:
+                rec.update(cost_cell(cell, mesh_kind))
+            except Exception as e:     # the accounting above still holds
+                rec["cost_error"] = f"{type(e).__name__}: {e}"[:2000]
+                rec["cost_traceback"] = traceback.format_exc()[-2000:]
         if run:
             rows = batch if batch is not None else rec.get("rows_that_fit")
             if not rows:
@@ -478,6 +577,22 @@ def _line(rec: dict) -> str:
          f"row), inputs {by['inputs'] / gb:.4f}, total {by['total'] / gb:.2f}"
          f"; fits: {rec['fits']}; per device of the {rec['mesh']} mesh "
          f"{rec['per_device_bytes']['total'] / gb:.3f} GB")
+    if "cost_error" in rec:
+        s += f"; cost not counted: {rec['cost_error'][:200]}"
+    if "flops" in rec:
+        col = rec["collectives"]
+        where = ("one device of a fake " + "x".join(
+            str(v) for v in rec["cost_mesh"].values()) + " mesh"
+            if rec["cost_mesh"] else "one device")
+        s += (f"; a step on {where}: {rec['flops'] / 1e12:.3f} TFLOP "
+              f"(int {rec['flops_int'] / 1e12:.3f}, logical "
+              f"{rec['flops_logical'] / 1e12:.3f}), HBM "
+              f"{rec['bytes_hbm'] / gb:.2f} GB, collectives "
+              f"{col['total_bytes'] / gb:.3f} GB "
+              f"{ {k: int(v) for k, v in col['counts'].items() if v} }, "
+              f"kernels "
+              f"{ {k: v for k, v in rec['kernel_calls'].items() if v} } "
+              f"({rec['cost_s']:.1f} s)")
     if "run" in rec:
         s += f"; ran batch {rec['batch_run']}: {json.dumps(rec['run'])[:400]}"
     return s
@@ -503,6 +618,8 @@ def main(argv=None) -> None:
     ap.add_argument("--batch", type=int, default=None,
                     help="rows to run (default: the rows that fit)")
     ap.add_argument("--device", default=None)
+    ap.add_argument("--no-cost", action="store_true",
+                    help="leave out the step's FLOPs, bytes and collectives")
     args = ap.parse_args(argv)
 
     meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
@@ -521,7 +638,8 @@ def main(argv=None) -> None:
                                tag=args.tag, kv_bits=args.kv_bits,
                                use_chunked=not args.no_chunked,
                                remat_policy=args.remat_policy, run=args.run,
-                               batch=args.batch, device=args.device)
+                               batch=args.batch, device=args.device,
+                               cost=not args.no_cost)
             except Exception as e:
                 print(f"[dryrun] {arch}__{shape}__{mk}: FAIL "
                       f"{type(e).__name__}: {e}", flush=True)

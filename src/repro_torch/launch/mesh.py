@@ -17,10 +17,17 @@ temporary directory, a 60 s collective timeout), runs a function and
 brings its return value back; the training CLI, ``chip_smoke.py`` and the
 tests start ranks through it. A mesh of one rank can be opened in the
 caller's own process.
+
+:func:`fake_mesh` opens a mesh of any size in this one process over
+torch's fake process group (every collective returns at once, its data
+untouched): the production meshes, 256 and 512 ranks, seen from rank 0,
+for counting what one device of them does (``launch/hlo_analysis.py``,
+``launch/dryrun.py``). It computes nothing that a real mesh would.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import os
@@ -35,7 +42,7 @@ import torch
 from repro_torch.distributed.sharding import dp_axes_of
 
 __all__ = ["MESH_AXES", "AbstractMesh", "make_production_mesh",
-           "make_local_mesh", "close_local_mesh", "batch_axes",
+           "make_local_mesh", "close_local_mesh", "fake_mesh", "batch_axes",
            "backend_for", "run_ranks", "COLLECTIVE_TIMEOUT_S"]
 
 MESH_AXES = {"single": ("data", "model"), "multi": ("pod", "data", "model")}
@@ -122,6 +129,36 @@ def close_local_mesh() -> None:
     one of one rank), so a later mesh starts afresh."""
     import torch.distributed as dist
     if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def fake_mesh(shape: Tuple[int, ...], device_type: str = "cuda"):
+    """A ``DeviceMesh`` of ``shape`` ((data, model) or (pod, data,
+    model), named as the reference's) over an in-process fake process
+    group of ``prod(shape)`` ranks, this process rank 0; the group is
+    destroyed on exit. ``device_type`` ``"cuda"`` (the default: DTensor
+    then picks the collectives NCCL would run) needs no card: the ranks'
+    tensors may lie on ``meta``. Raises if a process group is open."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    # registers the "fake" backend
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    names = {2: MESH_AXES["single"], 3: MESH_AXES["multi"]}.get(len(shape))
+    if names is None:
+        raise ValueError(f"mesh shape {shape}: (data, model) or (pod, "
+                         "data, model)")
+    if dist.is_initialized():
+        raise RuntimeError("a process group is open: a fake mesh needs "
+                           "this process to itself")
+    n = 1
+    for s in shape:
+        n *= s
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    try:
+        yield init_device_mesh(device_type, tuple(shape),
+                               mesh_dim_names=names)
+    finally:
         dist.destroy_process_group()
 
 

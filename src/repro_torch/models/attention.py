@@ -450,9 +450,9 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: AttnConfig,
                          q_offset=0, window=cfg.window)
         return qdense(p["wo"], out.reshape(b, s, h * dh), policy), None
     q, k, v = qdense_shared([p["wq"], p["wk"], p["wv"]], x, policy)
-    q = q.reshape(b, s, h, dh)
-    k = k.reshape(b, s, hkv, dh)
-    v = v.reshape(b, s, hkv, dh)
+    q = placed.split_heads(q, h, dh)
+    k = placed.split_heads(k, hkv, dh)
+    v = placed.split_heads(v, hkv, dh)
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     rd = cfg.rotary_dim

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
+from repro_torch.distributed import placed
 from repro_torch.models.layers import QuantPolicy, qdense, qdense_init, rms_norm
 
 __all__ = ["SSMConfig", "ssm_init", "ssm_apply", "ssd_scan_ref",
@@ -216,7 +217,8 @@ def ssm_apply(p: dict, x: torch.Tensor, cfg: SSMConfig, policy: QuantPolicy,
     xs = conv_out[..., :di].reshape(bsz, s, cfg.n_heads, cfg.head_dim)
     bb = conv_out[..., di:di + g * n].reshape(bsz, s, g, n)
     cc = conv_out[..., di + g * n:].reshape(bsz, s, g, n)
-    dtv = F.softplus(dt + p["dt_bias"][None, None])       # float32
+    dtv = placed.elementwise(F.softplus,
+                             dt + p["dt_bias"][None, None])  # float32
     h0 = None if cache is None else cache["h"]
     with record_function("ssm.scan"):
         y, hfin = ssd_chunked(xs, dtv, p["A_log"], bb, cc, p["D"], cfg,

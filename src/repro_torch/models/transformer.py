@@ -338,6 +338,8 @@ def _draw_stack(gen: torch.Generator, cfg: ModelConfig, spec: GroupSpec,
     if gen.device.type == "meta":
         layer = _block_init(gen, cfg, spec)
         layer = _pack_tree(layer, cfg.policy) if packed else layer
+        if keep is not None:
+            layer = _keep_tree(layer, keep, prefix, spec.n)
         return _stack_into(None, layer, 0, spec.n)
     stack = None
     for i in range(spec.n):

@@ -17,8 +17,9 @@ from repro_torch.distributed.compression import (compress_tree,
 from repro_torch.distributed.context import bind_axes, constrain
 from repro_torch.distributed.sharding import (batch_pspec, distribute_tree,
                                               to_placements, tree_shardings)
+from repro_torch.launch.hlo_analysis import analyze
 from repro_torch.launch.mesh import make_local_mesh
-from repro_torch.launch.train import Trainer
+from repro_torch.launch.train import Trainer, make_train_step
 from repro_torch.models import transformer as tt
 from repro_torch.optim import AdamWConfig
 from repro_torch.optim.optimizer import reduce_gradients
@@ -106,6 +107,16 @@ def _dense(rank, inputs, mesh, out):
         out["constrain_partial"] = (str(tuple(whole.placements)),
                                     _np(whole.to_local()))
 
+    # 3 heads of 8 split over the 2-way model axis: made whole, then viewed;
+    # the gradient comes back at the input's placements
+    w = distribute_tensor(torch.arange(2 * 5 * 24.).reshape(2, 5, 24), mesh,
+                          to_placements(("data", None, "model"), mesh))
+    w.requires_grad_(True)
+    heads = placed.split_heads(w, 3, 8)
+    (g,) = torch.autograd.grad((heads * heads).sum(), w)
+    out["split_heads"] = (tuple(heads.shape), _np(placed.plain(heads)),
+                          str(tuple(g.placements)), _np(placed.plain(g)))
+
     _models(inputs, mesh, out, ["stablelm-1.6b"])
     # the chunked (online-softmax) attention on the placed params
     params_np, batch = inputs["models"]["stablelm-1.6b"]
@@ -124,6 +135,12 @@ def _dense(rank, inputs, mesh, out):
     state, losses = tr.run(3, log_every=100)
     out["train"] = (losses, [h["grad_norm"] for h in tr.history],
                     [_np(placed.plain(l)) for l in tree_leaves(state)])
+    # one more step (out of place: the state above stays), traced: this
+    # rank's collectives by kind
+    step_batch = tr.device_batch(tr.data.batch(3, TRAIN["batch_size"]))
+    with tr._step_context():
+        _, cost = analyze(make_train_step(lm, OPT), state, step_batch)
+    out["train_cost"] = (cost.collective_counts, cost.collective_bytes)
     target = tr.init_state()
     ck = CheckpointManager(inputs["ckpt_plain"])
     restored = ck.restore(ck.latest_step(), target,

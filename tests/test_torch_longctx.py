@@ -370,7 +370,8 @@ def test_dryrun_accounting_equals_reference_eval_shape(arch, tmp_path):
     key = jax.random.PRNGKey(0)
     for shape in jconfigs.get_arch(arch).shapes:
         kv = 8 if jbase.SHAPES[shape].kind == "decode" else None
-        rec = dryrun.run_cell(arch, shape, kv_bits=kv, out_dir=str(tmp_path))
+        rec = dryrun.run_cell(arch, shape, kv_bits=kv, out_dir=str(tmp_path),
+                              cost=False)
         cell = dryrun.build_cell(arch, shape, kv_bits=kv)
         s = jbase.SHAPES[shape]
         jcfg = dataclasses.replace(
@@ -404,13 +405,13 @@ def test_dryrun_refuses_a_mesh_and_takes_dots_remat(tmp_path):
         dryrun.run_cell("stablelm-1.6b", "train_4k", "multi", run=True,
                         out_dir=str(tmp_path))
     multi = dryrun.run_cell("stablelm-1.6b", "train_4k", "multi",
-                            out_dir=str(tmp_path))
+                            out_dir=str(tmp_path), cost=False)
     assert multi["ok"] and multi["per_device_bytes"]["mesh"] == {
         "pod": 2, "data": 16, "model": 16}
     assert (multi["bytes"]["total"] // 512
             <= multi["per_device_bytes"]["total"] < multi["bytes"]["total"])
     rec = dryrun.run_cell("stablelm-1.6b", "train_4k", remat_policy="dots",
-                          out_dir=str(tmp_path))
+                          out_dir=str(tmp_path), cost=False)
     assert rec["ok"] and rec["remat_policy"] == "dots"
     assert (tmp_path / "stablelm-1.6b__train_4k__single__r7__dots.json"
             ).exists()

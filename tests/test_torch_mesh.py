@@ -254,6 +254,52 @@ def test_trainer_on_mesh_equals_unsharded_trainer(mesh_run):
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
 
 
+def test_traced_mesh_step_collectives_equal_a_fake_mesh(mesh_run):
+    """One more ``Trainer`` step on each gloo rank of the 2 x 2 mesh under
+    ``launch/hlo_analysis.py``'s ``CostMode``: every rank's collective
+    counts and bytes equal those of the same step counted on rank 0 of a
+    fake 2 x 2 mesh in this process, its state and batch on ``meta``."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.distributed import placed
+    from repro_torch.distributed.sharding import batch_pspec, to_placements
+    from repro_torch.launch.dryrun import _MetaGenerator
+    from repro_torch.launch.hlo_analysis import analyze
+    from repro_torch.launch.mesh import fake_mesh
+    from repro_torch.launch.train import init_placed_params, make_train_step
+    from repro_torch.optim import adamw_init
+    _, _, res = mesh_run
+    cfg = get_arch("stablelm-1.6b").smoke
+    with fake_mesh((2, 2), device_type="cpu") as mesh:
+        params = init_placed_params(_MetaGenerator(), cfg, mesh)
+        toks = torch.empty((ranks.TRAIN["batch_size"], ranks.TRAIN["seq_len"]),
+                           dtype=torch.int64, device="meta")
+        pl = to_placements(batch_pspec(tuple(toks.shape), mesh), mesh)
+        batch = {k: distribute_tensor(toks, mesh, pl, src_data_rank=None)
+                 for k in ("tokens", "labels")}
+        with placed.mesh_context(mesh):
+            _, cost = analyze(make_train_step(cfg, ranks.OPT),
+                              {"params": params, "opt": adamw_init(params)},
+                              batch)
+    assert cost.collective_counts["all-reduce"] > 0
+    for r in res:
+        assert r["train_cost"] == (cost.collective_counts,
+                                   cost.collective_bytes)
+
+
+def test_split_heads_of_a_placed_projection(mesh_run):
+    """``placed.split_heads``: 3 heads of 8 whose 24 columns are split
+    over the 2-way ``model`` axis (DTensor cannot view them in place) are
+    made whole on ``model`` and viewed; values and the gradient equal the
+    plain reshape's, the gradient placed as the input."""
+    x = np.arange(2 * 5 * 24.).reshape(2, 5, 24).astype(np.float32)
+    for r in mesh_run[2]:
+        shape, heads, g_pl, g = r["split_heads"]
+        assert shape == (2, 5, 3, 8)
+        np.testing.assert_array_equal(heads, x.reshape(2, 5, 3, 8))
+        np.testing.assert_array_equal(g, 2 * x)
+        assert g_pl == "(Shard(dim=0), Shard(dim=2))"
+
+
 def test_elastic_restore_from_unsharded_onto_the_mesh(mesh_run):
     """A checkpoint written unsharded, restored onto the 2 x 2 mesh by
     ``tree_shardings``: placed, and equal bit for bit once gathered."""

@@ -202,7 +202,8 @@ def test_dryrun_per_device_bytes_equal_reference_specs(arch, shape,
     pf = jax.eval_shape(lambda k: jt.init_params(k, jcfg), key)
     for kind in KINDS:
         jmesh = _jmesh(kind)
-        rec = dryrun.run_cell(arch, shape, kind, out_dir=str(tmp_path))
+        rec = dryrun.run_cell(arch, shape, kind, out_dir=str(tmp_path),
+                              cost=False)
         got = rec["per_device_bytes"]
         assert got["mesh"] == make_production_mesh(
             multi_pod=kind == "multi").shape
