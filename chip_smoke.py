@@ -395,6 +395,20 @@ Phases (any failure exits non-zero and prints no result):
     card's name and power limit; (c) ``dryrun.cost_cell`` of stablelm-1.6b
     ``train_4k`` at 2 layers on a fake 16 x 16 mesh in this process (the
     card's torch): nonzero FLOPs, all-gathers and all-reduces.
+22. the tile autotuner (:func:`tuning_phase`; ``kernels/tuning.py``):
+    (a) at ResNet9 W2A2's eight convs (batch 1 and 32) and stablelm-1.6b
+    W4A8's distinct projections read from its config (M = 4, 256 and
+    32,768; K3 and K4), every candidate tile equals the plain version
+    (``torch.equal``), and the heuristic's, the analytic and the measured
+    re-rank's tiles are timed cold (``Timer``), the analytic choice's
+    ratio to the heuristic reported, not held; (b) phase 4's tuned
+    ResNet9 Program's bucket graphs (1, 8, 32) and the same Program with
+    its tiles removed each equal the plain runner, their replays timed in
+    turns, and a full-width stablelm decode step at batch 4 (168 K3)
+    equals the plain versions' logits; (c) a service warm-booted from a
+    store the phase populated enumerates no tile (0 compiles, the
+    decisions read back); (d) tiles no instantiation takes raise at
+    launch.
 
 The ``kernels`` JSON line gives, per kernel, its launches on the main
 paths (the bucketed runners' forwards and the engine's loads included:
@@ -411,7 +425,9 @@ families' runs; K4's and grouped K4's too) and phase 17's (the long-context
 cells; grouped K4's too) and phase 18's (the trained families' packed
 evaluations and ``Server`` runs) and phase 20's (the mesh run's and the
 unsharded run's packed evaluations) and phase 21's (its counted and
-profiled calls; K2's too); K1's and K2's include phase 13's
+profiled calls; K2's too) and phase 22's (the tuned bucket graphs'
+replays and the decode step; K2's too; K2, K3 and K4 add the tiles
+phase 22 held, ``tiles_held``); K1's and K2's include phase 13's
 (the warm-booted graphs' replays and the profiler's calls) and phase 19's
 (the sharded and pipelined Programs and the four-bank services' bursts;
 K1's, K3's and grouped K4's also its MoE layers); the grouped K4 entry
@@ -3576,6 +3592,264 @@ def cost_phase(dev, hp):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the tile autotuner (kernels/tuning.py) on the card
+
+TUNE_REPS = 10          # cold Timer repetitions a tile
+TUNE_TOP_K = 4          # the measured re-rank's analytic shortlist
+TUNE_BUCKETS = (1, 8, 32)
+TUNE_WALLS = 15         # replays of each bucket graph, tiled and untiled
+TUNE_PROMPT = 16        # the stablelm decode step's prefill, 4 rows
+
+
+def tuning_phase(dev, hp):
+    """Phase 22: ``kernels/tuning.py`` on the card. Helpers from ``main``:
+    ``counts``, ``reset_counts``, ``timer``, ``program`` and ``images``
+    (phase 4's tuned ResNet9 Program and its 32 images on the card),
+    ``smi``. Returns the phase's record: ``launches`` holds the main-path
+    launches of (b) (the bucket graphs' replays, the decode steps), not
+    the checks' of (a); ``tiles_held`` the tiles (a) held per kernel.
+    Raises on any failure."""
+    import dataclasses
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.compiler import executor
+    from repro_torch.configs import get_arch
+    from repro_torch.core.bitserial import plan_spec
+    from repro_torch.kernels import tile_sweep, tuning
+    from repro_torch.launch.serve import Server, resnet9_recipe
+    from repro_torch.models import transformer
+    from repro_torch.serving import InferenceService, ModelRegistry
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    out = {"shapes": []}
+    old_store = tuning.set_persistent_store(None)
+    tuning.clear_cache()
+    lm_cfg = get_arch("stablelm-1.6b").full
+    log(f"phase 22: the tile autotuner on the card ({hp.smi}): every "
+        "candidate tile of K2, K3 and K4 against its plain version at the "
+        "main paths' shapes; the heuristic's, the analytic and the measured "
+        "choice's cold times")
+
+    # (a) every candidate tile against the plain version; three times
+    held = dict.fromkeys(("K2", "K3", "K4"), 0)
+    t0 = time.perf_counter()
+    for kid, label, fn, ref, args, kw, cands, shape in tile_sweep.cases(
+            dev, np.random.default_rng(22), lm_cfg):
+        tile_sweep.check_tiles(kid, fn, ref, args, kw, cands)
+        held[kid] += len(cands)
+        ms = {}
+
+        def measure(c, fn=fn, args=args, kw=kw, ms=ms):
+            point = tuple(c.kernel_kwargs().values())
+            if point not in ms:
+                ms[point] = hp.timer(lambda: fn(*args, tile=c, **kw),
+                                     TUNE_REPS)
+            return ms[point]
+        heur = tile_sweep.heuristic_point(kid, shape)
+        enum0 = tuning.cache_info()["enumerations"]
+        if kid == "K2":
+            analytic = tuning.choose_conv_tile(**shape)
+            measured = tuning.choose_conv_tile_measured(
+                **shape, measure=measure, top_k=TUNE_TOP_K)
+        else:
+            key = dict(shape)
+            m, k, n, spec = (key.pop(x) for x in ("m", "k", "n", "spec"))
+            analytic = tuning.choose_tile(m, k, n, spec, **key)
+            measured = tuning.choose_tile_measured(
+                m, k, n, spec, measure=measure, top_k=TUNE_TOP_K, **key)
+        if analytic != cands[0]:
+            raise AssertionError(f"(a) {kid} {label}: the tuner chose "
+                                 f"{analytic}, its ranking {cands[0]}")
+        # the re-rank timed its shortlist here unless an identical shape
+        # came before (conv1 and conv2): then it is the L1's decision
+        reranked = tuning.cache_info()["enumerations"] > enum0
+        t_h = measure(tile_sweep.tile_of(kid, *heur))
+        t_a, t_m = measure(analytic), measure(measured)
+        if reranked and t_m > t_a:
+            raise AssertionError(f"(a) {kid} {label}: the measured re-rank "
+                                 f"({t_m} ms) is slower than the analytic "
+                                 f"choice ({t_a} ms)")
+        rec = {"kernel": kid, "shape": label, "tiles": len(cands),
+               "heuristic": list(heur),
+               "analytic": list(analytic.kernel_kwargs().values()),
+               "measured": list(measured.kernel_kwargs().values()),
+               "heuristic_ms": t_h, "analytic_ms": t_a, "measured_ms": t_m,
+               "reranked_here": reranked,
+               "analytic_over_heuristic": t_a / t_h,
+               "measured_over_heuristic": t_m / t_h}
+        out["shapes"].append(rec)
+        log(f"  (a) {kid} {label}: {len(cands)} tiles equal the plain "
+            f"version; heuristic {tuple(heur)} {t_h:.4f} ms, analytic "
+            f"{tuple(rec['analytic'])} {t_a:.4f} ms "
+            f"({rec['analytic_over_heuristic']:.3f}x), measured "
+            f"{tuple(rec['measured'])} {t_m:.4f} ms "
+            f"({rec['measured_over_heuristic']:.3f}x"
+            + ("" if reranked else ", an earlier identical shape's") + ")")
+        del args, kw
+    out["a_seconds"] = time.perf_counter() - t0
+    out["tiles_held"] = held
+    worst = max(out["shapes"], key=lambda r: r["analytic_over_heuristic"])
+    log(f"  (a) {sum(held.values())} tiles held ({held}) in "
+        f"{out['a_seconds']:.1f} s; the analytic choice's largest ratio to "
+        f"the heuristic {worst['analytic_over_heuristic']:.3f}x "
+        f"({worst['kernel']} {worst['shape']}), reported, not held")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the tuned ResNet9 Program's bucket graphs and a stablelm decode
+    # step against the plain path; the same Program launched untiled
+    prog = hp.program
+    packed = [st for st in prog.steps if st.kind == "conv_packed"]
+    if not all(isinstance(st.attrs.get("tile"), tuning.ConvTileConfig)
+               for st in packed):
+        raise AssertionError("(b) phase 4's Program carries no tiles")
+    untiled = dataclasses.replace(prog, steps=tuple(
+        dataclasses.replace(st, attrs={k: v for k, v in st.attrs.items()
+                                       if k != "tile"})
+        for st in prog.steps))
+    plain = executor.make_plain_runner(prog)
+    runners = {"tiled": executor.BucketedRunner(prog, max_batch=32),
+               "untiled": executor.BucketedRunner(untiled, max_batch=32)}
+    ran = dict.fromkeys(KIDS, 0)
+    out["buckets"] = {}
+    for b in TUNE_BUCKETS:
+        x = hp.images[:b]
+        with torch.no_grad():
+            want = plain(prog.params, x)
+        walls = {"tiled": [], "untiled": []}
+        for name, r in runners.items():
+            got = r(x)                      # captures the bucket's graph
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"(b) bucket {b}, {name}: the replay "
+                                     "differs from the plain path")
+        for i in range(TUNE_WALLS):
+            order = ("tiled", "untiled") if i % 2 == 0 else ("untiled",
+                                                              "tiled")
+            for name in order:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = runners[name](x)
+                torch.cuda.synchronize()
+                walls[name].append((time.perf_counter() - t0) * 1e3)
+                if not torch.equal(got, want):
+                    raise AssertionError(f"(b) bucket {b}, {name}: a "
+                                         "replay differs")
+        cap = runners["tiled"].capture_launches[(0, b)]
+        for kid in ran:
+            ran[kid] += cap[kid] * (TUNE_WALLS + 1)
+        tiles = {st.name: list(tuning.choose_conv_tile(
+            b, c.h, c.w, c.c_in, c.c_out, fh=c.fh, fw=c.fw,
+            stride=c.stride, padding=c.padding, spec=st.attrs["spec"],
+            out_bits=(st.attrs["requant_bits"] if st.attrs["out"] == "packed"
+                      else None)).kernel_kwargs().values())
+            for st in packed
+            for c in prog.cost_nodes if c.name == st.name}
+        rec = {"tiled_ms": statistics.median(walls["tiled"]),
+               "untiled_ms": statistics.median(walls["untiled"]),
+               "tiled_ms_runs": walls["tiled"],
+               "untiled_ms_runs": walls["untiled"], "tiles": tiles,
+               "launches_per_replay": cap}
+        out["buckets"][b] = rec
+        log(f"  (b) ResNet9 bucket {b}: the tuned and the untiled graphs' "
+            f"replays equal the plain path; replay {rec['tiled_ms']:.4f} ms "
+            f"tuned vs {rec['untiled_ms']:.4f} ms untiled (median of "
+            f"{TUNE_WALLS}, host clock); tiles (nt, warps) {tiles}")
+    del runners
+    srv = Server(lm_cfg, batch_slots=4, max_len=TUNE_PROMPT + 4, seed=0,
+                 device=dev)
+    toks = torch.from_numpy(np.random.default_rng(29).integers(
+        0, lm_cfg.vocab_size, (4, TUNE_PROMPT))).to(dev)
+    plain_cfg = transformer.serve_policy(srv.cfg, plain=True)
+    with torch.inference_mode():
+        logits, caches = transformer.prefill(
+            srv.params, {"tokens": toks}, srv.cfg,
+            max_len=TUNE_PROMPT + 4)
+        nxt = torch.argmax(logits, -1)[:, None]
+        steps = {}
+        for name, cfg in (("tuned", srv.cfg), ("plain", plain_cfg)):
+            before = hp.counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, _ = transformer.decode_step(srv.params, caches, nxt,
+                                            TUNE_PROMPT, cfg)
+            torch.cuda.synchronize()
+            steps[name] = (lg, (time.perf_counter() - t0) * 1e3,
+                           {k: hp.counts()[k] - before[k] for k in KIDS})
+    if not torch.equal(steps["tuned"][0], steps["plain"][0]):
+        raise AssertionError("(b) the stablelm decode step's logits differ "
+                             "from the plain path's")
+    if (steps["tuned"][2]["K3"] != 7 * lm_cfg.n_layers
+            or any(steps["plain"][2].values())):
+        raise AssertionError(f"(b) decode step launches {steps}")
+    for kid in ran:
+        ran[kid] += steps["tuned"][2][kid]
+    lm_spec = plan_spec(srv.cfg.policy.spec())
+    lm_tiles = {f"{k}->{n}": list(tuning.choose_tile(
+        4, k, n, lm_spec).kernel_kwargs().values())
+        for k, n in tile_sweep.lm_projections(lm_cfg)}
+    out["lm_decode"] = {"tuned_ms": steps["tuned"][1],
+                        "plain_ms": steps["plain"][1],
+                        "launches": steps["tuned"][2], "tiles": lm_tiles}
+    log(f"  (b) stablelm-1.6b ({lm_cfg.n_layers} layers, W4A8) decode step "
+        f"at batch 4: logits equal the plain path's; "
+        f"{steps['tuned'][1]:.1f} ms eager "
+        f"({steps['tuned'][2]['K3']} K3), plain {steps['plain'][1]:.1f} ms;"
+        f" K3 tiles at M = 4 {lm_tiles}")
+    del srv, caches, logits, steps
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) a warm boot from a store the phase populates enumerates nothing
+    store_dir = tempfile.mkdtemp(prefix="chip_smoke_tuning_")
+    try:
+        boots = []
+        for restart in (False, True):
+            tuning.clear_cache()
+            graph, calib, pol = resnet9_recipe(0, 8)
+            reg = ModelRegistry(device=dev, store=store_dir)
+            reg.register_graph(graph.name, graph, calib, pol)
+            with InferenceService(reg, max_batch=32) as svc:
+                report = svc.warm_boot()
+            torch.cuda.synchronize()
+            boots.append((report, dict(tuning.cache_info())))
+        (cold, cold_info), (warm, warm_info) = boots
+        if (warm["compiled"] or not warm["restored"]
+                or warm["bucket_compiles"] != cold["bucket_compiles"]
+                or warm_info["enumerations"] != 0
+                or warm_info["persist_hits"] < 1):
+            raise AssertionError(f"(c) warm boot: {boots}")
+        out["warm_boot"] = {"cold": cold, "cold_tuner": cold_info,
+                            "warm": warm, "warm_tuner": warm_info}
+        log(f"  (c) cold boot: {cold['compiled']} compiled, "
+            f"{cold_info['enumerations']} tiles enumerated, "
+            f"{cold['bucket_compiles']} buckets captured; warm boot from "
+            f"the store: {warm['restored']} restored, 0 compiles, "
+            f"{warm_info['enumerations']} enumerations, "
+            f"{warm_info['persist_hits']} decisions read back, "
+            f"{warm['bucket_compiles']} buckets captured")
+    finally:
+        tuning.set_persistent_store(old_store)
+        shutil.rmtree(store_dir, ignore_errors=True)
+
+    # (d) tiles no instantiation takes raise at launch
+    out["bad_tiles"] = tile_sweep.bad_tiles_raise(dev)
+    log(f"  (d) {len(out['bad_tiles'])} tiles no instantiation takes each "
+        "raised at launch: " + "; ".join(
+            s.split(":")[0] for s in out["bad_tiles"]))
+    out["launches"] = ran
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 22 in {out['seconds']:.1f} s; main-path launches {ran}")
+    return out
+
+
 def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
@@ -5831,6 +6105,9 @@ def main() -> int:
             f" and persisted a calibration ({cli_cal.ns_for():.3f} ns/cycle "
             f"at batch 32); {cli_s:.1f} s for the three")
     finally:
+        # the registries routed the tile tuner's decisions into store_dir
+        from repro_torch.kernels import tuning
+        tuning.set_persistent_store(None)
         shutil.rmtree(store_dir, ignore_errors=True)
         shutil.rmtree(cli_dir, ignore_errors=True)
     tc_launches = {k: ran13[k] + c_prof[k] for k in ("K1", "K2")}
@@ -5901,6 +6178,13 @@ def main() -> int:
     record["cost"] = cost_rec
     cost_ran = cost_rec["launches"]
 
+    # ------------- 22. the tile autotuner (kernels/tuning.py) on the card
+    tune_rec = tuning_phase(dev, types.SimpleNamespace(
+        counts=counts, reset_counts=reset_counts, timer=timer, program=prog,
+        images=x32, smi=smi))
+    record["tuning"] = tune_rec
+    tune_ran, held = tune_rec["launches"], tune_rec["tiles_held"]
+
     def total(kid, key):
         vals = [r[key] for r in rows if r["kernel"] == kid]
         return None if any(v is None for v in vals) else sum(vals)
@@ -5925,7 +6209,8 @@ def main() -> int:
                       + ds_launches["K1"] + tc_launches["K1"]
                       + tr["launches"]["K1"] + ssm_rec["launches"]["K1"]
                       + fam_ran["K1"] + long_ran["K1"] + trf_ran["K1"]
-                      + arr_ran["K1"] + mesh_ran["K1"] + cost_ran["K1"]),
+                      + arr_ran["K1"] + mesh_ran["K1"] + cost_ran["K1"]
+                      + tune_ran["K1"]),
          "engine_launches_per_captured_step": rec["step_launches"]["K1"],
          "max_abs_err": max_err["K1"],
          "ms": total("K1", "ms") + lm_step("K1", "ms", 4),
@@ -5941,7 +6226,9 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/bitserial_conv.cu",
          "replaces": "src/repro/kernels/bitserial_conv.py:153",
          "launches": (cnn_ran["K2"] + ran2["K2"] + c_tiny["K2"]
-                      + tc_launches["K2"] + arr_ran["K2"] + cost_ran["K2"]),
+                      + tc_launches["K2"] + arr_ran["K2"] + cost_ran["K2"]
+                      + tune_ran["K2"]),
+         "tiles_held": held["K2"],
          "max_abs_err": max_err["K2"],
          "ms": total("K2", "ms"), "plain_ms": total("K2", "plain_ms"),
          "bound_ms": total("K2", "bound_ms"), "bound_by": "operations",
@@ -5954,7 +6241,9 @@ def main() -> int:
                       + lm_ran["K3"] + ds_launches["K3"]
                       + tr["launches"]["K3"] + ssm_rec["launches"]["K3"]
                       + fam_ran["K3"] + long_ran["K3"] + trf_ran["K3"]
-                      + arr_ran["K3"] + mesh_ran["K3"] + cost_ran["K3"]),
+                      + arr_ran["K3"] + mesh_ran["K3"] + cost_ran["K3"]
+                      + tune_ran["K3"]),
+         "tiles_held": held["K3"],
          "engine_launches_per_captured_step": rec["step_launches"]["K3"],
          "max_abs_err": max_err["K3"],
          "ms": lm_step("K3", "ms", 4), "plain_ms": lm_step("K3", "plain_ms", 4),
@@ -5966,6 +6255,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/bitserial_matmul.py:171",
          "launches": (lm_k4[2]["K4"] + k4_run + ssm_rec["launches"]["K4"]
                       + fam_ran["K4"] + long_ran["K4"]),
+         "tiles_held": held["K4"],
          "engine_launches_per_captured_step": k4_step["K4"],
          "max_abs_err": max_err["K4"],
          "ms": lm_step("K4", "ms", 4), "plain_ms": lm_step("K4", "plain_ms", 4),

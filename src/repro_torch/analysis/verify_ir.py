@@ -6,11 +6,11 @@ re-derives everything a pass could corrupt — shapes, precision
 annotations, structural invariants — and raises :class:`VerifyError`
 carrying the *blame* (the pass that ran last, or the load site).
 :func:`verify_program` checks the lowered artifact: step I/O chaining,
-dispatchable kinds, params presence, format-planner consistency and the
-per-layer precision plan. The reference's ``tile-vmem`` check (a tuned
-tile against the TPU's VMEM budget) has no counterpart: the CUDA kernels
-take no tile choice, and a shared-memory budget for sm_90 comes with
-``kernels/tuning``.
+dispatchable kinds, params presence, format-planner consistency, the
+per-layer precision plan and, as ``tile-budget`` (the card's counterpart
+of the reference's ``tile-vmem``), each packed step's tuned tile against
+the shared-memory budget and the launch bound of the kernel instantiation
+it selects.
 """
 
 from __future__ import annotations
@@ -141,6 +141,45 @@ def verify_graph(g, *, policy=None, per_layer=None,
 _PACKED_KINDS = ("conv_packed", "gemm_packed")
 
 
+def _tile_budget(step, cost_node, budget: int, blame: str) -> None:
+    """Re-derive the step's tile through the cost model's own accounting:
+    its shared memory against the budget the tuner enumerated with, its
+    threads against the launch bound of the instantiation its plans
+    select, its rows per block whole row tiles that instantiation has."""
+    from repro_torch.core import cost_model
+
+    spec = step.attrs.get("spec")
+    tile = step.attrs.get("tile")
+    if spec is None or tile is None or cost_node is None:
+        raise VerifyError(
+            "tile-budget",
+            f"step {step.name!r} ({step.kind}) is missing its "
+            "spec/tile/cost-node linkage", blame=blame)
+    fixed = cost_model.fixed_plans(spec.a_bits, spec.w_bits, spec.a_signed,
+                                   spec.w_signed)
+    try:
+        kw = tile.kernel_kwargs()
+        nt, warps = int(kw["nt"]), int(kw["warps"])
+        bound = cost_model.launch_bound_threads(fixed, nt)
+    except (AttributeError, KeyError, TypeError, ValueError) as e:
+        raise VerifyError(
+            "tile-budget", f"step {step.name!r} ({step.kind}): tile {tile} "
+            f"names no instantiation of the kernel: {e}", blame=blame) from e
+    used = (cost_model.conv_kernel_smem_bytes(nt)
+            if step.kind == "conv_packed" else cost_model.kernel_smem_bytes(nt))
+    if used > budget:
+        raise VerifyError(
+            "tile-budget",
+            f"step {step.name!r} ({step.kind}): tile {tile} needs {used} B "
+            f"of shared memory, over the {budget} B budget", blame=blame)
+    if not 1 <= 32 * warps <= bound:
+        raise VerifyError(
+            "tile-budget",
+            f"step {step.name!r} ({step.kind}): tile {tile} launches "
+            f"{32 * warps} threads a block, the instantiation's launch "
+            f"bound is {bound}", blame=blame)
+
+
 def verify_program(program, *, site: str = "post_lowering") -> None:
     """Post-lowering checks on a compiled / deserialized ``Program``.
 
@@ -156,9 +195,16 @@ def verify_program(program, *, site: str = "post_lowering") -> None:
       input, their declared out-kind matches the planned format, and the
       program output is host-readable float;
     * ``precision-range`` / ``precision-spec`` — ``per_layer_bits`` are in
-      [1, 8] and agree with each packed step's planned ``SerialSpec``.
+      [1, 8] and agree with each packed step's planned ``SerialSpec``;
+    * ``tile-budget`` — each packed step's tuned tile fits the shared
+      memory budget and its instantiation's launch bound (re-derived via
+      :mod:`repro_torch.core.cost_model`). A Program whose packed steps
+      carry no tile at all (a store the reference wrote: its steps launch
+      the kernels' heuristic) has none to check; one that tiles some steps
+      and not others is blamed.
     """
     from repro_torch.compiler.executor import _APPLY
+    from repro_torch.core import cost_model
 
     defined = {program.input_name}
     for step in program.steps:
@@ -241,9 +287,13 @@ def verify_program(program, *, site: str = "post_lowering") -> None:
                 f"per_layer_bits[{name!r}] = A{ab}/W{wb} out of [1, 8]",
                 blame=name)
 
-    for step in program.steps:
-        if step.kind not in _PACKED_KINDS:
-            continue
+    packed = [st for st in program.steps if st.kind in _PACKED_KINDS]
+    tiled = any("tile" in st.attrs for st in packed)
+    budget = cost_model.smem_budget_bytes()
+    cost_by_name = {c.name: c for c in (program.cost_nodes or [])}
+    for step in packed:
+        if tiled:
+            _tile_budget(step, cost_by_name.get(step.name), budget, step.name)
         bits = (program.per_layer_bits or {}).get(step.name)
         spec = step.attrs.get("spec")
         if bits is not None and spec is not None and (

@@ -39,10 +39,16 @@ stream": the *artifact* is the shippable object, not the compiler run.
   refs (``model@precision``) so a fleet process can register artifacts by
   name with no compile recipe at all.
 
-The reference's TPU tile choices (step attrs ``tile``, ``meta["tiles"]``)
-are decoded and dropped at load: the CUDA kernels take no tile sizes.
-Persisted calibrations (:mod:`repro_torch.obs.calibrate`) live in the
-store under ``tuning/``.
+Tiles: the port's tuned tiles (:mod:`repro_torch.kernels.tuning`'s
+``TileConfig``/``ConvTileConfig`` in step attrs ``tile`` and
+``meta["tiles"]``) round-trip under markers of their own
+(``__h100tile__``/``__h100convtile__``). The reference's TPU tiles (a
+``tile`` dict of VMEM blocks, ``__tile__``/``__convtile__`` in
+``meta["tiles"]``) are decoded and dropped at load: its steps launch the
+kernels' own heuristic. The store's ``tuning/`` holds the tuner's
+decisions (kinds ``tile``, ``conv_tile``, ``tile_measured``,
+``conv_tile_measured``; :func:`repro_torch.kernels.tuning.set_persistent_store`)
+and persisted calibrations (:mod:`repro_torch.obs.calibrate`).
 """
 
 from __future__ import annotations
@@ -124,9 +130,15 @@ class ConvTileConfig:
     vmem_bytes: int = 0
 
 
+def _port_tile(v) -> bool:
+    from repro_torch.kernels import tuning
+    return isinstance(v, (tuning.TileConfig, tuning.ConvTileConfig))
+
+
 def _enc(v):
     from repro_torch.compiler.lower import LoweredConv, LoweredGemm
     from repro_torch.core.bitserial import SerialSpec
+    from repro_torch.kernels import tuning
     if v is None or isinstance(v, (bool, int, float, str)):
         return v
     if isinstance(v, (np.integer,)):
@@ -141,6 +153,10 @@ def _enc(v):
         return {str(k): _enc(x) for k, x in v.items()}
     if isinstance(v, SerialSpec):
         return {"__serialspec__": dataclasses.asdict(v)}
+    if isinstance(v, tuning.TileConfig):
+        return {"__h100tile__": dataclasses.asdict(v)}
+    if isinstance(v, tuning.ConvTileConfig):
+        return {"__h100convtile__": dataclasses.asdict(v)}
     if isinstance(v, TileConfig):
         return {"__tile__": dataclasses.asdict(v)}
     if isinstance(v, ConvTileConfig):
@@ -155,6 +171,7 @@ def _enc(v):
 def _dec(v):
     from repro_torch.compiler.lower import LoweredConv, LoweredGemm
     from repro_torch.core.bitserial import SerialSpec
+    from repro_torch.kernels import tuning
     if isinstance(v, list):
         return [_dec(x) for x in v]
     if isinstance(v, dict):
@@ -162,6 +179,10 @@ def _dec(v):
             return tuple(_dec(x) for x in v["__t__"])
         if "__serialspec__" in v:
             return SerialSpec(**v["__serialspec__"])
+        if "__h100tile__" in v:
+            return tuning.TileConfig(**v["__h100tile__"])
+        if "__h100convtile__" in v:
+            return tuning.ConvTileConfig(**v["__h100convtile__"])
         if "__tile__" in v:
             return TileConfig(**v["__tile__"])
         if "__convtile__" in v:
@@ -211,7 +232,8 @@ class ArtifactStore:
         blobs/<sha256>.npy       array blobs (packed planes, scalers, ...)
         programs/<sha256>.json   program manifests (format/version header)
         refs/<name>              name/recipe tag -> program ref
-        tuning/<sha1>.json       persisted records (calibrations)
+        tuning/<sha1>.json       persisted records (tuned tiles,
+                                 calibrations)
 
     Writes are append-only: blobs are never deleted by normal operation,
     so evicting a resident Program (or dropping a whole registry) can
@@ -491,7 +513,7 @@ class ArtifactStore:
         return os.path.join(self.root, "tuning", f"{h}.json")
 
     def tuning_put(self, key_repr: str, kind: str, payload: Dict) -> None:
-        """Persist one keyed record (e.g. a calibration)."""
+        """Persist one keyed record (a tuned tile, a calibration)."""
         self._atomic_write(
             self._tuning_path(key_repr),
             json.dumps({"key": key_repr, "kind": kind,
@@ -683,12 +705,16 @@ def load_program(ref_or_name: str, store: ArtifactStore, *, device=None):
     steps = []
     for s in manifest["steps"]:
         attrs = _dec(s["attrs"])
-        attrs.pop("tile", None)          # TPU VMEM tiling: not carried
+        if not _port_tile(attrs.get("tile")):
+            attrs.pop("tile", None)      # the reference's VMEM blocks
         steps.append(Step(name=s["name"], kind=s["kind"],
                           inputs=tuple(s["inputs"]), output=s["output"],
                           attrs=attrs))
     meta = _dec(manifest["meta"])
-    meta.pop("tiles", None)
+    tiles = {k: t for k, t in (meta.pop("tiles", None) or {}).items()
+             if _port_tile(t)}
+    if tiles:
+        meta["tiles"] = tiles
     program = Program(
         graph_name=manifest["graph_name"], steps=tuple(steps),
         params=params, input_name=manifest["input_name"],

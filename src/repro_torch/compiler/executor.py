@@ -5,7 +5,12 @@ Counterpart of ``repro/compiler/executor.py``. Each step kind maps to one
 dispatch function. The packed steps go through :mod:`repro_torch.kernels.ops`,
 which picks the CUDA kernel or its plain version by the tensor's device, so
 one Program runs on the card or on the CPU unchanged. ``conv_packed`` steps
-run K2 and ``gemm_packed`` steps K3.
+run K2 and ``gemm_packed`` steps K3. A step that carries a ``tile`` (the
+compiler tuned it at the calibration batch) launches the tuner's choice
+for the shape it actually runs at (:mod:`repro_torch.kernels.tuning`,
+memoized: at a padding bucket the eager pass before the capture decides
+it, and the graph replays it); a step without one, such as a step of a
+store the reference wrote, launches the kernel's own heuristic.
 
 PyTorch runs eagerly; the counterpart of the reference's jitted executable
 per padding bucket is :class:`BucketedRunner`'s CUDA graph per bucket,
@@ -28,7 +33,7 @@ import torch
 
 from repro_torch.core.pipeline_modules import host_conv2d, maxpool_relu
 from repro_torch.core.quant import QuantSpec, quantize_int
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, tuning
 from repro_torch.kernels.bitserial_conv import bitserial_conv2d_ref
 from repro_torch.kernels.quantize_pack import pack_codes_ref, quantize_pack_ref
 from repro_torch.obs.metrics import MetricsRegistry
@@ -44,6 +49,12 @@ def _requant_spec(attrs) -> Optional[QuantSpec]:
     return None
 
 
+def _tile(st):
+    """None (the tuner, for the call's own shape) for a tuned step, the
+    kernel's heuristic for a step with no tile."""
+    return None if "tile" in st.attrs else tuning.HEURISTIC
+
+
 def _conv_packed(st, p, x, conv=ops.serial_conv2d_packed_op):
     return conv(
         x, p["w_packed"], p["scale"], p.get("bias"),
@@ -51,7 +62,7 @@ def _conv_packed(st, p, x, conv=ops.serial_conv2d_packed_op):
         padding=st.attrs["padding"], relu=st.attrs["relu"],
         requant=_requant_spec(st.attrs),
         requant_scale=p.get("requant_scale"),
-        emit_packed=st.attrs["out"] == "packed")
+        emit_packed=st.attrs["out"] == "packed", tile=_tile(st))
 
 
 def _gemm_packed(st, p, x, plain=False):
@@ -60,7 +71,8 @@ def _gemm_packed(st, p, x, plain=False):
         spec=st.attrs["spec"], k=st.attrs["k"], relu=st.attrs["relu"],
         requant=_requant_spec(st.attrs),
         requant_scale=p.get("requant_scale"),
-        emit_packed=st.attrs["out"] == "packed", plain=plain)
+        emit_packed=st.attrs["out"] == "packed", plain=plain,
+        tile=_tile(st))
 
 
 def _affine(st, p, y):

@@ -11,10 +11,12 @@ records each compute node's geometry (:class:`LoweredConv` /
 :class:`LoweredGemm`) for the code generator: :meth:`Program.to_command_stream`
 lowers any compiled Program to the paper's
 :class:`~repro_torch.core.codegen.CommandStream`, which the serving
-scheduler books on the barrel controller. With ``REPRO_VERIFY`` set the
-lowered Program is checked by the post-lowering verifier. The reference's
-tile autotuning is not ported: tiles are TPU VMEM choices and the CUDA
-kernels take none.
+scheduler books on the barrel controller. Each packed step records the
+tile :mod:`repro_torch.kernels.tuning` picks for it at the calibration
+batch (step attr ``tile``, and ``meta["tiles"]``), as the reference's
+lowering does; the executor launches the tuner's choice for each batch
+it runs at. With ``REPRO_VERIFY`` set the lowered Program is checked by
+the post-lowering verifier (``tile-budget`` among its checks).
 
 :func:`program_from_numpy` builds a Program from a record shaped like the
 reference's artifact manifest, so a Program lowered by the reference runs
@@ -38,6 +40,7 @@ from repro_torch.core.bitserial import (SerialSpec, plan_spec, serial_conv2d,
 from repro_torch.core.pipeline_modules import host_conv2d, maxpool_relu
 from repro_torch.core.quant import (QuantSpec, init_alpha, pack_conv_weights,
                                     pack_weights, quantize_int)
+from repro_torch.kernels import tuning
 from repro_torch.models.layers import QuantPolicy
 
 __all__ = ["Step", "Program", "compile_graph", "program_from_numpy",
@@ -350,7 +353,7 @@ def compile_graph(g: Graph, calib, *, policy: Optional[QuantPolicy] = None,
     params: Dict[str, Dict] = {}
     cost_nodes: List = []
     per_layer_bits: Dict[str, Tuple[int, int]] = {}
-    meta: Dict = {"formats": {},
+    meta: Dict = {"formats": {}, "tiles": {},
                   "input_shape": tuple(int(d) for d in calib.shape[1:]),
                   "calib_batch": int(calib.shape[0]),
                   "policy": dataclasses.asdict(policy)}
@@ -466,11 +469,21 @@ def compile_graph(g: Graph, calib, *, policy: Optional[QuantPolicy] = None,
             params[n.name] = p
             attrs = {"spec": spec, "relu": relu, "out": out_kind,
                      "requant_bits": rq_bits, "requant_signed": rq_signed}
+            out_bits = rq_bits if out_kind == "packed" else None
+            n_calib = int(calib.shape[0])
             if conv:
-                attrs.update(ci=wt.shape[2], stride=n.attrs.get("stride", 1),
-                             padding=n.attrs.get("padding", 1))
+                st, pd = n.attrs.get("stride", 1), n.attrs.get("padding", 1)
+                attrs.update(ci=wt.shape[2], stride=st, padding=pd)
+                tile = tuning.choose_conv_tile(
+                    n_calib, xshape[1], xshape[2], ci, co, fh=fh, fw=fw_,
+                    stride=st, padding=pd, spec=spec, out_bits=out_bits)
             else:
                 attrs["k"] = wt.shape[0]
+                m = int(np.prod([d or n_calib for d in xshape[:-1]]))
+                tile = tuning.choose_tile(m, wt.shape[0], co, spec,
+                                          out_bits=out_bits)
+            attrs["tile"] = tile
+            meta["tiles"][n.name] = tile
             steps.append(Step(n.name, "conv_packed" if conv else "gemm_packed",
                               (tin,), n.output, attrs))
             fmt[n.output] = out_fmt
@@ -562,8 +575,9 @@ def program_from_numpy(record: Dict, device=None) -> Program:
     code generator's nodes, so the Program lowers to the reference's
     command stream.
 
-    The step attrs' ``tile`` (the reference's TPU VMEM tiling) is dropped:
-    the CUDA kernels take no tile sizes.
+    The step attrs' ``tile`` (the reference's TPU VMEM blocks) is dropped:
+    it names no tile of the CUDA kernels, so the steps launch the kernels'
+    own heuristic.
     """
     device = resolve_device(device)
     steps = []

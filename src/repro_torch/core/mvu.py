@@ -8,7 +8,7 @@ drive the cycle model:
 
 * :mod:`repro_torch.core.cost_model` — cycle counts (paper Table 3/5/6),
 * :mod:`repro_torch.core.codegen`   — the command stream emitted for the
-  controller (the controller's simulation is not ported yet).
+  controller, which :mod:`repro_torch.runtime.controller` simulates.
 
 The port's copy of ``repro/core/mvu.py`` (pure Python, no torch).
 """

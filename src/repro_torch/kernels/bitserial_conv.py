@@ -11,6 +11,10 @@ tensor gets the kernel wrapper's checks and output shape, no launch) and
 counts as one op of an active
 :class:`~repro_torch.launch.hlo_analysis.CostMode`.
 
+``tile=`` (output pixels per block and K-split warps,
+:mod:`repro_torch.kernels.tuning`) sets the kernel's launch shape; None is
+its own heuristic. The result does not depend on it.
+
 Output modes: float32 ``(N, Ho, Wo, Co)``; requantized codes ``(N, Ho, Wo,
 Co)`` (int8 for ``requant.bits <= 8``, else int32); or, with
 ``emit_packed``, ``(requant.bits, N, Ho, Wo, ceil(Co/32))`` int32 words —
@@ -28,6 +32,7 @@ from repro_torch.core.bitserial import (SerialSpec, conv_out_hw,
                                         serial_conv2d_packed_acts)
 from repro_torch.core.quant import QuantSpec, qrange
 from repro_torch.kernels._build import I, Kernel, P
+from repro_torch.kernels.tuning import launch_args
 from repro_torch.launch import hlo_analysis as cost
 from repro_torch.kernels.epilogue import (CODES8, CODES32, FLOAT, PACKED,
                                           check_operand, codes_dtype,
@@ -38,7 +43,7 @@ __all__ = ["KERNEL", "bitserial_conv2d", "bitserial_conv2d_ref",
            "bitserial_conv2d_cuda", "epilogue"]
 
 KERNEL = Kernel("bitserial_conv", {
-    "bitserial_conv2d": (P,) * 6 + (I,) * 22 + (P,),
+    "bitserial_conv2d": (P,) * 6 + (I,) * 24 + (P,),
 })
 
 
@@ -49,8 +54,10 @@ def bitserial_conv2d_ref(x_packed: torch.Tensor, w_packed: torch.Tensor,
                          padding: int = 1, relu: bool = False,
                          requant: Optional[QuantSpec] = None,
                          requant_scale=None,
-                         emit_packed: bool = False) -> torch.Tensor:
-    """Plain version of K2, on any device."""
+                         emit_packed: bool = False,
+                         tile=None) -> torch.Tensor:
+    """Plain version of K2, on any device; ``tile`` is ignored (the result
+    does not depend on it)."""
     if emit_packed and requant is None:
         raise ValueError("emit_packed requires requant")
     acc = serial_conv2d_packed_acts(x_packed, w_packed, spec=spec, ci=ci,
@@ -71,8 +78,14 @@ def bitserial_conv2d_cuda(x_packed: torch.Tensor, w_packed: torch.Tensor,
                           padding: int = 1, relu: bool = False,
                           requant: Optional[QuantSpec] = None,
                           requant_scale=None,
-                          emit_packed: bool = False) -> torch.Tensor:
-    """Launch K2 on CUDA tensors (same contract as the plain version)."""
+                          emit_packed: bool = False,
+                          tile=None) -> torch.Tensor:
+    """Launch K2 on CUDA tensors (same contract as the plain version).
+
+    ``tile``: a :class:`~repro_torch.kernels.tuning.ConvTileConfig`
+    (output pixels per block and K-split warps), or None for the kernel's
+    own heuristic; a tile the instantiation does not take raises at
+    launch."""
     if emit_packed and requant is None:
         raise ValueError("emit_packed requires requant")
     dev = x_packed.device
@@ -126,7 +139,7 @@ def bitserial_conv2d_cuda(x_packed: torch.Tensor, w_packed: torch.Tensor,
         spec.a_bits, spec.w_bits, int(spec.a_signed), int(spec.w_signed),
         bitops.kernel_digits(spec.a_bits, spec.a_signed),
         bitops.kernel_digits(spec.w_bits, spec.w_signed),
-        int(relu), mode, rq_bits, qn, qp, stream)
+        int(relu), mode, rq_bits, qn, qp, *launch_args(tile), stream)
     return out
 
 

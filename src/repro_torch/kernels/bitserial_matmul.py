@@ -42,6 +42,8 @@ tile (``csrc/digits.cuh``, shared with K2) fed by two activation sources:
 :func:`bitserial_matmul_grouped` dispatch on the tensor's device: the
 plain version for a CPU tensor, the kernel for a CUDA tensor, the kernel
 wrapper's checks and output shape for a ``meta`` tensor (no launch).
+K3 and K4 take ``tile=`` (rows per block and K-split warps,
+:mod:`repro_torch.kernels.tuning`); None is the kernel's own heuristic.
 Each counts as one op of an active
 :class:`~repro_torch.launch.hlo_analysis.CostMode`, with its work:
 2·M·N·K times both operands' ``kernel_digits`` integer FLOPs. Both
@@ -60,6 +62,7 @@ from repro_torch.core.bitserial import (SerialSpec, serial_matmul_packed,
                                         serial_matmul_packed_acts)
 from repro_torch.core.quant import QuantSpec, qrange
 from repro_torch.kernels._build import I, Kernel, P
+from repro_torch.kernels.tuning import launch_args
 from repro_torch.launch import hlo_analysis as cost
 from repro_torch.kernels.epilogue import (CODES8, CODES32, FLOAT, PACKED,
                                           check_operand, codes_dtype,
@@ -74,8 +77,8 @@ __all__ = ["KERNEL", "GROUPED", "bitserial_matmul_v2",
            "bitserial_matmul_grouped_cuda"]
 
 KERNEL = Kernel("bitserial_matmul", {
-    "bitserial_matmul_v2": (P,) * 6 + (I,) * 14 + (P,),
-    "bitserial_matmul_v1": (P,) * 5 + (I,) * 14 + (P,),
+    "bitserial_matmul_v2": (P,) * 6 + (I,) * 16 + (P,),
+    "bitserial_matmul_v1": (P,) * 5 + (I,) * 16 + (P,),
 })
 GROUPED = Kernel("grouped_matmul", {
     "bitserial_matmul_v1_grouped": (P,) * 3 + (I,) * 10 + (P,),
@@ -92,8 +95,10 @@ def bitserial_matmul_v2_ref(x_packed: torch.Tensor, w_packed: torch.Tensor,
                             spec: SerialSpec, k: int, relu: bool = False,
                             requant: Optional[QuantSpec] = None,
                             requant_scale=None,
-                            emit_packed: bool = False) -> torch.Tensor:
-    """Plain version of K3, on any device."""
+                            emit_packed: bool = False,
+                            tile=None) -> torch.Tensor:
+    """Plain version of K3, on any device; ``tile`` is ignored (the result
+    does not depend on it)."""
     if emit_packed and requant is None:
         raise ValueError("emit_packed requires requant")
     acc = serial_matmul_packed_acts(x_packed, w_packed, spec=spec, k=k)
@@ -106,8 +111,9 @@ def bitserial_matmul_ref(x: torch.Tensor, w_packed: torch.Tensor,
                          bias: Optional[torch.Tensor] = None, *,
                          spec: SerialSpec, k: int, relu: bool = False,
                          out_dtype: torch.dtype = torch.float32,
-                         requant: Optional[QuantSpec] = None) -> torch.Tensor:
-    """Plain version of K4, on any device."""
+                         requant: Optional[QuantSpec] = None,
+                         tile=None) -> torch.Tensor:
+    """Plain version of K4, on any device; ``tile`` is ignored."""
     if x.shape[-1] != k:
         raise ValueError(f"x has K={x.shape[-1]}, caller declared k={k}")
     acc = serial_matmul_packed(x.to(torch.int32), w_packed, spec=spec, k=k)
@@ -158,8 +164,13 @@ def bitserial_matmul_v2_cuda(x_packed: torch.Tensor, w_packed: torch.Tensor,
                              spec: SerialSpec, k: int, relu: bool = False,
                              requant: Optional[QuantSpec] = None,
                              requant_scale=None,
-                             emit_packed: bool = False) -> torch.Tensor:
-    """Launch K3 on CUDA tensors (same contract as the plain version)."""
+                             emit_packed: bool = False,
+                             tile=None) -> torch.Tensor:
+    """Launch K3 on CUDA tensors (same contract as the plain version).
+
+    ``tile``: a :class:`~repro_torch.kernels.tuning.TileConfig` (rows per
+    block and K-split warps), or None for the kernel's own heuristic; a
+    tile the instantiation does not take raises at launch."""
     fn = "bitserial_matmul_v2"
     if emit_packed and requant is None:
         raise ValueError("emit_packed requires requant")
@@ -203,7 +214,7 @@ def bitserial_matmul_v2_cuda(x_packed: torch.Tensor, w_packed: torch.Tensor,
         spec.a_bits, spec.w_bits, int(spec.a_signed), int(spec.w_signed),
         bitops.kernel_digits(spec.a_bits, spec.a_signed),
         bitops.kernel_digits(spec.w_bits, spec.w_signed),
-        int(relu), mode, rq_bits, qn, qp, stream)
+        int(relu), mode, rq_bits, qn, qp, *launch_args(tile), stream)
     return out
 
 
@@ -212,9 +223,10 @@ def bitserial_matmul_cuda(x: torch.Tensor, w_packed: torch.Tensor,
                           bias: Optional[torch.Tensor] = None, *,
                           spec: SerialSpec, k: int, relu: bool = False,
                           out_dtype: torch.dtype = torch.float32,
-                          requant: Optional[QuantSpec] = None) -> torch.Tensor:
+                          requant: Optional[QuantSpec] = None,
+                          tile=None) -> torch.Tensor:
     """Launch K4 on a CUDA ``(M, K)`` int32 code tensor (same contract as
-    the plain version)."""
+    the plain version; ``tile`` as K3's)."""
     fn = "bitserial_matmul"
     dev = x.device
     check_operand(fn, "x", x, torch.int32, 2, dev)
@@ -242,7 +254,7 @@ def bitserial_matmul_cuda(x: torch.Tensor, w_packed: torch.Tensor,
             int(spec.a_signed), int(spec.w_signed),
             bitops.kernel_digits(spec.a_bits, spec.a_signed),
             bitops.kernel_digits(spec.w_bits, spec.w_signed),
-            int(relu), mode, rq_bits, qn, qp, stream)
+            int(relu), mode, rq_bits, qn, qp, *launch_args(tile), stream)
     if requant is not None and requant.bits <= 8:
         return out
     return out.to(out_dtype)

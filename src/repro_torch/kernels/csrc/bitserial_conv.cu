@@ -140,19 +140,19 @@ bitserial_conv2d_kernel(const ConvArgs p) {
 
 template <class OpA, class OpW, int NT>
 struct Run {
-  static void go(const ConvArgs& p, cudaStream_t stream) {
+  static void go(const ConvArgs& p, int warps, cudaStream_t stream) {
     const long long pixels = (long long)p.n * p.ho * p.wo;
     dim3 grid((unsigned int)((pixels + 8 * NT - 1) / (8 * NT)),
               (unsigned int)((p.wt.cols + 31) / 32));
-    const int warps =
-        dig::warps_for(p.wt.words, dig::max_warps<OpA, OpW, NT>());
     bitserial_conv2d_kernel<OpA, OpW, NT><<<grid, warps * 32, 0, stream>>>(p);
   }
 };
 
 }  // namespace
 
-// nd_a and nd_w are the operands' digit counts (bitops.kernel_digits).
+// nd_a and nd_w are the operands' digit counts (bitops.kernel_digits); nt
+// output-pixel tiles of 8 and warps K-split warps a block are the tile (0:
+// the heuristic's; dig::dispatch).
 extern "C" int bitserial_conv2d(const void* x, const void* w, const void* scale,
                                 const void* bias, const void* rs, void* out,
                                 int n, int h, int wd, int ci, int co, int fh,
@@ -160,7 +160,7 @@ extern "C" int bitserial_conv2d(const void* x, const void* w, const void* scale,
                                 int a_bits, int w_bits, int a_signed,
                                 int w_signed, int nd_a, int nd_w, int relu,
                                 int out_mode, int rq_bits, int qn, int qp,
-                                void* stream) {
+                                int nt, int warps, void* stream) {
   if (a_bits < 1 || a_bits > dig::kMaxBits || w_bits < 1 ||
       w_bits > dig::kMaxBits || nd_a < 1 || nd_a > 3 || nd_w < 1 || nd_w > 3)
     return (int)cudaErrorInvalidValue;
@@ -176,7 +176,8 @@ extern "C" int bitserial_conv2d(const void* x, const void* w, const void* scale,
   p.stride = stride; p.pad = pad; p.ho = ho; p.wo = wo;
   p.e = epi::make(scale, bias, rs, out, relu, out_mode, rq_bits, qn, qp);
   const long long pixels = (long long)n * ho * wo;
-  if (pixels > 0 && co > 0)
-    dig::dispatch<Run>(p, p.ap, p.wt.plan, pixels, co, (cudaStream_t)stream);
+  const int rc = dig::dispatch<Run>(p, p.ap, p.wt.plan, pixels, co, nt, warps,
+                                    (cudaStream_t)stream);
+  if (rc != (int)cudaSuccess) return rc;
   return (int)cudaGetLastError();
 }

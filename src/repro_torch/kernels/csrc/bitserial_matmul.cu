@@ -93,25 +93,25 @@ template <bool kCodes>
 struct Gemm {
   template <class OpA, class OpW, int NT>
   struct Run {
-    static void go(const GemmArgs& p, cudaStream_t stream) {
+    static void go(const GemmArgs& p, int warps, cudaStream_t stream) {
       dim3 grid((unsigned int)((p.m + 8 * NT - 1) / (8 * NT)),
                 (unsigned int)((p.wt.cols + 31) / 32));
-      const int warps =
-          dig::warps_for(p.wt.words, dig::max_warps<OpA, OpW, NT>());
       bitserial_gemm_kernel<kCodes, OpA, OpW, NT>
           <<<grid, warps * 32, 0, stream>>>(p);
     }
   };
 };
 
-// Checks the plans, fills the arguments and launches K3 (kCodes false) or
-// K4; returns cudaGetLastError().
+// Checks the plans and the tile, fills the arguments and launches K3
+// (kCodes false) or K4 with `nt` row tiles and `warps` K-split warps a
+// block (0: the heuristic's; dig::dispatch); returns cudaGetLastError(),
+// or cudaErrorInvalidValue for a plan or tile out of range.
 template <bool kCodes>
 int launch(const void* x, const void* w, const void* scale, const void* bias,
            const void* rs, void* out, int m, int k, int n, int a_bits,
            int w_bits, int a_signed, int w_signed, int nd_a, int nd_w,
-           int relu, int out_mode, int rq_bits, int qn, int qp,
-           void* stream) {
+           int relu, int out_mode, int rq_bits, int qn, int qp, int nt,
+           int warps, void* stream) {
   if (a_bits < 1 || a_bits > dig::kMaxBits || w_bits < 1 ||
       w_bits > dig::kMaxBits || nd_a < 1 || nd_a > 3 || nd_w < 1 || nd_w > 3)
     return (int)cudaErrorInvalidValue;
@@ -125,37 +125,39 @@ int launch(const void* x, const void* w, const void* scale, const void* bias,
   p.m = m;
   p.k = k;
   p.e = epi::make(scale, bias, rs, out, relu, out_mode, rq_bits, qn, qp);
-  if (m > 0 && n > 0)
-    dig::dispatch<Gemm<kCodes>::template Run>(p, p.ap, p.wt.plan, m, n,
-                                              (cudaStream_t)stream);
+  const int rc = dig::dispatch<Gemm<kCodes>::template Run>(
+      p, p.ap, p.wt.plan, m, n, nt, warps, (cudaStream_t)stream);
+  if (rc != (int)cudaSuccess) return rc;
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // K3: packed activations (a_bits, M, ceil(K/32)) x packed weights; nd_a and
-// nd_w are the operands' digit counts (bitops.kernel_digits).
+// nd_w are the operands' digit counts (bitops.kernel_digits); nt and warps
+// the tile (0: the heuristic's).
 extern "C" int bitserial_matmul_v2(const void* x, const void* w,
                                    const void* scale, const void* bias,
                                    const void* rs, void* out, int m, int k,
                                    int n, int a_bits, int w_bits, int a_signed,
                                    int w_signed, int nd_a, int nd_w, int relu,
                                    int out_mode, int rq_bits, int qn, int qp,
-                                   void* stream) {
+                                   int nt, int warps, void* stream) {
   return launch<false>(x, w, scale, bias, rs, out, m, k, n, a_bits, w_bits,
                        a_signed, w_signed, nd_a, nd_w, relu, out_mode,
-                       rq_bits, qn, qp, stream);
+                       rq_bits, qn, qp, nt, warps, stream);
 }
 
 // K4: int32 codes (M, K) x packed weights; no requant divide (scale folds
-// the step).
+// the step); nt and warps as K3's.
 extern "C" int bitserial_matmul_v1(const void* x, const void* w,
                                    const void* scale, const void* bias,
                                    void* out, int m, int k, int n, int a_bits,
                                    int w_bits, int a_signed, int w_signed,
                                    int nd_a, int nd_w, int relu, int out_mode,
-                                   int rq_bits, int qn, int qp, void* stream) {
+                                   int rq_bits, int qn, int qp, int nt,
+                                   int warps, void* stream) {
   return launch<true>(x, w, scale, bias, nullptr, out, m, k, n, a_bits,
                       w_bits, a_signed, w_signed, nd_a, nd_w, relu, out_mode,
-                      rq_bits, qn, qp, stream);
+                      rq_bits, qn, qp, nt, warps, stream);
 }

@@ -45,9 +45,11 @@
 // * Tiles. Weights are the A operand (m16: 16 output columns), activation
 //   rows the B operand (n8: 8 rows), so at decode (M = 4) one read of each
 //   weight word serves every row. A block owns 32 columns x 8 NT rows
-//   (NT = 4, 2 or 1: the most that leaves about two blocks per SM) and
-//   splits the K words over its warps, about kWordsPerWarp each (word
-//   kw goes to warp kw % warps); each warp runs 2 x NT mma tiles per digit
+//   (NT = 4, 2 or 1) and splits the K words over its warps (word kw goes
+//   to warp kw % warps). The caller's tile sets NT and the warps
+//   (kernels/tuning.py); given none, the heuristic takes the largest NT
+//   that leaves about two blocks per SM and about kWordsPerWarp words a
+//   warp (dispatch). Each warp runs 2 x NT mma tiles per digit
 //   pair and word. Every load of a word is issued before its first use:
 //   the weights' and the source's load steps issue them all, and only then
 //   are digits built. The main paths' operands (W2A2, W4A8) get
@@ -79,8 +81,9 @@ constexpr int kRowStride = 36;     // uint32 words per staged tile row
 constexpr int kMaxBits = 16;       // the MVU's operand range
 constexpr uint32_t kBytes = 0x01010101u;
 
-// Tile sizes (chosen on an H100 at ResNet9's and stablelm-1.6b's shapes;
-// PERF.md gives the sweep).
+// The heuristic's tile sizes (chosen on an H100 at ResNet9's and
+// stablelm-1.6b's shapes; PERF.md gives the sweep). A caller may pass its
+// own tile instead (dispatch's nt and warps: kernels/tuning.py's choice).
 constexpr int kWarpsNT4 = 4;      // K-split warps of a 4-row-tile block, most
 constexpr int kMinBlocksNT4 = 4;  // its blocks per SM (launch bound)
 constexpr int kWordsPerWarp = 4;  // K words per warp the split aims at
@@ -461,28 +464,53 @@ inline int nt_for(long long rows, int cols) {
   return nt;
 }
 
-// Picks the kernel instantiation for the plans and the shape and launches
-// it through `Run<OpA, OpW, NT>::go(args, stream)` (K2, K3 and K4 each
-// define their Run): the main paths' W2A2 and W4A8 get their fixed-plane
-// code, anything else Any.
+// Launches one instantiation with `warps` K-split warps (0: warps_for's
+// choice); cudaErrorInvalidValue when `warps` is outside 1..max_warps, the
+// instantiation's launch bound. Nothing runs on an empty shape.
+template <template <class, class, int> class Run, class OpA, class OpW,
+          int NT, class Args>
+int go(const Args& p, int warps, long long rows, int cols, cudaStream_t s) {
+  constexpr int most = max_warps<OpA, OpW, NT>();
+  if (warps == 0) warps = warps_for(p.wt.words, most);
+  if (warps < 1 || warps > most) return (int)cudaErrorInvalidValue;
+  if (rows > 0 && cols > 0) Run<OpA, OpW, NT>::go(p, warps, s);
+  return (int)cudaSuccess;
+}
+
+template <template <class, class, int> class Run, class OpA, class OpW,
+          class Args>
+int go_nt(const Args& p, int nt, int warps, long long rows, int cols,
+          cudaStream_t s) {
+  switch (nt) {
+    case 1: return go<Run, OpA, OpW, 1>(p, warps, rows, cols, s);
+    case 2: return go<Run, OpA, OpW, 2>(p, warps, rows, cols, s);
+    case 4: return go<Run, OpA, OpW, 4>(p, warps, rows, cols, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Picks the kernel instantiation for the plans and launches it through
+// `Run<OpA, OpW, NT>::go(args, warps, stream)` (K2, K3 and K4 each define
+// their Run): the main paths' W2A2 and W4A8 get their fixed-plane code,
+// anything else Any. The tile is the caller's: `nt` row tiles of 8 rows
+// (or output pixels) per block, 1, 2 or 4 (only 1 for Any), and `warps`
+// K-split warps, 1..max_warps of that instantiation; 0 for either is the
+// heuristic's choice (nt_for, warps_for). Any other value launches nothing
+// and returns cudaErrorInvalidValue; else cudaSuccess (the launch's own
+// errors are the caller's cudaGetLastError()).
 template <template <class, class, int> class Run, class Args>
-void dispatch(const Args& p, const Plan& ap, const Plan& wp, long long rows,
-              int cols, cudaStream_t s) {
+int dispatch(const Args& p, const Plan& ap, const Plan& wp, long long rows,
+             int cols, int nt, int warps, cudaStream_t s) {
   using W2 = Fixed<2, true>;
   using W4 = Fixed<4, true>;
   using A8 = Fixed<8, true>;
-  const int nt = nt_for(rows, cols);
-  if (W2::fits(ap) && W2::fits(wp)) {
-    if (nt == 4) Run<W2, W2, 4>::go(p, s);
-    else if (nt == 2) Run<W2, W2, 2>::go(p, s);
-    else Run<W2, W2, 1>::go(p, s);
-  } else if (A8::fits(ap) && W4::fits(wp)) {
-    if (nt == 4) Run<A8, W4, 4>::go(p, s);
-    else if (nt == 2) Run<A8, W4, 2>::go(p, s);
-    else Run<A8, W4, 1>::go(p, s);
-  } else {
-    Run<Any, Any, 1>::go(p, s);
-  }
+  const bool w2a2 = W2::fits(ap) && W2::fits(wp);
+  const bool a8w4 = A8::fits(ap) && W4::fits(wp);
+  if (nt == 0) nt = (w2a2 || a8w4) ? nt_for(rows, cols) : 1;
+  if (w2a2) return go_nt<Run, W2, W2>(p, nt, warps, rows, cols, s);
+  if (a8w4) return go_nt<Run, A8, W4>(p, nt, warps, rows, cols, s);
+  if (nt != 1) return (int)cudaErrorInvalidValue;
+  return go<Run, Any, Any, 1>(p, warps, rows, cols, s);
 }
 
 }  // namespace dig

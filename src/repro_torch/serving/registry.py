@@ -26,7 +26,10 @@ number of :class:`~repro_torch.models.layers.QuantPolicy` precisions, with:
   compiled Programs are saved and tagged ``model@precision``, eviction
   spills to a disk reference so re-admission is a load rather than a
   recompile, and :meth:`warm_boot` restores every variant with zero
-  compiles. Loads land on the registry's device. Fleet processes with no
+  compiles. The store is also the tile tuner's persistent L2
+  (:func:`repro_torch.kernels.tuning.set_persistent_store`), so a process
+  booted warm from a populated store enumerates no tile either, the
+  padding buckets' included. Loads land on the registry's device. Fleet processes with no
   compile recipe at all register through :meth:`register_artifact`.
 
 The reference's ``backend``/``interpret`` are the port's ``plain`` (the
@@ -118,6 +121,11 @@ class ModelRegistry:
             from repro_torch.compiler.artifact import ArtifactStore
             store = ArtifactStore(os.fspath(store))
         self.store = store
+        if store is not None:
+            # L2 of the tile tuner: a restart with the same store
+            # re-enumerates nothing (kernels/tuning keeps its L1 LRU)
+            from repro_torch.kernels import tuning
+            tuning.set_persistent_store(store)
         self._entries: Dict[ModelKey, _Entry] = {}  # guarded-by: _lock
         # compiled graph-entry Programs only, LRU order (pinned Programs
         # live in their _Entry and never evict)

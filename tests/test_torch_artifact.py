@@ -478,6 +478,38 @@ def test_service_metrics_expose_store(populated):
     assert m["registry"]["artifact_hits"] == 4
 
 
+def test_warm_boot_enumerates_no_tile_buckets_included(populated):
+    """The store is the tile tuner's L2: once a service has warm-booted
+    from it (every bucket tuned and persisted), a restarted process's
+    warm boot restores the Programs with their tiles and captures every
+    bucket with zero compiles and zero enumerations."""
+    from repro_torch.kernels import tuning
+    root, outs = populated
+    old = tuning.set_persistent_store(None)
+    try:
+        for restart in (False, True):
+            tuning.clear_cache()          # a fresh process's empty L1
+            reg = ModelRegistry(store=root, device="cpu")
+            keys = _register_all(reg)
+            with InferenceService(reg, max_wait_s=0.0) as svc:
+                report = svc.warm_boot()
+            assert not report["compiled"] and report["bucket_compiles"] >= 4
+        info = tuning.cache_info()
+        assert info["enumerations"] == 0 and info["persist_hits"] > 0
+        for k in keys:
+            prog = reg.program(k)
+            packed = [s for s in prog.steps if s.kind == "conv_packed"]
+            assert packed and all(isinstance(s.attrs["tile"],
+                                             tuning.ConvTileConfig)
+                                  for s in packed)
+            assert prog.meta["tiles"] == {s.name: s.attrs["tile"]
+                                          for s in packed}
+            assert torch.equal(prog(_x()), outs[str(k)])
+    finally:
+        tuning.set_persistent_store(old)
+        tuning.clear_cache()
+
+
 # ------------------------------------------------------------ garbage gc
 
 @pytest.fixture()

@@ -327,6 +327,79 @@ def test_gemm_v2_tile_edges(dev, kernel, sp, m):
         assert got.dtype == ref.dtype and torch.equal(got, ref), (out, rq)
 
 
+# ---------------------------------------- every tile the kernels take
+
+# W2A2 and A8W4 run fixed-plane instantiations (NT 1, 2, 4 with up to 32,
+# 16, 4 K-split warps), W3A3 runs Any (NT 1, up to 8 warps)
+_TILE_PLANS = [(2, 2, True, True, 7), (8, 4, True, True, 8),
+               (3, 3, True, True, 7)]
+
+
+def _every_tile(spec, conv):
+    from repro_torch.core import cost_model
+    from repro_torch.kernels import tuning
+    fixed = cost_model.fixed_plans(spec.a_bits, spec.w_bits, spec.a_signed,
+                                   spec.w_signed)
+    cls = tuning.ConvTileConfig if conv else tuning.TileConfig
+    return [cls(8 * nt, w) for nt in ((1, 2, 4) if fixed else (1,))
+            for w in range(1, cost_model.max_warps(fixed, nt) + 1)]
+
+
+@pytest.mark.parametrize("sp", _TILE_PLANS)
+@pytest.mark.parametrize("n,h,ci,co,stride", [
+    (1, 9, 33, 40, 2), (1, 5, 600, 70, 1), (3, 5, 33, 100, 2),
+    (2, 11, 70, 33, 1)])
+def test_conv_every_tile_equals_plain(dev, sp, n, h, ci, co, stride):
+    spec = SerialSpec(*sp)
+    rng = np.random.default_rng(n * 1000 + h * 100 + ci + co + stride + 7)
+    xc = _codes(rng, spec.a_bits, spec.a_signed, (n * h * h, ci), dev)
+    wc = _codes(rng, spec.w_bits, spec.w_signed, (9 * co, ci), dev)
+    xp = k1.pack_codes_ref(xc, spec.a_bits).reshape(
+        spec.a_bits, n, h, h, -1).contiguous()
+    wp = k1.pack_codes_ref(wc, spec.w_bits).reshape(
+        spec.w_bits, 3, 3, co, -1).permute(0, 1, 2, 4, 3).contiguous()
+    scale = torch.from_numpy((rng.random(co) * 1e-3).astype(np.float32)
+                             ).to(dev)
+    rs = torch.tensor(0.3, device=dev)
+    for out, rq in (("float", None), ("packed", QuantSpec(2, False))):
+        kw = dict(spec=spec, ci=ci, stride=stride, padding=1, relu=False,
+                  requant=rq, requant_scale=None if rq is None else rs,
+                  emit_packed=out == "packed")
+        ref = k2.bitserial_conv2d_ref(xp, wp, scale, **kw)
+        for tile in _every_tile(spec, conv=True):
+            got = k2.bitserial_conv2d_cuda(xp, wp, scale, tile=tile, **kw)
+            assert torch.equal(got, ref), (out, tile)
+
+
+@pytest.mark.parametrize("sp", _TILE_PLANS)
+@pytest.mark.parametrize("m", [1, 4, 5, 17, 64])
+@pytest.mark.parametrize("kernel", ["K3", "K4"])
+def test_gemm_every_tile_equals_plain(dev, kernel, sp, m):
+    from repro_torch.kernels import bitserial_matmul as km
+    spec = SerialSpec(*sp)
+    k, n = 100, 70
+    rng = np.random.default_rng(m * 31 + sp[0] * 3 + sp[1] + 11)
+    xc, xp, wp, scale, bias = _gemm_operands(rng, spec, m, k, n, dev)
+    kw = dict(spec=spec, k=k, requant=QuantSpec(3, True))
+    if kernel == "K3":
+        kw["requant_scale"] = torch.tensor(0.37, device=dev)
+        fn, ref = km.bitserial_matmul_v2_cuda, km.bitserial_matmul_v2_ref
+        x = xp
+    else:
+        fn, ref = km.bitserial_matmul_cuda, km.bitserial_matmul_ref
+        x = xc
+    want = ref(x, wp, scale, bias, **kw)
+    for tile in _every_tile(spec, conv=False):
+        assert torch.equal(fn(x, wp, scale, bias, tile=tile, **kw), want), \
+            tile
+
+
+def test_a_tile_no_instantiation_takes_raises(dev):
+    from repro_torch.kernels import tile_sweep
+    seen = tile_sweep.bad_tiles_raise(dev)
+    assert len(seen) == 9 and all("CUDA error" in s for s in seen)
+
+
 # ------------------------------------------------- the continuous LM engine
 
 def _to(tree, device):

@@ -337,6 +337,7 @@ def test_tensor_core_kernels_share_the_digit_header():
         assert '#include "digits.cuh"' in kern.source.read_text()
     text = header.read_text()
     assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32" in text
-    # the conv and GEMM entries take the digit counts after the signs
-    assert len(bitserial_conv.KERNEL.entries["bitserial_conv2d"]) == 29
-    assert len(bitserial_matmul.KERNEL.entries["bitserial_matmul_v2"]) == 21
+    # the conv and GEMM entries take the digit counts after the signs, and
+    # the tile (nt, warps) before the stream
+    assert len(bitserial_conv.KERNEL.entries["bitserial_conv2d"]) == 31
+    assert len(bitserial_matmul.KERNEL.entries["bitserial_matmul_v2"]) == 23
