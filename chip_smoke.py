@@ -3,6 +3,7 @@
 hold every hand-written kernel against its plain PyTorch version.
 
     python3 chip_smoke.py            # from the root of a checkout
+    python3 chip_smoke.py --cards    # phase 20 (f) alone, two or more cards
 
 Phases (any failure exits non-zero and prints no result):
 
@@ -362,10 +363,25 @@ Phases (any failure exits non-zero and prints no result):
     ``param_pspec``; losses, CE, lr, grad norms and every final param
     equal the unsharded run's bit for bit; step ms, peak memory and one
     more mesh step profiled (busy ms, split into forward, backward and
-    AdamW) and each part's seconds printed; (b) ``pack_params`` of the mesh run's gathered
-    params: the held-out batch's integer loss through K1 + K3 (96 + 168
-    launches, counts reset just before and read just after) equals the
-    unsharded run's bit for bit; the group is destroyed; (c) with two or
+    AdamW) and each part's seconds printed; (b) ``pack_params`` of the
+    mesh run's placed params, packed once (gathered, packed, placed again
+    by ``param_pspec``): the held-out batch's integer loss through K1 + K3
+    on the mesh (``layers._placed_qdense``: each rank's planes, the
+    row-parallel projections in K3's accumulator mode, their int32 sums
+    all-reduced before one plain epilogue) equals the same planes'
+    gathered loss bit for bit (96 + 168 launches each, counts reset just
+    before and read just after); (d) ``Server(mesh=)`` on that (1, 1)
+    mesh, full-width stablelm-1.6b (24 layers, bf16, W4A8) drawn placed
+    from seed 0 (phase 8's draw), phase 8's four requests (16 new
+    tokens), K1 + K3 and K4: 96 K1 + 168 K3 (168 K4) a step, tokens and
+    last-step logits equal phase 8's unsharded ``Server``'s bit for bit;
+    its decode steps timed beside an unsharded ``Server`` on the same
+    planes; (e) the split arithmetic on this card at stablelm's three
+    projection shapes, M = 4 and 64: K3 and K4 in accumulator mode
+    (``raw_acc``) equal their plain accumulators, K split in 2 and 4 word
+    ranges (int32 sum, plain epilogue) and N split in 2 and 4 column
+    ranges equal the fused whole bit for bit; (d) and (e)'s seconds
+    printed; the group is destroyed; (c) with two or
     more cards only: one rank a card over NCCL (``run_ranks``), the same
     3 steps on (data 2, model n/2) or (data 1, model n), each card's peak
     and state bytes printed; the losses of the config without fake
@@ -376,7 +392,15 @@ Phases (any failure exits non-zero and prints no result):
     step under ``launch/hlo_analysis.py``'s ``CostMode``: its collective
     counts and bytes by kind must equal those of the same step counted on
     rank 0 of a fake (data, model) mesh in this process (state and batch
-    on ``meta``).
+    on ``meta``); (f) with two or more cards only: ``run_ranks``, one rank
+    a card, ``Server(mesh=)`` on (data 1, model n) and (data 2, model
+    n/2) serving (d)'s requests on stablelm-1.6b drawn placed from seed 0:
+    rank 0's tokens and last logits equal (d)'s bit for bit (the kv heads
+    split), 96 K1 + 168 K3 a step on each rank; on (1, n) also
+    qwen1.5-110b at its full 80 layers, for ``PERF.md``: its decode
+    steps' wall, one profiled step's busy ms, each card's bytes. The
+    launch counts are reset just before each rank's ``generate`` and
+    read just after. ``--cards`` runs (f) alone (:func:`cards_main`).
 21. the cost analysis (:func:`cost_phase`; ``launch/hlo_analysis.py``):
     (a) full-width stablelm-1.6b (24 layers, bf16, W4A8, K1 + K3, random
     weights from seed 0) through ``Server``'s params: one eager
@@ -394,7 +418,10 @@ Phases (any failure exits non-zero and prints no result):
     ``PEAK_BF16``, ``bytes_hbm`` against ``HBM_BW``, printed beside the
     card's name and power limit; (c) ``dryrun.cost_cell`` of stablelm-1.6b
     ``train_4k`` at 2 layers on a fake 16 x 16 mesh in this process (the
-    card's torch): nonzero FLOPs, all-gathers and all-reduces.
+    card's torch): nonzero FLOPs, all-gathers and all-reduces; and of
+    its ``decode_32k`` cell at 2 layers there: a sharded ``Server``'s
+    step, ``cost_mesh`` (16, 16), K3's 14 calls on each rank's planes,
+    at least 2 all-reduces a layer (the row-parallel int32 sums).
 22. the tile autotuner (:func:`tuning_phase`; ``kernels/tuning.py``):
     (a) at ResNet9 W2A2's eight convs (batch 1 and 32) and stablelm-1.6b
     W4A8's distinct projections read from its config (M = 4, 256 and
@@ -423,8 +450,9 @@ engine's load and the service's), phase 14's (the packed evaluation
 and the trained weights' ``Server``), phase 15's and 16's (the
 families' runs; K4's and grouped K4's too) and phase 17's (the long-context
 cells; grouped K4's too) and phase 18's (the trained families' packed
-evaluations and ``Server`` runs) and phase 20's (the mesh run's and the
-unsharded run's packed evaluations) and phase 21's (its counted and
+evaluations and ``Server`` runs) and phase 20's (the placed packing's
+evaluations on the mesh and gathered, and (d)'s sharded and unsharded
+``Server`` runs; K4's too) and phase 21's (its counted and
 profiled calls; K2's too) and phase 22's (the tuned bucket graphs'
 replays and the decode step; K2's too; K2, K3 and K4 add the tiles
 phase 22 held, ``tiles_held``); K1's and K2's include phase 13's
@@ -516,6 +544,18 @@ def n_alphas(tree):
         return sum(1 if k.startswith("alpha") else n_alphas(v)
                    for k, v in tree.items())
     return sum(n_alphas(v) for v in tree) if isinstance(tree, list) else 0
+
+
+def card_records(prof):
+    """``(name, duration ns)`` of every record the card itself made in a
+    profiler window (kernels, copies, sets; not the ``record_function``
+    ranges the trace also draws on the card's timeline), read from the
+    trace's events without building ``key_averages``' event tree."""
+    from torch.autograd import DeviceType
+    return [(e.name(), e.duration_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA
+            and not e.is_user_annotation()]
 
 
 def range_split(prof, names):
@@ -3234,12 +3274,338 @@ def fake_mesh_step_cost(cfg, data, model, device_type="cuda"):
     return {"counts": cost.collective_counts, "bytes": cost.collective_bytes}
 
 
+# phase 20 (d)-(f): the packed model served sharded (Server(mesh=)):
+# stablelm-1.6b FULL, bf16, W4A8, random weights from seed 0 (phase 8's
+# draw), phase 8's four requests; (f) also qwen1.5-110b at full depth
+MESH_QWEN_NEW = 4     # new tokens of (f)'s qwen1.5-110b run (80 layers)
+
+
+def _serve_counts(srv, reqs, hp_counts, hp_reset, steps=None):
+    """``srv.generate(reqs)`` with the launch counts reset just before
+    and read just after: (tokens, last logits, counts)."""
+    import torch
+    hp_reset()
+    res = srv.generate(reqs, step_seconds=steps)
+    torch.cuda.synchronize()
+    return [r.out_tokens for r in res], srv.last_logits, hp_counts()
+
+
+def mesh_serve(dev, hp, mesh):
+    """Phase 20 (d): ``Server(mesh=)`` on the (data 1, model 1) NCCL mesh
+    (a) opened, full-width stablelm-1.6b drawn placed from seed 0 (phase
+    8's planes), on phase 8's four requests through K1 + K3 and through
+    K4: 96 K1 + 168 K3 (168 K4) a step, tokens and last-step logits equal
+    phase 8's unsharded ``Server``'s bit for bit; its decode steps timed
+    against an unsharded ``Server`` on the same planes (gathered)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import placed
+    from repro_torch.launch.serve import GenRequest, Server
+    cfg = get_arch("stablelm-1.6b").full
+    per = {"K1": 4 * cfg.n_layers, "K3": 7 * cfg.n_layers}
+    reqs = lambda: [GenRequest(p.copy(), LM_NEW) for p in hp.prompts]
+    t0 = time.perf_counter()
+    srv = Server(cfg, batch_slots=4, max_len=LM_MAX_LEN, seed=0, mesh=mesh,
+                 device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    out = {"init_s": init_s,
+           "launches": dict.fromkeys(("K1", "K2", "K3", "K4", "K4g"), 0)}
+    runs = {}
+    for tag, pa in (("k3", True), ("k4", False)):
+        s = srv if pa else Server(cfg, srv.params, batch_slots=4,
+                                  max_len=LM_MAX_LEN, pack_acts=False,
+                                  mesh=mesh, device=dev)
+        steps = []
+        toks, logits, c = _serve_counts(s, reqs(), hp.counts,
+                                        hp.reset_counts, steps)
+        kid = "K3" if pa else "K4"
+        want = {"K1": per["K1"] * LM_NEW if pa else 0, "K2": 0,
+                "K3": per["K3"] * LM_NEW if pa else 0,
+                "K4": 0 if pa else per["K3"] * LM_NEW, "K4g": 0}
+        if c != want:
+            raise AssertionError(f"(d) {tag} launches {c}, want {want}")
+        if toks != hp.lm_tokens or not torch.equal(logits, hp.lm_logits):
+            raise AssertionError(f"(d) {tag}: the sharded Server's tokens "
+                                 "or last logits differ from phase 8's "
+                                 "unsharded Server's")
+        for k in out["launches"]:
+            out["launches"][k] += c[k]
+        runs[tag] = {"launches": c, "prefill_s": steps[0],
+                     "decode_step_ms": [t * 1e3 for t in steps[1:]]}
+    # the unsharded Server on the same planes (the (1, 1) mesh's shards
+    # are the whole tensors), timed the same way
+    whole = _tree_map(placed.plain, srv.params)
+    ref = Server(cfg, whole, batch_slots=4, max_len=LM_MAX_LEN, device=dev)
+    steps = []
+    toks, logits, c = _serve_counts(ref, reqs(), hp.counts, hp.reset_counts,
+                                    steps)
+    if toks != hp.lm_tokens or not torch.equal(logits, hp.lm_logits):
+        raise AssertionError("(d) the unsharded Server on the gathered "
+                             "planes differs from phase 8's")
+    for k in out["launches"]:
+        out["launches"][k] += c[k]
+    runs["unsharded"] = {"launches": c, "prefill_s": steps[0],
+                         "decode_step_ms": [t * 1e3 for t in steps[1:]]}
+    out["runs"] = runs
+    med = {k: statistics.median(v["decode_step_ms"]) for k, v in runs.items()}
+    out["decode_step_ms_median"] = med
+    log(f"  (d) Server(mesh=(data 1, model 1), stablelm-1.6b FULL, bf16, "
+        f"seed 0; drawn placed in {init_s:.1f} s) on phase 8's four "
+        f"requests: tokens and last logits equal phase 8's unsharded "
+        f"Server's bit for bit through K1 + K3 ({runs['k3']['launches']}) "
+        f"and K4 ({runs['k4']['launches']}): {per['K1']} K1 + "
+        f"{per['K3']} K3 (K4) a step; decode step ms (median, host clock, "
+        f"synchronized) K3 {med['k3']:.1f}, K4 {med['k4']:.1f}, unsharded "
+        f"K3 {med['unsharded']:.1f}; prefill s K3 "
+        f"{runs['k3']['prefill_s']:.2f}")
+    del srv, ref, whole
+    return out
+
+
+def split_arithmetic(dev):
+    """Phase 20 (e): the row- and column-parallel arithmetic on this card,
+    at stablelm-1.6b's three projection shapes (read from its config) and
+    M = 4 and 64, seeded codes and planes: K3 and K4 in accumulator mode
+    (``raw_acc``) equal their plain accumulators (``torch.equal``); the
+    product split over K into 2 and 4 word ranges, each range's int32
+    accumulator summed and the plain epilogue run once, equals the fused
+    whole K3/K4 output bit for bit; N split into 2 and 4 column ranges and
+    concatenated equals it too. These launches compare kernels with plain
+    versions and are not counted."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.quant import qrange
+    from repro_torch.kernels import bitserial_matmul as km
+    from repro_torch.kernels.epilogue import epilogue
+    from repro_torch.kernels.quantize_pack import pack_codes_ref
+    from repro_torch.kernels.tile_sweep import W4A8, lm_projections
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(20)
+
+    def cuda(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def planes(wc):
+        return pack_codes_ref(wc.t().contiguous(), 4).permute(
+            0, 2, 1).contiguous()
+
+    lo, hi = qrange(8, True)
+    checked = 0
+    for k, n in lm_projections(get_arch("stablelm-1.6b").full):
+        wc = cuda(rng.integers(-8, 8, (k, n)).astype(np.int32))
+        scale = cuda((rng.random(n) * 1e-3).astype(np.float32))
+        bias = cuda((rng.standard_normal(n) * 0.1).astype(np.float32))
+        for m in (4, 64):
+            xc = cuda(rng.integers(lo, hi + 1, (m, k)).astype(np.int32))
+            for kid, fn, ref, x_of in (
+                    ("K3", km.bitserial_matmul_v2_cuda,
+                     km.bitserial_matmul_v2_ref,
+                     lambda c: pack_codes_ref(c.contiguous(), 8)),
+                    ("K4", km.bitserial_matmul_cuda, km.bitserial_matmul_ref,
+                     lambda c: c.contiguous())):
+                whole = fn(x_of(xc), planes(wc), scale, bias, spec=W4A8, k=k)
+                acc = fn(x_of(xc), planes(wc), None, spec=W4A8, k=k,
+                         raw_acc=True)
+                want = ref(x_of(xc), planes(wc), None, spec=W4A8, k=k,
+                           raw_acc=True)
+                torch.cuda.synchronize()
+                if acc.dtype != torch.int32 or not torch.equal(acc, want):
+                    raise AssertionError(f"(e) {kid} M={m} {k}->{n}: the "
+                                         "accumulator mode differs from the "
+                                         "plain accumulator")
+                for parts in (2, 4):
+                    words = -(-k // 32)
+                    step = 32 * -(-words // parts)
+                    tot = None
+                    for a in range(0, k, step):
+                        b = min(k, a + step)
+                        part = fn(x_of(xc[:, a:b]), planes(wc[a:b]), None,
+                                  spec=W4A8, k=b - a, raw_acc=True)
+                        tot = part if tot is None else tot + part
+                    fused = epilogue(tot, scale, bias, relu=False,
+                                     requant=None)
+                    cols = torch.cat([fn(
+                        x_of(xc), planes(wc[:, c:c + n // parts]),
+                        scale[c:c + n // parts], bias[c:c + n // parts],
+                        spec=W4A8, k=k) for c in range(0, n, n // parts)], -1)
+                    torch.cuda.synchronize()
+                    if not torch.equal(fused, whole):
+                        raise AssertionError(f"(e) {kid} M={m} {k}->{n}: "
+                                             f"{parts} K ranges summed in "
+                                             "int32 differ from the whole")
+                    if not torch.equal(cols, whole):
+                        raise AssertionError(f"(e) {kid} M={m} {k}->{n}: "
+                                             f"{parts} column ranges differ "
+                                             "from the whole")
+                checked += 1
+    sec = time.perf_counter() - t0
+    log(f"  (e) split arithmetic at stablelm-1.6b's projections, M = 4 and "
+        f"64, K3 and K4 ({checked} cases): accumulator mode equals the "
+        f"plain accumulators; K split in 2 and 4 word ranges (int32 sum, "
+        f"then the plain epilogue) and N split in 2 and 4 column ranges "
+        f"equal the fused whole output bit for bit ({sec:.1f} s)")
+    return {"cases": checked, "seconds": sec}
+
+
+def mesh_serve_rank(rank, data, model, prompts, qwen, device=None):
+    """One rank of phase 20 (f), started by ``run_ranks`` on its own card
+    (``device="cpu"``: a gloo rank, for a rehearsal): ``Server(mesh=)`` on
+    a (data, model) mesh, stablelm-1.6b FULL drawn placed from seed 0 on
+    ``prompts`` (K1 + K3); with ``qwen`` also qwen1.5-110b FULL at its 80
+    layers (seed 0) on the same prompts, ``MESH_QWEN_NEW`` new tokens, and
+    one profiled decode step. Returns tokens, last logits (host),
+    launches, step times and bytes."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import bitserial_conv as k2
+    from repro_torch.kernels import bitserial_matmul as km
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quantize_pack as k1
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.serve import GenRequest, Server
+    from repro_torch.models import transformer
+    mesh = make_local_mesh(data, model, device=device)
+    card = device is None
+    dev = (torch.device("cuda", torch.cuda.current_device()) if card
+           else torch.device(device))
+    out = {"card": torch.cuda.get_device_name(dev) if card else str(dev)}
+    runs = [("stablelm", get_arch("stablelm-1.6b").full, LM_NEW)]
+    if qwen:
+        runs.append(("qwen", get_arch("qwen1.5-110b").full, MESH_QWEN_NEW))
+    for name, cfg, new in runs:
+        if card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        srv = Server(cfg, batch_slots=4, max_len=LM_MAX_LEN, seed=0,
+                     mesh=mesh, device=dev)
+        torch.cuda.synchronize(dev) if card else None
+        init_s = time.perf_counter() - t0
+        held = torch.cuda.memory_allocated(dev) if card else None
+        steps = []
+        reqs = [GenRequest((np.asarray(p) % cfg.vocab_size).astype(
+            np.int32), new) for p in prompts]
+        for k in (k1.KERNEL, k2.KERNEL, km.KERNEL, km.GROUPED):
+            k.reset_counts()
+        res = srv.generate(reqs, step_seconds=steps)
+        launches = ops.launch_counts()
+        rec = {"tokens": [r.out_tokens for r in res],
+               "logits": srv.last_logits.float().cpu(),
+               "launches": launches,
+               "init_s": init_s, "prefill_s": steps[0],
+               "decode_step_ms": [t * 1e3 for t in steps[1:]],
+               "held_bytes": held,
+               "peak_bytes": (torch.cuda.max_memory_allocated(dev) if card
+                              else None),
+               "layers": cfg.n_layers}
+        if name == "qwen":
+            # one more decode step, profiled: the card's busy time
+            batch = {"tokens": srv._place_batch(torch.zeros(
+                (4, 16), dtype=torch.long, device=dev))}
+            act = ProfilerActivity.CUDA if card else ProfilerActivity.CPU
+            with srv._context():
+                _, caches = transformer.prefill(srv.params, batch, srv.cfg,
+                                                max_len=LM_MAX_LEN)
+                tok = srv._place_batch(torch.zeros((4, 1), dtype=torch.long,
+                                                   device=dev))
+                torch.cuda.synchronize(dev) if card else None
+                with profile(activities=[act]) as prof:
+                    t0 = time.perf_counter()
+                    transformer.decode_step(srv.params, caches, tok, 16,
+                                            srv.cfg)
+                    torch.cuda.synchronize(dev) if card else None
+                    wall = time.perf_counter() - t0
+            recs = card_records(prof)
+            nccl = sum(ns for n, ns in recs if "nccl" in n.lower()) / 1e6
+            rec.update(profiled_step_wall_ms=wall * 1e3,
+                       profiled_step_busy_ms=sum(ns for _, ns in recs) / 1e6,
+                       profiled_step_nccl_ms=nccl)
+            del caches
+        out[name] = rec
+        del srv
+    return out
+
+
+def mesh_serve_cards(n, hp, device=None):
+    """Phase 20 (f), two or more cards: ``run_ranks`` with one rank a
+    card on (data 1, model n) (with qwen1.5-110b at full depth, for
+    ``PERF.md``) and (data 2, model n/2); rank 0's stablelm tokens and
+    last logits must equal (d)'s (phase 8's unsharded ``Server``'s) bit
+    for bit (its 32 kv heads split over ``model``)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import run_ranks
+    prompts = [np.asarray(p) for p in hp.prompts]
+    want = hp.lm_logits.float().cpu()
+    out = {}
+    shapes = [(1, n)] + ([(2, n // 2)] if n % 2 == 0 and n >= 4 else [])
+    for data, model in shapes:
+        t0 = time.perf_counter()
+        res = run_ranks(mesh_serve_rank, n, device=device,
+                        args=(data, model, prompts, (data, model) == (1, n),
+                              device),
+                        timeout=1500)
+        st = res[0]["stablelm"]
+        if st["tokens"] != hp.lm_tokens or not torch.equal(st["logits"],
+                                                           want):
+            raise AssertionError(f"(f) ({data}, {model}): rank 0's tokens "
+                                 "or last logits differ from (d)'s")
+        per = {"K1": 4 * 24 * LM_NEW, "K3": 7 * 24 * LM_NEW}
+        if device is None and any(
+                rr["stablelm"]["launches"][k] != v for rr in res
+                for k, v in per.items()):
+            raise AssertionError(f"(f) ({data}, {model}): launches "
+                                 f"{[rr['stablelm']['launches'] for rr in res]}"
+                                 f", want {per} on each rank")
+        for r, rr in enumerate(res[1:], 1):
+            if rr["stablelm"]["tokens"] != st["tokens"]:
+                raise AssertionError(f"(f) rank {r}'s tokens differ")
+        tag = f"{data}x{model}"
+        out[tag] = {"ranks": [{k: {kk: vv for kk, vv in v.items()
+                                   if kk != "logits"}
+                               if isinstance(v, dict) else v
+                               for k, v in rr.items()} for rr in res],
+                    "seconds": time.perf_counter() - t0}
+        log(f"  (f) (data {data}, model {model}) over {n} cards: stablelm "
+            f"rank 0's tokens and last logits equal (d)'s bit for bit; "
+            f"launches {st['launches']}; decode step ms (median) "
+            f"{statistics.median(st['decode_step_ms']):.1f}; held GB per "
+            f"card " + " ".join(
+                f"{(rr['stablelm']['held_bytes'] or 0) / 1e9:.2f}"
+                for rr in res))
+        if "qwen" in res[0]:
+            q = res[0]["qwen"]
+            finite = bool(torch.isfinite(q["logits"]).all())
+            if not finite or any(len(t) != MESH_QWEN_NEW for t in
+                                 q["tokens"]):
+                raise AssertionError("(f) qwen1.5-110b: bad output")
+            log(f"  (f) qwen1.5-110b FULL ({q['layers']} layers) on (data "
+                f"1, model {n}): drawn placed in {q['init_s']:.1f} s; decode "
+                f"step ms (host clock) " + " ".join(
+                    f"{t:.1f}" for t in q["decode_step_ms"])
+                + f"; one profiled step wall {q['profiled_step_wall_ms']:.1f}"
+                f" ms, busy {q['profiled_step_busy_ms']:.1f} ms (NCCL's "
+                f"kernels, waits included, "
+                f"{q['profiled_step_nccl_ms']:.1f}); launches "
+                f"{q['launches']}; held / peak GB per card " + " ".join(
+                    f"{(rr['qwen']['held_bytes'] or 0) / 1e9:.2f}/"
+                    f"{(rr['qwen']['peak_bytes'] or 0) / 1e9:.2f}"
+                    for rr in res))
+    return out
+
+
 def mesh_phase(dev, hp):
     """Phase 20: sharding one model's tensors (``distributed/sharding.py``
     on DTensor, ``Trainer(mesh=)``). Helpers from ``main``: ``counts``,
-    ``reset_counts``, ``device_profile``. Returns the phase's record; its
-    ``launches`` are the packed evaluations' K1 and K3; raises on any
-    failure."""
+    ``reset_counts``, ``profiled``, ``is_spin``, and phase 8's ``prompts``,
+    ``lm_tokens`` and ``lm_logits``. Returns the phase's record; its
+    ``launches`` are the packed evaluations' K1 and K3 and (d)'s servers'
+    K1, K3 and K4 ((e)'s comparisons with the plain versions are not
+    counted); raises on any failure."""
     import gc
 
     import torch
@@ -3318,49 +3684,68 @@ def mesh_phase(dev, hp):
         + " ".join(f"{t:.1f}" for t in plain_ms)
         + f"; peak {peak / 1e9:.2f} GB above what was held")
 
-    # (b) the mesh run's params gathered, packed, evaluated through K1 + K3
+    # (b) the mesh run's placed params packed once (gathered, packed,
+    # placed again by param_pspec), evaluated through K1 + K3 on the mesh
+    # (each rank's planes, the row-parallel int32 sums) and, gathered, as
+    # plain tensors: the same planes, no second packing
     scfg = transformer.serve_policy(cfg, pack_acts=True)
     hb = mesh_tr.device_batch(mesh_tr.data.batch(10_001, MESH_BATCH))
-    hb = {k: placed.plain(v) for k, v in hb.items()}
-    gathered = transformer.pack_params(
-        _tree_map(placed.plain, mstate["params"]), scfg)
     k1_fwd, k3_fwd = 4 * cfg.n_layers, 7 * cfg.n_layers
     want = {"K1": k1_fwd, "K2": 0, "K3": k3_fwd, "K4": 0, "K4g": 0}
     with torch.no_grad():
+        t0 = time.perf_counter()
+        packed_m = transformer.pack_params(mstate["params"], scfg)
+        torch.cuda.synchronize()
+        pack_s = time.perf_counter() - t0
         hp.reset_counts()
-        l_m, _ = transformer.loss_fn(gathered, hb, scfg)
+        with placed.mesh_context(mesh):
+            l_m, _ = transformer.loss_fn(packed_m, hb, scfg)
+        l_m = placed.plain(l_m)
         torch.cuda.synchronize()
         c_m = hp.counts()
-        del gathered
-        packed_p = transformer.pack_params(p_params, scfg)
+        packed_p = _tree_map(placed.plain, packed_m)
         hp.reset_counts()
-        l_p, _ = transformer.loss_fn(packed_p, hb, scfg)
+        l_p, _ = transformer.loss_fn(
+            packed_p, {k: placed.plain(v) for k, v in hb.items()}, scfg)
         torch.cuda.synchronize()
         c_p = hp.counts()
-        del packed_p
+        del packed_m, packed_p
     if c_m != want or c_p != want:
         raise AssertionError(f"packed evaluations' launches {c_m}, {c_p}; "
                              f"want {want}")
     if not torch.equal(l_m, l_p):
-        raise AssertionError(f"packed loss of the mesh run {float(l_m)!r} "
-                             f"against the unsharded run's {float(l_p)!r}")
+        raise AssertionError(f"packed loss on the mesh {float(l_m)!r} "
+                             f"against the gathered planes' {float(l_p)!r}")
     for k in out["launches"]:
         out["launches"][k] += c_m[k] + c_p[k]
-    out["b"] = dict(loss=float(l_m), launches=c_m)
-    log(f"  (b) pack_params of the mesh run's gathered params: the held-out "
-        f"batch's integer loss through K1 + K3 {float(l_m)!r} equals the "
-        f"unsharded run's bit for bit; launches {c_m} each")
+    out["b"] = dict(loss=float(l_m), launches=c_m, pack_s=pack_s)
+    log(f"  (b) the mesh run's placed params packed once ({pack_s:.2f} s): "
+        f"the held-out batch's integer loss through K1 + K3 on the mesh "
+        f"(row-parallel int32 sums) {float(l_m)!r} equals the gathered "
+        f"planes' bit for bit; launches {c_m} each")
     mark("packed evaluations")
 
     # one more mesh step, donated, profiled: the card's busy time in it
-    # and in its parts (the profiler's processing of the step's 19k events
-    # takes most of the phase, so the unsharded step is not profiled)
+    # and in its parts, read from the trace's own events (key_averages'
+    # processing of the step's 141k events took 16 s); the unsharded step
+    # is not profiled
     del p_leaves, m_leaves, pstate
     parts = ("train_step.forward", "train_step.backward", "train_step.adamw")
     step_fn = make_train_step(cfg, opt, donate=True)
     mb = mesh_tr.device_batch(mesh_tr.data.batch(MESH_STEPS, MESH_BATCH))
     with placed.mesh_context(mesh):
-        prof = hp.device_profile(lambda: step_fn(mstate, mb), ranges=parts)
+        window, wall = hp.profiled(lambda: step_fn(mstate, mb))
+    ms, launches = {}, {}
+    for name, ns in card_records(window):
+        if not hp.is_spin(name):
+            ms[name] = ms.get(name, 0.0) + ns / 1e6
+            launches[name] = launches.get(name, 0) + 1
+    top = sorted(ms, key=lambda k: -ms[k])[:12]
+    prof = {"wall_ms": wall * 1e3, "device_ms": sum(ms.values()),
+            "kernels": sum(launches.values()),
+            "ranges": range_split(window, parts),
+            "by_name_ms": {k: ms[k] for k in top},
+            "launches": {k: launches[k] for k in top}}
     out["profile"] = prof
     mark("profiled mesh step")
     log(f"  one profiled mesh step: wall {prof['wall_ms']:.1f} ms, device "
@@ -3372,6 +3757,17 @@ def mesh_phase(dev, hp):
     for name, ms_ in list(prof["by_name_ms"].items())[:6]:
         log(f"    {ms_:8.2f} ms  x{prof['launches'][name]:5.0f}  {name[:90]}")
     del mstate, p_params, mesh_tr, plain_tr, step_fn, mb
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_de = time.perf_counter()
+    out["d"] = mesh_serve(dev, hp, mesh)
+    for k in out["launches"]:
+        out["launches"][k] += out["d"]["launches"][k]
+    mark("(d) sharded Server")
+    out["e"] = split_arithmetic(dev)
+    mark("(e) split arithmetic")
+    out["de_s"] = time.perf_counter() - t_de
+    log(f"  (d) + (e) in {out['de_s']:.1f} s")
     close_local_mesh()
     gc.collect()
     torch.cuda.empty_cache()
@@ -3428,8 +3824,9 @@ def mesh_phase(dev, hp):
             f"({data}, {model}) mesh's: "
             f"{ {k: int(v) for k, v in fake['counts'].items() if v} }, "
             f"{sum(fake['bytes'].values()) / 1e9:.3f} GB")
+        out["f"] = mesh_serve_cards(n, hp)
     else:
-        log(f"  (c) not run: {n} card visible (it needs two or more)")
+        log(f"  (c), (f) not run: {n} card visible (they need two or more)")
     out["seconds"] = time.perf_counter() - t_phase
     log(f"  phase 20 in {out['seconds']:.1f} s; ran (c): {out['c_ran']}; "
         f"launches {out['launches']}")
@@ -3585,6 +3982,26 @@ def cost_phase(dev, hp):
         f"{rec['flops'] / 1e12:.4f} TFLOP, HBM {rec['bytes_hbm'] / 1e9:.2f}"
         f" GB, collectives {col['total_bytes'] / 1e9:.4f} GB "
         f"{ {k: int(v) for k, v in col['counts'].items() if v} } "
+        f"({time.perf_counter() - t0:.1f} s)")
+    # ... and a decode_32k serve cell there: the sharded Server's step,
+    # K3 on each rank's planes, the row-parallel int32 sums all-reduced
+    t0 = time.perf_counter()
+    rec = dryrun.cost_cell(dryrun.build_cell("stablelm-1.6b", "decode_32k",
+                                             n_layers=2), "single")
+    col = rec["collectives"]
+    if (rec["cost_mesh"] != {"data": 16, "model": 16}
+            or col["counts"]["all-reduce"] < 2 * 2
+            or rec["kernel_calls"]["K3"] != 7 * 2):
+        raise AssertionError(f"(c) decode_32k on the fake mesh: {rec}")
+    out["decode_32k_fake_mesh"] = {k: v for k, v in rec.items()
+                                   if k != "ops"}
+    log(f"  (c) stablelm-1.6b decode_32k at 2 layers, a sharded Server's "
+        f"step on one device of a fake 16x16 mesh: "
+        f"{rec['flops'] / 1e9:.4f} GFLOP (int {rec['flops_int'] / 1e9:.4f}),"
+        f" HBM {rec['bytes_hbm'] / 1e9:.2f} GB, collectives "
+        f"{col['total_bytes'] / 1e6:.4f} MB "
+        f"{ {k: int(v) for k, v in col['counts'].items() if v} }, kernels "
+        f"{ {k: v for k, v in rec['kernel_calls'].items() if v} } "
         f"({time.perf_counter() - t0:.1f} s)")
     out["launches"] = {k: hp.counts()[k] for k in KIDS}
     out["seconds"] = time.perf_counter() - t_phase
@@ -4209,22 +4626,24 @@ def main() -> int:
                     fn()
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
-            evts = prof.key_averages()
-            seen = [e for e in evts if e.device_type == DeviceType.CUDA]
+            # the card's records read from the trace itself: building
+            # key_averages' event tree takes 16 s for a mesh step's 141k
+            # events on the card's host
+            seen = card_records(prof)
             got = None
             if expect is not None:
                 got = dict.fromkeys(expect, 0)
-                for e in seen:
-                    kid = kernel_of(e.key)
+                for name, _ in seen:
+                    kid = kernel_of(name)
                     if kid in got:
-                        got[kid] += e.count
-            if (any(not is_spin(e.key) for e in seen)
+                        got[kid] += 1
+            if (any(not is_spin(name) for name, _ in seen)
                     and (got is None
                          or all(got[k] >= v for k, v in expect.items()))):
                 return prof, wall
-            empty = {"attempt": attempt, "rows": len(evts),
-                     "device_rows": len(seen),
-                     "spin_records": sum(e.count for e in seen),
+            empty = {"attempt": attempt,
+                     "device_rows": len({name for name, _ in seen}),
+                     "spin_records": sum(is_spin(n) for n, _ in seen),
                      "launches": got, "expected": expect}
             record.setdefault("profiler_empty_windows", []).append(empty)
             log(f"  the profiler window held {'too few' if got else 'no'} "
@@ -6166,8 +6585,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mesh_rec = mesh_phase(dev, types.SimpleNamespace(
-        counts=counts, reset_counts=reset_counts,
-        device_profile=device_profile))
+        counts=counts, reset_counts=reset_counts, profiled=profiled,
+        is_spin=is_spin, prompts=prompts, lm_tokens=lm_k3[0],
+        lm_logits=lm_k3[1]))
     record["mesh"] = mesh_rec
     mesh_ran = mesh_rec["launches"]
 
@@ -6254,7 +6674,7 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/bitserial_matmul.cu",
          "replaces": "src/repro/kernels/bitserial_matmul.py:171",
          "launches": (lm_k4[2]["K4"] + k4_run + ssm_rec["launches"]["K4"]
-                      + fam_ran["K4"] + long_ran["K4"]),
+                      + fam_ran["K4"] + long_ran["K4"] + mesh_ran["K4"]),
          "tiles_held": held["K4"],
          "engine_launches_per_captured_step": k4_step["K4"],
          "max_abs_err": max_err["K4"],
@@ -6303,5 +6723,61 @@ def main() -> int:
     return 0
 
 
+def cards_main() -> int:
+    """``python3 chip_smoke.py --cards``: phase 20 (f) alone, on every
+    card of a machine with two or more (the whole script runs it too,
+    after phases 1-19): the kernels built, phase 8's unsharded ``Server``
+    on its four requests for the record (f) holds each mesh to, then
+    :func:`mesh_serve_cards`. The record goes to
+    ``chiprun_out/chip_smoke_cards.json``."""
+    import gc
+    import torch
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        print("chip_smoke --cards: needs two or more cards", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.core import pipeline_modules
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import bitserial_conv as k2
+    from repro_torch.kernels import bitserial_matmul as km
+    from repro_torch.kernels import quantize_pack as k1
+    from repro_torch.launch.serve import GenRequest, Server
+
+    t_start = time.perf_counter()
+    torch.cuda.set_device(0)
+    pipeline_modules.disable_tf32()
+    torch.backends.cudnn.deterministic = True
+    os.makedirs(OUT_DIR, exist_ok=True)
+    smi = sh(["nvidia-smi", "--query-gpu=name,power.limit",
+              "--format=csv,noheader"]).splitlines()
+    log(f"cards: {smi}")
+    _build.build_all([k1.KERNEL, k2.KERNEL, km.KERNEL, km.GROUPED])
+    cfg = get_arch("stablelm-1.6b").full
+    lm = Server(cfg, batch_slots=4, max_len=LM_MAX_LEN, seed=0)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in LM_PROMPTS]
+    res = lm.generate([GenRequest(p.copy(), LM_NEW) for p in prompts])
+    hp = types.SimpleNamespace(prompts=prompts,
+                               lm_tokens=[r.out_tokens for r in res],
+                               lm_logits=lm.last_logits.clone())
+    del lm, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    record = {"cards": smi,
+              "f": mesh_serve_cards(torch.cuda.device_count(), hp),
+              "total_s": time.perf_counter() - t_start}
+    with open(os.path.join(OUT_DIR, "chip_smoke_cards.json"), "w") as f:
+        json.dump(record, f, indent=1)
+    log(f"done in {record['total_s']:.1f} s")
+    print(smi[0])
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:] not in ([], ["--cards"]):
+        print("usage: chip_smoke.py [--cards]", file=sys.stderr)
+        sys.exit(2)
+    sys.exit(cards_main() if sys.argv[1:] == ["--cards"] else main())

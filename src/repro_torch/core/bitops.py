@@ -12,6 +12,9 @@ shift only fills the bits above ``t``).
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Sequence
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -23,10 +26,16 @@ __all__ = [
     "pack_bitplanes",
     "unpack_bitplanes",
     "to_digits",
+    "digit_coeffs",
+    "from_digits",
     "num_digits",
     "kernel_digits",
     "pad_to",
     "wrap_int32",
+    "bit_transpose",
+    "bit_untranspose",
+    "BitTransposed",
+    "packed_nbytes",
 ]
 
 _TWO32 = 1 << 32
@@ -143,6 +152,23 @@ def to_digits(x: torch.Tensor, bits: int, radix_bits: int,
     return torch.stack(digits).to(torch.int8)
 
 
+def digit_coeffs(bits: int, radix_bits: int, signed: bool) -> np.ndarray:
+    """Each digit plane's weight, 2^(j·radix_bits), LSB digit first."""
+    n = num_digits(bits, radix_bits, signed)
+    return np.asarray([1 << (j * radix_bits) for j in range(n)],
+                      dtype=np.int64)
+
+
+def from_digits(digits: torch.Tensor, bits: int, radix_bits: int,
+                signed: bool) -> torch.Tensor:
+    """Inverse of :func:`to_digits`: the int32 values of ``(num_digits,
+    ...)`` digit planes."""
+    c = torch.as_tensor(digit_coeffs(bits, radix_bits, signed),
+                        dtype=torch.int32, device=digits.device)
+    c = c.reshape((digits.shape[0],) + (1,) * (digits.dim() - 1))
+    return torch.sum(digits.to(torch.int32) * c, dim=0, dtype=torch.int32)
+
+
 def pad_to(x: torch.Tensor, multiple: int, axis: int = -1) -> torch.Tensor:
     """Zero-pad ``axis`` up to a multiple of ``multiple``."""
     axis = axis % x.dim()
@@ -151,3 +177,48 @@ def pad_to(x: torch.Tensor, multiple: int, axis: int = -1) -> torch.Tensor:
         return x
     widths = [0, 0] * (x.dim() - 1 - axis) + [0, pad]
     return F.pad(x, widths)
+
+
+@dataclasses.dataclass
+class BitTransposed:
+    """A tensor in BARVINN's bit-transposed packed format: ``packed``
+    (bits, *leading, ceil(K/32)) int32 words (the bits of the reference's
+    uint32 words), K the lane (reduction) axis; ``shape`` the logical
+    integer tensor's shape, lane axis last. Torch has no pytree to
+    register it with: it is a plain dataclass."""
+
+    packed: torch.Tensor
+    bits: int
+    signed: bool
+    shape: tuple
+
+    @property
+    def nbytes(self) -> int:
+        return self.packed.numel() * 4
+
+    def unpack(self) -> torch.Tensor:
+        planes = unpack_bitplanes(self.packed, self.shape[-1], axis=-1)
+        return from_bitplanes(planes, self.signed)
+
+    def digits(self, radix_bits: int) -> torch.Tensor:
+        """The int8 digit planes of the packed values (what the kernels
+        assemble in registers)."""
+        return to_digits(self.unpack(), self.bits, radix_bits, self.signed)
+
+
+def bit_transpose(x: torch.Tensor, bits: int, signed: bool) -> BitTransposed:
+    """The host-side transposer (paper §3.1.2): an integer tensor packed
+    into bit-transposed words, lane axis last, padded to 32 lanes."""
+    planes = pad_to(to_bitplanes(x, bits), 32, axis=-1)
+    return BitTransposed(pack_bitplanes(planes, axis=-1), bits, signed,
+                         tuple(x.shape))
+
+
+def bit_untranspose(bt: BitTransposed) -> torch.Tensor:
+    return bt.unpack()
+
+
+def packed_nbytes(shape: Sequence[int], bits: int) -> int:
+    """Bytes of the packed form of a logical ``shape`` (lane axis last)."""
+    lead = int(np.prod(shape[:-1])) if len(shape) > 1 else 1
+    return bits * lead * (-(-shape[-1] // 32)) * 4

@@ -33,8 +33,8 @@ import torch
 __all__ = ["dp_axes_of", "mesh_sizes", "param_pspec", "cache_pspec",
            "batch_pspec", "tree_pspecs", "tree_shardings", "to_placements",
            "from_placements", "distribute_tree", "tree_paths",
-           "spec_shards", "local_slices", "map_paths",
-           "sharding_leaves"]
+           "spec_shards", "local_slices", "local_shape", "map_paths",
+           "sharding_leaves", "place_tree"]
 
 Spec = Tuple[Any, ...]
 
@@ -310,6 +310,15 @@ def distribute_tree(tree, shardings):
     return _zip_map(one, tree, shardings)
 
 
+def place_tree(tree, device_mesh, kind: str = "param"):
+    """``tree`` (whole tensors, the same on every rank: float or packed
+    params, or caches) placed on ``device_mesh`` by ``param_pspec``
+    (``kind="cache"``: ``cache_pspec``); each rank keeps its shard of each
+    leaf. Packed planes are split as ``_packed_spec`` says: a column-
+    parallel projection's N, a row-parallel one's K words."""
+    return distribute_tree(tree, tree_shardings(tree, device_mesh, kind))
+
+
 def _zip_map(fn, tree, other):
     if isinstance(tree, dict):
         return {k: _zip_map(fn, v, other[k]) for k, v in tree.items()}
@@ -331,6 +340,21 @@ def spec_shards(spec: Spec, mesh) -> int:
         for a in (ax if isinstance(ax, tuple) else (ax,)):
             n *= sizes[a]
     return n
+
+
+def local_shape(spec: Spec, shape: Tuple[int, ...],
+                device_mesh) -> Tuple[int, ...]:
+    """The shape of this rank's shard of a tensor of ``shape`` placed by
+    ``spec`` (each split dimension over the product of its axes)."""
+    sizes = dict(zip(device_mesh.mesh_dim_names, tuple(device_mesh.shape)))
+    out = []
+    for d, ax in enumerate(spec):
+        n = 1
+        for a in (() if ax is None else ax if isinstance(ax, tuple)
+                  else (ax,)):
+            n *= sizes[a]
+        out.append(shape[d] // n)
+    return tuple(out)
 
 
 def local_slices(spec: Spec, shape: Tuple[int, ...], device_mesh,

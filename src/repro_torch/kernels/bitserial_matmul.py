@@ -44,6 +44,11 @@ plain version for a CPU tensor, the kernel for a CUDA tensor, the kernel
 wrapper's checks and output shape for a ``meta`` tensor (no launch).
 K3 and K4 take ``tile=`` (rows per block and K-split warps,
 :mod:`repro_torch.kernels.tuning`); None is the kernel's own heuristic.
+With ``raw_acc=True`` they skip the epilogue (the epilogue's ``kAcc``
+mode, which grouped K4 always runs) and return the raw (M, N) int32
+accumulator; ``scale`` is then None and no bias, ReLU or requant is
+given. A row-parallel projection on a mesh sums those accumulators over
+its ranks and runs the epilogue once (``models/layers.py``).
 Each counts as one op of an active
 :class:`~repro_torch.launch.hlo_analysis.CostMode`, with its work:
 2·M·N·K times both operands' ``kernel_digits`` integer FLOPs. Both
@@ -64,8 +69,9 @@ from repro_torch.core.quant import QuantSpec, qrange
 from repro_torch.kernels._build import I, Kernel, P
 from repro_torch.kernels.tuning import launch_args
 from repro_torch.launch import hlo_analysis as cost
-from repro_torch.kernels.epilogue import (CODES8, CODES32, FLOAT, PACKED,
-                                          check_operand, codes_dtype,
+from repro_torch.kernels.epilogue import (ACC, CODES8, CODES32, FLOAT,
+                                          PACKED, check_operand,
+                                          check_raw_acc, codes_dtype,
                                           epilogue, per_channel,
                                           requant_scale_tensor)
 
@@ -96,12 +102,18 @@ def bitserial_matmul_v2_ref(x_packed: torch.Tensor, w_packed: torch.Tensor,
                             requant: Optional[QuantSpec] = None,
                             requant_scale=None,
                             emit_packed: bool = False,
-                            tile=None) -> torch.Tensor:
+                            tile=None, raw_acc: bool = False) -> torch.Tensor:
     """Plain version of K3, on any device; ``tile`` is ignored (the result
-    does not depend on it)."""
+    does not depend on it). ``raw_acc``: the accumulator it computes,
+    with no epilogue."""
+    if raw_acc:
+        check_raw_acc("bitserial_matmul_v2", scale, bias, relu, requant,
+                      emit_packed)
     if emit_packed and requant is None:
         raise ValueError("emit_packed requires requant")
     acc = serial_matmul_packed_acts(x_packed, w_packed, spec=spec, k=k)
+    if raw_acc:
+        return acc
     return epilogue(acc, scale, bias, relu=relu, requant=requant,
                     requant_scale=requant_scale, emit_packed=emit_packed)
 
@@ -112,11 +124,16 @@ def bitserial_matmul_ref(x: torch.Tensor, w_packed: torch.Tensor,
                          spec: SerialSpec, k: int, relu: bool = False,
                          out_dtype: torch.dtype = torch.float32,
                          requant: Optional[QuantSpec] = None,
-                         tile=None) -> torch.Tensor:
-    """Plain version of K4, on any device; ``tile`` is ignored."""
+                         tile=None, raw_acc: bool = False) -> torch.Tensor:
+    """Plain version of K4, on any device; ``tile`` is ignored.
+    ``raw_acc``: the accumulator it computes, with no epilogue."""
+    if raw_acc:
+        check_raw_acc("bitserial_matmul", scale, bias, relu, requant)
     if x.shape[-1] != k:
         raise ValueError(f"x has K={x.shape[-1]}, caller declared k={k}")
     acc = serial_matmul_packed(x.to(torch.int32), w_packed, spec=spec, k=k)
+    if raw_acc:
+        return acc
     out = epilogue(acc, scale, bias, relu=relu, requant=requant, divide=False)
     if requant is not None and requant.bits <= 8:
         return out
@@ -153,6 +170,8 @@ def _check_weights(fn: str, w_packed: torch.Tensor, spec: SerialSpec, k: int,
 
 
 def _scale_bias(fn: str, scale, bias, n: int, dev: torch.device):
+    if scale is None:            # raw_acc: no epilogue reads them
+        return None, None
     scale = per_channel(fn, "scale", scale, n, dev)
     bias = None if bias is None else per_channel(fn, "bias", bias, n, dev)
     return scale, bias
@@ -165,13 +184,17 @@ def bitserial_matmul_v2_cuda(x_packed: torch.Tensor, w_packed: torch.Tensor,
                              requant: Optional[QuantSpec] = None,
                              requant_scale=None,
                              emit_packed: bool = False,
-                             tile=None) -> torch.Tensor:
+                             tile=None, raw_acc: bool = False) -> torch.Tensor:
     """Launch K3 on CUDA tensors (same contract as the plain version).
 
     ``tile``: a :class:`~repro_torch.kernels.tuning.TileConfig` (rows per
     block and K-split warps), or None for the kernel's own heuristic; a
     tile the instantiation does not take raises at launch."""
     fn = "bitserial_matmul_v2"
+    if raw_acc:
+        check_raw_acc(fn, scale, bias, relu, requant, emit_packed)
+    elif scale is None:
+        raise ValueError(f"{fn}: scale is None without raw_acc")
     if emit_packed and requant is None:
         raise ValueError("emit_packed requires requant")
     dev = x_packed.device
@@ -187,7 +210,10 @@ def bitserial_matmul_v2_cuda(x_packed: torch.Tensor, w_packed: torch.Tensor,
     scale, bias = _scale_bias(fn, scale, bias, n, dev)
     qn = qp = rq_bits = 0
     rs = None
-    if requant is None:
+    if raw_acc:
+        mode = ACC
+        out = torch.empty((m, n), dtype=torch.int32, device=dev)
+    elif requant is None:
         mode = FLOAT
         out = torch.empty((m, n), dtype=torch.float32, device=dev)
     else:
@@ -209,7 +235,8 @@ def bitserial_matmul_v2_cuda(x_packed: torch.Tensor, w_packed: torch.Tensor,
     stream = torch.cuda.current_stream(dev).cuda_stream
     KERNEL.launch(
         "bitserial_matmul_v2", x_packed.data_ptr(), w_packed.data_ptr(),
-        scale.data_ptr(), None if bias is None else bias.data_ptr(),
+        None if scale is None else scale.data_ptr(),
+        None if bias is None else bias.data_ptr(),
         None if rs is None else rs.data_ptr(), out.data_ptr(), m, k, n,
         spec.a_bits, spec.w_bits, int(spec.a_signed), int(spec.w_signed),
         bitops.kernel_digits(spec.a_bits, spec.a_signed),
@@ -224,10 +251,14 @@ def bitserial_matmul_cuda(x: torch.Tensor, w_packed: torch.Tensor,
                           spec: SerialSpec, k: int, relu: bool = False,
                           out_dtype: torch.dtype = torch.float32,
                           requant: Optional[QuantSpec] = None,
-                          tile=None) -> torch.Tensor:
+                          tile=None, raw_acc: bool = False) -> torch.Tensor:
     """Launch K4 on a CUDA ``(M, K)`` int32 code tensor (same contract as
     the plain version; ``tile`` as K3's)."""
     fn = "bitserial_matmul"
+    if raw_acc:
+        check_raw_acc(fn, scale, bias, relu, requant)
+    elif scale is None:
+        raise ValueError(f"{fn}: scale is None without raw_acc")
     dev = x.device
     check_operand(fn, "x", x, torch.int32, 2, dev)
     m, kx = x.shape
@@ -236,7 +267,10 @@ def bitserial_matmul_cuda(x: torch.Tensor, w_packed: torch.Tensor,
     n = _check_weights(fn, w_packed, spec, k, dev)
     scale, bias = _scale_bias(fn, scale, bias, n, dev)
     qn = qp = rq_bits = 0
-    if requant is None:
+    if raw_acc:
+        mode = ACC
+        out = torch.empty((m, n), dtype=torch.int32, device=dev)
+    elif requant is None:
         mode = FLOAT
         out = torch.empty((m, n), dtype=torch.float32, device=dev)
     else:
@@ -249,13 +283,14 @@ def bitserial_matmul_cuda(x: torch.Tensor, w_packed: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         KERNEL.launch(
             "bitserial_matmul_v1", x.data_ptr(), w_packed.data_ptr(),
-            scale.data_ptr(), None if bias is None else bias.data_ptr(),
+            None if scale is None else scale.data_ptr(),
+            None if bias is None else bias.data_ptr(),
             out.data_ptr(), m, k, n, spec.a_bits, spec.w_bits,
             int(spec.a_signed), int(spec.w_signed),
             bitops.kernel_digits(spec.a_bits, spec.a_signed),
             bitops.kernel_digits(spec.w_bits, spec.w_signed),
             int(relu), mode, rq_bits, qn, qp, *launch_args(tile), stream)
-    if requant is not None and requant.bits <= 8:
+    if raw_acc or (requant is not None and requant.bits <= 8):
         return out
     return out.to(out_dtype)
 

@@ -10,7 +10,9 @@ IEEE divide by a tensor on the output's device; K4's requant has no divide
 (its ``scale`` folds the step), which is ``rs = None``.
 
 Also here: the output-mode numbers the CUDA entries take and the argument
-checks the three wrappers share.
+checks the three wrappers share. :data:`ACC` is no epilogue at all: the
+raw int32 accumulator, which a row-parallel projection on a mesh sums over
+its ranks before it runs the epilogue once (``models/layers.py``).
 """
 
 from __future__ import annotations
@@ -24,10 +26,11 @@ from repro_torch.core.quant import QuantSpec, quantize_int, qrange
 from repro_torch.kernels.quantize_pack import pack_codes_ref
 
 __all__ = ["epilogue", "codes_dtype", "requant_scale_tensor", "check_operand",
-           "per_channel", "FLOAT", "CODES8", "CODES32", "PACKED"]
+           "per_channel", "check_raw_acc", "FLOAT", "CODES8", "CODES32",
+           "PACKED", "ACC"]
 
 #: output modes of ``csrc/epilogue.cuh``
-FLOAT, CODES8, CODES32, PACKED = 0, 1, 2, 3
+FLOAT, CODES8, CODES32, PACKED, ACC = 0, 1, 2, 3, 4
 
 
 def codes_dtype(requant: QuantSpec) -> torch.dtype:
@@ -66,6 +69,16 @@ def epilogue(acc: torch.Tensor, scale: torch.Tensor,
     if emit_packed:
         return pack_codes_ref(codes, requant.bits)
     return codes.to(codes_dtype(requant))
+
+
+def check_raw_acc(fn: str, scale, bias, relu: bool, requant,
+                  emit_packed: bool = False) -> None:
+    """Raise unless a ``raw_acc`` call asks for no epilogue: no scale, no
+    bias, no ReLU, no requant."""
+    if (scale is not None or bias is not None or relu
+            or requant is not None or emit_packed):
+        raise ValueError(f"{fn}: raw_acc returns the int32 accumulator and "
+                         "takes no scale, bias, relu or requant")
 
 
 def check_operand(fn: str, name: str, t: torch.Tensor, dtype: torch.dtype,

@@ -33,7 +33,10 @@ one; without, the kernel's heuristic, as the reference's v1 keeps its
 fixed blocks. The result does not depend on the tile.
 
 The plain epilogue is :func:`repro_torch.kernels.epilogue.epilogue`, one
-FMA where the reference's jitted ``_epilogue_xla`` contracts to one.
+FMA where the reference's jitted ``_epilogue_xla`` contracts to one. K3's
+and K4's ops take ``raw_acc=True`` (``scale`` None): the raw int32
+accumulator, no epilogue; the tuner picks its tile as for a float output
+(the same 4 bytes an element).
 ``plain=True`` (the GEMMs and the quantizer) runs the kernel's plain
 version whatever the device: the yardstick a kernel is held against, the
 counterpart of the reference's ``backend="xla"``.
@@ -140,7 +143,8 @@ def serial_matmul_packed_op(x_packed: torch.Tensor, w_packed: torch.Tensor,
                             spec: SerialSpec, k: int, relu: bool = False,
                             requant: Optional[QuantSpec] = None,
                             requant_scale=None, emit_packed: bool = False,
-                            plain: bool = False, tile=None) -> torch.Tensor:
+                            plain: bool = False, tile=None,
+                            raw_acc: bool = False) -> torch.Tensor:
     """Fused serial matmul over bit-packed activations (K3).
 
     ``x_packed``: (a_bits, ..., ceil(K/32)) words, any leading dims;
@@ -167,7 +171,7 @@ def serial_matmul_packed_op(x_packed: torch.Tensor, w_packed: torch.Tensor,
                 out_bits=requant.bits if (requant and emit_packed) else None)
     out = fn(x2, w_packed, scale, bias, spec=spec, k=k, relu=relu,
              requant=requant, requant_scale=requant_scale,
-             emit_packed=emit_packed, tile=tile)
+             emit_packed=emit_packed, tile=tile, raw_acc=raw_acc)
     if emit_packed:
         return out.reshape((requant.bits,) + lead + (out.shape[-1],))
     return out.reshape(lead + (out.shape[-1],))
@@ -178,7 +182,8 @@ def serial_matmul_op(x: torch.Tensor, w_packed: torch.Tensor,
                      *, spec: SerialSpec, k: int, relu: bool = False,
                      out_dtype: torch.dtype = torch.float32,
                      requant: Optional[QuantSpec] = None,
-                     plain: bool = False, tile=None) -> torch.Tensor:
+                     plain: bool = False, tile=None,
+                     raw_acc: bool = False) -> torch.Tensor:
     """Fused serial matmul of (..., K) integer codes against packed weights
     (K4); ``scale`` folds any requant step. ``tile``: a
     :class:`~repro_torch.kernels.tuning.TileConfig`, or None for the
@@ -188,7 +193,8 @@ def serial_matmul_op(x: torch.Tensor, w_packed: torch.Tensor,
     fn = (bitserial_matmul.bitserial_matmul_ref if plain
           else bitserial_matmul.bitserial_matmul)
     out = fn(x2, w_packed, scale, bias, spec=spec, k=k, relu=relu,
-             out_dtype=out_dtype, requant=requant, tile=tile)
+             out_dtype=out_dtype, requant=requant, tile=tile,
+             raw_acc=raw_acc)
     return out.reshape(lead + (out.shape[-1],))
 
 

@@ -394,8 +394,9 @@ def choose_tile(m: int, k: int, n: int, spec, *,
                 h100: H100Config = _H100) -> TileConfig:
     """Pick the K3 tile (K4's with ``codes``) for one (m, k) x (k, n)
     product. ``out_bits``: the packed output's bits when the epilogue packs
-    (changes the output's bytes). Memoized per (shape, plans, out_bits,
-    codes, card)."""
+    (changes the output's bytes); None for a float output and for the raw
+    int32 accumulator (``raw_acc``), whose bytes are the same. Memoized
+    per (shape, plans, out_bits, codes, card)."""
     key = (m, k, n, spec, out_bits, codes, _card(h100))
 
     def tune():

@@ -55,12 +55,16 @@ cell counts one ``make_train_step`` step (loss, gradients, AdamW) per
 device of the production mesh, a fake process group of 256 or 512 ranks
 in this process (``launch/mesh.py``'s ``fake_mesh``), the state and batch
 placed as a mesh run places them; the counts are rank 0's. A
-``prefill`` or ``decode`` cell counts one ``prefill`` or one
-``decode_step`` (at the cache's last position) on one device, as
-``Server`` holds the packed model: the port does not serve a sharded
-packed model, so ``cost_mesh`` is null, ``cost_mesh_reason`` says why,
-and a serve cell has no collectives. ``cost=False`` leaves the cost out.
-A ``run`` is not traced.
+``prefill`` or ``decode`` cell of a family a mesh serves (dense, VLM)
+counts one ``prefill`` or one ``decode_step`` (at the cache's last
+position) of a sharded ``Server`` on rank 0 of the same fake mesh: the
+packed params placed by ``param_pspec``, the caches by ``cache_pspec``,
+the inputs by ``batch_pspec``; each K3/K4 launch counts its rank's local
+work, and the row-parallel projections' int32 sums count as all-reduces.
+A serve cell of any other family is counted on one device, as ``Server``
+holds it: ``cost_mesh`` is null and ``cost_mesh_reason`` names the family
+and the slice that brings it to a mesh. ``cost=False`` leaves the cost
+out. A ``run`` is not traced.
 
 Flags as the reference's: ``--arch``, ``--shape``, ``--all``, ``--mesh``
 (``single``, ``multi`` or ``both``), ``--radix``, ``--kv-bits``,
@@ -94,7 +98,8 @@ from repro_torch.distributed.sharding import (batch_pspec, cache_pspec,
                                               tree_paths)
 from repro_torch.launch.hlo_analysis import analyze
 from repro_torch.launch.mesh import fake_mesh, make_production_mesh
-from repro_torch.models.transformer import (ModelConfig, init_caches,
+from repro_torch.models.transformer import (MESH_FAMILIES, MESH_LATER,
+                                            ModelConfig, init_caches,
                                             init_params, prefill)
 from repro_torch.optim import AdamWConfig, adamw_init
 
@@ -107,10 +112,12 @@ ART_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
 FIT_SHARE = 0.85
 #: the seed of a run's random weights and inputs
 SEED = 0
-#: why a serve cell is counted on one device
-SERVE_MESH_REASON = ("the port does not serve a sharded packed model (TP "
-                     "through K3/K4): a serve step is counted on one "
-                     "device, and its collectives are not guessed")
+#: why a serve cell of a family outside ``transformer.MESH_FAMILIES`` is
+#: counted on one device
+SERVE_MESH_REASON = ("the port serves the {family!r} family on one device "
+                     "only (its mesh serving is a later slice: {later}); a "
+                     "serve step is counted on one device, and its "
+                     "collectives are not guessed")
 
 
 class _MetaGenerator(torch.Generator):
@@ -316,38 +323,61 @@ def _meta_inputs(cell: Cell) -> dict:
             for k, v in input_specs(cell.cfg, cell.shape).items()}
 
 
-def cost_cell(cell: Cell, mesh_kind: str = "single") -> dict:
+def cost_cell(cell: Cell, mesh_kind: str = "single",
+              mesh_shape: Optional[tuple] = None) -> dict:
     """One step of the cell counted on the ``meta`` device
-    (:func:`repro_torch.launch.hlo_analysis.analyze`): a ``train`` step
-    on rank 0 of the production mesh ``mesh_kind`` (a fake process group
-    of its size), a ``prefill`` or a ``decode_step`` on one device. The
+    (:func:`repro_torch.launch.hlo_analysis.analyze`): a ``train`` step,
+    or a sharded ``Server``'s ``prefill`` or ``decode_step`` (a family a
+    mesh serves), on rank 0 of the production mesh ``mesh_kind`` (a fake
+    process group of its size; ``mesh_shape`` another (data, model) or
+    (pod, data, model)); another family's serve step on one device. The
     reference's keys (``flops``, ``flops_int``, ``bytes_hbm``,
     ``collectives``) and the port's (``flops_logical``,
     ``kernel_calls``, ``ops``, ``cost_mesh``, ``cost_s``)."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.distributed import placed
+    from repro_torch.distributed.sharding import to_placements
     from repro_torch.launch.serve import Server
+    from repro_torch.launch.train import init_placed_params, make_train_step
     from repro_torch.models.transformer import decode_step
     t0 = time.perf_counter()
     cfg, shape = cell.cfg, cell.shape
     gen = _MetaGenerator()
     inputs = _meta_inputs(cell)
     extra = {}
+    sizes = mesh_shape or make_production_mesh(
+        multi_pod=mesh_kind == "multi").sizes
+
+    def place(mesh):
+        return {k: distribute_tensor(
+            v, mesh, to_placements(batch_pspec(tuple(v.shape), mesh), mesh),
+            src_data_rank=None) for k, v in inputs.items()}
+
     if shape.kind == "train":
-        from torch.distributed.tensor import distribute_tensor
-        from repro_torch.distributed import placed
-        from repro_torch.distributed.sharding import to_placements
-        from repro_torch.launch.train import (init_placed_params,
-                                              make_train_step)
-        sizes = make_production_mesh(multi_pod=mesh_kind == "multi").sizes
         with fake_mesh(sizes) as mesh:
             params = init_placed_params(gen, cfg, mesh)
             state = {"params": params, "opt": adamw_init(params)}
-            batch = {k: distribute_tensor(
-                v, mesh, to_placements(batch_pspec(tuple(v.shape), mesh),
-                                       mesh), src_data_rank=None)
-                for k, v in inputs.items()}
             step = make_train_step(cfg, AdamWConfig())
             with placed.mesh_context(mesh):
-                _, cost = analyze(step, state, batch)
+                _, cost = analyze(step, state, place(mesh))
+            cost_mesh = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    elif cfg.family in MESH_FAMILIES:
+        with fake_mesh(sizes) as mesh:
+            srv = Server(cfg, init_placed_params(gen, cfg, mesh, packed=True),
+                         batch_slots=shape.global_batch,
+                         max_len=cell.max_len, device="meta", mesh=mesh)
+            batch = place(mesh)
+            with srv._context():
+                if shape.kind == "prefill":
+                    _, cost = analyze(prefill, srv.params, batch, srv.cfg,
+                                      max_len=cell.max_len)
+                else:
+                    caches = init_caches(srv.cfg, shape.global_batch,
+                                         cell.max_len, device="meta",
+                                         src_len=cell.src_len, mesh=mesh)
+                    _, cost = analyze(decode_step, srv.params, caches,
+                                      batch["tokens"], cell.max_len - 1,
+                                      srv.cfg)
             cost_mesh = dict(zip(mesh.mesh_dim_names, mesh.shape))
     else:
         srv = Server(cfg, init_params(gen, cfg, packed=True),
@@ -365,7 +395,8 @@ def cost_cell(cell: Cell, mesh_kind: str = "single") -> dict:
                                   inputs["tokens"], cell.max_len - 1,
                                   srv.cfg)
         cost_mesh = None
-        extra["cost_mesh_reason"] = SERVE_MESH_REASON
+        extra["cost_mesh_reason"] = SERVE_MESH_REASON.format(
+            family=cfg.family, later=MESH_LATER[cfg.family])
     d = cost.as_dict()
     return {"flops": d["flops"], "flops_int": d["flops_int"],
             "flops_logical": d["flops_logical"],

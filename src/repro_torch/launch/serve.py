@@ -45,6 +45,8 @@ as the reference's do:
     python -m repro_torch.launch.serve --arch hymba-1.5b [--device cpu --smoke]
     python -m repro_torch.launch.serve --arch qwen1.5-110b --device cpu --smoke
     python -m repro_torch.launch.serve --arch internvl2-76b --device cpu --smoke
+    python -m repro_torch.launch.serve --arch stablelm-1.6b --smoke --device cpu --model-par 2 [--data-par 2]
+    python -m repro_torch.launch.serve --arch qwen1.5-110b --model-par 4   # one rank a card
     python -m repro_torch.launch.serve --arch resnet9-cifar10 --batch 32 [--trace-out trace.json]
     python -m repro_torch.launch.serve --arch resnet9-cifar10 --batch 4 --device cpu
     python -m repro_torch.launch.serve --arch resnet9-cifar10 --store DIR
@@ -57,7 +59,12 @@ as the reference's do:
 Prometheus text on ``127.0.0.1:PORT/metrics`` for the run, and
 ``--metrics-every S`` prints a one-line metrics snapshot every S seconds.
 ``--store DIR`` warm-boots the CNN from an artifact store (compiling and
-saving on a miss). ``compile`` is the offline code-generator run: graph →
+saving on a miss). ``--data-par``/``--model-par`` (LM; dense and VLM
+families) serve the packed model sharded over a (data, model) mesh: the
+CLI starts one rank a card (gloo ranks with ``--device cpu``), each
+builds a :class:`Server` with ``mesh=`` and serves ``batch`` 8-token
+prompts (``batch`` must divide over ``data``); rank 0 prints.
+``compile`` is the offline code-generator run: graph →
 passes → calibration → packing → artifact store. ``profile`` times the
 compiled Program step by step on the device (CUDA events on the card)
 beside the cycle model's prediction, fits ns per virtual cycle and, with
@@ -67,6 +74,7 @@ beside the cycle model's prediction, fits ns per virtual cycle and, with
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import threading
@@ -79,10 +87,15 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import get_arch, list_archs
 from repro_torch.core.pipeline_modules import disable_tf32
+from repro_torch.distributed import placed
+from repro_torch.distributed.sharding import (batch_pspec, dp_axes_of,
+                                              mesh_sizes, place_tree,
+                                              to_placements)
 from repro_torch.models.layers import QuantPolicy
 from repro_torch.models.resnet import ResNet9Config, resnet9_graph, resnet9_init
-from repro_torch.models.transformer import (ModelConfig, decode_step,
-                                            init_params, pack_params, prefill,
+from repro_torch.models.transformer import (ModelConfig, check_mesh_family,
+                                            decode_step, init_params,
+                                            pack_params, prefill,
                                             serve_policy)
 from repro_torch.obs import (format_trace_summary, start_metrics_server,
                              trace_summary, write_chrome_trace)
@@ -179,12 +192,27 @@ class Server:
     plain versions (the yardstick). ``device=None`` means the card: it
     raises when there is none (pass ``device="cpu"`` for the plain
     versions).
+
+    ``mesh`` (a ``DeviceMesh`` with the reference's axis names, from
+    ``launch/mesh.make_local_mesh``; this process one of its ranks)
+    serves the packed model sharded over it: the params placed by
+    ``param_pspec`` (whole ones given are split, each rank keeping its
+    shard; none given are drawn placed), the caches by ``cache_pspec``,
+    the prompts' rows by ``batch_pspec`` (``batch_slots`` must divide
+    over the DP axes), every step under
+    :func:`~repro_torch.distributed.placed.mesh_context`. Each rank runs
+    K1 and K3 (or K4) on its own planes (``layers._placed_qdense``); the
+    embedding and the head are vocab-parallel, held whole over the DP
+    axes; tokens and ``last_logits`` come back whole on every rank. The
+    dense and VLM families only: any other raises
+    ``NotImplementedError``, as does float serving. ``device`` must be of
+    the mesh's device type (``meta`` counts, as the dry run does).
     """
 
     def __init__(self, cfg: ModelConfig, params=None, *,
                  batch_slots: int = 4, max_len: int = 128, seed: int = 0,
                  quantized: bool = True, pack_acts: bool = True,
-                 plain: bool = False, device=None):
+                 plain: bool = False, device=None, mesh=None):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             disable_tf32()
@@ -192,22 +220,75 @@ class Server:
         self.cfg = cfg
         self.max_len = max_len
         self.batch_slots = batch_slots
+        self.mesh = mesh
+        if mesh is not None:
+            self._check_mesh(quantized)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = init_params(gen, cfg, packed=quantized)
+            if mesh is not None:
+                from repro_torch.launch.train import init_placed_params
+                params = init_placed_params(gen, cfg, mesh, packed=True)
+            else:
+                params = init_params(gen, cfg, packed=quantized)
         if params["embed"].device != self.device:
             raise ValueError(f"params lie on {params['embed'].device}, the "
                              f"server on {self.device}")
         # bit-transposed deployment, or the float params as they are
         params = pack_params(params, cfg) if quantized else dict(params)
+        if mesh is not None and not placed.is_placed(params["embed"]):
+            params = place_tree(params, mesh)
         if cfg.tie_embeddings:
             params["head"] = {"w": params["embed"].to(cfg.compute_dtype).T}
         else:
             params["head"] = dict(params["head"], w=params["head"]["w"].to(
                 cfg.compute_dtype))
+        if mesh is not None:
+            # a replica's vocabulary shard whole over the DP axes: no
+            # gather of the table or the head in a step
+            params["embed"] = _whole_over_dp(params["embed"])
+            params["head"]["w"] = _whole_over_dp(params["head"]["w"])
         self.params = params
         self.last_logits = None
         self.last_stats = {}
+
+    def _check_mesh(self, quantized: bool) -> None:
+        mesh, dev = self.mesh, self.device
+        if dev.type != "meta" and mesh.device_type != dev.type:
+            raise ValueError(f"a {mesh.device_type} mesh serves on its "
+                             f"ranks' {mesh.device_type} devices, not {dev}")
+        check_mesh_family(self.cfg)
+        if not quantized:
+            raise NotImplementedError("a mesh serves the packed model; "
+                                      "float serving on a mesh is not "
+                                      "ported")
+        dp = 1
+        for a in dp_axes_of(mesh):
+            dp *= mesh_sizes(mesh)[a]
+        if self.batch_slots % dp:
+            raise ValueError(f"batch_slots={self.batch_slots} does not "
+                             f"divide over the {dp} ranks of the DP axes "
+                             "(each rank serves its rows)")
+
+    @contextlib.contextmanager
+    def _context(self):
+        """A step's context: inference mode, or on a mesh ``no_grad``
+        inside :func:`~repro_torch.distributed.placed.mesh_context`
+        (DTensor cannot make views of params made outside inference mode
+        inside it)."""
+        if self.mesh is None:
+            with torch.inference_mode():
+                yield
+        else:
+            with torch.no_grad(), placed.mesh_context(self.mesh):
+                yield
+
+    def _place_batch(self, toks: torch.Tensor):
+        if self.mesh is None:
+            return toks
+        from torch.distributed.tensor import distribute_tensor
+        return distribute_tensor(toks, self.mesh, to_placements(
+            batch_pspec(tuple(toks.shape), self.mesh), self.mesh),
+            src_data_rank=None)
 
     def generate(self, requests: List[GenRequest], *,
                  step_seconds: Optional[list] = None) -> List[GenRequest]:
@@ -260,7 +341,8 @@ class Server:
         toks = np.zeros((len(requests), s), np.int64)
         for i, r in enumerate(requests):
             toks[i, -len(r.prompt):] = r.prompt  # left-pad
-        batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+        batch = {"tokens": self._place_batch(
+            torch.from_numpy(toks).to(self.device))}
         n_new = max((r.max_new_tokens for r in requests), default=0)
 
         def timed(t0):
@@ -269,7 +351,7 @@ class Server:
                     torch.cuda.synchronize(self.device)
                 step_seconds.append(time.perf_counter() - t0)
 
-        with torch.inference_mode():
+        with self._context():
             t0 = time.perf_counter()
             logits, caches = prefill(self.params, batch, self.cfg,
                                      max_len=self.max_len)
@@ -284,9 +366,11 @@ class Server:
                 timed(t0)
                 steps.append(tok)
             if n_new:
-                all_toks = torch.cat(steps, dim=1).cpu().numpy()  # 1 sync
+                all_toks = placed.plain(torch.cat(steps, dim=1)).cpu(
+                ).numpy()                                       # 1 sync
             else:
                 all_toks = np.zeros((len(requests), 0), np.int64)
+            logits = placed.plain(logits)
         self.last_logits = logits
         for i, r in enumerate(requests):
             r.out_tokens = [int(v) for v in all_toks[i, :r.max_new_tokens]]
@@ -298,6 +382,17 @@ class Server:
             "decode_steps": max(0, n_new - 1),
         }
         return requests[:n_real]  # dummies pad the batch; don't return them
+
+
+def _whole_over_dp(t):
+    """A placed tensor made whole over the mesh's DP axes (its ``model``
+    split kept)."""
+    from torch.distributed.tensor import Replicate
+    names = t.device_mesh.mesh_dim_names
+    pls = [Replicate() if names[i] in ("pod", "data") else p
+           for i, p in enumerate(t.placements)]
+    return t if pls == list(t.placements) else t.redistribute(
+        t.device_mesh, pls)
 
 
 def make_lm_engine(server: Server):
@@ -647,50 +742,83 @@ def _main_profile(argv) -> None:
         print()
 
 
-def _main_static_lm(args, cfg: ModelConfig) -> None:
+def _main_static_lm(args, cfg: ModelConfig, mesh=None, rank: int = 0
+                    ) -> None:
     """An arch the slot arena cannot take (SSM or hybrid state, rolling
     windows, a VLM's frontend) through the static :class:`Server`, as the
     reference's CLI serves it: ``batch`` prompts of 8 tokens from
     ``RandomState(seed)``, ``new_tokens`` each. An encoder-decoder exits
-    with the reason: :meth:`Server.generate` feeds no source."""
-    if cfg.family in ("encdec", "audio"):
-        raise SystemExit(
-            f"{cfg.name}: family {cfg.family!r} is an encoder-decoder whose "
-            "encoder needs a source (src_embeds); Server.generate feeds "
-            "tokens only, so the CLI cannot serve it (the reference's CLI "
-            "fails there too). Drive repro_torch.models.transformer.prefill "
-            "and decode_step with src_embeds instead.")
-    print(f"note: family={cfg.family!r} doesn't fit the continuous slot "
-          "arena (SSM/hybrid state, rolling windows, or a frontend's "
-          "inputs) — "
-          "serving via the static batch path")
-    if args.trace_out or args.metrics_port is not None or args.metrics_every:
+    with the reason: :meth:`Server.generate` feeds no source. With
+    ``mesh`` (one rank of a mesh run, :func:`_serve_mesh_rank`) the
+    server is sharded over it, and rank 0 alone prints."""
+    if mesh is None:
+        if cfg.family in ("encdec", "audio"):
+            raise SystemExit(
+                f"{cfg.name}: family {cfg.family!r} is an encoder-decoder "
+                "whose encoder needs a source (src_embeds); "
+                "Server.generate feeds tokens only, so the CLI cannot "
+                "serve it (the reference's CLI fails there too). Drive "
+                "repro_torch.models.transformer.prefill and decode_step "
+                "with src_embeds instead.")
+        print(f"note: family={cfg.family!r} doesn't fit the continuous "
+              "slot arena (SSM/hybrid state, rolling windows, or a "
+              "frontend's inputs) — serving via the static batch path")
+    if (rank == 0 and (args.trace_out or args.metrics_port is not None
+                       or args.metrics_every)):
         print("note: --trace-out/--metrics-port/--metrics-every apply to "
               "the serving-runtime paths only (static batch has no spine)")
     server = Server(cfg, batch_slots=args.batch, max_len=LM_MAX_LEN,
                     seed=args.seed, pack_acts=not args.no_pack_acts,
-                    device=args.device)
+                    device=args.device, mesh=mesh)
     rng = np.random.RandomState(args.seed)
     reqs = [GenRequest(rng.randint(0, cfg.vocab_size, (8,)).astype(np.int32),
                        args.new_tokens) for _ in range(args.batch)]
     t0 = time.perf_counter()
     out = server.generate(reqs)
     dt = time.perf_counter() - t0
+    if rank:
+        return
     total = sum(len(r.out_tokens) for r in out)
     kernels = "K1 + K3" if not args.no_pack_acts else "K4"
+    where = (_device_name(server.device) if mesh is None else
+             f"a (data {args.data_par}, model {args.model_par}) mesh of "
+             f"{mesh.device_type}")
     print(f"{cfg.name}: generated {total} tokens in {dt:.2f}s "
-          f"({total / dt:.1f} tok/s, static batch) on "
-          f"{_device_name(server.device)}, {cfg.n_layers} layers, {kernels}")
-    print("sample:", out[0].out_tokens)
+          f"({total / dt:.1f} tok/s, static batch) on {where}, "
+          f"{cfg.n_layers} layers, {kernels}"
+          + ("" if mesh is None else " on each rank's planes"), flush=True)
+    print("sample:", out[0].out_tokens, flush=True)
+
+
+def _serve_mesh_rank(rank: int, cfg: ModelConfig, args) -> None:
+    """One rank of the LM CLI's mesh run (started by ``run_ranks``):
+    :func:`_main_static_lm` on a (``data_par``, ``model_par``) mesh."""
+    from repro_torch.launch.mesh import make_local_mesh
+    if args.device is not None and torch.device(args.device).type == "cuda":
+        args.device = None                      # this rank's own card
+    mesh = make_local_mesh(args.data_par, args.model_par, device=args.device)
+    _main_static_lm(args, cfg, mesh=mesh, rank=rank)
 
 
 def _main_lm(args) -> None:
     """The reference CLI's LM load through the continuous engine, submitted
     through the serving runtime: mixed prompt lengths (4-16 tokens) and
     decode budgets, every 4th request long, from ``RandomState(seed)``.
-    An arch the engine cannot take goes through :func:`_main_static_lm`."""
+    An arch the engine cannot take goes through :func:`_main_static_lm`;
+    with ``--data-par``/``--model-par`` above one rank, the ranks serve
+    the static load sharded (:func:`_serve_mesh_rank`)."""
     entry = get_arch(args.arch)
     cfg = entry.smoke if args.smoke else entry.full
+    n = args.data_par * args.model_par
+    if n > 1:
+        from repro_torch.launch.mesh import run_ranks
+        check_mesh_family(cfg)
+        if args.batch % args.data_par:
+            raise SystemExit(f"--batch {args.batch} does not divide over "
+                             f"--data-par {args.data_par}")
+        run_ranks(_serve_mesh_rank, n, device=args.device, args=(cfg, args),
+                  timeout=24 * 3600)
+        return
     if not supports_continuous(cfg):
         _main_static_lm(args, cfg)
         return
@@ -790,6 +918,10 @@ def main(argv=None) -> None:
                          "packed planes into K3")
     ap.add_argument("--smoke", action="store_true",
                     help="LM: the arch's reduced config (for the CPU)")
+    ap.add_argument("--data-par", type=int, default=1,
+                    help="LM: ranks over the data axis (one process each)")
+    ap.add_argument("--model-par", type=int, default=1,
+                    help="LM: ranks over the model axis (one process each)")
     ap.add_argument("--banks", type=int, default=None,
                     help="CNN: serve across N MVU banks (one CUDA stream "
                          "each, round-robin over the visible cards; on "
@@ -820,6 +952,9 @@ def main(argv=None) -> None:
         args.batch = args.batch or 4
         _main_lm(args)
         return
+    if args.data_par * args.model_par > 1:
+        ap.error("--data-par/--model-par apply to the LM archs (the CNN "
+                 "scales over banks: --banks)")
     args.batch = args.batch or 8
     _main_cnn(args)
 

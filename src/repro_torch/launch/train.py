@@ -98,12 +98,15 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
     return train_step
 
 
-def init_placed_params(gen: torch.Generator, cfg: ModelConfig, mesh):
+def init_placed_params(gen: torch.Generator, cfg: ModelConfig, mesh, *,
+                       packed: bool = False):
     """:func:`~repro_torch.models.transformer.init_params` placed on
     ``mesh`` by ``param_pspec``: every rank draws every layer from ``gen``
     (seeded alike on every rank, so the draws agree) and keeps its shard,
     so no rank holds more than one full layer (and the embedding and head)
-    at a time, and the whole params equal an unplaced draw's."""
+    at a time, and the whole params equal an unplaced draw's. With
+    ``packed`` each layer is packed whole and then split (a sharded
+    server's planes: ``_packed_spec``)."""
     from torch.distributed.tensor import DTensor
     placing = {}
 
@@ -117,7 +120,7 @@ def init_placed_params(gen: torch.Generator, cfg: ModelConfig, mesh):
             return t
         return t[sl].clone(memory_format=torch.contiguous_format)
 
-    local = init_params(gen, cfg, keep=keep)
+    local = init_params(gen, cfg, packed=packed, keep=keep)
 
     def wrap(path, t):
         full, spec = placing[path]

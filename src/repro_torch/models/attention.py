@@ -463,23 +463,12 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: AttnConfig,
     new_cache = None
     chunk = dict(causal=cfg.causal, window=cfg.window, q_chunk=q_chunk,
                  kv_chunk=kv_chunk)
-    if cache is not None:
-        new_cache = update_kv_cache(cache, k, v, cache_pos)
-        if s > 1 and use_chunked and _host_zero(cache_pos):
-            # prefill into an empty cache: the fresh K/V, chunked
-            out = chunked_attention(q, k, v, **chunk)
-        elif "rolling" in cache and s > 1:
-            # windowed prefill: the fresh K/V, as the reference
-            out = _sdpa_full(q, k, v, causal=cfg.causal, q_offset=0,
-                             window=cfg.window)
-        elif "rolling" in cache:
-            kc, vc = read_kv_cache(new_cache, x.dtype)
-            out = _sdpa_rolling(q, kc, vc,
-                                min(int(cache_pos) + s, kc.shape[1]))
-        else:
-            kc, vc = read_kv_cache(new_cache, x.dtype)
-            out = _sdpa_full(q, kc, vc, causal=cfg.causal,
-                             q_offset=cache_pos, window=cfg.window)
+    if cache is not None and placed.is_placed(_a_cache_tensor(cache)):
+        out, new_cache = _attend_placed(q, k, v, cache, cache_pos, cfg,
+                                        use_chunked, chunk)
+    elif cache is not None:
+        out, new_cache = _attend_cache(q, k, v, cache, cache_pos, cfg,
+                                       use_chunked, chunk)
     elif use_chunked:
         out = chunked_attention(q, k, v, **chunk)
     else:
@@ -487,6 +476,193 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: AttnConfig,
                          window=cfg.window)
     out = qdense(p["wo"], out.reshape(b, s, h * dh), policy)
     return out, new_cache
+
+
+def _attend_cache(q, k, v, cache: dict, cache_pos, cfg: AttnConfig,
+                  use_chunked: bool, chunk: dict, kv_heads=slice(None)):
+    """Write the new K/V into ``cache`` at ``cache_pos`` and attend: the
+    cache branch of :func:`attn_apply`. ``kv_heads``: the kv heads ``q``'s
+    heads attend (a rank's share of a replicated cache), all by default.
+    Returns ``(out, new_cache)``."""
+    s = q.shape[1]
+    new_cache = update_kv_cache(cache, k, v, cache_pos)
+    k, v = k[:, :, kv_heads], v[:, :, kv_heads]
+    if s > 1 and use_chunked and _host_zero(cache_pos):
+        # prefill into an empty cache: the fresh K/V, chunked
+        out = chunked_attention(q, k, v, **chunk)
+    elif "rolling" in cache and s > 1:
+        # windowed prefill: the fresh K/V, as the reference
+        out = _sdpa_full(q, k, v, causal=cfg.causal, q_offset=0,
+                         window=cfg.window)
+    elif "rolling" in cache:
+        kc, vc = read_kv_cache(new_cache, q.dtype)
+        out = _sdpa_rolling(q, kc[:, :, kv_heads], vc[:, :, kv_heads],
+                            min(int(cache_pos) + s, kc.shape[1]))
+    else:
+        kc, vc = read_kv_cache(new_cache, q.dtype)
+        out = _sdpa_full(q, kc[:, :, kv_heads], vc[:, :, kv_heads],
+                         causal=cfg.causal, q_offset=cache_pos,
+                         window=cfg.window)
+    return out, new_cache
+
+
+def _a_cache_tensor(cache: dict):
+    return cache["k"] if "k" in cache else cache.get("k_q")
+
+
+def _attend_placed(q, k, v, cache: dict, cache_pos, cfg: AttnConfig,
+                   use_chunked: bool, chunk: dict):
+    """:func:`_attend_cache` over a placed cache (a sharded server), its
+    leaves split as ``cache_pspec`` places them: the batch over the DP
+    axes and, over ``model``, the kv heads when they divide, else the
+    positions. Each rank runs on its own rows.
+
+    * Heads split: q, k and v are taken on the rank's heads (a q head's
+      kv head lies on its rank) and the unsharded arithmetic runs on
+      them, writing the rank's cache in place: equal to the unsharded
+      result bit for bit.
+    * Neither split (a replicated cache: its length does not divide
+      either): every rank writes every kv head, and q keeps its split of
+      the heads where whole kv groups, or a part of one, fall on each
+      rank, which attends only its q heads' kv heads: the same per-head
+      arithmetic, bit for bit.
+    * Positions split (a 100B config's 8 kv heads on a 16-way ``model``
+      axis): q, k and v whole over the heads; each rank writes the new
+      positions that fall in its slots, attends its slots (causal mask on
+      the global positions) to a partial softmax — the row maximum, the
+      sum of the exponentials and the weighted values — and the ranks are
+      combined by log-sum-exp (an all-reduce of the maxima, then of the
+      rescaled sums and values): the unsharded softmax with its sums
+      reordered. A chunked prefill into an empty cache attends the fresh
+      K/V, whole on every rank, as the unsharded branch does: bit for bit.
+
+    A rolling (windowed) cache and per-row positions (the engine's arena)
+    raise: both are later slices on a mesh."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    ref = _a_cache_tensor(cache)
+    mesh = ref.device_mesh
+    if "rolling" in cache or cfg.window is not None:
+        raise NotImplementedError("a sliding-window cache on a mesh (the "
+                                  "hybrid family) is a later slice")
+    if _per_row(cache_pos):
+        raise NotImplementedError("per-row cache positions on a mesh (the "
+                                  "engine's captured step) are a later slice")
+    rows_on = [i for i, p in enumerate(ref.placements) if p.is_shard(0)]
+    seq_on = [i for i, p in enumerate(ref.placements) if p.is_shard(1)]
+    heads_on = [i for i, p in enumerate(ref.placements) if p.is_shard(2)]
+    pls = [Shard(0) if i in rows_on else Shard(2) if i in heads_on
+           else Replicate() for i in range(mesh.ndim)]
+    q_pls, kv_heads = pls, slice(None)
+    if not seq_on and not heads_on:
+        q_pls, kv_heads = _q_heads_split(q, pls, rows_on, k.shape[2])
+    ql = q.redistribute(mesh, q_pls).to_local()
+    kl, vl = (t.redistribute(mesh, pls).to_local() for t in (k, v))
+    local = {n: (t.to_local() if placed.is_placed(t) else t)
+             for n, t in cache.items()}
+    if not seq_on:
+        out, new_local = _attend_cache(ql, kl, vl, local, cache_pos, cfg,
+                                       use_chunked, chunk, kv_heads)
+    else:
+        t0, _ = placed.mesh_offset(mesh, ref.placements, 1, ref.shape[1])
+        new_local = _write_positions(local, kl, vl, int(cache_pos), t0,
+                                     ref.shape[1])
+        if q.shape[1] > 1 and use_chunked and _host_zero(cache_pos):
+            # prefill into an empty cache: the fresh K/V (whole on every
+            # rank), chunked, as _attend_cache
+            out = chunked_attention(ql, kl, vl, **chunk)
+        else:
+            kc, vc = read_kv_cache(new_local, q.dtype)
+            out = _combined_attention(ql, kc, vc, int(cache_pos), t0, mesh,
+                                      seq_on, causal=cfg.causal)
+    shape = tuple(q.shape[:3]) + (v.shape[-1],)
+    out = DTensor.from_local(out.contiguous(), mesh, q_pls,
+                             shape=torch.Size(shape),
+                             stride=placed.contiguous_stride(shape))
+    return out, dict(cache, len=new_local["len"])
+
+
+def _q_heads_split(q, pls, rows_on, n_kv: int):
+    """Over a replicated cache: ``q``'s placements keeping its split of
+    the heads (on the mesh dimensions that split them and not the rows)
+    when each rank's q heads are whole kv groups or lie in one group, and
+    the slice of kv heads the rank's q heads attend; else ``pls`` (q whole
+    over the heads) and every kv head."""
+    from torch.distributed.tensor import Shard
+    mesh, h = q.device_mesh, q.shape[2]
+    on = [i for i, p in enumerate(q.placements)
+          if p.is_shard(2) and i not in rows_on]
+    n = 1
+    for i in on:
+        n *= mesh.size(i)
+    rep = h // n_kv
+    if not on or h % n or not ((h // n) % rep == 0 or rep % (h // n) == 0):
+        return pls, slice(None)
+    q_pls = [Shard(2) if i in on else p for i, p in enumerate(pls)]
+    q0, hq = placed.mesh_offset(mesh, q_pls, 2, h)
+    g0 = q0 // rep
+    return q_pls, slice(g0, g0 + max(1, hq // rep))
+
+
+def _write_positions(cache: dict, k_new, v_new, pos: int, t0: int,
+                     total: int) -> dict:
+    """Write the new K/V (global positions ``pos ..``) into a rank's slots
+    ``t0 .. t0 + T_local - 1`` of a position-split cache, the positions
+    that fall there only; ``len`` becomes ``pos + S``."""
+    s = k_new.shape[1]
+    if pos < 0 or pos + s > total:
+        raise ValueError(f"cache write [{pos}, {pos + s}) outside "
+                         f"max_len={total}")
+    if "k" in cache:
+        pairs = (("k", "v", k_new, v_new),)
+    else:
+        (kq, ks), (vq, vs) = _quant_kv(k_new), _quant_kv(v_new)
+        pairs = (("k_q", "v_q", kq, vq), ("k_s", "v_s", ks, vs))
+    tn = _a_cache_tensor(cache).shape[1]
+    a, e = max(pos, t0), min(pos + s, t0 + tn)
+    if a < e:
+        for kn, vn, kt, vt in pairs:
+            cache[kn][:, a - t0:e - t0] = kt[:, a - pos:e - pos].to(
+                cache[kn].dtype)
+            cache[vn][:, a - t0:e - t0] = vt[:, a - pos:e - pos].to(
+                cache[vn].dtype)
+    return dict(cache, len=pos + s)
+
+
+def _combined_attention(q, k, v, q_offset: int, t0: int, mesh, seq_on,
+                        *, causal: bool):
+    """Attention of q (B, Sq, H, D) over a rank's slots k/v (B, Tl, Hkv,
+    D*), slot j at global position ``t0 + j``, combined over the mesh
+    dimensions ``seq_on`` that split the positions: each rank's partial
+    softmax (max, sum of exponentials, weighted values; an all-masked row
+    gives a zero sum) merged by log-sum-exp. Float32 inside, as
+    :func:`_sdpa_full`."""
+    from torch.distributed import _functional_collectives as funcol
+    b, sq, h, d = q.shape
+    tl, hkv = k.shape[1], k.shape[2]
+    f32 = torch.float32
+    qg = q.reshape(b, sq, hkv, h // hkv, d)
+    root = device_scalar(math.sqrt(d), q.device)
+    scores = torch.einsum("bqgrd,bkgd->bgrqk", qg.to(f32), k.to(f32)) / root
+    if causal:
+        qpos = q_offset + torch.arange(sq, device=q.device)[:, None]
+        kpos = t0 + torch.arange(tl, device=q.device)[None, :]
+        scores = scores.masked_fill(kpos > qpos, -math.inf)
+    m = torch.amax(scores, dim=-1)
+    m0 = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(scores - m0[..., None])
+    l = torch.sum(p, dim=-1)
+    o = torch.einsum("bgrqk,bkgd->bgrqd", p, v.to(f32))
+    mg = m
+    for i in seq_on:
+        mg = funcol.all_reduce(mg, "max", (mesh, i))
+    w = torch.where(torch.isfinite(m), torch.exp(m - mg),
+                    torch.zeros_like(m))
+    l, o = l * w, o * w[..., None]
+    for i in seq_on:
+        l = funcol.all_reduce(l, "sum", (mesh, i))
+        o = funcol.all_reduce(o, "sum", (mesh, i))
+    out = (o / l[..., None]).permute(0, 3, 1, 2, 4)      # b q g r d
+    return out.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
 
 
 # ------------------------------------------------------------------- MLA

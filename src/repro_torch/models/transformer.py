@@ -68,7 +68,8 @@ from repro_torch.models.ssm import (SSMConfig, init_ssm_cache, ssm_apply,
 __all__ = ["ModelConfig", "GroupSpec", "layer_groups", "encoder_groups",
            "init_params",
            "forward", "loss_fn", "prefill", "decode_step", "init_caches",
-           "pack_params", "serve_policy", "params_from_numpy"]
+           "pack_params", "serve_policy", "params_from_numpy",
+           "check_mesh_family", "MESH_FAMILIES"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -694,7 +695,7 @@ def _stack_cache(c: dict, n: int) -> dict:
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None,
-                src_len: int = 0):
+                src_len: int = 0, mesh=None):
     """One stacked cache per group, ``len`` 0: GQA ``k``/``v`` (L, B, T,
     Hkv, D) (T = the window for a rolling cache; with ``cfg.kv_bits=8``
     int8 ``k_q``/``v_q`` and float32 scales ``k_s``/``v_s`` (L, B, T,
@@ -703,7 +704,11 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None,
     ``h`` (L, B, H, N, P) and ``conv``, or a hybrid's ``{"attn", "ssm"}``
     of both; a cross-attending group's ``{"self", "cross_k", "cross_v"}``,
     the cross buffers (L, B, max(src_len, 1), Hkv, D). The continuous
-    engine's slot arena is one such list."""
+    engine's slot arena is one such list. With ``mesh`` (a
+    ``DeviceMesh``; this slice's families only) each tensor is a DTensor
+    placed by ``cache_pspec``, each rank allocating its own shard."""
+    if mesh is not None:
+        return _placed_caches(cfg, batch, max_len, device, src_len, mesh)
     caches = []
     dt = cfg.compute_dtype
     for spec in layer_groups(cfg):
@@ -729,6 +734,67 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None,
     return caches
 
 
+#: the families a mesh serves (the dense decoder path, a VLM's text);
+#: each other family, and the later slice that brings it
+MESH_FAMILIES = ("dense", "vlm")
+MESH_LATER = {
+    "moe": "MoE with expert parallelism on grouped K4 and MLA's latent "
+           "cache",
+    "ssm": "the SSM state (h/conv) on a mesh",
+    "hybrid": "the SSM state and sliding windows on a mesh",
+    "encdec": "the encoder-decoder on a mesh",
+    "audio": "the encoder-decoder on a mesh"}
+
+
+def check_mesh_family(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a family a mesh does not serve
+    yet, naming the slice that brings it: never run it whole on each
+    rank."""
+    if cfg.family not in MESH_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not served on a mesh "
+            f"yet (a later slice: {MESH_LATER.get(cfg.family, cfg.family)}"
+            f"); a mesh serves the families {MESH_FAMILIES}")
+
+
+def _placed_caches(cfg: ModelConfig, batch: int, max_len: int, device,
+                   src_len: int, mesh):
+    """:func:`init_caches` as DTensors placed by ``cache_pspec`` on
+    ``mesh``: zeros of each rank's shard, wrapped."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed.sharding import (cache_pspec, local_shape,
+                                                  map_paths, to_placements)
+    check_mesh_family(cfg)
+    shapes = init_caches(cfg, batch, max_len, device="meta", src_len=src_len)
+
+    def place(path, t):
+        if not torch.is_tensor(t):
+            return t
+        spec = cache_pspec(path, tuple(t.shape), mesh)
+        loc = torch.zeros(local_shape(spec, tuple(t.shape), mesh),
+                          dtype=t.dtype, device=device)
+        return DTensor.from_local(loc, mesh, to_placements(spec, mesh),
+                                  shape=t.shape,
+                                  stride=placed.contiguous_stride(t.shape))
+
+    return map_paths(place, shapes)
+
+
+def _mesh_of(params):
+    """The ``DeviceMesh`` of placed params (a sharded server), else
+    None."""
+    if not placed.is_placed(params["embed"]):
+        return None
+    return params["embed"].device_mesh
+
+
+def _whole_logits(logits):
+    """Logits with the vocabulary whole on every rank (a mesh run's head
+    is vocab-parallel), so a greedy argmax sees every column."""
+    return placed.whole_dim(logits, -1) if placed.is_placed(logits) \
+        else logits
+
+
 def prefill(params, batch, cfg: ModelConfig, max_len: int, last_pos=None):
     """Run the prompt, building caches. Returns ``(last_logits (B, V),
     caches)``: the logits of every row's last position, or, with
@@ -737,11 +803,18 @@ def prefill(params, batch, cfg: ModelConfig, max_len: int, last_pos=None):
     positions up to it compute as an unpadded prompt's do (an MoE layer's
     capacity still counts the pads: the reference's dispatch). ``batch``
     holds what :func:`forward` takes; an encoder-decoder's cross K/V are
-    computed here, into buffers of the source's length."""
+    computed here, into buffers of the source's length. On placed params
+    (a sharded server: this slice's families, run under
+    :func:`~repro_torch.distributed.placed.mesh_context`) the caches are
+    placed by ``cache_pspec`` and the logits are made whole."""
+    mesh = _mesh_of(params)
+    if mesh is not None:
+        check_mesh_family(cfg)
     enc_out = _encode(params, batch, cfg)
     x, positions = _embed_inputs(params, batch, cfg)
     caches = init_caches(cfg, x.shape[0], max_len, device=x.device,
-                         src_len=0 if enc_out is None else enc_out.shape[1])
+                         src_len=0 if enc_out is None else enc_out.shape[1],
+                         mesh=mesh)
     x, caches = _run_groups(params["groups"], x, cfg, layer_groups(cfg),
                             positions=positions, caches=caches, cache_pos=0,
                             enc_out=enc_out)
@@ -749,7 +822,7 @@ def prefill(params, batch, cfg: ModelConfig, max_len: int, last_pos=None):
         x = x[torch.arange(x.shape[0], device=x.device), last_pos][:, None]
     else:
         x = x[:, -1:]
-    return _logits(params, x, cfg)[:, 0], caches
+    return _whole_logits(_logits(params, x, cfg)[:, 0]), caches
 
 
 def decode_step(params, caches, tokens, pos, cfg: ModelConfig,
@@ -760,8 +833,13 @@ def decode_step(params, caches, tokens, pos, cfg: ModelConfig,
     every row at its own depth; nothing then reads a device value on the
     host). ``aux``, a dict, receives the MoE layers' ``lb_loss`` and
     ``drop_frac``, one per MoE layer each. Returns ``(logits (B, V),
-    caches)``."""
-    x = params["embed"][tokens].to(cfg.compute_dtype)
+    caches)``; on placed params and caches (a sharded server) the logits
+    are whole on every rank."""
+    if _mesh_of(params) is not None:
+        check_mesh_family(cfg)
+        x = _embed(params["embed"], tokens).to(cfg.compute_dtype)
+    else:
+        x = params["embed"][tokens].to(cfg.compute_dtype)
     if torch.is_tensor(pos) and pos.dim() == 1:
         positions = pos[:, None]
     else:
@@ -773,7 +851,7 @@ def decode_step(params, caches, tokens, pos, cfg: ModelConfig,
                             cache_pos=pos, aux=own, decode=True)
     if aux is not None:
         aux.update(_stack_aux(own))
-    return _logits(params, x, cfg)[:, 0], caches
+    return _whole_logits(_logits(params, x, cfg)[:, 0]), caches
 
 
 def serve_policy(cfg: ModelConfig, *, pack_acts: Optional[bool] = None,
@@ -797,12 +875,26 @@ def serve_policy(cfg: ModelConfig, *, pack_acts: Optional[bool] = None,
 KEEP_FLOAT = frozenset({"w_uk", "w_uv"})
 
 
+def _packs(p, name: str) -> bool:
+    """Whether :func:`_pack_tree` packs the dense ``p`` named ``name``."""
+    return ("w" in p and torch.is_tensor(p["w"]) and p["w"].dim() >= 2
+            and p["w"].shape[-1] > 4 and name not in KEEP_FLOAT)
+
+
+def _any_packs(p, name: str = "") -> bool:
+    if isinstance(p, dict):
+        return _packs(p, name) or any(_any_packs(v, k)
+                                      for k, v in p.items())
+    if isinstance(p, list):
+        return any(_any_packs(v, name) for v in p)
+    return False
+
+
 def _pack_tree(p, policy: QuantPolicy, name: str = ""):
     """Every quantized dense in ``p`` (2-D, stacked or per-expert 3-D
     weights) packed, but those named in :data:`KEEP_FLOAT`."""
     if isinstance(p, dict):
-        if ("w" in p and torch.is_tensor(p["w"]) and p["w"].dim() >= 2
-                and p["w"].shape[-1] > 4 and name not in KEEP_FLOAT):
+        if _packs(p, name):
             return pack_qdense(p, policy)
         return {k: _pack_tree(v, policy, k) for k, v in p.items()}
     if isinstance(p, list):
@@ -815,7 +907,15 @@ def pack_params(params, cfg: ModelConfig):
     of the layer groups (and of an encoder) becomes bit-transposed packed
     planes (the routed experts' (E, K, N) weights per expert), MLA's
     ``w_uk``/``w_uv`` stay float, as do the head and ``frontend_proj``.
-    Packed params pass through unchanged."""
+    Packed params pass through unchanged. Placed float params (a mesh
+    run's) are gathered whole, packed and placed again by
+    ``param_pspec`` (each rank keeping its shard of the planes)."""
+    mesh = _mesh_of(params)
+    if mesh is not None and _any_packs([params["groups"],
+                                        params.get("enc", {})]):
+        from repro_torch.distributed.sharding import map_paths, place_tree
+        return place_tree(pack_params(map_paths(
+            lambda path, t: placed.plain(t), params), cfg), mesh)
     packed = dict(params)
     packed["groups"] = [_pack_tree(g, cfg.policy) for g in params["groups"]]
     if "enc" in params:

@@ -2,7 +2,9 @@
 ``repro_torch.launch.mesh.run_ranks`` starts in spawned gloo ranks. This
 module imports torch and the port only (no jax), so a rank starts fast;
 the test module computes every reference and unsharded result and hands
-the ranks numpy inputs."""
+the ranks numpy inputs. Besides training on the (2, 2) mesh, the ranks
+serve packed models sharded (``Server(mesh=)``) on (2, 2), on two (1, 2)
+meshes (the ranks split in pairs) and on one (1, 4) mesh."""
 
 import dataclasses
 
@@ -19,7 +21,9 @@ from repro_torch.distributed.sharding import (batch_pspec, distribute_tree,
                                               to_placements, tree_shardings)
 from repro_torch.launch.hlo_analysis import analyze
 from repro_torch.launch.mesh import make_local_mesh
-from repro_torch.launch.train import Trainer, make_train_step
+from repro_torch.launch.serve import GenRequest, Server
+from repro_torch.launch.train import (Trainer, init_placed_params,
+                                      make_train_step)
 from repro_torch.models import transformer as tt
 from repro_torch.optim import AdamWConfig
 from repro_torch.optim.optimizer import reduce_gradients
@@ -28,6 +32,33 @@ from repro_torch.runtime.checkpoint import CheckpointManager
 #: the mesh tests' Trainer runs: 3 steps of the smoke config
 TRAIN = dict(batch_size=4, seq_len=16, seed=0)
 OPT = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=3)
+#: the sharded servers: the smoke configs served on each mesh, the
+#: prompts' lengths, new tokens and the KV budget (positions 0..13 of 16:
+#: on the (1, 4) mesh a position-split cache's 4 slots a rank all hold
+#: some)
+SERVE_ARCHS = ("stablelm-1.6b", "qwen1.5-110b", "nemotron-4-15b")
+SERVE_PROMPTS = (5, 9, 3, 7)
+SERVE_NEW, SERVE_MAX_LEN = 5, 16
+
+
+def serve_requests(vocab):
+    rng = np.random.RandomState(0)
+    return [GenRequest(rng.randint(0, vocab, (n,)).astype(np.int32),
+                       SERVE_NEW) for n in SERVE_PROMPTS]
+
+
+def int8_cache(cfg):
+    """``cfg`` with the int8 KV cache (codes and per-position scales)."""
+    return dataclasses.replace(cfg, kv_bits=8)
+
+
+def serve(cfg, params, mesh, pack_acts):
+    """``Server`` (``mesh`` None: unsharded) on :func:`serve_requests`:
+    the tokens and the last step's logits (whole, on the host)."""
+    srv = Server(cfg, params, batch_slots=4, max_len=SERVE_MAX_LEN,
+                 pack_acts=pack_acts, device="cpu", mesh=mesh)
+    res = srv.generate(serve_requests(cfg.vocab_size))
+    return [r.out_tokens for r in res], _np(srv.last_logits)
 
 
 def chunked(cfg):
@@ -75,9 +106,94 @@ def mesh_rank(rank, inputs, part):
     out = {"rank": rank, "coord": tuple(mesh.get_coordinate())}
     if part == "dense":
         _dense(rank, inputs, mesh, out)
+        _serve_on(inputs, mesh, out, "2x2")
+        out["placed_packing"] = _placed_packing(mesh)
     else:
         _ssm_moe(inputs, mesh, out)
+        _serve_pairs_and_four(inputs, out)
     return out
+
+
+def _serve_on(inputs, mesh, out, tag, archs=SERVE_ARCHS):
+    """The sharded ``Server`` of every ``archs`` smoke config on the
+    reference's packed planes, K1 + K3 and K4: ``out["serve"][(arch,
+    tag, pack_acts)] = (tokens, last logits)``."""
+    res = out.setdefault("serve", {})
+    for arch in archs:
+        cfg = get_arch(arch).smoke
+        params = tt.params_from_numpy(inputs["serve"][arch])
+        for pa in (True, False):
+            res[(arch, tag, pa)] = serve(cfg, params, mesh, pa)
+
+
+def _placed_packing(mesh):
+    """The three ways a rank comes by its packed planes: drawn and packed
+    a layer at a time, each layer split after packing
+    (``init_placed_params(packed=True)``); the whole packed params placed
+    (``place_tree``); and the placed float params packed (``pack_params``
+    gathers, packs and places). Returns, per way, whether every local
+    shard equals the first way's, and how many leaves are split."""
+    from repro_torch.distributed.sharding import place_tree
+    cfg = get_arch("stablelm-1.6b").smoke
+    gen = lambda: torch.Generator().manual_seed(3)
+    drawn = tree_leaves(init_placed_params(gen(), cfg, mesh, packed=True))
+    ways = [tree_leaves(place_tree(tt.init_params(gen(), cfg, packed=True),
+                                   mesh)),
+            tree_leaves(tt.pack_params(init_placed_params(gen(), cfg, mesh),
+                                       cfg))]
+    same = [len(w) == len(drawn) and all(
+        torch.equal(a.to_local(), b.to_local()) and a.placements ==
+        b.placements for a, b in zip(w, drawn)) for w in ways]
+    split = sum(any(p.is_shard() for p in t.placements) for t in drawn)
+    return same, split
+
+
+def _serve_pairs_and_four(inputs, out):
+    """Two (data 1, model 2) meshes, ranks {0, 1} and {2, 3} (the model
+    axis of a (2, 1, 2) mesh), then one (data 1, model 4) mesh: qwen1.5's
+    2 kv heads on 4 ranks split the cache's positions. Then the
+    unaligned-K cases of ``qdense``'s placed path on the (1, 2) mesh."""
+    from torch.distributed.device_mesh import init_device_mesh
+    pairs = init_device_mesh("cpu", (2, 1, 2), mesh_dim_names=(
+        "rep", "data", "model"))["data", "model"]
+    _serve_on(inputs, pairs, out, "1x2")
+    four = init_device_mesh("cpu", (1, 4), mesh_dim_names=("data", "model"))
+    _serve_on(inputs, four, out, "1x4", ("qwen1.5-110b",))
+    qwen = get_arch("qwen1.5-110b").smoke
+    qwen_params = tt.params_from_numpy(inputs["serve"]["qwen1.5-110b"])
+    for tag, cfg in (("int8", int8_cache(qwen)),
+                     ("int8 chunked", chunked(int8_cache(qwen)))):
+        out["serve"][("qwen1.5-110b", f"1x4 {tag}", True)] = serve(
+            cfg, qwen_params, four, True)
+    cache = tt.init_caches(qwen, 4, SERVE_MAX_LEN, device="cpu", mesh=four)
+    out["serve_cache_placements"] = str(tuple(cache[0]["k"].placements))
+    out["unaligned"] = _unaligned(inputs["unaligned"], pairs)
+
+
+def _unaligned(case, mesh):
+    """``qdense`` on packed params placed on ``mesh`` whose K words do not
+    line up with the activation's split (K = 48: words 32 + 16, the
+    activation 24 + 24), or do not divide (K = 80: 3 words, left whole),
+    K1 + K3 and K4: each (output gathered, its placements, the planes'
+    placements)."""
+    from torch.distributed.tensor import distribute_tensor, Replicate, Shard
+    from repro_torch.distributed.sharding import place_tree
+    from repro_torch.models.layers import QuantPolicy, qdense
+    got = {}
+    for name, (p_np, x_np) in case.items():
+        p = place_tree({"mlp": {"w_down": tt.params_from_numpy(p_np)}},
+                       mesh)["mlp"]["w_down"]
+        x = distribute_tensor(torch.from_numpy(x_np), mesh,
+                              [Replicate(), Shard(2)], src_data_rank=None)
+        for pa in (True, False):
+            pol = QuantPolicy(mode="serial", w_bits=4, a_bits=8,
+                              pack_acts=pa)
+            with torch.no_grad(), placed.mesh_context(mesh):
+                y = qdense(p, x, pol)
+            got[(name, pa)] = (_np(placed.plain(y)),
+                               str(tuple(y.placements)),
+                               str(tuple(p["w_packed"].placements)))
+    return got
 
 
 def _models(inputs, mesh, out, archs):

@@ -313,3 +313,99 @@ def test_host_conv2d_close():
         assert out.is_contiguous()
         np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5,
                                    atol=1e-5)
+
+
+# ------------------------------------- bit transposition and fixed point
+
+@pytest.mark.parametrize("bits,signed,shape",
+                         [(1, False, (70,)), (2, True, (3, 33)),
+                          (4, True, (2, 3, 64)), (5, False, (3, 33)),
+                          (8, True, (70,)), (16, True, (2, 3, 64))])
+def test_bit_transpose_round_trip_matches(bits, signed, shape):
+    """``bit_transpose``: the words (lane axis last, padded to 32), the
+    logical shape, ``nbytes``, ``unpack``/``bit_untranspose`` and
+    ``packed_nbytes`` equal the reference's; values round-trip."""
+    rng = np.random.default_rng(bits * 7 + signed + len(shape))
+    x = _ints(rng, bits, signed, shape)
+    tt_ = tb.bit_transpose(_t(x), bits, signed)
+    jt_ = jb.bit_transpose(jnp.asarray(x), bits, signed)
+    assert tt_.packed.dtype == torch.int32
+    np.testing.assert_array_equal(_words(tt_.packed), np.asarray(jt_.packed))
+    assert tt_.shape == tuple(jt_.shape) and tt_.bits == jt_.bits
+    assert tt_.nbytes == jt_.nbytes == tb.packed_nbytes(shape, bits) \
+        == jb.packed_nbytes(shape, bits)
+    np.testing.assert_array_equal(tb.bit_untranspose(tt_).numpy(), x)
+    np.testing.assert_array_equal(tt_.unpack().numpy(),
+                                  np.asarray(jb.bit_untranspose(jt_)))
+
+
+@pytest.mark.parametrize("bits,signed,radix", [(2, True, 1), (8, True, 8),
+                                               (5, False, 2), (12, True, 7)])
+def test_digit_coeffs_from_digits_match(bits, signed, radix):
+    """``digit_coeffs`` equals the reference's; ``from_digits`` inverts
+    ``to_digits`` and ``BitTransposed.digits`` equals the reference's
+    digit planes."""
+    rng = np.random.default_rng(bits * 3 + radix)
+    x = _ints(rng, bits, signed, (4, 40))
+    np.testing.assert_array_equal(tb.digit_coeffs(bits, radix, signed),
+                                  jb.digit_coeffs(bits, radix, signed))
+    d = tb.to_digits(_t(x), bits, radix, signed)
+    got = tb.from_digits(d, bits, radix, signed)
+    want = jb.from_digits(jnp.asarray(np.asarray(d)), bits, radix, signed)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got.numpy(), x)
+    np.testing.assert_array_equal(
+        tb.bit_transpose(_t(x), bits, signed).digits(radix).numpy(),
+        np.asarray(jb.bit_transpose(jnp.asarray(x), bits,
+                                    signed).digits(radix)))
+
+
+@pytest.mark.parametrize("shift", range(17))
+def test_scaler_bias_fixed_matches(shift):
+    """The fixed-point scaler at shifts 0-16: accumulators over int32's
+    whole range (products that wrap in 32 bits, as the reference's do),
+    scales beyond int16 (clipped), biases near the int32 limits: equal to
+    the reference's bit for bit."""
+    rng = np.random.default_rng(shift)
+    acc = rng.integers(-2**31, 2**31, 200).astype(np.int32)
+    acc[:4] = [2**31 - 1, -2**31, 0, 1]
+    scale = rng.integers(-40000, 40000, 200).astype(np.int32)
+    bias = rng.integers(-2**31, 2**31, 200).astype(np.int32)
+    cfg_t = tpm.ScalerConfig(shift=shift)
+    cfg_j = jpm.ScalerConfig(shift=shift)
+    got = tpm.scaler_bias_fixed(_t(acc), _t(scale), _t(bias), cfg_t)
+    want = jpm.scaler_bias_fixed(jnp.asarray(acc), jnp.asarray(scale),
+                                 jnp.asarray(bias), cfg_j)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("out_bits,signed,msb_pos",
+                         [(8, True, 15), (4, True, 10), (2, False, 3),
+                          (8, True, 3), (12, True, 20), (1, False, 0)])
+def test_quantize_serialize_then_transpose_matches(out_bits, signed,
+                                                   msb_pos):
+    """``quantize_serialize`` (right shifts, and a left shift that wraps
+    when ``msb_pos + 1 < out_bits``) equals the reference's codes, and
+    ``bit_transpose`` of them equals the reference's words."""
+    rng = np.random.default_rng(out_bits * 31 + msb_pos)
+    acc = rng.integers(-2**31, 2**31, (3, 50)).astype(np.int32)
+    acc[0, :4] = [2**31 - 1, -2**31, 2**30, -1]
+    ct = tpm.QuantSerConfig(out_bits, signed, msb_pos)
+    cj = jpm.QuantSerConfig(out_bits, signed, msb_pos)
+    got = tpm.quantize_serialize(_t(acc), ct)
+    want = np.asarray(jpm.quantize_serialize(jnp.asarray(acc), cj))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        _words(tb.bit_transpose(got, out_bits, signed).packed),
+        np.asarray(jb.bit_transpose(jnp.asarray(want), out_bits,
+                                    signed).packed))
+
+
+def test_default_policy_matches():
+    """``layers.DEFAULT_POLICY`` is the reference's default policy."""
+    from repro.models.layers import DEFAULT_POLICY as J
+    from repro_torch.models.layers import DEFAULT_POLICY as T
+    for f in ("mode", "w_bits", "a_bits", "w_signed", "a_signed",
+              "radix_bits", "pack_acts"):
+        assert getattr(T, f) == getattr(J, f), f

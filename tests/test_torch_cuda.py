@@ -206,6 +206,64 @@ def test_gemm_kernels_equal_plain(dev, sp, shape):
         assert got.dtype == ref.dtype and torch.equal(got, ref), (out, rq, b)
 
 
+@pytest.mark.parametrize("sp,shape", GEMM)
+def test_gemm_kernels_accumulator_mode_equals_plain(dev, sp, shape):
+    """K3 and K4 with ``raw_acc`` (the epilogue's accumulator mode): the
+    raw int32 accumulator, equal to the plain versions' (which return the
+    accumulator they compute), one launch each; summed over two K word
+    ranges and put through the plain epilogue it equals the fused whole
+    output (what a row-parallel projection on a mesh computes)."""
+    from repro_torch.kernels import bitserial_matmul as km
+    from repro_torch.kernels.epilogue import epilogue
+    spec = SerialSpec(*sp)
+    m, k, n = shape
+    rng = np.random.default_rng(m * 5 + k + n)
+    xc, xp, wp, scale, bias = _gemm_operands(rng, spec, m, k, n, dev)
+    for fk, fr, x in ((km.bitserial_matmul_v2_cuda,
+                       km.bitserial_matmul_v2_ref, xp),
+                      (km.bitserial_matmul_cuda, km.bitserial_matmul_ref,
+                       xc)):
+        before = km.KERNEL.launches
+        got = fk(x, wp, None, spec=spec, k=k, raw_acc=True)
+        assert km.KERNEL.launches == before + 1
+        ref = fr(x, wp, None, spec=spec, k=k, raw_acc=True)
+        assert got.dtype == torch.int32 and torch.equal(got, ref)
+    kw_ = -(-k // 32)
+    if kw_ < 2:
+        return
+    cut = 32 * (kw_ // 2)
+    parts = [(xc[:, :cut], wp[:, :kw_ // 2]), (xc[:, cut:], wp[:, kw_ // 2:])]
+    acc = sum(km.bitserial_matmul_v2_cuda(
+        k1.pack_codes_ref(c.contiguous(), spec.a_bits), w.contiguous(), None,
+        spec=spec, k=c.shape[1], raw_acc=True) for c, w in parts)
+    whole = km.bitserial_matmul_v2_cuda(xp, wp, scale, bias, spec=spec, k=k)
+    assert torch.equal(epilogue(acc, scale, bias, relu=False, requant=None),
+                       whole)
+
+
+def test_accumulator_mode_refuses_an_epilogue(dev):
+    """``raw_acc`` takes no scale, bias, ReLU or requant; without it a
+    scale is required. Each raises before any launch."""
+    from repro_torch.kernels import bitserial_matmul as km
+    spec = SerialSpec(2, 2, True, True, 7)
+    xp = torch.zeros((2, 4, 1), dtype=torch.int32, device=dev)
+    wp = torch.zeros((2, 1, 8), dtype=torch.int32, device=dev)
+    ones = torch.ones(8, device=dev)
+    before = km.KERNEL.launches
+    for kw in (dict(relu=True), dict(requant=QuantSpec(8, True))):
+        with pytest.raises(ValueError, match="raw_acc"):
+            km.bitserial_matmul_v2_cuda(xp, wp, None, spec=spec, k=8,
+                                        raw_acc=True, **kw)
+    with pytest.raises(ValueError, match="raw_acc"):
+        km.bitserial_matmul_v2_cuda(xp, wp, ones, spec=spec, k=8,
+                                    raw_acc=True)
+    with pytest.raises(ValueError, match="scale is None"):
+        km.bitserial_matmul_cuda(torch.zeros((4, 8), dtype=torch.int32,
+                                             device=dev), wp, None,
+                                 spec=spec, k=8)
+    assert km.KERNEL.launches == before
+
+
 def test_gemm_kernels_mask_out_of_range_codes(dev):
     # K4 masks codes to a_bits and sign-extends them, as the reference does
     from repro_torch.kernels import bitserial_matmul as km

@@ -336,9 +336,13 @@ def test_init_placed_params_on_meta():
 def test_dryrun_cells_carry_the_cost(tmp_path):
     """``run_cell`` on full-width stablelm at 1 layer: the train cell
     counted per device of the fake 16 x 16 mesh (all-gathers and
-    all-reduces among its collectives), a decode cell on one device with
-    ``cost_mesh`` null and its reason; qwen1.5-110b's train cell, whose 8
-    kv heads do not divide the model axis, counts too."""
+    all-reduces among its collectives), and so is the decode cell since
+    the port serves a sharded packed model (the row-parallel projections'
+    int32 sums and the embedding's rows all-reduced, the vocab-parallel
+    logits all-gathered); a family a mesh does not serve yet (mamba2)
+    keeps its decode cell on one device with ``cost_mesh`` null and a
+    reason naming it; qwen1.5-110b's train cell, whose 8 kv heads do not
+    divide the model axis, counts too."""
     keys = ("flops", "flops_int", "flops_logical", "bytes_hbm",
             "collectives", "kernel_calls", "ops", "cost_mesh", "cost_s")
     tr = dryrun.run_cell(ARCH, "train_4k", n_layers=1, out_dir=str(tmp_path))
@@ -352,12 +356,21 @@ def test_dryrun_cells_carry_the_cost(tmp_path):
     de = dryrun.run_cell(ARCH, "decode_32k", n_layers=1,
                          out_dir=str(tmp_path))
     assert all(k in de for k in keys)
-    assert de["cost_mesh"] is None
-    assert de["cost_mesh_reason"] == dryrun.SERVE_MESH_REASON
-    assert de["collectives"]["total_bytes"] == 0
+    assert de["cost_mesh"] == {"data": 16, "model": 16}
+    assert "cost_mesh_reason" not in de
+    col = de["collectives"]
+    assert col["counts"]["all-reduce"] == 2 * 1 + 1
+    assert col["counts"]["all-gather"] == 1
     assert de["kernel_calls"]["K1"] == 4 and de["kernel_calls"]["K3"] == 7
     assert 0 < de["flops_int"] < de["flops"]
-    assert "a step on one device" in dryrun._line(de)
+    assert "a step on one device of a fake 16x16 mesh" in dryrun._line(de)
+    ssm = dryrun.run_cell("mamba2-780m", "decode_32k", n_layers=1,
+                          out_dir=str(tmp_path))
+    assert ssm["cost_mesh"] is None
+    assert ssm["cost_mesh_reason"] == dryrun.SERVE_MESH_REASON.format(
+        family="ssm", later=tt.MESH_LATER["ssm"])
+    assert ssm["collectives"]["total_bytes"] == 0
+    assert "a step on one device:" in dryrun._line(ssm)
     # 8 kv heads over the 16-way model axis (placed.split_heads)
     qw = dryrun.run_cell("qwen1.5-110b", "train_4k", n_layers=1,
                          out_dir=str(tmp_path))

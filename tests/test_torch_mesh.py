@@ -37,6 +37,24 @@ Tolerances, each with its reason:
 * The int8 all-reduce: exact (bit for bit) — the same IEEE operations
   in the same order: the scale's division, round half to even, the
   four-row float32 sum in rank order.
+* The sharded ``Server`` (stablelm-, qwen1.5- and nemotron-smoke on
+  (1, 2) and (2, 2), K1 + K3 and K4), its kv heads split or its cache
+  whole: tokens and last-step logits equal the unsharded port's bit for
+  bit — each rank runs the unsharded per-head attention on its heads,
+  its kernels on its planes, the row-parallel int32 accumulators summed
+  exactly before one epilogue, and the vocab-parallel head's columns
+  are the unsharded matmul's. Against the reference's ``prefill`` /
+  ``decode_step`` on the same packed planes: tokens equal, logits within
+  ``test_torch_lm.py``'s 1e-4 of the largest.
+* qwen1.5-smoke on (1, 4), its 2 kv heads forcing the cache's positions
+  over the 4 ranks, combined by log-sum-exp (a reordered float sum):
+  logits within rtol 1e-5 / atol 1e-6 of the unsharded port's (an
+  8-bit activation code flipped by the reorder would move them further;
+  none did), tokens equal except where the unsharded top two logits lie
+  within that tolerance of each other.
+* ``qdense``'s placed path where the activation's K split does not line
+  up with the planes' words, or the words do not divide: exact against
+  the unsharded ``qdense``.
 """
 
 import concurrent.futures
@@ -53,14 +71,19 @@ import torch
 import _torch_mesh_ranks as ranks
 from repro.configs import get_arch as j_get_arch
 from repro.distributed import compression as jcomp
+from repro.launch.serve import GenRequest as JRequest
+from repro.launch.serve import Server as JServer
+from repro.models import layers as jl
 from repro.models import transformer as jt
 
 from repro_torch.configs import get_arch
 from repro_torch.core.tree import tree_flatten, tree_leaves, tree_unflatten
 from repro_torch.distributed.context import bind_axes
+from repro_torch.launch import serve as tserve
 from repro_torch.launch import train as ttrain
 from repro_torch.launch.mesh import make_local_mesh, run_ranks
 from repro_torch.launch.train import Trainer
+from repro_torch.models import layers as tl
 from repro_torch.models import transformer as tt
 from repro_torch.runtime.checkpoint import CheckpointManager
 
@@ -87,10 +110,70 @@ def _loss_and_grads(params, batch, cfg):
     return float(loss.detach()), [g.numpy() for g in grads]
 
 
+def _unaligned_case():
+    """Packed (K, 16) ``w_down`` params (the reference's packing) whose K
+    words split 32 + 16 lanes on 2 ranks against an activation split
+    24 + 24 (K = 48), or do not divide (K = 80, 3 words), with seeded
+    (2, 3, K) activations."""
+    rng = np.random.default_rng(50)
+    pol = jl.QuantPolicy(mode="qat", w_bits=4, a_bits=8)
+    out = {}
+    for k in (48, 80):
+        p = jl.qdense_init(jax.random.PRNGKey(k), k, 16, pol)
+        p = jax.tree.map(np.asarray, jl.pack_qdense(p, pol))
+        p["alpha_a"] = np.float32(0.04)
+        x = rng.standard_normal((2, 3, k)).astype(np.float32)
+        out[f"K{k}"] = (p, x)
+    return out
+
+
+def _serve_refs(inputs):
+    """The unsharded port's ``Server`` and the reference's ``prefill`` /
+    ``decode_step`` (the loop of its ``Server.generate``, whose tokens
+    they are) on the same packed planes: tokens and last logits."""
+    out = {}
+    for arch in ranks.SERVE_ARCHS:
+        cfg, jcfg = get_arch(arch).smoke, j_get_arch(arch).smoke
+        params = tt.params_from_numpy(inputs["serve"][arch])
+        for pa in (True, False):
+            out[(arch, pa)] = ranks.serve(cfg, params, None, pa)
+        if arch == "qwen1.5-110b":
+            out[(arch, "int8")] = ranks.serve(ranks.int8_cache(cfg), params,
+                                              None, True)
+            out[(arch, "int8 chunked")] = ranks.serve(
+                ranks.chunked(ranks.int8_cache(cfg)), params, None, True)
+        jp = jax.tree.map(jnp.asarray, inputs["serve"][arch])
+        reqs = ranks.serve_requests(cfg.vocab_size)
+        js = JServer(jcfg, params=jp, batch_slots=4,
+                     max_len=ranks.SERVE_MAX_LEN, backend="xla")
+        toks = [r.out_tokens for r in js.generate(
+            [JRequest(r.prompt.copy(), r.max_new_tokens) for r in reqs])]
+        s = max(len(r.prompt) for r in reqs)
+        padded = np.zeros((4, s), np.int32)
+        for i, r in enumerate(reqs):
+            padded[i, -len(r.prompt):] = r.prompt
+        logits, caches = js._prefill(js.params, {"tokens": jnp.asarray(
+            padded)})
+        for t in range(1, ranks.SERVE_NEW):
+            tok = jnp.argmax(logits, -1)[:, None]
+            logits, caches = js._decode(js.params, caches, tok,
+                                        jnp.int32(s + t - 1))
+        out[(arch, "reference")] = (toks, np.asarray(logits))
+    for name, (p_np, x_np) in inputs["unaligned"].items():
+        for pa in (True, False):
+            pol = tl.QuantPolicy(mode="serial", w_bits=4, a_bits=8,
+                                 pack_acts=pa)
+            with torch.no_grad():
+                out[("unaligned", name, pa)] = tl.qdense(
+                    tt.params_from_numpy(p_np), torch.from_numpy(x_np),
+                    pol).numpy()
+    return out
+
+
 def _references(inputs):
     """Everything the ranks' results are held against (runs while they
     run)."""
-    ref = {}
+    ref = {"serve": _serve_refs(inputs)}
     for arch in DENSE:
         jcfg, cfg = j_get_arch(arch).smoke, get_arch(arch).smoke
         params_np, batch = inputs["models"][arch]
@@ -148,8 +231,14 @@ def mesh_run(tmp_path_factory):
         jp = jt.init_params(jax.random.PRNGKey(i), jcfg)
         models[arch] = (jax.tree.map(np.asarray, jp),
                         _batch(jcfg.vocab_size, 10 + i))
+    serve_np = {}
+    for i, arch in enumerate(ranks.SERVE_ARCHS):
+        jcfg = j_get_arch(arch).smoke
+        serve_np[arch] = jax.tree.map(np.asarray, jt.pack_params(
+            jt.init_params(jax.random.PRNGKey(40 + i), jcfg), jcfg))
     rng = np.random.default_rng(0)
     inputs = dict(
+        serve=serve_np, unaligned=_unaligned_case(),
         models=models, moe_batch=_batch(get_arch(MOE).smoke.vocab_size, 20),
         compress=(rng.standard_normal((4, 64)).astype(np.float32),
                   (rng.standard_normal((4, 64)) * 0.01).astype(np.float32)),
@@ -163,7 +252,8 @@ def mesh_run(tmp_path_factory):
                           args=(inputs, part), timeout=DEADLINE, threads=1)
                 for part in ("dense", "ssm_moe")]
         ref = _references(inputs)
-        results = [{**a, **b} for a, b in zip(*(f.result() for f in futs))]
+        results = [{**a, **b, "serve": {**a["serve"], **b["serve"]}}
+                   for a, b in zip(*(f.result() for f in futs))]
     ref["init"] = [l.numpy() for l in tree_leaves(init)]
     return inputs, ref, results
 
@@ -419,3 +509,209 @@ def test_cli_trains_on_a_data_model_mesh(capfd):
     assert out.count("done: 2 steps of stablelm-1.6b-smoke") == 1
     assert "(data 2, model 2) mesh of cpu" in out
     assert out.count("step     1 loss") == 1
+
+
+def test_cli_serves_on_a_model_mesh(capfd):
+    """``serve --arch stablelm-1.6b --smoke --device cpu --model-par 2``
+    starts two gloo ranks itself; rank 0 alone prints, its sample the
+    unsharded ``Server``'s tokens on the CLI's prompts."""
+    cfg = get_arch("stablelm-1.6b").smoke
+    rng = np.random.RandomState(0)
+    reqs = [tserve.GenRequest(rng.randint(0, cfg.vocab_size, (8,)).astype(
+        np.int32), 3) for _ in range(2)]
+    want = tserve.Server(cfg, batch_slots=2, max_len=tserve.LM_MAX_LEN,
+                         seed=0, device="cpu").generate(reqs)[0].out_tokens
+    capfd.readouterr()
+    tserve.main(["--arch", "stablelm-1.6b", "--smoke", "--device", "cpu",
+                 "--model-par", "2", "--batch", "2", "--new-tokens", "3"])
+    out = capfd.readouterr().out
+    assert out.count("stablelm-1.6b-smoke: generated 6 tokens") == 1
+    assert "(data 1, model 2) mesh of cpu" in out
+    assert f"sample: {want}" in out
+
+
+# ------------------------------------------------------ sharded serving
+
+@pytest.mark.parametrize("arch", ranks.SERVE_ARCHS)
+@pytest.mark.parametrize("tag", ["1x2", "2x2"])
+@pytest.mark.parametrize("pack_acts", [True, False])
+def test_sharded_server_equals_unsharded_and_reference(mesh_run, arch, tag,
+                                                      pack_acts):
+    """``Server(mesh=)`` on (data 1, model 2) and (data 2, model 2) gloo
+    meshes, K1 + K3 and K4: every rank's tokens and last-step logits
+    equal the unsharded port's bit for bit, and the reference's within
+    ``test_torch_lm.py``'s bound (tokens equal)."""
+    _, ref, res = mesh_run
+    want_toks, want = ref["serve"][(arch, pack_acts)]
+    j_toks, j_logits = ref["serve"][(arch, "reference")]
+    for r in res:
+        toks, logits = r["serve"][(arch, tag, pack_acts)]
+        assert toks == want_toks == j_toks
+        np.testing.assert_array_equal(logits, want)
+    np.testing.assert_allclose(want, j_logits, rtol=0,
+                               atol=1e-4 * np.abs(j_logits).max())
+
+
+@pytest.mark.parametrize("pack_acts,cache", [(True, "float"),
+                                              (False, "float"),
+                                              (True, "int8"),
+                                              (True, "int8 chunked")])
+def test_position_split_cache_combines_to_unsharded(mesh_run, pack_acts,
+                                                    cache):
+    """qwen1.5-110b-smoke on (data 1, model 4): 2 kv heads do not divide
+    over 4 ranks, so ``cache_pspec`` splits the cache's positions (4
+    slots a rank, every rank holding some of the 14 positions written),
+    the int8 cache's codes and scales alike; each rank's partial softmax,
+    combined by log-sum-exp, gives the unsharded logits within rtol 1e-5
+    / atol 1e-6 and its tokens. With ``use_chunked_attn`` the prefill
+    into the empty int8 cache attends the fresh K/V, chunked, as the
+    unsharded one does (not the cache's dequantized codes)."""
+    _, ref, res = mesh_run
+    plain = cache == "float"
+    want_toks, want = ref["serve"][("qwen1.5-110b",
+                                    pack_acts if plain else cache)]
+    assert res[0]["serve_cache_placements"] == \
+        "(Shard(dim=1), Shard(dim=2))"
+    for r in res:
+        toks, logits = r["serve"][("qwen1.5-110b",
+                                   "1x4" if plain else f"1x4 {cache}",
+                                   pack_acts)]
+        np.testing.assert_allclose(logits, want, rtol=1e-5, atol=1e-6)
+        top2 = np.sort(want, axis=-1)[:, -2:]
+        near = np.abs(top2[:, 1] - top2[:, 0]) <= 1e-5 * np.abs(
+            top2[:, 1]) + 1e-6
+        for b, (t, w) in enumerate(zip(toks, want_toks)):
+            assert t == w or near[b], (b, t, w)
+
+
+@pytest.mark.parametrize("name", ["K48", "K80"])
+@pytest.mark.parametrize("pack_acts", [True, False])
+def test_placed_qdense_gathers_an_unaligned_activation(mesh_run, name,
+                                                       pack_acts):
+    """K = 48 on 2 ranks: the planes' words split 32 + 16 lanes, the
+    activation 24 + 24, so it is gathered and sliced on the words before
+    K1 (never packed from a slice straddling a word), the int32
+    accumulators summed; K = 80: 3 words do not divide, the planes stay
+    whole and the activation is gathered. Both equal the unsharded
+    ``qdense`` bit for bit."""
+    _, ref, res = mesh_run
+    want = ref["serve"][("unaligned", name, pack_acts)]
+    planes = {"K48": "(Replicate(), Shard(dim=1))",
+              "K80": "(Replicate(), Replicate())"}[name]
+    for r in res:
+        got, out_pl, w_pl = r["unaligned"][(name, pack_acts)]
+        np.testing.assert_array_equal(got, want)
+        assert w_pl == planes and out_pl == "(Replicate(), Replicate())"
+
+
+def test_row_parallel_sums_int32_accumulators_not_float_outputs():
+    """Why the row-parallel projection reduces int32 accumulators before
+    one epilogue: on a seeded (4, 256) x (256, 64) W4A8 product with a
+    bias, K split into two word ranges, the int32 sum of K3's raw
+    accumulators (``raw_acc``) through the plain epilogue equals the
+    unsharded fused output bit for bit; summing each half's float output
+    (each with the epilogue, the bias on each half) does not, nor does it
+    with the bias added once."""
+    from repro_torch.core.bitserial import SerialSpec
+    from repro_torch.kernels import bitserial_matmul as km
+    from repro_torch.kernels.epilogue import epilogue
+    from repro_torch.kernels.quantize_pack import pack_codes_ref
+    rng = np.random.default_rng(60)
+    spec = SerialSpec(8, 4, True, True, 8)
+    xc = torch.from_numpy(rng.integers(-128, 128, (4, 256)).astype(np.int32))
+    wc = torch.from_numpy(rng.integers(-8, 8, (256, 64)).astype(np.int32))
+    scale = torch.from_numpy((rng.random(64) * 1e-3).astype(np.float32))
+    bias = torch.from_numpy(rng.standard_normal(64).astype(np.float32))
+
+    def planes(w):
+        return pack_codes_ref(w.t().contiguous(), 4).permute(0, 2, 1) \
+            .contiguous()
+
+    def k3(x, w, *a, **kw):
+        return km.bitserial_matmul_v2(pack_codes_ref(x.contiguous(), 8),
+                                      planes(w), *a, spec=spec,
+                                      k=x.shape[1], **kw)
+
+    whole = k3(xc, wc, scale, bias)
+    halves = [(xc[:, :128], wc[:128]), (xc[:, 128:], wc[128:])]
+    acc = sum(k3(x, w, None, raw_acc=True) for x, w in halves)
+    assert acc.dtype == torch.int32
+    assert torch.equal(epilogue(acc, scale, bias, relu=False, requant=None),
+                       whole)
+    floats = sum(k3(x, w, scale, bias) for x, w in halves)
+    assert not torch.equal(floats, whole)
+    once = sum(k3(x, w, scale) for x, w in halves) + bias
+    assert not torch.equal(once, whole)
+
+
+def test_serve_cell_on_a_fake_mesh_counts_per_device():
+    """``dryrun.cost_cell`` of stablelm-1.6b ``decode_32k`` at 2 layers of
+    full width on a fake (data 2, model 2) mesh: every dim divides, so
+    one device's integer FLOPs (K3 on its quarter: a quarter of the rows
+    times half of N or of K) times 4 equal the unsharded step's; the
+    all-reduces are the row-parallel o and down projections' int32
+    accumulators, (B/2, d_model) each, and the embedding's float32 rows,
+    one each per layer and step; the K3 and K1 calls per step are the
+    unsharded step's."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.hlo_analysis import analyze
+    from repro_torch.launch.serve import Server
+    cell = dryrun.build_cell("stablelm-1.6b", "decode_32k", n_layers=2)
+    rec = dryrun.cost_cell(cell, mesh_shape=(2, 2))
+    cfg, b = cell.cfg, cell.shape.global_batch
+    srv = Server(cfg, tt.init_params(dryrun._MetaGenerator(), cfg,
+                                     packed=True),
+                 batch_slots=b, max_len=cell.max_len, device="meta")
+    caches = tt.init_caches(srv.cfg, b, cell.max_len, device="meta")
+    toks = torch.empty((b, 1), dtype=torch.int64, device="meta")
+    with torch.inference_mode():
+        _, one = analyze(tt.decode_step, srv.params, caches, toks,
+                         cell.max_len - 1, srv.cfg)
+    assert rec["cost_mesh"] == {"data": 2, "model": 2}
+    assert rec["flops_int"] * 4 == one.flops_int > 0
+    assert rec["kernel_calls"] == one.kernel_calls
+    layers, rows, d = cfg.n_layers, b // 2, cfg.d_model
+    col = rec["collectives"]
+    assert col["counts"]["all-reduce"] == 2 * layers + 1
+    assert col["bytes"]["all-reduce"] == (2 * layers * rows * d * 4
+                                          + rows * d * 4)
+
+
+def test_mesh_refuses_what_this_slice_does_not_serve():
+    """A family outside the dense/VLM path raises ``NotImplementedError``
+    naming its later slice (never runs whole on each rank), as do float
+    serving; a mesh of another device type and ``batch_slots`` that do
+    not divide over ``data`` raise ``ValueError``. The dry run keeps such
+    a family's serve cell on one device with a reason naming it."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_mesh
+    from repro_torch.launch.serve import Server
+    lm = get_arch("stablelm-1.6b").smoke
+    with fake_mesh((2, 2), device_type="cpu") as mesh:
+        for arch in ("mamba2-780m", "hymba-1.5b", "deepseek-v2-lite-16b",
+                     "seamless-m4t-large-v2"):
+            with pytest.raises(NotImplementedError, match="later slice"):
+                Server(get_arch(arch).smoke, device="cpu", mesh=mesh)
+        with pytest.raises(NotImplementedError, match="float serving"):
+            Server(lm, device="cpu", mesh=mesh, quantized=False)
+        with pytest.raises(ValueError, match="does not divide"):
+            Server(lm, batch_slots=3, device="cpu", mesh=mesh)
+    with fake_mesh((1, 2), device_type="cuda") as mesh:
+        with pytest.raises(ValueError, match="cuda mesh"):
+            Server(lm, device="cpu", mesh=mesh)
+    rec = dryrun.cost_cell(dryrun.build_cell("mamba2-780m", "decode_32k",
+                                             n_layers=1))
+    assert rec["cost_mesh"] is None
+    assert "'ssm' family" in rec["cost_mesh_reason"]
+
+
+def test_placed_packings_give_the_same_words(mesh_run):
+    """On the (2, 2) mesh, each rank's planes, scales and every other leaf
+    are the same words and placements whether the layers are drawn,
+    packed and split one at a time (``init_placed_params(packed=True)``,
+    what ``Server(mesh=)`` draws), the whole packed params are placed
+    (``place_tree``), or the placed float params are packed
+    (``pack_params``); the planes are split."""
+    for r in mesh_run[2]:
+        same, split = r["placed_packing"]
+        assert same == [True, True] and split > 0
