@@ -3363,6 +3363,128 @@ def mesh_serve(dev, hp, mesh):
     return out
 
 
+def moe_prompts(cfg):
+    """Phase 12's four deepseek prompts (``LM_PROMPTS`` long, from
+    RandomState(0) over ``cfg``'s vocabulary)."""
+    import numpy as np
+    rng = np.random.RandomState(0)
+    return [rng.randint(0, cfg.vocab_size, (n,)).astype(np.int32)
+            for n in LM_PROMPTS]
+
+
+def moe_per_step(cfg):
+    """The kernel launches one prefill or decode step of the MoE model
+    ``cfg`` makes with ``pack_acts`` (K1 + K3): per layer's attention 2
+    K1 (q and kv-down, or q/k/v, share one; wo) and 3 K3 with MLA or 4
+    with GQA, the dense layer's or the shared experts' MLP 2 K1 (gate/up
+    share one; down) and 3 K3, and 3 grouped K4 per MoE layer (up, gate,
+    down); K4 with ``pack_acts=False`` takes K3's count and no K1."""
+    moe_layers = cfg.n_layers - cfg.n_dense_layers
+    mlp_layers = cfg.n_dense_layers + (moe_layers if cfg.n_shared_experts
+                                       else 0)
+    k1 = 2 * cfg.n_layers + 2 * mlp_layers
+    k3 = (3 if cfg.mla else 4) * cfg.n_layers + 3 * mlp_layers
+    return {"K1": k1, "K3": k3, "K4g": 3 * moe_layers}
+
+
+def moe_reference(dev, cfg, prompts, new, n_groups=1):
+    """The unsharded ``Server`` of ``cfg`` drawn from seed 0 on ``prompts``
+    (``new`` tokens each, one slot a prompt), its MoE dispatching in
+    ``n_groups`` groups: (tokens, last logits on the host)."""
+    import torch
+    from repro_torch.distributed.context import bind_axes
+    from repro_torch.launch.serve import GenRequest, Server
+    srv = Server(cfg, batch_slots=len(prompts), max_len=LM_MAX_LEN, seed=0,
+                 device=dev)
+    with bind_axes(dp="data", mesh={"data": n_groups}):
+        res = srv.generate([GenRequest(p.copy(), new) for p in prompts])
+    out = ([r.out_tokens for r in res], srv.last_logits.float().cpu())
+    del srv, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_serve_moe(dev, hp, mesh):
+    """Phase 20 (d), the MoE family: ``Server(mesh=)`` of
+    deepseek-v2-lite-16b FULL (27 layers, MLA, 64 routed experts split
+    over ``model``) on the (data 1, model 1) NCCL mesh, drawn placed from
+    phase 12's seed, on phase 12's four requests over ``DS_PLAIN_NEW``
+    new tokens, through K1 + K3 and through K4: phase 12's launches every
+    step (108 K1 + 162 K3 + 78 grouped K4; K4 162 in K3's place), tokens
+    and last-step logits equal phase 12's unsharded ``Server``'s bit for
+    bit; its decode steps timed against an unsharded ``Server`` on the
+    same planes (gathered). Helpers: ``counts``, ``reset_counts``,
+    ``ds_prompts``, ``ds_tokens``, ``ds_logits`` (phase 12's short
+    run)."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import placed
+    from repro_torch.launch.serve import GenRequest, Server
+    cfg = get_arch("deepseek-v2-lite-16b").full
+    per = moe_per_step(cfg)
+    steps_n = DS_PLAIN_NEW
+    reqs = lambda: [GenRequest(p.copy(), steps_n) for p in hp.ds_prompts]
+    t0 = time.perf_counter()
+    srv = Server(cfg, batch_slots=4, max_len=LM_MAX_LEN, seed=0, mesh=mesh,
+                 device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    out = {"init_s": init_s,
+           "launches": dict.fromkeys(("K1", "K2", "K3", "K4", "K4g"), 0)}
+    runs = {}
+    for tag, pa in (("k3", True), ("k4", False)):
+        s = srv if pa else Server(cfg, srv.params, batch_slots=4,
+                                  max_len=LM_MAX_LEN, pack_acts=False,
+                                  mesh=mesh, device=dev)
+        steps = []
+        toks, logits, c = _serve_counts(s, reqs(), hp.counts,
+                                        hp.reset_counts, steps)
+        want = {"K1": per["K1"] * steps_n if pa else 0, "K2": 0,
+                "K3": per["K3"] * steps_n if pa else 0,
+                "K4": 0 if pa else per["K3"] * steps_n,
+                "K4g": per["K4g"] * steps_n}
+        if c != want:
+            raise AssertionError(f"(d) deepseek {tag} launches {c}, want "
+                                 f"{want}")
+        if toks != hp.ds_tokens or not torch.equal(logits, hp.ds_logits):
+            raise AssertionError(f"(d) deepseek {tag}: the sharded Server's "
+                                 "tokens or last logits differ from phase "
+                                 "12's unsharded Server's")
+        for k in out["launches"]:
+            out["launches"][k] += c[k]
+        runs[tag] = {"launches": c, "prefill_s": steps[0],
+                     "decode_step_ms": [t * 1e3 for t in steps[1:]]}
+    whole = _tree_map(placed.plain, srv.params)
+    ref = Server(cfg, whole, batch_slots=4, max_len=LM_MAX_LEN, device=dev)
+    steps = []
+    toks, logits, c = _serve_counts(ref, reqs(), hp.counts, hp.reset_counts,
+                                    steps)
+    if toks != hp.ds_tokens or not torch.equal(logits, hp.ds_logits):
+        raise AssertionError("(d) deepseek: the unsharded Server on the "
+                             "gathered planes differs from phase 12's")
+    for k in out["launches"]:
+        out["launches"][k] += c[k]
+    runs["unsharded"] = {"launches": c, "prefill_s": steps[0],
+                         "decode_step_ms": [t * 1e3 for t in steps[1:]]}
+    out["runs"] = runs
+    med = {k: statistics.median(v["decode_step_ms"]) for k, v in runs.items()}
+    out["decode_step_ms_median"] = med
+    log(f"  (d) Server(mesh=(data 1, model 1), deepseek-v2-lite-16b FULL, "
+        f"bf16, seed 0; drawn placed in {init_s:.1f} s) on phase 12's four "
+        f"requests, {steps_n} new tokens: tokens and last logits equal phase "
+        f"12's unsharded Server's bit for bit through K1 + K3 "
+        f"({runs['k3']['launches']}) and K4 ({runs['k4']['launches']}): "
+        f"{per} a step; decode step ms (median, host clock, synchronized) "
+        f"K3 {med['k3']:.1f}, K4 {med['k4']:.1f}, unsharded K3 "
+        f"{med['unsharded']:.1f}; prefill s K3 {runs['k3']['prefill_s']:.2f}")
+    del srv, ref, whole, s
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def split_arithmetic(dev):
     """Phase 20 (e): the row- and column-parallel arithmetic on this card,
     at stablelm-1.6b's three projection shapes (read from its config) and
@@ -3453,10 +3575,12 @@ def mesh_serve_rank(rank, data, model, prompts, qwen, device=None):
     """One rank of phase 20 (f), started by ``run_ranks`` on its own card
     (``device="cpu"``: a gloo rank, for a rehearsal): ``Server(mesh=)`` on
     a (data, model) mesh, stablelm-1.6b FULL drawn placed from seed 0 on
-    ``prompts`` (K1 + K3); with ``qwen`` also qwen1.5-110b FULL at its 80
-    layers (seed 0) on the same prompts, ``MESH_QWEN_NEW`` new tokens, and
-    one profiled decode step. Returns tokens, last logits (host),
-    launches, step times and bytes."""
+    ``prompts`` (K1 + K3), then deepseek-v2-lite-16b FULL (its experts
+    split over ``model``) on phase 12's prompts, ``DS_PLAIN_NEW`` new
+    tokens; with ``qwen`` also qwen1.5-110b FULL at its 80 layers and
+    qwen3-moe-235b-a22b FULL at its 94 (seed 0) on ``prompts``,
+    ``MESH_QWEN_NEW`` new tokens, each with one profiled decode step.
+    Returns tokens, last logits (host), launches, step times and bytes."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -3473,9 +3597,13 @@ def mesh_serve_rank(rank, data, model, prompts, qwen, device=None):
     dev = (torch.device("cuda", torch.cuda.current_device()) if card
            else torch.device(device))
     out = {"card": torch.cuda.get_device_name(dev) if card else str(dev)}
-    runs = [("stablelm", get_arch("stablelm-1.6b").full, LM_NEW)]
+    ds_cfg = get_arch("deepseek-v2-lite-16b").full
+    runs = [("stablelm", get_arch("stablelm-1.6b").full, LM_NEW),
+            ("deepseek", ds_cfg, DS_PLAIN_NEW)]
     if qwen:
-        runs.append(("qwen", get_arch("qwen1.5-110b").full, MESH_QWEN_NEW))
+        runs += [("qwen", get_arch("qwen1.5-110b").full, MESH_QWEN_NEW),
+                 ("qwen3", get_arch("qwen3-moe-235b-a22b").full,
+                  MESH_QWEN_NEW)]
     for name, cfg, new in runs:
         if card:
             torch.cuda.empty_cache()
@@ -3487,8 +3615,9 @@ def mesh_serve_rank(rank, data, model, prompts, qwen, device=None):
         init_s = time.perf_counter() - t0
         held = torch.cuda.memory_allocated(dev) if card else None
         steps = []
-        reqs = [GenRequest((np.asarray(p) % cfg.vocab_size).astype(
-            np.int32), new) for p in prompts]
+        reqs = [GenRequest(p.copy(), new) for p in moe_prompts(cfg)] \
+            if name == "deepseek" else [GenRequest((np.asarray(
+                p) % cfg.vocab_size).astype(np.int32), new) for p in prompts]
         for k in (k1.KERNEL, k2.KERNEL, km.KERNEL, km.GROUPED):
             k.reset_counts()
         res = srv.generate(reqs, step_seconds=steps)
@@ -3502,7 +3631,7 @@ def mesh_serve_rank(rank, data, model, prompts, qwen, device=None):
                "peak_bytes": (torch.cuda.max_memory_allocated(dev) if card
                               else None),
                "layers": cfg.n_layers}
-        if name == "qwen":
+        if name in ("qwen", "qwen3"):
             # one more decode step, profiled: the card's busy time
             batch = {"tokens": srv._place_batch(torch.zeros(
                 (4, 16), dtype=torch.long, device=dev))}
@@ -3532,68 +3661,137 @@ def mesh_serve_rank(rank, data, model, prompts, qwen, device=None):
 
 def mesh_serve_cards(n, hp, device=None):
     """Phase 20 (f), two or more cards: ``run_ranks`` with one rank a
-    card on (data 1, model n) (with qwen1.5-110b at full depth, for
-    ``PERF.md``) and (data 2, model n/2); rank 0's stablelm tokens and
-    last logits must equal (d)'s (phase 8's unsharded ``Server``'s) bit
-    for bit (its 32 kv heads split over ``model``)."""
+    card on (data 1, model n) (with qwen1.5-110b and qwen3-moe-235b-a22b
+    at full depth, for ``PERF.md``) and (data 2, model n/2); rank 0's
+    stablelm tokens and last logits must equal (d)'s (phase 8's unsharded
+    ``Server``'s) bit for bit (its 32 kv heads split over ``model``), and
+    its deepseek ones phase 12's unsharded ``Server``'s on (1, n) and, on
+    (2, n/2), where each data rank's rows are one dispatch group (the
+    reference's rule), an unsharded ``Server`` on each group's rows
+    (against the 4-row ``Server`` dispatching in 2 groups: reported),
+    with the kernel launches of an unsharded step on every rank.
+    Helpers: phase 8's ``prompts``, ``lm_tokens``, ``lm_logits``, phase
+    12's ``ds_tokens``, ``ds_logits``."""
+    import gc
+
     import numpy as np
     import torch
+    from repro_torch.configs import get_arch
     from repro_torch.launch.mesh import run_ranks
     prompts = [np.asarray(p) for p in hp.prompts]
     want = hp.lm_logits.float().cpu()
+    ds_cfg = get_arch("deepseek-v2-lite-16b").full
+    q3_cfg = get_arch("qwen3-moe-235b-a22b").full
     out = {}
     shapes = [(1, n)] + ([(2, n // 2)] if n % 2 == 0 and n >= 4 else [])
     for data, model in shapes:
+        ds_grouped = None
+        if data == 1:
+            ds_want = (hp.ds_tokens, hp.ds_logits.float().cpu())
+        else:
+            # each data rank's rows are one dispatch group: an unsharded
+            # Server on those rows alone, the prompts left-padded as the
+            # whole batch pads them, computes that group at the rank's row
+            # count (a float GEMM's rounding on the card depends on its
+            # rows); the 4-row Server dispatching in ``data`` groups is
+            # the same function at other shapes: reported
+            ds_p = moe_prompts(ds_cfg)
+            width = max(len(p) for p in ds_p)
+            padded = [np.concatenate([np.zeros(width - len(p), np.int32),
+                                      p]) for p in ds_p]
+            rows = len(padded) // data
+            parts = [moe_reference(device, ds_cfg,
+                                   padded[i * rows:(i + 1) * rows],
+                                   DS_PLAIN_NEW) for i in range(data)]
+            ds_want = ([t for part in parts for t in part[0]],
+                       torch.cat([part[1] for part in parts]))
+            ds_grouped = moe_reference(device, ds_cfg, ds_p, DS_PLAIN_NEW,
+                                       n_groups=data)
+            gc.collect()
         t0 = time.perf_counter()
         res = run_ranks(mesh_serve_rank, n, device=device,
                         args=(data, model, prompts, (data, model) == (1, n),
                               device),
                         timeout=1500)
-        st = res[0]["stablelm"]
+        st, ds = res[0]["stablelm"], res[0]["deepseek"]
         if st["tokens"] != hp.lm_tokens or not torch.equal(st["logits"],
                                                            want):
             raise AssertionError(f"(f) ({data}, {model}): rank 0's tokens "
                                  "or last logits differ from (d)'s")
-        per = {"K1": 4 * 24 * LM_NEW, "K3": 7 * 24 * LM_NEW}
-        if device is None and any(
-                rr["stablelm"]["launches"][k] != v for rr in res
-                for k, v in per.items()):
-            raise AssertionError(f"(f) ({data}, {model}): launches "
-                                 f"{[rr['stablelm']['launches'] for rr in res]}"
-                                 f", want {per} on each rank")
+        if ds["tokens"] != ds_want[0] or not torch.equal(ds["logits"],
+                                                         ds_want[1]):
+            raise AssertionError(f"(f) ({data}, {model}): rank 0's deepseek "
+                                 "tokens or last logits differ from the "
+                                 f"unsharded Server's on each group's rows")
+        grouped = None
+        if ds_grouped is not None:
+            grouped = {
+                "max_abs_logit_diff": float((ds["logits"] - ds_grouped[1])
+                                            .abs().max()),
+                "rows_with_equal_tokens": sum(
+                    a == b for a, b in zip(ds["tokens"], ds_grouped[0]))}
+        per = {"stablelm": {"K1": 4 * 24 * LM_NEW, "K3": 7 * 24 * LM_NEW},
+               "deepseek": {k: v * DS_PLAIN_NEW
+                            for k, v in moe_per_step(ds_cfg).items()},
+               "qwen3": {k: v * MESH_QWEN_NEW
+                         for k, v in moe_per_step(q3_cfg).items()}}
+        bad = [(r, name, rr[name]["launches"]) for r, rr in enumerate(res)
+               for name, want_c in per.items() if name in rr
+               and any(rr[name]["launches"][k] != v
+                       for k, v in want_c.items())]
+        if device is None and bad:
+            raise AssertionError(f"(f) ({data}, {model}): launches {bad}, "
+                                 f"want {per} on each rank")
         for r, rr in enumerate(res[1:], 1):
-            if rr["stablelm"]["tokens"] != st["tokens"]:
-                raise AssertionError(f"(f) rank {r}'s tokens differ")
+            for name in ("stablelm", "deepseek"):
+                if rr[name]["tokens"] != res[0][name]["tokens"]:
+                    raise AssertionError(f"(f) rank {r}'s {name} tokens "
+                                         "differ")
         tag = f"{data}x{model}"
         out[tag] = {"ranks": [{k: {kk: vv for kk, vv in v.items()
                                    if kk != "logits"}
                                if isinstance(v, dict) else v
                                for k, v in rr.items()} for rr in res],
+                    "deepseek_against_grouped_4_rows": grouped,
                     "seconds": time.perf_counter() - t0}
-        log(f"  (f) (data {data}, model {model}) over {n} cards: stablelm "
-            f"rank 0's tokens and last logits equal (d)'s bit for bit; "
-            f"launches {st['launches']}; decode step ms (median) "
-            f"{statistics.median(st['decode_step_ms']):.1f}; held GB per "
-            f"card " + " ".join(
-                f"{(rr['stablelm']['held_bytes'] or 0) / 1e9:.2f}"
-                for rr in res))
-        if "qwen" in res[0]:
-            q = res[0]["qwen"]
+        if grouped is not None:
+            log(f"  (f) ({data}, {model}) deepseek against the 4-row "
+                f"unsharded Server dispatching in {data} groups (reported): "
+                f"{grouped['rows_with_equal_tokens']} of 4 rows' tokens "
+                f"equal, largest logit difference "
+                f"{grouped['max_abs_logit_diff']!r}")
+        for name, what in (("stablelm", "(d)'s"),
+                           ("deepseek", "the unsharded Server's" + (
+                               " on each data rank's rows" if data > 1
+                               else ""))):
+            r0 = res[0][name]
+            log(f"  (f) (data {data}, model {model}) over {n} cards: {name} "
+                f"rank 0's tokens and last logits equal {what} bit for "
+                f"bit; launches {r0['launches']}; decode step ms (median) "
+                f"{statistics.median(r0['decode_step_ms']):.1f}; drawn "
+                f"placed in {r0['init_s']:.1f} s; held GB per card "
+                + " ".join(f"{(rr[name]['held_bytes'] or 0) / 1e9:.2f}"
+                           for rr in res))
+        for name, arch in (("qwen", "qwen1.5-110b"),
+                           ("qwen3", "qwen3-moe-235b-a22b")):
+            if name not in res[0]:
+                continue
+            q = res[0][name]
             finite = bool(torch.isfinite(q["logits"]).all())
             if not finite or any(len(t) != MESH_QWEN_NEW for t in
                                  q["tokens"]):
-                raise AssertionError("(f) qwen1.5-110b: bad output")
-            log(f"  (f) qwen1.5-110b FULL ({q['layers']} layers) on (data "
-                f"1, model {n}): drawn placed in {q['init_s']:.1f} s; decode "
-                f"step ms (host clock) " + " ".join(
-                    f"{t:.1f}" for t in q["decode_step_ms"])
+                raise AssertionError(f"(f) {arch}: bad output")
+            log(f"  (f) {arch} FULL ({q['layers']} layers) on (data 1, "
+                f"model {n}): drawn placed in {q['init_s']:.1f} s; prefill "
+                f"{q['prefill_s']:.2f} s; decode step ms (host clock) "
+                + " ".join(f"{t:.1f}" for t in q["decode_step_ms"])
                 + f"; one profiled step wall {q['profiled_step_wall_ms']:.1f}"
                 f" ms, busy {q['profiled_step_busy_ms']:.1f} ms (NCCL's "
                 f"kernels, waits included, "
                 f"{q['profiled_step_nccl_ms']:.1f}); launches "
                 f"{q['launches']}; held / peak GB per card " + " ".join(
-                    f"{(rr['qwen']['held_bytes'] or 0) / 1e9:.2f}/"
-                    f"{(rr['qwen']['peak_bytes'] or 0) / 1e9:.2f}"
+                    f"{(rr[name]['held_bytes'] or 0) / 1e9:.2f}/"
+                    f"{(rr[name]['peak_bytes'] or 0) / 1e9:.2f}"
                     for rr in res))
     return out
 
@@ -3602,10 +3800,11 @@ def mesh_phase(dev, hp):
     """Phase 20: sharding one model's tensors (``distributed/sharding.py``
     on DTensor, ``Trainer(mesh=)``). Helpers from ``main``: ``counts``,
     ``reset_counts``, ``profiled``, ``is_spin``, and phase 8's ``prompts``,
-    ``lm_tokens`` and ``lm_logits``. Returns the phase's record; its
+    ``lm_tokens`` and ``lm_logits``, phase 12's ``ds_prompts``,
+    ``ds_tokens`` and ``ds_logits``. Returns the phase's record; its
     ``launches`` are the packed evaluations' K1 and K3 and (d)'s servers'
-    K1, K3 and K4 ((e)'s comparisons with the plain versions are not
-    counted); raises on any failure."""
+    K1, K3, K4 and grouped K4 ((e)'s comparisons with the plain versions
+    are not counted); raises on any failure."""
     import gc
 
     import torch
@@ -3764,6 +3963,10 @@ def mesh_phase(dev, hp):
     for k in out["launches"]:
         out["launches"][k] += out["d"]["launches"][k]
     mark("(d) sharded Server")
+    out["d_moe"] = mesh_serve_moe(dev, hp, mesh)
+    for k in out["launches"]:
+        out["launches"][k] += out["d_moe"]["launches"][k]
+    mark("(d) sharded MoE Server")
     out["e"] = split_arithmetic(dev)
     mark("(e) split arithmetic")
     out["de_s"] = time.perf_counter() - t_de
@@ -6587,7 +6790,8 @@ def main() -> int:
     mesh_rec = mesh_phase(dev, types.SimpleNamespace(
         counts=counts, reset_counts=reset_counts, profiled=profiled,
         is_spin=is_spin, prompts=prompts, lm_tokens=lm_k3[0],
-        lm_logits=lm_k3[1]))
+        lm_logits=lm_k3[1], ds_prompts=ds_prompts, ds_tokens=ds_short[0],
+        ds_logits=ds_short[1]))
     record["mesh"] = mesh_rec
     mesh_ran = mesh_rec["launches"]
 
@@ -6689,7 +6893,7 @@ def main() -> int:
          "replaces": "src/repro/models/moe.py:75 (_expert_matmul, XLA "
                      "serial_matmul_packed; no Pallas kernel)",
          "launches": (ds_launches["K4g"] + fam_ran["K4g"] + long_ran["K4g"]
-                      + arr_ran["K4g"]),
+                      + arr_ran["K4g"] + mesh_ran["K4g"]),
          "engine_launches_per_captured_step": ds["step_launches"]["K4g"],
          "max_abs_err": max_err["K4g"],
          "ms": ds["grouped_step_sums"]["ms"],
@@ -6727,9 +6931,9 @@ def cards_main() -> int:
     """``python3 chip_smoke.py --cards``: phase 20 (f) alone, on every
     card of a machine with two or more (the whole script runs it too,
     after phases 1-19): the kernels built, phase 8's unsharded ``Server``
-    on its four requests for the record (f) holds each mesh to, then
-    :func:`mesh_serve_cards`. The record goes to
-    ``chiprun_out/chip_smoke_cards.json``."""
+    on its four requests and phase 12's deepseek one on its four, for the
+    records (f) holds each mesh to, then :func:`mesh_serve_cards`. The
+    record goes to ``chiprun_out/chip_smoke_cards.json``."""
     import gc
     import torch
     if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
@@ -6766,6 +6970,11 @@ def cards_main() -> int:
     del lm, res
     gc.collect()
     torch.cuda.empty_cache()
+    # phase 12's unsharded deepseek Server, over DS_PLAIN_NEW new tokens
+    ds_cfg = get_arch("deepseek-v2-lite-16b").full
+    hp.ds_tokens, hp.ds_logits = moe_reference(
+        None, ds_cfg, moe_prompts(ds_cfg), DS_PLAIN_NEW)
+    gc.collect()
     record = {"cards": smi,
               "f": mesh_serve_cards(torch.cuda.device_count(), hp),
               "total_s": time.perf_counter() - t_start}

@@ -55,12 +55,14 @@ cell counts one ``make_train_step`` step (loss, gradients, AdamW) per
 device of the production mesh, a fake process group of 256 or 512 ranks
 in this process (``launch/mesh.py``'s ``fake_mesh``), the state and batch
 placed as a mesh run places them; the counts are rank 0's. A
-``prefill`` or ``decode`` cell of a family a mesh serves (dense, VLM)
-counts one ``prefill`` or one ``decode_step`` (at the cache's last
+``prefill`` or ``decode`` cell of a family a mesh serves (dense, VLM,
+MoE) counts one ``prefill`` or one ``decode_step`` (at the cache's last
 position) of a sharded ``Server`` on rank 0 of the same fake mesh: the
 packed params placed by ``param_pspec``, the caches by ``cache_pspec``,
 the inputs by ``batch_pspec``; each K3/K4 launch counts its rank's local
-work, and the row-parallel projections' int32 sums count as all-reduces.
+work (grouped K4 its rank's experts), the row-parallel projections' int32
+sums count as all-reduces, and the gathers of the experts' rows and of
+MLA's latent cache as all-gathers.
 A serve cell of any other family is counted on one device, as ``Server``
 holds it: ``cost_mesh`` is null and ``cost_mesh_reason`` names the family
 and the slice that brings it to a mesh. ``cost=False`` leaves the cost

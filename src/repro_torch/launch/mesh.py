@@ -209,15 +209,16 @@ def run_ranks(fn: Callable, world_size: int, *, device=None,
     module-level function). Every rank is joined by ``timeout`` seconds
     in all; a rank that fails, or one still running then, is an error,
     and the ranks still running are killed. ``threads`` sets each rank's
-    ``torch.set_num_threads`` (default: the CPU's cores over the ranks on
-    the CPU)."""
+    ``torch.set_num_threads`` (default on the CPU: this process's torch
+    threads over the ranks, so a caller capped to fewer threads than
+    cores, as under a parallel test run, does not oversubscribe them)."""
     import multiprocessing as mp
     dev_type, backend = backend_for(device)
     if dev_type == "cuda" and torch.cuda.device_count() < world_size:
         raise RuntimeError(f"{world_size} ranks need {world_size} cards "
                            f"(one each); {torch.cuda.device_count()} visible")
     if threads is None and dev_type == "cpu":
-        threads = max(1, (os.cpu_count() or 1) // world_size)
+        threads = max(1, torch.get_num_threads() // world_size)
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         init = "file://" + os.path.join(tmp, "rendezvous")

@@ -47,6 +47,7 @@ as the reference's do:
     python -m repro_torch.launch.serve --arch internvl2-76b --device cpu --smoke
     python -m repro_torch.launch.serve --arch stablelm-1.6b --smoke --device cpu --model-par 2 [--data-par 2]
     python -m repro_torch.launch.serve --arch qwen1.5-110b --model-par 4   # one rank a card
+    python -m repro_torch.launch.serve --arch qwen3-moe-235b-a22b --model-par 4   # 32 experts a card
     python -m repro_torch.launch.serve --arch resnet9-cifar10 --batch 32 [--trace-out trace.json]
     python -m repro_torch.launch.serve --arch resnet9-cifar10 --batch 4 --device cpu
     python -m repro_torch.launch.serve --arch resnet9-cifar10 --store DIR
@@ -59,9 +60,9 @@ as the reference's do:
 Prometheus text on ``127.0.0.1:PORT/metrics`` for the run, and
 ``--metrics-every S`` prints a one-line metrics snapshot every S seconds.
 ``--store DIR`` warm-boots the CNN from an artifact store (compiling and
-saving on a miss). ``--data-par``/``--model-par`` (LM; dense and VLM
-families) serve the packed model sharded over a (data, model) mesh: the
-CLI starts one rank a card (gloo ranks with ``--device cpu``), each
+saving on a miss). ``--data-par``/``--model-par`` (LM; dense, VLM and
+MoE families) serve the packed model sharded over a (data, model) mesh:
+the CLI starts one rank a card (gloo ranks with ``--device cpu``), each
 builds a :class:`Server` with ``mesh=`` and serves ``batch`` 8-token
 prompts (``batch`` must divide over ``data``); rank 0 prints.
 ``compile`` is the offline code-generator run: graph →
@@ -203,8 +204,16 @@ class Server:
     :func:`~repro_torch.distributed.placed.mesh_context`. Each rank runs
     K1 and K3 (or K4) on its own planes (``layers._placed_qdense``); the
     embedding and the head are vocab-parallel, held whole over the DP
-    axes; tokens and ``last_logits`` come back whole on every rank. The
-    dense and VLM families only: any other raises
+    axes; tokens and ``last_logits`` come back whole on every rank. An
+    MoE's routed experts split over ``model`` (expert parallelism): each
+    rank dispatches its rows' groups and runs grouped K4 on its experts'
+    planes, the experts' outputs are gathered over ``model`` for the
+    combine (``moe._moe_apply_placed``); their ``scale`` and ``alpha_a``
+    are placed by the expert axis once, here, and MLA's float
+    ``w_uk``/``w_uv`` made whole on every rank, so a step moves no
+    parameter. MLA's latent cache keeps ``cache_pspec``'s placement and
+    each rank attends its own heads (``attention._mla_placed``). The
+    dense, VLM and MoE families: any other raises
     ``NotImplementedError``, as does float serving. ``device`` must be of
     the mesh's device type (``meta`` counts, as the dry run does).
     """
@@ -247,6 +256,8 @@ class Server:
             # gather of the table or the head in a step
             params["embed"] = _whole_over_dp(params["embed"])
             params["head"]["w"] = _whole_over_dp(params["head"]["w"])
+            params["groups"] = [_serving_placements(g)
+                                for g in params["groups"]]
         self.params = params
         self.last_logits = None
         self.last_stats = {}
@@ -382,6 +393,52 @@ class Server:
             "decode_steps": max(0, n_new - 1),
         }
         return requests[:n_real]  # dummies pad the batch; don't return them
+
+
+def _serving_placements(p):
+    """A placed layer group's params as a sharded server holds them, moved
+    once here so that a step moves no parameter: each routed expert
+    projection's ``scale`` and ``alpha_a`` split over the experts as its
+    planes are (``param_pspec`` splits ``scale``'s columns, and a rank's
+    experts need all of theirs), and MLA's float ``w_uk``/``w_uv`` whole
+    on every rank (a rank's heads need the whole latent dim, which
+    ``param_pspec`` splits over the DP axes, and a decode step attends
+    every head: ``attention._mla_placed``)."""
+    from torch.distributed.tensor import Replicate
+    if isinstance(p, list):
+        return [_serving_placements(v) for v in p]
+    if not isinstance(p, dict):
+        return p
+    out = {}
+    for k, v in p.items():
+        if k == "moe":
+            out[k] = {n: (_experts_by_e(t) if n in ("w_up", "w_gate",
+                                                    "w_down") else t)
+                      for n, t in v.items()}
+        elif k in ("w_uk", "w_uv"):
+            out[k] = {n: t.redistribute(t.device_mesh, [Replicate()]
+                                        * t.device_mesh.ndim)
+                      for n, t in v.items()}
+        else:
+            out[k] = _serving_placements(v)
+    return out
+
+
+def _experts_by_e(p: dict) -> dict:
+    """Routed expert params (planes (..., E, bits, K/32, N), ``scale``
+    (..., E, N), ``alpha_a`` (..., E)) with ``scale`` and ``alpha_a``
+    placed as the planes' expert axis."""
+    from torch.distributed.tensor import Replicate, Shard
+    w = p["w_packed"]
+    e_dim = w.ndim - 4
+    out = dict(p)
+    for name, from_end in (("scale", 2), ("alpha_a", 1)):
+        t = p[name]
+        pls = [Shard(t.ndim - from_end) if pw.is_shard(e_dim) else
+               Replicate() for pw in w.placements]
+        if pls != list(t.placements):
+            out[name] = t.redistribute(t.device_mesh, pls)
+    return out
 
 
 def _whole_over_dp(t):

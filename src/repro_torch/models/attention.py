@@ -712,15 +712,48 @@ def mla_apply(p: dict, x: torch.Tensor, cfg: AttnConfig,
     ``use_chunked`` the prefill and training path attends through
     :func:`chunked_attention`, ``v`` padded to the q/k width and the
     output cut back, as the reference. ``cfg.kv_bits`` does not apply to
-    the latent cache, in the reference either."""
+    the latent cache, in the reference either. A placed cache (a sharded
+    server) takes :func:`_mla_placed`."""
     b, s, _ = x.shape
-    h = cfg.n_heads
-    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
-    lora = cfg.kv_lora
-    f32 = torch.float32
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     q, ckv = qdense_shared([p["wq"], p["w_dkv"]], x, policy)
+    chunk = dict(use_chunked=use_chunked, q_chunk=q_chunk, kv_chunk=kv_chunk)
+    if cache is not None and placed.is_placed(cache["c"]):
+        return _mla_placed(p, q, ckv, cfg, policy, positions, cache,
+                           cache_pos, chunk)
+    upd = None
+    if cache is not None:
+        upd = dict(cache)
+        upd["len"] = (cache_pos if _per_row(cache_pos)
+                      else int(cache_pos)) + s
+
+        def latent(c, k_rope):
+            _seq_write(cache["c"], c, cache_pos)
+            _seq_write(cache["k_rope"], k_rope, cache_pos)
+            return cache["c"], cache["k_rope"]
+    else:
+        latent = None
+    out = _mla_heads(p, q, ckv, cfg, policy, positions, cfg.n_heads,
+                     latent, cache_pos, **chunk)
+    return qdense(p["wo"], out, policy), upd
+
+
+def _mla_heads(p: dict, q, ckv, cfg: AttnConfig, policy: QuantPolicy,
+               positions, n_heads: int, latent, cache_pos, *,
+               use_chunked: bool, q_chunk: int, kv_chunk: int):
+    """The body of :func:`mla_apply` for ``n_heads`` heads, on plain
+    tensors: ``q`` (B, S, n_heads·(dn + dr)) those heads' queries,
+    ``ckv`` (B, S, kv_lora + dr) the down-projected kv, whole; ``p``'s
+    ``w_uk``/``w_uv`` hold those heads' columns. ``latent(c, k_rope)``
+    writes the new latents into the cache and returns the cache's ``(c,
+    k_rope)`` to attend (None: no cache). Returns the heads' context (B,
+    S, n_heads·dv) in ``q``'s dtype, for ``wo``."""
+    b, s = q.shape[:2]
+    h = n_heads
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    lora = cfg.kv_lora
+    f32, dev = torch.float32, q.device
     q = q.reshape(b, s, h, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     c, k_rope = ckv[..., :lora], ckv[..., lora:]
@@ -729,26 +762,20 @@ def mla_apply(p: dict, x: torch.Tensor, cfg: AttnConfig,
     q_rope = apply_rotary(q_rope, cos, sin, dr)
     k_rope = apply_rotary(k_rope[..., None, :], cos, sin, dr)[..., 0, :]
 
-    prefill = cache is not None and s > 1 and _host_zero(cache_pos)
-    if cache is not None:
-        _seq_write(cache["c"], c, cache_pos)
-        _seq_write(cache["k_rope"], k_rope, cache_pos)
-        upd = dict(cache)
-        upd["len"] = (cache_pos if _per_row(cache_pos)
-                      else int(cache_pos)) + s
-    else:
-        upd = None
+    prefill = latent is not None and s > 1 and _host_zero(cache_pos)
+    if latent is not None:
+        c_cache, kr_cache = latent(c, k_rope)
 
-    if cache is not None and not prefill:
+    if latent is not None and not prefill:
         # decode: absorbed form over the latent cache
-        c_all, kr_all = upd["c"].to(f32), upd["k_rope"].to(f32)
+        c_all, kr_all = c_cache.to(f32), kr_cache.to(f32)
         wuk = p["w_uk"]["w"].reshape(lora, h, dn).to(f32)
         q_c = torch.einsum("bshd,lhd->bshl", q_nope.to(f32), wuk)
         scores = (torch.einsum("bshl,btl->bhst", q_c, c_all)
                   + torch.einsum("bshd,btd->bhst", q_rope.to(f32), kr_all))
-        scores = scores / device_scalar(math.sqrt(dn + dr), x.device)
-        kpos = torch.arange(c_all.shape[1], device=x.device)
-        ar = torch.arange(s, device=x.device)
+        scores = scores / device_scalar(math.sqrt(dn + dr), dev)
+        kpos = torch.arange(c_all.shape[1], device=dev)
+        ar = torch.arange(s, device=dev)
         if _per_row(cache_pos):
             qpos = cache_pos[:, None, None] + ar[None, :, None]
             mask = (kpos[None, None, :] <= qpos)[:, None]   # (B,1,s,T)
@@ -760,9 +787,7 @@ def mla_apply(p: dict, x: torch.Tensor, cfg: AttnConfig,
         ctx_c = torch.einsum("bhst,btl->bshl", pattn, c_all)
         wuv = p["w_uv"]["w"].reshape(lora, h, dv).to(f32)
         out_v = torch.einsum("bshl,lhv->bshv", ctx_c, wuv)
-        out = qdense(p["wo"], out_v.reshape(b, s, h * dv).to(x.dtype),
-                     policy)
-        return out, upd
+        return out_v.reshape(b, s, h * dv).to(q.dtype)
 
     # train / prefill: materialize per-head K, V from the latent
     k_nope = qdense(p["w_uk"], c, policy).reshape(b, s, h, dn)
@@ -776,5 +801,103 @@ def mla_apply(p: dict, x: torch.Tensor, cfg: AttnConfig,
                                 kv_chunk=kv_chunk)[..., :dv]
     else:
         out = _sdpa_full(qfull, k, vfull, causal=True, q_offset=0)
-    out = qdense(p["wo"], out.reshape(b, s, h * dv), policy)
-    return out, upd
+    return out.reshape(b, s, h * dv)
+
+
+def _mla_placed(p: dict, q, ckv, cfg: AttnConfig, policy: QuantPolicy,
+                positions, cache: dict, cache_pos, chunk: dict):
+    """:func:`mla_apply` over a placed latent cache (a sharded server),
+    ``q`` and ``ckv`` the placed projections. The cache keeps
+    ``cache_pspec``'s placement: the batch over the DP axes, ``c``'s
+    latent dim over ``model`` when it divides (else its positions),
+    ``k_rope``'s positions. Each rank runs :func:`_mla_heads` on its rows,
+    with ``ckv`` made whole first (its columns straddle the ``c``/``k_rope``
+    boundary, and the norm takes the whole latent), and writes the new
+    latents that fall in its shards of the cache. A prefill attends the
+    rank's share of the heads (when they divide over ``model``; else all
+    of them); a decode step gathers the layer's ``c`` and ``k_rope`` whole
+    over ``model`` (per rank, (B_local, T, kv_lora + dr) elements) and
+    attends every head: on the card the absorbed form's float32 einsums
+    round otherwise on a subset of the heads than on all of them, which a
+    bf16 cast or an activation code can carry to the logits. So each
+    head's arithmetic is the unsharded one at the rank's rows: equal to
+    it bit for bit. The contexts go to the row-parallel ``wo``, which
+    takes its words of them. Per-row positions (the engine's arena)
+    raise: a later slice on a mesh."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.models.layers import _local_range
+    if _per_row(cache_pos):
+        raise NotImplementedError("per-row cache positions on a mesh (the "
+                                  "engine's captured step) are a later slice")
+    mesh = cache["c"].device_mesh
+    b, s = q.shape[:2]
+    h, width = cfg.n_heads, cfg.qk_nope_dim + cfg.qk_rope_dim
+    model_on = [i for i, n in enumerate(mesh.mesh_dim_names)
+                if n == "model" and mesh.size(i) > 1]
+    rows_on = [i for i, pl in enumerate(q.placements) if pl.is_shard(0)]
+    pos = int(cache_pos)
+    prefill = s > 1 and pos == 0
+    heads_on = model_on if prefill and h % math.prod(
+        mesh.size(i) for i in model_on) == 0 else []
+    pls = [Shard(0) if i in rows_on else Shard(2) if i in heads_on
+           else Replicate() for i in range(mesh.ndim)]
+    h0, hl = placed.mesh_offset(mesh, pls, 2, h)
+
+    def heads(t, w):
+        """The columns of this rank's heads, ``w`` a head, of a placed
+        (..., h·w) tensor, on this rank's rows."""
+        if t.ndim == 0:
+            return placed.local_of(t)
+        return _local_range(t, heads_on, h * w, h0 * w, (h0 + hl) * w)
+
+    lp = {"kv_norm": placed.local_of(p["kv_norm"]),
+          "w_uk": {k: heads(v, cfg.qk_nope_dim)
+                   for k, v in p["w_uk"].items()},
+          "w_uv": {k: heads(v, cfg.v_head_dim)
+                   for k, v in p["w_uv"].items()}}
+    ql = heads(q, width)
+    ckv_l = _local_range(ckv, [], ckv.shape[-1], 0, ckv.shape[-1])
+
+    def latent(c, k_rope):
+        for name, new in (("c", c), ("k_rope", k_rope)):
+            _write_latent(cache[name], new, pos)
+        if prefill:                     # attends the fresh latents
+            return None, None
+        return tuple(_whole_latent(cache[n]) for n in ("c", "k_rope"))
+
+    out = _mla_heads(lp, ql, ckv_l, cfg, policy, positions, hl, latent,
+                     pos, **chunk)
+    shape = torch.Size((b, s, h * cfg.v_head_dim))
+    out = DTensor.from_local(out.contiguous(), mesh, pls,
+                             shape=shape, stride=placed.contiguous_stride(
+                                 shape))
+    return qdense(p["wo"], out, policy), dict(cache, len=pos + s)
+
+
+def _write_latent(dst, new: torch.Tensor, pos: int) -> None:
+    """Write ``new`` (B_local, S, n), this rank's rows, at global
+    positions ``pos ..`` into its shard of the placed latent cache
+    ``dst`` (B, T, n), in place: the positions and the columns that fall
+    in its shard."""
+    mesh, total = dst.device_mesh, dst.shape[1]
+    s = new.shape[1]
+    if pos < 0 or pos + s > total:
+        raise ValueError(f"cache write [{pos}, {pos + s}) outside "
+                         f"max_len={total}")
+    t0, tn = placed.mesh_offset(mesh, dst.placements, 1, total)
+    c0, cn = placed.mesh_offset(mesh, dst.placements, 2, dst.shape[2])
+    a, e = max(pos, t0), min(pos + s, t0 + tn)
+    if a < e:
+        loc = dst.to_local()
+        loc[:, a - t0:e - t0] = new[:, a - pos:e - pos, c0:c0 + cn].to(
+            loc.dtype)
+
+
+def _whole_latent(t) -> torch.Tensor:
+    """This rank's rows of a placed latent cache, its positions and
+    columns gathered whole."""
+    from torch.distributed.tensor import Replicate
+    pls = [pl if pl.is_shard(0) else Replicate() for pl in t.placements]
+    if pls != list(t.placements):
+        t = t.redistribute(t.device_mesh, pls)
+    return t.to_local()

@@ -705,7 +705,7 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None,
     of both; a cross-attending group's ``{"self", "cross_k", "cross_v"}``,
     the cross buffers (L, B, max(src_len, 1), Hkv, D). The continuous
     engine's slot arena is one such list. With ``mesh`` (a
-    ``DeviceMesh``; this slice's families only) each tensor is a DTensor
+    ``DeviceMesh``; the families a mesh serves) each tensor is a DTensor
     placed by ``cache_pspec``, each rank allocating its own shard."""
     if mesh is not None:
         return _placed_caches(cfg, batch, max_len, device, src_len, mesh)
@@ -734,12 +734,11 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None,
     return caches
 
 
-#: the families a mesh serves (the dense decoder path, a VLM's text);
+#: the families a mesh serves (the dense decoder path, a VLM's text, the
+#: MoE with its experts split over ``model`` and MLA's latent cache);
 #: each other family, and the later slice that brings it
-MESH_FAMILIES = ("dense", "vlm")
+MESH_FAMILIES = ("dense", "vlm", "moe")
 MESH_LATER = {
-    "moe": "MoE with expert parallelism on grouped K4 and MLA's latent "
-           "cache",
     "ssm": "the SSM state (h/conv) on a mesh",
     "hybrid": "the SSM state and sliding windows on a mesh",
     "encdec": "the encoder-decoder on a mesh",
@@ -804,7 +803,7 @@ def prefill(params, batch, cfg: ModelConfig, max_len: int, last_pos=None):
     capacity still counts the pads: the reference's dispatch). ``batch``
     holds what :func:`forward` takes; an encoder-decoder's cross K/V are
     computed here, into buffers of the source's length. On placed params
-    (a sharded server: this slice's families, run under
+    (a sharded server: the families a mesh serves, run under
     :func:`~repro_torch.distributed.placed.mesh_context`) the caches are
     placed by ``cache_pspec`` and the logits are made whole."""
     mesh = _mesh_of(params)

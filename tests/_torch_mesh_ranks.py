@@ -4,7 +4,9 @@ module imports torch and the port only (no jax), so a rank starts fast;
 the test module computes every reference and unsharded result and hands
 the ranks numpy inputs. Besides training on the (2, 2) mesh, the ranks
 serve packed models sharded (``Server(mesh=)``) on (2, 2), on two (1, 2)
-meshes (the ranks split in pairs) and on one (1, 4) mesh."""
+meshes (the ranks split in pairs) and on one (1, 4) mesh; the MoE
+family (deepseek-v2-lite with MLA, qwen3-moe with GQA) on the same three
+meshes, its experts split over ``model``."""
 
 import dataclasses
 
@@ -37,6 +39,11 @@ OPT = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=3)
 #: on the (1, 4) mesh a position-split cache's 4 slots a rank all hold
 #: some)
 SERVE_ARCHS = ("stablelm-1.6b", "qwen1.5-110b", "nemotron-4-15b")
+#: the MoE family's smoke configs served on every mesh: deepseek's MLA
+#: latent cache (its dim split over ``model``), qwen3-moe's 2 kv heads (on
+#: (1, 4) its cache's positions split); 4 and 8 experts split over
+#: ``model``
+MOE_ARCHS = ("deepseek-v2-lite-16b", "qwen3-moe-235b-a22b")
 SERVE_PROMPTS = (5, 9, 3, 7)
 SERVE_NEW, SERVE_MAX_LEN = 5, 16
 
@@ -52,12 +59,15 @@ def int8_cache(cfg):
     return dataclasses.replace(cfg, kv_bits=8)
 
 
-def serve(cfg, params, mesh, pack_acts):
+def serve(cfg, params, mesh, pack_acts, n_groups=1):
     """``Server`` (``mesh`` None: unsharded) on :func:`serve_requests`:
-    the tokens and the last step's logits (whole, on the host)."""
+    the tokens and the last step's logits (whole, on the host). An
+    unsharded MoE dispatches in ``n_groups`` groups (what a data axis of
+    that size makes a placed one do)."""
     srv = Server(cfg, params, batch_slots=4, max_len=SERVE_MAX_LEN,
                  pack_acts=pack_acts, device="cpu", mesh=mesh)
-    res = srv.generate(serve_requests(cfg.vocab_size))
+    with bind_axes(dp="data", mesh={"data": n_groups}):
+        res = srv.generate(serve_requests(cfg.vocab_size))
     return [r.out_tokens for r in res], _np(srv.last_logits)
 
 
@@ -106,7 +116,7 @@ def mesh_rank(rank, inputs, part):
     out = {"rank": rank, "coord": tuple(mesh.get_coordinate())}
     if part == "dense":
         _dense(rank, inputs, mesh, out)
-        _serve_on(inputs, mesh, out, "2x2")
+        _serve_on(inputs, mesh, out, "2x2", SERVE_ARCHS + MOE_ARCHS)
         out["placed_packing"] = _placed_packing(mesh)
     else:
         _ssm_moe(inputs, mesh, out)
@@ -156,9 +166,9 @@ def _serve_pairs_and_four(inputs, out):
     from torch.distributed.device_mesh import init_device_mesh
     pairs = init_device_mesh("cpu", (2, 1, 2), mesh_dim_names=(
         "rep", "data", "model"))["data", "model"]
-    _serve_on(inputs, pairs, out, "1x2")
+    _serve_on(inputs, pairs, out, "1x2", SERVE_ARCHS + MOE_ARCHS)
     four = init_device_mesh("cpu", (1, 4), mesh_dim_names=("data", "model"))
-    _serve_on(inputs, four, out, "1x4", ("qwen1.5-110b",))
+    _serve_on(inputs, four, out, "1x4", ("qwen1.5-110b",) + MOE_ARCHS)
     qwen = get_arch("qwen1.5-110b").smoke
     qwen_params = tt.params_from_numpy(inputs["serve"]["qwen1.5-110b"])
     for tag, cfg in (("int8", int8_cache(qwen)),

@@ -9,6 +9,8 @@ Every comparison here is exact: check ids, blames, counters and findings
 are strings and integers.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import dataclasses
 import json
 import os

@@ -18,6 +18,8 @@ Inputs are made from seeds with numpy. Tolerances, each with its reason:
   exact at equal shapes (the same Program on the same tensors).
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import hashlib
 import io
 import json

@@ -7,6 +7,8 @@ matmul/conv accumulators) is compared exactly. Float results state their
 tolerance where they have one.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import itertools
 
 import jax

@@ -11,6 +11,8 @@ comparison is exact (``torch.equal``): the kernels compute the same integer
 arithmetic and the same single-rounding epilogue as the plain versions.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import itertools
 
 import numpy as np

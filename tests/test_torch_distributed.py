@@ -10,6 +10,8 @@ largest magnitude), on the reference's own parameters carried across with
 ``params_from_numpy``, float (LSQ fake-quant) and packed.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import types
 
 import jax

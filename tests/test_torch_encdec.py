@@ -6,6 +6,8 @@ GELU MLPs). The set-up, the checks and their tolerances are in
 ``tests/_torch_families.py``.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import contextlib
 import io
 

@@ -22,6 +22,8 @@ Tolerances, each with its reason:
   norms, which can move an 8-bit activation code), with equal argmax.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import collections
 import dataclasses
 

@@ -7,6 +7,8 @@ registry of all ten. The VLM and the encoder-decoder are in
 tolerances in ``tests/_torch_families.py``.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import contextlib
 import dataclasses
 import io

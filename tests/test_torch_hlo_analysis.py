@@ -17,6 +17,8 @@ at decode (M = 4) alike. The port's kernels split each operand into
 ``flops_logical`` integer part and the reference's ``flops_int``.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import dataclasses
 
 import jax

@@ -17,6 +17,8 @@ Tolerances, each with its reason:
 * Greedy tokens: equal.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import dataclasses
 
 import jax

@@ -18,6 +18,8 @@ The CUDA wrappers themselves run only on the card (``chip_smoke.py``,
 nothing.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import functools
 
 import jax

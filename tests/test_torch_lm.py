@@ -24,6 +24,8 @@ Tolerances, each with its reason:
 * Greedy tokens of ``Server.generate``: equal.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import io
 import contextlib
 import dataclasses

@@ -25,6 +25,8 @@ Tolerances, each with its reason:
 * Shapes, specs and bytes: equal.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import dataclasses
 
 import jax

@@ -14,6 +14,8 @@ reference's epilogue is one FMA under ``jit`` and in its Pallas kernels
 (interpreted too), and the port's plain epilogue emulates ``fmaf``.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -55,7 +55,21 @@ Tolerances, each with its reason:
 * ``qdense``'s placed path where the activation's K split does not line
   up with the planes' words, or the words do not divide: exact against
   the unsharded ``qdense``.
+* The MoE family's sharded ``Server`` (deepseek-v2-lite- and
+  qwen3-moe-smoke, K1 + K3 and K4, the experts split over ``model``):
+  on (1, 2) and (1, 4) its tokens and last-step logits equal the
+  unsharded port's bit for bit (each rank's experts through grouped K4,
+  their rows gathered before the same combine; MLA's latent cache
+  gathered per layer and each rank attending its own heads), but
+  qwen3-moe on (1, 4), whose 2 kv heads split the cache's positions:
+  qwen1.5's tolerance above; against the reference's ``prefill`` /
+  ``decode_step`` as the dense ones. On (2, 2) the groups of the
+  capacity dispatch are each rank's rows, so the mesh is held to the
+  unsharded port at ``n_groups=2`` (the reference's rule), bit for bit,
+  not to the one-group ``Server``.
 """
+
+import _torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
 
 import concurrent.futures
 import dataclasses
@@ -132,11 +146,14 @@ def _serve_refs(inputs):
     ``decode_step`` (the loop of its ``Server.generate``, whose tokens
     they are) on the same packed planes: tokens and last logits."""
     out = {}
-    for arch in ranks.SERVE_ARCHS:
+    for arch in ranks.SERVE_ARCHS + ranks.MOE_ARCHS:
         cfg, jcfg = get_arch(arch).smoke, j_get_arch(arch).smoke
         params = tt.params_from_numpy(inputs["serve"][arch])
         for pa in (True, False):
             out[(arch, pa)] = ranks.serve(cfg, params, None, pa)
+            if arch in ranks.MOE_ARCHS:
+                out[(arch, "2 groups", pa)] = ranks.serve(
+                    cfg, params, None, pa, n_groups=2)
         if arch == "qwen1.5-110b":
             out[(arch, "int8")] = ranks.serve(ranks.int8_cache(cfg), params,
                                               None, True)
@@ -232,7 +249,7 @@ def mesh_run(tmp_path_factory):
         models[arch] = (jax.tree.map(np.asarray, jp),
                         _batch(jcfg.vocab_size, 10 + i))
     serve_np = {}
-    for i, arch in enumerate(ranks.SERVE_ARCHS):
+    for i, arch in enumerate(ranks.SERVE_ARCHS + ranks.MOE_ARCHS):
         jcfg = j_get_arch(arch).smoke
         serve_np[arch] = jax.tree.map(np.asarray, jt.pack_params(
             jt.init_params(jax.random.PRNGKey(40 + i), jcfg), jcfg))
@@ -584,6 +601,43 @@ def test_position_split_cache_combines_to_unsharded(mesh_run, pack_acts,
             assert t == w or near[b], (b, t, w)
 
 
+@pytest.mark.parametrize("arch", ranks.MOE_ARCHS)
+@pytest.mark.parametrize("tag", ["1x2", "1x4", "2x2"])
+@pytest.mark.parametrize("pack_acts", [True, False])
+def test_sharded_moe_server_equals_unsharded_and_reference(mesh_run, arch,
+                                                          tag, pack_acts):
+    """``Server(mesh=)`` serving the MoE family, K1 + K3 and K4, the
+    experts split over ``model``: on (data 1, model 2) and (1, 4) every
+    rank's tokens and last-step logits equal the unsharded port's bit for
+    bit (qwen3-moe on (1, 4), its cache's positions split: within rtol
+    1e-5 / atol 1e-6, tokens equal but at a near tie) and the reference's
+    within ``test_torch_lm.py``'s bound; on (2, 2) they equal the
+    unsharded port's at ``n_groups=2`` bit for bit (each data rank's rows
+    one dispatch group, the reference's rule)."""
+    _, ref, res = mesh_run
+    grouped = tag == "2x2"
+    want_toks, want = ref["serve"][(arch, "2 groups", pack_acts) if grouped
+                                   else (arch, pack_acts)]
+    combined = (arch, tag) == ("qwen3-moe-235b-a22b", "1x4")
+    for r in res:
+        toks, logits = r["serve"][(arch, tag, pack_acts)]
+        if combined:
+            np.testing.assert_allclose(logits, want, rtol=1e-5, atol=1e-6)
+            top2 = np.sort(want, axis=-1)[:, -2:]
+            near = np.abs(top2[:, 1] - top2[:, 0]) <= 1e-5 * np.abs(
+                top2[:, 1]) + 1e-6
+            assert all(t == w or near[b] for b, (t, w) in enumerate(
+                zip(toks, want_toks)))
+        else:
+            assert toks == want_toks
+            np.testing.assert_array_equal(logits, want)
+    if not grouped:
+        j_toks, j_logits = ref["serve"][(arch, "reference")]
+        assert want_toks == j_toks
+        np.testing.assert_allclose(want, j_logits, rtol=0,
+                                   atol=1e-4 * np.abs(j_logits).max())
+
+
 @pytest.mark.parametrize("name", ["K48", "K80"])
 @pytest.mark.parametrize("pack_acts", [True, False])
 def test_placed_qdense_gathers_an_unaligned_activation(mesh_run, name,
@@ -677,21 +731,71 @@ def test_serve_cell_on_a_fake_mesh_counts_per_device():
                                           + rows * d * 4)
 
 
+def test_moe_serve_cell_on_a_fake_mesh_counts_per_device():
+    """``dryrun.cost_cell`` of deepseek-v2-lite-16b ``decode_32k`` at 2
+    layers of full width (the dense first layer and one MoE layer) on a
+    fake (data 2, model 2) mesh: the K1, K3 and grouped K4 calls per
+    step are the unsharded step's (grouped K4 once a routed projection,
+    on each rank's 32 experts); no parameter moves (no all-to-all: the
+    experts' scales were placed by the expert axis once, at init); the
+    all-gathers are, per layer, MLA's queries (a decode step attends
+    every head on every rank), its down-projected kv and its latent cache
+    ``c`` and ``k_rope`` (each rank's 64 rows, all 32,768 positions,
+    bf16), per MoE layer the experts' output rows (the rank's group, 64
+    experts x the capacity), and the logits' vocabulary."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.hlo_analysis import analyze
+    from repro_torch.launch.serve import Server
+    from repro_torch.models.moe import capacity_for
+    cell = dryrun.build_cell("deepseek-v2-lite-16b", "decode_32k",
+                             n_layers=2)
+    rec = dryrun.cost_cell(cell, mesh_shape=(2, 2))
+    cfg, b, t = cell.cfg, cell.shape.global_batch, cell.max_len
+    srv = Server(cfg, tt.init_params(dryrun._MetaGenerator(), cfg,
+                                     packed=True),
+                 batch_slots=b, max_len=t, device="meta")
+    caches = tt.init_caches(srv.cfg, b, t, device="meta")
+    toks = torch.empty((b, 1), dtype=torch.int64, device="meta")
+    with torch.inference_mode():
+        _, one = analyze(tt.decode_step, srv.params, caches, toks, t - 1,
+                         srv.cfg)
+    assert rec["cost_mesh"] == {"data": 2, "model": 2}
+    assert rec["kernel_calls"] == one.kernel_calls
+    assert rec["kernel_calls"]["K4g"] == 3 * (cfg.n_layers
+                                              - cfg.n_dense_layers)
+    col = rec["collectives"]
+    assert col["counts"]["all-to-all"] == 0
+    layers, moe_layers, rows = cfg.n_layers, 1, b // 2
+    bf16 = 2
+    cap = capacity_for(rows, cfg.moe_cfg())
+    latent = cfg.kv_lora + cfg.qk_rope_dim
+    queries = cfg.n_heads * (cfg.qk_nope_dim + cfg.qk_rope_dim)
+    gathered = (layers * rows * (queries + latent) * bf16
+                + layers * rows * t * latent * bf16
+                + moe_layers * cfg.n_experts * cap * cfg.d_model * bf16
+                + rows * cfg.vocab_size * bf16)
+    assert col["counts"]["all-gather"] == 4 * layers + moe_layers + 1
+    assert col["bytes"]["all-gather"] == gathered
+
+
 def test_mesh_refuses_what_this_slice_does_not_serve():
-    """A family outside the dense/VLM path raises ``NotImplementedError``
-    naming its later slice (never runs whole on each rank), as do float
-    serving; a mesh of another device type and ``batch_slots`` that do
-    not divide over ``data`` raise ``ValueError``. The dry run keeps such
-    a family's serve cell on one device with a reason naming it."""
+    """A family outside the dense, VLM and MoE paths raises
+    ``NotImplementedError`` naming its later slice (never runs whole on
+    each rank), as does float serving; the MoE family is served (deepseek
+    and qwen3-moe build on the mesh). A mesh of another device type and
+    ``batch_slots`` that do not divide over ``data`` raise ``ValueError``.
+    The dry run keeps a refused family's serve cell on one device with a
+    reason naming it."""
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import fake_mesh
     from repro_torch.launch.serve import Server
     lm = get_arch("stablelm-1.6b").smoke
     with fake_mesh((2, 2), device_type="cpu") as mesh:
-        for arch in ("mamba2-780m", "hymba-1.5b", "deepseek-v2-lite-16b",
-                     "seamless-m4t-large-v2"):
+        for arch in ("mamba2-780m", "hymba-1.5b", "seamless-m4t-large-v2"):
             with pytest.raises(NotImplementedError, match="later slice"):
                 Server(get_arch(arch).smoke, device="cpu", mesh=mesh)
+        for arch in ranks.MOE_ARCHS:                 # served since MoE's slice
+            Server(get_arch(arch).smoke, device="cpu", mesh=mesh)
         with pytest.raises(NotImplementedError, match="float serving"):
             Server(lm, device="cpu", mesh=mesh, quantized=False)
         with pytest.raises(ValueError, match="does not divide"):

@@ -25,6 +25,8 @@ Tolerances, each with its reason:
   8-bit activation code).
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import contextlib
 import io
 

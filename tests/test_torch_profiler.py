@@ -12,6 +12,8 @@ same integer cycle arithmetic, the same float expressions of the shapes,
 and the same median-of-ratios arithmetic in Python.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import math
 import os
 import subprocess

@@ -15,6 +15,8 @@ CPU device, and the port's sharded and pipelined paths are held against
 the reference's single-device ``prog`` on each shard.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import collections
 import contextlib
 import gc

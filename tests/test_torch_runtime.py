@@ -11,6 +11,8 @@ comparison is exact: job lists, cycle counts, ``SimReport`` fields, HPM
 snapshots, error checks and their blame.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import ast
 import dataclasses
 import os

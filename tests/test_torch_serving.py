@@ -18,6 +18,8 @@ Inputs are made from seeds with numpy. Tolerances, each with its reason:
   sums in another order can move a rare activation code).
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import collections
 import gc
 import io

@@ -9,6 +9,8 @@ the sum over the reference's leaves of each leaf's bytes over its spec's
 shards. Everything compared is integer or exact: no tolerance.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import dataclasses
 import types
 from functools import partial

@@ -24,6 +24,8 @@ Tolerances, each with its reason:
   1e-6 of the bits). Logits agree within 1e-3 of their largest magnitude.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import json
 import os
 import subprocess
@@ -40,6 +42,7 @@ from repro.compiler.artifact import _enc, _encode_job
 from repro.models import resnet as jresnet
 from repro.runtime.controller import BarrelController as JController
 
+from repro_torch.compiler import HAS_ONNX, UnsupportedOpError, import_onnx
 from repro_torch.compiler import executor as texec
 from repro_torch.compiler.lower import compile_graph, program_from_numpy
 from repro_torch.launch.serve import CNNServer
@@ -392,3 +395,79 @@ def test_port_sources_name_no_jax_or_reference():
                             or s.startswith(("import repro ", "import repro.",
                                              "from repro ", "from repro."))), \
                     f"{f}: {s}"
+
+
+# ------------------------------------------------------------ ONNX importer
+
+def test_compiler_exports_the_references_names():
+    """``repro_torch.compiler`` exports every name ``repro.compiler`` does
+    (the ONNX importer's among them) and ``SUPPORTED_ONNX_OPS`` besides,
+    the same op subset; ``HAS_ONNX`` agrees with the reference's."""
+    import repro.compiler as jcomp
+    import repro.compiler.onnx_import as jonnx
+    import repro_torch.compiler as tcomp
+    assert set(jcomp.__all__) <= set(tcomp.__all__)
+    assert all(hasattr(tcomp, n) for n in tcomp.__all__)
+    assert tcomp.SUPPORTED_ONNX_OPS == jonnx.SUPPORTED_ONNX_OPS
+    assert tcomp.HAS_ONNX == jcomp.HAS_ONNX
+    assert issubclass(tcomp.UnsupportedOpError, tcomp.GraphError)
+
+
+def test_onnx_importer_absent_raises_descriptive_error():
+    if HAS_ONNX:
+        pytest.skip("onnx installed — absence branch not reachable")
+    with pytest.raises(ImportError, match="optional 'onnx' package"):
+        import_onnx("whatever.onnx")
+
+
+@pytest.mark.skipif(not HAS_ONNX, reason="optional onnx not installed")
+def test_onnx_importer_subset_and_rejection():
+    """The reference's subset-and-rejection test on the port's importer:
+    NCHW -> NHWC inputs, OIHW -> HWIO weights, an op outside the subset
+    and the geometry attributes refused, a tied weight transposed once."""
+    import onnx
+    from onnx import helper, numpy_helper
+    rng = np.random.RandomState(0)
+    w = rng.randn(4, 3, 3, 3).astype(np.float32)         # OIHW
+
+    def value(name, shape):
+        return helper.make_tensor_value_info(name, onnx.TensorProto.FLOAT,
+                                             shape)
+
+    model = helper.make_model(helper.make_graph(
+        [helper.make_node("Conv", ["x", "w"], ["c"], strides=[1, 1],
+                          pads=[1, 1, 1, 1]),
+         helper.make_node("Relu", ["c"], ["y"])],
+        "t", [value("x", [1, 3, 8, 8])], [value("y", [1, 4, 8, 8])],
+        [numpy_helper.from_array(w, "w")]))
+    g = import_onnx(model)
+    assert [n.op for n in g.nodes] == ["conv2d", "relu"]
+    assert g.inputs["x"] == (1, 8, 8, 3)                 # NCHW -> NHWC
+    assert g.initializers["w"].shape == (3, 3, 3, 4)     # OIHW -> HWIO
+    bad = helper.make_model(helper.make_graph(
+        [helper.make_node("Softmax", ["x"], ["y"])], "b",
+        [value("x", [1, 4])], [value("y", [1, 4])], []))
+    with pytest.raises(UnsupportedOpError, match="Softmax"):
+        import_onnx(bad)
+    for kw, msg in ((dict(strides=[1, 1], auto_pad="SAME_UPPER"),
+                     "auto_pad"),
+                    (dict(strides=[1, 1], pads=[1, 1, 1, 1],
+                          dilations=[2, 2]), "dilations")):
+        m = helper.make_model(helper.make_graph(
+            [helper.make_node("Conv", ["x", "w"], ["y"], **kw)], "g",
+            [value("x", [1, 3, 8, 8])], [value("y", [1, 4, 8, 8])],
+            [numpy_helper.from_array(w, "w")]))
+        with pytest.raises(UnsupportedOpError, match=msg):
+            import_onnx(m)
+    w_tied = rng.randn(3, 3, 3, 3).astype(np.float32)      # OIHW, Ci == Co
+    shared = helper.make_model(helper.make_graph(
+        [helper.make_node("Conv", ["x", "w"], ["a"], strides=[1, 1],
+                          pads=[1, 1, 1, 1]),
+         helper.make_node("Relu", ["a"], ["ar"]),
+         helper.make_node("Conv", ["ar", "w"], ["y"], strides=[1, 1],
+                          pads=[1, 1, 1, 1])], "tied",
+        [value("x", [1, 3, 8, 8])], [value("y", [1, 3, 8, 8])],
+        [numpy_helper.from_array(w_tied, "w")]))
+    np.testing.assert_array_equal(
+        import_onnx(shared).initializers["w"],
+        np.transpose(w_tied, (2, 3, 1, 0)))  # once, not twice

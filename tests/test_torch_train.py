@@ -32,6 +32,8 @@ Tolerances, each with its reason:
   the neighbouring order statistics.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import contextlib
 import dataclasses
 import io

@@ -27,6 +27,8 @@ Tolerances, each with its reason (those of ``tests/test_torch_train.py``):
   values, in the same order.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import dataclasses
 import functools
 

@@ -26,6 +26,8 @@ Inputs are made from seeds with numpy. Tolerances, each with its reason:
   scaler and the bias apart).
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import dataclasses
 import os
 
