@@ -376,11 +376,17 @@ Phases (any failure exits non-zero and prints no result):
     tokens), K1 + K3 and K4: 96 K1 + 168 K3 (168 K4) a step, tokens and
     last-step logits equal phase 8's unsharded ``Server``'s bit for bit;
     its decode steps timed beside an unsharded ``Server`` on the same
-    planes; (e) the split arithmetic on this card at stablelm's three
-    projection shapes, M = 4 and 64: K3 and K4 in accumulator mode
-    (``raw_acc``) equal their plain accumulators, K split in 2 and 4 word
-    ranges (int32 sum, plain epilogue) and N split in 2 and 4 column
-    ranges equal the fused whole bit for bit; (d) and (e)'s seconds
+    planes; so are deepseek-v2-lite-16b (phase 12's) and the SSM, hybrid
+    and encoder-decoder families (:func:`mesh_serve_families`: mamba2 at
+    12 and hymba at 8 layers on phase 15's run 1, seamless FULL on phase
+    16's seeded source, 8 new tokens, each equal to an unsharded
+    ``Server`` drawn from seed 0, with its launches a step); (e) the
+    split arithmetic on this card at stablelm's three projection shapes,
+    M = 4 and 64: K3 and K4 in accumulator mode (``raw_acc``) equal
+    their plain accumulators, K split in 2 and 4 word ranges (int32 sum,
+    plain epilogue) and N split in 2 and 4 column ranges equal the fused
+    whole bit for bit, and so do mamba2's and hymba's in_proj at their
+    odd per-rank column counts; (d) and (e)'s seconds
     printed; the group is destroyed; (c) with two or
     more cards only: one rank a card over NCCL (``run_ranks``), the same
     3 steps on (data 2, model n/2) or (data 1, model n), each card's peak
@@ -398,9 +404,13 @@ Phases (any failure exits non-zero and prints no result):
     rank 0's tokens and last logits equal (d)'s bit for bit (the kv heads
     split), 96 K1 + 168 K3 a step on each rank; on (1, n) also
     qwen1.5-110b at its full 80 layers, for ``PERF.md``: its decode
-    steps' wall, one profiled step's busy ms, each card's bytes. The
-    launch counts are reset just before each rank's ``generate`` and
-    read just after. ``--cards`` runs (f) alone (:func:`cards_main`).
+    steps' wall, one profiled step's busy ms, each card's bytes, and the
+    families: mamba2 and seamless as (d) serves them, equal to the
+    unsharded ``Server`` bit for bit, and hymba with one prompt of 1,030
+    tokens past its 1,024-slot window (whose slots the 4 cards split,
+    256 a card) within rtol 1e-5 / atol 1e-6, tokens equal. The launch
+    counts are reset just before each rank's ``generate`` and read just
+    after. ``--cards`` runs (f) alone (:func:`cards_main`).
 21. the cost analysis (:func:`cost_phase`; ``launch/hlo_analysis.py``):
     (a) full-width stablelm-1.6b (24 layers, bf16, W4A8, K1 + K3, random
     weights from seed 0) through ``Server``'s params: one eager
@@ -3485,6 +3495,210 @@ def mesh_serve_moe(dev, hp, mesh):
     return out
 
 
+# phase 20 (d) and (f): the SSM, hybrid and encoder-decoder families on a
+# mesh, each run (arch, layers, prompt lengths, new tokens, max_len):
+# mamba2 and hymba at phase 15's depths and run 1's requests (max_len 64:
+# hymba's 1,024-slot window only masks), seamless FULL on phase 16's
+# seeded src_embeds, 8 new tokens
+MESH_FAMILY_RUNS = (
+    ("mamba2-780m", SSM_DEPTH["mamba2-780m"], LM_PROMPTS, LM_NEW, 1024),
+    ("hymba-1.5b", SSM_DEPTH["hymba-1.5b"], LM_PROMPTS, LM_NEW, LM_MAX_LEN),
+    ("seamless-m4t-large-v2", 24, LM_PROMPTS, DS_PLAIN_NEW, LM_MAX_LEN))
+# (f)'s hymba run: one prompt past its 1,024-slot window, whose slots a
+# (1, 4) mesh splits (5 kv heads), 256 a card
+MESH_HYMBA_LONG = ("hymba-1.5b", SSM_DEPTH["hymba-1.5b"], (1030, 5, 8, 11),
+                   DS_PLAIN_NEW, 1280)
+
+
+def family_config(arch, layers):
+    """``arch``'s FULL config at ``layers`` layers (its global attention
+    layers cut with it), every width kept."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    full = get_arch(arch).full
+    return dataclasses.replace(full, n_layers=layers, global_attn_layers=tuple(
+        g for g in full.global_attn_layers if g < layers))
+
+
+def family_run_launches(cfg, new, pack_acts):
+    """The kernel launches a run of ``new`` tokens of a family run makes:
+    phase 15's per step (an SSM's or a hybrid's prefill and decode steps
+    launch alike), or phase 16's prefill and decode steps."""
+    if cfg.family in ("encdec", "audio"):
+        pre = family_launches(cfg, "prefill", pack_acts)
+        dec = family_launches(cfg, "decode", pack_acts)
+        return {k: pre[k] + (new - 1) * dec[k] for k in pre}
+    sl = SSM_SLICE[cfg.name]
+    k1 = len(sl["k1"]) * cfg.n_layers * new
+    k3 = sum(c for _, c in sl["gemms"]) * cfg.n_layers * new
+    return {"K1": k1 if pack_acts else 0, "K2": 0,
+            "K3": k3 if pack_acts else 0, "K4": 0 if pack_acts else k3,
+            "K4g": 0}
+
+
+def family_serve(srv, run, counts, reset_counts, steps=None):
+    """``srv`` (sharded or not) on a family run's requests, from
+    RandomState(0) over its vocabulary: ``generate``, or for an
+    encoder-decoder what ``generate`` does on phase 16's seeded
+    ``src_embeds`` (4, 64, frontend_dim), bf16 (``prefill``, then greedy
+    ``decode_step``s inside the server's step context). Launch counts
+    reset just before and read just after; with ``steps`` each step's
+    synchronized seconds are appended (the prefill's first). Returns
+    (tokens, last logits on the host, launches)."""
+    import numpy as np
+    import torch
+    from repro_torch.distributed import placed
+    from repro_torch.launch.serve import GenRequest
+    from repro_torch.models import transformer
+    _, _, lens, new, max_len = run
+    cfg, dev = srv.cfg, srv.device
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in lens]
+    card = dev.type == "cuda"
+    if cfg.family not in ("encdec", "audio"):
+        reset_counts()
+        res = srv.generate([GenRequest(p.copy(), new) for p in prompts],
+                           step_seconds=steps)
+        torch.cuda.synchronize(dev) if card else None
+        return ([r.out_tokens for r in res], srv.last_logits.float().cpu(),
+                counts())
+    toks = np.zeros((len(prompts), max(lens)), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, -len(p):] = p
+    g = torch.Generator(device=dev).manual_seed(5)
+    src = torch.randn((len(prompts), SRC_LEN, cfg.frontend_dim), generator=g,
+                      device=dev).bfloat16()
+    steps = [] if steps is None else steps
+
+    def timed(t0):
+        torch.cuda.synchronize(dev) if card else None
+        steps.append(time.perf_counter() - t0)
+
+    reset_counts()
+    with srv._context():
+        batch = {"tokens": srv._place_batch(torch.from_numpy(toks).to(dev)),
+                 "src_embeds": srv._place_batch(src)}
+        t0 = time.perf_counter()
+        logits, caches = transformer.prefill(srv.params, batch, cfg,
+                                             max_len=max_len)
+        tok = torch.argmax(logits, -1)[:, None]
+        timed(t0)
+        cols = [tok]
+        for t in range(1, new):
+            t0 = time.perf_counter()
+            logits, caches = transformer.decode_step(
+                srv.params, caches, tok, toks.shape[1] + t - 1, cfg)
+            tok = torch.argmax(logits, -1)[:, None]
+            timed(t0)
+            cols.append(tok)
+        out = placed.plain(torch.cat(cols, dim=1)).cpu().tolist()
+        logits = placed.plain(logits).float().cpu()
+    return out, logits, counts()
+
+
+def reset_kernel_counts():
+    """Every kernel wrapper's launch counts set to 0 (what
+    ``kernels.ops.launch_counts`` reads)."""
+    from repro_torch.kernels import bitserial_conv as k2
+    from repro_torch.kernels import bitserial_matmul as km
+    from repro_torch.kernels import quantize_pack as k1
+    for k in (k1.KERNEL, k2.KERNEL, km.KERNEL, km.GROUPED):
+        k.reset_counts()
+
+
+def family_reference(dev, run, counts, reset_counts):
+    """The unsharded ``Server`` of a family run, drawn from seed 0 (the
+    draw a mesh's placed params equal): (tokens, last logits on the host,
+    launches, step seconds)."""
+    import gc
+    import torch
+    from repro_torch.launch.serve import Server
+    srv = Server(family_config(run[0], run[1]), batch_slots=len(run[2]),
+                 max_len=run[4], seed=0, device=dev)
+    steps = []
+    out = family_serve(srv, run, counts, reset_counts, steps)
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out + (steps,)
+
+
+def mesh_serve_families(dev, hp, mesh):
+    """Phase 20 (d), the SSM, hybrid and encoder-decoder families
+    (``MESH_FAMILY_RUNS``): mamba2-780m (its SSM state split by heads on
+    a wider mesh), hymba-1.5b and seamless-m4t-large-v2 through
+    ``Server(mesh=)`` on the (data 1, model 1) NCCL mesh, drawn placed
+    from seed 0, K1 + K3 and K4: the unsharded step's launches every step
+    (24 K1 + 24 K3, 48 + 72, seamless 144 + 192 a decode step; K4 in K3's
+    place), tokens and last-step logits equal the unsharded ``Server``'s
+    drawn from seed 0 bit for bit (mamba2's and hymba's tokens phase
+    15's run 1's, ``hp.ssm_tokens``); decode steps timed against it.
+    Returns the record; its ``launches`` are every run's."""
+    import gc
+
+    import torch
+    from repro_torch.launch.serve import Server
+    out = {"launches": dict.fromkeys(("K1", "K2", "K3", "K4", "K4g"), 0)}
+    for run in MESH_FAMILY_RUNS:
+        arch, layers, lens, new, max_len = run
+        cfg = family_config(arch, layers)
+        t_run = time.perf_counter()
+        ref = family_reference(dev, run, hp.counts, hp.reset_counts)
+        if arch in hp.ssm_tokens and ref[0] != hp.ssm_tokens[arch]:
+            raise AssertionError(f"(d) {arch}: the unsharded Server's tokens "
+                                 "differ from phase 15's run 1")
+        t0 = time.perf_counter()
+        srv = Server(cfg, batch_slots=len(lens), max_len=max_len, seed=0,
+                     mesh=mesh, device=dev)
+        torch.cuda.synchronize()
+        rec = {"layers": layers, "new": new, "init_s":
+               time.perf_counter() - t0}
+        for tag, pa in (("k3", True), ("k4", False)):
+            s = srv if pa else Server(cfg, srv.params, batch_slots=len(lens),
+                                      max_len=max_len, pack_acts=False,
+                                      mesh=mesh, device=dev)
+            steps = []
+            toks, logits, c = family_serve(s, run, hp.counts,
+                                           hp.reset_counts, steps)
+            want = family_run_launches(cfg, new, pa)
+            if c != want:
+                raise AssertionError(f"(d) {arch} {tag} launches {c}, want "
+                                     f"{want}")
+            if toks != ref[0] or not torch.equal(logits, ref[1]):
+                raise AssertionError(f"(d) {arch} {tag}: the sharded "
+                                     "Server's tokens or last logits differ "
+                                     "from the unsharded Server's")
+            for k in out["launches"]:
+                out["launches"][k] += c[k]
+            rec[tag] = {"launches": c, "prefill_s": steps[0],
+                        "decode_step_ms": [t * 1e3 for t in steps[1:]]}
+        for k in out["launches"]:
+            out["launches"][k] += ref[2][k]
+        rec["unsharded"] = {"launches": ref[2], "prefill_s": ref[3][0],
+                            "decode_step_ms": [t * 1e3 for t in ref[3][1:]]}
+        med = {k: statistics.median(rec[k]["decode_step_ms"])
+               for k in ("k3", "k4", "unsharded")}
+        rec["decode_step_ms_median"] = med
+        rec["seconds"] = time.perf_counter() - t_run
+        out[arch] = rec
+        enc = (f" + {cfg.n_enc_layers} encoder layers" if cfg.n_enc_layers
+               else "")
+        log(f"  (d) Server(mesh=(data 1, model 1), {arch} {layers} layers"
+            f"{enc}, bf16, "
+            f"seed 0; drawn placed in {rec['init_s']:.1f} s), {list(lens)}, "
+            f"{new} new: tokens and last logits equal the unsharded "
+            f"Server's bit for bit through K1 + K3 ({rec['k3']['launches']})"
+            f" and K4 ({rec['k4']['launches']}); decode step ms (median, "
+            f"host clock, synchronized) K3 {med['k3']:.1f}, K4 "
+            f"{med['k4']:.1f}, unsharded {med['unsharded']:.1f}; "
+            f"{rec['seconds']:.1f} s")
+        del srv, s
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def split_arithmetic(dev):
     """Phase 20 (e): the row- and column-parallel arithmetic on this card,
     at stablelm-1.6b's three projection shapes (read from its config) and
@@ -3493,8 +3707,11 @@ def split_arithmetic(dev):
     product split over K into 2 and 4 word ranges, each range's int32
     accumulator summed and the plain epilogue run once, equals the fused
     whole K3/K4 output bit for bit; N split into 2 and 4 column ranges and
-    concatenated equals it too. These launches compare kernels with plain
-    versions and are not counted."""
+    concatenated equals it too; so does the SSMs' column-parallel
+    in_proj at its odd per-rank column counts (hymba's 1,600 -> 6,482 on
+    2 ranks, 3,241 a rank; mamba2's 1,536 -> 6,448 on 2 and 4, 1,612 a
+    rank on 4). These launches compare kernels with plain versions and
+    are not counted."""
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
@@ -3515,7 +3732,11 @@ def split_arithmetic(dev):
 
     lo, hi = qrange(8, True)
     checked = 0
-    for k, n in lm_projections(get_arch("stablelm-1.6b").full):
+    # (K, N, K splits, N splits)
+    cases = [(k, n, (2, 4), (2, 4))
+             for k, n in lm_projections(get_arch("stablelm-1.6b").full)]
+    cases += [(1600, 6482, (), (2,)), (1536, 6448, (), (2, 4))]
+    for k, n, k_parts, n_parts in cases:
         wc = cuda(rng.integers(-8, 8, (k, n)).astype(np.int32))
         scale = cuda((rng.random(n) * 1e-3).astype(np.float32))
         bias = cuda((rng.standard_normal(n) * 0.1).astype(np.float32))
@@ -3537,7 +3758,7 @@ def split_arithmetic(dev):
                     raise AssertionError(f"(e) {kid} M={m} {k}->{n}: the "
                                          "accumulator mode differs from the "
                                          "plain accumulator")
-                for parts in (2, 4):
+                for parts in k_parts:
                     words = -(-k // 32)
                     step = 32 * -(-words // parts)
                     tot = None
@@ -3548,15 +3769,17 @@ def split_arithmetic(dev):
                         tot = part if tot is None else tot + part
                     fused = epilogue(tot, scale, bias, relu=False,
                                      requant=None)
-                    cols = torch.cat([fn(
-                        x_of(xc), planes(wc[:, c:c + n // parts]),
-                        scale[c:c + n // parts], bias[c:c + n // parts],
-                        spec=W4A8, k=k) for c in range(0, n, n // parts)], -1)
                     torch.cuda.synchronize()
                     if not torch.equal(fused, whole):
                         raise AssertionError(f"(e) {kid} M={m} {k}->{n}: "
                                              f"{parts} K ranges summed in "
                                              "int32 differ from the whole")
+                for parts in n_parts:
+                    cols = torch.cat([fn(
+                        x_of(xc), planes(wc[:, c:c + n // parts]),
+                        scale[c:c + n // parts], bias[c:c + n // parts],
+                        spec=W4A8, k=k) for c in range(0, n, n // parts)], -1)
+                    torch.cuda.synchronize()
                     if not torch.equal(cols, whole):
                         raise AssertionError(f"(e) {kid} M={m} {k}->{n}: "
                                              f"{parts} column ranges differ "
@@ -3567,7 +3790,9 @@ def split_arithmetic(dev):
         f"64, K3 and K4 ({checked} cases): accumulator mode equals the "
         f"plain accumulators; K split in 2 and 4 word ranges (int32 sum, "
         f"then the plain epilogue) and N split in 2 and 4 column ranges "
-        f"equal the fused whole output bit for bit ({sec:.1f} s)")
+        f"equal the fused whole output bit for bit; so do hymba's in_proj "
+        f"(1600 -> 6482) in 2 column ranges and mamba2's (1536 -> 6448) "
+        f"in 2 and 4 ({sec:.1f} s)")
     return {"cases": checked, "seconds": sec}
 
 
@@ -3579,8 +3804,10 @@ def mesh_serve_rank(rank, data, model, prompts, qwen, device=None):
     split over ``model``) on phase 12's prompts, ``DS_PLAIN_NEW`` new
     tokens; with ``qwen`` also qwen1.5-110b FULL at its 80 layers and
     qwen3-moe-235b-a22b FULL at its 94 (seed 0) on ``prompts``,
-    ``MESH_QWEN_NEW`` new tokens, each with one profiled decode step.
-    Returns tokens, last logits (host), launches, step times and bytes."""
+    ``MESH_QWEN_NEW`` new tokens, each with one profiled decode step, and
+    the families' runs (:func:`family_serve`): (d)'s mamba2 and seamless
+    and ``MESH_HYMBA_LONG``. Returns tokens, last logits (host), launches,
+    step times and bytes."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -3656,6 +3883,30 @@ def mesh_serve_rank(rank, data, model, prompts, qwen, device=None):
             del caches
         out[name] = rec
         del srv
+    if not qwen:
+        return out
+    for run in (MESH_FAMILY_RUNS[0], MESH_HYMBA_LONG, MESH_FAMILY_RUNS[2]):
+        if card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        srv = Server(family_config(run[0], run[1]), batch_slots=len(run[2]),
+                     max_len=run[4], seed=0, mesh=mesh, device=dev)
+        torch.cuda.synchronize(dev) if card else None
+        init_s = time.perf_counter() - t0
+        held = torch.cuda.memory_allocated(dev) if card else None
+        steps = []
+        toks, logits, launches = family_serve(srv, run, ops.launch_counts,
+                                              reset_kernel_counts, steps)
+        out[run[0]] = {
+            "tokens": toks, "logits": logits, "launches": launches,
+            "init_s": init_s, "prefill_s": steps[0],
+            "decode_step_ms": [t * 1e3 for t in steps[1:]],
+            "held_bytes": held,
+            "peak_bytes": (torch.cuda.max_memory_allocated(dev) if card
+                           else None),
+            "layers": run[1]}
+        del srv
     return out
 
 
@@ -3670,6 +3921,13 @@ def mesh_serve_cards(n, hp, device=None):
     reference's rule), an unsharded ``Server`` on each group's rows
     (against the 4-row ``Server`` dispatching in 2 groups: reported),
     with the kernel launches of an unsharded step on every rank.
+    On (1, n) also the families' runs, each rank's held to the unsharded
+    ``Server`` on the same run (:func:`family_reference`, drawn here on
+    this card first): mamba2-780m (its SSM heads split over ``model``)
+    and seamless-m4t-large-v2 bit for bit, hymba-1.5b
+    (``MESH_HYMBA_LONG``: its 5 kv heads split its caches' positions and
+    its window's slots, combined by log-sum-exp) within rtol 1e-5 / atol
+    1e-6 with tokens equal; each with the unsharded run's launches.
     Helpers: phase 8's ``prompts``, ``lm_tokens``, ``lm_logits``, phase
     12's ``ds_tokens``, ``ds_logits``."""
     import gc
@@ -3677,6 +3935,7 @@ def mesh_serve_cards(n, hp, device=None):
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
     from repro_torch.launch.mesh import run_ranks
     prompts = [np.asarray(p) for p in hp.prompts]
     want = hp.lm_logits.float().cpu()
@@ -3708,6 +3967,11 @@ def mesh_serve_cards(n, hp, device=None):
             ds_grouped = moe_reference(device, ds_cfg, ds_p, DS_PLAIN_NEW,
                                        n_groups=data)
             gc.collect()
+        fam_runs = (MESH_FAMILY_RUNS[0], MESH_HYMBA_LONG,
+                    MESH_FAMILY_RUNS[2]) if data == 1 else ()
+        fam_want = {run[0]: family_reference(device, run, ops.launch_counts,
+                                             reset_kernel_counts)
+                    for run in fam_runs}
         t0 = time.perf_counter()
         res = run_ranks(mesh_serve_rank, n, device=device,
                         args=(data, model, prompts, (data, model) == (1, n),
@@ -3747,12 +4011,50 @@ def mesh_serve_cards(n, hp, device=None):
                 if rr[name]["tokens"] != res[0][name]["tokens"]:
                     raise AssertionError(f"(f) rank {r}'s {name} tokens "
                                          "differ")
+        for arch, (w_toks, w_logits, w_launches, w_steps) in fam_want.items():
+            for r, rr in enumerate(res):
+                got = rr[arch]
+                split = arch == "hymba-1.5b"
+                close = (torch.allclose(got["logits"], w_logits, rtol=1e-5,
+                                        atol=1e-6) if split else
+                         torch.equal(got["logits"], w_logits))
+                if got["tokens"] != w_toks or not close:
+                    raise AssertionError(
+                        f"(f) ({data}, {model}) rank {r}'s {arch} tokens or "
+                        "last logits differ from the unsharded Server's"
+                        + (" beyond rtol 1e-5 / atol 1e-6" if split else "")
+                        + f" (tokens equal: {got['tokens'] == w_toks}; max "
+                        f"abs logit difference "
+                        f"{float((got['logits'] - w_logits).abs().max())!r})")
+                if device is None and got["launches"] != w_launches:
+                    raise AssertionError(f"(f) rank {r}'s {arch} launches "
+                                         f"{got['launches']}, want "
+                                         f"{w_launches}")
+            r0 = res[0][arch]
+            err = float((r0["logits"] - w_logits).abs().max())
+            log(f"  (f) {arch} ({r0['layers']} layers) on (data 1, model "
+                f"{n}): every rank's tokens and last logits equal the "
+                f"unsharded Server's " + ("within rtol 1e-5 / atol 1e-6 "
+                                          f"(max abs {err!r})" if arch ==
+                                          "hymba-1.5b" else "bit for bit")
+                + f"; launches {r0['launches']} (the unsharded run's); "
+                f"decode step ms (median) "
+                f"{statistics.median(r0['decode_step_ms']):.1f} against "
+                f"{statistics.median([t * 1e3 for t in w_steps[1:]]):.1f} "
+                f"unsharded; drawn placed in {r0['init_s']:.1f} s; held GB "
+                f"per card " + " ".join(
+                    f"{(rr[arch]['held_bytes'] or 0) / 1e9:.2f}"
+                    for rr in res))
         tag = f"{data}x{model}"
         out[tag] = {"ranks": [{k: {kk: vv for kk, vv in v.items()
                                    if kk != "logits"}
                                if isinstance(v, dict) else v
                                for k, v in rr.items()} for rr in res],
                     "deepseek_against_grouped_4_rows": grouped,
+                    "families_unsharded": {
+                        arch: {"tokens": w[0], "launches": w[2],
+                               "decode_step_ms": [t * 1e3 for t in w[3][1:]]}
+                        for arch, w in fam_want.items()},
                     "seconds": time.perf_counter() - t0}
         if grouped is not None:
             log(f"  (f) ({data}, {model}) deepseek against the 4-row "
@@ -3801,7 +4103,8 @@ def mesh_phase(dev, hp):
     on DTensor, ``Trainer(mesh=)``). Helpers from ``main``: ``counts``,
     ``reset_counts``, ``profiled``, ``is_spin``, and phase 8's ``prompts``,
     ``lm_tokens`` and ``lm_logits``, phase 12's ``ds_prompts``,
-    ``ds_tokens`` and ``ds_logits``. Returns the phase's record; its
+    ``ds_tokens`` and ``ds_logits``, phase 15's run 1 ``ssm_tokens``
+    (by arch). Returns the phase's record; its
     ``launches`` are the packed evaluations' K1 and K3 and (d)'s servers'
     K1, K3, K4 and grouped K4 ((e)'s comparisons with the plain versions
     are not counted); raises on any failure."""
@@ -3967,6 +4270,10 @@ def mesh_phase(dev, hp):
     for k in out["launches"]:
         out["launches"][k] += out["d_moe"]["launches"][k]
     mark("(d) sharded MoE Server")
+    out["d_families"] = mesh_serve_families(dev, hp, mesh)
+    for k in out["launches"]:
+        out["launches"][k] += out["d_families"]["launches"][k]
+    mark("(d) sharded SSM, hybrid and encoder-decoder Servers")
     out["e"] = split_arithmetic(dev)
     mark("(e) split arithmetic")
     out["de_s"] = time.perf_counter() - t_de
@@ -6791,7 +7098,9 @@ def main() -> int:
         counts=counts, reset_counts=reset_counts, profiled=profiled,
         is_spin=is_spin, prompts=prompts, lm_tokens=lm_k3[0],
         lm_logits=lm_k3[1], ds_prompts=ds_prompts, ds_tokens=ds_short[0],
-        ds_logits=ds_short[1]))
+        ds_logits=ds_short[1], ssm_tokens={
+            arch: ssm_rec[arch]["run1"]["tokens"]
+            for arch in ("mamba2-780m", "hymba-1.5b")}))
     record["mesh"] = mesh_rec
     mesh_ran = mesh_rec["launches"]
 

@@ -55,18 +55,17 @@ cell counts one ``make_train_step`` step (loss, gradients, AdamW) per
 device of the production mesh, a fake process group of 256 or 512 ranks
 in this process (``launch/mesh.py``'s ``fake_mesh``), the state and batch
 placed as a mesh run places them; the counts are rank 0's. A
-``prefill`` or ``decode`` cell of a family a mesh serves (dense, VLM,
-MoE) counts one ``prefill`` or one ``decode_step`` (at the cache's last
-position) of a sharded ``Server`` on rank 0 of the same fake mesh: the
-packed params placed by ``param_pspec``, the caches by ``cache_pspec``,
-the inputs by ``batch_pspec``; each K3/K4 launch counts its rank's local
-work (grouped K4 its rank's experts), the row-parallel projections' int32
-sums count as all-reduces, and the gathers of the experts' rows and of
-MLA's latent cache as all-gathers.
-A serve cell of any other family is counted on one device, as ``Server``
-holds it: ``cost_mesh`` is null and ``cost_mesh_reason`` names the family
-and the slice that brings it to a mesh. ``cost=False`` leaves the cost
-out. A ``run`` is not traced.
+``prefill`` or ``decode`` cell (every family) counts one ``prefill`` or
+one ``decode_step`` (at the cache's last position) of a sharded
+``Server`` on rank 0 of the same fake mesh: the packed params placed by
+``param_pspec``, the caches by ``cache_pspec``, the inputs by
+``batch_pspec``; each K3/K4 launch counts its rank's local work (grouped
+K4 its rank's experts), the row-parallel projections' int32 sums count
+as all-reduces, and the gathers of the experts' rows, of MLA's latent
+cache, of an SSM's fused in-projection, conv output and state, of an
+encoder-decoder's cross K/V and queries and of the slots a split sliding
+window shifts across ranks as all-gathers. ``cost=False`` leaves the
+cost out. A ``run`` is not traced.
 
 Flags as the reference's: ``--arch``, ``--shape``, ``--all``, ``--mesh``
 (``single``, ``multi`` or ``both``), ``--radix``, ``--kv-bits``,
@@ -100,13 +99,12 @@ from repro_torch.distributed.sharding import (batch_pspec, cache_pspec,
                                               tree_paths)
 from repro_torch.launch.hlo_analysis import analyze
 from repro_torch.launch.mesh import fake_mesh, make_production_mesh
-from repro_torch.models.transformer import (MESH_FAMILIES, MESH_LATER,
-                                            ModelConfig, init_caches,
+from repro_torch.models.transformer import (ModelConfig, init_caches,
                                             init_params, prefill)
 from repro_torch.optim import AdamWConfig, adamw_init
 
 __all__ = ["ART_DIR", "Cell", "build_cell", "account", "cost_cell",
-           "run_cell", "cells_for", "main", "SERVE_MESH_REASON"]
+           "run_cell", "cells_for", "main"]
 
 ART_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                        "artifacts", "dryrun_torch")
@@ -114,12 +112,6 @@ ART_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
 FIT_SHARE = 0.85
 #: the seed of a run's random weights and inputs
 SEED = 0
-#: why a serve cell of a family outside ``transformer.MESH_FAMILIES`` is
-#: counted on one device
-SERVE_MESH_REASON = ("the port serves the {family!r} family on one device "
-                     "only (its mesh serving is a later slice: {later}); a "
-                     "serve step is counted on one device, and its "
-                     "collectives are not guessed")
 
 
 class _MetaGenerator(torch.Generator):
@@ -329,10 +321,9 @@ def cost_cell(cell: Cell, mesh_kind: str = "single",
               mesh_shape: Optional[tuple] = None) -> dict:
     """One step of the cell counted on the ``meta`` device
     (:func:`repro_torch.launch.hlo_analysis.analyze`): a ``train`` step,
-    or a sharded ``Server``'s ``prefill`` or ``decode_step`` (a family a
-    mesh serves), on rank 0 of the production mesh ``mesh_kind`` (a fake
-    process group of its size; ``mesh_shape`` another (data, model) or
-    (pod, data, model)); another family's serve step on one device. The
+    or a sharded ``Server``'s ``prefill`` or ``decode_step``, on rank 0 of
+    the production mesh ``mesh_kind`` (a fake process group of its size;
+    ``mesh_shape`` another (data, model) or (pod, data, model)). The
     reference's keys (``flops``, ``flops_int``, ``bytes_hbm``,
     ``collectives``) and the port's (``flops_logical``,
     ``kernel_calls``, ``ops``, ``cost_mesh``, ``cost_s``)."""
@@ -346,7 +337,6 @@ def cost_cell(cell: Cell, mesh_kind: str = "single",
     cfg, shape = cell.cfg, cell.shape
     gen = _MetaGenerator()
     inputs = _meta_inputs(cell)
-    extra = {}
     sizes = mesh_shape or make_production_mesh(
         multi_pod=mesh_kind == "multi").sizes
 
@@ -363,7 +353,7 @@ def cost_cell(cell: Cell, mesh_kind: str = "single",
             with placed.mesh_context(mesh):
                 _, cost = analyze(step, state, place(mesh))
             cost_mesh = dict(zip(mesh.mesh_dim_names, mesh.shape))
-    elif cfg.family in MESH_FAMILIES:
+    else:
         with fake_mesh(sizes) as mesh:
             srv = Server(cfg, init_placed_params(gen, cfg, mesh, packed=True),
                          batch_slots=shape.global_batch,
@@ -381,24 +371,6 @@ def cost_cell(cell: Cell, mesh_kind: str = "single",
                                       batch["tokens"], cell.max_len - 1,
                                       srv.cfg)
             cost_mesh = dict(zip(mesh.mesh_dim_names, mesh.shape))
-    else:
-        srv = Server(cfg, init_params(gen, cfg, packed=True),
-                     batch_slots=shape.global_batch, max_len=cell.max_len,
-                     device="meta")
-        with torch.inference_mode():
-            if shape.kind == "prefill":
-                _, cost = analyze(prefill, srv.params, inputs, srv.cfg,
-                                  max_len=cell.max_len)
-            else:
-                caches = init_caches(srv.cfg, shape.global_batch,
-                                     cell.max_len, device="meta",
-                                     src_len=cell.src_len)
-                _, cost = analyze(decode_step, srv.params, caches,
-                                  inputs["tokens"], cell.max_len - 1,
-                                  srv.cfg)
-        cost_mesh = None
-        extra["cost_mesh_reason"] = SERVE_MESH_REASON.format(
-            family=cfg.family, later=MESH_LATER[cfg.family])
     d = cost.as_dict()
     return {"flops": d["flops"], "flops_int": d["flops_int"],
             "flops_logical": d["flops_logical"],
@@ -407,7 +379,7 @@ def cost_cell(cell: Cell, mesh_kind: str = "single",
                             "counts": d["collective_counts"],
                             "total_bytes": d["total_collective_bytes"]},
             "kernel_calls": d["kernel_calls"], "ops": d["ops"],
-            "cost_mesh": cost_mesh, **extra,
+            "cost_mesh": cost_mesh,
             "cost_s": time.perf_counter() - t0}
 
 
@@ -615,8 +587,7 @@ def _line(rec: dict) -> str:
     if "flops" in rec:
         col = rec["collectives"]
         where = ("one device of a fake " + "x".join(
-            str(v) for v in rec["cost_mesh"].values()) + " mesh"
-            if rec["cost_mesh"] else "one device")
+            str(v) for v in rec["cost_mesh"].values()) + " mesh")
         s += (f"; a step on {where}: {rec['flops'] / 1e12:.3f} TFLOP "
               f"(int {rec['flops_int'] / 1e12:.3f}, logical "
               f"{rec['flops_logical'] / 1e12:.3f}), HBM "

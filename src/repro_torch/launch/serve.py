@@ -46,6 +46,7 @@ as the reference's do:
     python -m repro_torch.launch.serve --arch qwen1.5-110b --device cpu --smoke
     python -m repro_torch.launch.serve --arch internvl2-76b --device cpu --smoke
     python -m repro_torch.launch.serve --arch stablelm-1.6b --smoke --device cpu --model-par 2 [--data-par 2]
+    python -m repro_torch.launch.serve --arch hymba-1.5b --smoke --device cpu --model-par 4   # windows' slots split
     python -m repro_torch.launch.serve --arch qwen1.5-110b --model-par 4   # one rank a card
     python -m repro_torch.launch.serve --arch qwen3-moe-235b-a22b --model-par 4   # 32 experts a card
     python -m repro_torch.launch.serve --arch resnet9-cifar10 --batch 32 [--trace-out trace.json]
@@ -60,11 +61,12 @@ as the reference's do:
 Prometheus text on ``127.0.0.1:PORT/metrics`` for the run, and
 ``--metrics-every S`` prints a one-line metrics snapshot every S seconds.
 ``--store DIR`` warm-boots the CNN from an artifact store (compiling and
-saving on a miss). ``--data-par``/``--model-par`` (LM; dense, VLM and
-MoE families) serve the packed model sharded over a (data, model) mesh:
-the CLI starts one rank a card (gloo ranks with ``--device cpu``), each
-builds a :class:`Server` with ``mesh=`` and serves ``batch`` 8-token
-prompts (``batch`` must divide over ``data``); rank 0 prints.
+saving on a miss). ``--data-par``/``--model-par`` (LM; every family but
+the encoder-decoder, which the CLI does not serve) serve the packed model
+sharded over a (data, model) mesh: the CLI starts one rank a card (gloo
+ranks with ``--device cpu``), each builds a :class:`Server` with
+``mesh=`` and serves ``batch`` 8-token prompts (``batch`` must divide
+over ``data``); rank 0 prints.
 ``compile`` is the offline code-generator run: graph →
 passes → calibration → packing → artifact store. ``profile`` times the
 compiled Program step by step on the device (CUDA events on the card)
@@ -94,10 +96,9 @@ from repro_torch.distributed.sharding import (batch_pspec, dp_axes_of,
                                               to_placements)
 from repro_torch.models.layers import QuantPolicy
 from repro_torch.models.resnet import ResNet9Config, resnet9_graph, resnet9_init
-from repro_torch.models.transformer import (ModelConfig, check_mesh_family,
-                                            decode_step, init_params,
-                                            pack_params, prefill,
-                                            serve_policy)
+from repro_torch.models.transformer import (ModelConfig, decode_step,
+                                            init_params, pack_params,
+                                            prefill, serve_policy)
 from repro_torch.obs import (format_trace_summary, start_metrics_server,
                              trace_summary, write_chrome_trace)
 from repro_torch.serving import (ContinuousLMEngine, InferenceService,
@@ -212,10 +213,17 @@ class Server:
     are placed by the expert axis once, here, and MLA's float
     ``w_uk``/``w_uv`` made whole on every rank, so a step moves no
     parameter. MLA's latent cache keeps ``cache_pspec``'s placement and
-    each rank attends its own heads (``attention._mla_placed``). The
-    dense, VLM and MoE families: any other raises
-    ``NotImplementedError``, as does float serving. ``device`` must be of
-    the mesh's device type (``meta`` counts, as the dry run does).
+    each rank attends its own heads (``attention._mla_placed``). An SSM
+    layer (mamba2's, hymba's SSM branch) convolves each rank's channels
+    and runs the scan on every head over the state gathered whole,
+    keeping its heads of it (``ssm._ssm_placed``), its per-head vectors
+    and gated norm's ``norm`` held whole on every rank from here; a
+    sliding window whose slots are split shifts only the slots that
+    cross ranks (``attention._roll_positions``); an encoder-decoder's
+    cross K/V are held whole over ``model`` and every rank attends every
+    head over them (``transformer._cross_apply``). Every family is
+    served; float serving raises ``NotImplementedError``. ``device`` must
+    be of the mesh's device type (``meta`` counts, as the dry run does).
     """
 
     def __init__(self, cfg: ModelConfig, params=None, *,
@@ -267,7 +275,6 @@ class Server:
         if dev.type != "meta" and mesh.device_type != dev.type:
             raise ValueError(f"a {mesh.device_type} mesh serves on its "
                              f"ranks' {mesh.device_type} devices, not {dev}")
-        check_mesh_family(self.cfg)
         if not quantized:
             raise NotImplementedError("a mesh serves the packed model; "
                                       "float serving on a mesh is not "
@@ -400,11 +407,20 @@ def _serving_placements(p):
     once here so that a step moves no parameter: each routed expert
     projection's ``scale`` and ``alpha_a`` split over the experts as its
     planes are (``param_pspec`` splits ``scale``'s columns, and a rank's
-    experts need all of theirs), and MLA's float ``w_uk``/``w_uv`` whole
-    on every rank (a rank's heads need the whole latent dim, which
+    experts need all of theirs), MLA's float ``w_uk``/``w_uv`` whole on
+    every rank (a rank's heads need the whole latent dim, which
     ``param_pspec`` splits over the DP axes, and a decode step attends
-    every head: ``attention._mla_placed``)."""
+    every head: ``attention._mla_placed``), and an SSM's ``norm``,
+    ``A_log``, ``D`` and ``dt_bias`` whole on every rank (``param_pspec``
+    splits them over ``model``; the scan runs on every head and the
+    gated norm's sum of squares over the whole ``d_inner``:
+    ``ssm._ssm_placed``)."""
     from torch.distributed.tensor import Replicate
+
+    def whole(t):
+        return t.redistribute(t.device_mesh, [Replicate()]
+                              * t.device_mesh.ndim)
+
     if isinstance(p, list):
         return [_serving_placements(v) for v in p]
     if not isinstance(p, dict):
@@ -416,9 +432,10 @@ def _serving_placements(p):
                                                     "w_down") else t)
                       for n, t in v.items()}
         elif k in ("w_uk", "w_uv"):
-            out[k] = {n: t.redistribute(t.device_mesh, [Replicate()]
-                                        * t.device_mesh.ndim)
-                      for n, t in v.items()}
+            out[k] = {n: whole(t) for n, t in v.items()}
+        elif k == "ssm":
+            out[k] = {n: whole(t) if n in ("norm", "A_log", "D", "dt_bias")
+                      else t for n, t in v.items()}
         else:
             out[k] = _serving_placements(v)
     return out
@@ -804,19 +821,10 @@ def _main_static_lm(args, cfg: ModelConfig, mesh=None, rank: int = 0
     """An arch the slot arena cannot take (SSM or hybrid state, rolling
     windows, a VLM's frontend) through the static :class:`Server`, as the
     reference's CLI serves it: ``batch`` prompts of 8 tokens from
-    ``RandomState(seed)``, ``new_tokens`` each. An encoder-decoder exits
-    with the reason: :meth:`Server.generate` feeds no source. With
-    ``mesh`` (one rank of a mesh run, :func:`_serve_mesh_rank`) the
-    server is sharded over it, and rank 0 alone prints."""
+    ``RandomState(seed)``, ``new_tokens`` each. With ``mesh`` (one rank
+    of a mesh run, :func:`_serve_mesh_rank`) the server is sharded over
+    it, and rank 0 alone prints."""
     if mesh is None:
-        if cfg.family in ("encdec", "audio"):
-            raise SystemExit(
-                f"{cfg.name}: family {cfg.family!r} is an encoder-decoder "
-                "whose encoder needs a source (src_embeds); "
-                "Server.generate feeds tokens only, so the CLI cannot "
-                "serve it (the reference's CLI fails there too). Drive "
-                "repro_torch.models.transformer.prefill and decode_step "
-                "with src_embeds instead.")
         print(f"note: family={cfg.family!r} doesn't fit the continuous "
               "slot arena (SSM/hybrid state, rolling windows, or a "
               "frontend's inputs) — serving via the static batch path")
@@ -863,13 +871,22 @@ def _main_lm(args) -> None:
     decode budgets, every 4th request long, from ``RandomState(seed)``.
     An arch the engine cannot take goes through :func:`_main_static_lm`;
     with ``--data-par``/``--model-par`` above one rank, the ranks serve
-    the static load sharded (:func:`_serve_mesh_rank`)."""
+    the static load sharded (:func:`_serve_mesh_rank`). An
+    encoder-decoder exits with the reason: :meth:`Server.generate` feeds
+    no source."""
     entry = get_arch(args.arch)
     cfg = entry.smoke if args.smoke else entry.full
+    if cfg.family in ("encdec", "audio"):
+        raise SystemExit(
+            f"{cfg.name}: family {cfg.family!r} is an encoder-decoder "
+            "whose encoder needs a source (src_embeds); "
+            "Server.generate feeds tokens only, so the CLI cannot "
+            "serve it (the reference's CLI fails there too). Drive "
+            "repro_torch.models.transformer.prefill and decode_step "
+            "with src_embeds instead.")
     n = args.data_par * args.model_par
     if n > 1:
         from repro_torch.launch.mesh import run_ranks
-        check_mesh_family(cfg)
         if args.batch % args.data_par:
             raise SystemExit(f"--batch {args.batch} does not divide over "
                              f"--data-par {args.data_par}")

@@ -446,8 +446,13 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: AttnConfig,
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     if cross_kv is not None:
         q = qdense(p["wq"], x, policy).reshape(b, s, h, dh)
-        out = _sdpa_full(q, cross_kv[0], cross_kv[1], causal=False,
-                         q_offset=0, window=cfg.window)
+        ck, cv = cross_kv
+        if placed.is_placed(ck) and not any(pl.is_shard(2)
+                                            for pl in ck.placements):
+            out = _every_head(q, ck, cv, window=cfg.window)
+        else:
+            out = _sdpa_full(q, ck, cv, causal=False, q_offset=0,
+                             window=cfg.window)
         return qdense(p["wo"], out.reshape(b, s, h * dh), policy), None
     q, k, v = qdense_shared([p["wq"], p["wk"], p["wv"]], x, policy)
     q = placed.split_heads(q, h, dh)
@@ -476,6 +481,26 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: AttnConfig,
                          window=cfg.window)
     out = qdense(p["wo"], out.reshape(b, s, h * dh), policy)
     return out, new_cache
+
+
+def _every_head(q, k, v, *, window: Optional[int]):
+    """Cross-attention (no mask) of placed ``q`` over placed ``k``/``v``
+    whole over the heads (an encoder-decoder's cross K/V in a sharded
+    server's cache): every rank attends every head on its rows, ``q``
+    gathered whole first — on the card the float32 einsums round
+    otherwise on a share of the heads than on all of them — so each
+    head's arithmetic is the unsharded one. The output is whole over the
+    heads (the row-parallel ``wo`` takes its words of it)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = q.device_mesh
+    rows = [Shard(0) if pl.is_shard(0) else Replicate()
+            for pl in q.placements]
+    ql, kl, vl = (t.redistribute(mesh, rows).to_local() for t in (q, k, v))
+    out = _sdpa_full(ql, kl, vl, causal=False, q_offset=0, window=window)
+    shape = tuple(q.shape[:3]) + (v.shape[-1],)
+    return DTensor.from_local(out.contiguous(), mesh, rows,
+                              shape=torch.Size(shape),
+                              stride=placed.contiguous_stride(shape))
 
 
 def _attend_cache(q, k, v, cache: dict, cache_pos, cfg: AttnConfig,
@@ -528,22 +553,27 @@ def _attend_placed(q, k, v, cache: dict, cache_pos, cfg: AttnConfig,
       arithmetic, bit for bit.
     * Positions split (a 100B config's 8 kv heads on a 16-way ``model``
       axis): q, k and v whole over the heads; each rank writes the new
-      positions that fall in its slots, attends its slots (causal mask on
-      the global positions) to a partial softmax — the row maximum, the
-      sum of the exponentials and the weighted values — and the ranks are
-      combined by log-sum-exp (an all-reduce of the maxima, then of the
-      rescaled sums and values): the unsharded softmax with its sums
-      reordered. A chunked prefill into an empty cache attends the fresh
-      K/V, whole on every rank, as the unsharded branch does: bit for bit.
+      positions that fall in its slots, attends its slots (causal and
+      window masks on the global positions) to a partial softmax — the
+      row maximum, the sum of the exponentials and the weighted values —
+      and the ranks are combined by log-sum-exp (an all-reduce of the
+      maxima, then of the rescaled sums and values): the unsharded
+      softmax with its sums reordered. A chunked prefill into an empty
+      cache attends the fresh K/V, whole on every rank, as the unsharded
+      branch does: bit for bit.
+    * A rolling (sliding-window) buffer whose slots are split (hymba's 5
+      kv heads on 4 ranks): the shift moves only the slots that cross
+      ranks (:func:`_roll_positions`); a prefill attends its fresh K/V,
+      whole on every rank, as the unsharded branch does (bit for bit); a
+      decode step attends each rank's filled slots at their global
+      positions, combined as above. With the kv heads split, or the
+      buffer whole, the rank's buffer runs the unsharded branch.
 
-    A rolling (windowed) cache and per-row positions (the engine's arena)
-    raise: both are later slices on a mesh."""
+    Per-row positions (the engine's arena) raise: a later slice on a
+    mesh."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
     ref = _a_cache_tensor(cache)
     mesh = ref.device_mesh
-    if "rolling" in cache or cfg.window is not None:
-        raise NotImplementedError("a sliding-window cache on a mesh (the "
-                                  "hybrid family) is a later slice")
     if _per_row(cache_pos):
         raise NotImplementedError("per-row cache positions on a mesh (the "
                                   "engine's captured step) are a later slice")
@@ -563,17 +593,30 @@ def _attend_placed(q, k, v, cache: dict, cache_pos, cfg: AttnConfig,
         out, new_local = _attend_cache(ql, kl, vl, local, cache_pos, cfg,
                                        use_chunked, chunk, kv_heads)
     else:
-        t0, _ = placed.mesh_offset(mesh, ref.placements, 1, ref.shape[1])
-        new_local = _write_positions(local, kl, vl, int(cache_pos), t0,
-                                     ref.shape[1])
-        if q.shape[1] > 1 and use_chunked and _host_zero(cache_pos):
+        pos, s, total = int(cache_pos), q.shape[1], ref.shape[1]
+        t0, tn = placed.mesh_offset(mesh, ref.placements, 1, total)
+        rolling = "rolling" in cache
+        if rolling:
+            new_local = _roll_positions(local, kl, vl, pos, t0, total, mesh,
+                                        ref.placements)
+        else:
+            new_local = _write_positions(local, kl, vl, pos, t0, total)
+        if s > 1 and use_chunked and _host_zero(cache_pos):
             # prefill into an empty cache: the fresh K/V (whole on every
             # rank), chunked, as _attend_cache
             out = chunked_attention(ql, kl, vl, **chunk)
+        elif rolling and s > 1:
+            # windowed prefill: the fresh K/V, as _attend_cache
+            out = _sdpa_full(ql, kl, vl, causal=cfg.causal, q_offset=0,
+                             window=cfg.window)
         else:
             kc, vc = read_kv_cache(new_local, q.dtype)
-            out = _combined_attention(ql, kc, vc, int(cache_pos), t0, mesh,
-                                      seq_on, causal=cfg.causal)
+            # a rolling buffer's slot j holds position len - total + j
+            kpos = t0 + torch.arange(tn, device=kc.device)
+            if rolling:
+                kpos = kpos + (pos + s - total)
+            out = _combined_attention(ql, kc, vc, pos, kpos, mesh, seq_on,
+                                      causal=cfg.causal, window=cfg.window)
     shape = tuple(q.shape[:3]) + (v.shape[-1],)
     out = DTensor.from_local(out.contiguous(), mesh, q_pls,
                              shape=torch.Size(shape),
@@ -612,41 +655,90 @@ def _write_positions(cache: dict, k_new, v_new, pos: int, t0: int,
     if pos < 0 or pos + s > total:
         raise ValueError(f"cache write [{pos}, {pos + s}) outside "
                          f"max_len={total}")
-    if "k" in cache:
-        pairs = (("k", "v", k_new, v_new),)
-    else:
-        (kq, ks), (vq, vs) = _quant_kv(k_new), _quant_kv(v_new)
-        pairs = (("k_q", "v_q", kq, vq), ("k_s", "v_s", ks, vs))
     tn = _a_cache_tensor(cache).shape[1]
     a, e = max(pos, t0), min(pos + s, t0 + tn)
     if a < e:
-        for kn, vn, kt, vt in pairs:
-            cache[kn][:, a - t0:e - t0] = kt[:, a - pos:e - pos].to(
-                cache[kn].dtype)
-            cache[vn][:, a - t0:e - t0] = vt[:, a - pos:e - pos].to(
-                cache[vn].dtype)
+        for name, new in _entries(cache, k_new, v_new):
+            cache[name][:, a - t0:e - t0] = new[:, a - pos:e - pos].to(
+                cache[name].dtype)
     return dict(cache, len=pos + s)
 
 
-def _combined_attention(q, k, v, q_offset: int, t0: int, mesh, seq_on,
-                        *, causal: bool):
-    """Attention of q (B, Sq, H, D) over a rank's slots k/v (B, Tl, Hkv,
-    D*), slot j at global position ``t0 + j``, combined over the mesh
-    dimensions ``seq_on`` that split the positions: each rank's partial
-    softmax (max, sum of exponentials, weighted values; an all-masked row
-    gives a zero sum) merged by log-sum-exp. Float32 inside, as
-    :func:`_sdpa_full`."""
+def _entries(cache: dict, k_new, v_new):
+    """``(cache leaf, new values)`` of a K/V update: ``k``/``v``, or an
+    int8 cache's codes and scales (:func:`_quant_kv`)."""
+    if "k" in cache:
+        return (("k", k_new), ("v", v_new))
+    (kq, ks), (vq, vs) = _quant_kv(k_new), _quant_kv(v_new)
+    return (("k_q", kq), ("v_q", vq), ("k_s", ks), ("v_s", vs))
+
+
+def _roll_positions(cache: dict, k_new, v_new, pos: int, t0: int,
+                    total: int, mesh, placements) -> dict:
+    """:func:`_roll_insert` on a rank's slots ``t0 .. t0 + T_local - 1`` of
+    a rolling buffer of ``total`` slots placed by ``placements`` (the
+    rows over the DP axes, the slots split), in place: the buffer shifts
+    left by the update's length ``s`` and the update enters at the end.
+    With ``s`` below a rank's slots, a rank keeps its own slots from ``s``
+    on and takes the next rank's first ``s`` (the last rank: the update);
+    only those slots move, each rank's first ``s`` all-gathered over the
+    mesh dimensions that split the slots. A prefill into the empty buffer
+    (``pos`` 0) takes the last ``min(s, total)`` positions of the update
+    where they fall, locally. ``len`` becomes ``pos + s``; a longer
+    update into a filled buffer raises."""
+    from torch.distributed.tensor import DTensor, Replicate
+    s = k_new.shape[1]
+    gathered = [Replicate() if pl.is_shard(1) else pl for pl in placements]
+    tn = _a_cache_tensor(cache).shape[1]
+    if s >= tn and pos != 0:
+        raise NotImplementedError(
+            f"a write of {s} positions into a filled rolling buffer of "
+            f"{tn} slots a rank: only a prefill into the empty buffer "
+            "moves more than a rank's slots")
+    for name, new in _entries(cache, k_new, v_new):
+        buf, new = cache[name], new.to(cache[name].dtype)
+        if s < tn:
+            heads = DTensor.from_local(buf[:, :s].contiguous(), mesh,
+                                       placements).redistribute(
+                mesh, gathered).to_local()
+            nxt = t0 + tn
+            nxt = (new if nxt == total
+                   else heads[:, nxt // tn * s:(nxt // tn + 1) * s])
+            buf.copy_(torch.cat([buf[:, s:], nxt], dim=1))
+        else:
+            # the empty buffer's zeros, then the update, cut to the slots
+            lo, hi = max(0, t0 + s - total), max(0, t0 + tn + s - total)
+            buf.zero_()
+            buf[:, tn - (hi - lo):] = new[:, lo:hi]
+    return dict(cache, len=pos + s)
+
+
+def _combined_attention(q, k, v, q_offset: int, kpos: torch.Tensor, mesh,
+                        seq_on, *, causal: bool,
+                        window: Optional[int] = None):
+    """Attention of q (B, Sq, H, D), the first query at ``q_offset``, over
+    a rank's slots k/v (B, Tl, Hkv, D*), slot j at global position
+    ``kpos[j]`` (negative: an unfilled rolling slot, masked), under the
+    causal and window masks, combined over the mesh dimensions ``seq_on``
+    that split the positions: each rank's partial softmax (max, sum of
+    exponentials, weighted values; an all-masked row, a rank with no
+    filled slot among them, gives a zero sum and weight) merged by
+    log-sum-exp. Float32 inside, as :func:`_sdpa_full`."""
     from torch.distributed import _functional_collectives as funcol
     b, sq, h, d = q.shape
-    tl, hkv = k.shape[1], k.shape[2]
+    hkv = k.shape[2]
     f32 = torch.float32
     qg = q.reshape(b, sq, hkv, h // hkv, d)
     root = device_scalar(math.sqrt(d), q.device)
     scores = torch.einsum("bqgrd,bkgd->bgrqk", qg.to(f32), k.to(f32)) / root
+    qpos = q_offset + torch.arange(sq, device=q.device)[:, None]
+    kp = kpos[None, :]
+    mask = kp < 0
     if causal:
-        qpos = q_offset + torch.arange(sq, device=q.device)[:, None]
-        kpos = t0 + torch.arange(tl, device=q.device)[None, :]
-        scores = scores.masked_fill(kpos > qpos, -math.inf)
+        mask = mask | (kp > qpos)
+    if window is not None:
+        mask = mask | (kp <= qpos - window)
+    scores = scores.masked_fill(mask, -math.inf)
     m = torch.amax(scores, dim=-1)
     m0 = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.exp(scores - m0[..., None])

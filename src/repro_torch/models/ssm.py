@@ -18,6 +18,11 @@ through the bit-serial kernels (K1 + K3, or K4).
 Dtypes follow the reference: the scan runs in float32 and casts back to
 the input's dtype; ``dt + dt_bias`` promotes to float32. The conv and the
 scan run in the profiler ranges ``ssm.conv`` and ``ssm.scan``.
+
+On a sharded server's placed packed params (a mesh run) both entry points
+take :func:`_ssm_placed`: each rank convolves its channels and runs the
+scan on every head, in the unsharded arithmetic, keeping its heads of the
+state.
 """
 
 from __future__ import annotations
@@ -205,7 +210,8 @@ def ssm_apply(p: dict, x: torch.Tensor, cfg: SSMConfig, policy: QuantPolicy,
     """Full-sequence forward over (B, S, D). Returns ``(out, new_cache)``:
     with a cache (its ``h`` and ``conv`` as the initial state), a new
     ``{"h", "conv", "len"}``; the caller stores it."""
-    bsz, s, _ = x.shape
+    if _packed_placed(p):
+        return _ssm_placed(p, x, cfg, policy, cache, decode=False)
     zxbcdt = qdense(p["in_proj"], x, policy)
     z, xs, bb, cc, dt = _split_proj(zxbcdt, cfg)
     with record_function("ssm.conv"):
@@ -213,24 +219,53 @@ def ssm_apply(p: dict, x: torch.Tensor, cfg: SSMConfig, policy: QuantPolicy,
             torch.cat([xs, bb, cc], dim=-1), p["conv_w"], p["conv_b"],
             None if cache is None else cache["conv"])
         conv_out = F.silu(conv_out)
-    di, g, n = cfg.d_inner, cfg.n_groups, cfg.d_state
-    xs = conv_out[..., :di].reshape(bsz, s, cfg.n_heads, cfg.head_dim)
-    bb = conv_out[..., di:di + g * n].reshape(bsz, s, g, n)
-    cc = conv_out[..., di + g * n:].reshape(bsz, s, g, n)
-    dtv = placed.elementwise(F.softplus,
-                             dt + p["dt_bias"][None, None])  # float32
-    h0 = None if cache is None else cache["h"]
-    with record_function("ssm.scan"):
-        y, hfin = ssd_chunked(xs, dtv, p["A_log"], bb, cc, p["D"], cfg,
-                              h0=h0)
-    y = y.reshape(bsz, s, di)
-    y = rms_norm(y * F.silu(z), p["norm"])
+    y, hfin = _scan_gate(p, conv_out, z, dt, cfg,
+                         None if cache is None else cache["h"], decode=False)
     out = qdense(p["out_proj"], y, policy)
     new_cache = None
     if cache is not None:
         new_cache = {"h": hfin, "conv": conv_state,
-                     "len": cache["len"] + s}
+                     "len": cache["len"] + x.shape[1]}
     return out, new_cache
+
+
+def _scan_gate(p: dict, conv_out, z, dt, cfg: SSMConfig, h0, decode: bool):
+    """The SSD scan (``decode``: the one-token state update) over the
+    conv's output (B, S, d_inner + 2GN), every head, from the state
+    ``h0`` (None: zeros), then the gated norm ``rms_norm(y * silu(z),
+    norm)``; ``p`` holds ``A_log``, ``D``, ``dt_bias`` and ``norm``.
+    Returns ``(y (B, S, d_inner) in z's dtype, h_final float32)``."""
+    bsz, s = conv_out.shape[:2]
+    di, g, n, h = cfg.d_inner, cfg.n_groups, cfg.d_state, cfg.n_heads
+    if decode:
+        f32 = torch.float32
+        hsel = _head_group(h, g, conv_out.device)
+        xs = conv_out[..., :di].reshape(bsz, h, cfg.head_dim)
+        bb = conv_out[..., di:di + g * n].reshape(bsz, g, n)
+        cc = conv_out[..., di + g * n:].reshape(bsz, g, n)
+        with record_function("ssm.scan"):
+            dtv = F.softplus(dt[:, 0] + p["dt_bias"][None])  # (B,H) float32
+            a_t = torch.exp(dtv * -torch.exp(p["A_log"])[None])
+            bth = bb[:, hsel].to(f32)
+            cth = cc[:, hsel].to(f32)
+            xf = xs.to(f32)
+            hfin = (h0 * a_t[..., None, None]
+                    + (dtv[..., None, None] * bth[..., None])
+                    * xf[:, :, None, :])
+            y = (torch.einsum("bhn,bhnp->bhp", cth, hfin)
+                 + p["D"][None, :, None] * xf)
+        y = y.reshape(bsz, 1, di).to(z.dtype)
+    else:
+        xs = conv_out[..., :di].reshape(bsz, s, h, cfg.head_dim)
+        bb = conv_out[..., di:di + g * n].reshape(bsz, s, g, n)
+        cc = conv_out[..., di + g * n:].reshape(bsz, s, g, n)
+        dtv = placed.elementwise(F.softplus,
+                                 dt + p["dt_bias"][None, None])  # float32
+        with record_function("ssm.scan"):
+            y, hfin = ssd_chunked(xs, dtv, p["A_log"], bb, cc, p["D"], cfg,
+                                  h0=h0)
+        y = y.reshape(bsz, s, di)
+    return rms_norm(y * F.silu(z), p["norm"]), hfin
 
 
 def init_ssm_cache(batch: int, cfg: SSMConfig, *,
@@ -252,8 +287,8 @@ def ssm_decode_step(p: dict, x: torch.Tensor, cfg: SSMConfig,
                     policy: QuantPolicy, cache: dict):
     """Single-token decode over (B, 1, D): an O(1) state update. Returns
     ``(out, new_cache)``; the caller stores it."""
-    bsz = x.shape[0]
-    f32 = torch.float32
+    if _packed_placed(p):
+        return _ssm_placed(p, x, cfg, policy, cache, decode=True)
     zxbcdt = qdense(p["in_proj"], x, policy)               # (B,1,proj)
     z, xs, bb, cc, dt = _split_proj(zxbcdt, cfg)
     with record_function("ssm.conv"):
@@ -261,22 +296,88 @@ def ssm_decode_step(p: dict, x: torch.Tensor, cfg: SSMConfig,
             torch.cat([xs, bb, cc], dim=-1), p["conv_w"], p["conv_b"],
             cache["conv"])
         conv_out = F.silu(conv_out)
-    di, g, n, h = cfg.d_inner, cfg.n_groups, cfg.d_state, cfg.n_heads
-    hsel = _head_group(h, g, x.device)
-    xs = conv_out[..., :di].reshape(bsz, h, cfg.head_dim)
-    bb = conv_out[..., di:di + g * n].reshape(bsz, g, n)
-    cc = conv_out[..., di + g * n:].reshape(bsz, g, n)
-    with record_function("ssm.scan"):
-        dtv = F.softplus(dt[:, 0] + p["dt_bias"][None])   # (B,H) float32
-        a_t = torch.exp(dtv * -torch.exp(p["A_log"])[None])
-        bth = bb[:, hsel].to(f32)
-        cth = cc[:, hsel].to(f32)
-        xf = xs.to(f32)
-        hnew = (cache["h"] * a_t[..., None, None]
-                + (dtv[..., None, None] * bth[..., None]) * xf[:, :, None, :])
-        y = (torch.einsum("bhn,bhnp->bhp", cth, hnew)
-             + p["D"][None, :, None] * xf)
-    y = y.reshape(bsz, 1, di).to(x.dtype)
-    y = rms_norm(y * F.silu(z), p["norm"])
+    y, hnew = _scan_gate(p, conv_out, z, dt, cfg, cache["h"], decode=True)
     out = qdense(p["out_proj"], y, policy)
     return out, {"h": hnew, "conv": conv_state, "len": cache["len"] + 1}
+
+
+def _packed_placed(p: dict) -> bool:
+    """Whether ``p`` is a sharded server's layer: packed planes, placed."""
+    w = p["in_proj"].get("w_packed")
+    return w is not None and placed.is_placed(w)
+
+
+def _split_on(t, dim: int) -> list:
+    """The mesh dimensions that split dimension ``dim`` of placed ``t``."""
+    return [i for i, pl in enumerate(t.placements) if pl.is_shard(dim)]
+
+
+def _whole_cols(t: torch.Tensor, mesh, rows_on: list, cols_on: list):
+    """A rank's local (rows, ..., its column range) gathered whole in its
+    last dimension over the mesh dimensions ``cols_on`` (its rows kept:
+    split over ``rows_on``)."""
+    if not cols_on:
+        return t
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    split = [Shard(0) if i in rows_on else Shard(t.ndim - 1) if i in cols_on
+             else Replicate() for i in range(mesh.ndim)]
+    return placed.whole_dim(DTensor.from_local(t, mesh, split),
+                            -1).to_local()
+
+
+def _ssm_placed(p: dict, x, cfg: SSMConfig, policy: QuantPolicy,
+                cache: Optional[dict], decode: bool):
+    """:func:`ssm_apply` (``decode``: :func:`ssm_decode_step`) on a
+    sharded server's placed packed params and placed cache, each rank on
+    its rows; the cache is written in place.
+
+    * ``in_proj`` (column-parallel) is made whole over the mesh first: its
+      column split straddles the fused z | x | B | C | dt.
+    * The depthwise conv runs on the rank's channels (``conv_w``,
+      ``conv_b`` and the ``conv`` state are split alike) against its own
+      state, and its output is gathered whole.
+    * The scan and the gated norm run on every head (:func:`_scan_gate`),
+      the state ``h`` (split by heads where they divide) gathered whole
+      for it; each rank writes back its heads of the new state. On the
+      card the scan's float32 einsums round otherwise on a share of the
+      heads than on all of them, so every rank runs them at the
+      unsharded shapes; ``A_log``, ``D``, ``dt_bias`` and the norm's
+      ``norm`` are whole (a server holds them whole), so the norm's sum
+      of squares runs over the whole ``d_inner`` in the unsharded order.
+    * ``out_proj`` is row-parallel.
+
+    Every rank's arithmetic is the unsharded one on its rows, its conv on
+    its channels. Returns ``(out, new_cache)`` as the unsharded functions
+    do."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.models.layers import _local_range
+    zx = qdense(p["in_proj"], x, policy)
+    mesh = zx.device_mesh
+    rows_on = _split_on(zx, 0)
+    zl = _local_range(zx, [], zx.shape[-1], 0, zx.shape[-1])
+    z, xs, bb, cc, dt = _split_proj(zl, cfg)
+    w = p["conv_w"]
+    c_on = _split_on(w, w.ndim - 1)
+    c0, cn = placed.mesh_offset(mesh, w.placements, w.ndim - 1, w.shape[-1])
+    with record_function("ssm.conv"):
+        conv_l, conv_state = _causal_conv(
+            torch.cat([xs, bb, cc], dim=-1)[..., c0:c0 + cn],
+            w.to_local(), _local_range(p["conv_b"], c_on, w.shape[-1], c0,
+                                       c0 + cn),
+            None if cache is None else cache["conv"].to_local())
+        conv_out = _whole_cols(F.silu(conv_l), mesh, rows_on, c_on)
+    whole = {k: _local_range(p[k], [], p[k].shape[-1], 0, p[k].shape[-1])
+             for k in ("A_log", "D", "dt_bias", "norm")}
+    h_all = (None if cache is None
+             else placed.whole_dim(cache["h"], 1).to_local())
+    y, hfin = _scan_gate(whole, conv_out, z, dt, cfg, h_all, decode)
+    y = DTensor.from_local(y, mesh, [Shard(0) if i in rows_on else Replicate()
+                                     for i in range(mesh.ndim)])
+    out = qdense(p["out_proj"], y, policy)
+    if cache is None:
+        return out, None
+    h0, hn = placed.mesh_offset(mesh, cache["h"].placements, 1, cfg.n_heads)
+    cache["h"].to_local().copy_(hfin[:, h0:h0 + hn])
+    cache["conv"].to_local().copy_(conv_state)
+    return out, {"h": cache["h"], "conv": cache["conv"],
+                 "len": cache["len"] + zl.shape[1]}

@@ -68,8 +68,7 @@ from repro_torch.models.ssm import (SSMConfig, init_ssm_cache, ssm_apply,
 __all__ = ["ModelConfig", "GroupSpec", "layer_groups", "encoder_groups",
            "init_params",
            "forward", "loss_fn", "prefill", "decode_step", "init_caches",
-           "pack_params", "serve_policy", "params_from_numpy",
-           "check_mesh_family", "MESH_FAMILIES"]
+           "pack_params", "serve_policy", "params_from_numpy"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -397,19 +396,33 @@ def _mlp_apply(p, x, cfg: ModelConfig):
 def _cross_apply(p, x, cache, enc_out, cfg: ModelConfig):
     """The decoder's cross-attention residual branch. Its K/V come from
     ``enc_out`` (one quantize-pack for both) when given, else from the
-    cache (a decode step). Returns ``(out, ck, cv)``."""
+    cache (a decode step). Returns ``(out, ck, cv)``. A placed cache (a
+    sharded server) holds the whole heads on every ``model`` rank, as
+    ``cache_pspec`` places it: a prefill's K/V (column-parallel) are
+    gathered into it once, in place, and every rank attends every head
+    over it (``attention._every_head``)."""
     hx = _norm(x, p["norm_cross"], p.get("norm_cross_b"), cfg)
     acx = cfg.attn_cfg(causal=False)
     if enc_out is None:
         ck, cv = cache["cross_k"], cache["cross_v"]
     else:
-        b, s_src = enc_out.shape[:2]
-        ck, cv = (t.reshape(b, s_src, acx.n_kv_heads, acx.head_dim)
+        ck, cv = (placed.split_heads(t, acx.n_kv_heads, acx.head_dim)
                   for t in qdense_shared([p["cross"]["wk"],
                                           p["cross"]["wv"]], enc_out,
                                          cfg.policy))
+        if cache is not None and placed.is_placed(cache["cross_k"]):
+            ck, cv = (_write_whole(cache[n], t)
+                      for n, t in (("cross_k", ck), ("cross_v", cv)))
     out, _ = attn_apply(p["cross"], hx, acx, cfg.policy, cross_kv=(ck, cv))
     return out, ck, cv
+
+
+def _write_whole(dst, t):
+    """``t`` redistributed to placed ``dst``'s placements and copied into
+    it, in place; returns ``dst``."""
+    dst.to_local().copy_(t.redistribute(dst.device_mesh,
+                                        dst.placements).to_local())
+    return dst
 
 
 def _block_apply(p, x, cfg: ModelConfig, spec: GroupSpec, *, positions,
@@ -705,7 +718,7 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None,
     of both; a cross-attending group's ``{"self", "cross_k", "cross_v"}``,
     the cross buffers (L, B, max(src_len, 1), Hkv, D). The continuous
     engine's slot arena is one such list. With ``mesh`` (a
-    ``DeviceMesh``; the families a mesh serves) each tensor is a DTensor
+    ``DeviceMesh``) each tensor is a DTensor
     placed by ``cache_pspec``, each rank allocating its own shard."""
     if mesh is not None:
         return _placed_caches(cfg, batch, max_len, device, src_len, mesh)
@@ -734,28 +747,6 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None,
     return caches
 
 
-#: the families a mesh serves (the dense decoder path, a VLM's text, the
-#: MoE with its experts split over ``model`` and MLA's latent cache);
-#: each other family, and the later slice that brings it
-MESH_FAMILIES = ("dense", "vlm", "moe")
-MESH_LATER = {
-    "ssm": "the SSM state (h/conv) on a mesh",
-    "hybrid": "the SSM state and sliding windows on a mesh",
-    "encdec": "the encoder-decoder on a mesh",
-    "audio": "the encoder-decoder on a mesh"}
-
-
-def check_mesh_family(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a family a mesh does not serve
-    yet, naming the slice that brings it: never run it whole on each
-    rank."""
-    if cfg.family not in MESH_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not served on a mesh "
-            f"yet (a later slice: {MESH_LATER.get(cfg.family, cfg.family)}"
-            f"); a mesh serves the families {MESH_FAMILIES}")
-
-
 def _placed_caches(cfg: ModelConfig, batch: int, max_len: int, device,
                    src_len: int, mesh):
     """:func:`init_caches` as DTensors placed by ``cache_pspec`` on
@@ -763,7 +754,6 @@ def _placed_caches(cfg: ModelConfig, batch: int, max_len: int, device,
     from torch.distributed.tensor import DTensor
     from repro_torch.distributed.sharding import (cache_pspec, local_shape,
                                                   map_paths, to_placements)
-    check_mesh_family(cfg)
     shapes = init_caches(cfg, batch, max_len, device="meta", src_len=src_len)
 
     def place(path, t):
@@ -803,12 +793,10 @@ def prefill(params, batch, cfg: ModelConfig, max_len: int, last_pos=None):
     capacity still counts the pads: the reference's dispatch). ``batch``
     holds what :func:`forward` takes; an encoder-decoder's cross K/V are
     computed here, into buffers of the source's length. On placed params
-    (a sharded server: the families a mesh serves, run under
+    (a sharded server, run under
     :func:`~repro_torch.distributed.placed.mesh_context`) the caches are
     placed by ``cache_pspec`` and the logits are made whole."""
     mesh = _mesh_of(params)
-    if mesh is not None:
-        check_mesh_family(cfg)
     enc_out = _encode(params, batch, cfg)
     x, positions = _embed_inputs(params, batch, cfg)
     caches = init_caches(cfg, x.shape[0], max_len, device=x.device,
@@ -833,9 +821,13 @@ def decode_step(params, caches, tokens, pos, cfg: ModelConfig,
     host). ``aux``, a dict, receives the MoE layers' ``lb_loss`` and
     ``drop_frac``, one per MoE layer each. Returns ``(logits (B, V),
     caches)``; on placed params and caches (a sharded server) the logits
-    are whole on every rank."""
+    are whole on every rank, and per-row positions raise (the engine's
+    captured step on a mesh is a later slice)."""
     if _mesh_of(params) is not None:
-        check_mesh_family(cfg)
+        if torch.is_tensor(pos) and pos.dim() == 1:
+            raise NotImplementedError("per-row positions on a mesh (the "
+                                      "engine's captured step) are a later "
+                                      "slice")
         x = _embed(params["embed"], tokens).to(cfg.compute_dtype)
     else:
         x = params["embed"][tokens].to(cfg.compute_dtype)

@@ -6,7 +6,8 @@ the ranks numpy inputs. Besides training on the (2, 2) mesh, the ranks
 serve packed models sharded (``Server(mesh=)``) on (2, 2), on two (1, 2)
 meshes (the ranks split in pairs) and on one (1, 4) mesh; the MoE
 family (deepseek-v2-lite with MLA, qwen3-moe with GQA) on the same three
-meshes, its experts split over ``model``."""
+meshes, its experts split over ``model``; and the SSM, hybrid and
+encoder-decoder families (mamba2, hymba, seamless) on the same three."""
 
 import dataclasses
 
@@ -44,14 +45,39 @@ SERVE_ARCHS = ("stablelm-1.6b", "qwen1.5-110b", "nemotron-4-15b")
 #: (1, 4) its cache's positions split); 4 and 8 experts split over
 #: ``model``
 MOE_ARCHS = ("deepseek-v2-lite-16b", "qwen3-moe-235b-a22b")
+#: the SSM, hybrid and encoder-decoder smoke configs served on every mesh:
+#: mamba2's state split by its 8 heads, hymba's 8-slot windows (2 kv heads:
+#: on (1, 4) the slots split, 2 a rank, and positions up to 13 cross ranks)
+#: and seamless on a seeded source, its cross K/V whole over ``model``
+FAMILY_ARCHS = ("mamba2-780m", "hymba-1.5b", "seamless-m4t-large-v2")
 SERVE_PROMPTS = (5, 9, 3, 7)
 SERVE_NEW, SERVE_MAX_LEN = 5, 16
+#: the encoder-decoder's source frames per request
+SRC_LEN = 6
 
 
 def serve_requests(vocab):
     rng = np.random.RandomState(0)
     return [GenRequest(rng.randint(0, vocab, (n,)).astype(np.int32),
                        SERVE_NEW) for n in SERVE_PROMPTS]
+
+
+def source(cfg):
+    """Seeded (4, ``SRC_LEN``, frontend_dim) ``src_embeds`` for an
+    encoder-decoder's requests."""
+    rng = np.random.default_rng(7)
+    return rng.standard_normal((len(SERVE_PROMPTS), SRC_LEN,
+                                cfg.frontend_dim)).astype(np.float32)
+
+
+def padded_prompts(vocab):
+    """:func:`serve_requests`' prompts left-padded with 0, as
+    ``Server.generate`` pads them: (4, longest) int64."""
+    reqs = serve_requests(vocab)
+    toks = np.zeros((len(reqs), max(len(r.prompt) for r in reqs)), np.int64)
+    for i, r in enumerate(reqs):
+        toks[i, -len(r.prompt):] = r.prompt
+    return toks
 
 
 def int8_cache(cfg):
@@ -63,12 +89,54 @@ def serve(cfg, params, mesh, pack_acts, n_groups=1):
     """``Server`` (``mesh`` None: unsharded) on :func:`serve_requests`:
     the tokens and the last step's logits (whole, on the host). An
     unsharded MoE dispatches in ``n_groups`` groups (what a data axis of
-    that size makes a placed one do)."""
+    that size makes a placed one do). An encoder-decoder, whose source
+    ``generate`` does not feed, is served by :func:`drive` on
+    :func:`source`."""
     srv = Server(cfg, params, batch_slots=4, max_len=SERVE_MAX_LEN,
                  pack_acts=pack_acts, device="cpu", mesh=mesh)
+    if cfg.family in ("encdec", "audio"):
+        return drive(srv, source(cfg))[:2]
     with bind_axes(dp="data", mesh={"data": n_groups}):
         res = srv.generate(serve_requests(cfg.vocab_size))
     return [r.out_tokens for r in res], _np(srv.last_logits)
+
+
+def drive(srv, src=None):
+    """What ``Server.generate`` does, on :func:`padded_prompts` and, for
+    an encoder-decoder, the source ``src`` (``src_embeds``, numpy):
+    ``prefill``, then greedy ``decode_step``s, inside the server's step
+    context. Returns the tokens, the last step's logits (whole, on the
+    host) and the caches."""
+    cfg = srv.cfg
+    toks = padded_prompts(cfg.vocab_size)
+    with srv._context():
+        batch = {"tokens": srv._place_batch(torch.from_numpy(toks))}
+        if src is not None:
+            batch["src_embeds"] = srv._place_batch(torch.from_numpy(src))
+        logits, caches = tt.prefill(srv.params, batch, cfg,
+                                    max_len=SERVE_MAX_LEN)
+        tok = torch.argmax(logits, -1)[:, None]
+        cols = [tok]
+        for t in range(1, SERVE_NEW):
+            logits, caches = tt.decode_step(srv.params, caches, tok,
+                                            toks.shape[1] + t - 1, cfg)
+            tok = torch.argmax(logits, -1)[:, None]
+            cols.append(tok)
+        out = placed.plain(torch.cat(cols, dim=1)).tolist()
+        return out, _np(placed.plain(logits)), caches
+
+
+def window_slots(params_np, mesh):
+    """hymba-smoke's sliding-window layers' rolling K and V (8 slots)
+    after :func:`drive` served the requests (K1 + K3) on ``mesh`` (None:
+    unsharded), gathered whole: numpy ``(k, v)``."""
+    srv = Server(get_arch("hymba-1.5b").smoke, tt.params_from_numpy(
+        params_np), batch_slots=4, max_len=SERVE_MAX_LEN, device="cpu",
+        mesh=mesh)
+    window = [i for i, g in enumerate(tt.layer_groups(srv.cfg))
+              if g.window is not None][0]
+    cache = drive(srv)[2][window]["attn"]
+    return tuple(_np(placed.plain(cache[n])) for n in ("k", "v"))
 
 
 def chunked(cfg):
@@ -116,7 +184,8 @@ def mesh_rank(rank, inputs, part):
     out = {"rank": rank, "coord": tuple(mesh.get_coordinate())}
     if part == "dense":
         _dense(rank, inputs, mesh, out)
-        _serve_on(inputs, mesh, out, "2x2", SERVE_ARCHS + MOE_ARCHS)
+        _serve_on(inputs, mesh, out, "2x2",
+                  SERVE_ARCHS + MOE_ARCHS + FAMILY_ARCHS)
         out["placed_packing"] = _placed_packing(mesh)
     else:
         _ssm_moe(inputs, mesh, out)
@@ -161,14 +230,17 @@ def _placed_packing(mesh):
 def _serve_pairs_and_four(inputs, out):
     """Two (data 1, model 2) meshes, ranks {0, 1} and {2, 3} (the model
     axis of a (2, 1, 2) mesh), then one (data 1, model 4) mesh: qwen1.5's
-    2 kv heads on 4 ranks split the cache's positions. Then the
+    2 kv heads on 4 ranks split the cache's positions (hymba's 2 split its
+    windows' slots: :func:`window_slots`). Then the
     unaligned-K cases of ``qdense``'s placed path on the (1, 2) mesh."""
     from torch.distributed.device_mesh import init_device_mesh
     pairs = init_device_mesh("cpu", (2, 1, 2), mesh_dim_names=(
         "rep", "data", "model"))["data", "model"]
-    _serve_on(inputs, pairs, out, "1x2", SERVE_ARCHS + MOE_ARCHS)
+    _serve_on(inputs, pairs, out, "1x2",
+              SERVE_ARCHS + MOE_ARCHS + FAMILY_ARCHS)
     four = init_device_mesh("cpu", (1, 4), mesh_dim_names=("data", "model"))
-    _serve_on(inputs, four, out, "1x4", ("qwen1.5-110b",) + MOE_ARCHS)
+    _serve_on(inputs, four, out, "1x4",
+              ("qwen1.5-110b",) + MOE_ARCHS + FAMILY_ARCHS)
     qwen = get_arch("qwen1.5-110b").smoke
     qwen_params = tt.params_from_numpy(inputs["serve"]["qwen1.5-110b"])
     for tag, cfg in (("int8", int8_cache(qwen)),
@@ -177,6 +249,11 @@ def _serve_pairs_and_four(inputs, out):
             cfg, qwen_params, four, True)
     cache = tt.init_caches(qwen, 4, SERVE_MAX_LEN, device="cpu", mesh=four)
     out["serve_cache_placements"] = str(tuple(cache[0]["k"].placements))
+    hymba = tt.init_caches(get_arch("hymba-1.5b").smoke, 4, SERVE_MAX_LEN,
+                           device="cpu", mesh=four)
+    out["window_cache_placements"] = str(tuple(
+        hymba[1]["attn"]["k"].placements))
+    out["window_slots"] = window_slots(inputs["serve"]["hymba-1.5b"], four)
     out["unaligned"] = _unaligned(inputs["unaligned"], pairs)
 
 

@@ -341,10 +341,10 @@ def test_dryrun_cells_carry_the_cost(tmp_path):
     all-reduces among its collectives), and so is the decode cell since
     the port serves a sharded packed model (the row-parallel projections'
     int32 sums and the embedding's rows all-reduced, the vocab-parallel
-    logits all-gathered); a family a mesh does not serve yet (mamba2)
-    keeps its decode cell on one device with ``cost_mesh`` null and a
-    reason naming it; qwen1.5-110b's train cell, whose 8 kv heads do not
-    divide the model axis, counts too."""
+    logits all-gathered); so is mamba2's (an SSM, served on a mesh since
+    its own slice: in_proj's output, the conv's and the heads' outputs
+    all-gathered, out_proj's int32 sum all-reduced); qwen1.5-110b's train
+    cell, whose 8 kv heads do not divide the model axis, counts too."""
     keys = ("flops", "flops_int", "flops_logical", "bytes_hbm",
             "collectives", "kernel_calls", "ops", "cost_mesh", "cost_s")
     tr = dryrun.run_cell(ARCH, "train_4k", n_layers=1, out_dir=str(tmp_path))
@@ -368,11 +368,11 @@ def test_dryrun_cells_carry_the_cost(tmp_path):
     assert "a step on one device of a fake 16x16 mesh" in dryrun._line(de)
     ssm = dryrun.run_cell("mamba2-780m", "decode_32k", n_layers=1,
                           out_dir=str(tmp_path))
-    assert ssm["cost_mesh"] is None
-    assert ssm["cost_mesh_reason"] == dryrun.SERVE_MESH_REASON.format(
-        family="ssm", later=tt.MESH_LATER["ssm"])
-    assert ssm["collectives"]["total_bytes"] == 0
-    assert "a step on one device:" in dryrun._line(ssm)
+    assert ssm["cost_mesh"] == {"data": 16, "model": 16}
+    assert "cost_mesh_reason" not in ssm
+    assert ssm["collectives"]["counts"]["all-gather"] == 3
+    assert ssm["collectives"]["counts"]["all-reduce"] == 1
+    assert "a step on one device of a fake 16x16 mesh" in dryrun._line(ssm)
     # 8 kv heads over the 16-way model axis (placed.split_heads)
     qw = dryrun.run_cell("qwen1.5-110b", "train_4k", n_layers=1,
                          out_dir=str(tmp_path))

@@ -67,6 +67,19 @@ Tolerances, each with its reason:
   capacity dispatch are each rank's rows, so the mesh is held to the
   unsharded port at ``n_groups=2`` (the reference's rule), bit for bit,
   not to the one-group ``Server``.
+* The SSM, hybrid and encoder-decoder families' sharded ``Server``
+  (mamba2-, hymba- and seamless-smoke on (1, 2), (2, 2) and (1, 4), K1 +
+  K3 and K4; seamless through ``prefill`` and ``decode_step`` on a
+  seeded source): tokens and last-step logits equal the unsharded
+  port's bit for bit — each rank convolves its channels and runs the
+  scan on every head over the state gathered whole, the gated norm on
+  the whole ``d_inner``, the cross K/V are whole on every rank — but
+  hymba
+  on (1, 4), whose 2 kv heads split its caches' positions and its
+  windows' slots (combined by log-sum-exp): qwen1.5's tolerance above,
+  tokens equal. Against the reference's ``prefill`` / ``decode_step``:
+  tokens equal, logits within 1e-4 of the largest. The windows' slots
+  after the run, gathered: exact (copies of the same K/V).
 """
 
 import _torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
@@ -144,9 +157,10 @@ def _unaligned_case():
 def _serve_refs(inputs):
     """The unsharded port's ``Server`` and the reference's ``prefill`` /
     ``decode_step`` (the loop of its ``Server.generate``, whose tokens
-    they are) on the same packed planes: tokens and last logits."""
+    they are; an encoder-decoder's on the seeded source) on the same
+    packed planes: tokens and last logits."""
     out = {}
-    for arch in ranks.SERVE_ARCHS + ranks.MOE_ARCHS:
+    for arch in ranks.SERVE_ARCHS + ranks.MOE_ARCHS + ranks.FAMILY_ARCHS:
         cfg, jcfg = get_arch(arch).smoke, j_get_arch(arch).smoke
         params = tt.params_from_numpy(inputs["serve"][arch])
         for pa in (True, False):
@@ -160,6 +174,9 @@ def _serve_refs(inputs):
             out[(arch, "int8 chunked")] = ranks.serve(
                 ranks.chunked(ranks.int8_cache(cfg)), params, None, True)
         jp = jax.tree.map(jnp.asarray, inputs["serve"][arch])
+        if cfg.family == "audio":
+            out[(arch, "reference")] = _source_reference(jcfg, jp)
+            continue
         reqs = ranks.serve_requests(cfg.vocab_size)
         js = JServer(jcfg, params=jp, batch_slots=4,
                      max_len=ranks.SERVE_MAX_LEN, backend="xla")
@@ -176,6 +193,8 @@ def _serve_refs(inputs):
             logits, caches = js._decode(js.params, caches, tok,
                                         jnp.int32(s + t - 1))
         out[(arch, "reference")] = (toks, np.asarray(logits))
+    out["window_slots"] = ranks.window_slots(inputs["serve"]["hymba-1.5b"],
+                                             None)
     for name, (p_np, x_np) in inputs["unaligned"].items():
         for pa in (True, False):
             pol = tl.QuantPolicy(mode="serial", w_bits=4, a_bits=8,
@@ -185,6 +204,26 @@ def _serve_refs(inputs):
                     tt.params_from_numpy(p_np), torch.from_numpy(x_np),
                     pol).numpy()
     return out
+
+
+def _source_reference(jcfg, jp):
+    """The reference's ``prefill`` on the padded prompts and the seeded
+    source, then its greedy ``decode_step``s: tokens and last logits."""
+    jcfg = jt.serve_policy(jcfg, backend="xla")
+    toks = ranks.padded_prompts(jcfg.vocab_size)
+    logits, caches = jt.prefill(
+        jp, {"tokens": jnp.asarray(toks, jnp.int32),
+             "src_embeds": jnp.asarray(ranks.source(jcfg))}, jcfg,
+        max_len=ranks.SERVE_MAX_LEN)
+    cols = []
+    for t in range(ranks.SERVE_NEW):
+        tok = jnp.argmax(logits, -1)[:, None]
+        cols.append(np.asarray(tok))
+        if t + 1 < ranks.SERVE_NEW:
+            logits, caches = jt.decode_step(jp, caches, tok,
+                                            jnp.int32(toks.shape[1] + t),
+                                            jcfg)
+    return np.concatenate(cols, axis=1).tolist(), np.asarray(logits)
 
 
 def _references(inputs):
@@ -249,7 +288,8 @@ def mesh_run(tmp_path_factory):
         models[arch] = (jax.tree.map(np.asarray, jp),
                         _batch(jcfg.vocab_size, 10 + i))
     serve_np = {}
-    for i, arch in enumerate(ranks.SERVE_ARCHS + ranks.MOE_ARCHS):
+    for i, arch in enumerate(ranks.SERVE_ARCHS + ranks.MOE_ARCHS
+                             + ranks.FAMILY_ARCHS):
         jcfg = j_get_arch(arch).smoke
         serve_np[arch] = jax.tree.map(np.asarray, jt.pack_params(
             jt.init_params(jax.random.PRNGKey(40 + i), jcfg), jcfg))
@@ -638,6 +678,51 @@ def test_sharded_moe_server_equals_unsharded_and_reference(mesh_run, arch,
                                    atol=1e-4 * np.abs(j_logits).max())
 
 
+@pytest.mark.parametrize("arch", ranks.FAMILY_ARCHS)
+@pytest.mark.parametrize("tag", ["1x2", "1x4", "2x2"])
+@pytest.mark.parametrize("pack_acts", [True, False])
+def test_sharded_family_server_equals_unsharded_and_reference(
+        mesh_run, arch, tag, pack_acts):
+    """``Server(mesh=)`` serving mamba2 (its SSM state split by heads),
+    hymba (the SSM branch beside sliding windows) and seamless (through
+    ``prefill`` and ``decode_step`` on a seeded source, its cross K/V
+    whole on every ``model`` rank), K1 + K3 and K4, on (data 1, model 2),
+    (1, 4) and (2, 2): every rank's tokens and last-step logits equal the
+    unsharded port's bit for bit (hymba on (1, 4), its caches' positions
+    and its windows' slots split over 4 ranks: within rtol 1e-5 / atol
+    1e-6, tokens equal), and the reference's within
+    ``test_torch_lm.py``'s bound."""
+    _, ref, res = mesh_run
+    want_toks, want = ref["serve"][(arch, pack_acts)]
+    j_toks, j_logits = ref["serve"][(arch, "reference")]
+    combined = (arch, tag) == ("hymba-1.5b", "1x4")
+    for r in res:
+        toks, logits = r["serve"][(arch, tag, pack_acts)]
+        assert toks == want_toks
+        if combined:
+            np.testing.assert_allclose(logits, want, rtol=1e-5, atol=1e-6)
+        else:
+            np.testing.assert_array_equal(logits, want)
+    assert want_toks == j_toks
+    np.testing.assert_allclose(want, j_logits, rtol=0,
+                               atol=1e-4 * np.abs(j_logits).max())
+
+
+def test_window_slots_shift_across_ranks_as_unsharded(mesh_run):
+    """hymba-smoke on (data 1, model 4): 2 kv heads do not divide over 4
+    ranks, so ``cache_pspec`` splits a sliding window's 8 slots, 2 a
+    rank; after a prefill of 9 positions and 4 decode steps (positions up
+    to 13: every step shifts a slot across each rank boundary) the
+    gathered slots equal the unsharded rolling buffer's bit for bit."""
+    _, ref, res = mesh_run
+    want = ref["serve"]["window_slots"]
+    assert res[0]["window_cache_placements"] == \
+        "(Shard(dim=1), Shard(dim=2))"
+    for r in res:
+        for got, w in zip(r["window_slots"], want):
+            np.testing.assert_array_equal(got, w)
+
+
 @pytest.mark.parametrize("name", ["K48", "K80"])
 @pytest.mark.parametrize("pack_acts", [True, False])
 def test_placed_qdense_gathers_an_unaligned_activation(mesh_run, name,
@@ -778,23 +863,99 @@ def test_moe_serve_cell_on_a_fake_mesh_counts_per_device():
     assert col["bytes"]["all-gather"] == gathered
 
 
+def _family_collectives(cfg, rows: int, ranks_: int) -> dict:
+    """The collectives one device of a fake ``ranks_``-way ``model`` axis
+    counts in a ``decode_step`` of ``cfg`` (``rows`` a data rank), by
+    family: ``{kind: (count, bytes)}``."""
+    bf16, i32, f32, L = 2, 4, 4, cfg.n_layers
+    if cfg.family == "ssm":
+        # in_proj's fused output and the conv's output gathered whole
+        # (bf16), and the state's heads (float32) for the scan on every
+        # head; out_proj's int32 sums
+        di = cfg.ssm_expand * cfg.d_model
+        heads = di // cfg.ssm_head_dim
+        cols = 2 * di + 2 * cfg.ssm_state + heads + di + 2 * cfg.ssm_state
+        state = heads * cfg.ssm_state * cfg.ssm_head_dim
+        return {"all-gather": (3 * L, L * rows * (cols * bf16 + state * f32)),
+                "all-reduce": (L, L * rows * cfg.d_model * i32)}
+    if cfg.family == "hybrid":
+        # 5 kv heads: the caches' positions and the window's slots split;
+        # q, k, v whole over the heads, the conv's output (its 50 heads,
+        # and in_proj's 6,482 columns, do not divide: those whole), the
+        # MLP's h (down's 172 words do not divide) gathered; the window's
+        # shift: each rank's first slot of K and of V; each layer's
+        # attention combined by log-sum-exp (max, sum, weighted values)
+        di = cfg.ssm_expand * cfg.d_model
+        kv = cfg.n_kv_heads * cfg.head_dim
+        cols = cfg.n_heads * cfg.head_dim + 2 * kv + di + \
+            2 * cfg.ssm_state + cfg.d_ff
+        windowed = sum(g.n for g in tt.layer_groups(cfg)
+                       if g.window is not None)
+        heads = rows * cfg.n_heads
+        return {"all-gather": (5 * L + 2 * windowed,
+                               L * rows * cols * bf16
+                               + 2 * windowed * rows * ranks_ * kv * bf16),
+                "all-reduce": (3 * L, L * (2 * heads + heads
+                                           * cfg.head_dim) * f32)}
+    # the encoder-decoder: the cross K/V whole in the cache, the cross
+    # queries gathered whole (every rank attends every head); o, the
+    # cross o and down row-parallel
+    return {"all-gather": (L, L * rows * cfg.n_heads * cfg.head_dim * bf16),
+            "all-reduce": (3 * L, 3 * L * rows * cfg.d_model * i32)}
+
+
+@pytest.mark.parametrize("arch", ranks.FAMILY_ARCHS)
+def test_family_serve_cell_on_a_fake_mesh_counts_per_device(arch):
+    """``dryrun.cost_cell`` of mamba2-780m, hymba-1.5b and
+    seamless-m4t-large-v2 ``decode_32k`` at 2 layers of full width on
+    the fake 16 x 16 production mesh: the kernel calls per step are the
+    unsharded step's, and the collectives are each family's: mamba2's
+    three gathers a layer (in_proj's fused output, the conv's output and
+    the state's 48 heads, 3 a rank, for the scan on every head) and
+    out_proj's int32 sum; hymba's (1,024-slot
+    windows split 64 a rank) with its rolling shift — each rank's first
+    slot of K and V, all-gathered — and the log-sum-exp combine;
+    seamless's row-parallel sums and its cross queries gathered whole
+    (its cross K/V whole in the cache: every rank attends every head)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.hlo_analysis import analyze
+    from repro_torch.launch.serve import Server
+    cell = dryrun.build_cell(arch, "decode_32k", n_layers=2)
+    rec = dryrun.cost_cell(cell)
+    cfg, b, t = cell.cfg, cell.shape.global_batch, cell.max_len
+    srv = Server(cfg, tt.init_params(dryrun._MetaGenerator(), cfg,
+                                     packed=True),
+                 batch_slots=b, max_len=t, device="meta")
+    caches = tt.init_caches(srv.cfg, b, t, device="meta",
+                            src_len=cell.src_len)
+    toks = torch.empty((b, 1), dtype=torch.int64, device="meta")
+    with torch.inference_mode():
+        _, one = analyze(tt.decode_step, srv.params, caches, toks, t - 1,
+                         srv.cfg)
+    assert rec["cost_mesh"] == {"data": 16, "model": 16}
+    assert rec["kernel_calls"] == one.kernel_calls
+    assert 0 < rec["flops_int"] < one.flops_int
+    col = rec["collectives"]
+    for kind, (count, nbytes) in _family_collectives(cfg, b // 16,
+                                                     16).items():
+        assert (col["counts"][kind], col["bytes"][kind]) == (count, nbytes)
+    assert col["counts"]["all-to-all"] == 0
+
+
 def test_mesh_refuses_what_this_slice_does_not_serve():
-    """A family outside the dense, VLM and MoE paths raises
-    ``NotImplementedError`` naming its later slice (never runs whole on
-    each rank), as does float serving; the MoE family is served (deepseek
-    and qwen3-moe build on the mesh). A mesh of another device type and
-    ``batch_slots`` that do not divide over ``data`` raise ``ValueError``.
-    The dry run keeps a refused family's serve cell on one device with a
-    reason naming it."""
+    """Every family builds on a mesh: the SSM, hybrid and encoder-decoder
+    families (mamba2, hymba, seamless) and the MoE family (deepseek,
+    qwen3-moe). Float serving raises ``NotImplementedError``; a mesh of
+    another device type and ``batch_slots`` that do not divide over
+    ``data`` raise ``ValueError``. The dry run counts a family's serve
+    cell (mamba2's, once refused) per device of the fake 16 x 16
+    mesh."""
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import fake_mesh
     from repro_torch.launch.serve import Server
     lm = get_arch("stablelm-1.6b").smoke
     with fake_mesh((2, 2), device_type="cpu") as mesh:
-        for arch in ("mamba2-780m", "hymba-1.5b", "seamless-m4t-large-v2"):
-            with pytest.raises(NotImplementedError, match="later slice"):
-                Server(get_arch(arch).smoke, device="cpu", mesh=mesh)
-        for arch in ranks.MOE_ARCHS:                 # served since MoE's slice
+        for arch in ranks.FAMILY_ARCHS + ranks.MOE_ARCHS:
             Server(get_arch(arch).smoke, device="cpu", mesh=mesh)
         with pytest.raises(NotImplementedError, match="float serving"):
             Server(lm, device="cpu", mesh=mesh, quantized=False)
@@ -805,8 +966,10 @@ def test_mesh_refuses_what_this_slice_does_not_serve():
             Server(lm, device="cpu", mesh=mesh)
     rec = dryrun.cost_cell(dryrun.build_cell("mamba2-780m", "decode_32k",
                                              n_layers=1))
-    assert rec["cost_mesh"] is None
-    assert "'ssm' family" in rec["cost_mesh_reason"]
+    assert rec["cost_mesh"] == {"data": 16, "model": 16}
+    assert "cost_mesh_reason" not in rec
+    assert rec["kernel_calls"]["K1"] == 2 and rec["kernel_calls"]["K3"] == 2
+    assert rec["collectives"]["counts"]["all-gather"] == 3
 
 
 def test_placed_packings_give_the_same_words(mesh_run):
