@@ -380,7 +380,16 @@ Phases (any failure exits non-zero and prints no result):
     and encoder-decoder families (:func:`mesh_serve_families`: mamba2 at
     12 and hymba at 8 layers on phase 15's run 1, seamless FULL on phase
     16's seeded source, 8 new tokens, each equal to an unsharded
-    ``Server`` drawn from seed 0, with its launches a step); (e) the
+    ``Server`` drawn from seed 0, with its launches a step); and the
+    continuous engine on the mesh (:func:`mesh_engine`):
+    ``ContinuousLMEngine(mesh=)`` of stablelm-1.6b on phase 8b's mixed
+    load and of deepseek-v2-lite-16b on phase 12's, K1 + K3 (+ grouped
+    K4), its decode step captured as one CUDA graph with the mesh's
+    collectives inside, the launches counted at its capture and seen in
+    one profiled replay equal to the unsharded engine's, its tokens equal
+    to the unsharded captured engine's bit for bit; its replay (wall,
+    busy, NCCL kernels), the eager mesh step and the load's tok/s beside
+    an unsharded engine on the same planes; (e) the
     split arithmetic on this card at stablelm's three projection shapes,
     M = 4 and 64: K3 and K4 in accumulator mode (``raw_acc``) equal
     their plain accumulators, K split in 2 and 4 word ranges (int32 sum,
@@ -410,7 +419,12 @@ Phases (any failure exits non-zero and prints no result):
     tokens past its 1,024-slot window (whose slots the 4 cards split,
     256 a card) within rtol 1e-5 / atol 1e-6, tokens equal. The launch
     counts are reset just before each rank's ``generate`` and read just
-    after. ``--cards`` runs (f) alone (:func:`cards_main`).
+    after. Each rank first runs the engine on the mesh (stablelm on
+    (1, n) and (2, n/2), deepseek on (1, n)) on (d)'s mixed loads: its
+    decode step one CUDA graph on every rank with the NCCL collectives
+    inside, the unsharded engine's launches at capture (one profiled
+    replay's reported), every rank's tokens equal to the unsharded
+    captured engine's. ``--cards`` runs (f) alone (:func:`cards_main`).
 21. the cost analysis (:func:`cost_phase`; ``launch/hlo_analysis.py``):
     (a) full-width stablelm-1.6b (24 layers, bf16, W4A8, K1 + K3, random
     weights from seed 0) through ``Server``'s params: one eager
@@ -461,8 +475,9 @@ and the trained weights' ``Server``), phase 15's and 16's (the
 families' runs; K4's and grouped K4's too) and phase 17's (the long-context
 cells; grouped K4's too) and phase 18's (the trained families' packed
 evaluations and ``Server`` runs) and phase 20's (the placed packing's
-evaluations on the mesh and gathered, and (d)'s sharded and unsharded
-``Server`` runs; K4's too) and phase 21's (its counted and
+evaluations on the mesh and gathered, (d)'s sharded and unsharded
+``Server`` runs, K4's too, and (d)'s engines on the mesh and unsharded,
+grouped K4's too) and phase 21's (its counted and
 profiled calls; K2's too) and phase 22's (the tuned bucket graphs'
 replays and the decode step; K2's too; K2, K3 and K4 add the tiles
 phase 22 held, ``tiles_held``); K1's and K2's include phase 13's
@@ -1608,8 +1623,10 @@ def families_phase(dev, hp):
 
     def profile_step(fn, want):
         """``fn`` once under the profiler: wall, busy, kernels and K1, K3,
-        K4, grouped K4 by kernel name (held to ``want``)."""
-        prof, wall = hp.profiled(fn)
+        K4, grouped K4 by kernel name (held to ``want``; a window short of
+        them is opened again)."""
+        prof, wall = hp.profiled(fn, expect={
+            k: want[k] for k in ("K1", "K3", "K4", "K4g") if want.get(k)})
         busy, kern = 0.0, 0
         by = {k: {"ms": 0.0, "launches": 0} for k in ("K1", "K3", "K4",
                                                        "K4g")}
@@ -1866,7 +1883,8 @@ def families_phase(dev, hp):
                                      f"one ({r.out_tokens} vs {e.out_tokens})")
         del eager
         replay_ms = hp.walls(eng._run_step, 10)
-        pr, wall = hp.profiled(eng._run_step)
+        pr, wall = hp.profiled(eng._run_step,
+                               expect={k: v for k, v in want.items() if v})
         busy, kern, by = 0.0, 0, {k: 0 for k in want}
         for evt in pr.key_averages():
             if evt.device_type != DeviceType.CUDA or hp.is_spin(evt.key):
@@ -3796,9 +3814,243 @@ def split_arithmetic(dev):
     return {"cases": checked, "seconds": sec}
 
 
-def mesh_serve_rank(rank, data, model, prompts, qwen, device=None):
+# phase 20 (d) and (f): the continuous engine on a mesh
+# (ContinuousLMEngine(mesh=)), its decode step one CUDA graph a rank with
+# the NCCL collectives inside, on phase 8b's mixed load (stablelm) and
+# phase 12's (deepseek): 16 requests of mixed_load
+ENGINE_LOAD = 16
+ENGINE_REPS = 15        # replays timed between synchronizes (median)
+ENGINE_EAGER_REPS = 5   # eager steps on the same arena, likewise
+
+
+def mixed_load(n, vocab, new_tokens=LM_NEW):
+    """The reference CLI's mixed load (``launch/serve.py``): ``n``
+    prompts of 4-16 tokens over ``vocab`` from RandomState(0), every 4th
+    request long: ``[(prompt, max_new_tokens)]``."""
+    import numpy as np
+    rng = np.random.RandomState(0)
+    m_long = max(1, min(new_tokens, LM_MAX_LEN - 16))
+    return [(rng.randint(0, vocab, (int(rng.randint(4, 17)),)).astype(
+        np.int32), m_long if i % 4 == 0 else max(1, m_long // 4))
+        for i in range(n)]
+
+
+def replay_profile(prof, wall):
+    """One replayed step's profiler window (from ``profiled``, or
+    :func:`profile_once` in a rank): host wall, the card's busy time, its
+    kernels, the NCCL kernels' count and ms (waits inside them included),
+    and the LM kernels by id (:func:`kernel_of`)."""
+    recs = [(n, ns) for n, ns in card_records(prof)
+            if "spin_kernel" not in n]
+    nccl = [ns for n, ns in recs if "nccl" in n.lower()]
+    by = {"K1": 0, "K3": 0, "K4": 0, "K4g": 0}
+    for n, _ in recs:
+        kid = kernel_of(n)
+        if kid in by:
+            by[kid] += 1
+    return {"wall_ms": wall * 1e3, "busy_ms": sum(ns for _, ns in recs) / 1e6,
+            "kernels": len(recs), "nccl_kernels": len(nccl),
+            "nccl_ms": sum(nccl) / 1e6, "by_kernel": by}
+
+
+def profile_once(fn, card):
+    """``fn`` once in a profiler window of its own (a rank's: no spin
+    kernels, no second window): (profiler, host wall s)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    act = ProfilerActivity.CUDA if card else ProfilerActivity.CPU
+    with profile(activities=[act]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize() if card else None
+        wall = time.perf_counter() - t0
+    return prof, wall
+
+
+def engine_on(cfg, load, dev, mesh=None, params=None, profiler=None,
+              reps=ENGINE_REPS, eager_reps=ENGINE_EAGER_REPS):
+    """``ContinuousLMEngine`` of ``cfg`` (4 slots, ``LM_MAX_LEN``, drawn
+    from seed 0 or on ``params``; sharded over ``mesh`` when given)
+    warmed up (its step captured) and serving ``load``; then, on the
+    arena as the load left it (every row inactive), ``reps`` replays and
+    ``eager_reps`` eager steps, each between two synchronizes, and one
+    replay under ``profiler(fn) -> (profiler, wall)``, then one eager
+    step under ``launch/hlo_analysis.py``'s ``CostMode``. Returns the
+    engine and its record: tokens, stats, load seconds and tok/s, the
+    replays' and eager steps' host ms (median), the profiled replay
+    (:func:`replay_profile`) and the step's collectives by kind (counts,
+    bytes a rank); ``replays`` counts every replay made."""
+    import statistics as stats_
+
+    import torch
+    from repro_torch.launch.serve import GenRequest
+    from repro_torch.serving import ContinuousLMEngine
+    card = dev.type == "cuda"
+
+    def sync():
+        if card:
+            torch.cuda.synchronize(dev)
+
+    t0 = time.perf_counter()
+    eng = ContinuousLMEngine(cfg, params, batch_slots=4, max_len=LM_MAX_LEN,
+                             seed=0, device=dev, mesh=mesh)
+    sync()
+    rec = {"init_s": time.perf_counter() - t0}
+    warm = eng.warmup()
+    reqs = [GenRequest(p.copy(), m) for p, m in load]
+    sync()
+    t0 = time.perf_counter()
+    out = eng.serve(reqs)             # ends in the host copy of the tokens
+    rec["load_s"] = time.perf_counter() - t0
+    st, em = eng.stats(), eng.engine_metrics()
+    n_tok = sum(len(r.out_tokens) for r in out)
+    replays = [st["calls"]["decode"] if st["cuda_graph"] else 0]
+
+    def replay():
+        replays[0] += 1
+        eng._run_step()
+
+    def eager():
+        with eng._context():
+            eng._step_fn()
+
+    step = replay if st["cuda_graph"] else eager
+
+    def fenced(fn, n):
+        walls = []
+        for _ in range(n):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            walls.append(time.perf_counter() - t0)
+        return stats_.median(walls) * 1e3 if walls else None
+
+    rec.update(tokens=[r.out_tokens for r in out], warmup_s=warm["seconds"],
+               graph=st["cuda_graph"], step_launches=st["step_launches"],
+               capture_s=st["capture_seconds"], mesh=st["mesh"],
+               recompiles_after_warmup=st["recompiles_after_warmup"],
+               decode_steps=em["decode_steps"], load_tokens=n_tok,
+               tok_per_s=n_tok / rec["load_s"],
+               replay_ms=fenced(step, reps),
+               eager_step_ms=fenced(eager, eager_reps))
+    if profiler is not None:
+        rec["replay_profile"] = replay_profile(*profiler(step))
+        # the collectives of one step (the body the graph holds), counted
+        # by launch/hlo_analysis.py on one more eager step
+        from repro_torch.launch.hlo_analysis import analyze
+        with eng._context():
+            _, cost = analyze(eng._step_fn)
+        rec["step_collectives"] = {
+            "counts": {k: int(v) for k, v in cost.collective_counts.items()
+                       if v},
+            "bytes": {k: int(v) for k, v in cost.collective_bytes.items()
+                      if v}}
+    rec["replays"] = replays[0]
+    return eng, rec
+
+
+def mesh_engine(dev, hp, mesh):
+    """Phase 20 (d), the engine: ``ContinuousLMEngine(mesh=)`` on the
+    (data 1, model 1) NCCL mesh (a), stablelm-1.6b FULL on phase 8b's
+    mixed load and deepseek-v2-lite-16b FULL on phase 12's, each drawn
+    placed from seed 0 (the unsharded engines' planes), through K1 + K3
+    (+ grouped K4): its decode step captured as one CUDA graph with the
+    collectives inside (``stats()["cuda_graph"]``), the per-step launches
+    counted at capture equal to the unsharded engine's, and its tokens
+    equal to the unsharded captured engine's on the same load bit for
+    bit. The replay (host wall, busy, NCCL kernels) against an unsharded
+    engine's on the same planes (gathered) and against the eager mesh
+    step. Helpers: ``counts``, ``reset_counts``, ``profiled``,
+    ``engine_ref`` and ``ds_engine_ref`` (phase 8b's and 12's load,
+    tokens and per-step launches). Returns the record; its ``launches``
+    are what the engines ran (wrapper calls, and each replay's captured
+    launches)."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import placed
+    out = {"launches": dict.fromkeys(("K1", "K2", "K3", "K4", "K4g"), 0)}
+
+    for name, cfg, ref in (
+            ("stablelm", get_arch("stablelm-1.6b").full, hp.engine_ref),
+            ("deepseek", get_arch("deepseek-v2-lite-16b").full,
+             hp.ds_engine_ref)):
+        runs = {}
+        # a window short of the step's kernels is opened again
+        expect = {k: v for k, v in ref["step"].items() if v}
+
+        def profiler(fn):
+            return hp.profiled(fn, expect=expect)
+
+        for tag in ("mesh", "unsharded"):
+            hp.reset_counts()
+            params = (None if tag == "mesh"
+                      else _tree_map(placed.plain, mesh_eng.params))
+            eng, rec = engine_on(cfg, ref["load"], dev,
+                                 mesh=mesh if tag == "mesh" else None,
+                                 params=params, profiler=profiler)
+            torch.cuda.synchronize()
+            c = hp.counts()
+            for k in out["launches"]:
+                out["launches"][k] += c[k] + rec["replays"] * rec[
+                    "step_launches"].get(k, 0)
+            bad = []
+            if not rec["graph"] or rec["recompiles_after_warmup"] != 0:
+                bad.append(f"graph {rec['graph']}, recompiles "
+                           f"{rec['recompiles_after_warmup']}")
+            if rec["step_launches"] != ref["step"]:
+                bad.append(f"launches at capture {rec['step_launches']}, "
+                           f"the unsharded engine's {ref['step']}")
+            if rec["replay_profile"]["by_kernel"] != ref["step"]:
+                bad.append(f"one replay ran {rec['replay_profile']}")
+            if rec["tokens"] != ref["tokens"]:
+                bad.append("tokens differ from the unsharded captured "
+                           "engine's")
+            if bad:
+                raise AssertionError(f"(d) {name} engine ({tag}): "
+                                     + "; ".join(bad))
+            runs[tag] = rec
+            if tag == "mesh":
+                mesh_eng = eng
+            del eng, params
+        del mesh_eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[name] = runs
+        m, u = runs["mesh"], runs["unsharded"]
+        mp, up = m["replay_profile"], u["replay_profile"]
+        log(f"  (d) ContinuousLMEngine(mesh=(data 1, model 1), {cfg.name} "
+            f"FULL, seed 0) on the {len(ref['load'])}-request mixed load: "
+            f"its decode step one CUDA graph ({m['step_launches']} at "
+            f"capture, the unsharded engine's), captured in "
+            f"{m['capture_s']:.2f} s (warm-up step included); tokens "
+            f"equal the unsharded captured engine's bit for bit; "
+            f"{m['load_tokens']} tokens in {m['load_s']:.2f} s = "
+            f"{m['tok_per_s']:.1f} tok/s (unsharded {u['tok_per_s']:.1f})")
+        log(f"    one replay: host wall (median of {ENGINE_REPS}, "
+            f"synchronized) {m['replay_ms']:.3f} ms against unsharded "
+            f"{u['replay_ms']:.3f} ms; profiled: wall {mp['wall_ms']:.3f} "
+            f"ms, busy {mp['busy_ms']:.3f} ms over {mp['kernels']} "
+            f"kernels, {mp['nccl_kernels']} of them NCCL's "
+            f"({mp['nccl_ms']:.3f} ms), against unsharded wall "
+            f"{up['wall_ms']:.3f}, busy {up['busy_ms']:.3f} ms, "
+            f"{up['kernels']} kernels; the eager mesh step "
+            f"{m['eager_step_ms']:.1f} ms (unsharded eager "
+            f"{u['eager_step_ms']:.1f} ms); the step's collectives "
+            f"{m['step_collectives']}")
+    return out
+
+
+def mesh_serve_rank(rank, data, model, prompts, qwen, device=None,
+                    engines=None):
     """One rank of phase 20 (f), started by ``run_ranks`` on its own card
-    (``device="cpu"``: a gloo rank, for a rehearsal): ``Server(mesh=)`` on
+    (``device="cpu"``: a gloo rank, for a rehearsal): ``engines`` ({name:
+    (arch, load)}) each through :func:`engine_on` sharded over the mesh
+    (its step one CUDA graph a rank, the NCCL collectives inside; the
+    record under ``engine_<name>``, the tokens of every request), then
+    ``Server(mesh=)`` on
     a (data, model) mesh, stablelm-1.6b FULL drawn placed from seed 0 on
     ``prompts`` (K1 + K3), then deepseek-v2-lite-16b FULL (its experts
     split over ``model``) on phase 12's prompts, ``DS_PLAIN_NEW`` new
@@ -3824,6 +4076,13 @@ def mesh_serve_rank(rank, data, model, prompts, qwen, device=None):
     dev = (torch.device("cuda", torch.cuda.current_device()) if card
            else torch.device(device))
     out = {"card": torch.cuda.get_device_name(dev) if card else str(dev)}
+    for name, (arch, load) in (engines or {}).items():
+        eng, rec = engine_on(get_arch(arch).full, load, dev, mesh=mesh,
+                             profiler=lambda fn: profile_once(fn, card))
+        out["engine_" + name] = rec
+        del eng
+        if card:
+            torch.cuda.empty_cache()
     ds_cfg = get_arch("deepseek-v2-lite-16b").full
     runs = [("stablelm", get_arch("stablelm-1.6b").full, LM_NEW),
             ("deepseek", ds_cfg, DS_PLAIN_NEW)]
@@ -3928,8 +4187,15 @@ def mesh_serve_cards(n, hp, device=None):
     (``MESH_HYMBA_LONG``: its 5 kv heads split its caches' positions and
     its window's slots, combined by log-sum-exp) within rtol 1e-5 / atol
     1e-6 with tokens equal; each with the unsharded run's launches.
+    Before the Servers each rank runs the engine on the mesh
+    (:func:`engine_on`: stablelm on both meshes, deepseek on (1, n)),
+    every rank's decode step one CUDA graph with the NCCL collectives
+    inside, its launches at capture the unsharded engine's (one profiled
+    replay's reported), its tokens the unsharded captured engine's.
     Helpers: phase 8's ``prompts``, ``lm_tokens``, ``lm_logits``, phase
-    12's ``ds_tokens``, ``ds_logits``."""
+    12's ``ds_tokens``, ``ds_logits``, and ``engine_ref`` and
+    ``ds_engine_ref`` (the unsharded engines' loads, tokens and launches
+    a step)."""
     import gc
 
     import numpy as np
@@ -3972,11 +4238,48 @@ def mesh_serve_cards(n, hp, device=None):
         fam_want = {run[0]: family_reference(device, run, ops.launch_counts,
                                              reset_kernel_counts)
                     for run in fam_runs}
+        engines = {"stablelm": ("stablelm-1.6b", hp.engine_ref["load"])}
+        if data == 1:
+            engines["deepseek"] = ("deepseek-v2-lite-16b",
+                                   hp.ds_engine_ref["load"])
         t0 = time.perf_counter()
         res = run_ranks(mesh_serve_rank, n, device=device,
                         args=(data, model, prompts, (data, model) == (1, n),
-                              device),
+                              device, engines),
                         timeout=1500)
+        for name in engines:
+            ref = hp.engine_ref if name == "stablelm" else hp.ds_engine_ref
+            for r, rr in enumerate(res):
+                e = rr["engine_" + name]
+                # the profiled replay's kernels are reported, not held: a
+                # rank may not open a second window (its peers would not
+                # replay with it)
+                if e["tokens"] != ref["tokens"] or (device is None and (
+                        not e["graph"] or e["step_launches"] != ref["step"])):
+                    raise AssertionError(
+                        f"(f) ({data}, {model}) rank {r}'s {name} engine: "
+                        f"graph {e['graph']}, launches at capture "
+                        f"{e['step_launches']} (the unsharded engine's "
+                        f"{ref['step']}), one replay "
+                        f"{e['replay_profile']['by_kernel']}, tokens equal "
+                        f"the unsharded engine's: "
+                        f"{e['tokens'] == ref['tokens']}")
+            e = res[0]["engine_" + name]
+            rp = e["replay_profile"]
+            log(f"  (f) (data {data}, model {model}) over {n} cards: the "
+                f"{name} engine's decode step one CUDA graph on every rank "
+                f"({e['step_launches']} at capture, the unsharded "
+                f"engine's), captured in {e['capture_s']:.2f} s; every "
+                f"rank's tokens equal the unsharded engine's on the "
+                f"{len(e['tokens'])}-request mixed load ({e['load_tokens']} "
+                f"tokens in {e['load_s']:.2f} s = {e['tok_per_s']:.1f} "
+                f"tok/s); rank 0's replay {e['replay_ms']:.3f} ms (median, "
+                f"synchronized; eager step {e['eager_step_ms']:.1f} ms), "
+                f"profiled busy {rp['busy_ms']:.3f} ms over "
+                f"{rp['kernels']} kernels, {rp['nccl_kernels']} NCCL "
+                f"({rp['nccl_ms']:.3f} ms, waits included), LM kernels "
+                f"{rp['by_kernel']}; the step's collectives a rank "
+                f"{e['step_collectives']}")
         st, ds = res[0]["stablelm"], res[0]["deepseek"]
         if st["tokens"] != hp.lm_tokens or not torch.equal(st["logits"],
                                                            want):
@@ -4274,6 +4577,10 @@ def mesh_phase(dev, hp):
     for k in out["launches"]:
         out["launches"][k] += out["d_families"]["launches"][k]
     mark("(d) sharded SSM, hybrid and encoder-decoder Servers")
+    out["d_engine"] = mesh_engine(dev, hp, mesh)
+    for k in out["launches"]:
+        out["launches"][k] += out["d_engine"]["launches"][k]
+    mark("(d) the engine on the mesh")
     out["e"] = split_arithmetic(dev)
     mark("(e) split arithmetic")
     out["de_s"] = time.perf_counter() - t_de
@@ -5195,11 +5502,11 @@ def main() -> int:
                 "K1_ms": sum(ms[k] for k in k1_names),
                 "K1_launches": sum(launches[k] for k in k1_names)}
 
-    def profile_counts(fn):
+    def profile_counts(fn, expect=None):
         """``fn`` once under the profiler: host wall, the card's busy time
         (its own events) and every device kernel's launches and ms by
         name."""
-        prof, wall = profiled(fn)
+        prof, wall = profiled(fn, expect=expect)
         busy, names, ms = 0.0, {}, {}
         for evt in prof.key_averages():
             if evt.device_type == DeviceType.CUDA and not is_spin(evt.key):
@@ -5574,15 +5881,8 @@ def main() -> int:
         return out
 
     def cli_load(n, new_tokens=LM_NEW, vocab=lm_cfg.vocab_size):
-        """The reference CLI's mixed load (``launch/serve.py``): prompts of
-        4-16 tokens from RandomState(0), every 4th request long."""
-        rng = np.random.RandomState(0)
-        m_long = max(1, min(new_tokens, LM_MAX_LEN - 16))
-        return [GenRequest(
-            rng.randint(0, vocab,
-                        (int(rng.randint(4, 17)),)).astype(np.int32),
-            m_long if i % 4 == 0 else max(1, m_long // 4))
-            for i in range(n)]
+        """:func:`mixed_load` as requests."""
+        return [GenRequest(p, m) for p, m in mixed_load(n, vocab, new_tokens)]
 
     def first_difference(got, want):
         for t, (a, b) in enumerate(zip(got, want)):
@@ -5715,6 +6015,10 @@ def main() -> int:
                 f"{first_difference(r.out_tokens, ref)}")
     log(f"  every request's tokens equal its eager run alone at the "
         f"engine's shapes; request 0: {out[0].out_tokens}")
+    # what phase 20 (d) holds the engine on a mesh to
+    engine_ref = {"load": [(r.prompt.copy(), r.max_new_tokens) for r in load],
+                  "tokens": [list(r.out_tokens) for r in out],
+                  "step": dict(st["step_launches"])}
     # against a 1-slot eager Server (batch 1, the prompt unpadded): other
     # shapes, so the float parts may round otherwise; reported, with the
     # eager run's top-2 logit gap at the token where they part
@@ -5768,7 +6072,8 @@ def main() -> int:
                         "K4": per_step * len(four), "K4g": 0}):
         raise AssertionError(f"K4 engine: launches at capture {k4_step}, "
                              f"prefill launches in the serve {c_k4}")
-    k4_prof = by_kernel(profile_counts(k4_eng._run_step)["launches"])
+    k4_prof = by_kernel(profile_counts(k4_eng._run_step, expect={
+        k: v for k, v in want_k4.items() if v})["launches"])
     if k4_prof != want_k4:
         raise AssertionError(f"the profiler saw {k4_prof} in one K4 replay, "
                              f"want {want_k4}")
@@ -5808,7 +6113,8 @@ def main() -> int:
     # the arena as the load left it; its inactive rows stay frozen
     rec["replay_step_ms"] = fenced_ms(eng._run_step, 15)
     eng._run_step()
-    prof = profile_counts(eng._run_step)
+    prof = profile_counts(eng._run_step,
+                          expect={k: v for k, v in want_step.items() if v})
     rec["profile_replay"] = {"wall_ms": prof["wall_ms"],
                              "device_ms": prof["device_ms"],
                              "launches_by_kernel": by_kernel(
@@ -6577,6 +6883,10 @@ def main() -> int:
         raise AssertionError("graphed and eager drop fractions differ")
     log("  the graphed engine equals the same engine stepping eagerly on "
         "the same load, tokens and drop fractions bit for bit")
+    ds_engine_ref = {"load": [(r.prompt.copy(), r.max_new_tokens)
+                              for r in ds_load],
+                     "tokens": [list(r.out_tokens) for r in ds_out],
+                     "step": dict(ds_want_step)}
     # the plain versions' engine (captured too) on the first four requests,
     # against the graphed engine on the same four (four fill every slot)
     four = [GenRequest(r.prompt.copy(), min(r.max_new_tokens,
@@ -6627,7 +6937,8 @@ def main() -> int:
     # kernels by name against the wrappers' count at capture
     ds["replay_step_ms"] = fenced_ms(ds_eng._run_step, 15)
     ds_eng._run_step()
-    prof = profile_counts(ds_eng._run_step)
+    prof = profile_counts(ds_eng._run_step, expect={
+        k: v for k, v in ds_want_step.items() if v})
     in_path = {}
     for name, v in prof["ms"].items():
         kid = kernel_of(name)
@@ -7100,7 +7411,8 @@ def main() -> int:
         lm_logits=lm_k3[1], ds_prompts=ds_prompts, ds_tokens=ds_short[0],
         ds_logits=ds_short[1], ssm_tokens={
             arch: ssm_rec[arch]["run1"]["tokens"]
-            for arch in ("mamba2-780m", "hymba-1.5b")}))
+            for arch in ("mamba2-780m", "hymba-1.5b")},
+        engine_ref=engine_ref, ds_engine_ref=ds_engine_ref))
     record["mesh"] = mesh_rec
     mesh_ran = mesh_rec["launches"]
 
@@ -7240,8 +7552,10 @@ def cards_main() -> int:
     """``python3 chip_smoke.py --cards``: phase 20 (f) alone, on every
     card of a machine with two or more (the whole script runs it too,
     after phases 1-19): the kernels built, phase 8's unsharded ``Server``
-    on its four requests and phase 12's deepseek one on its four, for the
-    records (f) holds each mesh to, then :func:`mesh_serve_cards`. The
+    on its four requests and phase 12's deepseek one on its four, and the
+    unsharded captured engines on the mixed loads of phases 8b and 12,
+    for the records (f) holds each mesh to, then
+    :func:`mesh_serve_cards`. The
     record goes to ``chiprun_out/chip_smoke_cards.json``."""
     import gc
     import torch
@@ -7284,6 +7598,17 @@ def cards_main() -> int:
     hp.ds_tokens, hp.ds_logits = moe_reference(
         None, ds_cfg, moe_prompts(ds_cfg), DS_PLAIN_NEW)
     gc.collect()
+    # the unsharded captured engines on phase 8b's and 12's mixed loads:
+    # what (f)'s engines on the meshes are held to
+    dev = torch.device("cuda", 0)
+    for attr, c in (("engine_ref", cfg), ("ds_engine_ref", ds_cfg)):
+        load = mixed_load(ENGINE_LOAD, c.vocab_size)
+        eng, rec = engine_on(c, load, dev, reps=0, eager_reps=0)
+        setattr(hp, attr, {"load": load, "tokens": rec["tokens"],
+                           "step": rec["step_launches"]})
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
     record = {"cards": smi,
               "f": mesh_serve_cards(torch.cuda.device_count(), hp),
               "total_s": time.perf_counter() - t_start}

@@ -120,6 +120,16 @@ class Program:
         from repro_torch.compiler import executor
         return executor.make_runner(self)(self.params, x)
 
+    def run(self, x: torch.Tensor, **kw) -> torch.Tensor:
+        """Eager execution, as the reference's ``Program.run`` (its un-jitted
+        path, for debugging and dispatch costing): ``kw`` goes to
+        :func:`~repro_torch.compiler.executor.make_runner` (``steps``,
+        ``input_name``, ``output_name``; the reference's ``backend`` and
+        ``interpret`` select Pallas or XLA, which the port has no
+        counterpart of)."""
+        from repro_torch.compiler import executor
+        return executor.make_runner(self, **kw)(self.params, x)
+
     def to_command_stream(self, mode: str = "pipelined",
                           **kw) -> codegen.CommandStream:
         """Lower to the controller command stream (cycle estimates, runtime

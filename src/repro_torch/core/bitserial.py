@@ -43,6 +43,11 @@ class SerialSpec:
                 raise ValueError(f"bit depth {b} outside the MVU's 1..16 range")
 
     @property
+    def cycles_per_tile(self) -> int:
+        """MVU cycles per 64x64 tile (paper §3.1.1): b_w * b_a."""
+        return self.a_bits * self.w_bits
+
+    @property
     def num_plane_products(self) -> int:
         na = bitops.num_digits(self.a_bits, self.radix_bits, self.a_signed)
         nw = bitops.num_digits(self.w_bits, self.radix_bits, self.w_signed)

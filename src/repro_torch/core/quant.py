@@ -184,6 +184,10 @@ class QuantizedWeight:
     signed: bool
     k: int  # logical reduction length
 
+    @property
+    def out_features(self) -> int:
+        return self.packed.shape[-1]
+
 
 @dataclasses.dataclass
 class QuantizedConvWeight:
@@ -199,6 +203,14 @@ class QuantizedConvWeight:
     @property
     def out_channels(self) -> int:
         return self.packed.shape[-1]
+
+    @property
+    def fh(self) -> int:
+        return self.packed.shape[1]
+
+    @property
+    def fw(self) -> int:
+        return self.packed.shape[2]
 
 
 def pack_conv_weights(w: torch.Tensor, spec: QuantSpec,

@@ -32,8 +32,8 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-__all__ = ["is_placed", "local_of", "mesh_offset", "embedding", "whole_dim",
-           "per_head", "split_heads", "elementwise", "replicas",
+__all__ = ["is_placed", "local_of", "mesh_offset", "local_rows", "embedding",
+           "whole_dim", "per_head", "split_heads", "elementwise", "replicas",
            "sum_over_mesh", "like", "plain", "mesh_context",
            "contiguous_stride"]
 
@@ -69,6 +69,19 @@ def mesh_offset(mesh, placements, dim: int, size: int) -> Tuple[int, int]:
         raise ValueError(f"dimension {dim} of {size} over {n} ranks")
     step = size // n
     return i * step, step
+
+
+def local_rows(t, mesh, rows_on: Sequence[int]) -> torch.Tensor:
+    """This rank's rows of the placed ``t`` (B, ...) with the rows split
+    over the mesh dimensions ``rows_on`` (as a placed batch's are) and
+    whole over the others: ``t`` redistributed so (no collective when it
+    lies so already), its local shard returned. Reads nothing on the
+    host, so a captured step may call it."""
+    from torch.distributed.tensor import Replicate, Shard
+    pls = [Shard(0) if i in rows_on else Replicate() for i in range(mesh.ndim)]
+    if list(t.placements) != pls:
+        t = t.redistribute(mesh, pls)
+    return t.to_local()
 
 
 def embedding(table, tokens):

@@ -187,14 +187,17 @@ class CostMode(TorchDispatchMode):
         super().__init__()
         self.cost = HLOCost()
         self._quiet = 0         # > 0 inside a kernel's call
-        self._outer = None
+        # the modes each entry replaced: a stack, since the mode enters
+        # itself again to decompose a composite op
+        self._outer = []
 
     def __enter__(self):
-        self._outer, ACTIVE.mode = ACTIVE.mode, self
+        self._outer.append(ACTIVE.mode)
+        ACTIVE.mode = self
         return super().__enter__()
 
     def __exit__(self, *exc):
-        ACTIVE.mode = self._outer
+        ACTIVE.mode = self._outer.pop()
         return super().__exit__(*exc)
 
     # ------------------------------------------------------------ kernels

@@ -64,9 +64,12 @@ Prometheus text on ``127.0.0.1:PORT/metrics`` for the run, and
 saving on a miss). ``--data-par``/``--model-par`` (LM; every family but
 the encoder-decoder, which the CLI does not serve) serve the packed model
 sharded over a (data, model) mesh: the CLI starts one rank a card (gloo
-ranks with ``--device cpu``), each builds a :class:`Server` with
-``mesh=`` and serves ``batch`` 8-token prompts (``batch`` must divide
-over ``data``); rank 0 prints.
+ranks with ``--device cpu``); each builds a
+:class:`~repro_torch.serving.ContinuousLMEngine` with ``mesh=`` and
+serves the mixed load (its decode step one CUDA graph a rank, the NCCL
+collectives inside), or, for an arch the engine does not take, a
+:class:`Server` with ``mesh=`` serving ``batch`` 8-token prompts
+(``batch`` must divide over ``data``); rank 0 prints.
 ``compile`` is the offline code-generator run: graph →
 passes → calibration → packing → artifact store. ``profile`` times the
 compiled Program step by step on the device (CUDA events on the card)
@@ -91,18 +94,16 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_arch, list_archs
 from repro_torch.core.pipeline_modules import disable_tf32
 from repro_torch.distributed import placed
-from repro_torch.distributed.sharding import (batch_pspec, dp_axes_of,
-                                              mesh_sizes, place_tree,
-                                              to_placements)
+from repro_torch.distributed.sharding import batch_pspec, to_placements
 from repro_torch.models.layers import QuantPolicy
 from repro_torch.models.resnet import ResNet9Config, resnet9_graph, resnet9_init
 from repro_torch.models.transformer import (ModelConfig, decode_step,
-                                            init_params, pack_params,
                                             prefill, serve_policy)
 from repro_torch.obs import (format_trace_summary, start_metrics_server,
                              trace_summary, write_chrome_trace)
 from repro_torch.serving import (ContinuousLMEngine, InferenceService,
                                  ModelRegistry, supports_continuous)
+from repro_torch.serving.placement import check_mesh, serving_params
 
 __all__ = ["GenRequest", "Server", "make_lm_engine", "CNNServer", "main"]
 
@@ -239,53 +240,12 @@ class Server:
         self.batch_slots = batch_slots
         self.mesh = mesh
         if mesh is not None:
-            self._check_mesh(quantized)
-        if params is None:
-            gen = torch.Generator(device=self.device).manual_seed(seed)
-            if mesh is not None:
-                from repro_torch.launch.train import init_placed_params
-                params = init_placed_params(gen, cfg, mesh, packed=True)
-            else:
-                params = init_params(gen, cfg, packed=quantized)
-        if params["embed"].device != self.device:
-            raise ValueError(f"params lie on {params['embed'].device}, the "
-                             f"server on {self.device}")
-        # bit-transposed deployment, or the float params as they are
-        params = pack_params(params, cfg) if quantized else dict(params)
-        if mesh is not None and not placed.is_placed(params["embed"]):
-            params = place_tree(params, mesh)
-        if cfg.tie_embeddings:
-            params["head"] = {"w": params["embed"].to(cfg.compute_dtype).T}
-        else:
-            params["head"] = dict(params["head"], w=params["head"]["w"].to(
-                cfg.compute_dtype))
-        if mesh is not None:
-            # a replica's vocabulary shard whole over the DP axes: no
-            # gather of the table or the head in a step
-            params["embed"] = _whole_over_dp(params["embed"])
-            params["head"]["w"] = _whole_over_dp(params["head"]["w"])
-            params["groups"] = [_serving_placements(g)
-                                for g in params["groups"]]
-        self.params = params
+            check_mesh(mesh, self.device, quantized, batch_slots)
+        self.params = serving_params(cfg, params, device=self.device,
+                                     seed=seed, quantized=quantized,
+                                     mesh=mesh)
         self.last_logits = None
         self.last_stats = {}
-
-    def _check_mesh(self, quantized: bool) -> None:
-        mesh, dev = self.mesh, self.device
-        if dev.type != "meta" and mesh.device_type != dev.type:
-            raise ValueError(f"a {mesh.device_type} mesh serves on its "
-                             f"ranks' {mesh.device_type} devices, not {dev}")
-        if not quantized:
-            raise NotImplementedError("a mesh serves the packed model; "
-                                      "float serving on a mesh is not "
-                                      "ported")
-        dp = 1
-        for a in dp_axes_of(mesh):
-            dp *= mesh_sizes(mesh)[a]
-        if self.batch_slots % dp:
-            raise ValueError(f"batch_slots={self.batch_slots} does not "
-                             f"divide over the {dp} ranks of the DP axes "
-                             "(each rank serves its rows)")
 
     @contextlib.contextmanager
     def _context(self):
@@ -400,73 +360,6 @@ class Server:
             "decode_steps": max(0, n_new - 1),
         }
         return requests[:n_real]  # dummies pad the batch; don't return them
-
-
-def _serving_placements(p):
-    """A placed layer group's params as a sharded server holds them, moved
-    once here so that a step moves no parameter: each routed expert
-    projection's ``scale`` and ``alpha_a`` split over the experts as its
-    planes are (``param_pspec`` splits ``scale``'s columns, and a rank's
-    experts need all of theirs), MLA's float ``w_uk``/``w_uv`` whole on
-    every rank (a rank's heads need the whole latent dim, which
-    ``param_pspec`` splits over the DP axes, and a decode step attends
-    every head: ``attention._mla_placed``), and an SSM's ``norm``,
-    ``A_log``, ``D`` and ``dt_bias`` whole on every rank (``param_pspec``
-    splits them over ``model``; the scan runs on every head and the
-    gated norm's sum of squares over the whole ``d_inner``:
-    ``ssm._ssm_placed``)."""
-    from torch.distributed.tensor import Replicate
-
-    def whole(t):
-        return t.redistribute(t.device_mesh, [Replicate()]
-                              * t.device_mesh.ndim)
-
-    if isinstance(p, list):
-        return [_serving_placements(v) for v in p]
-    if not isinstance(p, dict):
-        return p
-    out = {}
-    for k, v in p.items():
-        if k == "moe":
-            out[k] = {n: (_experts_by_e(t) if n in ("w_up", "w_gate",
-                                                    "w_down") else t)
-                      for n, t in v.items()}
-        elif k in ("w_uk", "w_uv"):
-            out[k] = {n: whole(t) for n, t in v.items()}
-        elif k == "ssm":
-            out[k] = {n: whole(t) if n in ("norm", "A_log", "D", "dt_bias")
-                      else t for n, t in v.items()}
-        else:
-            out[k] = _serving_placements(v)
-    return out
-
-
-def _experts_by_e(p: dict) -> dict:
-    """Routed expert params (planes (..., E, bits, K/32, N), ``scale``
-    (..., E, N), ``alpha_a`` (..., E)) with ``scale`` and ``alpha_a``
-    placed as the planes' expert axis."""
-    from torch.distributed.tensor import Replicate, Shard
-    w = p["w_packed"]
-    e_dim = w.ndim - 4
-    out = dict(p)
-    for name, from_end in (("scale", 2), ("alpha_a", 1)):
-        t = p[name]
-        pls = [Shard(t.ndim - from_end) if pw.is_shard(e_dim) else
-               Replicate() for pw in w.placements]
-        if pls != list(t.placements):
-            out[name] = t.redistribute(t.device_mesh, pls)
-    return out
-
-
-def _whole_over_dp(t):
-    """A placed tensor made whole over the mesh's DP axes (its ``model``
-    split kept)."""
-    from torch.distributed.tensor import Replicate
-    names = t.device_mesh.mesh_dim_names
-    pls = [Replicate() if names[i] in ("pod", "data") else p
-           for i, p in enumerate(t.placements)]
-    return t if pls == list(t.placements) else t.redistribute(
-        t.device_mesh, pls)
 
 
 def make_lm_engine(server: Server):
@@ -856,24 +749,27 @@ def _main_static_lm(args, cfg: ModelConfig, mesh=None, rank: int = 0
 
 
 def _serve_mesh_rank(rank: int, cfg: ModelConfig, args) -> None:
-    """One rank of the LM CLI's mesh run (started by ``run_ranks``):
-    :func:`_main_static_lm` on a (``data_par``, ``model_par``) mesh."""
+    """One rank of the LM CLI's mesh run (started by ``run_ranks``) on a
+    (``data_par``, ``model_par``) mesh: the engine's mixed load
+    (:func:`_main_engine_lm`) when the slot arena takes the arch, else
+    the static load (:func:`_main_static_lm`)."""
     from repro_torch.launch.mesh import make_local_mesh
     if args.device is not None and torch.device(args.device).type == "cuda":
         args.device = None                      # this rank's own card
     mesh = make_local_mesh(args.data_par, args.model_par, device=args.device)
-    _main_static_lm(args, cfg, mesh=mesh, rank=rank)
+    if supports_continuous(cfg):
+        _main_engine_lm(args, cfg, mesh=mesh, rank=rank)
+    else:
+        _main_static_lm(args, cfg, mesh=mesh, rank=rank)
 
 
 def _main_lm(args) -> None:
     """The reference CLI's LM load through the continuous engine, submitted
-    through the serving runtime: mixed prompt lengths (4-16 tokens) and
-    decode budgets, every 4th request long, from ``RandomState(seed)``.
-    An arch the engine cannot take goes through :func:`_main_static_lm`;
-    with ``--data-par``/``--model-par`` above one rank, the ranks serve
-    the static load sharded (:func:`_serve_mesh_rank`). An
-    encoder-decoder exits with the reason: :meth:`Server.generate` feeds
-    no source."""
+    through the serving runtime (:func:`_main_engine_lm`). An arch the
+    engine cannot take goes through :func:`_main_static_lm`; with
+    ``--data-par``/``--model-par`` above one rank, the ranks serve the
+    same loads sharded (:func:`_serve_mesh_rank`). An encoder-decoder
+    exits with the reason: :meth:`Server.generate` feeds no source."""
     entry = get_arch(args.arch)
     cfg = entry.smoke if args.smoke else entry.full
     if cfg.family in ("encdec", "audio"):
@@ -896,13 +792,27 @@ def _main_lm(args) -> None:
     if not supports_continuous(cfg):
         _main_static_lm(args, cfg)
         return
+    _main_engine_lm(args, cfg)
+
+
+def _main_engine_lm(args, cfg: ModelConfig, mesh=None, rank: int = 0
+                    ) -> None:
+    """The continuous engine on the reference CLI's mixed load: prompts of
+    4-16 tokens and decode budgets from ``RandomState(seed)``, every 4th
+    request long, ``max(batch x 4, 8)`` of them, submitted through the
+    serving runtime. With ``mesh`` (one rank of a mesh run) the engine is
+    sharded over it and rank 0 alone prints; every rank's engine must
+    then take the same requests in the same calls (its host loop runs the
+    same collectives as its peers'), so the service hands it the whole
+    load as one micro-batch rather than what a timing window holds."""
     engine = ContinuousLMEngine(cfg, batch_slots=args.batch,
                                 max_len=LM_MAX_LEN, seed=args.seed,
                                 pack_acts=not args.no_pack_acts,
-                                device=args.device)
+                                device=args.device, mesh=mesh)
     warm = engine.warmup()
-    print(f"engine warmup: {warm['compiles']} compiles (buckets "
-          f"{warm['buckets']}) in {warm['seconds']}s")
+    if rank == 0:
+        print(f"engine warmup: {warm['compiles']} compiles (buckets "
+              f"{warm['buckets']}) in {warm['seconds']}s", flush=True)
     registry = ModelRegistry(device=engine.device)
     key = registry.register_callable(args.arch, engine)
     rng = np.random.RandomState(args.seed)
@@ -916,10 +826,18 @@ def _main_lm(args) -> None:
     kernels = "K1 + K3" if not args.no_pack_acts else "K4"
     if cfg.n_experts:
         kernels += " + grouped K4"
-    with InferenceService(registry, max_wait_s=0.0) as svc:
-        obs = _ObsSession(svc, trace_out=args.trace_out,
-                          metrics_port=args.metrics_port,
-                          metrics_every=args.metrics_every)
+    where = (_device_name(engine.device) if mesh is None else
+             f"a (data {args.data_par}, model {args.model_par}) mesh of "
+             f"{mesh.device_type}")
+    batching = (dict(max_wait_s=0.0) if mesh is None else
+                dict(max_batch=n_load, max_wait_s=24 * 3600.0))
+    with InferenceService(registry, **batching) as svc:
+        obs = _ObsSession(svc, trace_out=args.trace_out if rank == 0
+                          else None,
+                          metrics_port=args.metrics_port if rank == 0
+                          else None,
+                          metrics_every=args.metrics_every if rank == 0
+                          else 0.0)
         t0 = time.perf_counter()
         futures = svc.submit_many(key, reqs)
         svc.drain()
@@ -929,16 +847,19 @@ def _main_lm(args) -> None:
         total = sum(len(r.out_tokens) for r in out)
         em = m["engines"][str(key)]
         step = "CUDA graph" if em["jit"]["cuda_graph"] else "eager"
-        obs.emit(f"{cfg.name}: generated {total} tokens over {len(out)} "
-                 f"requests in {dt:.2f}s ({total / dt:.1f} tok/s, "
-                 f"continuous batching) on {_device_name(engine.device)}, "
-                 f"{cfg.n_layers} layers, {kernels}, decode step {step}",
-                 f"engine: occupancy={em['slot_occupancy']} "
-                 f"decode_steps={em['decode_steps']} "
-                 f"recompiles_after_warmup="
-                 f"{em['jit']['recompiles_after_warmup']} "
-                 f"scheduler_steps={m['scheduler']['admitted_batches']}",
-                 f"sample: {out[0].out_tokens}")
+        if rank == 0:
+            obs.emit(f"{cfg.name}: generated {total} tokens over {len(out)} "
+                     f"requests in {dt:.2f}s ({total / dt:.1f} tok/s, "
+                     f"continuous batching) on {where}, "
+                     f"{cfg.n_layers} layers, {kernels}"
+                     + ("" if mesh is None else " on each rank's planes")
+                     + f", decode step {step}",
+                     f"engine: occupancy={em['slot_occupancy']} "
+                     f"decode_steps={em['decode_steps']} "
+                     f"recompiles_after_warmup="
+                     f"{em['jit']['recompiles_after_warmup']} "
+                     f"scheduler_steps={m['scheduler']['admitted_batches']}",
+                     f"sample: {out[0].out_tokens}")
         obs.close()
 
 

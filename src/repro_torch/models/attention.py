@@ -545,7 +545,9 @@ def _attend_placed(q, k, v, cache: dict, cache_pos, cfg: AttnConfig,
     * Heads split: q, k and v are taken on the rank's heads (a q head's
       kv head lies on its rank) and the unsharded arithmetic runs on
       them, writing the rank's cache in place: equal to the unsharded
-      result bit for bit.
+      result bit for bit. An unchunked prefill and a per-row decode step
+      write so and then attend every head (:func:`_every_head_cache`): on
+      the card the einsums round by their head count.
     * Neither split (a replicated cache: its length does not divide
       either): every rank writes every kv head, and q keeps its split of
       the heads where whole kv groups, or a part of one, fall on each
@@ -569,19 +571,40 @@ def _attend_placed(q, k, v, cache: dict, cache_pos, cfg: AttnConfig,
       positions, combined as above. With the kv heads split, or the
       buffer whole, the rank's buffer runs the unsharded branch.
 
-    Per-row positions (the engine's arena) raise: a later slice on a
-    mesh."""
+    ``cache_pos`` may be a (B,) tensor of per-row positions placed like
+    the batch (the engine's slot arena): each rank takes its rows of it,
+    and nothing reads it on the host. With the heads split or the cache
+    whole the rank writes its share as the unsharded per-row branch does
+    and attends every head and every row over the cache gathered whole,
+    keeping its rows (:func:`_every_head_cache`; an unchunked prefill
+    attends every head of its rows): bit for bit; with
+    the positions split
+    each row's new K/V lands in the slot of its own position on the rank
+    that holds it (a masked select, :func:`_write_positions`) and the
+    causal mask compares each row's own position with the slots'. A
+    rolling buffer takes a host int only and raises for per-row
+    positions, as :func:`update_kv_cache` does."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
     ref = _a_cache_tensor(cache)
     mesh = ref.device_mesh
-    if _per_row(cache_pos):
-        raise NotImplementedError("per-row cache positions on a mesh (the "
-                                  "engine's captured step) are a later slice")
+    if _per_row(cache_pos) and "rolling" in cache:
+        raise ValueError("per-row cache positions on a placed rolling "
+                         "(sliding-window) buffer: a rolling cache takes "
+                         "one host-int position for every row")
     rows_on = [i for i, p in enumerate(ref.placements) if p.is_shard(0)]
+    rows_pos = cache_pos
+    if _per_row(cache_pos):
+        cache_pos = placed.local_rows(cache_pos, mesh, rows_on)
     seq_on = [i for i, p in enumerate(ref.placements) if p.is_shard(1)]
     heads_on = [i for i, p in enumerate(ref.placements) if p.is_shard(2)]
     pls = [Shard(0) if i in rows_on else Shard(2) if i in heads_on
            else Replicate() for i in range(mesh.ndim)]
+    s = q.shape[1]
+    if (not seq_on and "rolling" not in cache
+            and (_per_row(cache_pos) or s > 1)
+            and not (use_chunked and _host_zero(cache_pos))):
+        return _every_head_cache(q, k, v, cache, cache_pos, rows_pos, cfg,
+                                 pls, rows_on)
     q_pls, kv_heads = pls, slice(None)
     if not seq_on and not heads_on:
         q_pls, kv_heads = _q_heads_split(q, pls, rows_on, k.shape[2])
@@ -593,14 +616,14 @@ def _attend_placed(q, k, v, cache: dict, cache_pos, cfg: AttnConfig,
         out, new_local = _attend_cache(ql, kl, vl, local, cache_pos, cfg,
                                        use_chunked, chunk, kv_heads)
     else:
-        pos, s, total = int(cache_pos), q.shape[1], ref.shape[1]
+        s, total = q.shape[1], ref.shape[1]
         t0, tn = placed.mesh_offset(mesh, ref.placements, 1, total)
         rolling = "rolling" in cache
         if rolling:
-            new_local = _roll_positions(local, kl, vl, pos, t0, total, mesh,
-                                        ref.placements)
+            new_local = _roll_positions(local, kl, vl, int(cache_pos), t0,
+                                        total, mesh, ref.placements)
         else:
-            new_local = _write_positions(local, kl, vl, pos, t0, total)
+            new_local = _write_positions(local, kl, vl, cache_pos, t0, total)
         if s > 1 and use_chunked and _host_zero(cache_pos):
             # prefill into an empty cache: the fresh K/V (whole on every
             # rank), chunked, as _attend_cache
@@ -614,11 +637,53 @@ def _attend_placed(q, k, v, cache: dict, cache_pos, cfg: AttnConfig,
             # a rolling buffer's slot j holds position len - total + j
             kpos = t0 + torch.arange(tn, device=kc.device)
             if rolling:
-                kpos = kpos + (pos + s - total)
-            out = _combined_attention(ql, kc, vc, pos, kpos, mesh, seq_on,
-                                      causal=cfg.causal, window=cfg.window)
+                kpos = kpos + (int(cache_pos) + s - total)
+            out = _combined_attention(ql, kc, vc, cache_pos, kpos, mesh,
+                                      seq_on, causal=cfg.causal,
+                                      window=cfg.window)
     shape = tuple(q.shape[:3]) + (v.shape[-1],)
     out = DTensor.from_local(out.contiguous(), mesh, q_pls,
+                             shape=torch.Size(shape),
+                             stride=placed.contiguous_stride(shape))
+    return out, dict(cache, len=new_local["len"])
+
+
+def _every_head_cache(q, k, v, cache: dict, cache_pos, rows_pos,
+                      cfg: AttnConfig, pls, rows_on):
+    """:func:`_attend_placed`'s prefill (unchunked) and per-row decode
+    over a cache whose positions are whole (its kv heads split, or it
+    whole): each rank writes its share of the new K/V as the unsharded
+    branch does (``update_kv_cache``, per-row scatter included), then
+    attends every head over the cache gathered whole over the heads,
+    ``q`` gathered alike; a per-row decode step attends every row too
+    (``rows_pos`` the placed (B,) positions, ``cache_pos`` the rank's
+    rows of them) and keeps its rows. On the card the float32 einsums
+    round by their head and their row count, which a code flip carries
+    to the logits (a 14-token prompt's prefill 0.41 apart on four cards,
+    a token parting on a data axis); so each head's and row's arithmetic
+    is the unsharded one. The output is whole over the heads (the
+    row-parallel ``wo`` takes its words of it)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = q.device_mesh
+    rows = [Shard(0) if i in rows_on else Replicate()
+            for i in range(mesh.ndim)]
+    kl, vl = (t.redistribute(mesh, pls).to_local() for t in (k, v))
+    local = {n: (t.to_local() if placed.is_placed(t) else t)
+             for n, t in cache.items()}
+    new_local = update_kv_cache(local, kl, vl, cache_pos)
+    seen = [Replicate()] * mesh.ndim if _per_row(cache_pos) else rows
+    whole = {n: t.redistribute(mesh, seen).to_local()
+             for n, t in cache.items() if placed.is_placed(t)}
+    kc, vc = read_kv_cache(whole, q.dtype)
+    offset = (placed.local_rows(rows_pos, mesh, [])
+              if _per_row(cache_pos) else cache_pos)
+    out = _sdpa_full(q.redistribute(mesh, seen).to_local(), kc, vc,
+                     causal=cfg.causal, q_offset=offset, window=cfg.window)
+    if _per_row(cache_pos):             # this rank's rows
+        b0, bn = placed.mesh_offset(mesh, rows, 0, q.shape[0])
+        out = out[b0:b0 + bn]
+    shape = tuple(q.shape[:3]) + (v.shape[-1],)
+    out = DTensor.from_local(out.contiguous(), mesh, rows,
                              shape=torch.Size(shape),
                              stride=placed.contiguous_stride(shape))
     return out, dict(cache, len=new_local["len"])
@@ -646,22 +711,46 @@ def _q_heads_split(q, pls, rows_on, n_kv: int):
     return q_pls, slice(g0, g0 + max(1, hq // rep))
 
 
-def _write_positions(cache: dict, k_new, v_new, pos: int, t0: int,
+def _write_positions(cache: dict, k_new, v_new, pos, t0: int,
                      total: int) -> dict:
     """Write the new K/V (global positions ``pos ..``) into a rank's slots
     ``t0 .. t0 + T_local - 1`` of a position-split cache, the positions
-    that fall there only; ``len`` becomes ``pos + S``."""
+    that fall there only; ``len`` becomes ``pos + S``. ``pos`` is a host
+    int, or the rank's rows of per-row positions
+    (:func:`_select_write`)."""
     s = k_new.shape[1]
+    if _per_row(pos):
+        for name, new in _entries(cache, k_new, v_new):
+            _select_write(cache[name], new, pos, t0, total)
+        return dict(cache, len=pos + s)
+    tn = _a_cache_tensor(cache).shape[1]
     if pos < 0 or pos + s > total:
         raise ValueError(f"cache write [{pos}, {pos + s}) outside "
                          f"max_len={total}")
-    tn = _a_cache_tensor(cache).shape[1]
     a, e = max(pos, t0), min(pos + s, t0 + tn)
     if a < e:
         for name, new in _entries(cache, k_new, v_new):
             cache[name][:, a - t0:e - t0] = new[:, a - pos:e - pos].to(
                 cache[name].dtype)
     return dict(cache, len=pos + s)
+
+
+def _select_write(buf: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
+                  t0: int, total: int) -> None:
+    """Write ``new`` (B, S, ...) into a rank's slots ``t0 ..`` (of
+    ``total`` positions) ``buf`` (B, T_local, ...), row b at positions
+    ``pos[b] ..`` (each start clamped into the cache, as
+    :func:`_seq_write` clamps it), in place: a slot takes the new value
+    where it holds its row's position and keeps its own elsewhere, a
+    select with no host read."""
+    s = new.shape[1]
+    start = torch.clamp(pos.to(torch.int64), 0, total - s)
+    slots = t0 + torch.arange(buf.shape[1], device=buf.device)
+    new = new.to(buf.dtype)
+    for i in range(s):
+        hit = slots[None, :] == (start + i)[:, None]             # (B, Tl)
+        hit = hit.reshape(tuple(hit.shape) + (1,) * (buf.dim() - 2))
+        buf.copy_(torch.where(hit, new[:, i:i + 1], buf))
 
 
 def _entries(cache: dict, k_new, v_new):
@@ -713,10 +802,11 @@ def _roll_positions(cache: dict, k_new, v_new, pos: int, t0: int,
     return dict(cache, len=pos + s)
 
 
-def _combined_attention(q, k, v, q_offset: int, kpos: torch.Tensor, mesh,
+def _combined_attention(q, k, v, q_offset, kpos: torch.Tensor, mesh,
                         seq_on, *, causal: bool,
                         window: Optional[int] = None):
-    """Attention of q (B, Sq, H, D), the first query at ``q_offset``, over
+    """Attention of q (B, Sq, H, D), the first query at ``q_offset`` (a
+    host int, or a (B,) tensor: each row's own), over
     a rank's slots k/v (B, Tl, Hkv, D*), slot j at global position
     ``kpos[j]`` (negative: an unfilled rolling slot, masked), under the
     causal and window masks, combined over the mesh dimensions ``seq_on``
@@ -731,13 +821,20 @@ def _combined_attention(q, k, v, q_offset: int, kpos: torch.Tensor, mesh,
     qg = q.reshape(b, sq, hkv, h // hkv, d)
     root = device_scalar(math.sqrt(d), q.device)
     scores = torch.einsum("bqgrd,bkgd->bgrqk", qg.to(f32), k.to(f32)) / root
-    qpos = q_offset + torch.arange(sq, device=q.device)[:, None]
-    kp = kpos[None, :]
+    ar = torch.arange(sq, device=q.device)
+    if _per_row(q_offset):
+        qpos = q_offset.to(torch.int64)[:, None, None] + ar[None, :, None]
+        kp = kpos[None, None, :]
+    else:
+        qpos = q_offset + ar[:, None]
+        kp = kpos[None, :]
     mask = kp < 0
     if causal:
         mask = mask | (kp > qpos)
     if window is not None:
         mask = mask | (kp <= qpos - window)
+    if _per_row(q_offset):
+        mask = mask[:, None, None]            # (B, 1, 1, Sq, Tl)
     scores = scores.masked_fill(mask, -math.inf)
     m = torch.amax(scores, dim=-1)
     m0 = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
@@ -905,50 +1002,46 @@ def _mla_placed(p: dict, q, ckv, cfg: AttnConfig, policy: QuantPolicy,
     ``k_rope``'s positions. Each rank runs :func:`_mla_heads` on its rows,
     with ``ckv`` made whole first (its columns straddle the ``c``/``k_rope``
     boundary, and the norm takes the whole latent), and writes the new
-    latents that fall in its shards of the cache. A prefill attends the
-    rank's share of the heads (when they divide over ``model``; else all
-    of them); a decode step gathers the layer's ``c`` and ``k_rope`` whole
-    over ``model`` (per rank, (B_local, T, kv_lora + dr) elements) and
-    attends every head: on the card the absorbed form's float32 einsums
-    round otherwise on a subset of the heads than on all of them, which a
-    bf16 cast or an activation code can carry to the logits. So each
-    head's arithmetic is the unsharded one at the rank's rows: equal to
-    it bit for bit. The contexts go to the row-parallel ``wo``, which
-    takes its words of them. Per-row positions (the engine's arena)
-    raise: a later slice on a mesh."""
+    latents that fall in its shards of the cache. A prefill attends every
+    head over the fresh latents; a decode step gathers the layer's ``c``
+    and ``k_rope`` whole over ``model`` (per rank, (B_local, T, kv_lora +
+    dr) elements) and attends every head: on the card the float32
+    einsums round otherwise on a subset of the heads than on all of them,
+    which a bf16 cast or an activation code can carry to the logits (the
+    absorbed decode's on four cards, and GQA's prefill). So each head's
+    arithmetic is the unsharded one at the rank's rows: equal to it bit
+    for bit. The contexts go to the row-parallel ``wo``, which
+    takes its words of them. Per-row positions (a (B,) ``cache_pos``, the
+    engine's arena; ``positions`` then (B, 1)) are a decode step: each
+    rank takes its rows of both, writes each row's latent at its own
+    position into the shards that hold it (a masked select, no host
+    read) and attends every head, the unsharded per-row arithmetic."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
     from repro_torch.models.layers import _local_range
-    if _per_row(cache_pos):
-        raise NotImplementedError("per-row cache positions on a mesh (the "
-                                  "engine's captured step) are a later slice")
     mesh = cache["c"].device_mesh
     b, s = q.shape[:2]
-    h, width = cfg.n_heads, cfg.qk_nope_dim + cfg.qk_rope_dim
-    model_on = [i for i, n in enumerate(mesh.mesh_dim_names)
-                if n == "model" and mesh.size(i) > 1]
+    h = cfg.n_heads
     rows_on = [i for i, pl in enumerate(q.placements) if pl.is_shard(0)]
-    pos = int(cache_pos)
-    prefill = s > 1 and pos == 0
-    heads_on = model_on if prefill and h % math.prod(
-        mesh.size(i) for i in model_on) == 0 else []
-    pls = [Shard(0) if i in rows_on else Shard(2) if i in heads_on
-           else Replicate() for i in range(mesh.ndim)]
-    h0, hl = placed.mesh_offset(mesh, pls, 2, h)
+    if _per_row(cache_pos):
+        pos = placed.local_rows(cache_pos, mesh, rows_on)
+        positions = placed.local_rows(positions, mesh, rows_on)
+        prefill = False
+    else:
+        pos = int(cache_pos)
+        prefill = s > 1 and pos == 0
+    pls = [Shard(0) if i in rows_on else Replicate()
+           for i in range(mesh.ndim)]
 
-    def heads(t, w):
-        """The columns of this rank's heads, ``w`` a head, of a placed
-        (..., h·w) tensor, on this rank's rows."""
+    def whole(t):
+        """This rank's rows of a placed (..., n) tensor, whole in n."""
         if t.ndim == 0:
             return placed.local_of(t)
-        return _local_range(t, heads_on, h * w, h0 * w, (h0 + hl) * w)
+        return _local_range(t, [], t.shape[-1], 0, t.shape[-1])
 
     lp = {"kv_norm": placed.local_of(p["kv_norm"]),
-          "w_uk": {k: heads(v, cfg.qk_nope_dim)
-                   for k, v in p["w_uk"].items()},
-          "w_uv": {k: heads(v, cfg.v_head_dim)
-                   for k, v in p["w_uv"].items()}}
-    ql = heads(q, width)
-    ckv_l = _local_range(ckv, [], ckv.shape[-1], 0, ckv.shape[-1])
+          "w_uk": {k: whole(v) for k, v in p["w_uk"].items()},
+          "w_uv": {k: whole(v) for k, v in p["w_uv"].items()}}
+    ql, ckv_l = whole(q), whole(ckv)
 
     def latent(c, k_rope):
         for name, new in (("c", c), ("k_rope", k_rope)):
@@ -957,7 +1050,7 @@ def _mla_placed(p: dict, q, ckv, cfg: AttnConfig, policy: QuantPolicy,
             return None, None
         return tuple(_whole_latent(cache[n]) for n in ("c", "k_rope"))
 
-    out = _mla_heads(lp, ql, ckv_l, cfg, policy, positions, hl, latent,
+    out = _mla_heads(lp, ql, ckv_l, cfg, policy, positions, h, latent,
                      pos, **chunk)
     shape = torch.Size((b, s, h * cfg.v_head_dim))
     out = DTensor.from_local(out.contiguous(), mesh, pls,
@@ -966,18 +1059,22 @@ def _mla_placed(p: dict, q, ckv, cfg: AttnConfig, policy: QuantPolicy,
     return qdense(p["wo"], out, policy), dict(cache, len=pos + s)
 
 
-def _write_latent(dst, new: torch.Tensor, pos: int) -> None:
+def _write_latent(dst, new: torch.Tensor, pos) -> None:
     """Write ``new`` (B_local, S, n), this rank's rows, at global
     positions ``pos ..`` into its shard of the placed latent cache
     ``dst`` (B, T, n), in place: the positions and the columns that fall
-    in its shard."""
+    in its shard. ``pos`` is a host int or the rank's rows of per-row
+    positions (:func:`_select_write`)."""
     mesh, total = dst.device_mesh, dst.shape[1]
     s = new.shape[1]
+    t0, tn = placed.mesh_offset(mesh, dst.placements, 1, total)
+    c0, cn = placed.mesh_offset(mesh, dst.placements, 2, dst.shape[2])
+    if _per_row(pos):
+        _select_write(dst.to_local(), new[..., c0:c0 + cn], pos, t0, total)
+        return
     if pos < 0 or pos + s > total:
         raise ValueError(f"cache write [{pos}, {pos + s}) outside "
                          f"max_len={total}")
-    t0, tn = placed.mesh_offset(mesh, dst.placements, 1, total)
-    c0, cn = placed.mesh_offset(mesh, dst.placements, 2, dst.shape[2])
     a, e = max(pos, t0), min(pos + s, t0 + tn)
     if a < e:
         loc = dst.to_local()

@@ -784,6 +784,27 @@ def _whole_logits(logits):
         else logits
 
 
+def _at_rows(x, last_pos):
+    """(B, 1, D): row b of ``x`` (B, S, D) at position ``last_pos[b]``. A
+    placed ``x`` (a mesh run) is gathered on each rank's rows, whole in
+    its other dimensions, and indexed locally (DTensor has no strategy for
+    the advanced index); the result is placed on those rows."""
+    if not placed.is_placed(x):
+        return x[torch.arange(x.shape[0], device=x.device), last_pos][:, None]
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = x.device_mesh
+    rows_on = [i for i, p in enumerate(x.placements) if p.is_shard(0)]
+    rows = [Shard(0) if i in rows_on else Replicate()
+            for i in range(mesh.ndim)]
+    xl = x.redistribute(mesh, rows).to_local()
+    lp = placed.local_rows(last_pos, mesh, rows_on)
+    out = xl[torch.arange(xl.shape[0], device=xl.device), lp][:, None]
+    shape = (x.shape[0], 1, x.shape[2])
+    return DTensor.from_local(out.contiguous(), mesh, rows,
+                              shape=torch.Size(shape),
+                              stride=placed.contiguous_stride(shape))
+
+
 def prefill(params, batch, cfg: ModelConfig, max_len: int, last_pos=None):
     """Run the prompt, building caches. Returns ``(last_logits (B, V),
     caches)``: the logits of every row's last position, or, with
@@ -806,7 +827,7 @@ def prefill(params, batch, cfg: ModelConfig, max_len: int, last_pos=None):
                             positions=positions, caches=caches, cache_pos=0,
                             enc_out=enc_out)
     if last_pos is not None:
-        x = x[torch.arange(x.shape[0], device=x.device), last_pos][:, None]
+        x = _at_rows(x, last_pos)
     else:
         x = x[:, -1:]
     return _whole_logits(_logits(params, x, cfg)[:, 0]), caches
@@ -820,18 +841,27 @@ def decode_step(params, caches, tokens, pos, cfg: ModelConfig,
     every row at its own depth; nothing then reads a device value on the
     host). ``aux``, a dict, receives the MoE layers' ``lb_loss`` and
     ``drop_frac``, one per MoE layer each. Returns ``(logits (B, V),
-    caches)``; on placed params and caches (a sharded server) the logits
-    are whole on every rank, and per-row positions raise (the engine's
-    captured step on a mesh is a later slice)."""
-    if _mesh_of(params) is not None:
-        if torch.is_tensor(pos) and pos.dim() == 1:
-            raise NotImplementedError("per-row positions on a mesh (the "
-                                      "engine's captured step) are a later "
-                                      "slice")
+    caches)``. On placed params and caches (a sharded server or engine)
+    the logits are whole over the vocabulary on every rank, and a (B,)
+    ``pos`` may be placed like the batch (the engine's arena) or plain,
+    whole on every rank (then placed so, each rank keeping its rows): the
+    positions and the caches' per-row writes take each rank's rows of
+    it. Only a rolling (sliding-window) buffer refuses per-row
+    positions, placed or not."""
+    per_row = torch.is_tensor(pos) and pos.dim() == 1
+    mesh = _mesh_of(params)
+    if mesh is not None:
         x = _embed(params["embed"], tokens).to(cfg.compute_dtype)
+        if per_row and not placed.is_placed(pos):
+            from torch.distributed.tensor import distribute_tensor
+            from repro_torch.distributed.sharding import (batch_pspec,
+                                                          to_placements)
+            pos = distribute_tensor(pos, mesh, to_placements(
+                batch_pspec(tuple(pos.shape), mesh), mesh),
+                src_data_rank=None)
     else:
         x = params["embed"][tokens].to(cfg.compute_dtype)
-    if torch.is_tensor(pos) and pos.dim() == 1:
+    if per_row:
         positions = pos[:, None]
     else:
         positions = torch.full((1, 1), int(pos), dtype=torch.int64,

@@ -33,6 +33,16 @@ step, so each step's column is cloned before the next one runs. On the
 CPU the same step runs eagerly on the same buffers. There is no eager
 option on the card: a capture that fails raises.
 
+On a data x model mesh (``mesh=``, one rank a card) every rank holds its
+planes (placed by :func:`~repro_torch.serving.placement.serving_params`,
+as the sharded ``Server``'s), its rows of the arena (``tok``, ``pos``,
+``active`` placed like a batch; the caches by ``cache_pspec``) and its
+own graph of the same step, with the NCCL collectives captured inside;
+every rank runs the same host loop on the same requests, so the
+collectives meet. The batch-1 prefill is whole over the data axes (every
+data group computes it) and insert copies its local shard into the rank
+that holds the slot.
+
 Decoding is greedy with a fixed per-request ``max_new_tokens``, so the
 loop needs no per-token host sync: token columns stay on the device and
 are copied to the host, all pending ones at once, when a request
@@ -56,6 +66,7 @@ path, as in the reference.
 from __future__ import annotations
 
 import collections
+import contextlib
 import threading
 import time
 from typing import Dict, List, Optional, Sequence
@@ -68,14 +79,16 @@ from repro_torch.compiler.executor import bucket_for, bucket_sizes
 from repro_torch.core.codegen import generate as generate_stream
 from repro_torch.core.cost_model import LinearLayer
 from repro_torch.core.pipeline_modules import disable_tf32
+from repro_torch.distributed import placed
+from repro_torch.distributed.sharding import batch_pspec, to_placements
 from repro_torch.kernels import ops
 from repro_torch.models.transformer import (ModelConfig, decode_step,
-                                            init_caches, init_params,
-                                            layer_groups, pack_params,
+                                            init_caches, layer_groups,
                                             prefill, serve_policy)
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.tracing import TraceContext, now_ns
 from repro_torch.runtime.straggler import StragglerDetector
+from repro_torch.serving.placement import check_mesh, serving_params
 
 __all__ = ["ContinuousLMEngine", "supports_continuous", "decode_cost_stream"]
 
@@ -135,6 +148,12 @@ def _launch_counts() -> Dict[str, int]:
     return {k: v for k, v in ops.launch_counts().items() if k != "K2"}
 
 
+def _local(t):
+    """A placed tensor's local shard (the storage the step writes), a
+    plain one as it is."""
+    return t.to_local() if placed.is_placed(t) else t
+
+
 class _Slot:
     """One occupied arena row: the request, its remaining token budget, its
     first (prefill) token on the device, and the index of the first decode
@@ -172,6 +191,13 @@ class ContinuousLMEngine:
     card: it raises when there is none (pass ``device="cpu"`` for the plain
     versions, run eagerly).
 
+    ``mesh`` (a ``DeviceMesh`` with the reference's axis names, this
+    process one of its ranks) serves the packed model sharded over it, as
+    ``Server(mesh=)`` does (float serving, a mesh of another device type
+    and ``batch_slots`` that do not divide over the DP axes raise); the
+    decode step is ``decode_step`` with the placed (B,) ``pos``, captured
+    on the card as one graph a rank.
+
     ``books_own_cycles`` tells a serving runtime not to book its scheduler
     per micro-batch: the engine books per decode step (:meth:`bind_runtime`).
     """
@@ -181,7 +207,7 @@ class ContinuousLMEngine:
     def __init__(self, cfg: ModelConfig, params=None, *,
                  batch_slots: int = 4, max_len: int = 64, seed: int = 0,
                  quantized: bool = True, pack_acts: bool = True,
-                 plain: bool = False, device=None):
+                 plain: bool = False, device=None, mesh=None):
         cfg = serve_policy(cfg, pack_acts=pack_acts, plain=plain)
         if not supports_continuous(cfg):
             raise ValueError(
@@ -195,16 +221,12 @@ class ContinuousLMEngine:
         self.cfg = cfg
         self.batch_slots = batch_slots
         self.max_len = max_len
-        if params is None:
-            gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = init_params(gen, cfg, packed=quantized)
-        if params["embed"].device != self.device:
-            raise ValueError(f"params lie on {params['embed'].device}, the "
-                             f"engine on {self.device}")
-        params = pack_params(params, cfg) if quantized else dict(params)
-        params["head"] = dict(params["head"], w=params["head"]["w"].to(
-            cfg.compute_dtype))
-        self.params = params
+        self.mesh = mesh
+        if mesh is not None:
+            check_mesh(mesh, self.device, quantized, batch_slots)
+        self.params = serving_params(cfg, params, device=self.device,
+                                     seed=seed, quantized=quantized,
+                                     mesh=mesh)
         self.prompt_buckets = bucket_sizes(max_len)
         self._n_moe = sum(g.n for g in layer_groups(cfg) if g.use_moe)
 
@@ -278,10 +300,52 @@ class ContinuousLMEngine:
             self.compiles[name] += 1
             self._c_compiles.inc(fn=name)
 
+    @contextlib.contextmanager
+    def _context(self):
+        """Every step's context: inference mode, or on a mesh ``no_grad``
+        inside :func:`~repro_torch.distributed.placed.mesh_context`, as
+        the sharded ``Server`` steps (DTensor cannot make views of params
+        made outside inference mode inside it)."""
+        if self.mesh is None:
+            with torch.inference_mode():
+                yield
+        else:
+            with torch.no_grad(), placed.mesh_context(self.mesh):
+                yield
+
+    def _placed(self, t: torch.Tensor):
+        """``t`` (B, ...), whole on every rank, placed like a batch
+        (``batch_pspec``; a batch of one stays whole), each rank keeping
+        its rows; as it is off a mesh."""
+        if self.mesh is None:
+            return t
+        from torch.distributed.tensor import distribute_tensor
+        return distribute_tensor(t, self.mesh, to_placements(
+            batch_pspec(tuple(t.shape), self.mesh), self.mesh),
+            src_data_rank=None)
+
+    def _whole_rows(self, cols: torch.Tensor) -> torch.Tensor:
+        """(steps, B): token columns of every row from this rank's (steps,
+        B_local) ones; on a mesh the ranks' rows are gathered (every rank
+        calls it at the same point of the same host loop)."""
+        if self.mesh is None:
+            return cols
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        rows = [Shard(1) if i in self._arena["rows_on"] else Replicate()
+                for i in range(self.mesh.ndim)]
+        shape = (cols.shape[0], self.batch_slots)
+        return DTensor.from_local(cols, self.mesh, rows,
+                                  shape=torch.Size(shape),
+                                  stride=placed.contiguous_stride(shape)
+                                  ).full_tensor()
+
     def _prefill_fn(self, prompt: np.ndarray):
         """Bucketed batch-1 prefill: the prompt right-padded to its bucket,
         logits gathered at its last token. Returns (greedy tok0 (1,) int32,
-        batch-1 caches)."""
+        batch-1 caches). On a mesh the batch of one is whole over the DP
+        axes, so every data group computes it, its caches placed over
+        ``model`` as the arena's are; tok0 is then this rank's (whole)
+        copy."""
         n = len(prompt)
         sb = bucket_for(n, self.max_len)
         self._compile("prefill", sb)
@@ -294,66 +358,110 @@ class ContinuousLMEngine:
             # already queued
             tokens = tokens.pin_memory().to(self.device, non_blocking=True)
         last = torch.full((1,), n - 1, dtype=torch.int64, device=self.device)
-        logits, caches = prefill(self.params, {"tokens": tokens}, self.cfg,
-                                 max_len=self.max_len, last_pos=last)
-        return torch.argmax(logits, -1).to(torch.int32), caches
+        logits, caches = prefill(self.params,
+                                 {"tokens": self._placed(tokens)}, self.cfg,
+                                 max_len=self.max_len,
+                                 last_pos=self._placed(last))
+        tok0 = torch.argmax(logits, -1).to(torch.int32)
+        return (tok0.to_local() if placed.is_placed(tok0) else tok0), caches
 
     def _insert_fn(self, pref, si: int, tok0: torch.Tensor,
                    start_pos: int) -> None:
         """Write a batch-1 prefill into arena row ``si`` in place (the
-        captured step reads these very buffers) and mark the row active."""
+        captured step reads these very buffers) and mark the row active.
+        On a mesh only the ranks whose rows hold slot ``si`` copy, each
+        its local shard (the prefill's caches lie over ``model`` as the
+        arena's do); no collective."""
         self._compile("insert", "row")
         self._call("insert")
         a = self._arena
+        r = self._own_row(si)
+        if r is None:
+            return
         for g, p in zip(a["caches"], pref):
             for name, buf in g.items():
                 if name != "len":   # k/v, or MLA's c/k_rope
-                    buf[:, si].copy_(p[name][:, 0])
-        a["tok"][si].copy_(tok0)
-        a["pos"][si].fill_(start_pos)
-        a["active"][si].fill_(True)
+                    _local(buf)[:, r].copy_(_local(p[name])[:, 0])
+        a["tok_l"][r].copy_(tok0)
+        a["pos_l"][r].fill_(start_pos)
+        a["active_l"][r].fill_(True)
+
+    def _own_row(self, si: int) -> Optional[int]:
+        """Slot ``si``'s row in this rank's shard of the arena, or None
+        when another rank's rows hold it."""
+        r = si - self._arena["row0"]
+        return r if 0 <= r < self._arena["rows"] else None
 
     def _step_fn(self) -> None:
         """One arena-wide decode step on the static buffers: per-row
         positions, active mask. Inactive rows keep their token and
         position; their cache writes land in rows the next insert
-        overwrites. The body captured as the CUDA graph."""
+        overwrites. The body captured as the CUDA graph. On a mesh the
+        step reads the placed ``tok``/``pos`` and each rank writes its own
+        rows (the greedy argmax over the logits, whole over the
+        vocabulary)."""
         a = self._arena
-        tok, pos, active = a["tok"], a["pos"], a["active"]
+        tok_l, pos_l, active_l = a["tok_l"], a["pos_l"], a["active_l"]
         aux = {}
-        logits, _ = decode_step(self.params, a["caches"], tok, pos, self.cfg,
-                                aux=aux)
-        nxt = torch.argmax(logits, -1).to(torch.int32)[:, None]
-        tok.copy_(torch.where(active[:, None], nxt, tok))
-        pos.copy_(torch.where(active, pos + 1, pos))
+        logits, _ = decode_step(self.params, a["caches"], a["tok"],
+                                a["pos"], self.cfg, aux=aux)
+        nxt = _local(torch.argmax(logits, -1).to(torch.int32))[:, None]
+        tok_l.copy_(torch.where(active_l[:, None], nxt, tok_l))
+        pos_l.copy_(torch.where(active_l, pos_l + 1, pos_l))
         if "drop_frac" in aux:
-            a["drop_frac"].copy_(aux["drop_frac"])
+            a["drop_frac"].copy_(_local(aux["drop_frac"]))
 
     def _fresh_arena(self) -> None:
         """Allocate the arena's static buffers and, on the card, capture its
-        decode step. Every slot starts empty (inactive)."""
+        decode step. Every slot starts empty (inactive). On a mesh the
+        caches are placed by ``cache_pspec`` and ``tok``/``pos``/``active``
+        like the batch (``batch_pspec``): each rank holds its rows, and
+        the ``*_l`` entries are its local shards, which the captured step
+        and insert write in place (never rebound)."""
         b, dev = self.batch_slots, self.device
         self._arena = {
-            "caches": init_caches(self.cfg, b, self.max_len, device=dev),
-            "tok": torch.zeros((b, 1), dtype=torch.int32, device=dev),
-            "pos": torch.zeros((b,), dtype=torch.int32, device=dev),
-            "active": torch.zeros((b,), dtype=torch.bool, device=dev),
+            "caches": init_caches(self.cfg, b, self.max_len, device=dev,
+                                  mesh=self.mesh),
+            "tok": self._placed(torch.zeros((b, 1), dtype=torch.int32,
+                                            device=dev)),
+            "pos": self._placed(torch.zeros((b,), dtype=torch.int32,
+                                            device=dev)),
+            "active": self._placed(torch.zeros((b,), dtype=torch.bool,
+                                               device=dev)),
             "drop_frac": torch.zeros((self._n_moe,), dtype=torch.float32,
                                      device=dev),
         }
+        a = self._arena
+        for name in ("tok", "pos", "active"):
+            a[name + "_l"] = _local(a[name])
+        a["rows_on"], a["row0"], a["rows"] = [], 0, b
+        if self.mesh is not None:
+            a["rows_on"] = [i for i, p in enumerate(a["pos"].placements)
+                            if p.is_shard(0)]
+            a["row0"], a["rows"] = placed.mesh_offset(
+                self.mesh, a["pos"].placements, 0, b)
         self._compile("decode", (b, self.max_len))
         if dev.type != "cuda":
             self.step_launches = {k: 0 for k in _launch_counts()}
             return
         # one eager step on a side stream first: the kernels' modules load
-        # and cuBLAS gets its workspace outside the capture. Every row is
-        # inactive, so it changes no token or position.
+        # and cuBLAS gets its workspace outside the capture; on a mesh it
+        # also makes the NCCL communicators and runs their first
+        # collectives, which a capture cannot. Every row is inactive, so
+        # it changes no token or position.
         t0 = time.perf_counter()
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             self._step_fn()
         torch.cuda.current_stream(dev).wait_stream(side)
+        # On a mesh every rank captures the same step, so the same
+        # collectives in the same order; the default ("global") capture
+        # mode holds for them (torch 2.11, NCCL 2.28, four H100s;
+        # "relaxed" too): ProcessGroupNCCL hands its watchdog no work
+        # issued while its stream captures. The synchronize first lets the
+        # watchdog retire the warm-up's collectives before the capture.
+        torch.cuda.synchronize(dev)
         graph = torch.cuda.CUDAGraph()
         before = _launch_counts()
         with torch.cuda.graph(graph):
@@ -463,16 +571,18 @@ class ContinuousLMEngine:
                     f"the KV budget max_len={self.max_len}")
 
     # -------------------------------------------------------------- serving
-    @torch.inference_mode()
     def serve(self, requests: Sequence) -> List:
         """Serve ``requests`` (GenRequest-shaped) through the slot arena;
-        fills ``out_tokens`` per request and returns them in order."""
+        fills ``out_tokens`` per request and returns them in order. On a
+        mesh every rank serves the same requests in the same order (the
+        host loop depends on their lengths alone), and every rank's
+        requests get every token."""
         self.validate(requests)
         t_enter = time.perf_counter()
-        with self._lock:
+        with self._lock, self._context():
             if self._arena is None:
                 self._fresh_arena()
-            active = self._arena["active"]
+            active = self._arena["active_l"]
             slots: List[Optional[_Slot]] = [None] * self.batch_slots
             queue = collections.deque(requests)
             self._g_queue_peak.set_max(len(queue))
@@ -482,7 +592,8 @@ class ContinuousLMEngine:
             def finish(si: int) -> None:
                 s = slots[si]
                 if len(host) < len(cols):   # one copy for every pending col
-                    pending = torch.stack(cols[len(host):]).cpu().numpy()
+                    pending = self._whole_rows(torch.stack(
+                        cols[len(host):])).cpu().numpy()
                     for t in range(len(host), len(cols)):
                         cols[t] = None
                     host.extend(pending)
@@ -492,7 +603,9 @@ class ContinuousLMEngine:
                 self._c_tokens.inc(len(vals))
                 self._c_completed.inc()
                 self._latencies.append(time.perf_counter() - s.t0)
-                active[si].fill_(False)
+                r = self._own_row(si)
+                if r is not None:
+                    active[r].fill_(False)
                 slots[si] = None
 
             while queue or any(s is not None for s in slots):
@@ -530,7 +643,7 @@ class ContinuousLMEngine:
                 self._call("decode")
                 self._run_step()
                 # the step's buffers are overwritten by the next step
-                cols.append(self._arena["tok"][:, 0].clone())
+                cols.append(self._arena["tok_l"][:, 0].clone())
                 if self._n_moe:
                     self._drops.append(self._arena["drop_frac"].clone())
                 self._c_steps.inc()
@@ -600,6 +713,9 @@ class ContinuousLMEngine:
                 "calls": dict(self.calls),
                 "total_compiles": total,
                 "recompiles_after_warmup": after,
+                "mesh": (None if self.mesh is None else
+                         dict(zip(self.mesh.mesh_dim_names,
+                                  self.mesh.mesh.shape))),
                 "cuda_graph": self._graph is not None,
                 "step_launches": self.step_launches,
                 "capture_seconds": self.capture_seconds,

@@ -7,7 +7,13 @@ serve packed models sharded (``Server(mesh=)``) on (2, 2), on two (1, 2)
 meshes (the ranks split in pairs) and on one (1, 4) mesh; the MoE
 family (deepseek-v2-lite with MLA, qwen3-moe with GQA) on the same three
 meshes, its experts split over ``model``; and the SSM, hybrid and
-encoder-decoder families (mamba2, hymba, seamless) on the same three."""
+encoder-decoder families (mamba2, hymba, seamless) on the same three.
+The continuous engine (``ContinuousLMEngine(mesh=)``) serves the engine
+tests' mixed requests on the same meshes (:data:`ENGINE_CASES`), and
+per-row ``decode_step`` runs on each placement of the caches
+(:data:`PER_ROW_CASES`)."""
+
+import contextlib
 
 import dataclasses
 
@@ -28,6 +34,7 @@ from repro_torch.launch.serve import GenRequest, Server
 from repro_torch.launch.train import (Trainer, init_placed_params,
                                       make_train_step)
 from repro_torch.models import transformer as tt
+from repro_torch.serving import ContinuousLMEngine
 from repro_torch.optim import AdamWConfig
 from repro_torch.optim.optimizer import reduce_gradients
 from repro_torch.runtime.checkpoint import CheckpointManager
@@ -54,6 +61,126 @@ SERVE_PROMPTS = (5, 9, 3, 7)
 SERVE_NEW, SERVE_MAX_LEN = 5, 16
 #: the encoder-decoder's source frames per request
 SRC_LEN = 6
+
+
+#: the continuous engine on a mesh: (arch, mesh tag, pack_acts, kv_bits),
+#: each served on :func:`engine_requests` with 4 slots and a KV budget of
+#: 16: stablelm's 4 kv heads split (K1 + K3 on (1, 2), K4 on (2, 2)),
+#: qwen1.5's 2 on 4 ranks splitting the positions (bf16 and int8 caches),
+#: deepseek's MLA latent and its experts (on (2, 2) dispatching one group
+#: a data rank)
+ENGINE_CASES = (("stablelm-1.6b", "1x2", True, None),
+                ("stablelm-1.6b", "2x2", False, None),
+                ("qwen1.5-110b", "1x4", True, None),
+                ("qwen1.5-110b", "1x4", True, 8),
+                ("deepseek-v2-lite-16b", "1x2", True, None),
+                ("deepseek-v2-lite-16b", "2x2", True, None))
+ENGINE_SLOTS, ENGINE_MAX_LEN = 4, 16
+#: per-row ``decode_step`` on a placed cache, one case per branch of
+#: ``attention._attend_placed`` and MLA's: (name, arch, mesh tag, max_len,
+#: kv_bits). qwen1.5's 2 kv heads on 4 ranks: 16 positions split, 4 a
+#: rank; 14 do not divide, so the cache is whole on every rank. hymba's
+#: sliding windows (rolling buffers) refuse per-row positions.
+PER_ROW_CASES = (("heads", "stablelm-1.6b", "1x2", SERVE_MAX_LEN, None),
+                 ("whole", "qwen1.5-110b", "1x4", 14, None),
+                 ("positions", "qwen1.5-110b", "1x4", SERVE_MAX_LEN, None),
+                 ("positions int8", "qwen1.5-110b", "1x4", SERVE_MAX_LEN, 8),
+                 ("mla", "deepseek-v2-lite-16b", "1x2", SERVE_MAX_LEN, None),
+                 ("rolling", "hymba-1.5b", "1x4", SERVE_MAX_LEN, None))
+#: the rows' positions at the first per-row step (the prompts fill 0..8):
+#: rows at different depths, two of them rewriting prompt positions
+PER_ROW_POS = (9, 4, 2, 7)
+
+
+def engine_requests():
+    """The first 6 of ``tests/test_torch_engine.py``'s 12 mixed requests
+    (``_mixed_requests``: RandomState(11), prompts of 1-12 tokens over 64
+    ids, budgets up to the KV budget of 16)."""
+    rng = np.random.RandomState(11)
+    reqs = []
+    for _ in range(12):
+        n = int(rng.randint(1, 13))
+        m = int(rng.randint(1, 17 - n))
+        reqs.append(GenRequest(rng.randint(0, 64, (n,)).astype(np.int32), m))
+    return reqs[:6]
+
+
+def engine(cfg, params, mesh, pack_acts, n_groups=1):
+    """``ContinuousLMEngine`` (``mesh`` None: unsharded, its MoE
+    dispatching in ``n_groups`` groups, as a data axis of that size makes
+    a placed one) warmed up, then serving :func:`engine_requests`: the
+    tokens, the logits (whole, on the host) of one more arena step after
+    the load, the drop fractions, the compiles after warmup and the
+    stats' mesh."""
+    eng = ContinuousLMEngine(cfg, params, batch_slots=ENGINE_SLOTS,
+                             max_len=ENGINE_MAX_LEN, pack_acts=pack_acts,
+                             device="cpu", mesh=mesh)
+    groups = (bind_axes(dp="data", mesh={"data": n_groups}) if mesh is None
+              else contextlib.nullcontext())
+    with groups:
+        eng.warmup()
+        toks = [r.out_tokens for r in eng.serve(engine_requests())]
+        with eng._context():
+            a = eng._arena
+            logits, _ = tt.decode_step(eng.params, a["caches"], a["tok"],
+                                       a["pos"], eng.cfg)
+            logits = _np(placed.plain(logits))
+    st = eng.stats()
+    return {"tokens": toks, "logits": logits,
+            "drops": eng.drop_fractions(),
+            "recompiles": st["recompiles_after_warmup"], "mesh": st["mesh"],
+            "graph": st["cuda_graph"]}
+
+
+def engine_config(arch, kv_bits):
+    cfg = get_arch(arch).smoke
+    return cfg if kv_bits is None else dataclasses.replace(cfg,
+                                                           kv_bits=kv_bits)
+
+
+def _engines_on(inputs, mesh, out, tag):
+    """:func:`engine` of every :data:`ENGINE_CASES` case on ``tag``'s
+    mesh, on the reference's packed planes: ``out["engine"][case]``."""
+    res = out.setdefault("engine", {})
+    for case in ENGINE_CASES:
+        arch, t, pa, kv = case
+        if t == tag:
+            res[case] = engine(engine_config(arch, kv), tt.params_from_numpy(
+                inputs["serve"][arch]), mesh, pa)
+
+
+def per_row_steps(cfg, params, mesh, max_len):
+    """``Server``'s prefill of :func:`padded_prompts` (``mesh`` None:
+    unsharded), then 3 ``decode_step``s with per-row positions
+    :data:`PER_ROW_POS` (+ the step), a plain (B,) tensor: each step's
+    logits, whole, on the host; or the message of what it raised."""
+    srv = Server(cfg, params, batch_slots=4, max_len=max_len, device="cpu",
+                 mesh=mesh)
+    toks = padded_prompts(cfg.vocab_size)
+    out = []
+    with srv._context():
+        logits, caches = tt.prefill(srv.params, {"tokens": srv._place_batch(
+            torch.from_numpy(toks))}, cfg, max_len=max_len)
+        pos = torch.tensor(PER_ROW_POS, dtype=torch.int32)
+        for t in range(3):
+            tok = torch.argmax(logits, -1)[:, None]
+            try:
+                logits, caches = tt.decode_step(srv.params, caches, tok,
+                                                pos + t, cfg)
+            except (ValueError, NotImplementedError) as e:
+                return f"{type(e).__name__}: {e}"
+            out.append(_np(placed.plain(logits)))
+    return out
+
+
+def _per_row_on(inputs, mesh, out, tag):
+    res = out.setdefault("per_row", {})
+    for name, arch, t, max_len, kv in PER_ROW_CASES:
+        if t == tag:
+            res[name] = per_row_steps(engine_config(arch, kv),
+                                      tt.params_from_numpy(
+                                          inputs["serve"][arch]),
+                                      mesh, max_len)
 
 
 def serve_requests(vocab):
@@ -187,6 +314,7 @@ def mesh_rank(rank, inputs, part):
         _serve_on(inputs, mesh, out, "2x2",
                   SERVE_ARCHS + MOE_ARCHS + FAMILY_ARCHS)
         out["placed_packing"] = _placed_packing(mesh)
+        _engines_on(inputs, mesh, out, "2x2")
     else:
         _ssm_moe(inputs, mesh, out)
         _serve_pairs_and_four(inputs, out)
@@ -238,7 +366,11 @@ def _serve_pairs_and_four(inputs, out):
         "rep", "data", "model"))["data", "model"]
     _serve_on(inputs, pairs, out, "1x2",
               SERVE_ARCHS + MOE_ARCHS + FAMILY_ARCHS)
+    _engines_on(inputs, pairs, out, "1x2")
+    _per_row_on(inputs, pairs, out, "1x2")
     four = init_device_mesh("cpu", (1, 4), mesh_dim_names=("data", "model"))
+    _engines_on(inputs, four, out, "1x4")
+    _per_row_on(inputs, four, out, "1x4")
     _serve_on(inputs, four, out, "1x4",
               ("qwen1.5-110b",) + MOE_ARCHS + FAMILY_ARCHS)
     qwen = get_arch("qwen1.5-110b").smoke

@@ -179,6 +179,7 @@ def test_pack_weights_match(bits, signed):
     j = jq.pack_conv_weights(jnp.asarray(w), jq.QuantSpec(bits, signed, True),
                              jnp.asarray(alpha))
     assert t.ci == j.ci == 40 and t.out_channels == 24
+    assert (t.fh, t.fw) == (j.fh, j.fw) == (3, 3)
     np.testing.assert_array_equal(_words(t.packed), np.asarray(j.packed))
     w2 = rng.standard_normal((70, 24)).astype(np.float32)
     a2 = alpha.reshape(1, 24)
@@ -186,6 +187,7 @@ def test_pack_weights_match(bits, signed):
     j2 = jq.pack_weights(jnp.asarray(w2), jq.QuantSpec(bits, signed, True),
                          jnp.asarray(a2))
     assert t2.k == j2.k == 70
+    assert t2.out_features == j2.out_features == 24
     np.testing.assert_array_equal(_words(t2.packed), np.asarray(j2.packed))
 
 
@@ -206,6 +208,7 @@ def test_serial_matmul_match(ab, wb, sa, sw, radix):
     ts = tbs.SerialSpec(ab, wb, sa, sw, radix)
     js = jbs.SerialSpec(ab, wb, sa, sw, radix)
     assert tbs.plan_spec(ts).radix_bits == jbs.plan_spec(js).radix_bits
+    assert ts.cycles_per_tile == js.cycles_per_tile == ab * wb
     out = tbs.serial_matmul(_t(x), _t(w), ts)
     ref = np.asarray(jbs.serial_matmul(jnp.asarray(x), jnp.asarray(w), js))
     np.testing.assert_array_equal(out.numpy(), ref)

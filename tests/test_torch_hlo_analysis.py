@@ -139,6 +139,17 @@ def test_no_mode_no_report():
     assert inner.cost.ops == {"aten.ones": 1, "aten.add": 1}
 
 
+def test_no_mode_after_a_composite_op_in_inference_mode():
+    """Under ``inference_mode`` a composite op reaches the mode whole and
+    the mode enters itself again to decompose it; leaving it restores no
+    mode (each entry's predecessor is kept, not the last one's)."""
+    with torch.inference_mode():
+        _, cost = analyze(torch.einsum, "ij,jk->ik", torch.ones(2, 3),
+                          torch.ones(3, 4))
+    assert hlo_analysis.ACTIVE.mode is None
+    assert cost.flops == 2 * 2 * 3 * 4
+
+
 # --------------------------------------------------------- kernels: one op
 
 def _words(rng, *shape):

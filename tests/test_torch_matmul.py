@@ -226,6 +226,23 @@ def test_gemm_packed_step_runs_carried_program(tiny):
     np.testing.assert_array_equal(plain.numpy(), ref)
 
 
+def test_program_run_equals_reference_run(tiny):
+    """``Program.run``, the eager path, on the carried Program equals the
+    reference's ``Program.run`` (its un-jitted runner, XLA backend) bit
+    for bit; a stage of it (``steps``/``output_name``, the keywords the
+    two share) too."""
+    prog, x, ref = tiny
+    tp = program_from_numpy(_record(prog), device="cpu")
+    want = np.asarray(prog.run(jnp.asarray(x), backend="xla"))
+    np.testing.assert_array_equal(want, ref)
+    np.testing.assert_array_equal(tp.run(torch.from_numpy(x)).numpy(), want)
+    stage = dict(steps=tp.steps[:2], output_name=tp.steps[1].output)
+    j_stage = dict(steps=prog.steps[:2], output_name=prog.steps[1].output)
+    np.testing.assert_array_equal(
+        tp.run(torch.from_numpy(x), **stage).numpy(),
+        np.asarray(prog.run(jnp.asarray(x), backend="xla", **j_stage)))
+
+
 def test_port_compiles_tiny_mixed_cnn(tiny):
     """The port's own copy of the graph compiles to the same steps; its
     logits agree with the reference's Program within 1e-5 of their largest

@@ -80,6 +80,21 @@ Tolerances, each with its reason:
   tokens equal. Against the reference's ``prefill`` / ``decode_step``:
   tokens equal, logits within 1e-4 of the largest. The windows' slots
   after the run, gathered: exact (copies of the same K/V).
+* The continuous engine on a mesh (``ContinuousLMEngine(mesh=)``, the
+  engine tests' first 6 mixed requests, 4 slots, max_len 16): tokens
+  equal the unsharded port engine's and the reference's engine's; the
+  logits of one more arena step after the load equal the unsharded
+  engine's bit for bit — its kv heads split or its MLA latent gathered,
+  each rank runs the unsharded per-row arithmetic on its rows — but
+  where qwen1.5's 2 kv heads split the cache's positions over 4 ranks:
+  within rtol 1e-5 / atol 1e-6 (the log-sum-exp combine reorders a float
+  sum). deepseek on (2, 2) is held to the unsharded engine dispatching in
+  2 groups, as the sharded ``Server``; its drop fractions (each group's
+  mean, averaged) within 1e-6 relative of the unsharded engine's, and on
+  (1, 2) equal. Per-row ``decode_step`` on a placed cache, rows at
+  different depths, against the unsharded per-row ``decode_step``: bit
+  for bit with the heads split, the cache whole and MLA's latent; within
+  the same rtol 1e-5 / atol 1e-6 with the positions split.
 """
 
 import _torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
@@ -100,6 +115,7 @@ from repro.configs import get_arch as j_get_arch
 from repro.distributed import compression as jcomp
 from repro.launch.serve import GenRequest as JRequest
 from repro.launch.serve import Server as JServer
+from repro.serving import ContinuousLMEngine as JEngine
 from repro.models import layers as jl
 from repro.models import transformer as jt
 
@@ -195,6 +211,12 @@ def _serve_refs(inputs):
         out[(arch, "reference")] = (toks, np.asarray(logits))
     out["window_slots"] = ranks.window_slots(inputs["serve"]["hymba-1.5b"],
                                              None)
+    out["engine"], out["engine_reference"] = _engine_refs(inputs)
+    out["per_row"] = {
+        name: ranks.per_row_steps(ranks.engine_config(arch, kv),
+                                  tt.params_from_numpy(inputs["serve"][arch]),
+                                  None, max_len)
+        for name, arch, _, max_len, kv in ranks.PER_ROW_CASES}
     for name, (p_np, x_np) in inputs["unaligned"].items():
         for pa in (True, False):
             pol = tl.QuantPolicy(mode="serial", w_bits=4, a_bits=8,
@@ -204,6 +226,39 @@ def _serve_refs(inputs):
                     tt.params_from_numpy(p_np), torch.from_numpy(x_np),
                     pol).numpy()
     return out
+
+
+def _grouped(case) -> int:
+    """The MoE dispatch groups an engine case's mesh makes: its data
+    ranks (deepseek on (2, 2)), else 1."""
+    arch, tag, _, _ = case
+    return 2 if tag == "2x2" and arch in ranks.MOE_ARCHS else 1
+
+
+def _engine_refs(inputs):
+    """The unsharded port engine on each :data:`ranks.ENGINE_CASES` case
+    (its MoE in the case's dispatch groups), and the reference's
+    ``ContinuousLMEngine`` (XLA) on the same packed planes and requests
+    where it dispatches as the case does (one group): tokens."""
+    port, ref = {}, {}
+    for case in ranks.ENGINE_CASES:
+        arch, _, pa, kv = case
+        params = tt.params_from_numpy(inputs["serve"][arch])
+        port[case] = ranks.engine(ranks.engine_config(arch, kv), params,
+                                  None, pa, n_groups=_grouped(case))
+        if _grouped(case) > 1:
+            continue
+        jcfg = j_get_arch(arch).smoke
+        if kv is not None:
+            jcfg = dataclasses.replace(jcfg, kv_bits=kv)
+        jeng = JEngine(jcfg, params=jax.tree.map(jnp.asarray,
+                                                 inputs["serve"][arch]),
+                       batch_slots=ranks.ENGINE_SLOTS,
+                       max_len=ranks.ENGINE_MAX_LEN, backend="xla")
+        ref[case] = [r.out_tokens for r in jeng.serve(
+            [JRequest(r.prompt.copy(), r.max_new_tokens)
+             for r in ranks.engine_requests()])]
+    return port, ref
 
 
 def _source_reference(jcfg, jp):
@@ -309,7 +364,8 @@ def mesh_run(tmp_path_factory):
                           args=(inputs, part), timeout=DEADLINE, threads=1)
                 for part in ("dense", "ssm_moe")]
         ref = _references(inputs)
-        results = [{**a, **b, "serve": {**a["serve"], **b["serve"]}}
+        results = [{**a, **b, "serve": {**a["serve"], **b["serve"]},
+                    "engine": {**a["engine"], **b["engine"]}}
                    for a, b in zip(*(f.result() for f in futs))]
     ref["init"] = [l.numpy() for l in tree_leaves(init)]
     return inputs, ref, results
@@ -569,21 +625,39 @@ def test_cli_trains_on_a_data_model_mesh(capfd):
 
 
 def test_cli_serves_on_a_model_mesh(capfd):
-    """``serve --arch stablelm-1.6b --smoke --device cpu --model-par 2``
-    starts two gloo ranks itself; rank 0 alone prints, its sample the
-    unsharded ``Server``'s tokens on the CLI's prompts."""
-    cfg = get_arch("stablelm-1.6b").smoke
+    """``serve --smoke --device cpu --model-par 2`` starts two gloo ranks
+    itself; rank 0 alone prints. stablelm-1.6b, which the slot arena
+    takes, serves the engine's mixed load on each rank through the
+    serving runtime: its sample equals the unsharded CLI's, run the same
+    way. mamba2-780m, which it does not take, serves the static load
+    through the sharded ``Server``: its sample is the unsharded
+    ``Server``'s tokens on the CLI's prompts."""
+    argv = ["--smoke", "--device", "cpu", "--batch", "2", "--new-tokens",
+            "3"]
+    capfd.readouterr()
+    tserve.main(["--arch", "stablelm-1.6b"] + argv)
+    plain = capfd.readouterr().out
+    sample = [l for l in plain.splitlines() if l.startswith("sample: ")]
+    assert len(sample) == 1 and "continuous batching) on cpu" in plain
+    tserve.main(["--arch", "stablelm-1.6b", "--model-par", "2"] + argv)
+    out = capfd.readouterr().out
+    assert out.count("stablelm-1.6b-smoke: generated 12 tokens over 8 "
+                     "requests") == 1
+    assert "continuous batching) on a (data 1, model 2) mesh of cpu" in out
+    assert "recompiles_after_warmup=0" in out
+    assert sample[0] in out.splitlines()
+
+    cfg = get_arch("mamba2-780m").smoke
     rng = np.random.RandomState(0)
     reqs = [tserve.GenRequest(rng.randint(0, cfg.vocab_size, (8,)).astype(
         np.int32), 3) for _ in range(2)]
     want = tserve.Server(cfg, batch_slots=2, max_len=tserve.LM_MAX_LEN,
                          seed=0, device="cpu").generate(reqs)[0].out_tokens
     capfd.readouterr()
-    tserve.main(["--arch", "stablelm-1.6b", "--smoke", "--device", "cpu",
-                 "--model-par", "2", "--batch", "2", "--new-tokens", "3"])
+    tserve.main(["--arch", "mamba2-780m", "--model-par", "2"] + argv)
     out = capfd.readouterr().out
-    assert out.count("stablelm-1.6b-smoke: generated 6 tokens") == 1
-    assert "(data 1, model 2) mesh of cpu" in out
+    assert out.count("mamba2-780m-smoke: generated 6 tokens") == 1
+    assert "static batch) on a (data 1, model 2) mesh of cpu" in out
     assert f"sample: {want}" in out
 
 
@@ -706,6 +780,74 @@ def test_sharded_family_server_equals_unsharded_and_reference(
     assert want_toks == j_toks
     np.testing.assert_allclose(want, j_logits, rtol=0,
                                atol=1e-4 * np.abs(j_logits).max())
+
+
+def _engine_id(case):
+    arch, tag, pa, kv = case
+    return (f"{arch}-{tag}-{'k3' if pa else 'k4'}"
+            + ("" if kv is None else f"-int{kv}"))
+
+
+@pytest.mark.parametrize("case", ranks.ENGINE_CASES, ids=_engine_id)
+def test_mesh_engine_equals_unsharded_and_reference_engines(mesh_run, case):
+    """``ContinuousLMEngine(mesh=)`` on the engine tests' mixed requests:
+    on every rank the tokens equal the unsharded port engine's (deepseek
+    on (2, 2): dispatching in 2 groups) and the reference's engine's, no
+    step compiles after warmup, and one more arena step's logits equal
+    the unsharded engine's bit for bit, or within rtol 1e-5 / atol 1e-6
+    where qwen1.5's cache splits its positions over 4 ranks; the MoE's
+    drop fractions are kept per step, as unsharded."""
+    arch, tag, _, _ = case
+    _, ref, res = mesh_run
+    want = ref["serve"]["engine"][case]
+    data, model = (int(v) for v in tag.split("x"))
+    for r in res:
+        got = r["engine"][case]
+        assert got["tokens"] == want["tokens"]
+        assert got["recompiles"] == want["recompiles"] == 0
+        assert got["mesh"] == {"data": data, "model": model}
+        assert not got["graph"]
+        if arch == "qwen1.5-110b":
+            np.testing.assert_allclose(got["logits"], want["logits"],
+                                       rtol=1e-5, atol=1e-6)
+        else:
+            np.testing.assert_array_equal(got["logits"], want["logits"])
+        if arch in ranks.MOE_ARCHS:
+            assert got["drops"].shape == want["drops"].shape
+            assert got["drops"].shape[0] > 0
+            np.testing.assert_allclose(got["drops"], want["drops"],
+                                       rtol=0 if data == 1 else 1e-6)
+        else:
+            assert got["drops"] is None
+    if _grouped(case) == 1:
+        assert want["tokens"] == ref["serve"]["engine_reference"][case]
+
+
+@pytest.mark.parametrize("name", [c[0] for c in ranks.PER_ROW_CASES])
+def test_per_row_decode_on_a_placed_cache_equals_unsharded(mesh_run, name):
+    """Per-row ``decode_step`` (rows at positions 9, 4, 2 and 7, three
+    steps) on each placement of the caches against the unsharded per-row
+    ``decode_step``: stablelm's kv heads split on (1, 2), qwen1.5's cache
+    whole on (1, 4) (14 positions do not divide) and deepseek's MLA latent
+    on (1, 2) bit for bit; qwen1.5's positions split on (1, 4), bf16 and
+    int8, within rtol 1e-5 / atol 1e-6. A rolling buffer (hymba's sliding
+    windows) raises ``ValueError``, placed or not."""
+    _, ref, res = mesh_run
+    want = ref["serve"]["per_row"][name]
+    for r in res:
+        got = r["per_row"][name]
+        if name == "rolling":
+            assert isinstance(got, str) and isinstance(want, str)
+            assert got.startswith("ValueError: per-row cache positions on "
+                                  "a placed rolling"), got
+            assert want.startswith("ValueError: a rolling"), want
+            continue
+        assert len(got) == len(want) == 3
+        for g, w in zip(got, want):
+            if name.startswith("positions"):
+                np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6)
+            else:
+                np.testing.assert_array_equal(g, w)
 
 
 def test_window_slots_shift_across_ranks_as_unsharded(mesh_run):
@@ -947,12 +1089,18 @@ def test_mesh_refuses_what_this_slice_does_not_serve():
     families (mamba2, hymba, seamless) and the MoE family (deepseek,
     qwen3-moe). Float serving raises ``NotImplementedError``; a mesh of
     another device type and ``batch_slots`` that do not divide over
-    ``data`` raise ``ValueError``. The dry run counts a family's serve
-    cell (mamba2's, once refused) per device of the fake 16 x 16
-    mesh."""
+    ``data`` raise ``ValueError``, for the engine too; the engine refuses
+    the families its slot arena does not take (SSM or hybrid state,
+    rolling windows, an encoder's input), on a mesh as off it; and a
+    per-row position on a placed rolling buffer raises ``ValueError``.
+    The dry run counts a family's serve cell (mamba2's, once refused) per
+    device of the fake 16 x 16 mesh."""
+    import torch
+    from repro_torch.distributed import placed
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import fake_mesh
     from repro_torch.launch.serve import Server
+    from repro_torch.serving import ContinuousLMEngine
     lm = get_arch("stablelm-1.6b").smoke
     with fake_mesh((2, 2), device_type="cpu") as mesh:
         for arch in ranks.FAMILY_ARCHS + ranks.MOE_ARCHS:
@@ -961,6 +1109,30 @@ def test_mesh_refuses_what_this_slice_does_not_serve():
             Server(lm, device="cpu", mesh=mesh, quantized=False)
         with pytest.raises(ValueError, match="does not divide"):
             Server(lm, batch_slots=3, device="cpu", mesh=mesh)
+        with pytest.raises(ValueError, match="does not divide"):
+            ContinuousLMEngine(lm, batch_slots=3, device="cpu", mesh=mesh)
+        with pytest.raises(NotImplementedError, match="float serving"):
+            ContinuousLMEngine(lm, device="cpu", mesh=mesh, quantized=False)
+        for arch in ranks.FAMILY_ARCHS:
+            with pytest.raises(ValueError, match="continuous slot arena"):
+                ContinuousLMEngine(get_arch(arch).smoke, device="cpu",
+                                   mesh=mesh)
+    with fake_mesh((1, 4), device_type="cpu") as mesh:
+        hymba = get_arch("hymba-1.5b").smoke
+        srv = Server(hymba, device="cpu", mesh=mesh)
+        caches = tt.init_caches(srv.cfg, 4, 16, device="cpu", mesh=mesh)
+        window = [i for i, g in enumerate(tt.layer_groups(hymba))
+                  if g.window is not None][0]
+        assert "rolling" in caches[window]["attn"]
+        assert placed.is_placed(caches[window]["attn"]["k"])
+        with srv._context(), pytest.raises(
+                ValueError, match="per-row cache positions on a placed "
+                                  "rolling"):
+            tt.decode_step(srv.params, caches,
+                           srv._place_batch(torch.zeros((4, 1),
+                                                        dtype=torch.long)),
+                           torch.tensor([3, 1, 0, 2], dtype=torch.int32),
+                           srv.cfg)
     with fake_mesh((1, 2), device_type="cuda") as mesh:
         with pytest.raises(ValueError, match="cuda mesh"):
             Server(lm, device="cpu", mesh=mesh)
